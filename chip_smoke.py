@@ -9,34 +9,49 @@ Phases, one JSON line each, in order:
    hand-written CUDA kernels are built from ``locov_torch/csrc`` (one
    ``nvcc`` per source, in parallel).
 2. kernel checks: each kernel against its plain PyTorch version on the
-   card, in float32 and bfloat16, at the shapes of the main path (K1
+   card, in float32 and bfloat16, at the shapes of the paths below (K1
    x [8, 400, 672, 64]; K2 features [8, 50, 84, 1024] with 1000 boxes an
-   image, adaptive sampling), plus tie-heavy (K1: also with NaNs and
-   negative zeros) and edge-box cases. K1 must be bit-exact, with NaN
-   where the plain version has NaN. K2 in float32 must be within 1e-5 * max|F|; in
-   bfloat16 within one bfloat16 ulp of the plain version (computed in
-   float32 and cast once), or 1e-5 * max|F| where that is larger (the
-   float32 sum-order error, which exceeds a bfloat16 ulp of outputs
-   close to 0). Kernel, plain and library-call times are medians of 30
-   CUDA-event timings after warm-up.
-3. small reference: a tiny float32 OvrRCNN (TF32 off) on the card,
+   image; K3 the same features with 512 boxes an image, 20 of them
+   gt-sized), plus tie-heavy (K1: also with NaNs and negative zeros) and
+   edge-box cases. K1 forward and backward must be bit-exact with the
+   plain version (the backward: with the plain backward, autograd of the
+   plain forward), NaN where it has NaN (bfloat16 backward: one ulp is
+   allowed, and it came out bit-exact). K2 and K3-fwd in float32 within
+   1e-5 * max|F|; in bfloat16 within one bfloat16 ulp of the plain
+   version (computed in float32 and cast once), or 1e-5 * max|F| where
+   that is larger (the float32 sum-order error, which exceeds a bfloat16
+   ulp of outputs close to 0). K3-bwd within 1e-5 * (the plain backward
+   of |g|) at each cell, plus one bfloat16 ulp in bfloat16; degenerate
+   and outside boxes contribute exactly 0. Kernel, plain and
+   library-call times are medians of CUDA-event timings after warm-up.
+3. small references: a tiny float32 OvrRCNN (TF32 off) on the card,
    through the kernels, against the same model on the CPU, through the
-   plain versions, which the CPU tests hold against the JAX package.
+   plain versions, which the CPU tests hold against the JAX package:
+   inference, and one training step at FREEZE_AT 0 (losses, gradients,
+   SGD updates).
 4. main path: STT inference, ``build_meta_arch`` on ``cuda`` from
    configs/coco_stt.yaml in bfloat16 at full width, seeded random
    weights, 8 images of 800 x 1344 (valid 800 x 1312, original 640 x
    640) and a [66, 768] class-embedding matrix, as bench.py builds the
-   workload. Launch counts are zeroed just before the timed batches and
-   read just after; each kernel must have launched.
-5. one batch under torch.profiler: device busy time and idle share, and
-   for each stage of the model's inference (its ``OvrRCNN.<stage>``
-   ranges) the host time and the device time of its kernels.
-6. the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
+   workload; then one batch under torch.profiler: device busy time and
+   idle share, and per ``OvrRCNN.<stage>`` range the host time and the
+   device time of its kernels.
+5. train path: the STT training step (``make_train_step`` over
+   ``OvrRCNN.losses`` and ``build_optimizer``) from the same config at
+   full width in bfloat16, batch 8 with synthetic gt, one warm-up and
+   three timed steps, the frozen state checked unchanged and the
+   trained state changed; one step under torch.profiler; then one step
+   at FREEZE_AT 0, batch 2, where the stem's backward runs.
+6. the ``kernels`` line (one row per TPU kernel replaced:
+   ``roi_align_fused`` has a K2 row at the inference shapes and a
+   K3-fwd row at the training shapes), the card's ``nvidia-smi`` name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, and the script exits non-zero without the
-result line. It does the same when no CUDA device is present, and when
-the ``locov_torch`` package is not beside it.
+Launch counts are zeroed just before each path's timed run and read
+just after; each kernel of the path must have launched. Any failed
+check raises, and the script exits non-zero without the result line.
+It does the same when no CUDA device is present, and when the
+``locov_torch`` package is not beside it.
 """
 from __future__ import annotations
 
@@ -51,12 +66,27 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
-KERNEL_SOURCES = {
-    "relu_maxpool": ("locov_torch/csrc/relu_maxpool.cu",
-                     "locov_tpu/ops/pallas_pool.py:165"),
-    "roi_align_fused": ("locov_torch/csrc/roi_align.cu",
-                        "locov_tpu/ops/pallas_roi_align.py:162"),
-}
+# One row of the kernels line per TPU kernel replaced: (kernel, source,
+# the TPU kernel, the path whose launches the row reports, the check
+# whose numbers it reports). roi_align_fused replaces both K2 (inference)
+# and K3-fwd (training forward), each with its own row.
+KERNEL_ROWS = (
+    ("relu_maxpool", "locov_torch/csrc/relu_maxpool.cu",
+     "locov_tpu/ops/pallas_pool.py:165", "inference", "relu_maxpool"),
+    ("relu_maxpool_bwd", "locov_torch/csrc/relu_maxpool.cu",
+     "locov_tpu/ops/pallas_pool.py:192", "train_freeze0",
+     "relu_maxpool_bwd"),
+    ("roi_align_fused", "locov_torch/csrc/roi_align.cu",
+     "locov_tpu/ops/pallas_roi_align.py:162", "inference",
+     "roi_align_fused"),
+    ("roi_align_fused", "locov_torch/csrc/roi_align.cu",
+     "locov_tpu/ops/pallas_roi_align.py:82", "train",
+     "roi_align_fused_train"),
+    ("roi_align_bwd", "locov_torch/csrc/roi_align.cu",
+     "locov_tpu/ops/pallas_roi_align.py:288", "train", "roi_align_bwd"),
+)
+INFERENCE_KERNELS = ("relu_maxpool", "roi_align_fused")
+TRAIN_STEPS = 3  # timed steps of the train path
 
 
 def emit(obj) -> None:
@@ -107,6 +137,20 @@ def _same_bits(got, want) -> bool:
                        want.view(ints[want.dtype])[~nan])
 
 
+def _k1_input(gen, shape, kind, case):
+    """Standard normal, or heavy ties (values -2..2), with NaNs and
+    negative zeros among the ties in the ``ties`` case."""
+    import torch
+    if kind == "randn":
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = torch.randint(-2, 3, shape, generator=gen, device="cuda").float()
+    if case == "ties":
+        u = torch.rand(shape, generator=gen, device="cuda")
+        x[u < 0.02] = float("nan")
+        x[(u >= 0.02) & (u < 0.12)] = -0.0
+    return x
+
+
 def check_relu_maxpool(gen, results):
     import torch
     from locov_torch.ops.relu_maxpool import (relu_maxpool_cuda,
@@ -117,16 +161,7 @@ def check_relu_maxpool(gen, results):
              ("odd", (3, 33, 47, 24), "ties")]
     for dtype in (torch.float32, torch.bfloat16):
         for case, shape, kind in cases:
-            if kind == "randn":
-                x = torch.randn(shape, generator=gen, device="cuda")
-            else:
-                x = torch.randint(-2, 3, shape, generator=gen,
-                                  device="cuda").float()
-                if case == "ties":  # NaNs and negative zeros among ties
-                    u = torch.rand(shape, generator=gen, device="cuda")
-                    x[u < 0.02] = float("nan")
-                    x[(u >= 0.02) & (u < 0.12)] = -0.0
-            x = x.to(dtype)
+            x = _k1_input(gen, shape, kind, case).to(dtype)
             got = relu_maxpool_cuda(x)
             want = relu_maxpool_plain(x)
             torch.cuda.synchronize()
@@ -153,6 +188,70 @@ def check_relu_maxpool(gen, results):
                 raise AssertionError(f"relu_maxpool {case} {dtype}: not "
                                      f"bit-exact (max err {err})")
             del x, got, want, num
+
+
+def check_relu_maxpool_bwd(gen, results):
+    """K1-bwd against the plain backward (autograd of the plain
+    forward) on the same x and dy. float32 must be bit-exact (the kernel
+    sums a tap's <= 4 windows in the plain version's order); bfloat16
+    within one bfloat16 ulp (the sum is in f32, rounded once)."""
+    import torch
+    from locov_torch.ops.relu_maxpool import (relu_maxpool_bwd_cuda,
+                                              relu_maxpool_bwd_plain,
+                                              relu_maxpool_plain)
+    f = torch.nn.functional
+    cases = [("main", (8, 400, 672, 64), "randn"),
+             ("ties", (2, 64, 96, 64), "ties"),
+             ("odd", (3, 33, 47, 24), "ties")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, shape, kind in cases:
+            x = _k1_input(gen, shape, kind, case)
+            x = x.to(dtype)
+            oshape = (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2,
+                      shape[3])
+            dy = torch.randn(oshape, generator=gen, device="cuda").to(dtype)
+            got = relu_maxpool_bwd_cuda(x, dy)
+            want = relu_maxpool_bwd_plain(x, dy)
+            torch.cuda.synchronize()
+            exact = _same_bits(got, want)
+            same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+            err = torch.nan_to_num((got.float() - want.float()).abs())
+            ulp = _bf16_ulp(torch.maximum(got.float().abs(),
+                                          want.float().abs()))
+            line = {"phase": "kernel_check", "kernel": "relu_maxpool_bwd",
+                    "case": case, "dtype": str(dtype).split(".")[1],
+                    "shape": list(shape), "bit_exact": exact,
+                    "nan_inputs": int(torch.isnan(x).sum()),
+                    "max_abs_err": err.max().item(),
+                    "over_one_bf16_ulp": int((err > ulp).sum())}
+            ok = exact if dtype == torch.float32 else \
+                same_nan and line["over_one_bf16_ulp"] == 0
+            if case == "main":
+                line["kernel_ms"] = time_ms(
+                    lambda: relu_maxpool_bwd_cuda(x, dy))
+                xr = x.detach().requires_grad_(True)
+                y = relu_maxpool_plain(xr)
+                line["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+                    y, xr, dy, retain_graph=True))
+                xl = x.detach().requires_grad_(True)
+                yl = f.max_pool2d(f.relu(xl.permute(0, 3, 1, 2)), 3, 2, 1)
+                dyl = dy.permute(0, 3, 1, 2)
+                line["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                    yl, xl, dyl, retain_graph=True))
+                del xr, y, xl, yl, dyl
+                nbytes = (x.numel() + dy.numel() + got.numel()) * \
+                    x.element_size()
+                # per window: 9 compares to find its argmax, one add of
+                # its dy; per input: the relu test
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    nbytes, 10 * dy.numel() + x.numel())
+                results[("relu_maxpool_bwd", line["dtype"])] = line
+            line["within_tolerance"] = ok
+            emit(line)
+            if not ok:
+                raise AssertionError(f"relu_maxpool_bwd {case} {dtype}: "
+                                     f"max err {line['max_abs_err']}")
+            del x, dy, got, want, err, ulp
 
 
 # ------------------------------------------------------------------ K2
@@ -261,6 +360,146 @@ def check_roi_align(gen, results):
     del fmain
 
 
+# ------------------------------------------------------------------ K3
+def _train_boxes(gen, b, n, n_gt, img_h, img_w):
+    """What ROIAlign sees in a training step: proposal-sized boxes and
+    gt-sized ones (sides 32..400 px), ``n`` an image."""
+    import torch
+    props = _proposal_like_boxes(gen, b, n - n_gt, img_h, img_w)
+    u = torch.rand((b, n_gt, 4), generator=gen, device="cuda")
+    side = 32 + u[..., 2:] * 368
+    lo = u[..., :2] * (torch.tensor([img_w, img_h], device="cuda") - side)
+    return torch.cat([props, torch.cat([lo, lo + side], -1)], 1).contiguous()
+
+
+def check_roi_align_train(gen, results):
+    """K3 at the training step's shapes (512 boxes an image, 20 of them
+    gt-sized), adaptive and ratio 2, float32 and bfloat16. Forward: the
+    K2 kernel, with K2's tolerances. Backward (K3-bwd) against the plain
+    backward (f32 einsums, cast once): |err| <= 1e-5 * (the plain
+    backward of |g|) at each cell, the f32 sum-order bound of a cell
+    that many boxes touch; in bfloat16 plus one bfloat16 ulp of the
+    result. Boxes that are degenerate (adaptive) or wholly outside the
+    image must contribute exactly 0."""
+    import torch
+    from locov_torch.ops.roi_align import (roi_align_batched,
+                                           roi_align_bwd_cuda,
+                                           roi_align_bwd_plain,
+                                           roi_align_cuda)
+    scale, pooled = 1.0 / 16, 14
+    img_h, img_w = 800, 1344
+    fmain = torch.randn((8, 50, 84, 1024), generator=gen, device="cuda")
+    bmain = _train_boxes(gen, 8, 512, 20, img_h, img_w)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        f = fmain.to(dtype)
+        for sr in (0, 2):
+            got = roi_align_cuda(f, bmain, scale, pooled, sr)
+            plain = roi_align_batched(f, bmain, scale, pooled, sr)
+            torch.cuda.synchronize()
+            fmax = f.float().abs().max().item()
+            err = (got.float() - plain.float()).abs()
+            tol = torch.full_like(err, 1e-5 * fmax)
+            if dtype == torch.bfloat16:
+                tol = torch.clamp(_bf16_ulp(torch.maximum(
+                    got.float().abs(), plain.float().abs())), min=1e-5 * fmax)
+            ok = bool((err <= tol).all())
+            line = {"phase": "kernel_check", "kernel": "roi_align_fused",
+                    "case": "train", "dtype": dt, "features": list(f.shape),
+                    "boxes": list(bmain.shape), "sampling_ratio": sr,
+                    "max_abs_err": err.max().item(), "within_tolerance": ok}
+            del got, plain, err, tol
+            if sr == 0:
+                line["kernel_ms"] = time_ms(
+                    lambda: roi_align_cuda(f, bmain, scale, pooled, sr))
+                line["plain_ms"] = time_ms(
+                    lambda: roi_align_batched(f, bmain, scale, pooled, sr),
+                    reps=20)
+                line["library_ms"] = None  # no single PyTorch call
+                out_bytes = 8 * 512 * pooled * pooled * 1024 * \
+                    f.element_size()
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    f.numel() * f.element_size() + bmain.numel() * 4
+                    + out_bytes, roi_align_ops(bmain, scale, pooled, 1024))
+                results[("roi_align_fused_train", dt)] = line
+            emit(line)
+            if not ok:
+                raise AssertionError(f"roi_align_fused train {dt} sr {sr}: "
+                                     f"max err {line['max_abs_err']}")
+        del f
+        g = torch.randn((8, 512, pooled, pooled, 1024), generator=gen,
+                        device="cuda").to(dtype)
+        for sr in (0, 2):
+            got = roi_align_bwd_cuda(g, bmain, scale, 50, 84, pooled, sr)
+            plain = roi_align_bwd_plain(g, bmain, scale, 50, 84, pooled, sr)
+            # f32 sum-order bound: the plain backward of |g|
+            absbwd = roi_align_bwd_plain(g.abs(), bmain, scale, 50, 84,
+                                         pooled, sr).float()
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs()
+            tol = 1e-5 * absbwd
+            if dtype == torch.bfloat16:
+                tol = tol + _bf16_ulp(torch.maximum(got.float().abs(),
+                                                     plain.float().abs()))
+            ok = bool((err <= tol).all())
+            line = {"phase": "kernel_check", "kernel": "roi_align_bwd",
+                    "case": "main", "dtype": dt, "shape": list(g.shape),
+                    "boxes": list(bmain.shape), "sampling_ratio": sr,
+                    "max_abs_err": err.max().item(),
+                    "max_err_over_abs_bound": (err / absbwd.clamp(
+                        min=1e-30)).max().item(),
+                    "max_abs_df": plain.float().abs().max().item(),
+                    "within_tolerance": ok}
+            del got, plain, absbwd, err, tol
+            if sr == 0:
+                line["kernel_ms"] = time_ms(lambda: roi_align_bwd_cuda(
+                    g, bmain, scale, 50, 84, pooled, sr))
+                line["plain_ms"] = time_ms(lambda: roi_align_bwd_plain(
+                    g, bmain, scale, 50, 84, pooled, sr), reps=5)
+                line["library_ms"] = None  # no single PyTorch call
+                nbytes = (g.numel() + 8 * 50 * 84 * 1024) * \
+                    g.element_size() + bmain.numel() * 4
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    nbytes, roi_align_ops(bmain, scale, pooled, 1024))
+                results[("roi_align_bwd", dt)] = line
+            emit(line)
+            if not ok:
+                raise AssertionError(f"roi_align_bwd {dt} sr {sr}: max err "
+                                     f"{line['max_abs_err']}")
+        del g
+        # edge boxes (256 channels): against the plain version, and the
+        # degenerate and wholly outside ones alone give exactly 0
+        edges = _edge_boxes(2, img_h, img_w)
+        ge = torch.randn((2, edges.shape[1], pooled, pooled, 256),
+                         generator=gen, device="cuda").to(dtype)
+        for sr, zero_idx in ((0, [2, 3, 5]), (2, [5])):
+            got = roi_align_bwd_cuda(ge, edges, scale, 50, 84, pooled, sr)
+            plain = roi_align_bwd_plain(ge, edges, scale, 50, 84, pooled, sr)
+            absbwd = roi_align_bwd_plain(ge.abs(), edges, scale, 50, 84,
+                                         pooled, sr).float()
+            err = (got.float() - plain.float()).abs()
+            tol = 1e-5 * absbwd
+            if dtype == torch.bfloat16:
+                tol = tol + _bf16_ulp(torch.maximum(got.float().abs(),
+                                                     plain.float().abs()))
+            alone = roi_align_bwd_cuda(ge[:, zero_idx].contiguous(),
+                                       edges[:, zero_idx].contiguous(),
+                                       scale, 50, 84, pooled, sr)
+            zero = bool((alone == 0).all())
+            ok = bool((err <= tol).all()) and zero
+            line = {"phase": "kernel_check", "kernel": "roi_align_bwd",
+                    "case": "edges", "dtype": dt, "sampling_ratio": sr,
+                    "max_abs_err": err.max().item(),
+                    "zero_boxes": zero_idx, "zero_contribution": zero,
+                    "within_tolerance": ok}
+            emit(line)
+            if not ok:
+                raise AssertionError(f"roi_align_bwd edges {dt} sr {sr}: "
+                                     f"{line}")
+        del ge
+    del fmain
+
+
 # ------------------------------------------------------ small reference
 def _tiny_cfg():
     from locov_torch.config import get_cfg
@@ -306,7 +545,8 @@ def small_reference(seed):
         before = dict(kernel_lib.LAUNCHES)
         dets[dev] = model.inference(to_torch(batch, dev),
                                     torch.from_numpy(ce).to(dev))
-        launched = {k: kernel_lib.LAUNCHES[k] - before[k] for k in before}
+        launched = {k: kernel_lib.LAUNCHES[k] - before[k]
+                    for k in INFERENCE_KERNELS}
     torch.cuda.synchronize()
     cpu, gpu = dets["cpu"], [x.cpu() for x in dets["cuda"]]
     m = cpu.mask.numpy()
@@ -323,6 +563,102 @@ def small_reference(seed):
           and score_err <= 1e-5 and all(v > 0 for v in launched.values()))
     if not ok:
         raise AssertionError(f"small reference mismatch: {line}")
+
+
+def _tiny_train_batch(rng):
+    """Two 64 x 64 images (the second padded) with padded gt, numpy."""
+    import numpy as np
+    from locov_torch.structures.batches import (DetectionBatch, GtBatch,
+                                                ImageBatch)
+    return DetectionBatch(
+        images=ImageBatch(
+            image=(rng.rand(2, 64, 64, 3) * 255).astype(np.float32),
+            hw=np.array([[64, 64], [48, 56]], np.int32),
+            orig_hw=np.array([[128, 128], [96, 112]], np.int32)),
+        gt=GtBatch(
+            boxes=np.array([[[4, 4, 30, 30], [10, 20, 40, 44]],
+                            [[8, 8, 24, 24], [0, 0, 0, 0]]], np.float32),
+            classes=np.array([[1, 3], [0, 0]], np.int32),
+            mask=np.array([[True, True], [True, False]])))
+
+
+def small_reference_train(seed):
+    """One training step of a tiny float32 OvrRCNN at FREEZE_AT 0 (so
+    every kernel runs, K1-bwd included), TF32 off, the RPN tamed and the
+    samplers' uniform draws fixed: the card (kernels) against the CPU
+    (plain versions, which the CPU tests hold against the JAX package).
+    Compared: the loss dict (|diff| <= 1e-4 * max(1, |loss|)); the
+    gradients of the stem conv, a res4 conv, ``rpn_head.conv`` and
+    ``bbox_pred`` and every parameter's SGD update (max |diff| <= 1e-3
+    * max |CPU value| of each tensor): f32 sums in another order
+    through a dozen convolutions."""
+    import numpy as np
+    import torch
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import make_train_step
+    from locov_torch.structures.batches import to_torch
+    from locov_torch.utils.weights import seeded_init_
+    cfg = _tiny_cfg()
+    cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 16
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 64
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 32
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    rng = np.random.RandomState(seed)
+    batch = _tiny_train_batch(rng)
+    ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
+    ce[-1] = 0.0
+    n_anchors, n_props = (64 // 16) ** 2 * 15, 32 + 2
+    u = {"rpn": rng.rand(2, 2, n_anchors).astype(np.float32),
+         "roi": rng.rand(2, 2, n_props).astype(np.float32)}
+    names = ["backbone.stem.conv1.weight", "backbone.res4.0.conv2.weight",
+             "rpn_head.conv.weight",
+             "roi_heads.box_predictor.bbox_pred.weight"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = seeded_init_(build_meta_arch(cfg, device="cpu"), seed)
+        with torch.no_grad():
+            model.rpn_head.anchor_deltas.weight.zero_()
+        model.to(dev)
+        before = {k: v.detach().clone() for k, v in
+                  model.named_parameters()}
+        step = make_train_step(model, *build_optimizer(cfg, model))
+        uniforms = {k: tuple(torch.from_numpy(a).to(dev) for a in v)
+                    for k, v in u.items()}
+        kernel_lib.reset_launches()
+        metrics = step(to_torch(batch, dev), torch.from_numpy(ce).to(dev),
+                       None, uniforms)
+        launched = dict(kernel_lib.LAUNCHES)
+        params = dict(model.named_parameters())
+        out[dev] = {
+            "losses": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: params[k].grad.detach().cpu() for k in names},
+            "updates": {k: (p.detach() - before[k]).cpu()
+                        for k, p in params.items()}}
+    torch.cuda.synchronize()
+    cpu, gpu = out["cpu"], out["cuda"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    loss_err = {k: abs(gpu["losses"][k] - v) for k, v in
+                cpu["losses"].items()}
+    grad_err = {k: rel(gpu["grads"][k], v) for k, v in cpu["grads"].items()}
+    upd_err = max(rel(gpu["updates"][k], v) for k, v in
+                  cpu["updates"].items())
+    line = {"phase": "small_reference_train", "freeze_at": 0,
+            "losses_cpu": cpu["losses"], "loss_abs_err": loss_err,
+            "grad_rel_err": grad_err, "max_update_rel_err": upd_err,
+            "gpu_launches": launched}
+    emit(line)
+    ok = (all(e <= 1e-4 * max(1.0, abs(cpu["losses"][k]))
+              for k, e in loss_err.items())
+          and all(e <= 1e-3 for e in grad_err.values()) and upd_err <= 1e-3
+          and all(v > 0 for v in launched.values()))
+    if not ok:
+        raise AssertionError(f"small reference train mismatch: {line}")
 
 
 # ------------------------------------------------------------ main path
@@ -391,22 +727,24 @@ def main_path(seed, batches):
     emit(line)
     if not (finite and shapes_ok and in_range):
         raise AssertionError(f"main path output check failed: {line}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in INFERENCE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    profile_batch(model, batch, class_emb, ms)
+    profile_run("main_path_profile",
+                lambda: model.inference(batch, class_emb), ms)
     return launches
 
 
-def profile_batch(model, batch, class_emb, unprofiled_ms):
-    """One more batch under torch.profiler: the device's busy time (the
-    sum of its kernels' times) against the batch's wall time, the
-    kernels that take the most of it, and for each ``OvrRCNN.<stage>``
-    range of the model's inference its host time and the device time of
-    the kernels launched in it. The profiler stretches the wall time, so
-    the idle share is also given against ``unprofiled_ms``, the main
-    path's median batch time."""
+def profile_run(phase, run, unprofiled_ms):
+    """``run()`` once under torch.profiler: the device's busy time (the
+    sum of its kernels' times) against the wall time, the kernels that
+    take the most of it, and for each ``OvrRCNN.<stage>`` and
+    ``train_step.<stage>`` range its host time and the device time of
+    the kernels launched in it (kernels that autograd launches from its
+    own thread belong to no range: ``unattributed_kernels_ms``). The
+    profiler stretches the wall time, so the idle share is also given
+    against ``unprofiled_ms``, the same run's median time unprofiled."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -419,11 +757,12 @@ def profile_batch(model, batch, class_emb, unprofiled_ms):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.inference(batch, class_emb)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    ranges = [e for e in events if e.key.startswith("OvrRCNN.")]
+    ranges = [e for e in events
+              if e.key.startswith(("OvrRCNN.", "train_step."))]
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and e not in ranges]
@@ -431,22 +770,189 @@ def profile_batch(model, batch, class_emb, unprofiled_ms):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     stages = {}
     for e in ranges:
-        st = stages.setdefault(e.key[len("OvrRCNN."):], {})
+        st = stages.setdefault(e.key.split(".", 1)[1], {})
         if e.device_type == DeviceType.CUDA:  # the range on the device
             st["device_span_ms"] = device_us(e) / 1e3
         else:
             st["host_ms"] = e.cpu_time_total / 1e3
             st["device_kernels_ms"] = device_us(e) / 1e3
-    emit({"phase": "main_path_profile", "wall_ms": wall_ms,
+    attributed = sum(st.get("device_kernels_ms", 0.0)
+                     for st in stages.values())
+    emit({"phase": phase, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms,
           "device_idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
           "kernel_launches": sum(e.count for e in kernels),
           "stages": stages,
+          "unattributed_kernels_ms": busy_ms - attributed,
           "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
                               e.count] for e in top]})
     if not stages:
-        raise AssertionError("the profile holds no OvrRCNN.<stage> range")
+        raise AssertionError(f"{phase}: the profile holds no stage range")
+
+
+# ----------------------------------------------------------- train path
+def _train_batch(rng, b, max_gt=20, num_classes=48):
+    """``b`` images as the main path builds them, with synthetic gt: 1 to
+    ``max_gt`` boxes an image with sides of 32 to 400 px inside the
+    valid 800 x 1312, classes in [0, num_classes), padded to
+    ``max_gt`` with a mask."""
+    import numpy as np
+    from locov_torch.structures.batches import (DetectionBatch, GtBatch,
+                                                ImageBatch)
+    side = rng.uniform(32, 400, (b, max_gt, 2))
+    lo = rng.uniform(0, 1, (b, max_gt, 2)) * (np.array([1312, 800]) - side)
+    count = rng.randint(1, max_gt + 1, size=b)
+    return DetectionBatch(
+        images=ImageBatch(
+            image=(rng.rand(b, 800, 1344, 3) * 255).astype(np.float32),
+            hw=np.stack([np.full(b, 800), np.full(b, 1312)], 1).astype(
+                np.int32),
+            orig_hw=np.full((b, 2), 640, np.int32)),
+        gt=GtBatch(
+            boxes=np.concatenate([lo, lo + side], -1).astype(np.float32),
+            classes=rng.randint(0, num_classes, (b, max_gt)).astype(
+                np.int32),
+            mask=np.arange(max_gt)[None] < count[:, None]))
+
+
+def _train_model(cfg, seed):
+    """The model from ``seed`` at the scale of trained weights, its
+    optimizer and its train step. Seeded He-normal weights with identity
+    FrozenBN make the activations grow about 1.4x a residual block and
+    take the 0..255 pixels (PIXEL_STD 1, Caffe) as they are, so the
+    first loss is ~1e10 and the next step NaN. A trained Caffe stem is
+    scaled to raw pixels and a trained block's last FrozenBN scale is
+    small; so the stem conv is divided by 57 (about the pixels' std)
+    and each block's ``conv3_norm`` scale set to 0.2."""
+    import torch
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.models.resnet import BottleneckBlock
+    from locov_torch.parallel.mesh import make_train_step
+    from locov_torch.utils.weights import seeded_init_
+    model = seeded_init_(build_meta_arch(cfg), seed)
+    with torch.no_grad():
+        model.backbone.stem.conv1.weight.div_(57.0)
+        for mod in model.modules():
+            if isinstance(mod, BottleneckBlock):
+                mod.conv3_norm.weight.fill_(0.2)
+    optimizer, scheduler = build_optimizer(cfg, model)
+    trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    torch.cuda.synchronize()
+    return model, make_train_step(model, optimizer, scheduler), trainable
+
+
+def train_path(seed):
+    """The STT training step: ``configs/coco_stt.yaml`` at full width in
+    bfloat16 (FREEZE_AT 2: the stem and res2 frozen, K1-bwd not on this
+    path), batch 8 of 800 x 1344, one warm-up step and ``TRAIN_STEPS``
+    timed ones; launch counts zeroed just before the timed steps and read
+    just after. Then one step at FREEZE_AT 0, batch 2, where K1-bwd
+    runs. Returns the launches of both runs."""
+    import numpy as np
+    import torch
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.ops import kernel_lib
+    from locov_torch.structures.batches import to_torch
+
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("coco_stt.yaml"))
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    t0 = time.perf_counter()
+    model, step, trainable = _train_model(cfg, seed)
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed)
+    b = 8
+    nb = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    batch = to_torch(_train_batch(rng, b, num_classes=nb), "cuda")
+    # class embeddings x0.1: class logits of order 1 (as in the tests)
+    class_emb = torch.from_numpy(
+        (rng.randn(nb + 1, 768) * 0.1).astype(np.float32)).cuda()
+    class_emb[-1] = 0.0  # background row
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = dict(model.named_parameters())
+
+    t0 = time.perf_counter()
+    step(batch, class_emb, gen)  # warm-up (cuDNN plans, caches)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernel_lib.reset_launches()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, class_emb, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(kernel_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+
+    after = model.state_dict()
+    frozen_changed = [k for k, v in before.items()
+                      if (k not in params or id(params[k]) not in trainable)
+                      and not torch.equal(v, after[k])]
+    must_train = ("backbone.res3.", "backbone.res4.", "roi_heads.res5.",
+                  "rpn_head.", "roi_heads.box_predictor.bbox_pred.")
+    unchanged = [k for k, p in params.items() if k.startswith(must_train)
+                 and torch.equal(before[k], p.detach())]
+    frozen_names = [k for k in params if id(params[k]) not in trainable]
+    finite = all(math.isfinite(v) for d in losses for v in d.values())
+    line = {"phase": "train_path", "config": "configs/coco_stt.yaml",
+            "dtype": "bfloat16", "batch": b, "image": [800, 1344],
+            "freeze_at": cfg.MODEL.BACKBONE.FREEZE_AT, "steps": TRAIN_STEPS,
+            "ms_per_step": ms, "ms_per_step_all": times,
+            "images_per_s": b / ms * 1e3, "losses": losses,
+            "finite": finite, "launches": launches,
+            "peak_mem_gib": peak, "model_init_s": init_s,
+            "warmup_s": warm_s,
+            "gt_boxes": int(batch.gt.mask.sum()),
+            "frozen_params": len(frozen_names),
+            "frozen_state_changed": frozen_changed,
+            "trained_but_unchanged": unchanged}
+    emit(line)
+    if not finite or frozen_changed or unchanged:
+        raise AssertionError(f"train path check failed: {line}")
+    missing = [k for k in ("relu_maxpool", "roi_align_fused",
+                           "roi_align_bwd") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the train path: "
+                             f"{missing}")
+    profile_run("train_path_profile",
+                lambda: step(batch, class_emb, gen), ms)
+    del model, step, before, after, params
+    torch.cuda.empty_cache()
+
+    # FREEZE_AT 0: the stem trains, so its backward (K1-bwd) runs
+    cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    model, step, _ = _train_model(cfg, seed)
+    small = to_torch(_train_batch(rng, 2, num_classes=nb), "cuda")
+    step(small, class_emb, gen)  # warm-up
+    torch.cuda.synchronize()
+    kernel_lib.reset_launches()
+    t0 = time.perf_counter()
+    metrics = step(small, class_emb, gen)
+    torch.cuda.synchronize()
+    ms0 = (time.perf_counter() - t0) * 1e3
+    launches0 = dict(kernel_lib.LAUNCHES)
+    stem_grad = model.backbone.stem.conv1.weight.grad
+    line = {"phase": "train_path_freeze0", "freeze_at": 0, "batch": 2,
+            "ms_per_step": ms0,
+            "losses": {k: float(v) for k, v in metrics.items()},
+            "stem_grad_abs_max": float(stem_grad.abs().max()),
+            "launches": launches0}
+    emit(line)
+    if not (all(math.isfinite(v) for v in line["losses"].values())
+            and line["stem_grad_abs_max"] > 0
+            and all(v > 0 for v in launches0.values())):
+        raise AssertionError(f"FREEZE_AT 0 step check failed: {line}")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches, launches0
 
 
 def main(argv=None) -> int:
@@ -484,24 +990,32 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = {}
     check_relu_maxpool(gen, results)
+    check_relu_maxpool_bwd(gen, results)
     check_roi_align(gen, results)
     torch.cuda.empty_cache()
+    check_roi_align_train(gen, results)
+    torch.cuda.empty_cache()
     small_reference(args.seed)
-    launches = main_path(args.seed, args.batches)
+    small_reference_train(args.seed)
+    paths = {"inference": main_path(args.seed, args.batches)}
+    torch.cuda.empty_cache()
+    paths["train"], paths["train_freeze0"] = train_path(args.seed)
 
     kernels = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
-        r = results[(name, "bfloat16")]
+    for name, source, replaces, path, check in KERNEL_ROWS:
+        r = results[(check, "bfloat16")]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": paths[path][name],
+            "launches_path": path,
+            "launches_by_path": {k: v[name] for k, v in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": "bfloat16",
             "shape": r.get("shape") or r.get("features"),
-            "f32_ms": results[(name, "float32")]["kernel_ms"],
-            "f32_plain_ms": results[(name, "float32")]["plain_ms"]})
+            "f32_ms": results[(check, "float32")]["kernel_ms"],
+            "f32_plain_ms": results[(check, "float32")]["plain_ms"]})
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

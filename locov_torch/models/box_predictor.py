@@ -1,34 +1,40 @@
 """Embedding-based FastRCNN output layers + batched inference.
 
-Counterpart of ``locov_tpu/models/box_predictor.py`` (inference part):
-region features project to the class-embedding space through
-``emb_pred`` and are scored by a dot product against a frozen
-class-name embedding matrix, which is a forward input. Also the
-static-shape ``fast_rcnn_inference``: softmax, drop background, score
-threshold, at most 4096 candidates, class-masked NMS, top-k.
+Counterpart of ``locov_tpu/models/box_predictor.py``: region features
+project to the class-embedding space through ``emb_pred`` and are
+scored by a dot product against a frozen class-name embedding matrix,
+which is a forward input. Also d2's FastRCNN losses over a sampled
+batch, and the static-shape ``fast_rcnn_inference``: softmax, drop
+background, score threshold, at most 4096 candidates, class-masked
+NMS, top-k.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import nms as nms_ops
-from ..ops.losses import normalize_vec, standardize_vec
+from ..ops.losses import (giou, mean_cross_entropy, normalize_vec,
+                          smooth_l1, standardize_vec)
 from ..structures import boxes as box_ops
 from ..structures.batches import Detections
 
 
 class BoxPredictorConfig(NamedTuple):
-    """The inference fields of the JAX package's ``BoxPredictorConfig``;
-    the loss fields come with the training slice. The number of classes
-    is that of the ``class_emb`` rows."""
+    """The JAX package's ``BoxPredictorConfig`` for the embedding
+    predictor (the grounding predictor's fields come with it). The
+    number of classes is that of the ``class_emb`` rows."""
     emb_dim: int
     embedding_based: bool
     normalize_emb: bool
     standardize_emb: bool
+    detach_cls_predictor: bool
     bbox_reg_weights: tuple
+    smooth_l1_beta: float
+    box_reg_loss_type: str
+    box_reg_loss_weight: float
     test_score_thresh: float
     test_nms_thresh: float
     test_topk_per_image: int
@@ -44,7 +50,11 @@ class BoxPredictorConfig(NamedTuple):
             embedding_based=cfg.MODEL.ROI_BOX_HEAD.EMBEDDING_BASED,
             normalize_emb=cfg.MODEL.ROI_BOX_HEAD.NORMALIZE_EMB_PRED,
             standardize_emb=cfg.MODEL.ROI_BOX_HEAD.STANDARDIZE_EMB_PRED,
+            detach_cls_predictor=cfg.MODEL.ROI_HEADS.DETACH_CLASS_PREDICTOR,
             bbox_reg_weights=tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS),
+            smooth_l1_beta=cfg.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA,
+            box_reg_loss_type=cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE,
+            box_reg_loss_weight=cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT,
             test_score_thresh=cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
             test_nms_thresh=cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
             test_topk_per_image=cfg.TEST.DETECTIONS_PER_IMAGE)
@@ -53,7 +63,8 @@ class BoxPredictorConfig(NamedTuple):
 class EmbeddingBoxPredictor(nn.Module):
     """emb_pred + class-agnostic bbox_pred. Classification runs against
     the runtime ``class_emb`` matrix ([K+1, emb_dim], last row the
-    background)."""
+    background). With ``detach_cls_predictor`` no gradient flows
+    through the classification scores."""
 
     def __init__(self, in_features: int, pcfg: BoxPredictorConfig):
         super().__init__()
@@ -66,9 +77,11 @@ class EmbeddingBoxPredictor(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [..., C_in] -> (scores [..., K+1], deltas [..., 4])."""
         deltas = self.bbox_pred(x)
-        emb = x  # without emb_pred the features are scored as they are
+        detach = self.pcfg.detach_cls_predictor
+        # without emb_pred the features are scored as they are
+        emb = x.detach() if detach else x
         if self.emb_pred is not None:
-            emb = self.emb_pred(x)
+            emb = self.emb_pred(emb)
             if self.pcfg.normalize_emb:
                 emb = normalize_vec(emb)
             if self.pcfg.standardize_emb:
@@ -78,7 +91,41 @@ class EmbeddingBoxPredictor(nn.Module):
             cemb = normalize_vec(cemb)
         if self.pcfg.standardize_emb:
             cemb = standardize_vec(cemb)
-        return emb @ cemb.T, deltas  # frozen linear classifier, bias 0
+        scores = emb @ cemb.T  # frozen linear classifier, bias 0
+        return (scores.detach() if detach else scores), deltas
+
+
+def fast_rcnn_losses(scores: torch.Tensor, deltas: torch.Tensor,
+                     proposal_boxes: torch.Tensor, gt_classes: torch.Tensor,
+                     gt_boxes: torch.Tensor, valid: torch.Tensor,
+                     pcfg: BoxPredictorConfig) -> Dict[str, torch.Tensor]:
+    """d2 FastRCNNOutputLayers.losses over a flattened sampled batch.
+
+    scores [R, K+1]; deltas [R, 4] (class-agnostic); proposal_boxes,
+    gt_boxes [R, 4]; gt_classes [R] (K = background); valid [R]. loss_cls
+    is the mean cross entropy over the valid samples; loss_box_reg the
+    sum over foreground samples divided by the number of valid ones
+    (d2 divides by gt_classes.numel())."""
+    labels = torch.where(valid, gt_classes, torch.full_like(gt_classes, -1))
+    loss_cls = mean_cross_entropy(scores, labels, ignore_index=-1)
+    num_classes = scores.shape[-1] - 1
+    is_fg = valid & (gt_classes >= 0) & (gt_classes < num_classes)
+    if pcfg.box_reg_loss_type == "smooth_l1":
+        gt_deltas = box_ops.get_deltas(proposal_boxes, gt_boxes,
+                                       pcfg.bbox_reg_weights)
+        per = smooth_l1(deltas, gt_deltas, pcfg.smooth_l1_beta).sum(-1)
+    elif pcfg.box_reg_loss_type == "giou":
+        pred = box_ops.apply_deltas(deltas, proposal_boxes,
+                                    pcfg.bbox_reg_weights)
+        per = giou(pred, gt_boxes)
+    else:
+        raise NotImplementedError(pcfg.box_reg_loss_type)
+    loss_box = torch.where(is_fg, per, torch.zeros_like(per)).sum() / \
+        valid.sum().clamp(min=1)
+    if pcfg.detach_cls_predictor:
+        loss_cls = 0.0 * loss_cls
+    return {"loss_cls": loss_cls,
+            "loss_box_reg": loss_box * pcfg.box_reg_loss_weight}
 
 
 def fast_rcnn_inference_batched(scores: torch.Tensor, deltas: torch.Tensor,

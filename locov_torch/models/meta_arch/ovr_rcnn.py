@@ -1,17 +1,19 @@
 """OvrRCNN: the STT-stage detector (Faster R-CNN C4 with an
-embedding-based zero-shot classifier), inference.
+embedding-based zero-shot classifier), training losses and inference.
 
-Counterpart of ``locov_tpu/models/meta_arch/ovr_rcnn.py``: backbone ->
-RPN (PRE_NMS 6000 -> NMS -> 1000) -> ROIAlign + res5 -> embedding
-classifier -> fast_rcnn_inference -> rescale to the original image
-size. Static padded batches throughout. Each stage of ``inference``
-runs in a ``torch.profiler.record_function`` range named
-``OvrRCNN.<stage>``, so a profile of a batch splits it by stage.
-Training comes with the next slice.
+Counterpart of ``locov_tpu/models/meta_arch/ovr_rcnn.py``. Training
+(``losses``): backbone -> RPN head -> RPN losses; proposals (PRE_NMS
+12000 -> NMS -> 2000, no gradient) -> gt appended, matched and sampled
+-> ROIAlign + res5 -> embedding classifier -> FastRCNN losses.
+Inference: backbone -> RPN (6000 -> NMS -> 1000) -> ROIAlign + res5 ->
+embedding classifier -> fast_rcnn_inference -> rescale to the original
+image size. Static padded batches throughout. Each stage runs in a
+``torch.profiler.record_function`` range named ``OvrRCNN.<stage>``, so
+a profile splits a step or a batch by stage.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,9 +25,10 @@ from ...utils.device import resolve_device
 from .. import register_meta_arch
 from ..box_predictor import BoxPredictorConfig, fast_rcnn_inference_batched
 from ..resnet import ResNetC4
-from ..roi_heads import Res5ROIHeads, ROIHeadsConfig
-from ..rpn import RPNConfig, RPNHead, generate_cell_anchors, grid_anchors, \
-    select_proposals
+from ..roi_heads import (Res5ROIHeads, ROIHeadsConfig,
+                         label_and_sample_proposals, roi_heads_losses)
+from ..rpn import (RPNConfig, RPNHead, generate_cell_anchors, grid_anchors,
+                   rpn_losses, select_proposals)
 
 
 def normalize_and_zero_pad(images: ImageBatch, pixel_mean, pixel_std,
@@ -66,7 +69,7 @@ class OvrRCNN(nn.Module):
                  rpn_cfg: RPNConfig, rcfg: ROIHeadsConfig,
                  pcfg: BoxPredictorConfig,
                  compute_dtype: torch.dtype = torch.float32,
-                 use_rpn: bool = True, device=None):
+                 use_rpn: bool = True, freeze_at: int = 0, device=None):
         super().__init__()
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
@@ -78,7 +81,8 @@ class OvrRCNN(nn.Module):
             width_per_group=width_per_group,
             stem_out_channels=stem_out_channels,
             res2_out_channels=res2_out_channels,
-            stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype)
+            stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype,
+            freeze_at=freeze_at)
         if use_rpn:
             self.rpn_head = RPNHead(
                 in_channels=res2_out_channels * 4,
@@ -109,6 +113,7 @@ class OvrRCNN(nn.Module):
             compute_dtype=dtype,
             use_rpn=(cfg.MODEL.PROPOSAL_GENERATOR.NAME
                      != "PrecomputedProposals"),
+            freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
             device=device)
 
     @property
@@ -128,6 +133,65 @@ class OvrRCNN(nn.Module):
         anchors = grid_anchors(cell, features.shape[1], features.shape[2],
                                self.rpn_cfg.stride, self.rpn_cfg.offset)
         return anchors, logits.float(), deltas.float()
+
+    def losses(self, batch: DetectionBatch, class_emb: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               uniforms: Optional[Dict[str, Tuple[torch.Tensor,
+                                                  torch.Tensor]]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """The training loss dict of one padded batch with ``batch.gt``;
+        ``class_emb`` is the [K+1, D] class-embedding matrix (last row
+        background). The RPN and ROI samplers rank candidates by uniform
+        draws: ``uniforms["rpn"]`` and ``uniforms["roi"]`` are (u_pos,
+        u_neg) pairs of [B, N_anchors] and [B, N_proposals + M] where
+        given, else they are drawn from ``generator`` (a generator on
+        the model's device)."""
+        uniforms = dict(uniforms or {})
+        images, gt = batch.images, batch.gt
+
+        def draw(key, n):
+            if key not in uniforms:
+                shape = (gt.boxes.shape[0], n)
+                uniforms[key] = tuple(
+                    torch.rand(shape, generator=generator,
+                               device=gt.boxes.device) for _ in range(2))
+            return uniforms[key]
+
+        with record_function("OvrRCNN.preprocess"):
+            x = self.preprocess(images)
+        with record_function("OvrRCNN.backbone"):
+            features = self.backbone(x)["res4"]
+        losses = {}
+        if self.use_rpn:
+            with record_function("OvrRCNN.rpn_head"):
+                anchors, logits, deltas = self.run_rpn(features)
+            with record_function("OvrRCNN.rpn_losses"):
+                losses.update(rpn_losses(anchors, logits, deltas, gt,
+                                         self.rpn_cfg,
+                                         *draw("rpn", anchors.shape[0])))
+            # proposals are fixed inputs to the second stage (d2 decodes
+            # them under no_grad)
+            with record_function("OvrRCNN.select_proposals"), \
+                    torch.no_grad():
+                proposals = select_proposals(
+                    anchors, logits.detach(), deltas.detach(), images.hw,
+                    self.rpn_cfg, training=True)
+        else:
+            proposals = _require_proposals(batch)
+        with record_function("OvrRCNN.label_and_sample"):
+            n = proposals.boxes.shape[1] + (
+                gt.boxes.shape[1] if self.rcfg.proposal_append_gt else 0)
+            sampled = label_and_sample_proposals(proposals, gt, self.rcfg,
+                                                 *draw("roi", n))
+        with record_function("OvrRCNN.roi_features"):
+            box_feats = self.roi_heads.roi_features(features, sampled.boxes)
+        with record_function("OvrRCNN.predict"):
+            scores, deltas2 = self.roi_heads.predict(box_feats.float(),
+                                                     class_emb.float())
+        with record_function("OvrRCNN.roi_heads_losses"):
+            losses.update(roi_heads_losses(scores, deltas2, sampled,
+                                           self.pcfg))
+        return losses
 
     @torch.inference_mode()
     def inference(self, batch: DetectionBatch,

@@ -1,10 +1,12 @@
 """ResNet-50 C4 backbone, NHWC at the interfaces.
 
-Counterpart of ``locov_tpu/models/resnet.py`` (inference path): Caffe
-conventions (``stride_in_1x1`` bottlenecks, FrozenBatchNorm folded into
-the conv). Submodules carry the Flax scope names (``conv1`` and
-``conv1_norm`` side by side, stages ``res2`` ... with blocks ``0``,
-``1``, ...), so ``utils/weights.py:from_flax`` maps parameters by name.
+Counterpart of ``locov_tpu/models/resnet.py``: Caffe conventions
+(``stride_in_1x1`` bottlenecks, FrozenBatchNorm folded into the conv),
+and ``BACKBONE.FREEZE_AT`` as the JAX package applies it (a gradient
+stop after each frozen stage). Submodules carry the Flax scope names
+(``conv1`` and ``conv1_norm`` side by side, stages ``res2`` ... with
+blocks ``0``, ``1``, ...), so ``utils/weights.py:from_flax`` maps
+parameters by name.
 Tensors are NHWC; a conv runs on ``x.permute(0, 3, 1, 2)``, which for a
 contiguous NHWC tensor is a free view in ``torch.channels_last``.
 """
@@ -128,8 +130,9 @@ class ResNetStage(nn.Sequential):
 
 class ResNetStem(nn.Module):
     """7x7/2 conv + FrozenBN, then relu + 3x3/2 max-pool, which is the
-    hand-written kernel on CUDA (``ops/relu_maxpool.py``) for every
-    dtype and shape, and its plain version on the CPU."""
+    hand-written kernel pair on CUDA (``ops/relu_maxpool.py``, forward
+    and backward) for every dtype and shape, and its plain version on
+    the CPU."""
 
     def __init__(self, out_channels: int = 64,
                  compute_dtype: torch.dtype = torch.float32):
@@ -147,7 +150,13 @@ class ResNetStem(nn.Module):
 class ResNetC4(nn.Module):
     """Stem + res2..res4 (the C4 trunk; res5 lives in the ROI heads).
     ``forward`` takes NHWC images and returns a dict of the requested
-    ``out_features``."""
+    ``out_features``.
+
+    ``freeze_at`` (d2 ``BACKBONE.FREEZE_AT``): 1 freezes the stem, i >= 2
+    also res2 .. res{i}. Their parameters get ``requires_grad=False`` and
+    their outputs are detached, so no activation of a frozen stage is
+    kept for a backward and no gradient flows into it (the JAX package's
+    ``stop_gradient`` at the same places)."""
 
     def __init__(self, depth: int = 50,
                  out_features: Sequence[str] = ("res4",),
@@ -155,10 +164,12 @@ class ResNetC4(nn.Module):
                  stem_out_channels: int = 64,
                  res2_out_channels: int = 256,
                  stride_in_1x1: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 freeze_at: int = 0):
         super().__init__()
         self.out_features = tuple(out_features)
         self.compute_dtype = compute_dtype
+        self.freeze_at = freeze_at
         self.stem = ResNetStem(stem_out_channels, compute_dtype)
         stages = R50_STAGES if depth == 50 else R101_STAGES
         last = max((s for s in self.out_features if s != "stem"),
@@ -177,16 +188,22 @@ class ResNetC4(nn.Module):
             cin = oc
             if stage == last:
                 break
+        for name in ["stem"] + self.stage_names:
+            if self._frozen(name):
+                getattr(self, name).requires_grad_(False)
+
+    def _frozen(self, name: str) -> bool:
+        return self.freeze_at >= (1 if name == "stem" else int(name[3]))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.stem(x.to(self.compute_dtype))
         outputs = {}
-        if "stem" in self.out_features:
-            outputs["stem"] = x
-        for stage in self.stage_names:
-            x = getattr(self, stage)(x)
-            if stage in self.out_features:
-                outputs[stage] = x
+        x = x.to(self.compute_dtype)
+        for name in ["stem"] + self.stage_names:
+            x = getattr(self, name)(x)
+            if self._frozen(name):
+                x = x.detach()
+            if name in self.out_features:
+                outputs[name] = x
         return outputs
 
 

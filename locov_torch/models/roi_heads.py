@@ -1,36 +1,119 @@
-"""C4 ROI heads (Res5), static-shape, inference.
+"""C4 ROI heads (Res5), static-shape.
 
-Counterpart of ``locov_tpu/models/roi_heads.py`` (inference part):
-ROIAlign -> shared res5 -> mean-pool -> embedding box predictor.
-Proposal labelling and sampling come with the training slice.
+Counterpart of ``locov_tpu/models/roi_heads.py``: proposal labelling and
+fixed-size sampling (masked and batched, with the sampler's uniform
+draws as inputs), ROIAlign -> shared res5 -> mean-pool -> embedding box
+predictor, and the FastRCNN losses over the sampled batch.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 from torch import nn
 
+from ..ops import matcher as matcher_ops
 from ..ops.roi_align import roi_align_fused
-from .box_predictor import BoxPredictorConfig, EmbeddingBoxPredictor
+from ..structures import boxes as box_ops
+from ..structures.batches import GtBatch, ProposalBatch
+from .box_predictor import (BoxPredictorConfig, EmbeddingBoxPredictor,
+                            fast_rcnn_losses)
 from .resnet import ResNetStage
+from .rpn import add_gt_to_proposals
 
 
 class ROIHeadsConfig(NamedTuple):
-    """The inference fields of the JAX package's ``ROIHeadsConfig``;
-    proposal labelling and sampling come with the training slice."""
+    """The JAX package's ``ROIHeadsConfig`` without its int8 serving
+    switch (the int8 mode is not ported yet)."""
+    num_classes: int
+    batch_size_per_image: int
+    positive_fraction: float
+    iou_thresholds: tuple
+    iou_labels: tuple
+    proposal_append_gt: bool
     pooler_resolution: int
     # d2 semantics: 0 = adaptive, ceil(roi_size / pooled) samples per bin
     pooler_sampling_ratio: int
     feature_stride: int
+    # TPU.USE_PALLAS_ROIALIGN: the JAX package's fixed-grid Pallas
+    # ROIAlign, which samples at ratio 2 where adaptive is asked; the
+    # port computes the same function under either setting
+    use_pallas_roi_align: bool = False
 
     @classmethod
     def from_cfg(cls, cfg):
+        rh = cfg.MODEL.ROI_HEADS
         return cls(
+            num_classes=rh.NUM_CLASSES,
+            batch_size_per_image=rh.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=rh.POSITIVE_FRACTION,
+            iou_thresholds=tuple(rh.IOU_THRESHOLDS),
+            iou_labels=tuple(rh.IOU_LABELS),
+            proposal_append_gt=rh.PROPOSAL_APPEND_GT,
             pooler_resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
             pooler_sampling_ratio=cfg.MODEL.ROI_BOX_HEAD
             .POOLER_SAMPLING_RATIO,
-            feature_stride=16)
+            feature_stride=16,
+            use_pallas_roi_align=cfg.TPU.USE_PALLAS_ROIALIGN)
+
+    @property
+    def sampling_ratio(self) -> int:
+        """The sampling ratio ROIAlign runs at."""
+        if self.use_pallas_roi_align and self.pooler_sampling_ratio <= 0:
+            return 2
+        return self.pooler_sampling_ratio
+
+
+class SampledProposals(NamedTuple):
+    boxes: torch.Tensor       # [B, S, 4]
+    gt_classes: torch.Tensor  # [B, S] int64, num_classes = background
+    gt_boxes: torch.Tensor    # [B, S, 4] matched gt for box regression
+    is_fg: torch.Tensor       # [B, S] bool
+    valid: torch.Tensor       # [B, S] bool
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, N, ...] at idx [B, S] along dim 1."""
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def label_and_sample_proposals(proposals: ProposalBatch, gt: GtBatch,
+                               rcfg: ROIHeadsConfig, u_pos: torch.Tensor,
+                               u_neg: torch.Tensor) -> SampledProposals:
+    """Masked, batched SampleAllROIHeads.label_and_sample_proposals:
+    append the gt (``proposal_append_gt``), IoU-match, label fg/bg, and
+    sample a fixed ``batch_size_per_image`` with at most
+    ``positive_fraction`` positives. u_pos, u_neg: the sampler's
+    uniform draws, [B, N] for the N proposals after the gt is
+    appended."""
+    if rcfg.proposal_append_gt:
+        proposals = add_gt_to_proposals(proposals, gt)
+    quality = box_ops.pairwise_iou(gt.boxes, proposals.boxes)  # [B, M, N]
+    midx, mlabel = matcher_ops.match(quality, gt.mask, rcfg.iou_thresholds,
+                                     rcfg.iou_labels)
+    bg = torch.full_like(midx, rcfg.num_classes)
+    cls = torch.where(mlabel == 1, torch.gather(gt.classes.long(), 1, midx),
+                      bg)
+    cls = torch.where(mlabel == -1, torch.full_like(cls, -1), cls)
+
+    is_pos = (cls >= 0) & (cls < rcfg.num_classes)
+    is_neg = cls == rcfg.num_classes
+    # padding proposals are never sampled
+    sample_label = torch.where(is_pos, 1, torch.where(is_neg, 0, -1))
+    sample_label = torch.where(proposals.mask, sample_label, -1)
+    sampled, _, valid = matcher_ops.subsample_labels(
+        sample_label, rcfg.batch_size_per_image, rcfg.positive_fraction,
+        u_pos, u_neg)
+
+    s_cls = torch.where(valid, torch.gather(cls, 1, sampled),
+                        torch.full_like(sampled, rcfg.num_classes))
+    return SampledProposals(
+        boxes=_take(proposals.boxes, sampled),
+        gt_classes=s_cls,
+        gt_boxes=_take(gt.boxes, torch.gather(midx, 1, sampled)),
+        is_fg=valid & (s_cls < rcfg.num_classes),
+        valid=valid)
 
 
 class Res5ROIHeads(nn.Module):
@@ -57,17 +140,29 @@ class Res5ROIHeads(nn.Module):
                      boxes: torch.Tensor) -> torch.Tensor:
         """ROIAlign + res5 + global mean pool.
         features [B, H, W, C] (NHWC); boxes [B, S, 4] -> [B, S, C5].
-        ROIAlign is the CUDA kernel on the card (in f32, cast once to
-        the features' dtype) and the plain version on the CPU."""
+        ROIAlign is differentiable in the features: the CUDA kernels on
+        the card (in f32, cast once to the features' dtype), the plain
+        versions on the CPU."""
         b, s = boxes.shape[:2]
         pooled = roi_align_fused(
             features.contiguous(), boxes.float().contiguous(),
             1.0 / self.rcfg.feature_stride,
             pooled=self.rcfg.pooler_resolution,
-            sampling_ratio=self.rcfg.pooler_sampling_ratio)
+            sampling_ratio=self.rcfg.sampling_ratio)
         out = self.res5(pooled.reshape((b * s,) + pooled.shape[2:]))
         return out.mean(dim=(1, 2)).reshape(b, s, -1)
 
     def predict(self, box_features: torch.Tensor,
                 class_emb: torch.Tensor):
         return self.box_predictor(box_features, class_emb)
+
+
+def roi_heads_losses(scores: torch.Tensor, deltas: torch.Tensor,
+                     sampled: SampledProposals,
+                     pcfg: BoxPredictorConfig) -> Dict[str, torch.Tensor]:
+    """The FastRCNN losses over the flattened per-image samples."""
+    def flat(x):
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+    return fast_rcnn_losses(flat(scores), flat(deltas), flat(sampled.boxes),
+                            flat(sampled.gt_classes), flat(sampled.gt_boxes),
+                            flat(sampled.valid), pcfg)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C functions. It is compiled on
 first use by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kernels/`` at the repository root (a directory git ignores),
-named by a hash of the source and the flags so that an edited source
-is rebuilt, and loaded with ``ctypes``. ``build`` starts one ``nvcc``
+named by a hash of the source, every header under ``csrc/`` and the
+flags, so that an edited source or header is rebuilt, and loaded with
+``ctypes``. ``build`` starts one ``nvcc``
 per source, all at once, and waits for them. Nothing here runs at
 import time: the module imports on a machine without CUDA.
 
@@ -30,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("relu_maxpool", "roi_align")
 
-LAUNCHES: Dict[str, int] = {"relu_maxpool": 0, "roi_align_fused": 0}
+LAUNCHES: Dict[str, int] = {"relu_maxpool": 0, "relu_maxpool_bwd": 0,
+                            "roi_align_fused": 0, "roi_align_bwd": 0}
 # nvcc's output (ptxas register and spill report) of the last build
 BUILD_LOG: Dict[str, str] = {}
 
@@ -55,8 +57,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

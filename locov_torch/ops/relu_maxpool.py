@@ -1,10 +1,15 @@
-"""Fused ReLU + 3x3/2 max-pool (pad 1) of the ResNet stem, NHWC.
+"""Fused ReLU + 3x3/2 max-pool (pad 1) of the ResNet stem, NHWC, with
+its gradient.
 
-Counterpart of ``locov_tpu/ops/pallas_pool.py`` (forward). On a CUDA
-tensor ``relu_maxpool`` launches the hand-written kernel
-``csrc/relu_maxpool.cu``; on a CPU tensor it runs the plain version.
-Taps outside the image act as -inf; the result equals the plain
-version bit for bit (max is exact).
+Counterpart of ``locov_tpu/ops/pallas_pool.py`` (``relu_maxpool``, a
+``custom_vjp`` over a forward and a backward Pallas kernel). On a CUDA
+tensor ``relu_maxpool`` runs an autograd Function whose forward is the
+hand-written kernel ``relu_maxpool_fwd`` and whose backward is
+``relu_maxpool_bwd`` (``csrc/relu_maxpool.cu``); on a CPU tensor it runs
+the plain version, which autograd differentiates. Taps outside the image
+act as -inf; the forward equals the plain version bit for bit (max is
+exact), and the backward routes each window's gradient to its first
+max in row-major order as ``F.max_pool2d`` does.
 """
 from __future__ import annotations
 
@@ -25,18 +30,37 @@ def relu_maxpool_plain(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _lib():
-    lib = kernel_lib.load("relu_maxpool")
-    fn = lib.relu_maxpool_fwd
+def relu_maxpool_bwd_plain(x: torch.Tensor,
+                           dy: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``relu_maxpool_plain`` at ``x`` for the output
+    gradient ``dy``, by autograd: what the CUDA backward must equal."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        (dx,) = torch.autograd.grad(relu_maxpool_plain(xr), xr, dy)
+    return dx
+
+
+def _fn(name, nargs):
+    fn = getattr(kernel_lib.load("relu_maxpool"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
-            [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_int] * 8 + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _vec(*tensors) -> int:
+    """Channels per thread: 16 bytes' worth, or 1 where the channel
+    count or a pointer is not aligned to it."""
+    x = tensors[0]
+    vec = 16 // x.element_size()
+    if x.shape[3] % vec or any(t.data_ptr() % 16 for t in tensors):
+        return 1
+    return vec
+
+
 def relu_maxpool_cuda(x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x a contiguous NHWC float32/bfloat16 CUDA
+    """The forward kernel: x a contiguous NHWC float32/bfloat16 CUDA
     tensor of any H, W, C."""
     kernel_lib.check_cuda_tensor(x, "relu_maxpool x", _DTYPES)
     if x.dim() != 4:
@@ -46,23 +70,60 @@ def relu_maxpool_cuda(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    vec = 16 // x.element_size()
-    if c % vec or x.data_ptr() % 16:
-        vec = 1
-    fn = _lib()
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow,
-                 _DTYPES[x.dtype], vec, kernel_lib.stream_ptr(x.device))
+        err = _fn("relu_maxpool_fwd", 2)(
+            x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow,
+            _DTYPES[x.dtype], _vec(x, y), kernel_lib.stream_ptr(x.device))
     kernel_lib.check_launch(err, "relu_maxpool")
     kernel_lib.LAUNCHES["relu_maxpool"] += 1
     return y
 
 
-def relu_maxpool(x: torch.Tensor) -> torch.Tensor:
-    """y = maxpool3x3/2,pad1(relu(x)) on NHWC: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
+def relu_maxpool_bwd_cuda(x: torch.Tensor, dy: torch.Tensor
+                          ) -> torch.Tensor:
+    """The backward kernel: x the forward's input, dy [N, ceil(H/2),
+    ceil(W/2), C] of x's dtype, both contiguous CUDA tensors ->
+    dx [N, H, W, C]."""
+    kernel_lib.check_cuda_tensor(x, "relu_maxpool_bwd x", _DTYPES)
+    kernel_lib.check_cuda_tensor(dy, "relu_maxpool_bwd dy", (x.dtype,))
+    n, h, w, c = x.shape
+    oh, ow = (h + 1) // 2, (w + 1) // 2
+    if tuple(dy.shape) != (n, oh, ow, c) or dy.device != x.device:
+        raise ValueError(f"relu_maxpool_bwd: dy {tuple(dy.shape)} on "
+                         f"{dy.device} for x {tuple(x.shape)} on {x.device}")
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    with torch.cuda.device(x.device):
+        err = _fn("relu_maxpool_bwd", 3)(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow,
+            _DTYPES[x.dtype], _vec(x, dy, dx),
+            kernel_lib.stream_ptr(x.device))
+    kernel_lib.check_launch(err, "relu_maxpool_bwd")
+    kernel_lib.LAUNCHES["relu_maxpool_bwd"] += 1
+    return dx
+
+
+class _ReluMaxPool(torch.autograd.Function):
+    """Both directions on the card: K1-fwd, and K1-bwd from the saved
+    pre-relu input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
         return relu_maxpool_cuda(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        return relu_maxpool_bwd_cuda(x, dy.contiguous())
+
+
+def relu_maxpool(x: torch.Tensor) -> torch.Tensor:
+    """y = maxpool3x3/2,pad1(relu(x)) on NHWC, differentiable: the
+    kernels for a CUDA tensor, the plain version for a CPU tensor."""
+    if x.is_cuda:
+        return _ReluMaxPool.apply(x)
     if x.device.type != "cpu":
         raise ValueError(f"relu_maxpool: unsupported device {x.device}")
     return relu_maxpool_plain(x)

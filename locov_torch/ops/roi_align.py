@@ -1,16 +1,21 @@
-"""Inference ROIAlignV2: the plain separable form and the CUDA kernel.
+"""ROIAlignV2 with its feature gradient: the plain separable form and
+the CUDA kernels.
 
-Counterpart of ``locov_tpu/ops/roi_align.py`` (``roi_align_batched``)
-and ``locov_tpu/ops/pallas_roi_align.py`` (``roi_align_pallas_fused``).
+Counterpart of ``locov_tpu/ops/roi_align.py`` (``roi_align_batched``
+and its custom VJP) and ``locov_tpu/ops/pallas_roi_align.py``
+(``roi_align_pallas_fused``, and ``roi_align_pallas`` with its backward).
 Bilinear sampling is separable, so the plain version builds per-box
 1-D interpolation matrices Ky [P, H] and Kx [P, W] (sampling-point hat
 weights, averaged over the sampling grid) and computes
-``crop[n] = Ky[n] @ F @ Kx[n]^T`` per channel. Numerics follow
-ROIAlignV2 (aligned=True, half-pixel offset) with torchvision's border
-rules: samples outside [-1, dim] contribute zero, in-range samples
-clamp to [0, dim-1]. ``roi_align_fused`` launches the gather-form CUDA
-kernel ``csrc/roi_align.cu`` on CUDA tensors and runs the plain version
-on CPU tensors.
+``crop[n] = Ky[n] @ F @ Kx[n]^T`` per channel, and the feature gradient
+``dF = sum_n Ky[n]^T @ g[n] @ Kx[n]``; the boxes get no gradient.
+Numerics follow ROIAlignV2 (aligned=True, half-pixel offset) with
+torchvision's border rules: samples outside [-1, dim] contribute zero,
+in-range samples clamp to [0, dim-1]. ``roi_align_fused`` is an
+autograd Function: on CUDA tensors its forward launches the gather-form
+kernel and its backward the scatter-free gradient kernel of
+``csrc/roi_align.cu``; on CPU tensors both directions run the plain
+version.
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ _POOLED_MAX = 32
 # boxes per step of the plain version: bounds its [B, chunk, P, H, C]
 # float32 intermediate
 _CHUNK = 200
+# dynamic shared memory the backward kernel's row accumulator may take:
+# a block's 227 KB less the kernel's static tap tables
+_BWD_SMEM_MAX = 232448 - 8448
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -149,9 +157,30 @@ def roi_align_batched(features: torch.Tensor, boxes: torch.Tensor,
     return out.to(features.dtype)
 
 
-def _lib():
-    lib = kernel_lib.load("roi_align")
-    fn = lib.roi_align_fwd
+def roi_align_bwd_plain(g: torch.Tensor, boxes: torch.Tensor,
+                        spatial_scale: float, h: int, w: int,
+                        pooled: int = 14,
+                        sampling_ratio: int = 2) -> torch.Tensor:
+    """Plain feature gradient of ``roi_align_batched``: g [B, N, P, P,
+    C] -> dF [B, H, W, C] = sum_n Ky[n]^T g[n] Kx[n], in f32 (the
+    interpolation matrices and both contractions), cast once to g's
+    dtype; boxes are taken ``_CHUNK`` at a time (the JAX package's
+    ``ops/roi_align.py:_roi_align_bwd``)."""
+    b, n = boxes.shape[:2]
+    ky, kx = _build_kernels(boxes.float(), spatial_scale, h, w, pooled,
+                            sampling_ratio)
+    gf = g.float()
+    df = gf.new_zeros((b, h, w, g.shape[-1]))
+    for s in range(0, n, _CHUNK):
+        # contract the small pooled axis P first
+        v = torch.einsum("bnph,bnpqc->bnhqc", ky[:, s:s + _CHUNK],
+                         gf[:, s:s + _CHUNK])
+        df += torch.einsum("bnhqc,bnqw->bhwc", v, kx[:, s:s + _CHUNK])
+    return df.to(g.dtype)
+
+
+def _fn(name):
+    fn = getattr(kernel_lib.load("roi_align"), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -159,25 +188,32 @@ def _lib():
     return fn
 
 
-def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
-                   spatial_scale: float, pooled: int = 14,
-                   sampling_ratio: int = 2) -> torch.Tensor:
-    """The CUDA kernel. features: contiguous NHWC float32/bfloat16;
-    boxes: contiguous [B, N, 4] float32, on the same device."""
-    kernel_lib.check_cuda_tensor(features, "roi_align features", _DTYPES)
+def _check_args(features_or_g, boxes, pooled, sampling_ratio, what):
+    kernel_lib.check_cuda_tensor(features_or_g, what, _DTYPES)
     kernel_lib.check_cuda_tensor(boxes, "roi_align boxes",
                                  {torch.float32})
-    if features.dim() != 4 or boxes.dim() != 3 or boxes.shape[2] != 4 \
-            or boxes.shape[0] != features.shape[0]:
-        raise ValueError(f"roi_align: features {tuple(features.shape)} / "
-                         f"boxes {tuple(boxes.shape)}")
-    if boxes.device != features.device:
-        raise ValueError("roi_align: features and boxes on two devices")
+    if boxes.dim() != 3 or boxes.shape[2] != 4 or \
+            boxes.shape[0] != features_or_g.shape[0]:
+        raise ValueError(f"roi_align: {what} {tuple(features_or_g.shape)}"
+                         f" / boxes {tuple(boxes.shape)}")
+    if boxes.device != features_or_g.device:
+        raise ValueError(f"roi_align: {what} and boxes on two devices")
     if not 1 <= pooled <= _POOLED_MAX or \
             sampling_ratio > ADAPTIVE_SR_MAX:
         raise ValueError(f"roi_align: pooled {pooled} (<= {_POOLED_MAX})"
                          f", sampling_ratio {sampling_ratio} "
                          f"(<= {ADAPTIVE_SR_MAX})")
+
+
+def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
+                   spatial_scale: float, pooled: int = 14,
+                   sampling_ratio: int = 2) -> torch.Tensor:
+    """The forward kernel. features: contiguous NHWC float32/bfloat16;
+    boxes: contiguous [B, N, 4] float32, on the same device."""
+    _check_args(features, boxes, pooled, sampling_ratio,
+                "roi_align features")
+    if features.dim() != 4:
+        raise ValueError(f"roi_align: features {tuple(features.shape)}")
     b, h, w, c = features.shape
     n = boxes.shape[1]
     out = torch.empty((b, n, pooled, pooled, c), dtype=features.dtype,
@@ -187,27 +223,82 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
     vec = 16 // features.element_size()
     if c % vec or features.data_ptr() % 16:
         vec = 1
-    fn = _lib()
     with torch.cuda.device(features.device):
-        err = fn(features.data_ptr(), boxes.data_ptr(), out.data_ptr(), b,
-                 h, w, c, n, pooled, int(sampling_ratio),
-                 float(spatial_scale), _DTYPES[features.dtype], vec,
-                 kernel_lib.stream_ptr(features.device))
+        err = _fn("roi_align_fwd")(
+            features.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w,
+            c, n, pooled, int(sampling_ratio), float(spatial_scale),
+            _DTYPES[features.dtype], vec,
+            kernel_lib.stream_ptr(features.device))
     kernel_lib.check_launch(err, "roi_align_fused")
     kernel_lib.LAUNCHES["roi_align_fused"] += 1
     return out
 
 
+def roi_align_bwd_cuda(g: torch.Tensor, boxes: torch.Tensor,
+                       spatial_scale: float, h: int, w: int,
+                       pooled: int = 14,
+                       sampling_ratio: int = 2) -> torch.Tensor:
+    """The backward kernel: g [B, N, P, P, C] contiguous float32/
+    bfloat16, boxes as for the forward -> dF [B, H, W, C] in g's
+    dtype."""
+    _check_args(g, boxes, pooled, sampling_ratio, "roi_align_bwd g")
+    b, n = boxes.shape[:2]
+    c = g.shape[-1]
+    if tuple(g.shape) != (b, n, pooled, pooled, c):
+        raise ValueError(f"roi_align_bwd: g {tuple(g.shape)} for boxes "
+                         f"{tuple(boxes.shape)}, pooled {pooled}")
+    # one channel per thread, at least 2 * pooled threads (they compute
+    # a box's bin taps), a row accumulator of w * threads floats
+    threads = max(64, min(128, -(-c // 32) * 32))
+    if w * threads * 4 > _BWD_SMEM_MAX:
+        raise ValueError(f"roi_align_bwd: feature width {w} needs more "
+                         f"shared memory than a block has")
+    df = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    if df.numel() == 0:
+        return df
+    if n == 0:
+        return df.zero_()
+    with torch.cuda.device(g.device):
+        err = _fn("roi_align_bwd")(
+            g.data_ptr(), boxes.data_ptr(), df.data_ptr(), b, h, w, c, n,
+            pooled, int(sampling_ratio), float(spatial_scale),
+            _DTYPES[g.dtype], threads, kernel_lib.stream_ptr(g.device))
+    kernel_lib.check_launch(err, "roi_align_bwd")
+    kernel_lib.LAUNCHES["roi_align_bwd"] += 1
+    return df
+
+
+class _RoIAlign(torch.autograd.Function):
+    """ROIAlign with the feature gradient; the boxes get none. Both
+    directions are the kernels on CUDA tensors and the plain versions
+    on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, spatial_scale, pooled,
+                sampling_ratio):
+        ctx.save_for_backward(boxes)
+        ctx.args = (spatial_scale, features.shape[1], features.shape[2],
+                    pooled, sampling_ratio)
+        if features.is_cuda:
+            return roi_align_cuda(features, boxes, spatial_scale, pooled,
+                                  sampling_ratio)
+        return roi_align_batched(features, boxes, spatial_scale, pooled,
+                                 sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, g):
+        (boxes,) = ctx.saved_tensors
+        bwd = roi_align_bwd_cuda if g.is_cuda else roi_align_bwd_plain
+        return bwd(g.contiguous(), boxes, *ctx.args), None, None, None, None
+
+
 def roi_align_fused(features: torch.Tensor, boxes: torch.Tensor,
                     spatial_scale: float, pooled: int = 14,
                     sampling_ratio: int = 2) -> torch.Tensor:
-    """Inference ROIAlign, features [B, H, W, C], boxes [B, N, 4] ->
-    [B, N, P, P, C] in features' dtype: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if features.is_cuda:
-        return roi_align_cuda(features, boxes, spatial_scale, pooled,
-                              sampling_ratio)
-    if features.device.type != "cpu":
+    """ROIAlign, features [B, H, W, C], boxes [B, N, 4] -> [B, N, P, P,
+    C] in features' dtype, differentiable in the features: the kernels
+    for CUDA tensors, the plain versions for CPU tensors."""
+    if features.device.type not in ("cuda", "cpu"):
         raise ValueError(f"roi_align: unsupported device {features.device}")
-    return roi_align_batched(features, boxes, spatial_scale, pooled,
-                             sampling_ratio)
+    return _RoIAlign.apply(features, boxes, spatial_scale, pooled,
+                           sampling_ratio)

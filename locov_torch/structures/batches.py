@@ -22,6 +22,14 @@ class ImageBatch(NamedTuple):
     image_id: Optional[torch.Tensor] = None
 
 
+class GtBatch(NamedTuple):
+    """Padded ground-truth instances: boxes [B, M, 4] XYXY float32;
+    classes [B, M] int32 (contiguous ids); mask [B, M] bool."""
+    boxes: torch.Tensor
+    classes: torch.Tensor
+    mask: torch.Tensor
+
+
 class ProposalBatch(NamedTuple):
     """boxes: [B, N, 4] XYXY; objectness: [B, N] f32 logits; mask: [B, N]."""
     boxes: torch.Tensor
@@ -31,10 +39,11 @@ class ProposalBatch(NamedTuple):
 
 class DetectionBatch(NamedTuple):
     """One batch for the detection paths. Inference reads ``images``
-    and, with precomputed proposals, ``proposals``; the training fields
-    come with the training slice."""
+    and, with precomputed proposals, ``proposals``; training also reads
+    ``gt``. ``text`` and ``gt_obj`` (captions and object labels of the
+    image-caption stage) come with that stage."""
     images: ImageBatch
-    gt: Any = None
+    gt: Optional[GtBatch] = None
     proposals: Optional[ProposalBatch] = None
     text: Any = None
     gt_obj: Any = None

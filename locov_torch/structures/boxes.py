@@ -1,8 +1,9 @@
 """Box algebra on ``[..., 4]`` XYXY tensors, in float32.
 
-Counterpart of ``locov_tpu/structures/boxes.py`` (the inference
+Counterpart of ``locov_tpu/structures/boxes.py`` (the detector's
 subset): plain tensors with explicit validity masks, batched and
-static-shape.
+static-shape. Geometry stays in full float32: nothing here runs a
+matrix product, so TF32 never applies.
 """
 from __future__ import annotations
 
@@ -67,6 +68,32 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     union = a1[..., :, None] + a2[..., None, :] - inter
     return torch.where(inter > 0, inter / union.clamp(min=1e-12),
                        torch.zeros_like(inter))
+
+
+def get_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor,
+               weights: Tuple[float, float, float, float]) -> torch.Tensor:
+    """Encode target boxes relative to source boxes as (dx, dy, dw, dh)
+    (d2 Box2BoxTransform.get_deltas), the inverse of ``apply_deltas``.
+    Zero-sized (padding) boxes are guarded by a 1e-6 floor on the
+    sizes, as in the JAX package."""
+    src_w = src_boxes[..., 2] - src_boxes[..., 0]
+    src_h = src_boxes[..., 3] - src_boxes[..., 1]
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+    tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+    tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    wx, wy, ww, wh = weights
+    safe_w = src_w.clamp(min=1e-6)
+    safe_h = src_h.clamp(min=1e-6)
+    dx = wx * (tgt_cx - src_cx) / safe_w
+    dy = wy * (tgt_cy - src_cy) / safe_h
+    dw = ww * torch.log(tgt_w.clamp(min=1e-6) / safe_w)
+    dh = wh * torch.log(tgt_h.clamp(min=1e-6) / safe_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,

@@ -8,19 +8,29 @@ a machine with the card and no JAX, without the repository's conftest:
         tests/test_torch_kernels_gpu.py
 
 Tolerances: relu_maxpool bit-exact, NaN where the plain version has
-NaN (max is exact); roi_align within
+NaN (max is exact), its backward bit-exact against the plain backward
+(autograd of the plain forward: the same tap chosen, the same f32 sum
+of at most 4 windows in the same order, rounded once); roi_align within
 1e-5 * max|F| in float32 (float32 sums in another order), and in
 bfloat16 within one bfloat16 ulp of the plain version (computed in
-float32 and cast once), or 1e-5 * max|F| where that is larger.
+float32 and cast once), or 1e-5 * max|F| where that is larger; its
+feature gradient within 1e-5 * (the plain gradient of |g|) at each
+cell (the float32 sum-order bound of a cell that many boxes touch),
+plus one bfloat16 ulp in bfloat16.
 """
 import numpy as np
 import pytest
 import torch
 
 from locov_torch.ops import kernel_lib
-from locov_torch.ops.relu_maxpool import (relu_maxpool, relu_maxpool_cuda,
+from locov_torch.ops.relu_maxpool import (relu_maxpool,
+                                          relu_maxpool_bwd_cuda,
+                                          relu_maxpool_bwd_plain,
+                                          relu_maxpool_cuda,
                                           relu_maxpool_plain)
-from locov_torch.ops.roi_align import (roi_align_batched, roi_align_cuda,
+from locov_torch.ops.roi_align import (roi_align_batched,
+                                       roi_align_bwd_cuda,
+                                       roi_align_bwd_plain, roi_align_cuda,
                                        roi_align_fused)
 
 pytestmark = pytest.mark.gpu
@@ -72,6 +82,24 @@ def test_relu_maxpool_bit_exact(cuda, dtype, shape):
         assert _same_bits(got, relu_maxpool_plain(x))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 20, 64), (1, 15, 17, 64),
+                                   (2, 9, 9, 5), (1, 1, 3, 8)])
+def test_relu_maxpool_backward_bit_exact(cuda, dtype, shape):
+    oshape = (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, shape[3])
+    for x in (torch.randn(shape, generator=cuda, device="cuda"),
+              _ties_with_nan(cuda, shape)):
+        x = x.to(dtype).requires_grad_(True)
+        dy = torch.randn(oshape, generator=cuda, device="cuda").to(dtype)
+        before = kernel_lib.LAUNCHES["relu_maxpool_bwd"]
+        relu_maxpool(x).backward(dy)  # the autograd Function's backward
+        assert kernel_lib.LAUNCHES["relu_maxpool_bwd"] == before + 1
+        want = relu_maxpool_bwd_plain(x.detach(), dy)
+        torch.cuda.synchronize()
+        assert _same_bits(x.grad, want)
+        assert _same_bits(relu_maxpool_bwd_cuda(x.detach(), dy), want)
+
+
 def test_relu_maxpool_rejects_bad_inputs(cuda):
     x = torch.randn(1, 8, 8, 4, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
@@ -117,6 +145,35 @@ def test_roi_align_matches_plain(cuda, dtype, sr, c):
     assert bool((got[:, 4] == 0).all())
     if sr == 0:
         assert bool((got[:, 1:3] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sr,c", [(0, 256), (2, 256), (0, 12), (1, 64)])
+def test_roi_align_backward_matches_plain(cuda, dtype, sr, c):
+    f = (torch.randn((2, 25, 42, c), generator=cuda, device="cuda") * 3)
+    f = f.to(dtype).requires_grad_(True)
+    bx = _boxes(cuda, 2, 40, 400, 672)
+    g = torch.randn((2, 45, 14, 14, c), generator=cuda,
+                    device="cuda").to(dtype)
+    before = kernel_lib.LAUNCHES["roi_align_bwd"]
+    roi_align_fused(f, bx, 1 / 16, 14, sr).backward(g)
+    assert kernel_lib.LAUNCHES["roi_align_bwd"] == before + 1
+    got = f.grad.float()
+    plain = roi_align_bwd_plain(g, bx, 1 / 16, 25, 42, 14, sr).float()
+    bound = roi_align_bwd_plain(g.abs(), bx, 1 / 16, 25, 42, 14, sr).float()
+    torch.cuda.synchronize()
+    tol = 1e-5 * bound
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(plain.abs(), got.abs()))
+        tol = tol + torch.exp2((e - 8).float())
+    assert bool(((got - plain).abs() <= tol).all())
+    # boxes wholly outside, and in adaptive mode the degenerate ones,
+    # contribute exactly 0
+    zero = [1, 2, 4] if sr == 0 else [4]
+    alone = roi_align_bwd_cuda(g[:, zero].contiguous(),
+                               bx[:, zero].contiguous(), 1 / 16, 25, 42, 14,
+                               sr)
+    assert bool((alone == 0).all())
 
 
 def test_roi_align_rejects_bad_inputs(cuda):

@@ -68,3 +68,17 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def jax_uniforms(key, b, n_):
+    """The uniform draws of the JAX package's per-image samplers for
+    ``key``: ``split(key, b)``, then per image ``k_pos, k_neg = split(k)``
+    and ``uniform(k_pos, (n_,))``, ``uniform(k_neg, (n_,))`` -> the
+    port's (u_pos, u_neg), each [b, n_]."""
+    import jax
+    pos, neg = [], []
+    for k in jax.random.split(key, b):
+        kp, kn = jax.random.split(k)
+        pos.append(np.asarray(jax.random.uniform(kp, (n_,))))
+        neg.append(np.asarray(jax.random.uniform(kn, (n_,))))
+    return t(np.stack(pos)), t(np.stack(neg))
