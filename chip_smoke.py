@@ -15,8 +15,8 @@ Phases, one JSON line each, in order:
    gt-sized), plus tie-heavy (K1: also with NaNs and negative zeros) and
    edge-box cases. K1 forward and backward must be bit-exact with the
    plain version (the backward: with the plain backward, autograd of the
-   plain forward), NaN where it has NaN (bfloat16 backward: one ulp is
-   allowed, and it came out bit-exact). K2 and K3-fwd in float32 within
+   plain forward masked with x > 0), NaN where it has NaN (bfloat16
+   backward: one ulp is allowed, and it came out bit-exact). K2 and K3-fwd in float32 within
    1e-5 * max|F|; in bfloat16 within one bfloat16 ulp of the plain
    version (computed in float32 and cast once), or 1e-5 * max|F| where
    that is larger (the float32 sum-order error, which exceeds a bfloat16
@@ -42,7 +42,12 @@ Phases, one JSON line each, in order:
    three timed steps, the frozen state checked unchanged and the
    trained state changed; one step under torch.profiler; then one step
    at FREEZE_AT 0, batch 2, where the stem's backward runs.
-6. the ``kernels`` line (one row per TPU kernel replaced:
+6. block path: ``locov_torch.tools.bench_block.main`` at its defaults
+   (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
+7. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
+   (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
+   backward).
+8. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes), the card's ``nvidia-smi`` name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -66,6 +71,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+BF16_TC_OPS_PER_S = 989.4e12     # H100 SXM dense bfloat16, tensor cores
 # One row of the kernels line per TPU kernel replaced: (kernel, source,
 # the TPU kernel, the path whose launches the row reports, the check
 # whose numbers it reports). roi_align_fused replaces both K2 (inference)
@@ -84,8 +90,14 @@ KERNEL_ROWS = (
      "roi_align_fused_train"),
     ("roi_align_bwd", "locov_torch/csrc/roi_align.cu",
      "locov_tpu/ops/pallas_roi_align.py:288", "train", "roi_align_bwd"),
+    ("bottleneck_block", "locov_torch/csrc/bottleneck_block.cu",
+     "locov_tpu/ops/pallas_block.py:133", "block", "bottleneck_block"),
+    ("stem_conv_bn", "locov_torch/csrc/stem_conv_bn.cu",
+     "locov_tpu/ops/pallas_stem.py:246", "stem", "stem_conv_bn"),
 )
 INFERENCE_KERNELS = ("relu_maxpool", "roi_align_fused")
+TRAIN_KERNELS = ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
+                 "roi_align_bwd")  # at FREEZE_AT 0
 TRAIN_STEPS = 3  # timed steps of the train path
 
 
@@ -101,26 +113,9 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, in ms."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -155,6 +150,7 @@ def check_relu_maxpool(gen, results):
     import torch
     from locov_torch.ops.relu_maxpool import (relu_maxpool_cuda,
                                               relu_maxpool_plain)
+    from locov_torch.tools.timing import time_ms
     f = torch.nn.functional
     main = (8, 400, 672, 64)
     cases = [("main", main, "randn"), ("ties", (2, 64, 96, 64), "ties"),
@@ -199,6 +195,7 @@ def check_relu_maxpool_bwd(gen, results):
     from locov_torch.ops.relu_maxpool import (relu_maxpool_bwd_cuda,
                                               relu_maxpool_bwd_plain,
                                               relu_maxpool_plain)
+    from locov_torch.tools.timing import time_ms
     f = torch.nn.functional
     cases = [("main", (8, 400, 672, 64), "randn"),
              ("ties", (2, 64, 96, 64), "ties"),
@@ -301,6 +298,7 @@ def roi_align_ops(boxes, scale, pooled, c):
 def check_roi_align(gen, results):
     import torch
     from locov_torch.ops.roi_align import roi_align_batched, roi_align_cuda
+    from locov_torch.tools.timing import time_ms
     scale, pooled = 1.0 / 16, 14
     img_h, img_w = 800, 1344
     fmain = torch.randn((8, 50, 84, 1024), generator=gen, device="cuda")
@@ -386,6 +384,7 @@ def check_roi_align_train(gen, results):
                                            roi_align_bwd_cuda,
                                            roi_align_bwd_plain,
                                            roi_align_cuda)
+    from locov_torch.tools.timing import time_ms
     scale, pooled = 1.0 / 16, 14
     img_h, img_w = 800, 1344
     fmain = torch.randn((8, 50, 84, 1024), generator=gen, device="cuda")
@@ -498,6 +497,196 @@ def check_roi_align_train(gen, results):
                                      f"{line}")
         del ge
     del fmain
+
+
+# ------------------------------------------------------------------ K4
+def _err_stats(err):
+    """max and 99.9th percentile of an error tensor (the smallest of its
+    top 0.1%)."""
+    import torch
+    flat = err.flatten()
+    k = max(1, flat.numel() // 1000)
+    return flat.max().item(), torch.topk(flat, k).values[-1].item()
+
+
+def check_bottleneck_block(gen, results):
+    """K4 against its plain version (the Pallas kernel's rounding
+    points). float32: within 1e-5 * max|y| (float32 sums in another
+    order). bfloat16, at each element: one bfloat16 ulp of the larger
+    magnitude (the output's own rounding) plus 1e-3 * max|y|. t1 and t2
+    are each rounded once, and a sum-order difference can flip one of
+    those roundings; the next product carries the flip into y as a
+    difference of about ulp(t2) * |w3|, a few 1e-3 at these scales. The
+    ``zero_ring`` cases set b1 = 3 at small images, so that a t1 halo
+    holding relu(b1) instead of 0 would move every border pixel by
+    far more than that."""
+    import torch
+    from locov_torch.ops.bottleneck_block import (bottleneck_block_cuda,
+                                                  bottleneck_block_plain,
+                                                  bottleneck_block_ref)
+    from locov_torch.tools.bench_block import make_inputs
+    from locov_torch.tools.timing import time_ms
+    cases = [("main", (4, 200, 336, 256), 64), ("res3", (2, 28, 42, 512), 128),
+             ("odd", (2, 13, 19, 256), 64), ("h1", (2, 1, 37, 128), 64),
+             ("zero_ring", (2, 6, 9, 128), 64),
+             ("zero_ring_h1", (1, 1, 5, 128), 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        for case, shape, m in cases:
+            args = make_inputs(gen, shape, m, dtype)
+            if case.startswith("zero_ring"):
+                args = (*args[:2], torch.full_like(args[2], 3.0), *args[3:])
+            with torch.no_grad():
+                got = bottleneck_block_cuda(*args).float()
+                plain = bottleneck_block_plain(*args).float()
+            torch.cuda.synchronize()
+            ymax = plain.abs().max().item()
+            err = (got - plain).abs()
+            if dtype == torch.float32:
+                tol = torch.full_like(err, 1e-5 * ymax)
+            else:
+                ulp = _bf16_ulp(torch.maximum(got.abs(), plain.abs()))
+                tol = ulp + 1e-3 * ymax
+            err_max, err_999 = _err_stats(err)
+            ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+            line = {"phase": "kernel_check", "kernel": "bottleneck_block",
+                    "case": case, "dtype": dt, "shape": list(shape), "m": m,
+                    "max_abs_err": err_max, "p999_abs_err": err_999,
+                    "max_abs_y": ymax, "differing_share":
+                        (err > 0).float().mean().item(),
+                    "max_err_over_tolerance": (err / tol).max().item(),
+                    "within_tolerance": ok}
+            if dtype == torch.bfloat16:
+                line["over_one_bf16_ulp"] = int((err > ulp).sum())
+                del ulp
+            del got, plain, err, tol
+            if case == "main":
+                with torch.no_grad():
+                    line["kernel_ms"] = time_ms(
+                        lambda: bottleneck_block_cuda(*args))
+                    line["plain_ms"] = time_ms(
+                        lambda: bottleneck_block_plain(*args), reps=10)
+                    # cuDNN's three convolutions: not one call
+                    line["ref_chain_ms"] = time_ms(
+                        lambda: bottleneck_block_ref(*args))
+                line["library_ms"] = None
+                n, h, w, c = shape
+                nbytes = sum(a.numel() * a.element_size() for a in args) + \
+                    args[0].numel() * args[0].element_size()
+                ops = 2 * n * h * w * (2 * c * m + 9 * m * m)
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    nbytes, ops, BF16_TC_OPS_PER_S if dtype == torch.bfloat16
+                    else F32_OPS_PER_S)
+                results[("bottleneck_block", dt)] = line
+            emit(line)
+            if not ok:
+                raise AssertionError(f"bottleneck_block {case} {dt}: {line}")
+            del args
+
+
+# ------------------------------------------------------------------ K5
+def check_stem_conv_bn(gen, results):
+    """K5 against its plain version (float32 conv of the bfloat16-rounded
+    x and w, + shift, one rounding): within one bfloat16 ulp of the larger
+    magnitude, plus 1e-5 * (|x| conv |w| + |shift|), the float32
+    sum-order bound of an output close to 0. The backward (the plain
+    conv VJP) against autograd of the plain conv at the un-rounded x and
+    w.to(x.dtype): within 1e-5 * max, plus one bfloat16 ulp in
+    bfloat16."""
+    import torch
+    from locov_torch.ops.stem_conv_bn import (_conv, stem_conv_bn,
+                                              stem_conv_bn_cuda,
+                                              stem_conv_bn_plain)
+    from locov_torch.tools.timing import time_ms
+    f = torch.nn.functional
+    bf = torch.bfloat16
+    cases = [("main", (4, 800, 1344, 3)), ("odd_tiles", (2, 64, 86, 3)),
+             ("odd_rows", (1, 38, 70, 3))]
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        for case, shape in cases:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randn((7, 7, 3, 64), generator=gen, device="cuda") * 0.1
+            shift = torch.randn((64,), generator=gen, device="cuda")
+            got = stem_conv_bn_cuda(x, w, shift).float()
+            plain = stem_conv_bn_plain(x, w, shift).float()
+            sum_order = 1e-5 * (_conv(x.to(bf).float().abs(),
+                                      w.to(bf).float().abs()) + shift.abs())
+            torch.cuda.synchronize()
+            err = (got - plain).abs()
+            ulp = _bf16_ulp(torch.maximum(got.abs(), plain.abs()))
+            over = err > ulp
+            line = {"phase": "kernel_check", "kernel": "stem_conv_bn",
+                    "case": case, "dtype": dt, "shape": list(shape),
+                    "max_abs_err": err.max().item(),
+                    "over_one_bf16_ulp": int(over.sum()),
+                    "max_abs_y_over_one_ulp":
+                        plain.abs()[over].max().item() if over.any()
+                        else None,
+                    "within_tolerance": bool((err <= ulp + sum_order).all())}
+            del got, plain, sum_order, err, ulp, over
+            if case == "main":
+                line["kernel_ms"] = time_ms(
+                    lambda: stem_conv_bn_cuda(x, w, shift))
+                line["plain_ms"] = time_ms(
+                    lambda: stem_conv_bn_plain(x, w, shift), reps=10)
+                xl, wl, sl = x.permute(0, 3, 1, 2), \
+                    w.to(dtype).permute(3, 2, 0, 1), shift.to(dtype)
+                line["library_ms"] = time_ms(
+                    lambda: f.conv2d(xl, wl, sl, stride=2, padding=3))
+                n, h, wd, _ = shape
+                nbytes = x.numel() * x.element_size() + w.numel() * 4 + \
+                    shift.numel() * 4 + n * (h // 2) * (wd // 2) * 64 * 2
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    nbytes, 2 * 147 * 64 * n * (h // 2) * (wd // 2),
+                    BF16_TC_OPS_PER_S)
+                results[("stem_conv_bn", dt)] = line
+                del xl, wl, sl
+            if case == "odd_tiles":
+                g = torch.randn((shape[0], shape[1] // 2, shape[2] // 2, 64),
+                                generator=gen, device="cuda").to(bf)
+                xs, ws, ss = (v.detach().requires_grad_(True)
+                              for v in (x, w, shift))
+                stem_conv_bn(xs, ws, ss).backward(g)
+                xr, wr = (v.detach().requires_grad_(True) for v in (x, w))
+                _conv(xr, wr.to(dtype)).backward(g.to(dtype))
+                bwd_err = {}
+                ok_bwd = True
+                for name, a, b in (("dx", xs.grad, xr.grad),
+                                   ("dw", ws.grad, wr.grad),
+                                   ("dshift", ss.grad,
+                                    g.float().sum((0, 1, 2)))):
+                    a, b = a.float(), b.float()
+                    tol = 1e-5 * b.abs().max()
+                    if dtype == bf:
+                        tol = tol + _bf16_ulp(torch.maximum(a.abs(), b.abs()))
+                    bwd_err[name] = (a - b).abs().max().item()
+                    ok_bwd = ok_bwd and bool(((a - b).abs() <= tol).all())
+                line["backward_max_abs_err"] = bwd_err
+                line["backward_within_tolerance"] = ok_bwd
+                line["within_tolerance"] = line["within_tolerance"] and ok_bwd
+                del g, xs, ws, ss, xr, wr
+            emit(line)
+            if not line["within_tolerance"]:
+                raise AssertionError(f"stem_conv_bn {case} {dt}: {line}")
+            del x, w, shift
+
+
+def bench_path(name, main_fn, kernel, max_rel_err):
+    """One bench entry point at its defaults on the card: launch counts
+    zeroed just before and read just after; the kernel must have
+    launched, and its output must agree with the library's."""
+    from locov_torch.ops import kernel_lib
+    kernel_lib.reset_launches()
+    line = main_fn([])
+    launches = dict(kernel_lib.LAUNCHES)
+    emit({"phase": f"{name}_path", "bench": line, "launches": launches})
+    if launches[kernel] == 0:
+        raise AssertionError(f"{kernel} not launched on the {name} path")
+    if not line["max_rel_err"] <= max_rel_err:
+        raise AssertionError(f"{name} path: max rel err "
+                             f"{line['max_rel_err']} vs the library")
+    return launches
 
 
 # ------------------------------------------------------ small reference
@@ -631,7 +820,7 @@ def small_reference_train(seed):
         kernel_lib.reset_launches()
         metrics = step(to_torch(batch, dev), torch.from_numpy(ce).to(dev),
                        None, uniforms)
-        launched = dict(kernel_lib.LAUNCHES)
+        launched = {k: kernel_lib.LAUNCHES[k] for k in TRAIN_KERNELS}
         params = dict(model.named_parameters())
         out[dev] = {
             "losses": {k: float(v) for k, v in metrics.items()},
@@ -948,7 +1137,7 @@ def train_path(seed):
     emit(line)
     if not (all(math.isfinite(v) for v in line["losses"].values())
             and line["stem_grad_abs_max"] > 0
-            and all(v > 0 for v in launches0.values())):
+            and all(launches0[k] > 0 for k in TRAIN_KERNELS)):
         raise AssertionError(f"FREEZE_AT 0 step check failed: {line}")
     del model, step
     torch.cuda.empty_cache()
@@ -995,11 +1184,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_roi_align_train(gen, results)
     torch.cuda.empty_cache()
+    check_bottleneck_block(gen, results)
+    torch.cuda.empty_cache()
+    check_stem_conv_bn(gen, results)
+    torch.cuda.empty_cache()
     small_reference(args.seed)
     small_reference_train(args.seed)
     paths = {"inference": main_path(args.seed, args.batches)}
     torch.cuda.empty_cache()
     paths["train"], paths["train_freeze0"] = train_path(args.seed)
+    torch.cuda.empty_cache()
+    from locov_torch.tools import bench_block, bench_stem
+    # bf16 against cuDNN's chain, which rounds t1 and t2 at other places
+    paths["block"] = bench_path("block", bench_block.main,
+                                "bottleneck_block", 2e-2)
+    # against one cuDNN call that adds the shift in bf16
+    paths["stem"] = bench_path("stem", bench_stem.main, "stem_conv_bn", 1e-2)
 
     kernels = []
     for name, source, replaces, path, check in KERNEL_ROWS:
@@ -1015,7 +1215,10 @@ def main(argv=None) -> int:
             "dtype": "bfloat16",
             "shape": r.get("shape") or r.get("features"),
             "f32_ms": results[(check, "float32")]["kernel_ms"],
-            "f32_plain_ms": results[(check, "float32")]["plain_ms"]})
+            "f32_plain_ms": results[(check, "float32")]["plain_ms"],
+            "f32_bound_ms": results[(check, "float32")]["bound_ms"],
+            **({"ref_chain_ms": r["ref_chain_ms"]} if "ref_chain_ms" in r
+               else {})})
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

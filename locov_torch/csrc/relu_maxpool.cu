@@ -7,7 +7,7 @@
 // taps outside the image acting as -inf.
 //
 // Backward: replaces pallas_pool.py:_bwd_kernel (launched by
-// _bwd_impl): dx = [relu passes x] * sum over the (at most 2 x 2)
+// _bwd_impl): dx = [x > 0] * sum over the (at most 2 x 2)
 // windows whose argmax is this tap of dy, in f32, rounded once.
 //
 // Bound on this card: memory. The forward moves x once and y once; the
@@ -37,8 +37,9 @@
 // (F.max_pool2d on the card): the first strictly larger tap in
 // row-major order, or the last NaN. The windows are visited in
 // row-major order and summed in f32 from +0, as PyTorch's max-pool
-// backward does, and relu's backward passes the sum where relu(x) is
-// not <= 0 (so also at a NaN), else +0.
+// backward does. The relu mask passes the sum where x > 0, else +0, as
+// the Pallas backward masks: a NaN tap gets 0, and so a window whose max
+// is NaN (its argmax is a NaN tap) routes nothing.
 #include <math.h>
 
 #include "common.cuh"
@@ -186,9 +187,8 @@ __global__ void relu_maxpool_bwd_kernel(const T* __restrict__ x,
         Vec<T, VEC> o;
 #pragma unroll
         for (int k = 0; k < VEC; ++k)
-          o.v[k] = relu_f32(to_f32(own.v[k])) <= 0.0f
-                       ? from_f32<T>(0.0f)
-                       : from_f32<T>(acc[2 * a + b][k]);
+          o.v[k] = to_f32(own.v[k]) > 0.0f ? from_f32<T>(acc[2 * a + b][k])
+                                           : from_f32<T>(0.0f);
         *reinterpret_cast<Vec<T, VEC>*>(
             dx + ((n * h + iy) * w + ix) * c + (long long)v * VEC) = o;
       }

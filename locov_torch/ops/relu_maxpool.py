@@ -6,10 +6,13 @@ Counterpart of ``locov_tpu/ops/pallas_pool.py`` (``relu_maxpool``, a
 tensor ``relu_maxpool`` runs an autograd Function whose forward is the
 hand-written kernel ``relu_maxpool_fwd`` and whose backward is
 ``relu_maxpool_bwd`` (``csrc/relu_maxpool.cu``); on a CPU tensor it runs
-the plain version, which autograd differentiates. Taps outside the image
-act as -inf; the forward equals the plain version bit for bit (max is
-exact), and the backward routes each window's gradient to its first
-max in row-major order as ``F.max_pool2d`` does.
+an autograd Function over the plain forward and the plain backward.
+Taps outside the image act as -inf; the forward equals the plain
+version bit for bit (max is exact), and the backward routes each
+window's gradient to its first max in row-major order as
+``F.max_pool2d`` does, then masks with ``x > 0`` as the Pallas backward
+does: a NaN tap gets 0 (autograd of ``F.relu`` would pass the gradient
+there), so a window whose max is NaN routes nothing.
 """
 from __future__ import annotations
 
@@ -33,11 +36,13 @@ def relu_maxpool_plain(x: torch.Tensor) -> torch.Tensor:
 def relu_maxpool_bwd_plain(x: torch.Tensor,
                            dy: torch.Tensor) -> torch.Tensor:
     """The gradient of ``relu_maxpool_plain`` at ``x`` for the output
-    gradient ``dy``, by autograd: what the CUDA backward must equal."""
+    gradient ``dy``, by autograd, masked with ``x > 0`` (the Pallas
+    backward's relu mask, 0 at a NaN tap): what the CUDA backward must
+    equal."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
         (dx,) = torch.autograd.grad(relu_maxpool_plain(xr), xr, dy)
-    return dx
+    return torch.where(x > 0, dx, torch.zeros_like(dx))
 
 
 def _fn(name, nargs):
@@ -105,25 +110,25 @@ def relu_maxpool_bwd_cuda(x: torch.Tensor, dy: torch.Tensor
 
 
 class _ReluMaxPool(torch.autograd.Function):
-    """Both directions on the card: K1-fwd, and K1-bwd from the saved
-    pre-relu input."""
+    """Both directions from the saved pre-relu input: K1-fwd and K1-bwd
+    on the card, the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return relu_maxpool_cuda(x)
+        return relu_maxpool_cuda(x) if x.is_cuda else relu_maxpool_plain(x)
 
     @staticmethod
     def backward(ctx, dy):
         (x,) = ctx.saved_tensors
-        return relu_maxpool_bwd_cuda(x, dy.contiguous())
+        if x.is_cuda:
+            return relu_maxpool_bwd_cuda(x, dy.contiguous())
+        return relu_maxpool_bwd_plain(x, dy)
 
 
 def relu_maxpool(x: torch.Tensor) -> torch.Tensor:
     """y = maxpool3x3/2,pad1(relu(x)) on NHWC, differentiable: the
-    kernels for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return _ReluMaxPool.apply(x)
-    if x.device.type != "cpu":
+    kernels for a CUDA tensor, the plain versions for a CPU tensor."""
+    if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"relu_maxpool: unsupported device {x.device}")
-    return relu_maxpool_plain(x)
+    return _ReluMaxPool.apply(x)

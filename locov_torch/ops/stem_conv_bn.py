@@ -1,0 +1,133 @@
+"""The ResNet stem conv (7x7 / stride 2 / pad 3, 3 channels) plus the
+FrozenBN shift, NHWC, with the plain conv VJP as its gradient.
+
+Counterpart of ``locov_tpu/ops/pallas_stem.py:stem_conv_bn``: x
+[N, H, W, 3] (H, W even), w [7, 7, 3, F] (HWIO, BN folded), shift [F]
+-> conv7x7/s2/p3(bf16(x), bf16(w)) + shift as bfloat16 [N, H/2, W/2, F],
+whatever x's dtype, with the sum in float32 and one rounding. The JAX
+function's ``variant`` argument picks one of four TPU layouts of this
+one function; the port has one kernel (``csrc/stem_conv_bn.cu``) and
+no such argument.
+
+The gradient is the JAX package's ``_vjp_bwd``: the VJP of the plain
+convolution at the un-rounded x and ``w.to(x.dtype)``, the cotangent
+cast to x's dtype, dw cast to w's dtype, dshift the float32 sum of the
+cotangent. ``stem_conv_bn`` runs an autograd Function whose forward is
+the kernel for a CUDA tensor and the plain version for a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import kernel_lib
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WIDTHS = (32, 64, 128)  # output channels the kernel takes
+
+
+def _check_shapes(x, w, shift) -> None:
+    if x.dim() != 4 or x.shape[3] != 3 or x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"stem_conv_bn: expected x [N, H, W, 3] with H and "
+                         f"W even, got {tuple(x.shape)}")
+    f = w.shape[-1]
+    if tuple(w.shape) != (7, 7, 3, f) or tuple(shift.shape) != (f,):
+        raise ValueError(f"stem_conv_bn: w {tuple(w.shape)}, shift "
+                         f"{tuple(shift.shape)}: expected [7, 7, 3, F], [F]")
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv7x7/s2/p3 of NHWC x with HWIO w -> NHWC."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=2,
+                 padding=3)
+    return y.permute(0, 2, 3, 1)
+
+
+def stem_conv_bn_plain(x, w, shift) -> torch.Tensor:
+    """The conv in float32 on the bfloat16-rounded x and w, + shift, one
+    rounding to bfloat16 (on the card with TF32 off)."""
+    _check_shapes(x, w, shift)
+    bf = torch.bfloat16
+    y = _conv(x.to(bf).float(), w.to(bf).float()) + shift.float()
+    return y.to(bf).contiguous()
+
+
+def stem_conv_bn_bwd_plain(x, w, g):
+    """The JAX package's backward: (dx, dw, dshift) of the plain conv at x
+    and ``w.to(x.dtype)`` for the output cotangent g."""
+    gc = g.to(x.dtype).permute(0, 3, 1, 2)
+    wc = w.to(x.dtype).permute(3, 2, 0, 1)
+    # both gradients in one call, as autograd of F.conv2d makes it
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        gc, x.permute(0, 3, 1, 2), wc, None, (2, 2), (3, 3), (1, 1), False,
+        (0, 0), 1, (True, True, False))
+    return (dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0).to(w.dtype),
+            g.sum((0, 1, 2), dtype=torch.float32))
+
+
+def _fn():
+    fn = kernel_lib.load("stem_conv_bn").stem_conv_bn_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def stem_conv_bn_cuda(x, w, shift) -> torch.Tensor:
+    """The kernel: x a contiguous float32/bfloat16 CUDA tensor [N, H, W, 3]
+    of any even H and W; F 32, 64 or 128."""
+    kernel_lib.check_cuda_tensor(x, "stem_conv_bn x", _DTYPES)
+    _check_shapes(x, w, shift)
+    n, h, wd, _ = x.shape
+    f = w.shape[-1]
+    if f not in _WIDTHS:
+        raise ValueError(f"stem_conv_bn: the kernel takes F in {_WIDTHS}, "
+                         f"got {f}")
+    if w.device != x.device or shift.device != x.device:
+        raise ValueError(f"stem_conv_bn: w on {w.device}, shift on "
+                         f"{shift.device}, x on {x.device}")
+    wb = w.to(torch.bfloat16).contiguous()
+    sh = shift.to(torch.float32).contiguous()
+    out = torch.empty((n, h // 2, wd // 2, f), dtype=torch.bfloat16,
+                      device=x.device)
+    if wb.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("stem_conv_bn: w must be 16-byte aligned")
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _fn()(x.data_ptr(), wb.data_ptr(), sh.data_ptr(),
+                    out.data_ptr(), n, h, wd, f, _DTYPES[x.dtype],
+                    kernel_lib.stream_ptr(x.device))
+    kernel_lib.check_launch(err, "stem_conv_bn")
+    kernel_lib.LAUNCHES["stem_conv_bn"] += 1
+    return out
+
+
+class _StemConvBN(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU); backward:
+    the plain conv VJP from the saved un-rounded x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w, shift):
+        ctx.save_for_backward(x, w)
+        ctx.shift_dtype = shift.dtype
+        if x.is_cuda:
+            return stem_conv_bn_cuda(x, w, shift)
+        return stem_conv_bn_plain(x, w, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw, dshift = stem_conv_bn_bwd_plain(x, w, g)
+        return dx, dw, dshift.to(ctx.shift_dtype)
+
+
+def stem_conv_bn(x, w, shift) -> torch.Tensor:
+    """conv7x7/s2/p3(x, w) + shift as bfloat16 [N, H/2, W/2, F],
+    differentiable in x, w and shift."""
+    if not x.is_cuda and x.device.type != "cpu":
+        raise ValueError(f"stem_conv_bn: unsupported device {x.device}")
+    return _StemConvBN.apply(x, w, shift)

@@ -16,13 +16,27 @@ bfloat16 within one bfloat16 ulp of the plain version (computed in
 float32 and cast once), or 1e-5 * max|F| where that is larger; its
 feature gradient within 1e-5 * (the plain gradient of |g|) at each
 cell (the float32 sum-order bound of a cell that many boxes touch),
-plus one bfloat16 ulp in bfloat16.
+plus one bfloat16 ulp in bfloat16; the bottleneck block within
+1e-5 * max|y| of the plain version in float32 (float32 sums in another
+order) and in bfloat16, at each element, within one bfloat16 ulp plus
+1e-3 * max|y| (t1 and t2 each rounded once: a sum-order difference can
+flip one of those roundings, which the next product carries into y as
+about ulp(t2) * |w3|), also with b1 = 3, where a t1 halo holding
+relu(b1) instead of 0 would move every border pixel; the stem conv within one
+bfloat16 ulp of the plain version (the same 147 float32 products in
+another order, one rounding), plus 1e-5 * (|x| conv |w| + |shift|), the
+float32 sum-order bound, which exceeds a bfloat16 ulp of an output
+close to 0; its gradient within 1e-5 of the largest
+value (plus one bfloat16 ulp in bfloat16) of autograd of the plain conv.
 """
 import numpy as np
 import pytest
 import torch
 
 from locov_torch.ops import kernel_lib
+from locov_torch.ops.bottleneck_block import (bottleneck_block,
+                                              bottleneck_block_cuda,
+                                              bottleneck_block_plain)
 from locov_torch.ops.relu_maxpool import (relu_maxpool,
                                           relu_maxpool_bwd_cuda,
                                           relu_maxpool_bwd_plain,
@@ -32,6 +46,10 @@ from locov_torch.ops.roi_align import (roi_align_batched,
                                        roi_align_bwd_cuda,
                                        roi_align_bwd_plain, roi_align_cuda,
                                        roi_align_fused)
+from locov_torch.ops.stem_conv_bn import (_conv, stem_conv_bn,
+                                          stem_conv_bn_cuda,
+                                          stem_conv_bn_plain)
+from locov_torch.tools.bench_block import make_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -185,6 +203,129 @@ def test_roi_align_rejects_bad_inputs(cuda):
         roi_align_cuda(f, bx, 1 / 16, pooled=64)
     with pytest.raises(ValueError):
         roi_align_cuda(f, bx.cpu(), 1 / 16)
+
+
+def _assert_block_close(got, want):
+    """float32: 1e-5 * max|y|; bfloat16: one ulp plus 1e-3 * max|y| at
+    each element (see the module docstring)."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    ymax = want.abs().max().item()
+    err = (got - want).abs()
+    tol = 1e-5 * ymax
+    if bf16:
+        tol = _bf16_ulp(torch.maximum(got.abs(), want.abs())) + 1e-3 * ymax
+    assert bool((err <= tol).all()), err.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,m", [((2, 20, 24, 256), 64),
+                                     ((1, 13, 19, 128), 64),
+                                     ((2, 1, 37, 128), 64),
+                                     ((1, 9, 7, 512), 128)])
+def test_bottleneck_block_matches_plain(cuda, dtype, shape, m):
+    args = make_inputs(cuda, shape, m, dtype)
+    before = kernel_lib.LAUNCHES["bottleneck_block"]
+    got = bottleneck_block(*args)
+    assert kernel_lib.LAUNCHES["bottleneck_block"] == before + 1
+    want = bottleneck_block_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == shape
+    _assert_block_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 6, 9, 128), (1, 1, 5, 128)])
+def test_bottleneck_block_zero_pads_t1(cuda, dtype, shape):
+    """b1 = 3: relu(b1) in t1's halo would move every border pixel."""
+    x, w1, b1, *rest = make_inputs(cuda, shape, 64, dtype)
+    args = (x, w1, torch.full_like(b1, 3.0), *rest)
+    got = bottleneck_block_cuda(*args)
+    want = bottleneck_block_plain(*args)
+    torch.cuda.synchronize()
+    _assert_block_close(got, want)
+
+
+def test_bottleneck_block_refusals(cuda):
+    args = make_inputs(cuda, (1, 4, 4, 128), 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="M in"):
+        bottleneck_block_cuda(*make_inputs(cuda, (1, 4, 4, 128), 32,
+                                             torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        bottleneck_block_cuda(*make_inputs(cuda, (1, 4, 4, 96), 64,
+                                             torch.bfloat16))
+    with pytest.raises(TypeError):
+        bottleneck_block_cuda(args[0].half(), *args[1:])
+    with pytest.raises(RuntimeError, match="no gradient"):
+        bottleneck_block(args[0].requires_grad_(True), *args[1:])
+
+
+def _bf16_ulp(mag):
+    _, e = torch.frexp(mag)
+    return torch.exp2((e - 8).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,f", [((2, 64, 86, 3), 64),
+                                     ((1, 38, 70, 3), 64),
+                                     ((1, 16, 20, 3), 32),
+                                     ((1, 18, 34, 3), 128)])
+def test_stem_conv_bn_matches_plain(cuda, dtype, shape, f):
+    x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    w = torch.randn((7, 7, 3, f), generator=cuda, device="cuda") * 0.1
+    shift = torch.randn((f,), generator=cuda, device="cuda")
+    before = kernel_lib.LAUNCHES["stem_conv_bn"]
+    got = stem_conv_bn(x, w, shift)
+    assert kernel_lib.LAUNCHES["stem_conv_bn"] == before + 1
+    want = stem_conv_bn_plain(x, w, shift).float()
+    bf = torch.bfloat16
+    sum_order = 1e-5 * (_conv(x.to(bf).float().abs(), w.to(bf).float().abs())
+                        + shift.abs())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, f)
+    err = (got.float() - want).abs()
+    assert bool((err <= _bf16_ulp(torch.maximum(
+        want.abs(), got.float().abs())) + sum_order).all()), err.max().item()
+
+
+def test_stem_conv_bn_refusals(cuda):
+    x = torch.randn((1, 8, 8, 3), generator=cuda, device="cuda")
+    w = torch.randn((7, 7, 3, 48), generator=cuda, device="cuda")
+    with pytest.raises(ValueError, match="F in"):
+        stem_conv_bn_cuda(x, w, torch.zeros(48, device="cuda"))
+    with pytest.raises(TypeError):
+        stem_conv_bn_cuda(x.half(), w[..., :32], torch.zeros(32,
+                                                               device="cuda"))
+    with pytest.raises(ValueError, match="even"):
+        stem_conv_bn_cuda(x[:, :7].contiguous(), w[..., :32],
+                          torch.zeros(32, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_conv_bn_backward_is_the_conv_vjp(cuda, dtype):
+    x = torch.randn((2, 64, 86, 3), generator=cuda, device="cuda").to(dtype)
+    w = torch.randn((7, 7, 3, 64), generator=cuda, device="cuda") * 0.1
+    shift = torch.randn((64,), generator=cuda, device="cuda")
+    g = torch.randn((2, 32, 43, 64), generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    xs, ws, ss = (v.detach().requires_grad_(True) for v in (x, w, shift))
+    stem_conv_bn(xs, ws, ss).backward(g)
+    # autograd of the plain conv at the un-rounded x and w.to(x.dtype)
+    xr, wr = (v.detach().requires_grad_(True) for v in (x, w))
+    y = torch.nn.functional.conv2d(
+        xr.permute(0, 3, 1, 2), wr.to(dtype).permute(3, 2, 0, 1), stride=2,
+        padding=3).permute(0, 2, 3, 1)
+    y.backward(g.to(dtype))
+    torch.cuda.synchronize()
+    for got, want in ((xs.grad, xr.grad), (ws.grad, wr.grad),
+                      (ss.grad, g.float().sum((0, 1, 2)))):
+        assert got.dtype == want.dtype
+        got, want = got.float(), want.float()
+        tol = 1e-5 * want.abs().max()
+        if dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        assert bool(((got - want).abs() <= tol).all())
 
 
 def test_tiny_model_cuda_matches_cpu(cuda):

@@ -246,19 +246,35 @@ def _pool_cases(rng):
     quant = np.asarray(
         jnp.asarray(rng.randn(1, 16, 64, 16).astype(np.float32) * 1e-2)
         .astype(jnp.bfloat16).astype(jnp.float32))
-    return {"smooth": smooth, "tied": tied, "quant": quant}
+    # NaNs (2%) and negative zeros (10%) among heavy ties, as in
+    # tests/test_torch_relu_maxpool.py
+    nan = rng.randint(-2, 3, size=(2, 32, 12, 8)).astype(np.float32)
+    nan[rng.rand(*nan.shape) < 0.02] = np.nan
+    nan[rng.rand(*nan.shape) < 0.1] = -0.0
+    return {"smooth": smooth, "tied": tied, "quant": quant, "nan": nan}
 
 
-@pytest.mark.parametrize("name", ["smooth", "tied", "quant"])
+@pytest.mark.parametrize("name", ["smooth", "tied", "quant", "nan"])
 def test_relu_maxpool_gradient_matches_pallas_interpret(rng, name):
+    """With NaN taps the gradient equals the Pallas backward bit for bit:
+    0 at every NaN tap (the mask is x > 0) and nothing routed from a
+    window whose max is NaN. There dy holds multiples of 1/16, so that
+    the f32 sums of a tap's windows are exact in either order."""
     x = _pool_cases(rng)[name]
     oshape = (x.shape[0], x.shape[1] // 2, x.shape[2] // 2, x.shape[3])
     dy = rng.randn(*oshape).astype(np.float32)
+    if name == "nan":
+        dy = np.round(dy * 16) / 16
     xt = t(x).requires_grad_(True)
     relu_maxpool(xt).backward(t(dy))
     _, vjp = jax.vjp(lambda v: pallas_relu_maxpool(v, True), jnp.asarray(x))
     (want,) = vjp(jnp.asarray(dy))
     got, want = n(xt.grad), n(want)
+    if name == "nan":
+        assert np.isnan(x).any() and not np.isnan(got).any()
+        assert (got[np.isnan(x)] == 0).all()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
     np.testing.assert_array_equal(got != 0, want != 0)  # same routing
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-6 * np.abs(dy).max())
