@@ -21,8 +21,9 @@ Phases, one JSON line each, in order:
    version (computed in float32 and cast once), or 1e-5 * max|F| where
    that is larger (the float32 sum-order error, which exceeds a bfloat16
    ulp of outputs close to 0). K3-bwd within 1e-5 * (the plain backward
-   of |g|) at each cell, plus one bfloat16 ulp in bfloat16; degenerate
-   and outside boxes contribute exactly 0. Kernel, plain and
+   of |g|) at each cell, plus one bfloat16 ulp in bfloat16, the same
+   bits on two launches, also at feature heights 7 and 1 (band edges);
+   degenerate and outside boxes contribute exactly 0. Kernel, plain and
    library-call times are medians of CUDA-event timings after warm-up.
 3. small references: a tiny float32 OvrRCNN (TF32 off) on the card,
    through the kernels, against the same model on the CPU, through the
@@ -359,15 +360,21 @@ def check_roi_align(gen, results):
 
 
 # ------------------------------------------------------------------ K3
-def _train_boxes(gen, b, n, n_gt, img_h, img_w):
-    """What ROIAlign sees in a training step: proposal-sized boxes and
-    gt-sized ones (sides 32..400 px), ``n`` an image."""
+def _band_edge_boxes(gen, b, n, img_h, img_w):
+    """Proposal-sized boxes in an image ``img_h`` tall, the first
+    five replaced by tall thin ones (half a cell or less wide) whose
+    spans start and end inside different bands of feature rows."""
     import torch
-    props = _proposal_like_boxes(gen, b, n - n_gt, img_h, img_w)
-    u = torch.rand((b, n_gt, 4), generator=gen, device="cuda")
-    side = 32 + u[..., 2:] * 368
-    lo = u[..., :2] * (torch.tensor([img_w, img_h], device="cuda") - side)
-    return torch.cat([props, torch.cat([lo, lo + side], -1)], 1).contiguous()
+    bx = _proposal_like_boxes(gen, b, n, img_h, img_w)
+    spans = torch.tensor([[0.0, 1.0], [0.15, 0.9], [0.4, 0.75],
+                          [0.05, 0.55], [0.6, 1.0]], device="cuda")
+    bx[:, :5, 0] = torch.tensor([100.0, 300.0, 301.0, 700.0, 1200.0],
+                                device="cuda")
+    bx[:, :5, 2] = bx[:, :5, 0] + torch.tensor([8.0, 1.0, 4.0, 8.0, 2.0],
+                                               device="cuda")
+    bx[:, :5, 1] = spans[:, 0] * img_h
+    bx[:, :5, 3] = spans[:, 1] * img_h
+    return bx.contiguous()
 
 
 def check_roi_align_train(gen, results):
@@ -377,18 +384,22 @@ def check_roi_align_train(gen, results):
     backward (f32 einsums, cast once): |err| <= 1e-5 * (the plain
     backward of |g|) at each cell, the f32 sum-order bound of a cell
     that many boxes touch; in bfloat16 plus one bfloat16 ulp of the
-    result. Boxes that are degenerate (adaptive) or wholly outside the
-    image must contribute exactly 0."""
+    result; two launches on the same inputs must give the same bits.
+    Feature heights that are not a multiple of the kernel's band rows
+    (7 and 1, tall thin boxes across band borders) are held to the same
+    tolerance. Boxes that are degenerate (adaptive) or wholly
+    outside the image must contribute exactly 0."""
     import torch
-    from locov_torch.ops.roi_align import (roi_align_batched,
+    from locov_torch.ops.roi_align import (_bwd_plan, roi_align_batched,
                                            roi_align_bwd_cuda,
                                            roi_align_bwd_plain,
                                            roi_align_cuda)
+    from locov_torch.tools.bench_roi_bwd import train_boxes
     from locov_torch.tools.timing import time_ms
     scale, pooled = 1.0 / 16, 14
     img_h, img_w = 800, 1344
     fmain = torch.randn((8, 50, 84, 1024), generator=gen, device="cuda")
-    bmain = _train_boxes(gen, 8, 512, 20, img_h, img_w)
+    bmain = train_boxes(gen, 8, 512, 20, img_h, img_w)
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
         f = fmain.to(dtype)
@@ -430,6 +441,7 @@ def check_roi_align_train(gen, results):
                         device="cuda").to(dtype)
         for sr in (0, 2):
             got = roi_align_bwd_cuda(g, bmain, scale, 50, 84, pooled, sr)
+            again = roi_align_bwd_cuda(g, bmain, scale, 50, 84, pooled, sr)
             plain = roi_align_bwd_plain(g, bmain, scale, 50, 84, pooled, sr)
             # f32 sum-order bound: the plain backward of |g|
             absbwd = roi_align_bwd_plain(g.abs(), bmain, scale, 50, 84,
@@ -440,16 +452,20 @@ def check_roi_align_train(gen, results):
             if dtype == torch.bfloat16:
                 tol = tol + _bf16_ulp(torch.maximum(got.float().abs(),
                                                      plain.float().abs()))
-            ok = bool((err <= tol).all())
+            # the sum order is fixed: two launches give the same bits
+            same = _same_bits(got, again)
+            ok = bool((err <= tol).all()) and same
             line = {"phase": "kernel_check", "kernel": "roi_align_bwd",
                     "case": "main", "dtype": dt, "shape": list(g.shape),
                     "boxes": list(bmain.shape), "sampling_ratio": sr,
+                    **_bwd_plan(50, 84, 1024, dtype),
                     "max_abs_err": err.max().item(),
                     "max_err_over_abs_bound": (err / absbwd.clamp(
                         min=1e-30)).max().item(),
                     "max_abs_df": plain.float().abs().max().item(),
+                    "same_bits_two_launches": same,
                     "within_tolerance": ok}
-            del got, plain, absbwd, err, tol
+            del got, again, plain, absbwd, err, tol
             if sr == 0:
                 line["kernel_ms"] = time_ms(lambda: roi_align_bwd_cuda(
                     g, bmain, scale, 50, 84, pooled, sr))
@@ -466,6 +482,38 @@ def check_roi_align_train(gen, results):
                 raise AssertionError(f"roi_align_bwd {dt} sr {sr}: max err "
                                      f"{line['max_abs_err']}")
         del g
+        # band edges: heights that are not a multiple of the band rows,
+        # with tall thin boxes whose taps straddle band borders
+        for hh in (7, 1):
+            bx = _band_edge_boxes(gen, 2, 40, hh * 16, img_w)
+            ge = torch.randn((2, bx.shape[1], pooled, pooled, 256),
+                             generator=gen, device="cuda").to(dtype)
+            for sr in (0, 2):
+                got = roi_align_bwd_cuda(ge, bx, scale, hh, 84, pooled, sr)
+                plain = roi_align_bwd_plain(ge, bx, scale, hh, 84, pooled,
+                                            sr)
+                absbwd = roi_align_bwd_plain(ge.abs(), bx, scale, hh, 84,
+                                             pooled, sr).float()
+                err = (got.float() - plain.float()).abs()
+                tol = 1e-5 * absbwd
+                if dtype == torch.bfloat16:
+                    tol = tol + _bf16_ulp(torch.maximum(
+                        got.float().abs(), plain.float().abs()))
+                ok = bool((err <= tol).all())
+                line = {"phase": "kernel_check", "kernel": "roi_align_bwd",
+                        "case": f"band_edge_h{hh}", "dtype": dt,
+                        "shape": list(ge.shape), "sampling_ratio": sr,
+                        "band_rows": _bwd_plan(hh, 84, 256,
+                                               dtype)["band_rows"],
+                        "max_abs_err": err.max().item(),
+                        "max_abs_df": plain.float().abs().max().item(),
+                        "within_tolerance": ok}
+                emit(line)
+                if not ok:
+                    raise AssertionError(f"roi_align_bwd band edge {dt} "
+                                         f"h {hh} sr {sr}: {line}")
+                del got, plain, absbwd, err, tol
+            del ge
         # edge boxes (256 channels): against the plain version, and the
         # degenerate and wholly outside ones alone give exactly 0
         edges = _edge_boxes(2, img_h, img_w)

@@ -29,8 +29,9 @@
 // shapes 8 images x 1000 or 512 boxes x 14 x 14 x 1024, bf16: 3.2 or
 // 1.6 GB) is written once, while the features (8 x 50 x 84 x 1024,
 // 69 MB) are read from L2 by many boxes. Backward: the cotangent g
-// (the size of the forward's output) is read and dF (the size of the
-// features) written.
+// (the size of the forward's output, 1.64 GB in bf16 at 512 boxes an
+// image, against a 50 MB L2) is read and dF (the size of the features)
+// written.
 //
 // Forward design: one block per (box, output row p), threads over
 // channel vectors (16 bytes: 8 bf16 or 4 f32 channels), each thread
@@ -38,21 +39,35 @@
 // and every column's x samples (position, the two neighbouring cells,
 // their hat weights times the sample weight) into shared memory.
 //
-// Backward design: one block per (image, feature row h, tile of 64 to
-// 128 channels), one channel per thread, with an f32 row accumulator
-// [W, tile] in shared memory (43 KB at W = 84 and 128 channels) of
-// which each thread owns its channel's column, so no atomics are
-// needed and the sum order is fixed: the result is the same on every
-// run. The block walks the image's boxes in order and skips, by a
-// bound on its sample span, each box that cannot touch row h. For a
-// box that can, it computes the box's sample taps into shared memory
-// with the forward's code, and each bin row p's weight Ky[p, h]; each
-// thread then sums u[q] = sum_p Ky[p,h] g[n,p,q,c] in registers (a row
-// of bins' loads in flight together) and adds u[q] times the x tap
-// weights into the two columns of each x sample of bin q. The row is
-// stored once, in the features' dtype. Neighbouring rows run in
-// neighbouring blocks, so the g a box's bin touches in two or three
-// rows is mostly served from L2.
+// Backward design: one block per (image, band of R feature rows, tile
+// of ct channels), with the band's f32 accumulator [R, W, ct] in
+// dynamic shared memory (86 KB at W = 84: R = 4 x 64 f32 channels or
+// R = 2 x 128 bf16 channels, two blocks an SM; the plan is
+// ops/roi_align.py:_bwd_plan). The row-per-block design before it (one
+// thread a channel, 2-byte loads, two barriers and a tap computation
+// per box and feature row, each bin row of g read once per feature row
+// its samples touch) was held by latency, not bytes: it took the same
+// time in f32 and bf16. Here the block walks its image's boxes in index
+// order. Its last warp finds the next box whose sample span can reach
+// the band and computes that box's taps with the forward's code (Ky of
+// the band's rows, the x taps) into the other of two slots, while the
+// other seven warps contract the current box:
+//   u[r, q, c] = sum_p Ky[p, h0 + r] g[n, p, q, c]
+// in registers, one thread a (bin column q, 16-byte channel vector), the
+// bin rows loaded four at a time (the first four one box ahead): each
+// bin row of g is read once a band, about 1 + 2 / R times in all, and
+// the per-box work and barriers (two a box) are paid once a band, not
+// once a row. They also fill the box's dense Kx[q, x] over its columns.
+// Then every thread spreads u over x: one thread a (column x, channel
+// vector) adds Kx[q, x] u[r, q] for q ascending into its accumulator
+// cells. Each cell has one owner and the boxes come in index order, so
+// no atomics are needed and the result is the same bits on every run.
+// The band is stored once, in g's dtype.
+//
+// What holds it now: the per-box latency chain (two barriers, the tap
+// arithmetic, shared-memory round trips), not the bytes of g; f32 and
+// bf16 again take about the same time. clock64() counters in a debug
+// copy put the largest part of a step in spreading u over x.
 //
 // Numerics shared by both: the sample taps are computed in f32 with the
 // same operations as the plain version: x*scale - 0.5 (no FMA
@@ -204,92 +219,375 @@ __global__ void roi_align_kernel(const T* __restrict__ feat,
   }
 }
 
-// grid (h, channel tiles, images); blockDim.x channels (>= 2 * pooled);
-// dynamic shared memory: w * blockDim.x floats.
-template <typename T>
-__global__ void roi_align_bwd_kernel(const T* __restrict__ g,
-                                     const float* __restrict__ boxes,
-                                     T* __restrict__ df, int h, int w,
-                                     int c, int n, int pooled, int ratio,
-                                     float scale) {
-  extern __shared__ float acc[];  // [w][blockDim.x]
-  __shared__ Tap ys[P_MAX * SR_MAX];
-  __shared__ Tap xs[P_MAX * SR_MAX];
-  __shared__ int nxs[P_MAX];
-  __shared__ float kyh[P_MAX];  // Ky[p, hy] of the current box
+// The backward's block: BWD_THREADS threads, of which the last warp
+// prepares the next box (finds it, computes its taps) while the others
+// contract the current one. The launch plan (band rows R, channel tile
+// ct) comes from ops/roi_align.py:_bwd_plan, whose shared-memory count
+// mirrors bwd_smem_bytes; the C entry refuses a plan whose count differs.
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WORK = BWD_THREADS - 32;  // threads that contract
+// bin rows a contracting thread loads in one batch (its first item's
+// first batch one box ahead)
+constexpr int BWD_PF = 4;
 
-  const int hy = blockIdx.x;
-  const int nt = blockDim.x;
-  const int t = threadIdx.x;
-  const int ch = blockIdx.y * nt + t;
-  const bool live = ch < c;
-  const long long img = blockIdx.z;
-  for (int x = 0; x < w; ++x) acc[x * nt + t] = 0.0f;
+// One box's taps for a band, in shared memory: its y and x taps, Ky of
+// the band's rows and a summary (box index or -1 when no box is left, the
+// bin rows [pa, pb] that weigh on the band, the columns [xa, xb] that
+// its non-zero x taps hit).
+struct BoxTaps {
+  Tap* ys;    // [pooled][SR_MAX]
+  Tap* xs;    // [pooled][SR_MAX]
+  int* nxs;   // [pooled]
+  float* ky;  // [pooled][R]: Ky[p, h0 + r]
+  int* meta;  // bi, pa, pb, xa, xb
+};
 
-  const long long gbox = (long long)pooled * pooled * c;
-  const T* gimg = g + img * n * gbox + ch;
-  for (int bi = 0; bi < n; ++bi) {
-    const Box bx = load_box(boxes + (img * n + bi) * 4, scale);
-    // the rows the box's y samples can touch lie within its extent,
-    // clamped, one cell below (the high tap) and one of margin each
-    // side against rounding; skipping the box is uniform in the block
-    const float ya = fminf(bx.y0, bx.y0 + bx.bh);
-    const float yb = fmaxf(bx.y0, bx.y0 + bx.bh);
-    const float top = floorf(fminf(fmaxf(ya, 0.0f), (float)(h - 1))) - 1.0f;
-    const float bottom =
-        floorf(fminf(fmaxf(yb, 0.0f), (float)(h - 1))) + 2.0f;
-    if ((float)hy < top || (float)hy > bottom) continue;
+__host__ __device__ inline size_t bwd_taps_bytes(int rows, int pooled) {
+  return 2 * sizeof(Tap) * pooled * SR_MAX +
+         4 * (size_t)pooled * (1 + rows) + 4 * 8;
+}
 
-    __syncthreads();  // the previous box's taps are no longer read
-    if (t < pooled) {
-      Tap* yt = ys + t * SR_MAX;
-      const int ny = bin_taps(bx.y0, bx.bh, pooled, ratio, t, h, yt);
-      float k = 0.0f;
-      for (int s = 0; s < ny; ++s) {
-        if (yt[s].lo == hy) k += yt[s].wlo;
-        if (yt[s].hi == hy) k += yt[s].whi;
-      }
-      kyh[t] = k;
-    } else if (t < 2 * pooled) {
-      const int q = t - pooled;
-      nxs[q] = bin_taps(bx.x0, bx.bw, pooled, ratio, q, w, xs + q * SR_MAX);
+size_t bwd_smem_bytes(int rows, int w, int ct, int pooled) {
+  return 4 * ((size_t)rows * w * ct + (size_t)rows * pooled * ct +
+              (size_t)pooled * w) +
+         2 * bwd_taps_bytes(rows, pooled);
+}
+
+__device__ __forceinline__ BoxTaps box_taps_at(char* base, int rows,
+                                               int pooled) {
+  BoxTaps s;
+  s.ys = reinterpret_cast<Tap*>(base);
+  s.xs = s.ys + pooled * SR_MAX;
+  s.nxs = reinterpret_cast<int*>(s.xs + pooled * SR_MAX);
+  s.ky = reinterpret_cast<float*>(s.nxs + pooled);
+  s.meta = reinterpret_cast<int*>(s.ky + pooled * rows);
+  return s;
+}
+
+// By one warp: the first box of the image at or after `from` whose
+// sample span can reach rows [h0, h0 + rows), or -1. A box's y samples
+// lie within its extent, clamped, one cell below (the high tap) and one
+// of margin each side against rounding.
+__device__ __forceinline__ int next_box(const float* boxes, int from, int n,
+                                        int h, int h0, int rows,
+                                        float scale, int lane) {
+  for (int base = from; base < n; base += 32) {
+    bool hit = false;
+    if (base + lane < n) {
+      const Box bx = load_box(boxes + (base + lane) * 4, scale);
+      const float ya = fminf(bx.y0, bx.y0 + bx.bh);
+      const float yb = fmaxf(bx.y0, bx.y0 + bx.bh);
+      const float top =
+          floorf(fminf(fmaxf(ya, 0.0f), (float)(h - 1))) - 1.0f;
+      const float bottom =
+          floorf(fminf(fmaxf(yb, 0.0f), (float)(h - 1))) + 2.0f;
+      hit = (float)(h0 + rows - 1) >= top && (float)h0 <= bottom;
     }
-    __syncthreads();
-    if (!live) continue;
+    const unsigned bits = __ballot_sync(0xffffffffu, hit);
+    if (bits) return base + __ffs(bits) - 1;
+  }
+  return -1;
+}
 
-    // u[q] = sum_p Ky[p, hy] g[n, p, q, c] (the plain version's first
-    // contraction), one row of loads in flight at a time; then u is
-    // spread over the x samples' columns
-    const T* gb = gimg + bi * gbox;
-    float u[P_MAX];
+// By one warp: box bi's taps for the band into `s` (lane j < pooled: y
+// bin j, pooled <= j < 2 pooled: x bin j - pooled, with the forward's
+// code), and its summary.
+template <int R>
+__device__ __forceinline__ void box_taps(const float* boxes, int bi,
+                                         int h, int w, int h0, int pooled,
+                                         int ratio, float scale, int lane,
+                                         BoxTaps s) {
+  if (bi < 0) {
+    if (lane == 0) s.meta[0] = -1;
+    return;
+  }
+  const Box bx = load_box(boxes + bi * 4, scale);
+  int pa = pooled, pb = -1, xa = w, xb = -1;
+  for (int j = lane; j < 2 * pooled; j += 32) {
+    // the same code for both axes, so that the lanes do not diverge
+    const bool y = j < pooled;
+    const int bin = y ? j : j - pooled;
+    Tap* tt = (y ? s.ys : s.xs) + bin * SR_MAX;
+    const int nt = bin_taps(y ? bx.y0 : bx.x0, y ? bx.bh : bx.bw, pooled,
+                            ratio, bin, y ? h : w, tt);
+    if (y) {
+      float k[R];
 #pragma unroll
-    for (int q = 0; q < P_MAX; ++q) u[q] = 0.0f;
-    bool any = false;
-    for (int p = 0; p < pooled; ++p) {
-      const float ky = kyh[p];
-      if (ky == 0.0f) continue;
-      any = true;
-      const T* grow = gb + (long long)p * pooled * c;
+      for (int r = 0; r < R; ++r) k[r] = 0.0f;
+      for (int t = 0; t < nt; ++t) {
+        const Tap tp = tt[t];
 #pragma unroll
-      for (int q = 0; q < P_MAX; ++q)
-        if (q < pooled) u[q] += ky * to_f32(grow[(long long)q * c]);
-    }
-    if (!any) continue;
-#pragma unroll
-    for (int q = 0; q < P_MAX; ++q) {
-      if (q >= pooled) break;
-      const int nx = nxs[q];
-      for (int sx = 0; sx < nx; ++sx) {
-        const Tap tx = xs[q * SR_MAX + sx];
-        acc[tx.lo * nt + t] += tx.wlo * u[q];
-        acc[tx.hi * nt + t] += tx.whi * u[q];
+        for (int r = 0; r < R; ++r) {
+          if (tp.lo == h0 + r) k[r] += tp.wlo;
+          if (tp.hi == h0 + r) k[r] += tp.whi;
+        }
       }
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s.ky[bin * R + r] = k[r];
+        any = any || k[r] != 0.0f;
+      }
+      if (any) {
+        pa = min(pa, bin);
+        pb = max(pb, bin);
+      }
+    } else {
+      for (int t = 0; t < nt; ++t) {
+        const Tap tp = tt[t];
+        if (tp.wlo != 0.0f) {
+          xa = min(xa, tp.lo);
+          xb = max(xb, tp.lo);
+        }
+        if (tp.whi != 0.0f) {
+          xa = min(xa, tp.hi);
+          xb = max(xb, tp.hi);
+        }
+      }
+      s.nxs[bin] = nt;
     }
   }
-  if (!live) return;
-  T* drow = df + ((img * h + hy) * (long long)w) * c + ch;
-  for (int x = 0; x < w; ++x)
-    drow[(long long)x * c] = from_f32<T>(acc[x * nt + t]);
+  pa = __reduce_min_sync(0xffffffffu, pa);
+  pb = __reduce_max_sync(0xffffffffu, pb);
+  xa = __reduce_min_sync(0xffffffffu, xa);
+  xb = __reduce_max_sync(0xffffffffu, xb);
+  if (lane == 0) {
+    s.meta[0] = bi;
+    s.meta[1] = pa;
+    s.meta[2] = pb;
+    s.meta[3] = xa;
+    s.meta[4] = xb;
+  }
+}
+
+// Columns of a box's x taps in the band's work, 0 when it adds nothing
+// (no weight in the band's rows, or none inside the image's columns).
+__device__ __forceinline__ int box_cols(const int* meta) {
+  return (meta[2] >= meta[1] && meta[4] >= meta[3]) ? meta[4] - meta[3] + 1
+                                                    : 0;
+}
+
+// The first BWD_PF bin rows [pa, pa + BWD_PF) that weigh on the band,
+// of box `s`'s bin column q and channel vector v, into `ahead`: loaded
+// one box ahead, while the block spreads the previous box over x.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_ahead(const BoxTaps& s, const T* gimg,
+                                           long long gbox, int q, int v,
+                                           int pooled, int c,
+                                           Vec<T, VEC> (&ahead)[BWD_PF]) {
+  const int bi = s.meta[0];
+  if (bi < 0 || box_cols(s.meta) == 0) return;
+  const int pa = s.meta[1], pb = s.meta[2];
+  const T* gq = gimg + (long long)bi * gbox + (long long)q * c + v * VEC;
+#pragma unroll
+  for (int j = 0; j < BWD_PF; ++j)
+    if (pa + j <= pb)
+      ahead[j] = *reinterpret_cast<const Vec<T, VEC>*>(
+          gq + (long long)(pa + j) * pooled * c);
+}
+
+// VEC floats of channel vector v of a [ct]-channel row in shared memory.
+// Rows are laid out in 4-float quarters: quarter j of every vector, then
+// quarter j + 1, so that neighbouring threads read neighbouring 16 bytes
+// (no bank conflicts at 8 bf16 channels a thread).
+template <int VEC>
+__device__ __forceinline__ float* svec(float* row, int v, int ct, int j) {
+  if constexpr (VEC % 4 == 0) return row + j * (ct * 4 / VEC) + v * 4;
+  return row + v;
+}
+
+template <int VEC>
+__device__ __forceinline__ void lds(float* row, int v, int ct, float* out) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j) {
+      const float4 f =
+          *reinterpret_cast<const float4*>(svec<VEC>(row, v, ct, j));
+      out[4 * j] = f.x;
+      out[4 * j + 1] = f.y;
+      out[4 * j + 2] = f.z;
+      out[4 * j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out[e] = row[v * VEC + e];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void sts(float* row, int v, int ct,
+                                    const float* in) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j)
+      *reinterpret_cast<float4*>(svec<VEC>(row, v, ct, j)) =
+          make_float4(in[4 * j], in[4 * j + 1], in[4 * j + 2], in[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) row[v * VEC + e] = in[e];
+  }
+}
+
+// ua[r] += Ky[p, h0 + r] * g[p, q, channel vector]
+template <typename T, int VEC, int R>
+__device__ __forceinline__ void add_row(float (&ua)[R][VEC], const float* ky,
+                                        const Vec<T, VEC>& gv) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float k = ky[r];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) ua[r][e] += k * to_f32(gv.v[e]);
+  }
+}
+
+// grid (bands of R feature rows, channel tiles of ct, images),
+// BWD_THREADS threads, bwd_smem_bytes(R, w, ct, pooled) of dynamic
+// shared memory. VEC channels a thread (16 bytes, or 1).
+template <typename T, int VEC, int R>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
+                     T* __restrict__ df, int h, int w, int c, int n,
+                     int pooled, int ratio, float scale, int ct) {
+  extern __shared__ float4 smem[];
+  float* acc = reinterpret_cast<float*>(smem);  // [R][w][ct]: dF of the band
+  float* u = acc + R * w * ct;       // [R][pooled][ct]: Ky-contracted g
+  float* kx = u + R * pooled * ct;   // [pooled][w]: Kx[q, x] of the box
+  char* tb = reinterpret_cast<char*>(kx + pooled * w);
+  const BoxTaps slot0 = box_taps_at(tb, R, pooled);
+  const BoxTaps slot1 = box_taps_at(tb + bwd_taps_bytes(R, pooled), R,
+                                    pooled);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const bool taps_warp = t >= BWD_WORK;
+  const int h0 = blockIdx.x * R;
+  const int ch0 = blockIdx.y * ct;
+  const long long img = blockIdx.z;
+  const int nv = min(ct, c - ch0) / VEC;  // channel vectors in this tile
+  const float* bimg = boxes + img * n * 4;
+  const long long gbox = (long long)pooled * pooled * c;
+  const T* gimg = g + img * n * gbox + ch0;
+  // the item (bin column q, channel vector v) a contracting thread takes
+  // first; its first BWD_PF bin rows of each box are loaded one box ahead
+  const bool first_item = t < BWD_WORK && t < pooled * nv;
+  const int q0 = first_item ? t / nv : 0, v0 = first_item ? t % nv : 0;
+  Vec<T, VEC> ahead[BWD_PF];
+
+  for (int i = t; i < R * w * ct; i += BWD_THREADS) acc[i] = 0.0f;
+  if (taps_warp)
+    box_taps<R>(bimg, next_box(bimg, 0, n, h, h0, R, scale, lane), h, w, h0,
+                pooled, ratio, scale, lane, slot0);
+  __syncthreads();
+
+  if (first_item)
+    load_ahead<T, VEC>(slot0, gimg, gbox, q0, v0, pooled, c, ahead);
+
+  // Two barriers a box. Box i's taps (slot i % 2) were written before
+  // the barrier that starts step i and are read up to the next one; box
+  // i + 1's taps go to the other slot meanwhile. u and kx are written
+  // between the two barriers and read after the second.
+  for (int i = 0;; ++i) {
+    const BoxTaps cur = (i & 1) ? slot1 : slot0;
+    const BoxTaps next = (i & 1) ? slot0 : slot1;
+    const int bi = cur.meta[0];
+    if (bi < 0) break;
+    const int pa = cur.meta[1], pb = cur.meta[2], xa = cur.meta[3];
+    const int ncols = box_cols(cur.meta);
+    if (taps_warp) {
+      box_taps<R>(bimg, next_box(bimg, bi + 1, n, h, h0, R, scale, lane), h,
+                  w, h0, pooled, ratio, scale, lane, next);
+    } else if (ncols > 0) {
+      // Kx[q, x] over the box's columns, its samples summed in order
+      for (int k = t; k < pooled * ncols; k += BWD_WORK) {
+        const int q = k / ncols, x = xa + k % ncols;
+        const Tap* xt = cur.xs + q * SR_MAX;
+        float v = 0.0f;
+        for (int s = 0; s < cur.nxs[q]; ++s) {
+          if (xt[s].lo == x) v += xt[s].wlo;
+          if (xt[s].hi == x) v += xt[s].whi;
+        }
+        kx[q * w + x] = v;
+      }
+      // u[r, q] = sum_p Ky[p, h0 + r] g[p, q] (p ascending): each bin
+      // row that weighs on the band is read once for all R rows, 16
+      // bytes a thread
+      const T* gb = gimg + (long long)bi * gbox;
+      for (int k = t; k < pooled * nv; k += BWD_WORK) {
+        const int q = k / nv, v = k % nv;
+        const T* gq = gb + (long long)q * c + v * VEC;
+        float ua[R][VEC];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) ua[r][e] = 0.0f;
+        // the first item's first rows were loaded one box ahead; later
+        // batches reuse the same registers
+        for (int p = pa; p <= pb; p += BWD_PF) {
+          if (k != t || p != pa) {
+#pragma unroll
+            for (int j = 0; j < BWD_PF; ++j)
+              if (p + j <= pb)
+                ahead[j] = *reinterpret_cast<const Vec<T, VEC>*>(
+                    gq + (long long)(p + j) * pooled * c);
+          }
+#pragma unroll
+          for (int j = 0; j < BWD_PF; ++j)
+            if (p + j <= pb)
+              add_row<T, VEC, R>(ua, cur.ky + (p + j) * R, ahead[j]);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          sts<VEC>(u + (r * pooled + q) * ct, v, ct, ua[r]);
+      }
+    }
+    __syncthreads();
+
+    if (first_item)
+      load_ahead<T, VEC>(next, gimg, gbox, q0, v0, pooled, c, ahead);
+    // dF[h0 + r, x] += sum_q Kx[q, x] u[r, q] (q ascending); each
+    // (column, channel vector) has one owner, so no atomics
+    for (int k = t; k < ncols * nv; k += BWD_THREADS) {
+      const int x = xa + k / nv, v = k % nv;
+      float a[R][VEC];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        lds<VEC>(acc + (r * w + x) * ct, v, ct, a[r]);
+      for (int q0 = 0; q0 < pooled; q0 += 8) {
+        float kw[8];  // eight bins' weights read together
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kw[j] = q0 + j < pooled ? kx[(q0 + j) * w + x] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (kw[j] == 0.0f) continue;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float uv[VEC];
+            lds<VEC>(u + (r * pooled + q0 + j) * ct, v, ct, uv);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) a[r][e] += kw[j] * uv[e];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        sts<VEC>(acc + (r * w + x) * ct, v, ct, a[r]);
+    }
+    __syncthreads();
+  }
+
+  // the band's rows inside the image, stored once in g's dtype
+  for (int k = t; k < R * w * nv; k += BWD_THREADS) {
+    const int r = k / (w * nv), x = (k / nv) % w, v = k % nv;
+    if (h0 + r >= h) break;
+    float a[VEC];
+    lds<VEC>(acc + (r * w + x) * ct, v, ct, a);
+    Vec<T, VEC> o;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) o.v[e] = from_f32<T>(a[e]);
+    *reinterpret_cast<Vec<T, VEC>*>(
+        df + ((img * h + h0 + r) * (long long)w + x) * c + ch0 + v * VEC) = o;
+  }
 }
 
 template <typename T, int VEC>
@@ -305,20 +603,38 @@ void launch(const void* feat, const float* boxes, void* out, int b, int h,
       pooled, ratio, scale);
 }
 
-template <typename T>
+template <typename T, int VEC, int R>
 int launch_bwd(const void* g, const float* boxes, void* df, int b, int h,
                int w, int c, int n, int pooled, int ratio, float scale,
-               int threads, cudaStream_t stream) {
-  const size_t smem = (size_t)w * threads * sizeof(float);
+               int ct, int smem, cudaStream_t stream) {
+  auto kernel = roi_align_bwd_kernel<T, VEC, R>;
   cudaError_t err = cudaFuncSetAttribute(
-      roi_align_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(h, (c + threads - 1) / threads, b);
-  roi_align_bwd_kernel<T><<<grid, threads, smem, stream>>>(
+  const dim3 grid((h + R - 1) / R, (c + ct - 1) / ct, b);
+  kernel<<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const T*>(g), boxes, static_cast<T*>(df), h, w, c, n,
-      pooled, ratio, scale);
+      pooled, ratio, scale, ct);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_bwd_rows(const void* g, const float* boxes, void* df, int b,
+                    int h, int w, int c, int n, int pooled, int ratio,
+                    float scale, int rows, int ct, int smem,
+                    cudaStream_t stream) {
+  switch (rows) {
+    case 4:
+      return launch_bwd<T, VEC, 4>(g, boxes, df, b, h, w, c, n, pooled,
+                                   ratio, scale, ct, smem, stream);
+    case 2:
+      return launch_bwd<T, VEC, 2>(g, boxes, df, b, h, w, c, n, pooled,
+                                   ratio, scale, ct, smem, stream);
+    case 1:
+      return launch_bwd<T, VEC, 1>(g, boxes, df, b, h, w, c, n, pooled,
+                                   ratio, scale, ct, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -349,18 +665,38 @@ extern "C" int roi_align_fwd(const void* feat, const void* boxes,
 
 // g [b, n, pooled, pooled, c] (dtype 0 = float32, 1 = bfloat16), boxes
 // as for the forward -> df [b, h, w, c] in g's dtype, every element
-// written. threads: channels per block, a multiple of 32, >= 2 * pooled;
-// the block takes w * threads * 4 bytes of shared memory. Returns the
+// written. The plan (ops/roi_align.py:_bwd_plan): band_rows 1, 2 or 4,
+// channel_tile a multiple of 8, smem_bytes = bwd_smem_bytes(band_rows,
+// w, channel_tile, pooled); vec channels a thread (1, or 16 bytes'
+// worth: c % vec == 0 and g 16-byte aligned). Returns
+// cudaErrorInvalidValue for a plan the kernel does not take, else the
 // first CUDA error of the launch, or 0.
 extern "C" int roi_align_bwd(const void* g, const void* boxes, void* df,
                              int b, int h, int w, int c, int n, int pooled,
-                             int ratio, float scale, int dtype, int threads,
+                             int ratio, float scale, int dtype, int vec,
+                             int band_rows, int channel_tile, int smem_bytes,
                              void* stream) {
+  if (channel_tile <= 0 || channel_tile % 8 || pooled > P_MAX ||
+      (size_t)smem_bytes !=
+          bwd_smem_bytes(band_rows, w, channel_tile, pooled))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bx = static_cast<const float*>(boxes);
-  if (dtype == 0)
-    return launch_bwd<float>(g, bx, df, b, h, w, c, n, pooled, ratio, scale,
-                             threads, s);
-  return launch_bwd<__nv_bfloat16>(g, bx, df, b, h, w, c, n, pooled, ratio,
-                                   scale, threads, s);
+  if (dtype == 0 && vec == 4)
+    return launch_bwd_rows<float, 4>(g, bx, df, b, h, w, c, n, pooled,
+                                     ratio, scale, band_rows, channel_tile,
+                                     smem_bytes, s);
+  if (dtype == 0 && vec == 1)
+    return launch_bwd_rows<float, 1>(g, bx, df, b, h, w, c, n, pooled,
+                                     ratio, scale, band_rows, channel_tile,
+                                     smem_bytes, s);
+  if (dtype == 1 && vec == 8)
+    return launch_bwd_rows<__nv_bfloat16, 8>(g, bx, df, b, h, w, c, n,
+                                             pooled, ratio, scale, band_rows,
+                                             channel_tile, smem_bytes, s);
+  if (dtype == 1 && vec == 1)
+    return launch_bwd_rows<__nv_bfloat16, 1>(g, bx, df, b, h, w, c, n,
+                                             pooled, ratio, scale, band_rows,
+                                             channel_tile, smem_bytes, s);
+  return (int)cudaErrorInvalidValue;
 }

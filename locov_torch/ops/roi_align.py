@@ -35,9 +35,13 @@ _POOLED_MAX = 32
 # boxes per step of the plain version: bounds its [B, chunk, P, H, C]
 # float32 intermediate
 _CHUNK = 200
-# dynamic shared memory the backward kernel's row accumulator may take:
-# a block's 227 KB less the kernel's static tap tables
-_BWD_SMEM_MAX = 232448 - 8448
+# the backward kernel's launch plan (see ``_bwd_plan``): shared memory a
+# block may take on this card (227 KB), and what two blocks on one SM
+# may each take (228 KB less 1 KB reserved a block); threads a block
+_BWD_SMEM_MAX = 232448
+_BWD_SMEM_TWO = 233472 // 2 - 1024
+_BWD_THREADS = 256
+_BWD_ROWS = (4, 2, 1)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -179,11 +183,14 @@ def roi_align_bwd_plain(g: torch.Tensor, boxes: torch.Tensor,
     return df.to(g.dtype)
 
 
-def _fn(name):
+def _fn(name, n_tail_ints):
+    """The C entry ``name``: three pointers, seven ints, the scale, then
+    ``n_tail_ints`` ints and the stream."""
     fn = getattr(kernel_lib.load("roi_align"), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_float] + [ctypes.c_int] * n_tail_ints + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -224,7 +231,7 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
     if c % vec or features.data_ptr() % 16:
         vec = 1
     with torch.cuda.device(features.device):
-        err = _fn("roi_align_fwd")(
+        err = _fn("roi_align_fwd", 2)(
             features.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w,
             c, n, pooled, int(sampling_ratio), float(spatial_scale),
             _DTYPES[features.dtype], vec,
@@ -232,6 +239,45 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
     kernel_lib.check_launch(err, "roi_align_fused")
     kernel_lib.LAUNCHES["roi_align_fused"] += 1
     return out
+
+
+def _bwd_smem(rows: int, w: int, tile: int, pooled: int) -> int:
+    """Dynamic shared memory of the backward kernel, counted as
+    ``bwd_smem_bytes`` of ``csrc/roi_align.cu`` counts it: the f32
+    accumulator [rows, w, tile], the Ky-contracted cotangent [rows,
+    pooled, tile], the box's Kx [pooled, w], and two boxes' taps (y and
+    x taps, Ky [pooled, rows], a summary)."""
+    taps = 2 * 16 * pooled * ADAPTIVE_SR_MAX + 4 * pooled * (1 + rows) + 32
+    return 4 * (rows * w * tile + rows * pooled * tile + pooled * w) + \
+        2 * taps
+
+
+def _bwd_plan(h: int, w: int, c: int, dtype: torch.dtype,
+              pooled: int = 14) -> dict:
+    """Launch plan of the backward kernel for features [*, h, w, c] of
+    ``dtype``: the band rows R (feature rows a block accumulates), the
+    channel tile, the threads a block and the dynamic shared memory it
+    takes. The tile is 16 channel vectors (128 bf16 or 64 f32
+    channels), so that at pooled 14 each of the 224 contracting threads
+    takes one (bin column, channel vector); R is the widest band (4, 2
+    or 1 rows, no more than the image has) with which two blocks share
+    an SM, else the widest that fits a block alone. On the H100 at [8,
+    512, 14, 14, 1024] -> [8, 50, 84, 1024] this took f32 R 4 x 64
+    channels and bf16 R 2 x 128, the fastest of the plans timed. Raises
+    where even one row does not fit."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"roi_align_bwd: dtype {dtype} not in {_DTYPES}")
+    vec = 16 * 8 // torch.finfo(dtype).bits  # channels in 16 bytes
+    vec = vec if c % vec == 0 else 1
+    tile = min(16 * vec, -(-c // 8) * 8)
+    for limit in (_BWD_SMEM_TWO, _BWD_SMEM_MAX):
+        for rows in _BWD_ROWS:
+            smem = _bwd_smem(rows, w, tile, pooled)
+            if (rows <= h or rows == 1) and smem <= limit:
+                return {"band_rows": rows, "channel_tile": tile,
+                        "threads": _BWD_THREADS, "smem_bytes": smem}
+    raise ValueError(f"roi_align_bwd: feature width {w} needs more "
+                     f"shared memory than a block has")
 
 
 def roi_align_bwd_cuda(g: torch.Tensor, boxes: torch.Tensor,
@@ -247,22 +293,21 @@ def roi_align_bwd_cuda(g: torch.Tensor, boxes: torch.Tensor,
     if tuple(g.shape) != (b, n, pooled, pooled, c):
         raise ValueError(f"roi_align_bwd: g {tuple(g.shape)} for boxes "
                          f"{tuple(boxes.shape)}, pooled {pooled}")
-    # one channel per thread, at least 2 * pooled threads (they compute
-    # a box's bin taps), a row accumulator of w * threads floats
-    threads = max(64, min(128, -(-c // 32) * 32))
-    if w * threads * 4 > _BWD_SMEM_MAX:
-        raise ValueError(f"roi_align_bwd: feature width {w} needs more "
-                         f"shared memory than a block has")
+    plan = _bwd_plan(h, w, c, g.dtype, pooled)
     df = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
     if df.numel() == 0:
         return df
     if n == 0:
         return df.zero_()
+    vec = 16 // g.element_size()
+    if c % vec or g.data_ptr() % 16:
+        vec = 1
     with torch.cuda.device(g.device):
-        err = _fn("roi_align_bwd")(
+        err = _fn("roi_align_bwd", 5)(
             g.data_ptr(), boxes.data_ptr(), df.data_ptr(), b, h, w, c, n,
             pooled, int(sampling_ratio), float(spatial_scale),
-            _DTYPES[g.dtype], threads, kernel_lib.stream_ptr(g.device))
+            _DTYPES[g.dtype], vec, plan["band_rows"], plan["channel_tile"],
+            plan["smem_bytes"], kernel_lib.stream_ptr(g.device))
     kernel_lib.check_launch(err, "roi_align_bwd")
     kernel_lib.LAUNCHES["roi_align_bwd"] += 1
     return df

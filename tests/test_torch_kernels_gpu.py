@@ -16,7 +16,8 @@ bfloat16 within one bfloat16 ulp of the plain version (computed in
 float32 and cast once), or 1e-5 * max|F| where that is larger; its
 feature gradient within 1e-5 * (the plain gradient of |g|) at each
 cell (the float32 sum-order bound of a cell that many boxes touch),
-plus one bfloat16 ulp in bfloat16; the bottleneck block within
+plus one bfloat16 ulp in bfloat16, and the same bits on a second
+launch; the bottleneck block within
 1e-5 * max|y| of the plain version in float32 (float32 sums in another
 order) and in bfloat16, at each element, within one bfloat16 ulp plus
 1e-3 * max|y| (t1 and t2 each rounded once: a sum-order difference can
@@ -29,6 +30,8 @@ float32 sum-order bound, which exceeds a bfloat16 ulp of an output
 close to 0; its gradient within 1e-5 of the largest
 value (plus one bfloat16 ulp in bfloat16) of autograd of the plain conv.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -166,30 +169,40 @@ def test_roi_align_matches_plain(cuda, dtype, sr, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sr,c", [(0, 256), (2, 256), (0, 12), (1, 64)])
-def test_roi_align_backward_matches_plain(cuda, dtype, sr, c):
-    f = (torch.randn((2, 25, 42, c), generator=cuda, device="cuda") * 3)
+@pytest.mark.parametrize("sr,c,h,offset", [
+    (0, 256, 25, 0), (2, 256, 25, 0), (0, 12, 25, 0), (1, 64, 25, 0),
+    # heights that leave a part band (the plan's bands are 2 or 4 rows)
+    (0, 256, 7, 0), (2, 64, 1, 0),
+    # g one element past a 16-byte boundary: one channel a thread
+    (0, 256, 7, 1)])
+def test_roi_align_backward_matches_plain(cuda, dtype, sr, c, h, offset):
+    f = (torch.randn((2, h, 42, c), generator=cuda, device="cuda") * 3)
     f = f.to(dtype).requires_grad_(True)
-    bx = _boxes(cuda, 2, 40, 400, 672)
-    g = torch.randn((2, 45, 14, 14, c), generator=cuda,
-                    device="cuda").to(dtype)
+    bx = _boxes(cuda, 2, 40, h * 16, 672)
+    shape = (2, 45, 14, 14, c)
+    g = torch.randn((math.prod(shape) + offset,), generator=cuda,
+                    device="cuda").to(dtype)[offset:].view(shape)
+    assert (g.data_ptr() % 16 == 0) == (offset == 0)
     before = kernel_lib.LAUNCHES["roi_align_bwd"]
     roi_align_fused(f, bx, 1 / 16, 14, sr).backward(g)
     assert kernel_lib.LAUNCHES["roi_align_bwd"] == before + 1
     got = f.grad.float()
-    plain = roi_align_bwd_plain(g, bx, 1 / 16, 25, 42, 14, sr).float()
-    bound = roi_align_bwd_plain(g.abs(), bx, 1 / 16, 25, 42, 14, sr).float()
+    plain = roi_align_bwd_plain(g, bx, 1 / 16, h, 42, 14, sr).float()
+    bound = roi_align_bwd_plain(g.abs(), bx, 1 / 16, h, 42, 14, sr).float()
     torch.cuda.synchronize()
     tol = 1e-5 * bound
     if dtype == torch.bfloat16:
         _, e = torch.frexp(torch.maximum(plain.abs(), got.abs()))
         tol = tol + torch.exp2((e - 8).float())
     assert bool(((got - plain).abs() <= tol).all())
+    # the sum order is fixed: another launch gives the same bits
+    assert _same_bits(roi_align_bwd_cuda(g, bx, 1 / 16, h, 42, 14, sr),
+                      f.grad)
     # boxes wholly outside, and in adaptive mode the degenerate ones,
     # contribute exactly 0
     zero = [1, 2, 4] if sr == 0 else [4]
     alone = roi_align_bwd_cuda(g[:, zero].contiguous(),
-                               bx[:, zero].contiguous(), 1 / 16, 25, 42, 14,
+                               bx[:, zero].contiguous(), 1 / 16, h, 42, 14,
                                sr)
     assert bool((alone == 0).all())
 

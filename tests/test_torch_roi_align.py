@@ -20,6 +20,7 @@ from locov_tpu.ops import roi_align as jroi
 from locov_tpu.ops.pallas_roi_align import roi_align_pallas_fused
 from locov_torch.ops import kernel_lib
 from locov_torch.ops import roi_align as troi
+from locov_torch.tools import bench_roi_bwd
 from torch_parity import n, t
 
 STRIDE = 16.0
@@ -117,3 +118,53 @@ def test_wrapper_is_plain_on_cpu_and_checks_cuda_inputs(rng):
     with pytest.raises(ValueError, match="CUDA"):
         troi.roi_align_cuda(f, bx, 1 / STRIDE)
 
+
+# The feature gradient's CUDA kernel cannot run here; its launch plan is
+# plain Python and is checked at every shape the port gives it: the
+# detector's features at 800 x 1344 (50 x 84), the tests' 25 x 42 and
+# 16 x 24, heights that leave a part band (7, 1), c 12 to 1024.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(50, 84), (25, 42), (16, 24), (7, 84),
+                                 (1, 84)])
+@pytest.mark.parametrize("c", [12, 64, 256, 1024])
+def test_bwd_plan_fits_a_block(h, w, c, dtype):
+    plan = troi._bwd_plan(h, w, c, dtype)
+    assert 1 <= plan["band_rows"] <= max(1, min(4, h))
+    assert plan["band_rows"] in (1, 2, 4)
+    assert plan["channel_tile"] % 8 == 0 and plan["channel_tile"] <= 128
+    assert plan["smem_bytes"] == troi._bwd_smem(
+        plan["band_rows"], w, plan["channel_tile"], 14)
+    assert plan["smem_bytes"] <= 232448
+    assert plan["threads"] == 256
+
+
+@pytest.mark.parametrize("dtype,rows,tile", [(torch.float32, 4, 64),
+                                             (torch.bfloat16, 2, 128)])
+def test_bwd_plan_main_shape_keeps_two_blocks_an_sm(dtype, rows, tile):
+    plan = troi._bwd_plan(50, 84, 1024, dtype)
+    assert (plan["band_rows"], plan["channel_tile"]) == (rows, tile)
+    assert 2 * (plan["smem_bytes"] + 1024) <= 233472
+
+
+def test_bwd_plan_refuses_a_width_that_cannot_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        troi._bwd_plan(50, 4000, 1024, torch.float32)
+    with pytest.raises(TypeError):
+        troi._bwd_plan(50, 84, 1024, torch.float16)
+
+
+def test_bench_boxes_lie_in_the_image_and_the_bench_needs_the_card(
+        monkeypatch):
+    gen = torch.Generator().manual_seed(0)
+    bx = bench_roi_bwd.train_boxes(gen, b=2, n=64, n_gt=4)
+    assert bx.shape == (2, 64, 4) and bx.dtype == torch.float32
+    assert bool((bx[..., 2:] > bx[..., :2]).all())
+    assert bool((bx[..., :2] >= 0).all())
+    assert bool((bx[..., 2] <= 1344 + 1e-3).all())
+    assert bool((bx[..., 3] <= 800 + 1e-3).all())
+    # gt-sized boxes last: sides 32 to 400 px
+    sides = bx[:, -4:, 2:] - bx[:, -4:, :2]
+    assert bool(((sides >= 32 - 1e-3) & (sides <= 400 + 1e-3)).all())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_roi_bwd.main([])
