@@ -20,13 +20,16 @@ Phases, one JSON line each, in order:
    1e-5 * max|F|; in bfloat16 within one bfloat16 ulp of the plain
    version (computed in float32 and cast once), or 1e-5 * max|F| where
    that is larger (the float32 sum-order error, which exceeds a bfloat16
-   ulp of outputs close to 0). K3-bwd within 1e-5 * (the plain backward
+   ulp of outputs close to 0); two launches, and launches under other
+   plans, must give the same bits. K3-bwd within 1e-5 * (the plain backward
    of |g|) at each cell, plus one bfloat16 ulp in bfloat16, the same
    bits on two launches, also at feature heights 7 and 1 (band edges);
    degenerate and outside boxes contribute exactly 0. Kernel, plain and
    library-call times are medians of CUDA-event timings after warm-up.
-3. small references: a tiny float32 OvrRCNN (TF32 off) on the card,
-   through the kernels, against the same model on the CPU, through the
+3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
+   TF32 allowed as PyTorch's default has it (the port's float32
+   convolutions turn it off themselves), through the kernels, against
+   the same model on the CPU, through the
    plain versions, which the CPU tests hold against the JAX package:
    inference, and one training step at FREEZE_AT 0 (losses, gradients,
    SGD updates).
@@ -66,7 +69,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -104,14 +106,6 @@ TRAIN_STEPS = 3  # timed steps of the train path
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -253,17 +247,6 @@ def check_relu_maxpool_bwd(gen, results):
 
 
 # ------------------------------------------------------------------ K2
-def _proposal_like_boxes(gen, b, n, img_h, img_w):
-    """Boxes the size of RPN proposals: log-uniform sides 8..img."""
-    import torch
-    u = torch.rand((b, n, 4), generator=gen, device="cuda")
-    side_w = torch.exp(u[..., 2] * math.log(img_w / 8.0)) * 8
-    side_h = torch.exp(u[..., 3] * math.log(img_h / 8.0)) * 8
-    x0 = u[..., 0] * (img_w - side_w)
-    y0 = u[..., 1] * (img_h - side_h)
-    return torch.stack([x0, y0, x0 + side_w, y0 + side_h], -1).contiguous()
-
-
 def _edge_boxes(b, img_h, img_w):
     import torch
     special = torch.tensor([
@@ -296,19 +279,59 @@ def roi_align_ops(boxes, scale, pooled, c):
     return float((srx * sry).sum().item()) * pooled * pooled * c * 8
 
 
+def roi_align_fwd_bits(f, boxes, scale, pooled, sr, got):
+    """The forward kernel's plan at these features and whether a second
+    launch, and launches under other plans (a half and a quarter of the
+    channel tile, 16-byte loads, 1 and 7 output rows a block), give
+    ``got``'s bits."""
+    import torch
+    from locov_torch.ops import roi_align as roi
+    _, h, w, c = f.shape
+    plan = roi._fwd_plan(h, w, c, f.dtype, pooled, roi._align(f))
+    tile, vec = plan["channel_tile"], plan["vec"]
+    half = roi._vec(c, f.dtype, roi._align(f) >= 16, 16)
+    others = []
+    for d, v, rows in ((2, vec, plan["rows"]), (4, vec, plan["rows"]),
+                       (1, half, plan["rows"]), (1, vec, 1), (1, vec, 7)):
+        step = math.lcm(8, v)  # a tile: whole vectors, a multiple of 8
+        others.append(roi._fwd_launch_plan(
+            h, w, max(step, tile // d // step * step), v, pooled, rows))
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+    def same_bits(out):  # the outputs are finite: compare the words
+        return torch.equal(out.view(ints[out.dtype]),
+                           got.view(ints[got.dtype]))
+    again = roi.roi_align_cuda(f, boxes, scale, pooled, sr)
+    same = same_bits(again)
+    del again
+    every = True
+    for other in others:
+        out = roi._launch_fwd(f, boxes, scale, pooled, sr, other, math.nan)
+        every = every and same_bits(out)
+        del out
+    return {"channel_tile": tile, "vec": vec, "rows": plan["rows"],
+            "threads": plan["threads"],
+            "smem_bytes": plan["smem_bytes"],
+            "same_bits_two_launches": same, "same_bits_every_plan": every}
+
+
 def check_roi_align(gen, results):
+    """K2 against the plain version: main (the inference shapes), edge
+    boxes and a fixed ratio; float32 within 1e-5 * max|F|, bfloat16
+    within one bfloat16 ulp or 1e-5 * max|F|; degenerate and outside
+    boxes exactly 0; two launches and every launch plan the same bits."""
     import torch
     from locov_torch.ops.roi_align import roi_align_batched, roi_align_cuda
+    from locov_torch.tools.bench_roi_fwd import proposal_boxes
     from locov_torch.tools.timing import time_ms
     scale, pooled = 1.0 / 16, 14
     img_h, img_w = 800, 1344
     fmain = torch.randn((8, 50, 84, 1024), generator=gen, device="cuda")
-    cases = [("main", fmain, _proposal_like_boxes(gen, 8, 1000, img_h,
-                                                  img_w), 0),
+    cases = [("main", fmain, proposal_boxes(gen, 8, 1000, img_h, img_w), 0),
              ("edges", fmain[:2, :, :, :256].contiguous(),
               _edge_boxes(2, img_h, img_w), 0),
              ("fixed_ratio", fmain[:2, :, :, :256].contiguous(),
-              _proposal_like_boxes(gen, 2, 100, img_h, img_w), 2)]
+              proposal_boxes(gen, 2, 100, img_h, img_w), 2)]
     for dtype in (torch.float32, torch.bfloat16):
         for case, feats, boxes, sr in cases:
             f = feats.to(dtype)
@@ -334,6 +357,10 @@ def check_roi_align(gen, results):
                 line["over_one_bf16_ulp"] = int((err > ulp).sum())
                 del ulp
             line["within_tolerance"] = ok
+            del plain, err
+            line.update(roi_align_fwd_bits(f, boxes, scale, pooled, sr, got))
+            ok = ok and line["same_bits_two_launches"] and \
+                line["same_bits_every_plan"]
             if case == "edges":
                 zero = bool((got[:, 2:4] == 0).all() and
                             (got[:, 5] == 0).all())
@@ -354,8 +381,8 @@ def check_roi_align(gen, results):
             emit(line)
             if not ok:
                 raise AssertionError(f"roi_align_fused {case} {dtype}: "
-                                     f"max err {err.max().item()}")
-            del f, got, plain, err
+                                     f"{line}")
+            del f, got
     del fmain
 
 
@@ -365,7 +392,8 @@ def _band_edge_boxes(gen, b, n, img_h, img_w):
     five replaced by tall thin ones (half a cell or less wide) whose
     spans start and end inside different bands of feature rows."""
     import torch
-    bx = _proposal_like_boxes(gen, b, n, img_h, img_w)
+    from locov_torch.tools.bench_roi_fwd import proposal_boxes
+    bx = proposal_boxes(gen, b, n, img_h, img_w)
     spans = torch.tensor([[0.0, 1.0], [0.15, 0.9], [0.4, 0.75],
                           [0.05, 0.55], [0.6, 1.0]], device="cuda")
     bx[:, :5, 0] = torch.tensor([100.0, 300.0, 301.0, 700.0, 1200.0],
@@ -418,7 +446,11 @@ def check_roi_align_train(gen, results):
                     "case": "train", "dtype": dt, "features": list(f.shape),
                     "boxes": list(bmain.shape), "sampling_ratio": sr,
                     "max_abs_err": err.max().item(), "within_tolerance": ok}
-            del got, plain, err, tol
+            del plain, err, tol
+            line.update(roi_align_fwd_bits(f, bmain, scale, pooled, sr, got))
+            ok = ok and line["same_bits_two_launches"] and \
+                line["same_bits_every_plan"]
+            del got
             if sr == 0:
                 line["kernel_ms"] = time_ms(
                     lambda: roi_align_cuda(f, bmain, scale, pooled, sr))
@@ -821,9 +853,11 @@ def _tiny_train_batch(rng):
 
 def small_reference_train(seed):
     """One training step of a tiny float32 OvrRCNN at FREEZE_AT 0 (so
-    every kernel runs, K1-bwd included), TF32 off, the RPN tamed and the
-    samplers' uniform draws fixed: the card (kernels) against the CPU
-    (plain versions, which the CPU tests hold against the JAX package).
+    every kernel runs, K1-bwd included), cuDNN's TF32 allowed in the
+    process (the port turns it off for its float32 convolutions), the
+    RPN tamed and the samplers' uniform draws fixed: the card (kernels)
+    against the CPU (plain versions, which the CPU tests hold against the
+    JAX package).
     Compared: the loss dict (|diff| <= 1e-4 * max(1, |loss|)); the
     gradients of the stem conv, a res4 conv, ``rpn_head.conv`` and
     ``bbox_pred`` and every parameter's SGD update (max |diff| <= 1e-3
@@ -1211,14 +1245,20 @@ def main(argv=None) -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # PyTorch's defaults: float32 matmuls in float32, cuDNN allowed TF32;
+    # the port's float32 convolutions turn TF32 off themselves
+    # (locov_torch/ops/conv.py), and the small references check it
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
 
+    from locov_torch.tools.timing import nvidia_smi_line
     smi = nvidia_smi_line()
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "nvidia_smi": smi})
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     build_s = kernel_lib.build()
     regs = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
             for k, v in kernel_lib.BUILD_LOG.items()}

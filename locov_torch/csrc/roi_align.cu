@@ -1,5 +1,6 @@
-// ROIAlignV2 (aligned, half-pixel offset), NHWC: forward in gather form,
-// and the gradient to the features, scatter-free.
+// ROIAlignV2 (aligned, half-pixel offset), NHWC: the forward as two
+// separable contractions over each box's cells, and the gradient to the
+// features, scatter-free.
 //
 // Forward: replaces the TPU kernels locov_tpu/ops/pallas_roi_align.py:
 // _fused_kernel (inference, launched by roi_align_pallas_fused) and
@@ -9,12 +10,8 @@
 // as two dense MXU contractions against per-box interpolation matrices
 // (ops/roi_align.py:roi_align_batched). Those matrices are almost all
 // zeros (each row holds at most 2 * samples non-zeros), which on this
-// card would waste the tensor cores on zeros; the gather form below
-// computes the same sum in another order: the separable weights factor
-// exactly,
-//   Ky[p,h] Kx[q,w] = sum_{sy,sx} a_sy a_sx hat_y(h) hat_x(w),
-// so each output is the weighted sum of the 4-tap bilinear samples of
-// its bin.
+// card would waste the tensor cores on zeros; the kernel below contracts
+// only the span of cells each bin weighs on, on the CUDA cores.
 //
 // Backward: replaces pallas_roi_align.py:_bwd_kernel (launched by
 // _backward_df), the feature gradient
@@ -33,11 +30,43 @@
 // image, against a 50 MB L2) is read and dF (the size of the features)
 // written.
 //
-// Forward design: one block per (box, output row p), threads over
-// channel vectors (16 bytes: 8 bf16 or 4 f32 channels), each thread
-// walking the row's bins. The block first computes the row's y samples
-// and every column's x samples (position, the two neighbouring cells,
-// their hat weights times the sample weight) into shared memory.
+// Forward design: separable, in registers. One block per (box, group of
+// two output rows, channel tile), blocks in box order (one image's
+// features stay in L2 while its boxes run), one thread a channel vector
+// of 32 bytes (16 bf16 or 8 f32 channels). The block turns the box's
+// taps into its dense weights Kx[q, x] and its rows' Ky[p, h] in shared
+// memory (each bin's samples summed in order over the cells they
+// touch), with the span of cells each bin weighs on. Each thread then
+// walks the bins q ascending and, for each column x of a bin's span,
+//   t_x = sum_h Ky[p, h] F[h, x, c]      (h ascending)
+//   out[p, q, c] += Kx[q, x] t_x          (x ascending)
+// in f32 registers. t_x is computed once and kept in one of two slots
+// by the parity of x, since neighbouring bins share their edge
+// columns; so each feature cell a row weighs on is loaded once a (box,
+// row), against four times a sample in the gather form before. The
+// output is stored once, in its dtype, with streaming stores
+// (st.global.cs), so that it does not evict the features from L2. The
+// sum order depends on neither the tile, the rows a block nor the
+// vector width: every plan gives the same bits. The plan is
+// ops/roi_align.py:_fwd_plan; the C entry refuses a plan whose shared
+// memory differs from fwd_smem_bytes.
+//
+// What holds it: not bytes. In ablated copies of the kernel (inference
+// shapes, bf16, 16-byte vectors) dropping the stores changed little,
+// and dropping every feature load still left over half the time: the
+// per-thread work (the column walk, its branches, the tap phase) and
+// the latency of each column's loads at the occupancy its registers
+// allow hold it. 32-byte vectors halve that work per channel; one row
+// loaded at a time keeps bf16 at 128 registers. Tried before it, each
+// slower than the gather kernel in the same process: T = Ky F in shared
+// memory (double buffered, one barrier a step) with one block per (box,
+// channel tile) walking the rows (one L2 round trip and a barrier a
+// step at about 20 warps an SM), also with several rows a step, and
+// 16-byte vectors with the next column's loads issued ahead (spills).
+//
+// The gather design before it (one block per (box, output row), each
+// thread loading the four taps of every sample of its bins as 16-byte
+// vectors) ran at three times its byte bound.
 //
 // Backward design: one block per (image, band of R feature rows, tile
 // of ct channels), with the band's f32 accumulator [R, W, ct] in
@@ -155,68 +184,6 @@ __device__ __forceinline__ Box load_box(const float* box, float scale) {
   r.bw = __fsub_rn(__fsub_rn(__fmul_rn(box[2], scale), 0.5f), r.x0);
   r.bh = __fsub_rn(__fsub_rn(__fmul_rn(box[3], scale), 0.5f), r.y0);
   return r;
-}
-
-template <typename T, int VEC>
-__global__ void roi_align_kernel(const T* __restrict__ feat,
-                                 const float* __restrict__ boxes,
-                                 T* __restrict__ out, int h, int w, int c,
-                                 int n, int pooled, int ratio,
-                                 float scale) {
-  __shared__ Tap ys[SR_MAX];
-  __shared__ Tap xs[P_MAX * SR_MAX];
-  __shared__ int nxs[P_MAX];
-  __shared__ int nys;
-
-  const long long bn = blockIdx.x / pooled;  // box index in [0, B*N)
-  const int p = blockIdx.x % pooled;
-  const long long img = bn / n;
-  const Box bx = load_box(boxes + bn * 4, scale);
-
-  if (threadIdx.x == 0) nys = bin_taps(bx.y0, bx.bh, pooled, ratio, p, h, ys);
-  for (int q = threadIdx.x; q < pooled; q += blockDim.x)
-    nxs[q] = bin_taps(bx.x0, bx.bw, pooled, ratio, q, w, xs + q * SR_MAX);
-  __syncthreads();
-
-  const int cv = c / VEC;
-  const T* fimg = feat + img * h * w * (long long)c;
-  T* orow = out + (bn * pooled + p) * (long long)pooled * c;
-  for (int v = threadIdx.x; v < cv; v += blockDim.x) {
-    const T* fv = fimg + (long long)v * VEC;
-    for (int q = 0; q < pooled; ++q) {
-      float acc[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
-      const int nx = nxs[q];
-      for (int sy = 0; sy < nys; ++sy) {
-        const Tap ty = ys[sy];
-        const T* rlo = fv + (long long)ty.lo * w * c;
-        const T* rhi = fv + (long long)ty.hi * w * c;
-        for (int sx = 0; sx < nx; ++sx) {
-          const Tap tx = xs[q * SR_MAX + sx];
-          const float w00 = ty.wlo * tx.wlo, w01 = ty.wlo * tx.whi;
-          const float w10 = ty.whi * tx.wlo, w11 = ty.whi * tx.whi;
-          const Vec<T, VEC> a =
-              *reinterpret_cast<const Vec<T, VEC>*>(rlo + tx.lo * c);
-          const Vec<T, VEC> b =
-              *reinterpret_cast<const Vec<T, VEC>*>(rlo + tx.hi * c);
-          const Vec<T, VEC> d =
-              *reinterpret_cast<const Vec<T, VEC>*>(rhi + tx.lo * c);
-          const Vec<T, VEC> e =
-              *reinterpret_cast<const Vec<T, VEC>*>(rhi + tx.hi * c);
-#pragma unroll
-          for (int k = 0; k < VEC; ++k)
-            acc[k] += w00 * to_f32(a.v[k]) + w01 * to_f32(b.v[k]) +
-                      w10 * to_f32(d.v[k]) + w11 * to_f32(e.v[k]);
-        }
-      }
-      Vec<T, VEC> o;
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<T>(acc[k]);
-      *reinterpret_cast<Vec<T, VEC>*>(orow + (long long)q * c +
-                                      (long long)v * VEC) = o;
-    }
-  }
 }
 
 // The backward's block: BWD_THREADS threads, of which the last warp
@@ -428,6 +395,184 @@ __device__ __forceinline__ void sts(float* row, int v, int ct,
   }
 }
 
+// ------------------------------------------------------------- forward
+// Threads a forward block may have (one a channel vector of its tile).
+constexpr int FWD_MAX_THREADS = 256;
+
+// Dynamic shared memory of the forward block of `rows` output rows: the
+// spans [pooled + rows][2] (the x bins' columns, the rows' feature
+// rows), Kx [pooled][w] and Ky of its rows [rows][h].
+size_t fwd_smem_bytes(int h, int w, int rows, int pooled) {
+  return 4 * ((size_t)pooled * w + (size_t)rows * h +
+              2 * ((size_t)pooled + rows));
+}
+
+// One VEC-channel vector to global memory, as streaming stores
+// (st.global.cs: evict first), 16 bytes at a time.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_stream(T* p, const Vec<T, VEC>& o) {
+  if constexpr (sizeof(Vec<T, VEC>) % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < (int)sizeof(Vec<T, VEC>) / 16; ++i)
+      __stcs(reinterpret_cast<int4*>(p) + i,
+             reinterpret_cast<const int4*>(&o)[i]);
+  } else if constexpr (sizeof(Vec<T, VEC>) == 4) {
+    __stcs(reinterpret_cast<int*>(p), *reinterpret_cast<const int*>(&o));
+  } else
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           *reinterpret_cast<const unsigned short*>(&o));
+}
+
+// The dense weights of one bin of one axis, k[i] for i in its span of
+// cells [lo, hi] (each sample's taps summed in order), from the shared
+// tap code; returns the span (empty: lo > hi).
+__device__ __forceinline__ int2 dense_bin(float lo0, float size, int pooled,
+                                          int ratio, int bin, int dim,
+                                          float* k) {
+  Tap taps[SR_MAX];
+  const int nt = bin_taps(lo0, size, pooled, ratio, bin, dim, taps);
+  int lo = dim, hi = -1;
+  for (int s = 0; s < nt; ++s) {
+    if (taps[s].wlo != 0.0f) {
+      lo = min(lo, taps[s].lo);
+      hi = max(hi, taps[s].lo);
+    }
+    if (taps[s].whi != 0.0f) {
+      lo = min(lo, taps[s].hi);
+      hi = max(hi, taps[s].hi);
+    }
+  }
+  for (int i = lo; i <= hi; ++i) {
+    float v = 0.0f;
+    for (int s = 0; s < nt; ++s) {
+      if (taps[s].lo == i) v += taps[s].wlo;
+      if (taps[s].hi == i) v += taps[s].whi;
+    }
+    k[i] = v;
+  }
+  return make_int2(lo, hi);
+}
+
+// t = sum_h Ky[h] F[h, x] over the feature rows [ha, hb], h ascending,
+// for one channel vector (fx: F[0, x]); rows loaded four at a time, or
+// one at a time at 16 channels a thread (fewer registers, more warps).
+template <typename T, int VEC>
+__device__ __forceinline__ void column_sum(const T* fx, long long frow,
+                                          const float* ky, int ha, int hb,
+                                          float (&t)[VEC]) {
+  constexpr int PF = VEC >= 16 ? 1 : 4;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) t[e] = 0.0f;
+  for (int h0 = ha; h0 <= hb; h0 += PF) {
+    Vec<T, VEC> f[PF];
+#pragma unroll
+    for (int j = 0; j < PF; ++j)
+      if (h0 + j <= hb)
+        f[j] = *reinterpret_cast<const Vec<T, VEC>*>(fx + (h0 + j) * frow);
+#pragma unroll
+    for (int j = 0; j < PF; ++j) {
+      if (h0 + j <= hb) {
+        const float k = ky[h0 + j];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) t[e] += k * to_f32(f[j].v[e]);
+      }
+    }
+  }
+}
+
+// acc += k t
+template <int VEC>
+__device__ __forceinline__ void axpy(float (&acc)[VEC], float k,
+                                     const float (&t)[VEC]) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] += k * t[e];
+}
+
+// grid: (box, group of `rows` output rows, channel tile) in that order,
+// the boxes in index order; fwd_smem_bytes(h, w, rows, pooled) of
+// dynamic shared memory; threads over the tile's channel vectors, each
+// walking the group's rows. VEC channels a thread (32 or 16 bytes, or
+// 1).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
+roi_align_fwd_kernel(const T* __restrict__ feat,
+                     const float* __restrict__ boxes, T* __restrict__ out,
+                     int h, int w, int c, int n, int pooled, int ratio,
+                     float scale, int ct, int rows) {
+  extern __shared__ float4 smem[];
+  // [pooled + rows]: the cells each x bin, then each y bin of the
+  // group, weighs on
+  int2* spans = reinterpret_cast<int2*>(smem);
+  float* kx = reinterpret_cast<float*>(spans + pooled + rows);  // [pooled][w]
+  float* ky = kx + pooled * w;                                   // [rows][h]
+
+  const int t = threadIdx.x;
+  const int ntiles = (c + ct - 1) / ct;
+  const int groups = (pooled + rows - 1) / rows;
+  const long long bn = blockIdx.x / ((long long)ntiles * groups);
+  const int p0 = blockIdx.x / ntiles % groups * rows;
+  const int ch0 = (blockIdx.x % ntiles) * ct;
+  const int nrows = min(rows, pooled - p0);
+  const long long img = bn / n;
+  const Box bx = load_box(boxes + bn * 4, scale);
+
+  // the box's dense weights: thread j < pooled x bin j, then one thread
+  // for each y bin of the group
+  for (int j = t; j < pooled + nrows; j += blockDim.x)
+    spans[j] = j < pooled
+                   ? dense_bin(bx.x0, bx.bw, pooled, ratio, j, w, kx + j * w)
+                   : dense_bin(bx.y0, bx.bh, pooled, ratio, p0 + j - pooled,
+                               h, ky + (j - pooled) * h);
+  __syncthreads();
+
+  const int nv = min(ct, c - ch0) / VEC;
+  const T* fimg = feat + img * h * w * (long long)c + ch0;
+  const long long frow = (long long)w * c;
+  for (int r = 0; r < nrows; ++r) {
+    const int ha = spans[pooled + r].x, hb = spans[pooled + r].y;
+    const float* kyr = ky + r * h;
+    T* orow = out + (bn * pooled + p0 + r) * pooled * (long long)c + ch0;
+    for (int v = t; v < nv; v += blockDim.x) {
+      const T* fv = fimg + v * VEC;
+      // the sums of the two columns computed last, by the column's
+      // parity (two neighbouring columns never share a slot), and their
+      // columns
+      float te[VEC], to[VEC];
+      int xe = -1, xo = -1;
+      for (int q = 0; q < pooled; ++q) {
+        const int2 sp = spans[q];
+        float acc[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+        // out[p, q] = sum_x Kx[q, x] t_x, x ascending; each t_x computed
+        // once while neighbouring bins share it
+        for (int x = sp.x; x <= sp.y; ++x) {
+          const float k = kx[q * w + x];
+          const T* fx = fv + (long long)x * c;
+          if (x & 1) {
+            if (x != xo) {
+              column_sum<T, VEC>(fx, frow, kyr, ha, hb, to);
+              xo = x;
+            }
+            axpy<VEC>(acc, k, to);
+          } else {
+            if (x != xe) {
+              column_sum<T, VEC>(fx, frow, kyr, ha, hb, te);
+              xe = x;
+            }
+            axpy<VEC>(acc, k, te);
+          }
+        }
+        Vec<T, VEC> o;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) o.v[e] = from_f32<T>(acc[e]);
+        store_stream<T, VEC>(orow + (long long)q * c + v * VEC, o);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ backward
 // ua[r] += Ky[p, h0 + r] * g[p, q, channel vector]
 template <typename T, int VEC, int R>
 __device__ __forceinline__ void add_row(float (&ua)[R][VEC], const float* ky,
@@ -591,16 +736,23 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
 }
 
 template <typename T, int VEC>
-void launch(const void* feat, const float* boxes, void* out, int b, int h,
-            int w, int c, int n, int pooled, int ratio, float scale,
-            cudaStream_t stream) {
-  const int cv = c / VEC;
-  int threads = ((cv + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  const long long blocks = (long long)b * n * pooled;
-  roi_align_kernel<T, VEC><<<(unsigned)blocks, threads, 0, stream>>>(
+int launch_fwd(const void* feat, const float* boxes, void* out, int b, int h,
+               int w, int c, int n, int pooled, int ratio, float scale,
+               int ct, int rows, int threads, int smem,
+               cudaStream_t stream) {
+  auto kernel = roi_align_fwd_kernel<T, VEC>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (long long)b * n * ((pooled + rows - 1) / rows) *
+                           ((c + ct - 1) / ct);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       static_cast<const T*>(feat), boxes, static_cast<T*>(out), h, w, c, n,
-      pooled, ratio, scale);
+      pooled, ratio, scale, ct, rows);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int VEC, int R>
@@ -641,26 +793,44 @@ int launch_bwd_rows(const void* g, const float* boxes, void* df, int b,
 
 // feat [b, h, w, c] (dtype 0 = float32, 1 = bfloat16), boxes [b, n, 4]
 // float32 XYXY in image coordinates -> out [b, n, pooled, pooled, c] in
-// feat's dtype. ratio > 0: fixed samples per bin per axis (<= 8);
-// ratio <= 0: adaptive. pooled <= 32. vec: channels per thread (1, or
-// 16 bytes' worth). Returns cudaGetLastError() after the launch.
+// feat's dtype, every element written. ratio > 0: fixed samples per bin
+// per axis (<= 8); ratio <= 0: adaptive. pooled <= 32. vec: channels per
+// thread (1; or 32 or 16 bytes' worth, as c and feat's alignment
+// allow).
+// The plan (ops/roi_align.py:_fwd_plan): channel_tile a multiple of 8 and
+// of vec, rows output rows a block in [1, pooled], threads a multiple of
+// 32 in [32, 256], smem_bytes = fwd_smem_bytes(h, w, rows, pooled).
+// Returns cudaErrorInvalidValue for a plan
+// the kernel does not take, else the first CUDA error of the launch, or
+// 0.
 extern "C" int roi_align_fwd(const void* feat, const void* boxes,
                              void* out, int b, int h, int w, int c, int n,
                              int pooled, int ratio, float scale, int dtype,
-                             int vec, void* stream) {
+                             int vec, int channel_tile, int rows,
+                             int threads, int smem_bytes, void* stream) {
+  if (pooled < 1 || pooled > P_MAX || vec < 1 || channel_tile <= 0 ||
+      channel_tile % 8 || channel_tile % vec || rows < 1 || rows > pooled ||
+      threads < 32 || threads % 32 || threads > FWD_MAX_THREADS ||
+      (size_t)smem_bytes != fwd_smem_bytes(h, w, rows, pooled))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bx = static_cast<const float*>(boxes);
-  if (dtype == 0 && vec == 4)
-    launch<float, 4>(feat, bx, out, b, h, w, c, n, pooled, ratio, scale, s);
-  else if (dtype == 0)
-    launch<float, 1>(feat, bx, out, b, h, w, c, n, pooled, ratio, scale, s);
-  else if (vec == 8)
-    launch<__nv_bfloat16, 8>(feat, bx, out, b, h, w, c, n, pooled, ratio,
-                             scale, s);
-  else
-    launch<__nv_bfloat16, 1>(feat, bx, out, b, h, w, c, n, pooled, ratio,
-                             scale, s);
-  return (int)cudaGetLastError();
+#define LOCOV_FWD(T, V)                                                    \
+  if (vec == V)                                                            \
+    return launch_fwd<T, V>(feat, bx, out, b, h, w, c, n, pooled, ratio,   \
+                            scale, channel_tile, rows, threads, smem_bytes, \
+                            s);
+  if (dtype == 0) {
+    LOCOV_FWD(float, 8)
+    LOCOV_FWD(float, 4)
+    LOCOV_FWD(float, 1)
+  } else if (dtype == 1) {
+    LOCOV_FWD(__nv_bfloat16, 16)
+    LOCOV_FWD(__nv_bfloat16, 8)
+    LOCOV_FWD(__nv_bfloat16, 1)
+  }
+#undef LOCOV_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 // g [b, n, pooled, pooled, c] (dtype 0 = float32, 1 = bfloat16), boxes

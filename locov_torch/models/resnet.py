@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import conv2d
 from ..ops.relu_maxpool import relu_maxpool
 
 # stage name -> (num_blocks, stride of the first block)
@@ -48,8 +49,9 @@ class FrozenBatchNorm(nn.Module):
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
               padding: int) -> torch.Tensor:
-    """2-D convolution of an NHWC tensor with an OIHW kernel -> NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2),
+    """2-D convolution of an NHWC tensor with an OIHW kernel -> NHWC, in
+    full float32 when x is float32 (``ops/conv.py``)."""
+    y = conv2d(x.permute(0, 3, 1, 2),
                  weight.contiguous(memory_format=torch.channels_last),
                  stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernel_lib
+from .conv import conv2d
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTHS = (64, 128)  # the bottleneck widths M the kernel takes
@@ -57,8 +58,8 @@ def bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     xf = x.float()
     w1f, w2f, w3f = (t.to(dt).float() for t in (w1, w2, w3))
     t1 = torch.relu(xf @ w1f + b1.float()).to(dt)
-    a2 = F.conv2d(t1.float().permute(0, 3, 1, 2), w2f.permute(3, 2, 0, 1),
-                  padding=1).permute(0, 2, 3, 1)
+    a2 = conv2d(t1.float().permute(0, 3, 1, 2), w2f.permute(3, 2, 0, 1),
+                padding=1).permute(0, 2, 3, 1)
     t2 = torch.relu(a2 + b2.float()).to(dt)
     return torch.relu(t2.float() @ w3f + b3.float() + xf).to(dt)
 
@@ -70,10 +71,10 @@ def bottleneck_block_ref(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     _check_shapes(x, w1, b1, w2, b2, w3, b3)
     dt = x.dtype
     xc = x.permute(0, 3, 1, 2)
-    t1 = F.relu(F.conv2d(xc, w1.t().to(dt)[:, :, None, None], b1.to(dt)))
-    t2 = F.relu(F.conv2d(t1, w2.permute(3, 2, 0, 1).to(dt), b2.to(dt),
-                         padding=1))
-    t3 = F.conv2d(t2, w3.t().to(dt)[:, :, None, None], b3.to(dt))
+    t1 = F.relu(conv2d(xc, w1.t().to(dt)[:, :, None, None], b1.to(dt)))
+    t2 = F.relu(conv2d(t1, w2.permute(3, 2, 0, 1).to(dt), b2.to(dt),
+                       padding=1))
+    t3 = conv2d(t2, w3.t().to(dt)[:, :, None, None], b3.to(dt))
     return F.relu(t3 + xc).permute(0, 2, 3, 1)
 
 

@@ -104,6 +104,17 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def load_source(src: str, name: str) -> ctypes.CDLL:
+    """Another kernel source ``src`` (for example an earlier version of a
+    file in ``csrc/``, timed against it) built by ``nvcc`` with the same
+    flags into ``build/kernels/<name>.so`` and loaded."""
+    so = os.path.join(BUILD_DIR, name + ".so")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", so, src], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(os.path.abspath(so))
+
+
 def check_cuda_tensor(t: torch.Tensor, what: str, dtypes) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of one of
     ``dtypes``."""

@@ -12,10 +12,10 @@ weights, averaged over the sampling grid) and computes
 Numerics follow ROIAlignV2 (aligned=True, half-pixel offset) with
 torchvision's border rules: samples outside [-1, dim] contribute zero,
 in-range samples clamp to [0, dim-1]. ``roi_align_fused`` is an
-autograd Function: on CUDA tensors its forward launches the gather-form
-kernel and its backward the scatter-free gradient kernel of
-``csrc/roi_align.cu``; on CPU tensors both directions run the plain
-version.
+autograd Function: on CUDA tensors its forward launches the separable
+forward kernel and its backward the scatter-free gradient kernel of
+``csrc/roi_align.cu``, each under a launch plan (``_fwd_plan``,
+``_bwd_plan``); on CPU tensors both directions run the plain version.
 """
 from __future__ import annotations
 
@@ -35,13 +35,21 @@ _POOLED_MAX = 32
 # boxes per step of the plain version: bounds its [B, chunk, P, H, C]
 # float32 intermediate
 _CHUNK = 200
-# the backward kernel's launch plan (see ``_bwd_plan``): shared memory a
-# block may take on this card (227 KB), and what two blocks on one SM
-# may each take (228 KB less 1 KB reserved a block); threads a block
-_BWD_SMEM_MAX = 232448
+# shared memory a block may take on this card (227 KB); the backward
+# kernel's launch plan (see ``_bwd_plan``): what two blocks on one SM
+# may each take (228 KB less 1 KB reserved a block), threads a block
+_SMEM_MAX = 232448
 _BWD_SMEM_TWO = 233472 // 2 - 1024
 _BWD_THREADS = 256
 _BWD_ROWS = (4, 2, 1)
+# the forward kernel's launch plan (see ``_fwd_plan``): channel vectors
+# a tile, output rows a block, threads a block at most, and the bytes a
+# thread loads at once (the fastest timed on the H100: 32-byte vectors
+# and two rows a block)
+_FWD_TILE_VECS = 128
+_FWD_ROWS = 2
+_FWD_MAX_THREADS = 256
+_FWD_VEC_BYTES = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -212,6 +220,93 @@ def _check_args(features_or_g, boxes, pooled, sampling_ratio, what):
                          f"(<= {ADAPTIVE_SR_MAX})")
 
 
+def _vec(c: int, dtype: torch.dtype, aligned: bool = True,
+         nbytes: int = 16) -> int:
+    """Channels a kernel thread takes: ``nbytes`` bytes' worth where the
+    channel count is a multiple of it and the tensor is so aligned, else
+    1."""
+    vec = nbytes * 8 // torch.finfo(dtype).bits
+    return vec if aligned and c % vec == 0 else 1
+
+
+def _align(t: torch.Tensor) -> int:
+    """The largest power of two, up to 32, that divides t's address."""
+    ptr = t.data_ptr()
+    return min(32, ptr & -ptr) if ptr else 32
+
+
+def _fwd_smem(h: int, w: int, rows: int, pooled: int) -> int:
+    """Dynamic shared memory of the forward kernel, counted as
+    ``fwd_smem_bytes`` of ``csrc/roi_align.cu`` counts it: two ints for
+    each x bin and each of the block's rows (the cells each weighs on),
+    the box's Kx [pooled, w] and its rows' Ky [rows, h]."""
+    return 4 * (pooled * w + rows * h + 2 * (pooled + rows))
+
+
+def _fwd_launch_plan(h: int, w: int, tile: int, vec: int,
+                     pooled: int = 14, rows: int = _FWD_ROWS) -> dict:
+    """The forward kernel's plan for a channel tile and ``rows`` output
+    rows a block: one thread a channel vector of the tile, rounded up to
+    whole warps, at most ``_FWD_MAX_THREADS`` (which then loop over the
+    tile), each walking the rows."""
+    threads = min(_FWD_MAX_THREADS, -(-(tile // vec) // 32) * 32)
+    rows = min(rows, pooled)
+    return {"channel_tile": tile, "rows": rows, "threads": threads,
+            "vec": vec, "smem_bytes": _fwd_smem(h, w, rows, pooled)}
+
+
+def _fwd_plan(h: int, w: int, c: int, dtype: torch.dtype,
+              pooled: int = 14, align: int = 32) -> dict:
+    """Launch plan of the forward kernel for features [*, h, w, c] of
+    ``dtype`` whose address is a multiple of ``align`` bytes: the
+    channels a thread takes (``_FWD_VEC_BYTES``' worth, else 16 bytes'
+    worth where c and the address allow, else 1), the channel
+    tile (128 channel vectors, one a thread, no more than c needs), the
+    output rows a block (``_FWD_ROWS``), the threads and the dynamic
+    shared memory (the box's Kx over the image's columns, its rows' Ky).
+    Raises where that does not fit a block."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"roi_align: dtype {dtype} not in {_DTYPES}")
+    vec = 1
+    for nbytes in (32, 16):
+        if nbytes <= min(align, _FWD_VEC_BYTES):
+            vec = _vec(c, dtype, True, nbytes)
+            if vec > 1:
+                break
+    tile = min(_FWD_TILE_VECS * vec, -(-c // 8) * 8)
+    tile = -(-tile // vec) * vec
+    plan = _fwd_launch_plan(h, w, tile, vec, pooled)
+    if plan["smem_bytes"] > _SMEM_MAX:
+        raise ValueError(f"roi_align: features {h} x {w} need more shared "
+                         f"memory than a block has")
+    return plan
+
+
+def _launch_fwd(features: torch.Tensor, boxes: torch.Tensor,
+                spatial_scale: float, pooled: int, sampling_ratio: int,
+                plan: dict, fill: float = None) -> torch.Tensor:
+    """The forward kernel's C entry under ``plan`` (its ``vec`` must suit
+    the features); no launch count. ``fill``: a value the output holds
+    before the launch (checks that every element is written)."""
+    b, h, w, c = features.shape
+    n = boxes.shape[1]
+    out = torch.empty((b, n, pooled, pooled, c), dtype=features.dtype,
+                      device=features.device)
+    if fill is not None:
+        out.fill_(fill)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(features.device):
+        err = _fn("roi_align_fwd", 6)(
+            features.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w,
+            c, n, pooled, int(sampling_ratio), float(spatial_scale),
+            _DTYPES[features.dtype], plan["vec"], plan["channel_tile"],
+            plan["rows"], plan["threads"], plan["smem_bytes"],
+            kernel_lib.stream_ptr(features.device))
+    kernel_lib.check_launch(err, "roi_align_fused")
+    return out
+
+
 def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
                    spatial_scale: float, pooled: int = 14,
                    sampling_ratio: int = 2) -> torch.Tensor:
@@ -221,23 +316,12 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
                 "roi_align features")
     if features.dim() != 4:
         raise ValueError(f"roi_align: features {tuple(features.shape)}")
-    b, h, w, c = features.shape
-    n = boxes.shape[1]
-    out = torch.empty((b, n, pooled, pooled, c), dtype=features.dtype,
-                      device=features.device)
-    if out.numel() == 0:
-        return out
-    vec = 16 // features.element_size()
-    if c % vec or features.data_ptr() % 16:
-        vec = 1
-    with torch.cuda.device(features.device):
-        err = _fn("roi_align_fwd", 2)(
-            features.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w,
-            c, n, pooled, int(sampling_ratio), float(spatial_scale),
-            _DTYPES[features.dtype], vec,
-            kernel_lib.stream_ptr(features.device))
-    kernel_lib.check_launch(err, "roi_align_fused")
-    kernel_lib.LAUNCHES["roi_align_fused"] += 1
+    _, h, w, c = features.shape
+    plan = _fwd_plan(h, w, c, features.dtype, pooled, _align(features))
+    out = _launch_fwd(features, boxes, spatial_scale, pooled,
+                      sampling_ratio, plan)
+    if out.numel():
+        kernel_lib.LAUNCHES["roi_align_fused"] += 1
     return out
 
 
@@ -270,7 +354,7 @@ def _bwd_plan(h: int, w: int, c: int, dtype: torch.dtype,
     vec = 16 * 8 // torch.finfo(dtype).bits  # channels in 16 bytes
     vec = vec if c % vec == 0 else 1
     tile = min(16 * vec, -(-c // 8) * 8)
-    for limit in (_BWD_SMEM_TWO, _BWD_SMEM_MAX):
+    for limit in (_BWD_SMEM_TWO, _SMEM_MAX):
         for rows in _BWD_ROWS:
             smem = _bwd_smem(rows, w, tile, pooled)
             if (rows <= h or rows == 1) and smem <= limit:
@@ -299,9 +383,7 @@ def roi_align_bwd_cuda(g: torch.Tensor, boxes: torch.Tensor,
         return df
     if n == 0:
         return df.zero_()
-    vec = 16 // g.element_size()
-    if c % vec or g.data_ptr() % 16:
-        vec = 1
+    vec = _vec(c, g.dtype, g.data_ptr() % 16 == 0)
     with torch.cuda.device(g.device):
         err = _fn("roi_align_bwd", 5)(
             g.data_ptr(), boxes.data_ptr(), df.data_ptr(), b, h, w, c, n,

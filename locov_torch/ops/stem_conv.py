@@ -26,6 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .conv import conv2d, cudnn_f32
+
 
 def _nchw(x):
     return x.permute(0, 3, 1, 2)
@@ -42,15 +44,17 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(x, w, stride, padding):
-    """NHWC x, HWIO w -> NHWC."""
-    return _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=stride,
-                          padding=padding))
+    """NHWC x, HWIO w -> NHWC (full float32 for float32 x)."""
+    return _nhwc(conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=stride,
+                        padding=padding))
 
 
 def _dx(x, w, g, stride, padding):
     """The input gradient of ``_conv`` (the plain convolution's)."""
-    dx = torch.nn.grad.conv2d_input(_nchw(x).shape, w.permute(3, 2, 0, 1),
-                                    _nchw(g), stride=stride, padding=padding)
+    with cudnn_f32(x.dtype):
+        dx = torch.nn.grad.conv2d_input(_nchw(x).shape,
+                                        w.permute(3, 2, 0, 1), _nchw(g),
+                                        stride=stride, padding=padding)
     return _nhwc(dx)
 
 

@@ -20,9 +20,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from . import kernel_lib
+from .conv import conv2d, cudnn_f32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTHS = (32, 64, 128)  # output channels the kernel takes
@@ -39,9 +39,10 @@ def _check_shapes(x, w, shift) -> None:
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """conv7x7/s2/p3 of NHWC x with HWIO w -> NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=2,
-                 padding=3)
+    """conv7x7/s2/p3 of NHWC x with HWIO w -> NHWC (full float32 for
+    float32 x)."""
+    y = conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=2,
+               padding=3)
     return y.permute(0, 2, 3, 1)
 
 
@@ -60,9 +61,10 @@ def stem_conv_bn_bwd_plain(x, w, g):
     gc = g.to(x.dtype).permute(0, 3, 1, 2)
     wc = w.to(x.dtype).permute(3, 2, 0, 1)
     # both gradients in one call, as autograd of F.conv2d makes it
-    dx, dw, _ = torch.ops.aten.convolution_backward(
-        gc, x.permute(0, 3, 1, 2), wc, None, (2, 2), (3, 3), (1, 1), False,
-        (0, 0), 1, (True, True, False))
+    with cudnn_f32(x.dtype):
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            gc, x.permute(0, 3, 1, 2), wc, None, (2, 2), (3, 3), (1, 1),
+            False, (0, 0), 1, (True, True, False))
     return (dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0).to(w.dtype),
             g.sum((0, 1, 2), dtype=torch.float32))
 

@@ -27,8 +27,6 @@ import argparse
 import ctypes
 import json
 import math
-import os
-import subprocess
 
 import torch
 
@@ -73,11 +71,7 @@ def run_plan(g, boxes, rows, tile):
 
 def load_reference(src):
     """``src`` built by nvcc beside this build, its C entry bound."""
-    so = os.path.join(kernel_lib.BUILD_DIR, "reference_roi_align.so")
-    os.makedirs(kernel_lib.BUILD_DIR, exist_ok=True)
-    subprocess.run([kernel_lib._nvcc(), *kernel_lib.NVCC_FLAGS, "-o", so,
-                    src], check=True, capture_output=True)
-    fn = ctypes.CDLL(os.path.abspath(so)).roi_align_bwd
+    fn = kernel_lib.load_source(src, "reference_roi_align").roi_align_bwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

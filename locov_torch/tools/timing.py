@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 
 import torch
@@ -34,5 +35,16 @@ def describe(device: torch.device) -> dict:
     """What ran and how it was timed, for a bench's JSON line."""
     if device.type == "cuda":
         return {"device": torch.cuda.get_device_name(device),
-                "timer": "cuda_events"}
+                "timer": "cuda_events", "nvidia_smi": nvidia_smi_line()}
     return {"device": "cpu", "timer": "host_clock"}
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (the first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

@@ -13,7 +13,8 @@ NaN (max is exact), its backward bit-exact against the plain backward
 of at most 4 windows in the same order, rounded once); roi_align within
 1e-5 * max|F| in float32 (float32 sums in another order), and in
 bfloat16 within one bfloat16 ulp of the plain version (computed in
-float32 and cast once), or 1e-5 * max|F| where that is larger; its
+float32 and cast once), or 1e-5 * max|F| where that is larger, the same
+bits on a second launch and under every launch plan; its
 feature gradient within 1e-5 * (the plain gradient of |g|) at each
 cell (the float32 sum-order bound of a cell that many boxes touch),
 plus one bfloat16 ulp in bfloat16, and the same bits on a second
@@ -37,6 +38,7 @@ import pytest
 import torch
 
 from locov_torch.ops import kernel_lib
+from locov_torch.ops import roi_align as roi_mod
 from locov_torch.ops.bottleneck_block import (bottleneck_block,
                                               bottleneck_block_cuda,
                                               bottleneck_block_plain)
@@ -142,17 +144,33 @@ def _boxes(gen, b, n, img_h, img_w):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sr,c", [(0, 256), (2, 256), (0, 12), (1, 64)])
-def test_roi_align_matches_plain(cuda, dtype, sr, c):
-    f = torch.randn((2, 25, 42, c), generator=cuda, device="cuda") * 3
-    f = f.to(dtype)
-    bx = _boxes(cuda, 2, 40, 400, 672)
+@pytest.mark.parametrize("sr,c,h,pooled,offset", [
+    (0, 256, 25, 14, 0), (2, 256, 25, 14, 0), (0, 12, 25, 14, 0),
+    (1, 64, 25, 14, 0), (8, 64, 25, 14, 0),
+    # pooled 7 and 32 (the kernel's largest: 512 threads a block)
+    (0, 64, 25, 7, 0), (2, 64, 25, 32, 0),
+    # feature heights 7 and 1
+    (0, 256, 7, 14, 0), (2, 64, 1, 14, 0),
+    # features one element past a 16-byte boundary: one channel a thread
+    (0, 256, 25, 14, 1)])
+def test_roi_align_matches_plain(cuda, dtype, sr, c, h, pooled, offset):
+    shape = (2, h, 42, c)
+    f = torch.randn((math.prod(shape) + offset,), generator=cuda,
+                    device="cuda") * 3
+    f = f.to(dtype)[offset:].view(shape)
+    assert (f.data_ptr() % 16 == 0) == (offset == 0)
+    # boxes hugging the right and bottom edges, and one wider than the
+    # image, after the special and random ones
+    hug = torch.tensor([[672 - 30.0, h * 16 - 20.0, 672, h * 16],
+                        [-500.0, 0.0, 672 + 500.0, h * 16]],
+                       device="cuda").expand(2, -1, -1)
+    bx = torch.cat([_boxes(cuda, 2, 40, h * 16, 672), hug], 1).contiguous()
     before = kernel_lib.LAUNCHES["roi_align_fused"]
-    got = roi_align_fused(f, bx, 1 / 16, 14, sr)
+    got = roi_align_fused(f, bx, 1 / 16, pooled, sr)
     assert kernel_lib.LAUNCHES["roi_align_fused"] == before + 1
-    plain = roi_align_batched(f, bx, 1 / 16, 14, sr).float()
+    plain = roi_align_batched(f, bx, 1 / 16, pooled, sr).float()
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == (2, 45, 14, 14, c)
+    assert got.dtype == dtype and got.shape == (2, 47, pooled, pooled, c)
     fmax = f.float().abs().max().item()
     err = (got.float() - plain).abs()
     if dtype == torch.float32:
@@ -161,11 +179,27 @@ def test_roi_align_matches_plain(cuda, dtype, sr, c):
         _, e = torch.frexp(torch.maximum(plain.abs(), got.float().abs()))
         tol = torch.clamp(torch.exp2((e - 8).float()), min=1e-5 * fmax)
     assert bool((err <= tol).all()), err.max().item()
+    assert bool((got[:, -2:].float().abs().amax((2, 3, 4)) > 0).all())
     # a box wholly outside the image; in adaptive mode also the
     # degenerate boxes (zero width, inverted), which have no samples
     assert bool((got[:, 4] == 0).all())
     if sr == 0:
         assert bool((got[:, 1:3] == 0).all())
+    # the sum order is fixed: another launch, and launches under other
+    # plans (channel tiles, channels a thread, output rows a block), give
+    # the same bits
+    assert _same_bits(roi_align_cuda(f, bx, 1 / 16, pooled, sr), got)
+    plan = roi_mod._fwd_plan(h, 42, c, dtype, pooled, roi_mod._align(f))
+    vec, tile = plan["vec"], plan["channel_tile"]
+    half = roi_mod._vec(c, dtype, roi_mod._align(f) >= 16, 16)
+    for d, v, rows in ((2, vec, 1), (4, vec, 3), (8, vec, 2), (1, half, 7),
+                       (2, half, 4), (1, 1, 1), (1, vec, pooled)):
+        step = math.lcm(8, v)  # a tile: whole vectors, a multiple of 8
+        t = max(step, tile // d // step * step)
+        other = roi_mod._fwd_launch_plan(h, 42, t, v, pooled, rows)
+        assert _same_bits(roi_mod._launch_fwd(f, bx, 1 / 16, pooled, sr,
+                                              other, math.nan), got), \
+            (t, v, rows)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -365,6 +399,54 @@ def test_tiny_model_cuda_matches_cpu(cuda):
         out[dev] = [x.cpu() for x in
                     m.inference(to_torch(batch, dev),
                                 torch.from_numpy(ce).to(dev))]
+    (cb, cs, cc, cm), (gb, gs, gc, gm) = out["cpu"], out["cuda"]
+    assert torch.equal(cm, gm) and cm.sum() > 0
+    assert torch.equal(cc[cm], gc[cm])
+    assert (cs - gs).abs().max() <= 1e-5
+    assert (cb[cm] - gb[cm]).abs().max() <= 1e-3
+
+
+def test_tiny_f32_model_on_the_card_at_pytorch_tf32_defaults():
+    """The port's float32 convolutions turn cuDNN's TF32 off themselves:
+    with the process's flags at PyTorch's defaults (cuDNN may use TF32,
+    matmuls may not), the tiny float32 model on the card matches the CPU
+    at chip_smoke.small_reference's tolerance (the same mask and
+    classes, boxes within 1e-3 px, scores within 1e-5). No ``cuda``
+    fixture: it sets the flags for the whole process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from locov_torch.config import get_cfg
+    from locov_torch.models import build_meta_arch
+    from locov_torch.structures.batches import (DetectionBatch,
+                                                ImageBatch, to_torch)
+    from locov_torch.utils.weights import seeded_init_
+    from torch_parity import tiny_cfg
+    cfg = tiny_cfg(get_cfg, **{"MODEL.PIXEL_STD": [57.375, 57.12, 58.395]})
+    rng = np.random.RandomState(1)
+    batch = DetectionBatch(images=ImageBatch(
+        image=(rng.rand(2, 64, 64, 3) * 255).astype(np.float32),
+        hw=np.array([[64, 64], [48, 56]], np.int32),
+        orig_hw=np.array([[128, 128], [96, 112]], np.int32)))
+    ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
+    ce[-1] = 0.0
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            m = seeded_init_(build_meta_arch(cfg, device="cpu"), 1)
+            with torch.no_grad():
+                m.rpn_head.anchor_deltas.weight.zero_()
+            m.to(dev)
+            out[dev] = [x.cpu() for x in
+                        m.inference(to_torch(batch, dev),
+                                    torch.from_numpy(ce).to(dev))]
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
     (cb, cs, cc, cm), (gb, gs, gc, gm) = out["cpu"], out["cuda"]
     assert torch.equal(cm, gm) and cm.sum() > 0
     assert torch.equal(cc[cm], gc[cm])

@@ -168,3 +168,88 @@ def test_bench_boxes_lie_in_the_image_and_the_bench_needs_the_card(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_roi_bwd.main([])
+
+
+# The forward kernel cannot run here either; its launch plan is checked
+# at every shape the port gives it: the detector's features (50 x 84),
+# the tests' (25 x 42, 16 x 24, heights 7 and 1), the tiny models' 4 x 4,
+# channel counts 8 to 1024, pooled 7, 14 and 32, aligned or not.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(50, 84), (25, 42), (16, 24), (7, 84),
+                                 (1, 84), (4, 4)])
+@pytest.mark.parametrize("c", [8, 12, 64, 256, 1024])
+@pytest.mark.parametrize("pooled,align", [(14, 32), (14, 16), (14, 2),
+                                          (7, 32), (32, 32)])
+def test_fwd_plan_fits_a_block(h, w, c, dtype, pooled, align):
+    plan = troi._fwd_plan(h, w, c, dtype, pooled, align)
+    vec, tile = plan["vec"], plan["channel_tile"]
+    size = torch.finfo(dtype).bits // 8
+    # the widest vector, 32 or 16 bytes, the channels and the address allow
+    want = 1
+    for nbytes in (16, 32):
+        if align >= nbytes and c % (nbytes // size) == 0:
+            want = nbytes // size
+    assert vec == want
+    assert tile % 8 == 0 and tile % vec == 0 and tile // vec <= 128
+    assert tile < c + 8  # no tile wider than the channels need
+    assert plan["threads"] % 32 == 0
+    assert min(tile // vec, 32) <= plan["threads"] <= 256
+    assert 1 <= plan["rows"] <= pooled
+    assert plan["smem_bytes"] == troi._fwd_smem(h, w, plan["rows"], pooled)
+    assert plan["smem_bytes"] <= 48 * 1024
+
+
+def test_fwd_plan_main_shape():
+    # 32-byte vectors, the fastest of the plans timed on the H100
+    for dtype, vec, threads in ((torch.bfloat16, 16, 64),
+                                (torch.float32, 8, 128)):
+        plan = troi._fwd_plan(50, 84, 1024, dtype)
+        assert (plan["vec"], plan["channel_tile"], plan["threads"],
+                plan["rows"]) == (vec, 1024, threads, 2)
+        assert plan["smem_bytes"] == 4 * (14 * 84 + plan["rows"] * 50 +
+                                          2 * (14 + plan["rows"]))
+
+
+def test_fwd_plan_refuses_what_cannot_fit():
+    # Kx over 5000 columns at pooled 14 exceeds a block's memory
+    with pytest.raises(ValueError, match="shared memory"):
+        troi._fwd_plan(50, 5000, 1024, torch.float32)
+    with pytest.raises(TypeError):
+        troi._fwd_plan(50, 84, 1024, torch.float16)
+
+
+def _c_smem_formula(name):
+    """The body of ``size_t <name>(...)`` in csrc/roi_align.cu as a
+    Python function of its arguments (casts dropped)."""
+    import os
+    import re
+    src = open(os.path.join(kernel_lib.CSRC, "roi_align.cu")).read()
+    m = re.search(r"size_t " + name + r"\(([^)]*)\)\s*\{\s*return(.*?);\s*\}",
+                  src, re.S)
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    body = re.sub(r"\(size_t\)", "", m.group(2))
+    return eval(f"lambda {', '.join(args)}: {body}")  # noqa: S307
+
+
+@pytest.mark.parametrize("h,w,rows,pooled", [(50, 84, 2, 14), (7, 42, 7, 7),
+                                              (1, 84, 1, 32), (4, 4, 14, 14)])
+def test_fwd_smem_is_the_c_entrys_count(h, w, rows, pooled):
+    fwd = _c_smem_formula("fwd_smem_bytes")
+    assert troi._fwd_smem(h, w, rows, pooled) == fwd(h, w, rows, pooled)
+    plan = troi._fwd_launch_plan(h, w, 64, 8, pooled, rows)
+    assert plan["smem_bytes"] == fwd(h, w, rows, pooled)
+
+
+def test_fwd_bench_boxes_and_the_bench_needs_the_card(monkeypatch):
+    from locov_torch.tools import bench_roi_fwd
+    gen = torch.Generator().manual_seed(0)
+    bx = bench_roi_fwd.proposal_boxes(gen, 2, 200)
+    assert bx.shape == (2, 200, 4) and bx.dtype == torch.float32
+    sides = bx[..., 2:] - bx[..., :2]
+    assert bool((sides >= 8 - 1e-3).all())
+    assert bool((bx[..., :2] >= 0).all())
+    assert bool((bx[..., 2] <= 1344 + 1e-3).all())
+    assert bool((bx[..., 3] <= 800 + 1e-3).all())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_roi_fwd.main([])
