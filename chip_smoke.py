@@ -185,9 +185,13 @@ def check_relu_maxpool_bwd(gen, results):
     """K1-bwd against the plain backward (autograd of the plain
     forward) on the same x and dy. float32 must be bit-exact (the kernel
     sums a tap's <= 4 windows in the plain version's order); bfloat16
-    within one bfloat16 ulp (the sum is in f32, rounded once)."""
+    within one bfloat16 ulp (the sum is in f32, rounded once), NaN in the
+    same places. Every launch compared writes into a NaN-filled dx; a
+    second launch, and launches under other plans (4 and 16 window rows
+    a block), must give the same bits."""
     import torch
-    from locov_torch.ops.relu_maxpool import (relu_maxpool_bwd_cuda,
+    from locov_torch.ops.relu_maxpool import (_launch_bwd,
+                                              relu_maxpool_bwd_cuda,
                                               relu_maxpool_bwd_plain,
                                               relu_maxpool_plain)
     from locov_torch.tools.timing import time_ms
@@ -202,10 +206,12 @@ def check_relu_maxpool_bwd(gen, results):
             oshape = (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2,
                       shape[3])
             dy = torch.randn(oshape, generator=gen, device="cuda").to(dtype)
-            got = relu_maxpool_bwd_cuda(x, dy)
+            got = _launch_bwd(x, dy, fill=math.nan)
             want = relu_maxpool_bwd_plain(x, dy)
             torch.cuda.synchronize()
             exact = _same_bits(got, want)
+            again = all(_same_bits(_launch_bwd(x, dy, rows, math.nan), got)
+                        for rows in (None, 4, 16))
             same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
             err = torch.nan_to_num((got.float() - want.float()).abs())
             ulp = _bf16_ulp(torch.maximum(got.float().abs(),
@@ -215,9 +221,10 @@ def check_relu_maxpool_bwd(gen, results):
                     "shape": list(shape), "bit_exact": exact,
                     "nan_inputs": int(torch.isnan(x).sum()),
                     "max_abs_err": err.max().item(),
-                    "over_one_bf16_ulp": int((err > ulp).sum())}
-            ok = exact if dtype == torch.float32 else \
-                same_nan and line["over_one_bf16_ulp"] == 0
+                    "over_one_bf16_ulp": int((err > ulp).sum()),
+                    "same_bits_again_and_every_plan": again}
+            ok = again and (exact if dtype == torch.float32 else
+                            same_nan and line["over_one_bf16_ulp"] == 0)
             if case == "main":
                 line["kernel_ms"] = time_ms(
                     lambda: relu_maxpool_bwd_cuda(x, dy))
@@ -1305,6 +1312,7 @@ def main(argv=None) -> int:
             "f32_ms": results[(check, "float32")]["kernel_ms"],
             "f32_plain_ms": results[(check, "float32")]["plain_ms"],
             "f32_bound_ms": results[(check, "float32")]["bound_ms"],
+            "f32_library_ms": results[(check, "float32")]["library_ms"],
             **({"ref_chain_ms": r["ref_chain_ms"]} if "ref_chain_ms" in r
                else {})})
     emit({"kernels": kernels,

@@ -13,10 +13,14 @@ window's gradient to its first max in row-major order as
 ``F.max_pool2d`` does, then masks with ``x > 0`` as the Pallas backward
 does: a NaN tap gets 0 (autograd of ``F.relu`` would pass the gradient
 there), so a window whose max is NaN routes nothing.
+``relu_maxpool_bwd_two_pass`` computes the backward as the kernel does
+(each window's tap code, then the gather); the tests hold it to the
+plain backward and to the Pallas kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,10 +49,66 @@ def relu_maxpool_bwd_plain(x: torch.Tensor,
     return torch.where(x > 0, dx, torch.zeros_like(dx))
 
 
-def _fn(name, nargs):
+NO_TAP = 15  # tap code of a window that routes nothing (its max is NaN)
+
+
+def tap_codes(x: torch.Tensor) -> torch.Tensor:
+    """Pass 1 of the backward kernel: [N, ceil(H/2), ceil(W/2), C] int,
+    each window's argmax tap ty * 3 + tx of relu(x): the first strictly
+    larger tap in row-major order (taps outside the image never win),
+    ``NO_TAP`` where a tap is NaN."""
+    n, h, w, c = x.shape
+    oh, ow = (h + 1) // 2, (w + 1) // 2
+    r = torch.full((n, 2 * oh + 1, 2 * ow + 1, c), -math.inf,
+                   device=x.device)
+    r[:, 1:h + 1, 1:w + 1] = F.relu(x.float())
+    best = torch.full((n, oh, ow, c), -math.inf, device=x.device)
+    code = torch.full((n, oh, ow, c), NO_TAP, dtype=torch.int32,
+                      device=x.device)
+    nan = torch.zeros((n, oh, ow, c), dtype=torch.bool, device=x.device)
+    for tap in range(9):
+        ty, tx = divmod(tap, 3)
+        v = r[:, ty:ty + 2 * oh:2, tx:tx + 2 * ow:2]
+        take = v > best
+        best = torch.where(take, v, best)
+        code = torch.where(take, torch.full_like(code, tap), code)
+        nan |= torch.isnan(v)
+    return torch.where(nan, torch.full_like(code, NO_TAP), code)
+
+
+def relu_maxpool_bwd_two_pass(x: torch.Tensor,
+                              dy: torch.Tensor) -> torch.Tensor:
+    """The backward as the kernel computes it: ``tap_codes``, then for
+    each input pixel the dy of its (at most 2 x 2) windows whose code
+    names its tap, added in row-major window order from +0 in float32,
+    masked with x > 0 and rounded once to x's dtype."""
+    n, h, w, c = x.shape
+    oh, ow = (h + 1) // 2, (w + 1) // 2
+    code = tap_codes(x)
+    acc = torch.zeros((n, h, w, c), device=x.device)
+    iy = torch.arange(h, device=x.device)
+    ix = torch.arange(w, device=x.device)
+    # a pixel's windows: rows iy // 2 and (iy + 1) // 2 (two for odd iy)
+    for a in (0, 1):
+        oy = (iy + a) // 2
+        vy = ((a == 0) | (iy % 2 == 1)) & (oy < oh)
+        oy = oy.clamp(max=oh - 1)
+        for b in (0, 1):
+            ox = (ix + b) // 2
+            vx = ((b == 0) | (ix % 2 == 1)) & (ox < ow)
+            ox = ox.clamp(max=ow - 1)
+            tap = (iy - 2 * oy + 1)[:, None] * 3 + (ix - 2 * ox + 1)
+            hit = (code[:, oy][:, :, ox] == tap[None, :, :, None]) & \
+                (vy[:, None] & vx)[None, :, :, None]
+            g = dy[:, oy][:, :, ox].float()
+            acc = acc + torch.where(hit, g, torch.zeros_like(g))
+    return torch.where(x > 0, acc, torch.zeros_like(acc)).to(x.dtype)
+
+
+def _fn(name, nargs, nints=8):
     fn = getattr(kernel_lib.load("relu_maxpool"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_int] * 8 + \
+        fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_int] * nints + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -84,11 +144,11 @@ def relu_maxpool_cuda(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def relu_maxpool_bwd_cuda(x: torch.Tensor, dy: torch.Tensor
-                          ) -> torch.Tensor:
-    """The backward kernel: x the forward's input, dy [N, ceil(H/2),
-    ceil(W/2), C] of x's dtype, both contiguous CUDA tensors ->
-    dx [N, H, W, C]."""
+def _launch_bwd(x: torch.Tensor, dy: torch.Tensor, rows: int = None,
+                fill: float = None) -> torch.Tensor:
+    """One launch of the backward kernel (no launch count): its default
+    plan, or ``rows`` window rows a block. ``fill``: a value dx holds
+    before the launch, so that a comparison sees what the kernel wrote."""
     kernel_lib.check_cuda_tensor(x, "relu_maxpool_bwd x", _DTYPES)
     kernel_lib.check_cuda_tensor(dy, "relu_maxpool_bwd dy", (x.dtype,))
     n, h, w, c = x.shape
@@ -97,15 +157,30 @@ def relu_maxpool_bwd_cuda(x: torch.Tensor, dy: torch.Tensor
         raise ValueError(f"relu_maxpool_bwd: dy {tuple(dy.shape)} on "
                          f"{dy.device} for x {tuple(x.shape)} on {x.device}")
     dx = torch.empty_like(x)
+    if fill is not None:
+        dx.fill_(fill)
     if dx.numel() == 0:
         return dx
+    args = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow,
+            _DTYPES[x.dtype], _vec(x, dy, dx))
     with torch.cuda.device(x.device):
-        err = _fn("relu_maxpool_bwd", 3)(
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow,
-            _DTYPES[x.dtype], _vec(x, dy, dx),
-            kernel_lib.stream_ptr(x.device))
+        stream = kernel_lib.stream_ptr(x.device)
+        if rows is None:
+            err = _fn("relu_maxpool_bwd", 3)(*args, stream)
+        else:
+            err = _fn("relu_maxpool_bwd_rows", 3, 9)(*args, rows, stream)
     kernel_lib.check_launch(err, "relu_maxpool_bwd")
-    kernel_lib.LAUNCHES["relu_maxpool_bwd"] += 1
+    return dx
+
+
+def relu_maxpool_bwd_cuda(x: torch.Tensor, dy: torch.Tensor
+                          ) -> torch.Tensor:
+    """The backward kernel: x the forward's input, dy [N, ceil(H/2),
+    ceil(W/2), C] of x's dtype, both contiguous CUDA tensors ->
+    dx [N, H, W, C]."""
+    dx = _launch_bwd(x, dy)
+    if dx.numel():
+        kernel_lib.LAUNCHES["relu_maxpool_bwd"] += 1
     return dx
 
 

@@ -10,7 +10,8 @@ a machine with the card and no JAX, without the repository's conftest:
 Tolerances: relu_maxpool bit-exact, NaN where the plain version has
 NaN (max is exact), its backward bit-exact against the plain backward
 (autograd of the plain forward: the same tap chosen, the same f32 sum
-of at most 4 windows in the same order, rounded once); roi_align within
+of at most 4 windows in the same order, rounded once), also at strip
+and column edges and under other plans; roi_align within
 1e-5 * max|F| in float32 (float32 sums in another order), and in
 bfloat16 within one bfloat16 ulp of the plain version (computed in
 float32 and cast once), or 1e-5 * max|F| where that is larger, the same
@@ -121,6 +122,33 @@ def test_relu_maxpool_backward_bit_exact(cuda, dtype, shape):
         torch.cuda.synchronize()
         assert _same_bits(x.grad, want)
         assert _same_bits(relu_maxpool_bwd_cuda(x.detach(), dy), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [((1, 37, 67, 24), 0),
+                                          ((2, 35, 129, 64), 0),
+                                          ((1, 19, 71, 128), 0),
+                                          ((1, 21, 9, 5), 0),
+                                          ((1, 17, 13, 64), 1)])
+def test_relu_maxpool_backward_at_tile_edges(cuda, dtype, shape, offset):
+    """H and W odd and not multiples of a block's strip (8 window rows)
+    or of its window columns (15 at 16 vectors a pixel, 31 at 8, 63 at
+    4); C 24, 64, 128 (two lane groups in f32), 5 and a misaligned x (the
+    scalar variant); ties with NaN and -0. Bit-exact against the plain
+    backward, and the same bits on two launches and under other plans
+    (1 and 3 window rows a block), each into a NaN-filled dx."""
+    from locov_torch.ops.relu_maxpool import _launch_bwd
+    oshape = (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, shape[3])
+    flat = torch.empty(math.prod(shape) + offset, device="cuda", dtype=dtype)
+    x = flat[offset:].view(shape)
+    x.copy_(_ties_with_nan(cuda, shape))
+    dy = torch.randn(oshape, generator=cuda, device="cuda").to(dtype)
+    want = relu_maxpool_bwd_plain(x, dy)
+    got = _launch_bwd(x, dy, fill=math.nan)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    for rows in (None, 1, 3):
+        assert _same_bits(_launch_bwd(x, dy, rows, math.nan), got)
 
 
 def test_relu_maxpool_rejects_bad_inputs(cuda):
