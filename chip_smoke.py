@@ -679,9 +679,11 @@ def check_stem_conv_bn(gen, results):
     sum-order bound of an output close to 0. The backward (the plain
     conv VJP) against autograd of the plain conv at the un-rounded x and
     w.to(x.dtype): within 1e-5 * max, plus one bfloat16 ulp in
-    bfloat16."""
+    bfloat16. Each compared launch writes into a NaN-filled output (so
+    an output the kernel skips fails), and two launches must give the
+    same bits."""
     import torch
-    from locov_torch.ops.stem_conv_bn import (_conv, stem_conv_bn,
+    from locov_torch.ops.stem_conv_bn import (_conv, _launch, stem_conv_bn,
                                               stem_conv_bn_cuda,
                                               stem_conv_bn_plain)
     from locov_torch.tools.timing import time_ms
@@ -695,7 +697,11 @@ def check_stem_conv_bn(gen, results):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             w = torch.randn((7, 7, 3, 64), generator=gen, device="cuda") * 0.1
             shift = torch.randn((64,), generator=gen, device="cuda")
-            got = stem_conv_bn_cuda(x, w, shift).float()
+            got = _launch(x, w, shift, math.nan)
+            again = _launch(x, w, shift, math.nan)
+            same = torch.equal(got.view(torch.int16), again.view(torch.int16))
+            del again
+            got = got.float()
             plain = stem_conv_bn_plain(x, w, shift).float()
             sum_order = 1e-5 * (_conv(x.to(bf).float().abs(),
                                       w.to(bf).float().abs()) + shift.abs())
@@ -710,7 +716,9 @@ def check_stem_conv_bn(gen, results):
                     "max_abs_y_over_one_ulp":
                         plain.abs()[over].max().item() if over.any()
                         else None,
-                    "within_tolerance": bool((err <= ulp + sum_order).all())}
+                    "same_bits_two_launches": same,
+                    "within_tolerance": same and bool(
+                        (err <= ulp + sum_order).all())}
             del got, plain, sum_order, err, ulp, over
             if case == "main":
                 line["kernel_ms"] = time_ms(

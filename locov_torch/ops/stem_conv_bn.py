@@ -7,7 +7,12 @@ Counterpart of ``locov_tpu/ops/pallas_stem.py:stem_conv_bn``: x
 whatever x's dtype, with the sum in float32 and one rounding. The JAX
 function's ``variant`` argument picks one of four TPU layouts of this
 one function; the port has one kernel (``csrc/stem_conv_bn.cu``) and
-no such argument.
+no such argument. The kernel contracts over its own k order: 7
+segments (ky) of 24, three zero-weight lead slots and the 21 values
+(kx, c) of one input row, so that its A fragments are read straight
+from the staged input patch; ``_pack_weights`` repacks w into that
+order, and ``stem_conv_bn_packed`` computes the conv as the same matmul
+in plain PyTorch (the tests hold it to the plain version and to JAX).
 
 The gradient is the JAX package's ``_vjp_bwd``: the VJP of the plain
 convolution at the un-rounded x and ``w.to(x.dtype)``, the cotangent
@@ -26,6 +31,9 @@ from .conv import conv2d, cudnn_f32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTHS = (32, 64, 128)  # output channels the kernel takes
+# the kernel's k order and tiles (csrc/stem_conv_bn.cu)
+KSEG, LEAD, KP = 24, 3, 176  # k slots a kernel row, its zero lead, k padded
+TR, TC, STAGES = 8, 16, 3    # output rows, columns of a tile; patch buffers
 
 
 def _check_shapes(x, w, shift) -> None:
@@ -69,6 +77,64 @@ def stem_conv_bn_bwd_plain(x, w, g):
             g.sum((0, 1, 2), dtype=torch.float32))
 
 
+_PACKED: list = [None, None, None]  # w, its version, _pack_weights(w)
+
+
+def _packed(w: torch.Tensor) -> torch.Tensor:
+    """``_pack_weights(w)``, repacked only when w is another tensor or
+    was written in place since the last call (a conv's weights stay the
+    same from call to call; the cache holds w, so its memory is not
+    handed to another tensor meanwhile)."""
+    if _PACKED[0] is not w or _PACKED[1] != w._version:
+        _PACKED[:] = [w, w._version, _pack_weights(w)]
+    return _PACKED[2]
+
+
+def _pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO w [7, 7, 3, F] -> the kernel's B matrix [KP, F] bfloat16:
+    row ky * KSEG + LEAD + kx * 3 + c holds w[ky, kx, c], every other row
+    is 0."""
+    f = w.shape[-1]
+    wp = torch.zeros((KP, f), dtype=torch.bfloat16, device=w.device)
+    wp[:7 * KSEG].view(7, KSEG, f)[:, LEAD:] = w.reshape(7, 21, f)
+    return wp
+
+
+def _patch_matrix(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's A matrix, [N, H/2, W/2, KP] float32 of bfloat16
+    values: for output (oy, ox), segment ky holds the 24 values of input
+    row 2 oy - 3 + ky from pixel 2 ox - 4 (zeros outside the image), its
+    lead slots masked to 0 as the kernel masks them."""
+    n, h, w, _ = x.shape
+    ho, wo = h // 2, w // 2
+    xp = torch.nn.functional.pad(x.to(torch.bfloat16).float(),
+                                 (0, 0, 4, 2, 3, 3))
+    segs = []
+    for ky in range(7):
+        rows = xp[:, ky:ky + 2 * ho:2]
+        px = [rows[:, :, j:j + 2 * wo:2] for j in range(KSEG // 3)]
+        seg = torch.stack(px, 3).reshape(n, ho, wo, KSEG)
+        segs.append(torch.cat([torch.zeros_like(seg[..., :LEAD]),
+                               seg[..., LEAD:]], -1))
+    a = torch.cat(segs, -1)
+    return torch.nn.functional.pad(a, (0, KP - a.shape[-1]))
+
+
+def stem_conv_bn_packed(x, w, shift) -> torch.Tensor:
+    """The kernel's contraction in plain PyTorch: ``_patch_matrix(x) @
+    _pack_weights(w)`` in float32, + shift, one rounding to bfloat16."""
+    _check_shapes(x, w, shift)
+    y = _patch_matrix(x) @ _pack_weights(w).float() + shift.float()
+    return y.to(torch.bfloat16)
+
+
+def smem_bytes(dtype: torch.dtype) -> int:
+    """Shared memory of a kernel block: the ring of STAGES input patches
+    of 2 TR + 5 rows by 6 TC + 18 elements of x's dtype."""
+    return STAGES * (2 * TR + 5) * (6 * TC + 18) * \
+        torch.empty((), dtype=dtype).element_size()
+
+
 def _fn():
     fn = kernel_lib.load("stem_conv_bn").stem_conv_bn_fwd
     if fn.argtypes is None:
@@ -78,9 +144,10 @@ def _fn():
     return fn
 
 
-def stem_conv_bn_cuda(x, w, shift) -> torch.Tensor:
-    """The kernel: x a contiguous float32/bfloat16 CUDA tensor [N, H, W, 3]
-    of any even H and W; F 32, 64 or 128."""
+def _launch(x, w, shift, fill: float = None) -> torch.Tensor:
+    """One launch of the kernel (no launch count). ``fill``: a value the
+    output holds before the launch, so that a comparison sees what the
+    kernel wrote."""
     kernel_lib.check_cuda_tensor(x, "stem_conv_bn x", _DTYPES)
     _check_shapes(x, w, shift)
     n, h, wd, _ = x.shape
@@ -91,20 +158,30 @@ def stem_conv_bn_cuda(x, w, shift) -> torch.Tensor:
     if w.device != x.device or shift.device != x.device:
         raise ValueError(f"stem_conv_bn: w on {w.device}, shift on "
                          f"{shift.device}, x on {x.device}")
-    wb = w.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 8:
+        raise ValueError("stem_conv_bn: x must be 8-byte aligned")
+    wp = _packed(w)
     sh = shift.to(torch.float32).contiguous()
     out = torch.empty((n, h // 2, wd // 2, f), dtype=torch.bfloat16,
                       device=x.device)
-    if wb.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("stem_conv_bn: w must be 16-byte aligned")
+    if fill is not None:
+        out.fill_(fill)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), wb.data_ptr(), sh.data_ptr(),
+        err = _fn()(x.data_ptr(), wp.data_ptr(), sh.data_ptr(),
                     out.data_ptr(), n, h, wd, f, _DTYPES[x.dtype],
                     kernel_lib.stream_ptr(x.device))
     kernel_lib.check_launch(err, "stem_conv_bn")
-    kernel_lib.LAUNCHES["stem_conv_bn"] += 1
+    return out
+
+
+def stem_conv_bn_cuda(x, w, shift) -> torch.Tensor:
+    """The kernel: x a contiguous, 8-byte aligned float32/bfloat16 CUDA
+    tensor [N, H, W, 3] of any even H and W; F 32, 64 or 128."""
+    out = _launch(x, w, shift)
+    if out.numel():
+        kernel_lib.LAUNCHES["stem_conv_bn"] += 1
     return out
 
 

@@ -5,7 +5,7 @@ bfloat16 -> [4, 400, 672, 64]) by default. Twin of
 ``tools/bench_stem.py``.
 
     python -m locov_torch.tools.bench_stem [--n 4 --h 800 --w 1344
-        --f 64] [--device cuda|cpu] [--seed 0]
+        --f 64] [--device cuda|cpu] [--reference SRC] [--seed 0]
 
 Inputs are seeded random arrays (an explicit ``torch.Generator``), as
 the JAX tool makes them: x ~ N(0, 1) in bfloat16, w ~ N(0, 1) x 0.1 and
@@ -14,17 +14,26 @@ the forward, and forward + backward (gradients in x and w) of the loss
 sum(out ** 2) in float32; and the stem's largest forward error relative
 to max |library|. On the card the stem is the CUDA kernel, timed with
 CUDA events (median after warm-up); with ``--device cpu`` it is the
-plain version, timed on the host clock.
+plain version, timed on the host clock. ``--reference`` builds another
+source of ``csrc/stem_conv_bn.cu`` whose C entry ``stem_conv_bn_fwd``
+takes ``(x, w, shift, out, n, h, w, f, dtype, stream)`` with w in HWIO
+order, bfloat16 (the kernel of commit f1b7fdf does: ``git show
+f1b7fdf:locov_torch/csrc/stem_conv_bn.cu``, beside ``common.cuh`` and
+``mma_bf16.cuh``), and times its forward in turns with the kernel's,
+for bfloat16 and float32 x: reference, kernel, kernel, reference; with
+the largest difference of the two outputs.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 
 import torch
 
+from ..ops import kernel_lib
 from ..ops.conv import conv2d
-from ..ops.stem_conv_bn import stem_conv_bn
+from ..ops.stem_conv_bn import _DTYPES, stem_conv_bn, stem_conv_bn_cuda
 from ..utils.device import resolve_device
 from .timing import describe, time_ms
 
@@ -34,6 +43,44 @@ def library(x, w, shift):
     y = conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
                shift.to(x.dtype), stride=2, padding=3)
     return y.permute(0, 2, 3, 1)
+
+
+def load_reference(src):
+    """``src`` built by nvcc beside this build, its C entry bound."""
+    fn = kernel_lib.load_source(src, "reference_stem_conv_bn").stem_conv_bn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, wb, sh):
+        n, h, wd, _ = x.shape
+        f = wb.shape[-1]
+        out = torch.empty((n, h // 2, wd // 2, f), dtype=torch.bfloat16,
+                          device=x.device)
+        err = fn(x.data_ptr(), wb.data_ptr(), sh.data_ptr(), out.data_ptr(),
+                 n, h, wd, f, _DTYPES[x.dtype],
+                 kernel_lib.stream_ptr(x.device))
+        kernel_lib.check_launch(err, "reference stem_conv_bn_fwd")
+        return out
+    return run
+
+
+def turns(reference, x, w, shift, device) -> dict:
+    """The reference's and the kernel's forward in turns; each takes its
+    weights prepared once (the kernel's wrapper keeps its repack)."""
+    wb, sh = w.to(torch.bfloat16).contiguous(), shift.float().contiguous()
+
+    def kernel():
+        return stem_conv_bn_cuda(x, w, shift)
+
+    def ref():
+        return reference(x, wb, sh)
+    times = [time_ms(ref, device), time_ms(kernel, device),
+             time_ms(kernel, device), time_ms(ref, device)]
+    line = dict(zip(("reference", "kernel", "kernel_again",
+                     "reference_again"), times))
+    line["max_abs_diff"] = (ref().float() - kernel().float()).abs().max().item()
+    return line
 
 
 def _fwd_bwd(fn, x, w, shift):
@@ -54,6 +101,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--f", type=int, default=64)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--reference", default=None,
+                    help="another stem_conv_bn.cu to time in turns")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
@@ -78,6 +127,11 @@ def main(argv=None) -> dict:
             "dtype": "bfloat16", **describe(device),
             "stem": "cuda_kernel" if device.type == "cuda" else "plain",
             "fwd": fwd, "fwd_bwd": both, "max_rel_err": rel}
+    if args.reference:
+        reference = load_reference(args.reference)
+        line["turns_ms"] = {str(dt).split(".")[1]: turns(
+            reference, x.to(dt), w, shift, device)
+            for dt in (torch.bfloat16, torch.float32)}
     print(json.dumps(line), flush=True)
     return line
 

@@ -364,6 +364,32 @@ def test_stem_conv_bn_matches_plain(cuda, dtype, shape, f):
         want.abs(), got.float().abs())) + sum_order).all()), err.max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,f", [((1, 30, 62, 3), 32),
+                                     ((2, 46, 94, 3), 64),
+                                     ((1, 22, 50, 3), 128)])
+def test_stem_conv_bn_partial_tiles(cuda, dtype, shape, f):
+    """Outputs that leave partial 8 x 16 tiles in both directions: within
+    tolerance of the plain version, every output written (NaN-filled
+    first), and the same bits on two launches."""
+    from locov_torch.ops.stem_conv_bn import _launch
+    x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    w = torch.randn((7, 7, 3, f), generator=cuda, device="cuda") * 0.1
+    shift = torch.randn((f,), generator=cuda, device="cuda")
+    got = _launch(x, w, shift, math.nan)
+    again = _launch(x, w, shift, math.nan)
+    want = stem_conv_bn_plain(x, w, shift).float()
+    bf = torch.bfloat16
+    sum_order = 1e-5 * (_conv(x.to(bf).float().abs(), w.to(bf).float().abs())
+                        + shift.abs())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    err = (got.float() - want).abs()
+    assert bool((err <= _bf16_ulp(torch.maximum(
+        want.abs(), got.float().abs())) + sum_order).all()), err.max().item()
+
+
 def test_stem_conv_bn_refusals(cuda):
     x = torch.randn((1, 8, 8, 3), generator=cuda, device="cuda")
     w = torch.randn((7, 7, 3, 48), generator=cuda, device="cuda")
