@@ -16,7 +16,9 @@ Phases, one JSON line each, in order:
    edge-box cases. K1 forward and backward must be bit-exact with the
    plain version (the backward: with the plain backward, autograd of the
    plain forward masked with x > 0), NaN where it has NaN (bfloat16
-   backward: one ulp is allowed, and it came out bit-exact). K2 and K3-fwd in float32 within
+   backward: one ulp is allowed, and it came out bit-exact); the
+   backward writes into a NaN-filled dx and gives the same bits on a
+   second launch and under other plans. K2 and K3-fwd in float32 within
    1e-5 * max|F|; in bfloat16 within one bfloat16 ulp of the plain
    version (computed in float32 and cast once), or 1e-5 * max|F| where
    that is larger (the float32 sum-order error, which exceeds a bfloat16
@@ -24,7 +26,9 @@ Phases, one JSON line each, in order:
    plans, must give the same bits. K3-bwd within 1e-5 * (the plain backward
    of |g|) at each cell, plus one bfloat16 ulp in bfloat16, the same
    bits on two launches, also at feature heights 7 and 1 (band edges);
-   degenerate and outside boxes contribute exactly 0. Kernel, plain and
+   degenerate and outside boxes contribute exactly 0. K5 within one
+   bfloat16 ulp plus the float32 sum-order floor, into a NaN-filled
+   output, the same bits on two launches. Kernel, plain and
    library-call times are medians of CUDA-event timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
    TF32 allowed as PyTorch's default has it (the port's float32
@@ -683,8 +687,8 @@ def check_stem_conv_bn(gen, results):
     an output the kernel skips fails), and two launches must give the
     same bits."""
     import torch
-    from locov_torch.ops.stem_conv_bn import (_conv, _launch, stem_conv_bn,
-                                              stem_conv_bn_cuda,
+    from locov_torch.ops.stem_conv_bn import (_conv, _launch, smem_bytes,
+                                              stem_conv_bn, stem_conv_bn_cuda,
                                               stem_conv_bn_plain)
     from locov_torch.tools.timing import time_ms
     f = torch.nn.functional
@@ -735,6 +739,7 @@ def check_stem_conv_bn(gen, results):
                 line["bound_ms"], line["bound_by"] = bound_ms(
                     nbytes, 2 * 147 * 64 * n * (h // 2) * (wd // 2),
                     BF16_TC_OPS_PER_S)
+                line["smem_bytes"] = smem_bytes(dtype)
                 results[("stem_conv_bn", dt)] = line
                 del xl, wl, sl
             if case == "odd_tiles":
