@@ -43,8 +43,7 @@
 // dy in registers; the right neighbour's codes and dy come through
 // shared memory, and the strip's last window row and column are halo
 // windows recomputed from x (one extra row a strip, one column in 16 or
-// 32), so no block needs another's codes. The next step's rows and dy
-// are loaded a step ahead. x is read about once, where the
+// 32), so no block needs another's codes. x is read about once, where the
 // previous design (a thread per 2 x 2 pixels, every window's argmax
 // recomputed by the four threads that touch it) read 36 taps for 4
 // outputs.
@@ -212,10 +211,24 @@ template <typename T, int VEC>
 __device__ __forceinline__ void store_masked(T* p, const float (&acc)[VEC],
                                              const Vec<T, VEC>& own) {
   Vec<T, VEC> o;
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && VEC % 2 == 0) {
+    // two channels an instruction: round the pair, mask it with x > 0
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(own.v);
+    uint32_t* words = reinterpret_cast<uint32_t*>(o.v);
+    const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
 #pragma unroll
-  for (int k = 0; k < VEC; ++k)
-    o.v[k] = to_f32(own.v[k]) > 0.0f ? from_f32<T>(acc[k])
-                                     : from_f32<T>(0.0f);
+    for (int m = 0; m < VEC / 2; ++m) {
+      const __nv_bfloat162 r =
+          __floats2bfloat162_rn(acc[2 * m], acc[2 * m + 1]);
+      words[m] = *reinterpret_cast<const uint32_t*>(&r) &
+                 __hgt2_mask(x[m], zero);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      o.v[k] = to_f32(own.v[k]) > 0.0f ? from_f32<T>(acc[k])
+                                       : from_f32<T>(0.0f);
+  }
   if constexpr (sizeof(o) == 16)
     __stcs(reinterpret_cast<int4*>(p), *reinterpret_cast<const int4*>(&o));
   else if constexpr (sizeof(o) == 8)
@@ -265,33 +278,45 @@ __global__ void __launch_bounds__(BWD_THREADS, sizeof(T) == 2 ? 2 : 3)
       d = *reinterpret_cast<const V*>(dyi + ((long long)oy * ow + ox) * c);
   };
 
-  // input row 2 oy - 1 (the last step's bottom row), 2 oy, 2 oy + 1;
-  // the next step's rows and dy are loaded a step ahead
+  // input row 2 oy - 1 (the last step's bottom row), 2 oy, 2 oy + 1.
+  // f32 loads the next step's rows and dy a step ahead; bf16, whose
+  // vectors are twice as wide, spilled doing so and loads them in its
+  // step (each the faster on the card)
+  constexpr bool ahead = sizeof(T) == 4;
   V top[3], mid[3], bot[3], next_mid[3], next_bot[3];
   bool top_ok[3], mid_ok[3], bot_ok[3], next_mid_ok[3], next_bot_ok[3];
   V next_dy{};
   load_row(2 * oy0 - 1, top, top_ok);
-  load_row(2 * oy0, next_mid, next_mid_ok);
-  load_row(2 * oy0 + 1, next_bot, next_bot_ok);
-  load_dy(oy0, next_dy);
+  if constexpr (ahead) {
+    load_row(2 * oy0, next_mid, next_mid_ok);
+    load_row(2 * oy0 + 1, next_bot, next_bot_ok);
+    load_dy(oy0, next_dy);
+  }
   // the last window row's codes and dy, own column and its right
   // neighbour
   unsigned prev_code = 0, prev_code_nb = 0;
   V prev_dy{}, prev_dy_nb{};
   const int oy_end = min(oy0 + rows, oh);
   for (int oy = oy0; oy <= oy_end; ++oy) {
+    V d{};
+    if constexpr (ahead) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      mid[j] = next_mid[j];
-      mid_ok[j] = next_mid_ok[j];
-      bot[j] = next_bot[j];
-      bot_ok[j] = next_bot_ok[j];
-    }
-    const V d = next_dy;
-    if (oy < oy_end) {
-      load_row(2 * oy + 2, next_mid, next_mid_ok);
-      load_row(2 * oy + 3, next_bot, next_bot_ok);
-      load_dy(oy + 1, next_dy);
+      for (int j = 0; j < 3; ++j) {
+        mid[j] = next_mid[j];
+        mid_ok[j] = next_mid_ok[j];
+        bot[j] = next_bot[j];
+        bot_ok[j] = next_bot_ok[j];
+      }
+      d = next_dy;
+      if (oy < oy_end) {
+        load_row(2 * oy + 2, next_mid, next_mid_ok);
+        load_row(2 * oy + 3, next_bot, next_bot_ok);
+        load_dy(oy + 1, next_dy);
+      }
+    } else {
+      load_row(2 * oy, mid, mid_ok);
+      load_row(2 * oy + 1, bot, bot_ok);
+      load_dy(oy, d);
     }
     unsigned code = 0xffffffffu;  // NO_TAP in every channel
     if (active && oy < oh && ox < ow) {
