@@ -28,7 +28,9 @@ Phases, one JSON line each, in order:
    bits on two launches, also at feature heights 7 and 1 (band edges);
    degenerate and outside boxes contribute exactly 0. K5 within one
    bfloat16 ulp plus the float32 sum-order floor, into a NaN-filled
-   output, the same bits on two launches. Kernel, plain and
+   output, the same bits on two launches; K4 likewise into a NaN-filled
+   output, the same bits on two launches, in six cases (res2, res3 M
+   128, partial tiles, H 1, and b1 = 3 against a relu(b1) halo). Kernel, plain and
    library-call times are medians of CUDA-event timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
    TF32 allowed as PyTorch's default has it (the port's float32
@@ -55,7 +57,10 @@ Phases, one JSON line each, in order:
 7. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-8. the ``kernels`` line (one row per TPU kernel replaced:
+8. block_trunk_ab: K4, the trunk's own ``BottleneckBlock`` and cuDNN's
+   chain at the inference trunk's identity blocks (res2 [8, 200, 336,
+   256] M 64, res3 [8, 100, 168, 512] M 128), bf16 under no_grad.
+9. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes), the card's ``nvidia-smi`` name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -610,11 +615,17 @@ def check_bottleneck_block(gen, results):
     difference of about ulp(t2) * |w3|, a few 1e-3 at these scales. The
     ``zero_ring`` cases set b1 = 3 at small images, so that a t1 halo
     holding relu(b1) instead of 0 would move every border pixel by
-    far more than that."""
+    far more than that. Each compared launch writes into a NaN-filled
+    output (so an output the kernel skips fails), and two launches must
+    give the same bits. The ``main`` lines report the shared memory of a
+    block and ptxas's line for each of the kernel's instances."""
     import torch
-    from locov_torch.ops.bottleneck_block import (bottleneck_block_cuda,
+    from locov_torch.ops import kernel_lib
+    from locov_torch.ops.bottleneck_block import (_launch,
+                                                  bottleneck_block_cuda,
                                                   bottleneck_block_plain,
-                                                  bottleneck_block_ref)
+                                                  bottleneck_block_ref,
+                                                  smem_bytes, tiles)
     from locov_torch.tools.bench_block import make_inputs
     from locov_torch.tools.timing import time_ms
     cases = [("main", (4, 200, 336, 256), 64), ("res3", (2, 28, 42, 512), 128),
@@ -628,7 +639,11 @@ def check_bottleneck_block(gen, results):
             if case.startswith("zero_ring"):
                 args = (*args[:2], torch.full_like(args[2], 3.0), *args[3:])
             with torch.no_grad():
-                got = bottleneck_block_cuda(*args).float()
+                got = _launch(*args, fill=math.nan)
+                again = _launch(*args, fill=math.nan)
+                same = _same_bits(got, again)
+                del again
+                got = got.float()
                 plain = bottleneck_block_plain(*args).float()
             torch.cuda.synchronize()
             ymax = plain.abs().max().item()
@@ -639,9 +654,11 @@ def check_bottleneck_block(gen, results):
                 ulp = _bf16_ulp(torch.maximum(got.abs(), plain.abs()))
                 tol = ulp + 1e-3 * ymax
             err_max, err_999 = _err_stats(err)
-            ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+            ok = same and bool((err <= tol).all()) and \
+                bool(torch.isfinite(got).all())
             line = {"phase": "kernel_check", "kernel": "bottleneck_block",
                     "case": case, "dtype": dt, "shape": list(shape), "m": m,
+                    "same_bits_two_launches": same,
                     "max_abs_err": err_max, "p999_abs_err": err_999,
                     "max_abs_y": ymax, "differing_share":
                         (err > 0).float().mean().item(),
@@ -668,6 +685,12 @@ def check_bottleneck_block(gen, results):
                 line["bound_ms"], line["bound_by"] = bound_ms(
                     nbytes, ops, BF16_TC_OPS_PER_S if dtype == torch.bfloat16
                     else F32_OPS_PER_S)
+                line["smem_bytes"] = smem_bytes(dtype, m)
+                line["tiles"] = tiles(*shape[:3])
+                line["ptxas"] = [
+                    ln.strip() for ln in kernel_lib.BUILD_LOG.get(
+                        "bottleneck_block", "").splitlines()
+                    if "Used" in ln or "spill" in ln]
                 results[("bottleneck_block", dt)] = line
             emit(line)
             if not ok:
@@ -787,6 +810,22 @@ def bench_path(name, main_fn, kernel, max_rel_err):
         raise AssertionError(f"{name} path: max rel err "
                              f"{line['max_rel_err']} vs the library")
     return launches
+
+
+def trunk_ab(seed):
+    """K4 against the trunk's own identity block (and cuDNN's chain) at
+    the inference path's res2 and res3 shapes, bf16, no grad: the
+    measurement that decides whether K4 goes on the inference trunk. The
+    kernel rounds at the Pallas kernel's points, the trunk's block adds
+    each shift in bf16 after its conv rounds: within 3e-2 of max|y|."""
+    import torch
+    from locov_torch.tools.bench_block import trunk_ab as run
+    line = run(torch.device("cuda"), seed)
+    emit({"phase": "block_trunk_ab", **line})
+    for stage, r in line.items():
+        if not r["max_rel_diff_vs_trunk"] <= 3e-2:
+            raise AssertionError(f"K4 against the trunk's block at {stage}: "
+                                 f"{r}")
 
 
 # ------------------------------------------------------ small reference
@@ -1308,6 +1347,8 @@ def main(argv=None) -> int:
                                 "bottleneck_block", 2e-2)
     # against one cuDNN call that adds the shift in bf16
     paths["stem"] = bench_path("stem", bench_stem.main, "stem_conv_bn", 1e-2)
+    torch.cuda.empty_cache()
+    trunk_ab(args.seed)
 
     kernels = []
     for name, source, replaces, path, check in KERNEL_ROWS:

@@ -15,27 +15,48 @@
 // Bound on this card: at res2 widths (C 256, M 64) in bf16 the block
 // moves x once and out once (275 MB at [4, 200, 336, 256]) for 37 GFLOP,
 // so it is bound by bytes (0.08 ms); in f32 by operations (0.56 ms at
-// 67 TFLOP/s on the CUDA cores). The design keeps t1 and t2, which
-// cuDNN's three convolutions write to and read from device memory, in
-// shared memory.
+// 67 TFLOP/s on the CUDA cores). Both kernels keep t1 and t2, which
+// cuDNN's three convolutions write to and read from device memory, on
+// chip.
 //
-// Design: one block (8 warps) per (image, strip of 8 output rows, tile
-// of 16 output columns). Three phases, each a product of a shared-memory
-// tile with a weight chunk streamed in from device memory (L2-resident):
-//   conv1: the 10 x 18 halo of x (zeros outside the image), in chunks of
-//          input channels, times W1 -> t1 for the halo (0 outside the
-//          image) in shared memory;
-//   conv2: nine taps, each the 16-pixel rows of t1 shifted by the tap,
-//          times that tap's [M, M] matrix -> t2 for the 128 pixels;
-//   conv3: t2 times W3 in chunks of 64 output channels, + b3 + x (read
-//          again, from L2) -> relu -> stored.
-// bf16 runs the products on the tensor cores (mma.sync m16n8k16, f32
-// accumulators, operands by ldmatrix); f32 runs them as f32 FMAs on the
-// CUDA cores (TF32 would break the float32 result). Any H, W >= 1; C a
-// multiple of 64, M 64 or 128 (the wrapper refuses anything else).
+// Tiles: (image, 8 output rows, 16 output columns); conv1 runs on the
+// tile's 10 x 18 halo (rounded up to 12 row tiles of 16), conv2 as nine
+// taps, each the 16-pixel rows of t1 shifted by the tap, conv3 in chunks
+// of 64 output channels.
+//
+// bf16 (block_bf16): persistent blocks of 8 warps, one an SM (ptxas
+// registers and shared memory in the build log), walk the tiles in the
+// order of their index, so the tiles in flight at one time are
+// neighbours and their halos meet in L2.
+//   - Loads overlap products: every operand stream goes through a ring of
+//     STAGES shared-memory stages filled by cp.async, STAGES - 1 steps
+//     ahead, one barrier a step. A step is one chunk of 64 input
+//     channels of the halo with its 64 rows of W1 (conv1), one tap of W2
+//     (conv2, M 128 only), or 64 columns of W3 with the residual's 64
+//     channels of the tile's 128 pixels (conv3). The ring runs across
+//     tiles: the next tile's first chunks land during this one's conv3.
+//   - W2 at M 64 (72 KB) is loaded once a block and stays resident, so
+//     a tile fetches 64 KB of weights (W1, W3) from L2 where it fetched
+//     136 KB; at M 128 (288 KB of W2) every weight streams.
+//   - x: the halo is read 1.41x from L2 (180 pixels for 128) and the
+//     residual once more, staged through the ring with W3's chunk: 2.4x
+//     from L2, about 1x from device memory (the neighbours' halos are
+//     in flight at the same time). Keeping the residual from conv1's
+//     staging would take 64 KB (128 pixels x 256 channels), which the
+//     ring and resident W2 leave no room for.
+//   - t2 never leaves registers: a warp's conv2 sums (its 16 pixels x
+//     all M channels) are, by the m16n8k16 layouts, its conv3 A
+//     fragments once biased, relu'd and rounded.
+//   - The epilogue swaps fragments within each quad of lanes so that a
+//     lane holds 8 consecutive channels, and stores 16-byte streaming
+//     vectors (__stcs) from registers.
+// f32 (block_f32) keeps the design it had: one block per tile, products
+// as f32 FMAs on the CUDA cores (TF32 would break the float32 result),
+// operands staged synchronously.
+//
+// Any H, W >= 1; C a multiple of 64, M 64 or 128 (the wrapper refuses
+// anything else).
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
@@ -43,17 +64,15 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using locov::from_f32;
-using locov::to_f32;
 
-constexpr int TR = 8;            // output rows of a block
-constexpr int TC = 16;           // output columns of a block
+constexpr int TR = 8;            // output rows of a tile
+constexpr int TC = 16;           // output columns of a tile
 constexpr int HC = TC + 2;       // halo columns
 constexpr int NH = (TR + 2) * HC;  // halo pixels (180)
 constexpr int NHP = 192;         // halo rows rounded up to 12 tiles of 16
 constexpr int NO = TR * TC;      // output pixels (128)
-constexpr int THREADS = 256;
-constexpr int NB = 64;           // output channels per pass of conv1, conv3
+constexpr int THREADS = 256;     // a bf16 pipeline; an f32 block
+constexpr int NB = 64;           // f32: output channels of a pass
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
@@ -62,59 +81,445 @@ __device__ __forceinline__ float relu_f32(float u) {
   return u != u ? u : fmaxf(u, 0.0f);
 }
 
-// Shared-memory layout, in elements of T. Rows are padded so that each
-// row start is 16-byte aligned (ldmatrix, vector stores) and neighbouring
-// rows fall in other banks.
-template <typename T, int M>
-struct Layout {
-  static constexpr bool BF16 = std::is_same<T, bf16>::value;
-  static constexpr int PAD = BF16 ? 8 : 4;
-  static constexpr int KC = BF16 ? 64 : 32;  // conv1 input channels a chunk
-  static constexpr int LDT = M + PAD;        // t1, t2, a W2 tap
-  static constexpr int LDX = KC + PAD;       // the x chunk
-  static constexpr int LDN = NB + PAD;       // a W1 or W3 chunk
+// ------------------------------------------------------------------ bf16
+// Shared-memory layout of block_bf16, in bf16 elements. A block runs
+// PIPES pipelines of 8 warps, each walking its own tiles with its own t1
+// and ring; W2, when resident, is shared by them. Rows are padded by 8
+// elements, so that each row start is 16-byte aligned (ldmatrix,
+// cp.async) and neighbouring rows fall in other banks.
+template <int M>
+struct Bf16Layout {
+  static constexpr int W2R = M == 64 ? 1 : 0;     // W2 resident
+  static constexpr int PIPES = M == 64 ? 2 : 1;   // pipelines a block
+  static constexpr int CH = M == 64 ? 32 : 64;    // channels a conv1 or conv3 step
+  static constexpr int STAGES = M == 64 ? 2 : 3;  // ring stages a pipeline
+  static constexpr int MINB = M == 64 ? 1 : 1;    // blocks an SM
+  static constexpr int LDX = CH + 8;  // a halo chunk, a W3 chunk, a residual chunk
+  static constexpr int LDM = M + 8;   // t1, a W1 chunk, a W2 tap
+  static constexpr int W2S = W2R * 9 * M * LDM;
+  static constexpr int T1 = NH * LDM;
+  static constexpr int STAGE = cmax(NHP * LDX + CH * LDM,
+                                    cmax((1 - W2R) * M * LDM,
+                                         M * LDX + NO * LDX));
+  static constexpr int PIPE = T1 + STAGES * STAGE;
+  static constexpr int BYTES = 2 * (W2S + PIPES * PIPE);
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   locov::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// the barrier of one pipeline's 8 warps
+template <int PIPES>
+__device__ __forceinline__ void pipe_sync(int pipe) {
+  if (PIPES == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(pipe + 1), "n"(THREADS)
+                 : "memory");
+}
+
+// rows x cols bf16 from device memory (row stride gs) into shared memory
+// (row stride ld) by cp.async, 16 bytes a piece, thread `tid` of `nt`;
+// cols a multiple of 8
+__device__ __forceinline__ void copy_tile(bf16* dst, int ld, const bf16* src,
+                                          long long gs, int rows, int cols,
+                                          int tid, int nt) {
+  const int vpr = cols / 8;
+  for (int i = tid; i < rows * vpr; i += nt) {
+    const int r = i / vpr, v = i - r * vpr;
+    cp_async16(dst + r * ld + v * 8, src + r * gs + v * 8, true);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Quad transpose: lane q of a quad holds p[j] = its word of n tile j;
+// after it p[i] = lane i's word of n tile q, i.e. channels 8 q + 2 i, +1.
+__device__ __forceinline__ void quad_transpose(uint32_t* p, int q) {
+  const bool odd = q & 1, high = q & 2;
+  uint32_t r = __shfl_xor_sync(0xffffffffu, odd ? p[0] : p[1], 1);
+  if (odd) p[0] = r; else p[1] = r;
+  r = __shfl_xor_sync(0xffffffffu, odd ? p[2] : p[3], 1);
+  if (odd) p[2] = r; else p[3] = r;
+  r = __shfl_xor_sync(0xffffffffu, high ? p[0] : p[2], 2);
+  if (high) p[0] = r; else p[2] = r;
+  r = __shfl_xor_sync(0xffffffffu, high ? p[1] : p[3], 2);
+  if (high) p[1] = r; else p[3] = r;
+}
+
+struct Geometry {
+  int h, w, c, tiles_x, tiles_y, tiles;
+};
+
+struct Tile {
+  long long img;  // n * h
+  int y0, x0;
+};
+
+__device__ __forceinline__ Tile tile_at(int t, const Geometry& g) {
+  const int per_img = g.tiles_x * g.tiles_y;
+  return {(long long)(t / per_img) * g.h, (t / g.tiles_x) % g.tiles_y * TR,
+          t % g.tiles_x * TC};
+}
+
+// Issue step s of a pipeline's sequence into its ring stage: tile
+// unit + (s / ns) units, and within it conv1 chunk k (k < kc), W2 tap
+// k - kc (W2 not resident), or conv3 chunk k - kc - 9. Thread `tid` of
+// the pipeline's 256. Commits one cp.async group, empty past the last
+// tile.
+template <int M>
+__device__ __forceinline__ void issue(bf16* ring, int tid, int unit,
+                                      int units, int s, int ns, int kc,
+                                      const Geometry& g,
+                                      const bf16* __restrict__ x,
+                                      const bf16* __restrict__ w1,
+                                      const bf16* __restrict__ w2,
+                                      const bf16* __restrict__ w3) {
+  using L = Bf16Layout<M>;
+  constexpr int CH = L::CH, LDX = L::LDX, LDM = L::LDM, VR = CH / 8;
+  const int tile = unit + (s / ns) * units;
+  if (tile < g.tiles) {
+    bf16* st = ring + (s % L::STAGES) * L::STAGE;
+    const Tile t = tile_at(tile, g);
+    const int k = s % ns;
+    if (k < kc) {
+      // the halo's channels [CH k, CH k + CH): zeros outside the image
+      // and at the 12 padding rows
+      const int c0 = k * CH;
+      for (int i = tid; i < NHP * VR; i += THREADS) {
+        const int p = i / VR, v = i % VR;
+        const int gy = t.y0 - 1 + p / HC, gx = t.x0 - 1 + p % HC;
+        const bool in = p < NH && gy >= 0 && gy < g.h && gx >= 0 && gx < g.w;
+        const bf16* src =
+            in ? x + ((t.img + gy) * g.w + gx) * g.c + c0 + v * 8 : x;
+        cp_async16(st + p * LDX + v * 8, src, in);
+      }
+      copy_tile(st + NHP * LDX, LDM, w1 + (long long)c0 * M, M, CH, M, tid,
+                THREADS);
+    } else if (!L::W2R && k < kc + 9) {
+      copy_tile(st, LDM, w2 + (long long)(k - kc) * M * M, M, M, M, tid,
+                THREADS);
+    } else {
+      // W3's columns [CH j, CH j + CH) and the residual's channels
+      const int c0 = (k - kc - (L::W2R ? 0 : 9)) * CH;
+      copy_tile(st, LDX, w3 + c0, g.c, M, CH, tid, THREADS);
+      bf16* rs = st + M * LDX;
+      for (int i = tid; i < NO * VR; i += THREADS) {
+        const int p = i / VR, v = i % VR;
+        const int gy = t.y0 + p / TC, gx = t.x0 + p % TC;
+        const bool in = gy < g.h && gx < g.w;
+        const bf16* src =
+            in ? x + ((t.img + gy) * g.w + gx) * g.c + c0 + v * 8 : x;
+        cp_async16(rs + p * LDX + v * 8, src, in);
+      }
+    }
+  }
+  cp_commit();
+}
+
+template <int M>
+__global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
+                                  Bf16Layout<M>::MINB)
+    block_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+               const float* __restrict__ b1, const bf16* __restrict__ w2,
+               const float* __restrict__ b2, const bf16* __restrict__ w3,
+               const float* __restrict__ b3, bf16* __restrict__ out,
+               Geometry g) {
+  using L = Bf16Layout<M>;
+  constexpr int CH = L::CH, LDX = L::LDX, LDM = L::LDM, STAGES = L::STAGES;
+  constexpr int NT = M / 8;    // n tiles of 8 across M
+  constexpr int NT1 = M / 16;  // a conv1 warp's n tiles (half of M)
+  constexpr int NT3 = CH / 8;  // a conv3 step's n tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pipe = threadIdx.x / THREADS, tid = threadIdx.x % THREADS;
+  bf16* w2s = reinterpret_cast<bf16*>(smem);  // resident W2
+  bf16* t1s = w2s + L::W2S + pipe * L::PIPE;
+  bf16* ring = t1s + L::T1;
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int unit = blockIdx.x * L::PIPES + pipe;
+  const int units = gridDim.x * L::PIPES;
+  const int kc = g.c / CH;                     // conv1 and conv3 steps
+  const int ns = 2 * kc + (L::W2R ? 0 : 9);    // steps a tile
+
+  if (L::W2R) {
+    copy_tile(w2s, LDM, w2, M, 9 * M, M, threadIdx.x, THREADS * L::PIPES);
+    cp_commit();
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+  }
+  for (int s = 0; s < STAGES - 1; ++s)
+    issue<M>(ring, tid, unit, units, s, ns, kc, g, x, w1, w2, w3);
+
+  int s = 0;  // this pipeline's step
+  // wait for step s's stage, and refill the stage step s - 1 read
+  auto begin_step = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+    pipe_sync<L::PIPES>(pipe);
+    issue<M>(ring, tid, unit, units, s + STAGES - 1, ns, kc, g, x, w1, w2,
+             w3);
+    return ring + (s % STAGES) * L::STAGE;
+  };
+
+  for (int tile = unit; tile < g.tiles; tile += units) {
+    const Tile t = tile_at(tile, g);
+
+    // ------------------------------------------------------------ conv1
+    // [192 halo rows, M]: warp = 3 row tiles x M/2 columns
+    const int wm = (warp >> 1) * 3, wn = (warp & 1) * (M / 2);
+    float acc1[3][NT1][4];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < NT1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc1[i][j][e] = 0.0f;
+    for (int k = 0; k < kc; ++k, ++s) {
+      const bf16* xs = begin_step();
+      const bf16* w1s = xs + NHP * LDX;
+#pragma unroll
+      for (int k0 = 0; k0 < CH; k0 += 16) {
+        unsigned a[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          locov::ldmatrix_a(a[i], xs + ((wm + i) * 16 + (lane & 15)) * LDX +
+                                      k0 + 8 * (lane >> 4));
+#pragma unroll
+        for (int j = 0; j < NT1 / 2; ++j) {
+          unsigned b[4];
+          locov::ldmatrix_b2(b, w1s + (k0 + (lane & 15)) * LDM + wn +
+                                    16 * j + 8 * (lane >> 4));
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            locov::mma_bf16(acc1[i][2 * j], a[i], b[0], b[1]);
+            locov::mma_bf16(acc1[i][2 * j + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+    // t1 = round(relu(acc + b1)) inside the image, 0 outside
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < NT1; ++j) {
+        const int col = wn + j * 8 + 2 * q;
+        const float bb0 = __ldg(b1 + col), bb1 = __ldg(b1 + col + 1);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = (wm + i) * 16 + gq + 8 * hh;
+          if (p >= NH) continue;
+          const int gy = t.y0 - 1 + p / HC, gx = t.x0 - 1 + p % HC;
+          const bool in = gy >= 0 && gy < g.h && gx >= 0 && gx < g.w;
+          *reinterpret_cast<uint32_t*>(t1s + p * LDM + col) = pack_bf16(
+              in ? relu_f32(acc1[i][j][2 * hh] + bb0) : 0.0f,
+              in ? relu_f32(acc1[i][j][2 * hh + 1] + bb1) : 0.0f);
+        }
+      }
+    pipe_sync<L::PIPES>(pipe);  // t1 complete
+
+    // ------------------------------------------------------------ conv2
+    // [128 output pixels, M]: warp = output row `warp` (16 pixels) x M
+    float acc2[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc2[j][e] = 0.0f;
+    for (int tap = 0; tap < 9; ++tap) {
+      const bf16* w2t;
+      if (L::W2R) {
+        w2t = w2s + tap * M * LDM;
+      } else {
+        w2t = begin_step();
+        ++s;
+      }
+      const int dy = tap / 3, dx = tap % 3;
+      const bf16* arow =
+          t1s + ((warp + dy) * HC + (lane & 15) + dx) * LDM + 8 * (lane >> 4);
+#pragma unroll
+      for (int k0 = 0; k0 < M; k0 += 16) {
+        unsigned a[4];
+        locov::ldmatrix_a(a, arow + k0);
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          unsigned b[4];
+          locov::ldmatrix_b2(b, w2t + (k0 + (lane & 15)) * LDM + 16 * j +
+                                    8 * (lane >> 4));
+          locov::mma_bf16(acc2[2 * j], a, b[0], b[1]);
+          locov::mma_bf16(acc2[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    // t2 = round(relu(acc + b2)), kept as conv3's A fragments: k step kk
+    // takes n tiles 2 kk (a0: row g, a1: row g + 8) and 2 kk + 1 (a2, a3)
+    unsigned t2[M / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < M / 16; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = 16 * kk + 8 * half + 2 * q;
+        const float bb0 = __ldg(b2 + col), bb1 = __ldg(b2 + col + 1);
+        const float* d = acc2[2 * kk + half];
+        t2[kk][2 * half] = pack_bf16(relu_f32(d[0] + bb0), relu_f32(d[1] + bb1));
+        t2[kk][2 * half + 1] =
+            pack_bf16(relu_f32(d[2] + bb0), relu_f32(d[3] + bb1));
+      }
+
+    // ------------------------------------------------------------ conv3
+    // [128 output pixels, CH channels] a step: warp = output row `warp`
+    for (int k = 0; k < kc; ++k, ++s) {
+      const bf16* w3s = begin_step();
+      const bf16* rs = w3s + M * LDX;
+      const int n0 = k * CH;
+      float acc[NT3][4];
+#pragma unroll
+      for (int j = 0; j < NT3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < M / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < NT3 / 2; ++j) {
+          unsigned b[4];
+          locov::ldmatrix_b2(b, w3s + (16 * kk + (lane & 15)) * LDX + 16 * j +
+                                    8 * (lane >> 4));
+          locov::mma_bf16(acc[2 * j], t2[kk], b[0], b[1]);
+          locov::mma_bf16(acc[2 * j + 1], t2[kk], b[2], b[3]);
+        }
+      }
+      // out = round(relu(acc + b3 + x)) at output pixel (warp, gq + 8 hh)
+      float bb[NT3][2];
+#pragma unroll
+      for (int j = 0; j < NT3; ++j) {
+        bb[j][0] = __ldg(b3 + n0 + 8 * j + 2 * q);
+        bb[j][1] = __ldg(b3 + n0 + 8 * j + 2 * q + 1);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = warp * TC + gq + 8 * hh;
+        uint32_t o[NT3];
+#pragma unroll
+        for (int j = 0; j < NT3; ++j) {
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(rs + p * LDX + 8 * j +
+                                                       2 * q));
+          o[j] = pack_bf16(relu_f32(acc[j][2 * hh] + bb[j][0] + r.x),
+                           relu_f32(acc[j][2 * hh + 1] + bb[j][1] + r.y));
+        }
+#pragma unroll
+        for (int v = 0; v < NT3 / 4; ++v) quad_transpose(o + 4 * v, q);
+        const int gy = t.y0 + warp, gx = t.x0 + gq + 8 * hh;
+        if (gy < g.h && gx < g.w) {
+          int4* dst = reinterpret_cast<int4*>(
+              out + ((t.img + gy) * g.w + gx) * g.c + n0 + 8 * q);
+#pragma unroll
+          for (int v = 0; v < NT3 / 4; ++v)
+            __stcs(dst + 4 * v, make_int4((int)o[4 * v], (int)o[4 * v + 1],
+                                          (int)o[4 * v + 2],
+                                          (int)o[4 * v + 3]));
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+template <int M>
+int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                const void* b2, const void* w3, const void* b3, void* out,
+                int n, int h, int w, int c, cudaStream_t stream) {
+  using L = Bf16Layout<M>;
+  auto kernel = block_bf16<M>;
+  const int bytes = L::BYTES, threads = THREADS * L::PIPES;
+  if (c % L::CH) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, bytes)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  Geometry g{h, w, c, (w + TC - 1) / TC, (h + TR - 1) / TR, 0};
+  const long long tiles = (long long)g.tiles_x * g.tiles_y * n;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  g.tiles = (int)tiles;
+  // persistent blocks: each loads W2 (M 64) once and walks its tiles
+  const long long want = (tiles + L::PIPES - 1) / L::PIPES;
+  const long long resident = (long long)sms * per_sm;
+  const int grid = (int)(want < resident ? want : resident);
+  kernel<<<grid, threads, bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const bf16*>(w3),
+      static_cast<const float*>(b3), static_cast<bf16*>(out), g);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------- f32
+// Shared-memory layout of block_f32, in floats: rows padded by 4.
+template <int M>
+struct F32Layout {
+  static constexpr int KC = 32;        // conv1 input channels a chunk
+  static constexpr int LDT = M + 4;    // t1, t2, a W2 tap
+  static constexpr int LDX = KC + 4;   // the x chunk
+  static constexpr int LDN = NB + 4;   // a W1 or W3 chunk
   // region A: t1 (conv1, conv2), then a W3 chunk (conv3)
   static constexpr int A = cmax(NHP * LDT, M * LDN);
   // region B: the x and W1 chunks (conv1), a W2 tap (conv2), t2 (conv3)
   static constexpr int B = cmax(NHP * LDX + KC * LDN, cmax(M, NO) * LDT);
-  static constexpr size_t BYTES = (size_t)(A + B) * sizeof(T);
+  static constexpr int BYTES = 4 * (A + B);
 };
 
-// rows x cols of T from device memory (row stride gs) into shared memory
-// (row stride ld), 16 bytes a thread; cols a multiple of 16 bytes
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+// rows x cols floats from device memory (row stride gs) into shared
+// memory (row stride ld), 16 bytes a thread; cols a multiple of 4
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           long long gs, int rows, int cols) {
-  constexpr int VE = 16 / sizeof(T);
-  const int vpr = cols / VE;
+  const int vpr = cols / 4;
   for (int i = threadIdx.x; i < rows * vpr; i += THREADS) {
     const int r = i / vpr, v = i - r * vpr;
-    *reinterpret_cast<uint4*>(dst + r * ld + v * VE) =
-        *reinterpret_cast<const uint4*>(src + r * gs + (long long)v * VE);
+    *reinterpret_cast<float4*>(dst + r * ld + v * 4) =
+        *reinterpret_cast<const float4*>(src + r * gs + (long long)v * 4);
   }
 }
 
-template <typename T, int M>
+// One block (8 warps) per tile; thread (ty, tx) owns rows ty + 16 i and
+// columns tx + 16 j of each product.
+template <int M>
 __global__ void __launch_bounds__(THREADS, 1)
-    bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                      const float* __restrict__ b1, const T* __restrict__ w2,
-                      const float* __restrict__ b2, const T* __restrict__ w3,
-                      const float* __restrict__ b3, T* __restrict__ out,
-                      int h, int w, int c) {
-  using L = Layout<T, M>;
+    block_f32(const float* __restrict__ x, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ b2, const float* __restrict__ w3,
+              const float* __restrict__ b3, float* __restrict__ out, int h,
+              int w, int c) {
+  using L = F32Layout<M>;
   constexpr int KC = L::KC, LDT = L::LDT, LDX = L::LDX, LDN = L::LDN;
-  constexpr int VE = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
-  T* t1s = reinterpret_cast<T*>(smem);  // region A
-  T* w3s = t1s;
-  T* xs = t1s + L::A;                   // region B
-  T* w1s = xs + NHP * LDX;
-  T* w2s = xs;
-  T* t2s = xs;
+  float* t1s = reinterpret_cast<float*>(smem);  // region A
+  float* w3s = t1s;
+  float* xs = t1s + L::A;                       // region B
+  float* w1s = xs + NHP * LDX;
+  float* w2s = xs;
+  float* t2s = xs;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // bf16: warp tiles of the mma fragments; f32: thread (ty, tx) owns
-  // rows ty + 16 i and columns tx + 16 j of each product
+  const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
   const int x0 = blockIdx.x * TC, y0 = blockIdx.y * TR;
   const long long img = (long long)blockIdx.z * h;
@@ -124,106 +529,56 @@ __global__ void __launch_bounds__(THREADS, 1)
     return p < NH && gy >= 0 && gy < h && gx >= 0 && gx < w;
   };
 
-  // ---------------------------------------------------------------- conv1
-  // [192 halo rows, 64 columns] per pass: bf16 warp = 3 row tiles x 4
-  // column tiles of 8 (tile (i, nt) at acc + 4 (4 i + nt)); f32 thread =
-  // 12 rows x 4 columns
-  const int wm = (warp >> 1) * 3, wn = (warp & 1) * 32;
+  // conv1: [192 halo rows, 64 columns] a pass: 12 rows x 4 columns a thread
   for (int n0 = 0; n0 < M; n0 += NB) {
     float acc[48];
 #pragma unroll
     for (int e = 0; e < 48; ++e) acc[e] = 0.0f;
     for (int c0 = 0; c0 < c; c0 += KC) {
       __syncthreads();  // the last chunk's readers are done
-      for (int i = tid; i < NHP * (KC / VE); i += THREADS) {
-        const int p = i / (KC / VE), v = i - p * (KC / VE);
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      for (int i = tid; i < NHP * (KC / 4); i += THREADS) {
+        const int p = i / (KC / 4), v = i - p * (KC / 4);
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
         if (inside(p)) {
           const int gy = y0 - 1 + p / HC, gx = x0 - 1 + p % HC;
-          val = *reinterpret_cast<const uint4*>(
-              x + ((img + gy) * w + gx) * c + c0 + v * VE);
+          val = *reinterpret_cast<const float4*>(
+              x + ((img + gy) * w + gx) * c + c0 + v * 4);
         }
-        *reinterpret_cast<uint4*>(xs + p * LDX + v * VE) = val;
+        *reinterpret_cast<float4*>(xs + p * LDX + v * 4) = val;
       }
       load_tile(w1s, LDN, w1 + (long long)c0 * M + n0, M, KC, NB);
       __syncthreads();
-      if constexpr (L::BF16) {
-#pragma unroll
-        for (int k0 = 0; k0 < KC; k0 += 16) {
-          unsigned a[3][4], b[2][4];
-#pragma unroll
-          for (int i = 0; i < 3; ++i)
-            locov::ldmatrix_a(a[i], xs + ((wm + i) * 16 + (lane & 15)) * LDX +
-                                        k0 + 8 * (lane >> 4));
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            locov::ldmatrix_b2(b[j], w1s + (k0 + (lane & 15)) * LDN + wn +
-                                         16 * j + 8 * (lane >> 4));
-#pragma unroll
-          for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              locov::mma_bf16(acc + 4 * (4 * i + 2 * j), a[i], b[j][0],
-                              b[j][1]);
-              locov::mma_bf16(acc + 4 * (4 * i + 2 * j + 1), a[i], b[j][2],
-                              b[j][3]);
-            }
-        }
-      } else {
 #pragma unroll 4
-        for (int k = 0; k < KC; ++k) {
-          float a[12], b[4];
+      for (int k = 0; k < KC; ++k) {
+        float a[12], b[4];
 #pragma unroll
-          for (int i = 0; i < 12; ++i) a[i] = xs[(ty + 16 * i) * LDX + k];
+        for (int i = 0; i < 12; ++i) a[i] = xs[(ty + 16 * i) * LDX + k];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = w1s[k * LDN + tx + 16 * j];
+        for (int j = 0; j < 4; ++j) b[j] = w1s[k * LDN + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 12; ++i)
+        for (int i = 0; i < 12; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[4 * i + j] = fmaf(a[i], b[j], acc[4 * i + j]);
-        }
+          for (int j = 0; j < 4; ++j)
+            acc[4 * i + j] = fmaf(a[i], b[j], acc[4 * i + j]);
       }
     }
-    // t1 = round(relu(acc + b1)) inside the image, 0 outside
-    if constexpr (L::BF16) {
+    // t1 = relu(acc + b1) inside the image, 0 outside
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < 12; ++i) {
+      const int p = ty + 16 * i;
+      if (p >= NH) continue;
+      const bool in = inside(p);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + wn + nt * 8 + 2 * (lane & 3);
-          const float bb0 = b1[col], bb1 = b1[col + 1];
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int p = (wm + i) * 16 + (lane >> 2) + 8 * hh;
-            if (p >= NH) continue;
-            const float* d = acc + 4 * (4 * i + nt) + 2 * hh;
-            const bool in = inside(p);
-            *reinterpret_cast<__nv_bfloat162*>(t1s + p * LDT + col) =
-                __floats2bfloat162_rn(in ? relu_f32(d[0] + bb0) : 0.0f,
-                                      in ? relu_f32(d[1] + bb1) : 0.0f);
-          }
-        }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 12; ++i) {
-        const int p = ty + 16 * i;
-        if (p >= NH) continue;
-        const bool in = inside(p);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n0 + tx + 16 * j;
-          t1s[p * LDT + col] =
-              from_f32<T>(in ? relu_f32(acc[4 * i + j] + b1[col]) : 0.0f);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx + 16 * j;
+        t1s[p * LDT + col] = in ? relu_f32(acc[4 * i + j] + b1[col]) : 0.0f;
       }
     }
   }
   __syncthreads();  // t1 complete; the x and W1 chunks are read
 
-  // ---------------------------------------------------------------- conv2
-  // [128 output pixels, M]: bf16 warp = output row `warp` (16 pixels) x
-  // M/8 column tiles; f32 thread = pixels (row i, column ty) x M/16 cols
+  // conv2: [128 output pixels, M]: pixels (row i, column ty) x M/16
+  // columns a thread
   float acc2[M / 2];
 #pragma unroll
   for (int e = 0; e < M / 2; ++e) acc2[e] = 0.0f;
@@ -232,70 +587,35 @@ __global__ void __launch_bounds__(THREADS, 1)
     load_tile(w2s, LDT, w2 + (long long)tap * M * M, M, M, M);
     __syncthreads();
     const int dy = tap / 3, dx = tap % 3;
-    if constexpr (L::BF16) {
-      const T* arow =
-          t1s + ((warp + dy) * HC + (lane & 15) + dx) * LDT + 8 * (lane >> 4);
-#pragma unroll
-      for (int k0 = 0; k0 < M; k0 += 16) {
-        unsigned a[4];
-        locov::ldmatrix_a(a, arow + k0);
-#pragma unroll
-        for (int j = 0; j < M / 16; ++j) {
-          unsigned b[4];
-          locov::ldmatrix_b2(b, w2s + (k0 + (lane & 15)) * LDT + 16 * j +
-                                    8 * (lane >> 4));
-          locov::mma_bf16(acc2 + 8 * j, a, b[0], b[1]);
-          locov::mma_bf16(acc2 + 8 * j + 4, a, b[2], b[3]);
-        }
-      }
-    } else {
 #pragma unroll 2
-      for (int k = 0; k < M; ++k) {
-        float a[8], b[M / 16];
+    for (int k = 0; k < M; ++k) {
+      float a[8], b[M / 16];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          a[i] = t1s[((i + dy) * HC + ty + dx) * LDT + k];
+      for (int i = 0; i < 8; ++i)
+        a[i] = t1s[((i + dy) * HC + ty + dx) * LDT + k];
 #pragma unroll
-        for (int j = 0; j < M / 16; ++j) b[j] = w2s[k * LDT + tx + 16 * j];
+      for (int j = 0; j < M / 16; ++j) b[j] = w2s[k * LDT + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < M / 16; ++j)
-            acc2[(M / 16) * i + j] =
-                fmaf(a[i], b[j], acc2[(M / 16) * i + j]);
-      }
+        for (int j = 0; j < M / 16; ++j)
+          acc2[(M / 16) * i + j] = fmaf(a[i], b[j], acc2[(M / 16) * i + j]);
     }
   }
   __syncthreads();  // every tap is read: t2 may take region B
-  // t2 = round(relu(acc + b2)) at output pixel p = 16 r + c
-  if constexpr (L::BF16) {
+  // t2 = relu(acc + b2) at output pixel p = 16 r + c
 #pragma unroll
-    for (int nt = 0; nt < M / 8; ++nt) {
-      const int col = nt * 8 + 2 * (lane & 3);
-      const float bb0 = b2[col], bb1 = b2[col + 1];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int p = warp * 16 + (lane >> 2) + 8 * hh;
-        const float* d = acc2 + 4 * nt + 2 * hh;
-        *reinterpret_cast<__nv_bfloat162*>(t2s + p * LDT + col) =
-            __floats2bfloat162_rn(relu_f32(d[0] + bb0), relu_f32(d[1] + bb1));
-      }
+    for (int j = 0; j < M / 16; ++j) {
+      const int col = tx + 16 * j;
+      t2s[(16 * i + ty) * LDT + col] =
+          relu_f32(acc2[(M / 16) * i + j] + b2[col]);
     }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < M / 16; ++j) {
-        const int col = tx + 16 * j;
-        t2s[(16 * i + ty) * LDT + col] =
-            from_f32<T>(relu_f32(acc2[(M / 16) * i + j] + b2[col]));
-      }
-  }
   __syncthreads();  // t2 complete; t1 is read, region A is free
 
-  // ---------------------------------------------------------------- conv3
-  // [128 output pixels, 64 channels] per pass: bf16 warp = output row
-  // `warp` x 8 column tiles; f32 thread = pixels (row i, column ty) x 4
+  // conv3: [128 output pixels, 64 channels] a pass: pixels (row i,
+  // column ty) x 4 columns a thread
   for (int n0 = 0; n0 < c; n0 += NB) {
     if (n0 > 0) __syncthreads();  // the last W3 chunk's readers are done
     load_tile(w3s, LDN, w3 + n0, c, M, NB);
@@ -303,83 +623,48 @@ __global__ void __launch_bounds__(THREADS, 1)
     float acc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
-    if constexpr (L::BF16) {
-      const T* arow = t2s + (warp * 16 + (lane & 15)) * LDT + 8 * (lane >> 4);
-#pragma unroll
-      for (int k0 = 0; k0 < M; k0 += 16) {
-        unsigned a[4];
-        locov::ldmatrix_a(a, arow + k0);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          unsigned b[4];
-          locov::ldmatrix_b2(b, w3s + (k0 + (lane & 15)) * LDN + 16 * j +
-                                    8 * (lane >> 4));
-          locov::mma_bf16(acc + 8 * j, a, b[0], b[1]);
-          locov::mma_bf16(acc + 8 * j + 4, a, b[2], b[3]);
-        }
-      }
-      // out = round(relu(acc + b3 + x)) at output pixel (warp, column)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int gy = y0 + warp, gx = x0 + (lane >> 2) + 8 * hh;
-        if (gy >= h || gx >= w) continue;
-        const long long pix = ((img + gy) * w + gx) * c;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = n0 + nt * 8 + 2 * (lane & 3);
-          const float* d = acc + 4 * nt + 2 * hh;
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(x + pix + col));
-          *reinterpret_cast<__nv_bfloat162*>(out + pix + col) =
-              __floats2bfloat162_rn(relu_f32(d[0] + b3[col] + r.x),
-                                    relu_f32(d[1] + b3[col + 1] + r.y));
-        }
-      }
-    } else {
 #pragma unroll 4
-      for (int k = 0; k < M; ++k) {
-        float a[8], b[4];
+    for (int k = 0; k < M; ++k) {
+      float a[8], b[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = t2s[(16 * i + ty) * LDT + k];
+      for (int i = 0; i < 8; ++i) a[i] = t2s[(16 * i + ty) * LDT + k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = w3s[k * LDN + tx + 16 * j];
+      for (int j = 0; j < 4; ++j) b[j] = w3s[k * LDN + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[4 * i + j] = fmaf(a[i], b[j], acc[4 * i + j]);
-      }
+        for (int j = 0; j < 4; ++j)
+          acc[4 * i + j] = fmaf(a[i], b[j], acc[4 * i + j]);
+    }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int gy = y0 + i, gx = x0 + ty;
-        if (gy >= h || gx >= w) continue;
-        const long long pix = ((img + gy) * w + gx) * c;
+    for (int i = 0; i < 8; ++i) {
+      const int gy = y0 + i, gx = x0 + ty;
+      if (gy >= h || gx >= w) continue;
+      const long long pix = ((img + gy) * w + gx) * c;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n0 + tx + 16 * j;
-          out[pix + col] = from_f32<T>(
-              relu_f32(acc[4 * i + j] + b3[col] + to_f32(x[pix + col])));
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx + 16 * j;
+        out[pix + col] = relu_f32(acc[4 * i + j] + b3[col] + x[pix + col]);
       }
     }
   }
 }
 
-template <typename T, int M>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* w3, const void* b3, void* out, int n,
-           int h, int w, int c, cudaStream_t stream) {
-  auto kernel = bottleneck_kernel<T, M>;
-  const int bytes = (int)Layout<T, M>::BYTES;
+template <int M>
+int launch_f32(const void* x, const void* w1, const void* b1, const void* w2,
+               const void* b2, const void* w3, const void* b3, void* out,
+               int n, int h, int w, int c, cudaStream_t stream) {
+  auto kernel = block_f32<M>;
+  const int bytes = F32Layout<M>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((w + TC - 1) / TC, (h + TR - 1) / TR, n);
   kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const float*>(b1), static_cast<const T*>(w2),
-      static_cast<const float*>(b2), static_cast<const T*>(w3),
-      static_cast<const float*>(b3), static_cast<T*>(out), h, w, c);
+      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(w3),
+      static_cast<const float*>(b3), static_cast<float*>(out), h, w, c);
   return (int)cudaGetLastError();
 }
 
@@ -399,12 +684,12 @@ extern "C" int bottleneck_block_fwd(const void* x, const void* w1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c <= 0 || c % NB != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && m == 64)
-    return launch<bf16, 64>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
+    return launch_bf16<64>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
   if (dtype == 1 && m == 128)
-    return launch<bf16, 128>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
+    return launch_bf16<128>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
   if (dtype == 0 && m == 64)
-    return launch<float, 64>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
+    return launch_f32<64>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
   if (dtype == 0 && m == 128)
-    return launch<float, 128>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
+    return launch_f32<128>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
   return (int)cudaErrorInvalidValue;
 }

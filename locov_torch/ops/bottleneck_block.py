@@ -78,6 +78,43 @@ def bottleneck_block_ref(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return F.relu(t3 + xc).permute(0, 2, 3, 1)
 
 
+# The kernel's tiling (csrc/bottleneck_block.cu)
+TR, TC = 8, 16          # output rows and columns of a tile
+NH, NHP, NO = 180, 192, 128  # halo pixels, halo rows padded, outputs
+# bf16 (Bf16Layout), by M: W2 resident, pipelines a block (8 warps
+# each), channels a conv1 or conv3 step, ring stages a pipeline
+BF16_LAYOUT = {64: {"W2R": 1, "PIPES": 2, "CH": 32, "STAGES": 2},
+               128: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 3}}
+
+
+def smem_bytes(dtype: torch.dtype, m: int) -> int:
+    """Shared memory of a kernel block, as ``Bf16Layout`` and
+    ``F32Layout`` in the source count it. bfloat16: W2 when resident (9 M
+    rows), and for each pipeline t1 for the halo and a ring whose stage
+    holds the largest of a step's operands (a halo chunk with its W1
+    rows, a W2 tap when W2 streams, a W3 chunk with the residual's
+    chunk); rows padded by 8. float32: t1 or a W3 chunk, and the x and
+    W1 chunks, a W2 tap or t2; rows padded by 4."""
+    if dtype == torch.bfloat16:
+        lay = BF16_LAYOUT[m]
+        ch = lay["CH"]
+        ldx, ldm = ch + 8, m + 8
+        stage = max(NHP * ldx + ch * ldm, (1 - lay["W2R"]) * m * ldm,
+                    m * ldx + NO * ldx)
+        pipe = NH * ldm + lay["STAGES"] * stage
+        return 2 * (lay["W2R"] * 9 * m * ldm + lay["PIPES"] * pipe)
+    kc, nb, ldt = 32, 64, m + 4
+    ldx, ldn = kc + 4, nb + 4
+    return 4 * (max(NHP * ldt, m * ldn)
+                + max(NHP * ldx + kc * ldn, max(m, NO) * ldt))
+
+
+def tiles(n: int, h: int, w: int) -> int:
+    """Tiles of TR x TC output pixels: the blocks of the float32 kernel,
+    and what the persistent blocks of the bfloat16 kernel walk."""
+    return n * -(-h // TR) * -(-w // TC)
+
+
 def _fn():
     fn = kernel_lib.load("bottleneck_block").bottleneck_block_fwd
     if fn.argtypes is None:
@@ -87,10 +124,10 @@ def _fn():
     return fn
 
 
-def bottleneck_block_cuda(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """The kernel: x a contiguous NHWC float32/bfloat16 CUDA tensor of any
-    H, W >= 1, C a multiple of 64, M 64 or 128; the weights are cast to
-    x's dtype and the biases to float32 (on x's device)."""
+def _launch(x, w1, b1, w2, b2, w3, b3, fill: float = None) -> torch.Tensor:
+    """One launch of the kernel (no launch count). ``fill``: a value the
+    output holds before the launch, so that a comparison sees what the
+    kernel wrote."""
     kernel_lib.check_cuda_tensor(x, "bottleneck_block x", _DTYPES)
     _check_shapes(x, w1, b1, w2, b2, w3, b3)
     n, h, w, c = x.shape
@@ -105,6 +142,8 @@ def bottleneck_block_cuda(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     ws = [t.to(x.dtype).contiguous() for t in (w1, w2, w3)]
     bs = [t.to(torch.float32).contiguous() for t in (b1, b2, b3)]
     out = torch.empty_like(x)
+    if fill is not None:
+        out.fill_(fill)
     if any(t.data_ptr() % 16 for t in [x, out] + ws):
         raise ValueError("bottleneck_block: x and the weights must be "
                          "16-byte aligned")
@@ -116,7 +155,16 @@ def bottleneck_block_cuda(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
                     bs[2].data_ptr(), out.data_ptr(), n, h, w, c, m,
                     _DTYPES[x.dtype], kernel_lib.stream_ptr(x.device))
     kernel_lib.check_launch(err, "bottleneck_block")
-    kernel_lib.LAUNCHES["bottleneck_block"] += 1
+    return out
+
+
+def bottleneck_block_cuda(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The kernel: x a contiguous NHWC float32/bfloat16 CUDA tensor of any
+    H, W >= 1, C a multiple of 64, M 64 or 128; the weights are cast to
+    x's dtype and the biases to float32 (on x's device)."""
+    out = _launch(x, w1, b1, w2, b2, w3, b3)
+    if out.numel():
+        kernel_lib.LAUNCHES["bottleneck_block"] += 1
     return out
 
 

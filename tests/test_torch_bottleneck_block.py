@@ -11,6 +11,8 @@ of 8) the plain version against ``bottleneck_block_xla`` at 2e-4. The
 CUDA kernel is held against the plain version on the card by
 chip_smoke.py and tests/test_torch_kernels_gpu.py."""
 import json
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 from locov_tpu.ops.pallas_block import BH
 from locov_tpu.ops.pallas_block import bottleneck_block as pallas_block
 from locov_tpu.ops.pallas_block import bottleneck_block_xla
+from locov_torch.ops import bottleneck_block as bb
 from locov_torch.ops import kernel_lib
 from locov_torch.ops.bottleneck_block import (bottleneck_block,
                                               bottleneck_block_cuda,
@@ -129,3 +132,107 @@ def test_bench_twin_runs_on_cpu(capsys, check_only):
     assert 0 <= rel < 2e-2  # bfloat16, t1 and t2 rounded at other places
     if not check_only:
         assert line["block"] == "plain" and line["block_ms"] > 0
+
+
+def _cu_source():
+    path = os.path.join(os.path.dirname(bb.__file__), os.pardir, "csrc",
+                        "bottleneck_block.cu")
+    with open(path) as f:
+        return f.read()
+
+
+def _c_expr(v):
+    """A C constant expression as Python: integer division, and one
+    ``a ? b : c``."""
+    m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", v, re.S)
+    if m:
+        v = "(%s) if (%s) else (%s)" % (m.group(2), m.group(1), m.group(3))
+    return v.replace("/", "//")
+
+
+def _cu_layout(src, struct, m):
+    """The ``static constexpr int`` members of ``struct`` in the source,
+    evaluated in order at width ``m`` over the file's own constants."""
+    env = {"cmax": max}
+    for k, v in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+        env[k] = eval(_c_expr(v), {}, dict(env))
+    body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
+    env["M"] = m
+    for k, v in re.findall(r"static constexpr int (\w+) = ([^;]+);", body):
+        env[k] = eval(_c_expr(v), {}, dict(env))
+    return env
+
+
+def test_smem_bytes_are_the_kernels():
+    """The wrapper's count of a block's shared memory is the source's
+    (``Bf16Layout``, ``F32Layout``), fits a block of this card, and the
+    tiling and layout constants are the kernel's."""
+    src = _cu_source()
+    c = _cu_layout(src, "Bf16Layout", 64)
+    assert (c["TR"], c["TC"], c["NH"], c["NHP"], c["NO"]) == \
+        (bb.TR, bb.TC, bb.NH, bb.NHP, bb.NO)
+    assert c["NH"] == (bb.TR + 2) * (bb.TC + 2) <= bb.NHP
+    for m in (64, 128):
+        c = _cu_layout(src, "Bf16Layout", m)
+        assert {k: c[k] for k in bb.BF16_LAYOUT[m]} == bb.BF16_LAYOUT[m]
+        assert c["STAGES"] >= 2  # loads overlap products
+        assert 64 % c["CH"] == 0 and c["CH"] % 32 == 0  # 16-byte stores
+        for struct, dtype in (("Bf16Layout", torch.bfloat16),
+                              ("F32Layout", torch.float32)):
+            c = _cu_layout(src, struct, m)
+            assert bb.smem_bytes(dtype, m) == c["BYTES"] <= 232448
+    # W2 resident at M 64 only: 9 taps of 64 rows, padded by 8
+    assert _cu_layout(src, "Bf16Layout", 64)["W2S"] == 9 * 64 * 72
+    assert _cu_layout(src, "Bf16Layout", 128)["W2S"] == 0
+
+
+@pytest.mark.parametrize("n,h,w,want", [(4, 200, 336, 2100),
+                                        (8, 100, 168, 1144), (1, 1, 1, 1),
+                                        (2, 9, 17, 8), (1, 8, 16, 1)])
+def test_tiles(n, h, w, want):
+    assert bb.tiles(n, h, w) == want
+
+
+def test_trunk_block_folds_into_the_kernel_arguments():
+    """bench_block's trunk block and its folded arguments compute the
+    same block: the plain version on the folded weights against the
+    trunk's ``BottleneckBlock`` in bfloat16 (the trunk adds each shift in
+    bfloat16 after the conv rounds, the plain version in float32 before
+    it rounds: a few bfloat16 ulps)."""
+    gen = torch.Generator().manual_seed(0)
+    block, wargs = bench_block.trunk_block(128, 64, gen)
+    assert [tuple(a.shape) for a in wargs] == [
+        (128, 64), (64,), (3, 3, 64, 64), (64,), (64, 128), (128,)]
+    x = torch.randn((2, 5, 7, 128), generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        want = block(x).float()
+        got = bottleneck_block(x, *wargs).float()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 3e-2 * float(want.abs().max())
+
+
+def test_ablation_cuts_apply_to_the_source(tmp_path, monkeypatch):
+    """Each cut of tools/ablate_block.py names text that the kernel's
+    source (or its header) holds, so a copy with it cut can be built."""
+    from locov_torch.tools import ablate_block
+    monkeypatch.setattr(kernel_lib, "BUILD_DIR",
+                        str(tmp_path / "build" / "kernels"))
+    for name in [*ablate_block.CUTS, *ablate_block.LAYOUTS,
+                 "conv1+conv2+conv3", "loads+stores"]:
+        subs = ablate_block.variant_subs(name)
+        src = ablate_block.write_variant(name, subs)
+        assert src.startswith(str(tmp_path))
+        if subs[0][0] == ablate_block.SRC and name in ablate_block.CUTS:
+            with open(src) as f:
+                text = f.read()
+            assert subs[0][2] in text and subs[0][1] not in text
+    for name, values in ablate_block.LAYOUTS.items():
+        c = _cu_layout(_read(ablate_block.variant_dir(name)), "Bf16Layout",
+                       64)
+        assert tuple(c[k] for k in ablate_block.LAYOUT_KEYS) == values
+        assert c["MINB"] * (c["BYTES"] + 1024) <= 233472  # 228 KB an SM
+
+
+def _read(d):
+    with open(os.path.join(d, "bottleneck_block.cu")) as f:
+        return f.read()

@@ -40,6 +40,7 @@ import torch
 
 from locov_torch.ops import kernel_lib
 from locov_torch.ops import roi_align as roi_mod
+from locov_torch.ops import bottleneck_block as block_mod
 from locov_torch.ops.bottleneck_block import (bottleneck_block,
                                               bottleneck_block_cuda,
                                               bottleneck_block_plain)
@@ -310,10 +311,37 @@ def test_bottleneck_block_matches_plain(cuda, dtype, shape, m):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 6, 9, 128), (1, 1, 5, 128)])
-def test_bottleneck_block_zero_pads_t1(cuda, dtype, shape):
+@pytest.mark.parametrize("shape,m", [
+    ((1, 1, 7, 64), 64),       # one row, W below a tile
+    ((2, 2, 17, 128), 64),     # W one past a tile
+    ((1, 9, 17, 512), 128),    # H one past a tile, C 512
+    ((2, 2, 7, 128), 128),
+    ((1, 9, 16, 64), 128),
+    ((3, 40, 96, 64), 64),     # 90 tiles
+    ((2, 72, 128, 64), 64),    # 144 tiles: more than the card has blocks
+    ((2, 72, 128, 128), 128)])
+def test_bottleneck_block_edges(cuda, dtype, shape, m):
+    """Partial tiles in both directions, C 64 to 512, M 64 and 128, and
+    more tiles than the persistent grid has blocks: each launch writes
+    into a NaN-filled output, matches the plain version, and a second
+    launch gives the same bits."""
+    args = make_inputs(cuda, shape, m, dtype)
+    got = block_mod._launch(*args, fill=math.nan)
+    again = block_mod._launch(*args, fill=math.nan)
+    want = bottleneck_block_plain(*args)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    assert _same_bits(got, again)
+    _assert_block_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,m", [((2, 6, 9, 128), 64),
+                                     ((1, 1, 5, 128), 64),
+                                     ((1, 10, 20, 128), 128)])
+def test_bottleneck_block_zero_pads_t1(cuda, dtype, shape, m):
     """b1 = 3: relu(b1) in t1's halo would move every border pixel."""
-    x, w1, b1, *rest = make_inputs(cuda, shape, 64, dtype)
+    x, w1, b1, *rest = make_inputs(cuda, shape, m, dtype)
     args = (x, w1, torch.full_like(b1, 3.0), *rest)
     got = bottleneck_block_cuda(*args)
     want = bottleneck_block_plain(*args)
