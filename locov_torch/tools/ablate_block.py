@@ -67,6 +67,19 @@ CUTS = {
                 "if (false) {\n          int4* dst")],
     "barrier": [(SRC, "    pipe_sync<L::PIPES>(pipe);\n    issue<M>(",
                  "    issue<M>(")],
+    # the band kernel (M 64, C <= 256)
+    "band_loads": [(SRC, "if (live && xr >= 0 && xr < b.h) {", "if (false) {")],
+    "band_stores": [(SRC, "if (pe < BW && gx < b.w)", "if (false)")],
+    "band_mma": [(SRC, "for (int k0 = 0; k0 < c; k0 += 16) {",
+                  "for (int k0 = 0; k0 < 0; k0 += 16) {"),
+                 (SRC, "for (int dy = 0; dy < 3; ++dy) {",
+                  "for (int dy = 0; dy < 0; ++dy) {"),
+                 (SRC, "for (int kk = 0; kk < 4; ++kk)\n#pragma unroll\n"
+                  "          for (int j = 0; j < 4; ++j) {",
+                  "for (int kk = 0; kk < 0; ++kk)\n#pragma unroll\n"
+                  "          for (int j = 0; j < 4; ++j) {")],
+    # the tile kernel at every C
+    "tile": [(SRC, "if (dtype == 1 && m == 64 && c <= 256)", "if (false)")],
     # not cuts: each copy bringing 128 or 256 bytes into L2; the output
     # stored through L2 only, or written back; the mma free to be
     # scheduled by the compiler
