@@ -89,11 +89,11 @@ __device__ __forceinline__ float relu_f32(float u) {
 // cp.async) and neighbouring rows fall in other banks.
 template <int M>
 struct Bf16Layout {
-  static constexpr int W2R = M == 64 ? 1 : 0;     // W2 resident
-  static constexpr int PIPES = M == 64 ? 2 : 1;   // pipelines a block
-  static constexpr int CH = M == 64 ? 32 : 64;    // channels a conv1 or conv3 step
+  static constexpr int W2R = M == 64 ? 0 : 0;     // W2 resident
+  static constexpr int PIPES = M == 64 ? 1 : 1;   // pipelines a block
+  static constexpr int CH = M == 64 ? 64 : 64;    // channels a conv1 or conv3 step
   static constexpr int STAGES = M == 64 ? 2 : 3;  // ring stages a pipeline
-  static constexpr int MINB = M == 64 ? 1 : 1;    // blocks an SM
+  static constexpr int MINB = M == 64 ? 2 : 1;    // blocks an SM
   static constexpr int LDX = CH + 8;  // a halo chunk, a W3 chunk, a residual chunk
   static constexpr int LDM = M + 8;   // t1, a W1 chunk, a W2 tap
   static constexpr int W2S = W2R * 9 * M * LDM;
@@ -173,60 +173,105 @@ __device__ __forceinline__ Tile tile_at(int t, const Geometry& g) {
           t % g.tiles_x * TC};
 }
 
-// Issue step s of a pipeline's sequence into its ring stage: tile
-// unit + (s / ns) units, and within it conv1 chunk k (k < kc), W2 tap
-// k - kc (W2 not resident), or conv3 chunk k - kc - 9. Thread `tid` of
-// the pipeline's 256. Commits one cp.async group, empty past the last
-// tile.
+// rows x cols bf16 (compile-time) from device memory (row stride gs)
+// into shared memory (row stride ld) by cp.async, thread `tid` of a
+// pipeline's THREADS
+template <int ROWS, int COLS>
+__device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src,
+                                          long long gs, int tid) {
+  constexpr int VPR = COLS / 8;
+  for (int i = tid; i < ROWS * VPR; i += THREADS)
+    cp_async16(dst + (i / VPR) * ld + (i % VPR) * 8,
+               src + (i / VPR) * gs + (i % VPR) * 8, true);
+}
+
+// The producer side of a pipeline: the next step to stage (a tile, and
+// within it conv1 chunk k < kc, W2 tap k - kc when W2 streams, or conv3
+// chunk k - kc - 9 or k - kc) and this thread's pieces of it. A
+// thread's pieces of the halo and the residual are the same every step
+// (piece i = tid + THREADS j of the stage), so their offsets and
+// whether they lie inside the image are reckoned once a tile.
 template <int M>
-__device__ __forceinline__ void issue(bf16* ring, int tid, int unit,
-                                      int units, int s, int ns, int kc,
-                                      const Geometry& g,
-                                      const bf16* __restrict__ x,
-                                      const bf16* __restrict__ w1,
-                                      const bf16* __restrict__ w2,
-                                      const bf16* __restrict__ w3) {
+struct Feeder {
   using L = Bf16Layout<M>;
-  constexpr int CH = L::CH, LDX = L::LDX, LDM = L::LDM, VR = CH / 8;
-  const int tile = unit + (s / ns) * units;
-  if (tile < g.tiles) {
-    bf16* st = ring + (s % L::STAGES) * L::STAGE;
+  static constexpr int CH = L::CH, LDX = L::LDX, LDM = L::LDM, VR = CH / 8;
+  static constexpr int XP = NHP * VR / THREADS;  // halo pieces a thread
+  static constexpr int RP = NO * VR / THREADS;   // residual pieces a thread
+  const bf16* x;
+  const bf16* w1;
+  const bf16* w2;
+  const bf16* w3;
+  Geometry g;
+  int tid, units, kc, ns;
+  int tile = 0, k = 0;       // the next step
+  const bf16* xb = nullptr;  // x at the tile's halo origin (may lie outside)
+  const bf16* rb = nullptr;  // x at the tile's first output pixel
+  int xo[XP] = {}, ro[RP] = {};  // piece offsets from xb, rb
+  unsigned xin = 0, rin = 0;     // pieces inside the image, a bit each
+
+  __device__ __forceinline__ void enter(int t_) {
+    tile = t_;
+    k = 0;
+    if (tile >= g.tiles) return;
     const Tile t = tile_at(tile, g);
-    const int k = s % ns;
-    if (k < kc) {
-      // the halo's channels [CH k, CH k + CH): zeros outside the image
-      // and at the 12 padding rows
-      const int c0 = k * CH;
-      for (int i = tid; i < NHP * VR; i += THREADS) {
-        const int p = i / VR, v = i % VR;
-        const int gy = t.y0 - 1 + p / HC, gx = t.x0 - 1 + p % HC;
-        const bool in = p < NH && gy >= 0 && gy < g.h && gx >= 0 && gx < g.w;
-        const bf16* src =
-            in ? x + ((t.img + gy) * g.w + gx) * g.c + c0 + v * 8 : x;
-        cp_async16(st + p * LDX + v * 8, src, in);
-      }
-      copy_tile(st + NHP * LDX, LDM, w1 + (long long)c0 * M, M, CH, M, tid,
-                THREADS);
-    } else if (!L::W2R && k < kc + 9) {
-      copy_tile(st, LDM, w2 + (long long)(k - kc) * M * M, M, M, M, tid,
-                THREADS);
-    } else {
-      // W3's columns [CH j, CH j + CH) and the residual's channels
-      const int c0 = (k - kc - (L::W2R ? 0 : 9)) * CH;
-      copy_tile(st, LDX, w3 + c0, g.c, M, CH, tid, THREADS);
-      bf16* rs = st + M * LDX;
-      for (int i = tid; i < NO * VR; i += THREADS) {
-        const int p = i / VR, v = i % VR;
-        const int gy = t.y0 + p / TC, gx = t.x0 + p % TC;
-        const bool in = gy < g.h && gx < g.w;
-        const bf16* src =
-            in ? x + ((t.img + gy) * g.w + gx) * g.c + c0 + v * 8 : x;
-        cp_async16(rs + p * LDX + v * 8, src, in);
-      }
+    const long long c = g.c;
+    xb = x + ((t.img + t.y0 - 1) * g.w + t.x0 - 1) * c;
+    rb = x + ((t.img + t.y0) * g.w + t.x0) * c;
+    xin = rin = 0;
+#pragma unroll
+    for (int j = 0; j < XP; ++j) {
+      const int i = tid + THREADS * j, p = i / VR, v = i % VR;
+      const int py = p / HC, px = p % HC;
+      const int gy = t.y0 - 1 + py, gx = t.x0 - 1 + px;
+      xo[j] = (py * g.w + px) * g.c + v * 8;
+      if (p < NH && gy >= 0 && gy < g.h && gx >= 0 && gx < g.w)
+        xin |= 1u << j;
+    }
+#pragma unroll
+    for (int j = 0; j < RP; ++j) {
+      const int i = tid + THREADS * j, p = i / VR, v = i % VR;
+      const int py = p / TC, px = p % TC;
+      ro[j] = (py * g.w + px) * g.c + v * 8;
+      if (t.y0 + py < g.h && t.x0 + px < g.w) rin |= 1u << j;
     }
   }
-  cp_commit();
-}
+
+  // Stage the next step into `st` (one cp.async group, empty past the
+  // last tile; zeros for halo pixels outside the image) and move on.
+  __device__ __forceinline__ void issue(bf16* st) {
+    if (tile < g.tiles) {
+      if (k < kc) {
+        // the halo's channels [CH k, CH k + CH) with W1's rows
+        const int c0 = k * CH;
+#pragma unroll
+        for (int j = 0; j < XP; ++j) {
+          const int i = tid + THREADS * j;
+          const bool in = (xin >> j) & 1u;
+          cp_async16(st + (i / VR) * LDX + (i % VR) * 8,
+                     in ? xb + xo[j] + c0 : x, in);
+        }
+        copy_rows<CH, M>(st + NHP * LDX, LDM, w1 + (long long)c0 * M, M,
+                         tid);
+      } else if (!L::W2R && k < kc + 9) {
+        copy_rows<M, M>(st, LDM, w2 + (long long)(k - kc) * M * M, M, tid);
+      } else {
+        // W3's columns [CH j, CH j + CH) and the residual's channels
+        const int c0 = (k - kc - (L::W2R ? 0 : 9)) * CH;
+        copy_rows<M, CH>(st, LDX, w3 + c0, g.c, tid);
+        bf16* rs = st + M * LDX;
+#pragma unroll
+        for (int j = 0; j < RP; ++j) {
+          const int i = tid + THREADS * j;
+          const bool in = (rin >> j) & 1u;
+          cp_async16(rs + (i / VR) * LDX + (i % VR) * 8,
+                     in ? rb + ro[j] + c0 : x, in);
+        }
+      }
+    }
+    cp_commit();
+    if (++k == ns) enter(tile + units);
+  }
+};
 
 template <int M>
 __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
@@ -260,16 +305,16 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
   }
-  for (int s = 0; s < STAGES - 1; ++s)
-    issue<M>(ring, tid, unit, units, s, ns, kc, g, x, w1, w2, w3);
+  Feeder<M> feed{x, w1, w2, w3, g, tid, units, kc, ns};
+  feed.enter(unit);
+  for (int j = 0; j < STAGES - 1; ++j) feed.issue(ring + j * L::STAGE);
 
   int s = 0;  // this pipeline's step
   // wait for step s's stage, and refill the stage step s - 1 read
   auto begin_step = [&]() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
     pipe_sync<L::PIPES>(pipe);
-    issue<M>(ring, tid, unit, units, s + STAGES - 1, ns, kc, g, x, w1, w2,
-             w3);
+    feed.issue(ring + ((s + STAGES - 1) % STAGES) * L::STAGE);
     return ring + (s % STAGES) * L::STAGE;
   };
 
@@ -420,14 +465,35 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
 #pragma unroll
         for (int v = 0; v < NT3 / 4; ++v) quad_transpose(o + 4 * v, q);
         const int gy = t.y0 + warp, gx = t.x0 + gq + 8 * hh;
-        if (gy < g.h && gx < g.w) {
-          int4* dst = reinterpret_cast<int4*>(
-              out + ((t.img + gy) * g.w + gx) * g.c + n0 + 8 * q);
+        bf16* orow = out + ((t.img + gy) * g.w) * g.c + n0;
+        if (NT3 == 8) {
+          // pair the quads of pixels gx and gx ^ 1 so that each store
+          // writes whole 128-byte lines: the even quad's lanes store the
+          // first halves (channels 8 q ..), the odd quad's the second
+          // halves (32 + 8 q ..), of the even pixel and then of the odd
+          const bool odd = gq & 1;
+          uint32_t u[4], v[2][4];
 #pragma unroll
-          for (int v = 0; v < NT3 / 4; ++v)
-            __stcs(dst + 4 * v, make_int4((int)o[4 * v], (int)o[4 * v + 1],
-                                          (int)o[4 * v + 2],
-                                          (int)o[4 * v + 3]));
+          for (int e = 0; e < 4; ++e)
+            u[e] = __shfl_xor_sync(0xffffffffu, odd ? o[e] : o[4 + e], 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[0][e] = odd ? u[e] : o[e];
+            v[1][e] = odd ? o[4 + e] : u[e];
+          }
+          const int half = odd ? 32 + 8 * q : 8 * q;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int px = (gx & ~1) + e;
+            if (gy < g.h && px < g.w)
+              __stcs(reinterpret_cast<int4*>(orow + (long long)px * g.c +
+                                             half),
+                     make_int4((int)v[e][0], (int)v[e][1], (int)v[e][2],
+                               (int)v[e][3]));
+          }
+        } else if (gy < g.h && gx < g.w) {
+          __stcs(reinterpret_cast<int4*>(orow + (long long)gx * g.c + 8 * q),
+                 make_int4((int)o[0], (int)o[1], (int)o[2], (int)o[3]));
         }
       }
     }
@@ -470,301 +536,6 @@ int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const bf16*>(w3),
       static_cast<const float*>(b3), static_cast<bf16*>(out), g);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------- bf16 band
-// block_band (M 64, C <= 256): a persistent block (8 warps) walks units
-// of (image, band of BW output columns, segment of SEG output rows) and
-// within a unit one output row a step. A step stages one halo row of x
-// (the band's BP columns, all C channels, contiguous in NHWC) by
-// cp.async into a ring of XR rows, one step ahead; conv1 turns it into
-// a t1 row (a ring of 3); conv2 takes the last three t1 rows to a t2
-// row; conv3 adds the residual from the x row staged a step before.
-// W1, W2 and W3 stay in shared memory for the block's life.
-constexpr int BW = 30;        // output columns of a band
-constexpr int BP = BW + 2;    // halo columns of a band: 2 row tiles of 16
-constexpr int T1W = BP + 2;   // pixels of a t1 row (2 read only by padding)
-constexpr int SEG = 16;       // output rows of a unit
-constexpr int XR = 3;         // x rows in the ring
-constexpr int LDW = 64 + 8;   // W1, W2, t1, t2 rows
-
-// Shared memory of block_band at C channels, in bf16 elements: W1
-// [C][LDW], W2 [9 * 64][LDW], W3 [64][C + 8], the x ring [XR][BP][C + 8],
-// the t1 ring [3][T1W][LDW], t2 [BP][LDW].
-__host__ __device__ constexpr int band_w1(int c) { return c * LDW; }
-__host__ __device__ constexpr int band_w2() { return 9 * 64 * LDW; }
-__host__ __device__ constexpr int band_w3(int c) { return 64 * (c + 8); }
-__host__ __device__ constexpr int band_x(int c) { return XR * BP * (c + 8); }
-__host__ __device__ constexpr int band_t1() { return 3 * T1W * LDW; }
-__host__ __device__ constexpr int band_t2() { return BP * LDW; }
-__host__ __device__ constexpr int band_bytes(int c) {
-  return 2 * (band_w1(c) + band_w2() + band_w3(c) + band_x(c) + band_t1() +
-              band_t2());
-}
-
-struct Band {
-  int h, w, c, bands, segs, units;
-};
-
-// Stage halo row xr of the unit's band (pixels x0 - 1 .. x0 + BW) into
-// `dst`; zeros outside the image. Commits one cp.async group (empty for
-// a row outside the image or past the last unit).
-__device__ __forceinline__ void stage_row(bf16* dst, const bf16* __restrict__ x,
-                                          const Band& b, bool live,
-                                          long long n, int xr, int x0) {
-  const int ldc = b.c + 8, vr = b.c / 8;
-  if (live && xr >= 0 && xr < b.h) {
-    const bf16* row = x + (n * b.h + xr) * b.w * b.c;
-    for (int i = threadIdx.x; i < BP * vr; i += THREADS) {
-      const int p = i / vr, v = i - p * vr;
-      const int gx = x0 - 1 + p;
-      const bool in = gx >= 0 && gx < b.w;
-      cp_async16(dst + p * ldc + v * 8,
-                 in ? row + (long long)gx * b.c + v * 8 : x, in);
-    }
-  }
-  cp_commit();
-}
-
-struct Unit {
-  long long n;
-  int y0, x0, rows;
-};
-
-__device__ __forceinline__ Unit unit_at(int u, const Band& b) {
-  const int band = u % b.bands, seg = (u / b.bands) % b.segs;
-  const int y0 = seg * SEG;
-  return {(long long)(u / (b.bands * b.segs)), y0, band * BW,
-          b.h - y0 < SEG ? b.h - y0 : SEG};
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-    block_band(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               const float* __restrict__ b2, const bf16* __restrict__ w3,
-               const float* __restrict__ b3, bf16* __restrict__ out,
-               Band b) {
-  const int c = b.c, ldc = c + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* w1s = reinterpret_cast<bf16*>(smem);
-  bf16* w2s = w1s + band_w1(c);
-  bf16* w3s = w2s + band_w2();
-  bf16* xs = w3s + band_w3(c);
-  bf16* t1s = xs + band_x(c);
-  bf16* t2s = t1s + band_t1();
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, q = lane & 3;
-  const int mt = warp & 1;   // row tile: pixels 16 mt .. 16 mt + 15
-  const int nq = warp >> 1;  // conv1, conv2: channels 16 nq ..; conv3: group
-
-  // the weights, in the first step's group
-  copy_tile(w1s, LDW, w1, 64, c, 64, tid, THREADS);
-  copy_tile(w2s, LDW, w2, 64, 9 * 64, 64, tid, THREADS);
-  copy_tile(w3s, ldc, w3, c, 64, c, tid, THREADS);
-  // the prefetch cursor: unit pu, its step pi
-  int pu = blockIdx.x, pi = 0;
-  Unit pun = unit_at(pu, b);
-  auto stage_next = [&](int slot) {
-    stage_row(xs + slot * BP * ldc, x, b, pu < b.units, pun.n,
-              pun.y0 - 1 + pi, pun.x0);
-    if (++pi == pun.rows + 2) {
-      pi = 0;
-      pu += gridDim.x;
-      if (pu < b.units) pun = unit_at(pu, b);
-    }
-  };
-  stage_next(0);
-
-  int s = 0;  // this block's step
-  for (int u = blockIdx.x; u < b.units; u += gridDim.x) {
-    const Unit un = unit_at(u, b);
-    for (int i = 0; i < un.rows + 2; ++i, ++s) {
-      // this step's x row has landed; every warp is done with step s - 1
-      asm volatile("cp.async.wait_group 0;\n" ::);
-      __syncthreads();
-      stage_next((s + 1) % XR);
-      const bf16* xrow = xs + (s % XR) * BP * ldc;
-      bf16* t1row = t1s + (s % 3) * T1W * LDW;
-
-      // ---------------------------------------------------------- conv1
-      // t1 row = round(relu(x row . W1 + b1)) inside the image, else 0:
-      // warp = row tile mt x channels 16 nq .. 16 nq + 15
-      const int xr = un.y0 - 1 + i;
-      const bool row_in = xr >= 0 && xr < b.h;
-      float acc1[2][4] = {};
-      if (row_in) {
-        const bf16* arow = xrow + (mt * 16 + (lane & 15)) * ldc +
-                           8 * (lane >> 4);
-        const bf16* brow = w1s + (lane & 15) * LDW + nq * 16 + 8 * (lane >> 4);
-#pragma unroll 4
-        for (int k0 = 0; k0 < c; k0 += 16) {
-          unsigned a[4], bb[4];
-          locov::ldmatrix_a(a, arow + k0);
-          locov::ldmatrix_b2(bb, brow + k0 * LDW);
-          locov::mma_bf16(acc1[0], a, bb[0], bb[1]);
-          locov::mma_bf16(acc1[1], a, bb[2], bb[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nq * 16 + 8 * j + 2 * q;
-        const float bb0 = __ldg(b1 + col), bb1 = __ldg(b1 + col + 1);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int p = mt * 16 + gq + 8 * hh;
-          const int gx = un.x0 - 1 + p;
-          const bool in = row_in && gx >= 0 && gx < b.w;
-          *reinterpret_cast<uint32_t*>(t1row + p * LDW + col) = pack_bf16(
-              in ? relu_f32(acc1[j][2 * hh] + bb0) : 0.0f,
-              in ? relu_f32(acc1[j][2 * hh + 1] + bb1) : 0.0f);
-        }
-      }
-      if (i < 2) continue;  // conv2 needs three t1 rows
-      __syncthreads();      // t1 row complete
-
-      // ---------------------------------------------------------- conv2
-      // output row y0 + i - 2: t1 rows of steps s - 2, s - 1, s
-      float acc2[2][4] = {};
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const bf16* t1r = t1s + ((s + 1 + dy) % 3) * T1W * LDW;
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const bf16* arow =
-              t1r + (mt * 16 + (lane & 15) + dx) * LDW + 8 * (lane >> 4);
-          const bf16* brow = w2s + ((dy * 3 + dx) * 64 + (lane & 15)) * LDW +
-                             nq * 16 + 8 * (lane >> 4);
-#pragma unroll
-          for (int k0 = 0; k0 < 64; k0 += 16) {
-            unsigned a[4], bb[4];
-            locov::ldmatrix_a(a, arow + k0);
-            locov::ldmatrix_b2(bb, brow + k0 * LDW);
-            locov::mma_bf16(acc2[0], a, bb[0], bb[1]);
-            locov::mma_bf16(acc2[1], a, bb[2], bb[3]);
-          }
-        }
-      }
-      // t2 = round(relu(acc + b2))
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nq * 16 + 8 * j + 2 * q;
-        const float bb0 = __ldg(b2 + col), bb1 = __ldg(b2 + col + 1);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          *reinterpret_cast<uint32_t*>(
-              t2s + (mt * 16 + gq + 8 * hh) * LDW + col) =
-              pack_bf16(relu_f32(acc2[j][2 * hh] + bb0),
-                        relu_f32(acc2[j][2 * hh + 1] + bb1));
-      }
-      __syncthreads();  // t2 row complete
-
-      // ---------------------------------------------------------- conv3
-      // out = round(relu(t2 . W3 + b3 + x)): warp = row tile mt x groups
-      // of 64 channels nq, nq + 4, ...; the residual is the x row of
-      // step s - 1
-      const int yo = un.y0 + i - 2;
-      const bf16* xres = xs + ((s + XR - 1) % XR) * BP * ldc;
-      unsigned a[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        locov::ldmatrix_a(a[kk], t2s + (mt * 16 + (lane & 15)) * LDW +
-                                     16 * kk + 8 * (lane >> 4));
-      for (int n0 = nq * 64; n0 < c; n0 += 256) {
-        float acc[8][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            unsigned bb[4];
-            locov::ldmatrix_b2(bb, w3s + (16 * kk + (lane & 15)) * ldc + n0 +
-                                       16 * j + 8 * (lane >> 4));
-            locov::mma_bf16(acc[2 * j], a[kk], bb[0], bb[1]);
-            locov::mma_bf16(acc[2 * j + 1], a[kk], bb[2], bb[3]);
-          }
-        float bb3[8][2];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          bb3[j][0] = __ldg(b3 + n0 + 8 * j + 2 * q);
-          bb3[j][1] = __ldg(b3 + n0 + 8 * j + 2 * q + 1);
-        }
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int p = mt * 16 + gq + 8 * hh;  // output column in the band
-          uint32_t o[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float2 r = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(
-                    xres + (p + 1) * ldc + n0 + 8 * j + 2 * q));
-            o[j] = pack_bf16(relu_f32(acc[j][2 * hh] + bb3[j][0] + r.x),
-                             relu_f32(acc[j][2 * hh + 1] + bb3[j][1] + r.y));
-          }
-          quad_transpose(o, q);      // channels n0 + 8 q ..
-          quad_transpose(o + 4, q);  // channels n0 + 32 + 8 q ..
-          // pair the quads of pixels p and p ^ 1, so that each store
-          // writes whole 128-byte lines: the even quad's lanes store the
-          // first halves, the odd quad's the second halves, of pixel
-          // (p & ~1) and then of pixel (p | 1)
-          const bool odd = gq & 1;
-          uint32_t t[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            t[e] = __shfl_xor_sync(0xffffffffu, odd ? o[e] : o[4 + e], 4);
-          uint32_t v[2][4];  // pixels p & ~1 and p | 1
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            v[0][e] = odd ? t[e] : o[e];
-            v[1][e] = odd ? o[4 + e] : t[e];
-          }
-          const int half = odd ? 32 + 8 * q : 8 * q;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int pe = (p & ~1) + e;
-            const int gx = un.x0 + pe;
-            if (pe < BW && gx < b.w)
-              __stcs(reinterpret_cast<int4*>(
-                         out + ((un.n * b.h + yo) * b.w + gx) * c + n0 + half),
-                     make_int4((int)v[e][0], (int)v[e][1], (int)v[e][2],
-                               (int)v[e][3]));
-          }
-        }
-      }
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-int launch_band(const void* x, const void* w1, const void* b1, const void* w2,
-                const void* b2, const void* w3, const void* b3, void* out,
-                int n, int h, int w, int c, cudaStream_t stream) {
-  const int bytes = band_bytes(c);
-  cudaError_t err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaFuncSetAttribute(
-           block_band, cudaFuncAttributeMaxDynamicSharedMemorySize,
-           bytes)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, block_band, THREADS, bytes)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  Band b{h, w, c, (w + BW - 1) / BW, (h + SEG - 1) / SEG, 0};
-  const long long units = (long long)b.bands * b.segs * n;
-  if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  b.units = (int)units;
-  const long long resident = (long long)sms * per_sm;
-  const int grid = (int)(units < resident ? units : resident);
-  block_band<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(w3),
-      static_cast<const float*>(b3), static_cast<bf16*>(out), b);
   return (int)cudaGetLastError();
 }
 
@@ -978,8 +749,6 @@ extern "C" int bottleneck_block_fwd(const void* x, const void* w1,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c <= 0 || c % NB != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && m == 64 && c <= 256)
-    return launch_band(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
   if (dtype == 1 && m == 64)
     return launch_bf16<64>(x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, s);
   if (dtype == 1 && m == 128)

@@ -83,7 +83,7 @@ TR, TC = 8, 16          # output rows and columns of a tile
 NH, NHP, NO = 180, 192, 128  # halo pixels, halo rows padded, outputs
 # bf16 (Bf16Layout), by M: W2 resident, pipelines a block (8 warps
 # each), channels a conv1 or conv3 step, ring stages a pipeline
-BF16_LAYOUT = {64: {"W2R": 1, "PIPES": 2, "CH": 32, "STAGES": 2},
+BF16_LAYOUT = {64: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 2},
                128: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 3}}
 
 

@@ -9,9 +9,12 @@ timed through their C entry in one process, at res2 ([4, 200, 336,
 
 A cut is a set of text substitutions in the source (or a header beside
 it): ``loads`` (the cp.async copies of the ring; the products run on
-whatever the stages hold), or of its halo, residual or W1 and W3 chunks
-alone (``loads_x``, ``loads_res``, ``loads_w``), ``conv1``, ``conv2``, ``conv3`` (that
-product's fragment loads and mma), ``stores`` (the output's stores),
+whatever the stages hold), or the bytes of its halo or residual pieces
+(``loads_x``, ``loads_res``: zero-filling copies) or the W1 and W3
+copies (``loads_w``), ``conv1``, ``conv2``, ``conv3`` (that
+product's fragment loads and mma), ``stores`` (the output's stores, and
+the epilogue the compiler then drops), ``stores_fake`` (the stores
+alone: the epilogue computed, stored under a condition never met),
 ``barrier`` (the barrier of a ring step); ``mma_not_volatile``, not a
 cut, the mma asm left for the compiler to schedule; ``l2_128``,
 ``l2_256``, each cp.async asking L2 for 128 or 256 bytes around it. A cut kernel
@@ -46,14 +49,13 @@ from .timing import describe, time_ms
 SRC = "bottleneck_block.cu"
 # cut -> [(file, text, replacement)]
 CUTS = {
-    "loads": [(SRC, "  if (tile < g.tiles) {\n    bf16* st",
-               "  if (false) {\n    bf16* st")],
-    "loads_x": [(SRC, "cp_async16(st + p * LDX + v * 8, src, in);", "")],
-    "loads_res": [(SRC, "cp_async16(rs + p * LDX + v * 8, src, in);", "")],
-    "loads_w": [(SRC, "copy_tile(st + NHP * LDX, LDM, w1 + (long long)c0 * M, "
-                 "M, CH, M, tid,\n                THREADS);", ""),
-                (SRC, "copy_tile(st, LDX, w3 + c0, g.c, M, CH, tid, THREADS);",
-                 "")],
+    "loads": [(SRC, "    if (tile < g.tiles) {\n      if (k < kc) {",
+               "    if (false) {\n      if (k < kc) {")],
+    "loads_x": [(SRC, "in ? xb + xo[j] + c0 : x, in);", "x, false);")],
+    "loads_res": [(SRC, "in ? rb + ro[j] + c0 : x, in);", "x, false);")],
+    "loads_w": [(SRC, "copy_rows<CH, M>(st + NHP * LDX, LDM, w1 + (long long)"
+                 "c0 * M, M,\n                         tid);", ""),
+                (SRC, "copy_rows<M, CH>(st, LDX, w3 + c0, g.c, tid);", "")],
     "conv1": [(SRC, "for (int k0 = 0; k0 < CH; k0 += 16) {",
                "for (int k0 = 0; k0 < 0; k0 += 16) {")],
     "conv2": [(SRC, "for (int tap = 0; tap < 9; ++tap) {\n      const bf16",
@@ -63,32 +65,22 @@ CUTS = {
                "        for (int j = 0; j < NT3 / 2; ++j) {",
                "for (int kk = 0; kk < 0; ++kk) {\n#pragma unroll\n"
                "        for (int j = 0; j < NT3 / 2; ++j) {")],
-    "stores": [(SRC, "if (gy < g.h && gx < g.w) {\n          int4* dst",
-                "if (false) {\n          int4* dst")],
-    "barrier": [(SRC, "    pipe_sync<L::PIPES>(pipe);\n    issue<M>(",
-                 "    issue<M>(")],
-    # the band kernel (M 64, C <= 256)
-    "band_loads": [(SRC, "if (live && xr >= 0 && xr < b.h) {", "if (false) {")],
-    "band_stores": [(SRC, "if (pe < BW && gx < b.w)", "if (false)")],
-    "band_mma": [(SRC, "for (int k0 = 0; k0 < c; k0 += 16) {",
-                  "for (int k0 = 0; k0 < 0; k0 += 16) {"),
-                 (SRC, "for (int dy = 0; dy < 3; ++dy) {",
-                  "for (int dy = 0; dy < 0; ++dy) {"),
-                 (SRC, "for (int kk = 0; kk < 4; ++kk)\n#pragma unroll\n"
-                  "          for (int j = 0; j < 4; ++j) {",
-                  "for (int kk = 0; kk < 0; ++kk)\n#pragma unroll\n"
-                  "          for (int j = 0; j < 4; ++j) {")],
-    # the tile kernel at every C
-    "tile": [(SRC, "if (dtype == 1 && m == 64 && c <= 256)", "if (false)")],
-    # not cuts: each copy bringing 128 or 256 bytes into L2; the output
-    # stored through L2 only, or written back; the mma free to be
-    # scheduled by the compiler
+    "stores": [(SRC, "            if (gy < g.h && px < g.w)",
+                "            if (false)"),
+               (SRC, "} else if (gy < g.h && gx < g.w) {", "} else if (false) {")],
+    # the epilogue computed but nothing stored
+    "stores_fake": [(SRC, "            if (gy < g.h && px < g.w)",
+                     "            if (gy < 0 && v[e][0] == 0x7fc1u)"),
+                    (SRC, "} else if (gy < g.h && gx < g.w) {",
+                     "} else if (gy < 0 && o[0] == 0x7fc1u) {")],
+    "barrier": [(SRC, "    pipe_sync<L::PIPES>(pipe);\n    feed.issue(",
+                 "    feed.issue(")],
+    # not cuts: each copy bringing 128 or 256 bytes into L2; the mma free
+    # to be scheduled by the compiler
     "l2_128": [(SRC, "cp.async.cg.shared.global [%0]",
                 "cp.async.cg.shared.global.L2::128B [%0]")],
     "l2_256": [(SRC, "cp.async.cg.shared.global [%0]",
                 "cp.async.cg.shared.global.L2::256B [%0]")],
-    "store_cg": [(SRC, "__stcs(dst + 4 * v,", "__stcg(dst + 4 * v,")],
-    "store_wb": [(SRC, "__stcs(dst + 4 * v,", "__stwb(dst + 4 * v,")],
     "mma_not_volatile": [("mma_bf16.cuh", "asm volatile(\n      \"mma.sync",
                           "asm(\n      \"mma.sync")],
 }
@@ -98,6 +90,7 @@ LAYOUTS = {
     "w2r_1pipe_ch64_3st": (1, 1, 64, 3, 1),
     "w2r_1pipe_ch32_5st": (1, 1, 32, 5, 1),
     "w2r_2pipe_ch32_2st": (1, 2, 32, 2, 1),
+    "stream_1blk_ch64_3st": (0, 1, 64, 3, 1),
     "stream_2blk_ch32_4st": (0, 1, 32, 4, 2),
     "stream_2blk_ch64_2st": (0, 1, 64, 2, 2),
     "stream_2pipe_ch32_4st": (0, 2, 32, 4, 1),

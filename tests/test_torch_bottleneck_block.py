@@ -181,9 +181,11 @@ def test_smem_bytes_are_the_kernels():
                               ("F32Layout", torch.float32)):
             c = _cu_layout(src, struct, m)
             assert bb.smem_bytes(dtype, m) == c["BYTES"] <= 232448
-    # W2 resident at M 64 only: 9 taps of 64 rows, padded by 8
-    assert _cu_layout(src, "Bf16Layout", 64)["W2S"] == 9 * 64 * 72
-    assert _cu_layout(src, "Bf16Layout", 128)["W2S"] == 0
+    # a resident W2 is 9 taps of M rows, padded by 8
+    for m in (64, 128):
+        c = _cu_layout(src, "Bf16Layout", m)
+        assert c["W2S"] == c["W2R"] * 9 * m * (m + 8)
+        assert c["MINB"] * (c["BYTES"] + 1024) <= 233472  # 228 KB an SM
 
 
 @pytest.mark.parametrize("n,h,w,want", [(4, 200, 336, 2100),

@@ -25,7 +25,9 @@ order) and in bfloat16, at each element, within one bfloat16 ulp plus
 1e-3 * max|y| (t1 and t2 each rounded once: a sum-order difference can
 flip one of those roundings, which the next product carries into y as
 about ulp(t2) * |w3|), also with b1 = 3, where a t1 halo holding
-relu(b1) instead of 0 would move every border pixel; the stem conv within one
+relu(b1) instead of 0 would move every border pixel, and at partial
+tiles into a NaN-filled output, the same bits on a second launch; the
+stem conv within one
 bfloat16 ulp of the plain version (the same 147 float32 products in
 another order, one rounding), plus 1e-5 * (|x| conv |w| + |shift|), the
 float32 sum-order bound, which exceeds a bfloat16 ulp of an output
@@ -315,6 +317,7 @@ def test_bottleneck_block_matches_plain(cuda, dtype, shape, m):
     ((1, 1, 7, 64), 64),       # one row, W below a tile
     ((2, 2, 17, 128), 64),     # W one past a tile
     ((1, 9, 17, 512), 128),    # H one past a tile, C 512
+    ((1, 9, 17, 512), 64),
     ((2, 2, 7, 128), 128),
     ((1, 9, 16, 64), 128),
     ((3, 40, 96, 64), 64),     # 90 tiles
