@@ -94,12 +94,14 @@ struct Bf16Layout {
   static constexpr int CH = M == 64 ? 64 : 64;    // channels a conv1 or conv3 step
   static constexpr int STAGES = M == 64 ? 2 : 3;  // ring stages a pipeline
   static constexpr int MINB = M == 64 ? 2 : 1;    // blocks an SM
+  static constexpr int TPS = M == 64 ? 3 : 1;     // W2 taps a step (streamed)
+  static constexpr int NW2 = (1 - W2R) * 9 / TPS;  // W2 steps a tile
   static constexpr int LDX = CH + 8;  // a halo chunk, a W3 chunk, a residual chunk
   static constexpr int LDM = M + 8;   // t1, a W1 chunk, a W2 tap
   static constexpr int W2S = W2R * 9 * M * LDM;
   static constexpr int T1 = NH * LDM;
   static constexpr int STAGE = cmax(NHP * LDX + CH * LDM,
-                                    cmax((1 - W2R) * M * LDM,
+                                    cmax((1 - W2R) * TPS * M * LDM,
                                          M * LDX + NO * LDX));
   static constexpr int PIPE = T1 + STAGES * STAGE;
   static constexpr int BYTES = 2 * (W2S + PIPES * PIPE);
@@ -144,20 +146,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&b);
 }
 
-// Quad transpose: lane q of a quad holds p[j] = its word of n tile j;
-// after it p[i] = lane i's word of n tile q, i.e. channels 8 q + 2 i, +1.
-__device__ __forceinline__ void quad_transpose(uint32_t* p, int q) {
-  const bool odd = q & 1, high = q & 2;
-  uint32_t r = __shfl_xor_sync(0xffffffffu, odd ? p[0] : p[1], 1);
-  if (odd) p[0] = r; else p[1] = r;
-  r = __shfl_xor_sync(0xffffffffu, odd ? p[2] : p[3], 1);
-  if (odd) p[2] = r; else p[3] = r;
-  r = __shfl_xor_sync(0xffffffffu, high ? p[0] : p[2], 2);
-  if (high) p[0] = r; else p[2] = r;
-  r = __shfl_xor_sync(0xffffffffu, high ? p[1] : p[3], 2);
-  if (high) p[1] = r; else p[3] = r;
-}
-
 struct Geometry {
   int h, w, c, tiles_x, tiles_y, tiles;
 };
@@ -186,8 +174,8 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src,
 }
 
 // The producer side of a pipeline: the next step to stage (a tile, and
-// within it conv1 chunk k < kc, W2 tap k - kc when W2 streams, or conv3
-// chunk k - kc - 9 or k - kc) and this thread's pieces of it. A
+// within it conv1 chunk k < kc, W2 taps TPS (k - kc) .. when W2
+// streams, or conv3 chunk k - kc - NW2) and this thread's pieces of it. A
 // thread's pieces of the halo and the residual are the same every step
 // (piece i = tid + THREADS j of the stage), so their offsets and
 // whether they lie inside the image are reckoned once a tile.
@@ -252,11 +240,12 @@ struct Feeder {
         }
         copy_rows<CH, M>(st + NHP * LDX, LDM, w1 + (long long)c0 * M, M,
                          tid);
-      } else if (!L::W2R && k < kc + 9) {
-        copy_rows<M, M>(st, LDM, w2 + (long long)(k - kc) * M * M, M, tid);
+      } else if (k < kc + L::NW2) {
+        copy_rows<L::TPS * M, M>(
+            st, LDM, w2 + (long long)(k - kc) * L::TPS * M * M, M, tid);
       } else {
         // W3's columns [CH j, CH j + CH) and the residual's channels
-        const int c0 = (k - kc - (L::W2R ? 0 : 9)) * CH;
+        const int c0 = (k - kc - L::NW2) * CH;
         copy_rows<M, CH>(st, LDX, w3 + c0, g.c, tid);
         bf16* rs = st + M * LDX;
 #pragma unroll
@@ -297,7 +286,7 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
   const int unit = blockIdx.x * L::PIPES + pipe;
   const int units = gridDim.x * L::PIPES;
   const int kc = g.c / CH;                     // conv1 and conv3 steps
-  const int ns = 2 * kc + (L::W2R ? 0 : 9);    // steps a tile
+  const int ns = 2 * kc + L::NW2;              // steps a tile
 
   if (L::W2R) {
     copy_tile(w2s, LDM, w2, M, 9 * M, M, threadIdx.x, THREADS * L::PIPES);
@@ -381,14 +370,14 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc2[j][e] = 0.0f;
+    const bf16* w2c = w2s;  // the step's taps when W2 streams
     for (int tap = 0; tap < 9; ++tap) {
-      const bf16* w2t;
-      if (L::W2R) {
-        w2t = w2s + tap * M * LDM;
-      } else {
-        w2t = begin_step();
+      if (!L::W2R && tap % L::TPS == 0) {
+        w2c = begin_step();
         ++s;
       }
+      const bf16* w2t = L::W2R ? w2s + tap * M * LDM
+                               : w2c + (tap % L::TPS) * M * LDM;
       const int dy = tap / 3, dx = tap % 3;
       const bf16* arow =
           t1s + ((warp + dy) * HC + (lane & 15) + dx) * LDM + 8 * (lane >> 4);
@@ -424,8 +413,8 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
     // ------------------------------------------------------------ conv3
     // [128 output pixels, CH channels] a step: warp = output row `warp`
     for (int k = 0; k < kc; ++k, ++s) {
-      const bf16* w3s = begin_step();
-      const bf16* rs = w3s + M * LDX;
+      bf16* w3s = begin_step();
+      bf16* rs = w3s + M * LDX;
       const int n0 = k * CH;
       float acc[NT3][4];
 #pragma unroll
@@ -443,58 +432,44 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
           locov::mma_bf16(acc[2 * j + 1], t2[kk], b[2], b[3]);
         }
       }
-      // out = round(relu(acc + b3 + x)) at output pixel (warp, gq + 8 hh)
-      float bb[NT3][2];
+      // out = round(relu(acc + b3 + x)) for the warp's 16 pixels. The
+      // residual's fragments come by ldmatrix from the staged chunk (the
+      // mma C layout is ldmatrix's A layout: block b holds n tiles 2 b,
+      // 2 b + 1, rows g and g + 8); the rounded results overwrite them
+      // in place, and the warp reads them back as 16-byte pieces of
+      // pixel rows, which it stores as whole lines.
+      bf16* rw = rs + warp * TC * LDX;  // the warp's 16 pixel rows
+      unsigned r[NT3 / 2][4];
+#pragma unroll
+      for (int b = 0; b < NT3 / 2; ++b)
+        locov::ldmatrix_a(r[b], rw + (lane & 15) * LDX + 16 * b +
+                                    8 * (lane >> 4));
+      __syncwarp();
 #pragma unroll
       for (int j = 0; j < NT3; ++j) {
-        bb[j][0] = __ldg(b3 + n0 + 8 * j + 2 * q);
-        bb[j][1] = __ldg(b3 + n0 + 8 * j + 2 * q + 1);
+        const int col = 8 * j + 2 * q;
+        const float bb0 = __ldg(b3 + n0 + col), bb1 = __ldg(b3 + n0 + col + 1);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint32_t xw = r[j / 2][2 * (j % 2) + hh];  // 2 bf16
+          *reinterpret_cast<uint32_t*>(rw + (gq + 8 * hh) * LDX + col) =
+              pack_bf16(relu_f32(acc[j][2 * hh] + bb0 + __uint_as_float(xw << 16)),
+                        relu_f32(acc[j][2 * hh + 1] + bb1 +
+                                 __uint_as_float(xw & 0xffff0000u)));
+        }
       }
+      __syncwarp();
+      constexpr int PPX = CH / 8;  // 16-byte pieces of a pixel's chunk
+      const int gy = t.y0 + warp;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int p = warp * TC + gq + 8 * hh;
-        uint32_t o[NT3];
-#pragma unroll
-        for (int j = 0; j < NT3; ++j) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(rs + p * LDX + 8 * j +
-                                                       2 * q));
-          o[j] = pack_bf16(relu_f32(acc[j][2 * hh] + bb[j][0] + r.x),
-                           relu_f32(acc[j][2 * hh + 1] + bb[j][1] + r.y));
-        }
-#pragma unroll
-        for (int v = 0; v < NT3 / 4; ++v) quad_transpose(o + 4 * v, q);
-        const int gy = t.y0 + warp, gx = t.x0 + gq + 8 * hh;
-        bf16* orow = out + ((t.img + gy) * g.w) * g.c + n0;
-        if (NT3 == 8) {
-          // pair the quads of pixels gx and gx ^ 1 so that each store
-          // writes whole 128-byte lines: the even quad's lanes store the
-          // first halves (channels 8 q ..), the odd quad's the second
-          // halves (32 + 8 q ..), of the even pixel and then of the odd
-          const bool odd = gq & 1;
-          uint32_t u[4], v[2][4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            u[e] = __shfl_xor_sync(0xffffffffu, odd ? o[e] : o[4 + e], 4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            v[0][e] = odd ? u[e] : o[e];
-            v[1][e] = odd ? o[4 + e] : u[e];
-          }
-          const int half = odd ? 32 + 8 * q : 8 * q;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int px = (gx & ~1) + e;
-            if (gy < g.h && px < g.w)
-              __stcs(reinterpret_cast<int4*>(orow + (long long)px * g.c +
-                                             half),
-                     make_int4((int)v[e][0], (int)v[e][1], (int)v[e][2],
-                               (int)v[e][3]));
-          }
-        } else if (gy < g.h && gx < g.w) {
-          __stcs(reinterpret_cast<int4*>(orow + (long long)gx * g.c + 8 * q),
-                 make_int4((int)o[0], (int)o[1], (int)o[2], (int)o[3]));
-        }
+      for (int e = 0; e < TC * PPX / 32; ++e) {
+        const int px = (32 * e + lane) / PPX, v = (32 * e + lane) % PPX;
+        const int4 val = *reinterpret_cast<const int4*>(rw + px * LDX + v * 8);
+        const int gx = t.x0 + px;
+        if (gy < g.h && gx < g.w)
+          __stcs(reinterpret_cast<int4*>(
+                     out + ((t.img + gy) * g.w + gx) * g.c + n0 + v * 8),
+                 val);
       }
     }
   }

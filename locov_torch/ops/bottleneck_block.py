@@ -83,8 +83,8 @@ TR, TC = 8, 16          # output rows and columns of a tile
 NH, NHP, NO = 180, 192, 128  # halo pixels, halo rows padded, outputs
 # bf16 (Bf16Layout), by M: W2 resident, pipelines a block (8 warps
 # each), channels a conv1 or conv3 step, ring stages a pipeline
-BF16_LAYOUT = {64: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 2},
-               128: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 3}}
+BF16_LAYOUT = {64: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 2, "TPS": 3},
+               128: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 3, "TPS": 1}}
 
 
 def smem_bytes(dtype: torch.dtype, m: int) -> int:
@@ -99,7 +99,8 @@ def smem_bytes(dtype: torch.dtype, m: int) -> int:
         lay = BF16_LAYOUT[m]
         ch = lay["CH"]
         ldx, ldm = ch + 8, m + 8
-        stage = max(NHP * ldx + ch * ldm, (1 - lay["W2R"]) * m * ldm,
+        stage = max(NHP * ldx + ch * ldm,
+                    (1 - lay["W2R"]) * lay["TPS"] * m * ldm,
                     m * ldx + NO * ldx)
         pipe = NH * ldm + lay["STAGES"] * stage
         return 2 * (lay["W2R"] * 9 * m * ldm + lay["PIPES"] * pipe)

@@ -21,8 +21,8 @@ cut, the mma asm left for the compiler to schedule; ``l2_128``,
 computes nonsense; only its time is read. Cuts joined by ``+`` are made
 together. A layout (``LAYOUTS``) sets
 ``Bf16Layout``'s members at M 64: W2 resident or streamed, pipelines a
-block, channels a step, ring stages and blocks an SM; it computes the
-block. The copies build in parallel (one
+block, channels a step, ring stages, blocks an SM and W2 taps a step;
+it computes the block. The copies build in parallel (one
 ``nvcc`` each, the kernels' flags, under ``build/ablate/``); each is
 timed with CUDA events (median after warm-up), the uncut copy first and
 last. Prints one JSON line: ms per cut, and the ptxas lines of each
@@ -58,21 +58,17 @@ CUTS = {
                 (SRC, "copy_rows<M, CH>(st, LDX, w3 + c0, g.c, tid);", "")],
     "conv1": [(SRC, "for (int k0 = 0; k0 < CH; k0 += 16) {",
                "for (int k0 = 0; k0 < 0; k0 += 16) {")],
-    "conv2": [(SRC, "for (int tap = 0; tap < 9; ++tap) {\n      const bf16",
-               "for (int tap = 0; tap < 9 * (1 - L::W2R); ++tap) {\n"
-               "      const bf16")],
+    "conv2": [(SRC, "for (int k0 = 0; k0 < M; k0 += 16) {",
+               "for (int k0 = 0; k0 < 0; k0 += 16) {")],
     "conv3": [(SRC, "for (int kk = 0; kk < M / 16; ++kk) {\n#pragma unroll\n"
                "        for (int j = 0; j < NT3 / 2; ++j) {",
                "for (int kk = 0; kk < 0; ++kk) {\n#pragma unroll\n"
                "        for (int j = 0; j < NT3 / 2; ++j) {")],
-    "stores": [(SRC, "            if (gy < g.h && px < g.w)",
-                "            if (false)"),
-               (SRC, "} else if (gy < g.h && gx < g.w) {", "} else if (false) {")],
+    "stores": [(SRC, "        if (gy < g.h && gx < g.w)\n          __stcs(",
+                "        if (false)\n          __stcs(")],
     # the epilogue computed but nothing stored
-    "stores_fake": [(SRC, "            if (gy < g.h && px < g.w)",
-                     "            if (gy < 0 && v[e][0] == 0x7fc1u)"),
-                    (SRC, "} else if (gy < g.h && gx < g.w) {",
-                     "} else if (gy < 0 && o[0] == 0x7fc1u) {")],
+    "stores_fake": [(SRC, "        if (gy < g.h && gx < g.w)\n          __stcs(",
+                     "        if (gy < 0 && val.x == 0x7fc1)\n          __stcs(")],
     "barrier": [(SRC, "    pipe_sync<L::PIPES>(pipe);\n    feed.issue(",
                  "    feed.issue(")],
     # not cuts: each copy bringing 128 or 256 bytes into L2; the mma free
@@ -85,17 +81,17 @@ CUTS = {
                           "asm(\n      \"mma.sync")],
 }
 # other layouts at M 64 (Bf16Layout's members: W2 resident, pipelines a
-# block, channels a step, ring stages, blocks an SM)
+# block, channels a step, ring stages, blocks an SM, W2 taps a step)
 LAYOUTS = {
-    "w2r_1pipe_ch64_3st": (1, 1, 64, 3, 1),
-    "w2r_1pipe_ch32_5st": (1, 1, 32, 5, 1),
-    "w2r_2pipe_ch32_2st": (1, 2, 32, 2, 1),
-    "stream_1blk_ch64_3st": (0, 1, 64, 3, 1),
-    "stream_2blk_ch32_4st": (0, 1, 32, 4, 2),
-    "stream_2blk_ch64_2st": (0, 1, 64, 2, 2),
-    "stream_2pipe_ch32_4st": (0, 2, 32, 4, 1),
+    "w2r_1pipe_ch64_3st": (1, 1, 64, 3, 1, 1),
+    "w2r_1pipe_ch32_5st": (1, 1, 32, 5, 1, 1),
+    "w2r_2pipe_ch32_2st": (1, 2, 32, 2, 1, 1),
+    "stream_1blk_ch64_3st": (0, 1, 64, 3, 1, 3),
+    "stream_2blk_ch32_4st": (0, 1, 32, 4, 2, 1),
+    "stream_2blk_ch64_2st_1tap": (0, 1, 64, 2, 2, 1),
+    "stream_2pipe_ch32_4st": (0, 2, 32, 4, 1, 1),
 }
-LAYOUT_KEYS = ("W2R", "PIPES", "CH", "STAGES", "MINB")
+LAYOUT_KEYS = ("W2R", "PIPES", "CH", "STAGES", "MINB", "TPS")
 
 
 def layout_subs(values):
