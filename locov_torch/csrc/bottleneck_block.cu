@@ -24,32 +24,35 @@
 // taps, each the 16-pixel rows of t1 shifted by the tap, conv3 in chunks
 // of 64 output channels.
 //
-// bf16 (block_bf16): persistent blocks of 8 warps, one an SM (ptxas
-// registers and shared memory in the build log), walk the tiles in the
-// order of their index, so the tiles in flight at one time are
-// neighbours and their halos meet in L2.
-//   - Loads overlap products: every operand stream goes through a ring of
-//     STAGES shared-memory stages filled by cp.async, STAGES - 1 steps
-//     ahead, one barrier a step. A step is one chunk of 64 input
-//     channels of the halo with its 64 rows of W1 (conv1), one tap of W2
-//     (conv2, M 128 only), or 64 columns of W3 with the residual's 64
-//     channels of the tile's 128 pixels (conv3). The ring runs across
-//     tiles: the next tile's first chunks land during this one's conv3.
-//   - W2 at M 64 (72 KB) is loaded once a block and stays resident, so
-//     a tile fetches 64 KB of weights (W1, W3) from L2 where it fetched
-//     136 KB; at M 128 (288 KB of W2) every weight streams.
+// bf16 (block_bf16): persistent blocks of 8 warps, two an SM at M 64
+// (one at M 128), walk the tiles in the order of their index, so the
+// tiles in flight at one time are neighbours and their halos meet in L2.
+// Products: mma.sync m16n8k16 (f32 accumulators, operands by ldmatrix).
+//   - Loads overlap products: one ring of STAGES shared-memory stages
+//     (2 at M 64, 3 at M 128) filled by cp.async STAGES - 1 steps ahead,
+//     one barrier a step. A step stages a 64-channel chunk of the halo
+//     with W1's 64 rows for it (conv1), 3 taps of W2 at M 64 and one at
+//     M 128 (conv2), or 64
+//     columns of W3 with the residual's 64 channels (conv3); the ring
+//     runs on across tiles. A thread's pieces of a stage are the same
+//     every step, so their offsets are reckoned once a tile.
+//   - The weights stream from L2 every tile (136 KB at M 64). A resident
+//     W2 (72 KB, 83 KB padded) leaves room for one block an SM, or for
+//     two tile pipelines with a one-step ring, and both ran slower than
+//     two streaming blocks an SM; cutting the W1 and W3 copies saved
+//     nothing measurable (PERF.md, tools/ablate_block.py).
 //   - x: the halo is read 1.41x from L2 (180 pixels for 128) and the
-//     residual once more, staged through the ring with W3's chunk: 2.4x
-//     from L2, about 1x from device memory (the neighbours' halos are
-//     in flight at the same time). Keeping the residual from conv1's
-//     staging would take 64 KB (128 pixels x 256 channels), which the
-//     ring and resident W2 leave no room for.
+//     residual once more through the ring: 2.4x from L2, about 1x from
+//     device memory (the neighbours' halos are in flight at the same
+//     time). Keeping the residual from conv1's staging would take 64 KB
+//     a tile (128 pixels x 256 channels).
 //   - t2 never leaves registers: a warp's conv2 sums (its 16 pixels x
 //     all M channels) are, by the m16n8k16 layouts, its conv3 A
 //     fragments once biased, relu'd and rounded.
-//   - The epilogue swaps fragments within each quad of lanes so that a
-//     lane holds 8 consecutive channels, and stores 16-byte streaming
-//     vectors (__stcs) from registers.
+//   - The epilogue takes the residual's fragments by ldmatrix (the mma C
+//     layout is ldmatrix's A layout), writes the rounded results back
+//     over them, and reads them as 16-byte pieces of pixel rows, which it
+//     stores as whole 128-byte lines (__stcs).
 // f32 (block_f32) keeps the design it had: one block per tile, products
 // as f32 FMAs on the CUDA cores (TF32 would break the float32 result),
 // operands staged synchronously.
@@ -71,8 +74,8 @@ constexpr int HC = TC + 2;       // halo columns
 constexpr int NH = (TR + 2) * HC;  // halo pixels (180)
 constexpr int NHP = 192;         // halo rows rounded up to 12 tiles of 16
 constexpr int NO = TR * TC;      // output pixels (128)
-constexpr int THREADS = 256;     // a bf16 pipeline; an f32 block
-constexpr int NB = 64;           // f32: output channels of a pass
+constexpr int THREADS = 256;     // threads a block (8 warps)
+constexpr int NB = 64;           // channels of a conv1 or conv3 step
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
@@ -82,29 +85,23 @@ __device__ __forceinline__ float relu_f32(float u) {
 }
 
 // ------------------------------------------------------------------ bf16
-// Shared-memory layout of block_bf16, in bf16 elements. A block runs
-// PIPES pipelines of 8 warps, each walking its own tiles with its own t1
-// and ring; W2, when resident, is shared by them. Rows are padded by 8
-// elements, so that each row start is 16-byte aligned (ldmatrix,
-// cp.async) and neighbouring rows fall in other banks.
+// Shared-memory layout of block_bf16, in bf16 elements: t1 for the
+// tile's halo, and a ring of STAGES stages, each the largest of a step's
+// operands (a halo chunk with W1's rows for it, TPS taps of W2, a W3
+// chunk with the residual's chunk). Rows are padded by 8 elements, so that
+// each row start is 16-byte aligned (ldmatrix, cp.async) and
+// neighbouring rows fall in other banks.
 template <int M>
 struct Bf16Layout {
-  static constexpr int W2R = M == 64 ? 0 : 0;     // W2 resident
-  static constexpr int PIPES = M == 64 ? 1 : 1;   // pipelines a block
-  static constexpr int CH = M == 64 ? 64 : 64;    // channels a conv1 or conv3 step
-  static constexpr int STAGES = M == 64 ? 2 : 3;  // ring stages a pipeline
+  static constexpr int STAGES = M == 64 ? 2 : 3;  // ring stages
   static constexpr int MINB = M == 64 ? 2 : 1;    // blocks an SM
-  static constexpr int TPS = M == 64 ? 3 : 1;     // W2 taps a step (streamed)
-  static constexpr int NW2 = (1 - W2R) * 9 / TPS;  // W2 steps a tile
-  static constexpr int LDX = CH + 8;  // a halo chunk, a W3 chunk, a residual chunk
+  static constexpr int TPS = M == 64 ? 3 : 1;     // W2 taps a step
+  static constexpr int LDX = NB + 8;  // a halo, W3 or residual chunk
   static constexpr int LDM = M + 8;   // t1, a W1 chunk, a W2 tap
-  static constexpr int W2S = W2R * 9 * M * LDM;
   static constexpr int T1 = NH * LDM;
-  static constexpr int STAGE = cmax(NHP * LDX + CH * LDM,
-                                    cmax((1 - W2R) * TPS * M * LDM,
-                                         M * LDX + NO * LDX));
-  static constexpr int PIPE = T1 + STAGES * STAGE;
-  static constexpr int BYTES = 2 * (W2S + PIPES * PIPE);
+  static constexpr int STAGE = cmax(NHP * LDX + NB * LDM,
+                                    cmax(TPS * M * LDM, M * LDX + NO * LDX));
+  static constexpr int BYTES = 2 * (T1 + STAGES * STAGE);
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -116,29 +113,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// the barrier of one pipeline's 8 warps
-template <int PIPES>
-__device__ __forceinline__ void pipe_sync(int pipe) {
-  if (PIPES == 1)
-    __syncthreads();
-  else
-    asm volatile("bar.sync %0, %1;\n" ::"r"(pipe + 1), "n"(THREADS)
-                 : "memory");
-}
-
-// rows x cols bf16 from device memory (row stride gs) into shared memory
-// (row stride ld) by cp.async, 16 bytes a piece, thread `tid` of `nt`;
-// cols a multiple of 8
-__device__ __forceinline__ void copy_tile(bf16* dst, int ld, const bf16* src,
-                                          long long gs, int rows, int cols,
-                                          int tid, int nt) {
-  const int vpr = cols / 8;
-  for (int i = tid; i < rows * vpr; i += nt) {
-    const int r = i / vpr, v = i - r * vpr;
-    cp_async16(dst + r * ld + v * 8, src + r * gs + v * 8, true);
-  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -162,8 +136,8 @@ __device__ __forceinline__ Tile tile_at(int t, const Geometry& g) {
 }
 
 // rows x cols bf16 (compile-time) from device memory (row stride gs)
-// into shared memory (row stride ld) by cp.async, thread `tid` of a
-// pipeline's THREADS
+// into shared memory (row stride ld) by cp.async, thread `tid` of
+// THREADS
 template <int ROWS, int COLS>
 __device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src,
                                           long long gs, int tid) {
@@ -173,16 +147,17 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src,
                src + (i / VPR) * gs + (i % VPR) * 8, true);
 }
 
-// The producer side of a pipeline: the next step to stage (a tile, and
-// within it conv1 chunk k < kc, W2 taps TPS (k - kc) .. when W2
-// streams, or conv3 chunk k - kc - NW2) and this thread's pieces of it. A
-// thread's pieces of the halo and the residual are the same every step
-// (piece i = tid + THREADS j of the stage), so their offsets and
-// whether they lie inside the image are reckoned once a tile.
+// The producer side of a block: the next step to stage (a tile, and
+// within it conv1 chunk k < kc, W2 taps TPS (k - kc) .. while k - kc <
+// 9 / TPS, or conv3 chunk k - kc - 9 / TPS) and this thread's pieces of
+// it. A thread's pieces of the
+// halo and the residual are the same every step (piece i = tid +
+// THREADS j of the stage), so their offsets and whether they lie inside
+// the image are reckoned once a tile.
 template <int M>
 struct Feeder {
   using L = Bf16Layout<M>;
-  static constexpr int CH = L::CH, LDX = L::LDX, LDM = L::LDM, VR = CH / 8;
+  static constexpr int LDX = L::LDX, LDM = L::LDM, VR = NB / 8;
   static constexpr int XP = NHP * VR / THREADS;  // halo pieces a thread
   static constexpr int RP = NO * VR / THREADS;   // residual pieces a thread
   const bf16* x;
@@ -190,7 +165,7 @@ struct Feeder {
   const bf16* w2;
   const bf16* w3;
   Geometry g;
-  int tid, units, kc, ns;
+  int tid, kc, ns;
   int tile = 0, k = 0;       // the next step
   const bf16* xb = nullptr;  // x at the tile's halo origin (may lie outside)
   const bf16* rb = nullptr;  // x at the tile's first output pixel
@@ -229,8 +204,8 @@ struct Feeder {
   __device__ __forceinline__ void issue(bf16* st) {
     if (tile < g.tiles) {
       if (k < kc) {
-        // the halo's channels [CH k, CH k + CH) with W1's rows
-        const int c0 = k * CH;
+        // the halo's channels [64 k, 64 k + 64) with W1's rows
+        const int c0 = k * NB;
 #pragma unroll
         for (int j = 0; j < XP; ++j) {
           const int i = tid + THREADS * j;
@@ -238,15 +213,15 @@ struct Feeder {
           cp_async16(st + (i / VR) * LDX + (i % VR) * 8,
                      in ? xb + xo[j] + c0 : x, in);
         }
-        copy_rows<CH, M>(st + NHP * LDX, LDM, w1 + (long long)c0 * M, M,
+        copy_rows<NB, M>(st + NHP * LDX, LDM, w1 + (long long)c0 * M, M,
                          tid);
-      } else if (k < kc + L::NW2) {
+      } else if (k < kc + 9 / L::TPS) {
         copy_rows<L::TPS * M, M>(
             st, LDM, w2 + (long long)(k - kc) * L::TPS * M * M, M, tid);
       } else {
-        // W3's columns [CH j, CH j + CH) and the residual's channels
-        const int c0 = (k - kc - L::NW2) * CH;
-        copy_rows<M, CH>(st, LDX, w3 + c0, g.c, tid);
+        // W3's columns [64 j, 64 j + 64) and the residual's channels
+        const int c0 = (k - kc - 9 / L::TPS) * NB;
+        copy_rows<M, NB>(st, LDX, w3 + c0, g.c, tid);
         bf16* rs = st + M * LDX;
 #pragma unroll
         for (int j = 0; j < RP; ++j) {
@@ -258,56 +233,47 @@ struct Feeder {
       }
     }
     cp_commit();
-    if (++k == ns) enter(tile + units);
+    if (++k == ns) enter(tile + gridDim.x);
   }
 };
 
 template <int M>
-__global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
-                                  Bf16Layout<M>::MINB)
+__global__ void __launch_bounds__(THREADS, Bf16Layout<M>::MINB)
     block_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                const float* __restrict__ b1, const bf16* __restrict__ w2,
                const float* __restrict__ b2, const bf16* __restrict__ w3,
                const float* __restrict__ b3, bf16* __restrict__ out,
                Geometry g) {
   using L = Bf16Layout<M>;
-  constexpr int CH = L::CH, LDX = L::LDX, LDM = L::LDM, STAGES = L::STAGES;
+  constexpr int LDX = L::LDX, LDM = L::LDM, STAGES = L::STAGES;
   constexpr int NT = M / 8;    // n tiles of 8 across M
   constexpr int NT1 = M / 16;  // a conv1 warp's n tiles (half of M)
-  constexpr int NT3 = CH / 8;  // a conv3 step's n tiles
+  constexpr int NT3 = NB / 8;  // a conv3 step's n tiles
   extern __shared__ __align__(16) unsigned char smem[];
-  const int pipe = threadIdx.x / THREADS, tid = threadIdx.x % THREADS;
-  bf16* w2s = reinterpret_cast<bf16*>(smem);  // resident W2
-  bf16* t1s = w2s + L::W2S + pipe * L::PIPE;
+  bf16* t1s = reinterpret_cast<bf16*>(smem);
   bf16* ring = t1s + L::T1;
 
-  const int lane = tid & 31, warp = tid >> 5;
+  // (the modulo tells the compiler that tid < THREADS: without it ptxas
+  // spilled the M 64 kernel at its 128 registers)
+  const int tid = threadIdx.x % THREADS, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, q = lane & 3;
-  const int unit = blockIdx.x * L::PIPES + pipe;
-  const int units = gridDim.x * L::PIPES;
-  const int kc = g.c / CH;                     // conv1 and conv3 steps
-  const int ns = 2 * kc + L::NW2;              // steps a tile
+  const int kc = g.c / NB;   // conv1 and conv3 steps
+  const int ns = 2 * kc + 9 / L::TPS;  // steps a tile
 
-  if (L::W2R) {
-    copy_tile(w2s, LDM, w2, M, 9 * M, M, threadIdx.x, THREADS * L::PIPES);
-    cp_commit();
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-  }
-  Feeder<M> feed{x, w1, w2, w3, g, tid, units, kc, ns};
-  feed.enter(unit);
+  Feeder<M> feed{x, w1, w2, w3, g, tid, kc, ns};
+  feed.enter(blockIdx.x);
   for (int j = 0; j < STAGES - 1; ++j) feed.issue(ring + j * L::STAGE);
 
-  int s = 0;  // this pipeline's step
+  int s = 0;  // this block's step
   // wait for step s's stage, and refill the stage step s - 1 read
   auto begin_step = [&]() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    pipe_sync<L::PIPES>(pipe);
+    __syncthreads();
     feed.issue(ring + ((s + STAGES - 1) % STAGES) * L::STAGE);
     return ring + (s % STAGES) * L::STAGE;
   };
 
-  for (int tile = unit; tile < g.tiles; tile += units) {
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
     const Tile t = tile_at(tile, g);
 
     // ------------------------------------------------------------ conv1
@@ -324,7 +290,7 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
       const bf16* xs = begin_step();
       const bf16* w1s = xs + NHP * LDX;
 #pragma unroll
-      for (int k0 = 0; k0 < CH; k0 += 16) {
+      for (int k0 = 0; k0 < NB; k0 += 16) {
         unsigned a[3][4];
 #pragma unroll
         for (int i = 0; i < 3; ++i)
@@ -361,7 +327,7 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
               in ? relu_f32(acc1[i][j][2 * hh + 1] + bb1) : 0.0f);
         }
       }
-    pipe_sync<L::PIPES>(pipe);  // t1 complete
+    __syncthreads();  // t1 complete
 
     // ------------------------------------------------------------ conv2
     // [128 output pixels, M]: warp = output row `warp` (16 pixels) x M
@@ -370,14 +336,13 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc2[j][e] = 0.0f;
-    const bf16* w2c = w2s;  // the step's taps when W2 streams
+    const bf16* w2c = nullptr;  // the step's taps
     for (int tap = 0; tap < 9; ++tap) {
-      if (!L::W2R && tap % L::TPS == 0) {
+      if (tap % L::TPS == 0) {
         w2c = begin_step();
         ++s;
       }
-      const bf16* w2t = L::W2R ? w2s + tap * M * LDM
-                               : w2c + (tap % L::TPS) * M * LDM;
+      const bf16* w2t = w2c + (tap % L::TPS) * M * LDM;
       const int dy = tap / 3, dx = tap % 3;
       const bf16* arow =
           t1s + ((warp + dy) * HC + (lane & 15) + dx) * LDM + 8 * (lane >> 4);
@@ -411,11 +376,11 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
       }
 
     // ------------------------------------------------------------ conv3
-    // [128 output pixels, CH channels] a step: warp = output row `warp`
+    // [128 output pixels, 64 channels] a step: warp = output row `warp`
     for (int k = 0; k < kc; ++k, ++s) {
       bf16* w3s = begin_step();
       bf16* rs = w3s + M * LDX;
-      const int n0 = k * CH;
+      const int n0 = k * NB;
       float acc[NT3][4];
 #pragma unroll
       for (int j = 0; j < NT3; ++j)
@@ -459,7 +424,7 @@ __global__ void __launch_bounds__(THREADS * Bf16Layout<M>::PIPES,
         }
       }
       __syncwarp();
-      constexpr int PPX = CH / 8;  // 16-byte pieces of a pixel's chunk
+      constexpr int PPX = NB / 8;  // 16-byte pieces of a pixel's chunk
       const int gy = t.y0 + warp;
 #pragma unroll
       for (int e = 0; e < TC * PPX / 32; ++e) {
@@ -482,8 +447,7 @@ int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                 int n, int h, int w, int c, cudaStream_t stream) {
   using L = Bf16Layout<M>;
   auto kernel = block_bf16<M>;
-  const int bytes = L::BYTES, threads = THREADS * L::PIPES;
-  if (c % L::CH) return (int)cudaErrorInvalidValue;
+  const int bytes = L::BYTES;
   cudaError_t err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaFuncSetAttribute(
@@ -495,18 +459,17 @@ int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                                     dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, bytes)) != cudaSuccess)
+           &per_sm, kernel, THREADS, bytes)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Geometry g{h, w, c, (w + TC - 1) / TC, (h + TR - 1) / TR, 0};
   const long long tiles = (long long)g.tiles_x * g.tiles_y * n;
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   g.tiles = (int)tiles;
-  // persistent blocks: each loads W2 (M 64) once and walks its tiles
-  const long long want = (tiles + L::PIPES - 1) / L::PIPES;
+  // persistent blocks, MINB an SM, each walking its tiles
   const long long resident = (long long)sms * per_sm;
-  const int grid = (int)(want < resident ? want : resident);
-  kernel<<<grid, threads, bytes, stream>>>(
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const bf16*>(w3),

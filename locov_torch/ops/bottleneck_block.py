@@ -81,31 +81,26 @@ def bottleneck_block_ref(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 # The kernel's tiling (csrc/bottleneck_block.cu)
 TR, TC = 8, 16          # output rows and columns of a tile
 NH, NHP, NO = 180, 192, 128  # halo pixels, halo rows padded, outputs
-# bf16 (Bf16Layout), by M: W2 resident, pipelines a block (8 warps
-# each), channels a conv1 or conv3 step, ring stages a pipeline
-BF16_LAYOUT = {64: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 2, "TPS": 3},
-               128: {"W2R": 0, "PIPES": 1, "CH": 64, "STAGES": 3, "TPS": 1}}
+NB = 64                 # channels of a conv1 or conv3 step
+# bf16 (Bf16Layout), by M: ring stages, blocks an SM, W2 taps a step
+BF16_LAYOUT = {64: {"STAGES": 2, "MINB": 2, "TPS": 3},
+               128: {"STAGES": 3, "MINB": 1, "TPS": 1}}
 
 
 def smem_bytes(dtype: torch.dtype, m: int) -> int:
     """Shared memory of a kernel block, as ``Bf16Layout`` and
-    ``F32Layout`` in the source count it. bfloat16: W2 when resident (9 M
-    rows), and for each pipeline t1 for the halo and a ring whose stage
-    holds the largest of a step's operands (a halo chunk with its W1
-    rows, a W2 tap when W2 streams, a W3 chunk with the residual's
-    chunk); rows padded by 8. float32: t1 or a W3 chunk, and the x and
+    ``F32Layout`` in the source count it. bfloat16: t1 for the halo and
+    a ring whose stage holds the largest of a step's operands (a halo
+    chunk with its W1 rows, TPS taps of W2, a W3 chunk with the
+    residual's chunk); rows padded by 8. float32: t1 or a W3 chunk, and the x and
     W1 chunks, a W2 tap or t2; rows padded by 4."""
     if dtype == torch.bfloat16:
-        lay = BF16_LAYOUT[m]
-        ch = lay["CH"]
-        ldx, ldm = ch + 8, m + 8
-        stage = max(NHP * ldx + ch * ldm,
-                    (1 - lay["W2R"]) * lay["TPS"] * m * ldm,
+        ldx, ldm = NB + 8, m + 8
+        stage = max(NHP * ldx + NB * ldm, BF16_LAYOUT[m]["TPS"] * m * ldm,
                     m * ldx + NO * ldx)
-        pipe = NH * ldm + lay["STAGES"] * stage
-        return 2 * (lay["W2R"] * 9 * m * ldm + lay["PIPES"] * pipe)
-    kc, nb, ldt = 32, 64, m + 4
-    ldx, ldn = kc + 4, nb + 4
+        return 2 * (NH * ldm + BF16_LAYOUT[m]["STAGES"] * stage)
+    kc, ldt = 32, m + 4
+    ldx, ldn = kc + 4, NB + 4
     return 4 * (max(NHP * ldt, m * ldn)
                 + max(NHP * ldx + kc * ldn, max(m, NO) * ldt))
 

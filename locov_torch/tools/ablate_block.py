@@ -5,7 +5,7 @@ timed through their C entry in one process, at res2 ([4, 200, 336,
 
     python -m locov_torch.tools.ablate_block [--n 4 --h 200 --w 336
         --c 256 --m 64] [--dtype bfloat16|float32] [--cuts a,b,...]
-        [--seed 0]
+        [--reference SRC] [--seed 0]
 
 A cut is a set of text substitutions in the source (or a header beside
 it): ``loads`` (the cp.async copies of the ring; the products run on
@@ -20,13 +20,13 @@ cut, the mma asm left for the compiler to schedule; ``l2_128``,
 ``l2_256``, each cp.async asking L2 for 128 or 256 bytes around it. A cut kernel
 computes nonsense; only its time is read. Cuts joined by ``+`` are made
 together. A layout (``LAYOUTS``) sets
-``Bf16Layout``'s members at M 64: W2 resident or streamed, pipelines a
-block, channels a step, ring stages, blocks an SM and W2 taps a step;
-it computes the block. The copies build in parallel (one
+``Bf16Layout``'s members at M 64, ring stages and blocks an SM; it
+computes the block. The copies build in parallel (one
 ``nvcc`` each, the kernels' flags, under ``build/ablate/``); each is
 timed with CUDA events (median after warm-up), the uncut copy first and
-last. Prints one JSON line: ms per cut, and the ptxas lines of each
-build. This is the only way to see what holds the kernel on a card
+last. ``--reference`` builds another source of the kernel (the same C
+entry) beside them and times it the same way, as ``reference``. Prints
+one JSON line: ms per cut, and the ptxas lines of each build. This is the only way to see what holds the kernel on a card
 where no profiler of kernels runs.
 """
 from __future__ import annotations
@@ -53,10 +53,10 @@ CUTS = {
                "    if (false) {\n      if (k < kc) {")],
     "loads_x": [(SRC, "in ? xb + xo[j] + c0 : x, in);", "x, false);")],
     "loads_res": [(SRC, "in ? rb + ro[j] + c0 : x, in);", "x, false);")],
-    "loads_w": [(SRC, "copy_rows<CH, M>(st + NHP * LDX, LDM, w1 + (long long)"
+    "loads_w": [(SRC, "copy_rows<NB, M>(st + NHP * LDX, LDM, w1 + (long long)"
                  "c0 * M, M,\n                         tid);", ""),
-                (SRC, "copy_rows<M, CH>(st, LDX, w3 + c0, g.c, tid);", "")],
-    "conv1": [(SRC, "for (int k0 = 0; k0 < CH; k0 += 16) {",
+                (SRC, "copy_rows<M, NB>(st, LDX, w3 + c0, g.c, tid);", "")],
+    "conv1": [(SRC, "for (int k0 = 0; k0 < NB; k0 += 16) {",
                "for (int k0 = 0; k0 < 0; k0 += 16) {")],
     "conv2": [(SRC, "for (int k0 = 0; k0 < M; k0 += 16) {",
                "for (int k0 = 0; k0 < 0; k0 += 16) {")],
@@ -69,7 +69,7 @@ CUTS = {
     # the epilogue computed but nothing stored
     "stores_fake": [(SRC, "        if (gy < g.h && gx < g.w)\n          __stcs(",
                      "        if (gy < 0 && val.x == 0x7fc1)\n          __stcs(")],
-    "barrier": [(SRC, "    pipe_sync<L::PIPES>(pipe);\n    feed.issue(",
+    "barrier": [(SRC, "    __syncthreads();\n    feed.issue(",
                  "    feed.issue(")],
     # not cuts: each copy bringing 128 or 256 bytes into L2; the mma free
     # to be scheduled by the compiler
@@ -80,18 +80,14 @@ CUTS = {
     "mma_not_volatile": [("mma_bf16.cuh", "asm volatile(\n      \"mma.sync",
                           "asm(\n      \"mma.sync")],
 }
-# other layouts at M 64 (Bf16Layout's members: W2 resident, pipelines a
-# block, channels a step, ring stages, blocks an SM, W2 taps a step)
+# other layouts at M 64 (Bf16Layout's members: ring stages, blocks an
+# SM)
 LAYOUTS = {
-    "w2r_1pipe_ch64_3st": (1, 1, 64, 3, 1, 1),
-    "w2r_1pipe_ch32_5st": (1, 1, 32, 5, 1, 1),
-    "w2r_2pipe_ch32_2st": (1, 2, 32, 2, 1, 1),
-    "stream_1blk_ch64_3st": (0, 1, 64, 3, 1, 3),
-    "stream_2blk_ch32_4st": (0, 1, 32, 4, 2, 1),
-    "stream_2blk_ch64_2st_1tap": (0, 1, 64, 2, 2, 1),
-    "stream_2pipe_ch32_4st": (0, 2, 32, 4, 1, 1),
+    "1blk_2st": (2, 1),
+    "1blk_3st": (3, 1),
+    "1blk_4st": (4, 1),
 }
-LAYOUT_KEYS = ("W2R", "PIPES", "CH", "STAGES", "MINB", "TPS")
+LAYOUT_KEYS = ("STAGES", "MINB")
 
 
 def layout_subs(values):
@@ -184,6 +180,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--cuts", default=",".join(CUTS),
                     help="comma-separated cuts (a+b: both) or layouts, of: "
                     + ", ".join([*CUTS, *LAYOUTS]))
+    ap.add_argument("--reference", default=None,
+                    help="another bottleneck_block.cu (its headers beside "
+                         "it) timed with the cuts, as `reference`")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = torch.device("cuda")
@@ -193,6 +192,10 @@ def main(argv=None) -> dict:
     variants = {"base": write_variant("base", [])}
     for cut in cuts:
         variants[cut] = write_variant(cut, variant_subs(cut))
+    if args.reference:
+        os.makedirs(variant_dir("reference"), exist_ok=True)
+        variants["reference"] = os.path.abspath(args.reference)
+        cuts.append("reference")
     built = build_all(variants)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     inputs = make_inputs(gen, (args.n, args.h, args.w, args.c), args.m,

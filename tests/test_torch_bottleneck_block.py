@@ -165,27 +165,26 @@ def _cu_layout(src, struct, m):
 
 def test_smem_bytes_are_the_kernels():
     """The wrapper's count of a block's shared memory is the source's
-    (``Bf16Layout``, ``F32Layout``), fits a block of this card, and the
-    tiling and layout constants are the kernel's."""
+    (``Bf16Layout``, ``F32Layout``), fits the blocks an SM the kernel is
+    built for, and the tiling and layout constants are the kernel's."""
     src = _cu_source()
     c = _cu_layout(src, "Bf16Layout", 64)
-    assert (c["TR"], c["TC"], c["NH"], c["NHP"], c["NO"]) == \
-        (bb.TR, bb.TC, bb.NH, bb.NHP, bb.NO)
+    assert (c["TR"], c["TC"], c["NH"], c["NHP"], c["NO"], c["NB"]) == \
+        (bb.TR, bb.TC, bb.NH, bb.NHP, bb.NO, bb.NB)
     assert c["NH"] == (bb.TR + 2) * (bb.TC + 2) <= bb.NHP
     for m in (64, 128):
         c = _cu_layout(src, "Bf16Layout", m)
         assert {k: c[k] for k in bb.BF16_LAYOUT[m]} == bb.BF16_LAYOUT[m]
         assert c["STAGES"] >= 2  # loads overlap products
-        assert 64 % c["CH"] == 0 and c["CH"] % 32 == 0  # 16-byte stores
+        # 228 KB an SM, less 1 KB a block
+        assert c["MINB"] * (c["BYTES"] + 1024) <= 233472
         for struct, dtype in (("Bf16Layout", torch.bfloat16),
                               ("F32Layout", torch.float32)):
             c = _cu_layout(src, struct, m)
             assert bb.smem_bytes(dtype, m) == c["BYTES"] <= 232448
-    # a resident W2 is 9 taps of M rows, padded by 8
-    for m in (64, 128):
-        c = _cu_layout(src, "Bf16Layout", m)
-        assert c["W2S"] == c["W2R"] * 9 * m * (m + 8)
-        assert c["MINB"] * (c["BYTES"] + 1024) <= 233472  # 228 KB an SM
+    assert bb.smem_bytes(torch.bfloat16, 64) == 99648
+    assert bb.smem_bytes(torch.bfloat16, 128) == 184128
+    assert "__launch_bounds__(THREADS, Bf16Layout<M>::MINB)" in src
 
 
 @pytest.mark.parametrize("n,h,w,want", [(4, 200, 336, 2100),
@@ -233,6 +232,7 @@ def test_ablation_cuts_apply_to_the_source(tmp_path, monkeypatch):
                        64)
         assert tuple(c[k] for k in ablate_block.LAYOUT_KEYS) == values
         assert c["MINB"] * (c["BYTES"] + 1024) <= 233472  # 228 KB an SM
+        assert c["STAGES"] >= 2
 
 
 def _read(d):
