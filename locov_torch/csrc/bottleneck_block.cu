@@ -441,35 +441,43 @@ __global__ void __launch_bounds__(THREADS, Bf16Layout<M>::MINB)
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <int M>
 int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                 const void* b2, const void* w3, const void* b3, void* out,
                 int n, int h, int w, int c, cudaStream_t stream) {
   using L = Bf16Layout<M>;
   auto kernel = block_bf16<M>;
-  const int bytes = L::BYTES;
+  // persistent blocks, MINB an SM, each walking its tiles; the SM count
+  // and the blocks an SM are asked once a device (the query costs the
+  // host more than a tile's time)
+  static int resident[MAX_DEVICES] = {};
   cudaError_t err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaFuncSetAttribute(
-           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
-      cudaSuccess)
-    return (int)err;
+  int dev = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, THREADS, bytes)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             L::BYTES)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, THREADS, L::BYTES)) != cudaSuccess)
+      return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
   Geometry g{h, w, c, (w + TC - 1) / TC, (h + TR - 1) / TR, 0};
   const long long tiles = (long long)g.tiles_x * g.tiles_y * n;
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   g.tiles = (int)tiles;
-  // persistent blocks, MINB an SM, each walking its tiles
-  const long long resident = (long long)sms * per_sm;
-  const int grid = (int)(tiles < resident ? tiles : resident);
-  kernel<<<grid, THREADS, bytes, stream>>>(
+  const int grid = (int)(tiles < resident[dev] ? tiles : resident[dev]);
+  kernel<<<grid, THREADS, L::BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const bf16*>(w3),
