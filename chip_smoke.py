@@ -30,8 +30,9 @@ Phases, one JSON line each, in order:
    bfloat16 ulp plus the float32 sum-order floor, into a NaN-filled
    output, the same bits on two launches; K4 likewise into a NaN-filled
    output, the same bits on two launches, in six cases (res2, res3 M
-   128, partial tiles, H 1, and b1 = 3 against a relu(b1) halo). Kernel, plain and
-   library-call times are medians of CUDA-event timings after warm-up.
+   128, partial tiles, H 1, and b1 = 3 against a relu(b1) halo).
+   Kernel, plain and library-call times are medians of CUDA-event
+   timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
    TF32 allowed as PyTorch's default has it (the port's float32
    convolutions turn it off themselves), through the kernels, against
@@ -57,10 +58,7 @@ Phases, one JSON line each, in order:
 7. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-8. block_trunk_ab: K4, the trunk's own ``BottleneckBlock`` and cuDNN's
-   chain at the inference trunk's identity blocks (res2 [8, 200, 336,
-   256] M 64, res3 [8, 100, 168, 512] M 128), bf16 under no_grad.
-9. the ``kernels`` line (one row per TPU kernel replaced:
+8. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes), the card's ``nvidia-smi`` name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -625,7 +623,7 @@ def check_bottleneck_block(gen, results):
                                                   bottleneck_block_cuda,
                                                   bottleneck_block_plain,
                                                   bottleneck_block_ref,
-                                                  smem_bytes, tiles)
+                                                  smem_bytes)
     from locov_torch.tools.bench_block import make_inputs
     from locov_torch.tools.timing import time_ms
     cases = [("main", (4, 200, 336, 256), 64), ("res3", (2, 28, 42, 512), 128),
@@ -686,7 +684,6 @@ def check_bottleneck_block(gen, results):
                     nbytes, ops, BF16_TC_OPS_PER_S if dtype == torch.bfloat16
                     else F32_OPS_PER_S)
                 line["smem_bytes"] = smem_bytes(dtype, m)
-                line["tiles"] = tiles(*shape[:3])
                 line["ptxas"] = [
                     ln.strip() for ln in kernel_lib.BUILD_LOG.get(
                         "bottleneck_block", "").splitlines()
@@ -810,22 +807,6 @@ def bench_path(name, main_fn, kernel, max_rel_err):
         raise AssertionError(f"{name} path: max rel err "
                              f"{line['max_rel_err']} vs the library")
     return launches
-
-
-def trunk_ab(seed):
-    """K4 against the trunk's own identity block (and cuDNN's chain) at
-    the inference path's res2 and res3 shapes, bf16, no grad: the
-    measurement that decides whether K4 goes on the inference trunk. The
-    kernel rounds at the Pallas kernel's points, the trunk's block adds
-    each shift in bf16 after its conv rounds: within 3e-2 of max|y|."""
-    import torch
-    from locov_torch.tools.bench_block import trunk_ab as run
-    line = run(torch.device("cuda"), seed)
-    emit({"phase": "block_trunk_ab", **line})
-    for stage, r in line.items():
-        if not r["max_rel_diff_vs_trunk"] <= 3e-2:
-            raise AssertionError(f"K4 against the trunk's block at {stage}: "
-                                 f"{r}")
 
 
 # ------------------------------------------------------ small reference
@@ -1347,8 +1328,6 @@ def main(argv=None) -> int:
                                 "bottleneck_block", 2e-2)
     # against one cuDNN call that adds the shift in bf16
     paths["stem"] = bench_path("stem", bench_stem.main, "stem_conv_bn", 1e-2)
-    torch.cuda.empty_cache()
-    trunk_ab(args.seed)
 
     kernels = []
     for name, source, replaces, path, check in KERNEL_ROWS:

@@ -201,7 +201,7 @@ struct Feeder {
 
   // Stage the next step into `st` (one cp.async group, empty past the
   // last tile; zeros for halo pixels outside the image) and move on.
-  __device__ __forceinline__ void issue(bf16* st) {
+  __device__ __forceinline__ void fill(bf16* st) {
     if (tile < g.tiles) {
       if (k < kc) {
         // the halo's channels [64 k, 64 k + 64) with W1's rows
@@ -262,14 +262,14 @@ __global__ void __launch_bounds__(THREADS, Bf16Layout<M>::MINB)
 
   Feeder<M> feed{x, w1, w2, w3, g, tid, kc, ns};
   feed.enter(blockIdx.x);
-  for (int j = 0; j < STAGES - 1; ++j) feed.issue(ring + j * L::STAGE);
+  for (int j = 0; j < STAGES - 1; ++j) feed.fill(ring + j * L::STAGE);
 
   int s = 0;  // this block's step
   // wait for step s's stage, and refill the stage step s - 1 read
   auto begin_step = [&]() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
     __syncthreads();
-    feed.issue(ring + ((s + STAGES - 1) % STAGES) * L::STAGE);
+    feed.fill(ring + ((s + STAGES - 1) % STAGES) * L::STAGE);
     return ring + (s % STAGES) * L::STAGE;
   };
 
@@ -441,43 +441,35 @@ __global__ void __launch_bounds__(THREADS, Bf16Layout<M>::MINB)
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-constexpr int MAX_DEVICES = 64;
-
 template <int M>
 int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                 const void* b2, const void* w3, const void* b3, void* out,
                 int n, int h, int w, int c, cudaStream_t stream) {
   using L = Bf16Layout<M>;
   auto kernel = block_bf16<M>;
-  // persistent blocks, MINB an SM, each walking its tiles; the SM count
-  // and the blocks an SM are asked once a device (the query costs the
-  // host more than a tile's time)
-  static int resident[MAX_DEVICES] = {};
+  const int bytes = L::BYTES;
   cudaError_t err;
-  int dev = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+      cudaSuccess)
+    return (int)err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             L::BYTES)) != cudaSuccess)
-      return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return (int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, THREADS, L::BYTES)) != cudaSuccess)
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident[dev] = sms * per_sm;
-  }
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, THREADS, bytes)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Geometry g{h, w, c, (w + TC - 1) / TC, (h + TR - 1) / TR, 0};
   const long long tiles = (long long)g.tiles_x * g.tiles_y * n;
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   g.tiles = (int)tiles;
-  const int grid = (int)(tiles < resident[dev] ? tiles : resident[dev]);
-  kernel<<<grid, THREADS, L::BYTES, stream>>>(
+  // persistent blocks, MINB an SM, each walking its tiles
+  const long long resident = (long long)sms * per_sm;
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const bf16*>(w3),

@@ -105,12 +105,6 @@ def smem_bytes(dtype: torch.dtype, m: int) -> int:
                 + max(NHP * ldx + kc * ldn, max(m, NO) * ldt))
 
 
-def tiles(n: int, h: int, w: int) -> int:
-    """Tiles of TR x TC output pixels: the blocks of the float32 kernel,
-    and what the persistent blocks of the bfloat16 kernel walk."""
-    return n * -(-h // TR) * -(-w // TC)
-
-
 def _fn():
     fn = kernel_lib.load("bottleneck_block").bottleneck_block_fwd
     if fn.argtypes is None:
@@ -135,8 +129,8 @@ def _launch(x, w1, b1, w2, b2, w3, b3, fill: float = None) -> torch.Tensor:
         if t.device != x.device:
             raise ValueError(f"bottleneck_block: a weight on {t.device}, x "
                              f"on {x.device}")
-    ws = [_as(t, x.dtype) for t in (w1, w2, w3)]
-    bs = [_as(t, torch.float32) for t in (b1, b2, b3)]
+    ws = [t.to(x.dtype).contiguous() for t in (w1, w2, w3)]
+    bs = [t.to(torch.float32).contiguous() for t in (b1, b2, b3)]
     out = torch.empty_like(x)
     if fill is not None:
         out.fill_(fill)
@@ -145,25 +139,13 @@ def _launch(x, w1, b1, w2, b2, w3, b3, fill: float = None) -> torch.Tensor:
                          "16-byte aligned")
     if out.numel() == 0:
         return out
-    args = (x.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(),
-            ws[1].data_ptr(), bs[1].data_ptr(), ws[2].data_ptr(),
-            bs[2].data_ptr(), out.data_ptr(), n, h, w, c, m, _DTYPES[x.dtype])
-    # the card waits while the host enqueues a launch: enter x's device
-    # only when it is not the current one
-    if x.device.index == torch.cuda.current_device():
-        err = _fn()(*args, kernel_lib.stream_ptr(x.device))
-    else:
-        with torch.cuda.device(x.device):
-            err = _fn()(*args, kernel_lib.stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        err = _fn()(x.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(),
+                    ws[1].data_ptr(), bs[1].data_ptr(), ws[2].data_ptr(),
+                    bs[2].data_ptr(), out.data_ptr(), n, h, w, c, m,
+                    _DTYPES[x.dtype], kernel_lib.stream_ptr(x.device))
     kernel_lib.check_launch(err, "bottleneck_block")
     return out
-
-
-def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` as a contiguous tensor of ``dtype`` (itself when it is)."""
-    if t.dtype == dtype and t.is_contiguous():
-        return t
-    return t.to(dtype).contiguous()
 
 
 def bottleneck_block_cuda(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:

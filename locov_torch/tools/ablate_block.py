@@ -9,25 +9,24 @@ timed through their C entry in one process, at res2 ([4, 200, 336,
 
 A cut is a set of text substitutions in the source (or a header beside
 it): ``loads`` (the cp.async copies of the ring; the products run on
-whatever the stages hold), or the bytes of its halo or residual pieces
-(``loads_x``, ``loads_res``: zero-filling copies) or the W1 and W3
-copies (``loads_w``), ``conv1``, ``conv2``, ``conv3`` (that
-product's fragment loads and mma), ``stores`` (the output's stores, and
-the epilogue the compiler then drops), ``stores_fake`` (the stores
-alone: the epilogue computed, stored under a condition never met),
-``barrier`` (the barrier of a ring step); ``mma_not_volatile``, not a
-cut, the mma asm left for the compiler to schedule; ``l2_128``,
-``l2_256``, each cp.async asking L2 for 128 or 256 bytes around it. A cut kernel
-computes nonsense; only its time is read. Cuts joined by ``+`` are made
-together. A layout (``LAYOUTS``) sets
-``Bf16Layout``'s members at M 64, ring stages and blocks an SM; it
-computes the block. The copies build in parallel (one
-``nvcc`` each, the kernels' flags, under ``build/ablate/``); each is
-timed with CUDA events (median after warm-up), the uncut copy first and
-last. ``--reference`` builds another source of the kernel (the same C
-entry) beside them and times it the same way, as ``reference``. Prints
-one JSON line: ms per cut, and the ptxas lines of each build. This is the only way to see what holds the kernel on a card
-where no profiler of kernels runs.
+whatever the stages hold), the bytes of the halo or residual pieces
+(``loads_x``, ``loads_res``: zero-filling copies), the W1 and W3 copies
+(``loads_w``), ``conv1``, ``conv2``, ``conv3`` (that product's fragment
+loads and mma), ``stores`` (the output's stores), ``stores_fake`` (the
+stores kept under a condition never met), ``barrier`` (the barrier of a
+ring step). Two are not cuts: ``mma_not_volatile`` leaves the mma asm
+for the compiler to schedule, ``l2_256`` has each cp.async ask L2 for
+256 bytes around it. A cut kernel computes nonsense; only its time is
+read. Cuts joined by ``+`` are made together. A layout (``LAYOUTS``)
+sets ``Bf16Layout``'s ring stages and blocks an SM at M 64; it computes
+the block. The copies build in parallel (one ``nvcc`` each, the
+kernels' flags, under ``build/ablate/``); each is timed with CUDA
+events (median after warm-up), the uncut copy first and last.
+``--reference`` builds another source of the kernel (the same C entry)
+beside them and times it the same way, as ``reference``. Prints one
+JSON line: ms per cut, and the ptxas lines of each build. On a card
+where no kernel profiler runs, this is how to see what holds the
+kernel.
 """
 from __future__ import annotations
 
@@ -69,12 +68,10 @@ CUTS = {
     # the epilogue computed but nothing stored
     "stores_fake": [(SRC, "        if (gy < g.h && gx < g.w)\n          __stcs(",
                      "        if (gy < 0 && val.x == 0x7fc1)\n          __stcs(")],
-    "barrier": [(SRC, "    __syncthreads();\n    feed.issue(",
-                 "    feed.issue(")],
-    # not cuts: each copy bringing 128 or 256 bytes into L2; the mma free
-    # to be scheduled by the compiler
-    "l2_128": [(SRC, "cp.async.cg.shared.global [%0]",
-                "cp.async.cg.shared.global.L2::128B [%0]")],
+    "barrier": [(SRC, "    __syncthreads();\n    feed.fill(",
+                 "    feed.fill(")],
+    # not cuts: each copy bringing 256 bytes into L2; the mma free to be
+    # scheduled by the compiler
     "l2_256": [(SRC, "cp.async.cg.shared.global [%0]",
                 "cp.async.cg.shared.global.L2::256B [%0]")],
     "mma_not_volatile": [("mma_bf16.cuh", "asm volatile(\n      \"mma.sync",

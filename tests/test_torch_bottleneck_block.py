@@ -187,13 +187,6 @@ def test_smem_bytes_are_the_kernels():
     assert "__launch_bounds__(THREADS, Bf16Layout<M>::MINB)" in src
 
 
-@pytest.mark.parametrize("n,h,w,want", [(4, 200, 336, 2100),
-                                        (8, 100, 168, 1144), (1, 1, 1, 1),
-                                        (2, 9, 17, 8), (1, 8, 16, 1)])
-def test_tiles(n, h, w, want):
-    assert bb.tiles(n, h, w) == want
-
-
 def test_trunk_block_folds_into_the_kernel_arguments():
     """bench_block's trunk block and its folded arguments compute the
     same block: the plain version on the folded weights against the
