@@ -39,7 +39,8 @@ Phases, one JSON line each, in order:
    the same model on the CPU, through the
    plain versions, which the CPU tests hold against the JAX package:
    inference, and one training step at FREEZE_AT 0 (losses, gradients,
-   SGD updates).
+   SGD updates); then one training step of a tiny float32
+   DistillProposalMMSSRCNN (the LSM model) likewise, every draw pinned.
 4. main path: STT inference, ``build_meta_arch`` on ``cuda`` from
    configs/coco_stt.yaml in bfloat16 at full width, seeded random
    weights, 8 images of 800 x 1344 (valid 800 x 1312, original 640 x
@@ -53,12 +54,20 @@ Phases, one JSON line each, in order:
    three timed steps, the frozen state checked unchanged and the
    trained state changed; one step under torch.profiler; then one step
    at FREEZE_AT 0, batch 2, where the stem's backward runs.
-6. block path: ``locov_torch.tools.bench_block.main`` at its defaults
+6. LSM path: the LSM training step (``DistillProposalMMSSRCNN`` from
+   configs/coco_lsm.yaml at full width in bfloat16, built by the bench
+   twin's ``build_full``: batch 4, 200 gt boxes an image, 70 caption
+   tokens, FREEZE_AT 0), one warm-up and ``LSM_STEPS`` timed steps,
+   finite losses, the frozen state unchanged and the trained state
+   changed, every kernel of ``LSM_KERNELS`` launched; one step under
+   torch.profiler by ``DistillProposalMMSSRCNN.<stage>``. The K1 and K3
+   checks of phase 2 also run at its shapes.
+7. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
-7. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
+8. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-8. the ``kernels`` line (one row per TPU kernel replaced:
+9. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes), the card's ``nvidia-smi`` name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -108,7 +117,14 @@ KERNEL_ROWS = (
 INFERENCE_KERNELS = ("relu_maxpool", "roi_align_fused")
 TRAIN_KERNELS = ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
                  "roi_align_bwd")  # at FREEZE_AT 0
+LSM_KERNELS = ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
+               "roi_align_bwd")  # coco_lsm.yaml: FREEZE_AT 0
 TRAIN_STEPS = 3  # timed steps of the train path
+LSM_STEPS = 3  # timed steps of the LSM path
+LSM_RANGE = "DistillProposalMMSSRCNN."
+# parameters whose gradient is zero but for rounding (a softmax ignores
+# a shift of a whole row): held to an absolute bound, not a relative one
+ZERO_BY_SHIFT = ("attention_self.key.bias", "bi_seq_relationship.bias")
 
 
 def emit(obj) -> None:
@@ -156,7 +172,8 @@ def check_relu_maxpool(gen, results):
     f = torch.nn.functional
     main = (8, 400, 672, 64)
     cases = [("main", main, "randn"), ("ties", (2, 64, 96, 64), "ties"),
-             ("odd", (3, 33, 47, 24), "ties")]
+             ("odd", (3, 33, 47, 24), "ties"),
+             ("lsm", (4, 400, 672, 64), "randn")]
     for dtype in (torch.float32, torch.bfloat16):
         for case, shape, kind in cases:
             x = _k1_input(gen, shape, kind, case).to(dtype)
@@ -205,7 +222,8 @@ def check_relu_maxpool_bwd(gen, results):
     f = torch.nn.functional
     cases = [("main", (8, 400, 672, 64), "randn"),
              ("ties", (2, 64, 96, 64), "ties"),
-             ("odd", (3, 33, 47, 24), "ties")]
+             ("odd", (3, 33, 47, 24), "ties"),
+             ("lsm", (4, 400, 672, 64), "randn")]
     for dtype in (torch.float32, torch.bfloat16):
         for case, shape, kind in cases:
             x = _k1_input(gen, shape, kind, case)
@@ -591,6 +609,58 @@ def check_roi_align_train(gen, results):
                                      f"{line}")
         del ge
     del fmain
+
+
+def check_roi_align_lsm(gen):
+    """K3-fwd and K3-bwd at the LSM step's shapes: res4 features [4, 50,
+    84, 1024], 200 sampled boxes an image (20 of them gt-sized),
+    adaptive sampling, in bfloat16 (the path's dtype) and float32, with
+    check_roi_align_train's tolerances."""
+    import torch
+    from locov_torch.ops.roi_align import (roi_align_batched,
+                                           roi_align_bwd_cuda,
+                                           roi_align_bwd_plain,
+                                           roi_align_cuda)
+    from locov_torch.tools.bench_roi_bwd import train_boxes
+    scale, pooled, sr = 1.0 / 16, 14, 0
+    feats = torch.randn((4, 50, 84, 1024), generator=gen, device="cuda")
+    bx = train_boxes(gen, 4, 200, 20, 800, 1344)
+    cot = torch.randn((4, 200, pooled, pooled, 1024), generator=gen,
+                      device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        f, g = feats.to(dtype), cot.to(dtype)
+        got = roi_align_cuda(f, bx, scale, pooled, sr)
+        plain = roi_align_batched(f, bx, scale, pooled, sr)
+        fmax = f.float().abs().max().item()
+        err = (got.float() - plain.float()).abs()
+        tol = torch.full_like(err, 1e-5 * fmax)
+        if dtype == torch.bfloat16:
+            tol = torch.clamp(_bf16_ulp(torch.maximum(
+                got.float().abs(), plain.float().abs())), min=1e-5 * fmax)
+        fwd_ok = bool((err <= tol).all())
+        fwd_err = err.max().item()
+        del got, plain, err, tol
+        got = roi_align_bwd_cuda(g, bx, scale, 50, 84, pooled, sr)
+        plain = roi_align_bwd_plain(g, bx, scale, 50, 84, pooled, sr)
+        absbwd = roi_align_bwd_plain(g.abs(), bx, scale, 50, 84, pooled,
+                                     sr).float()
+        err = (got.float() - plain.float()).abs()
+        tol = 1e-5 * absbwd
+        if dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(torch.maximum(got.float().abs(),
+                                                 plain.float().abs()))
+        bwd_ok = bool((err <= tol).all())
+        line = {"phase": "kernel_check", "kernel": "roi_align_fused+bwd",
+                "case": "lsm", "dtype": dt, "features": list(f.shape),
+                "boxes": list(bx.shape), "sampling_ratio": sr,
+                "fwd_max_abs_err": fwd_err, "bwd_max_abs_err":
+                err.max().item(), "within_tolerance": fwd_ok and bwd_ok}
+        emit(line)
+        if not (fwd_ok and bwd_ok):
+            raise AssertionError(f"roi_align at the LSM shapes {dt}: {line}")
+        del f, g, got, plain, absbwd, err, tol
+    del feats, cot
 
 
 # ------------------------------------------------------------------ K4
@@ -1073,7 +1143,7 @@ def profile_run(phase, run, unprofiled_ms):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     ranges = [e for e in events
-              if e.key.startswith(("OvrRCNN.", "train_step."))]
+              if e.key.startswith(("OvrRCNN.", LSM_RANGE, "train_step."))]
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and e not in ranges]
@@ -1128,26 +1198,16 @@ def _train_batch(rng, b, max_gt=20, num_classes=48):
 
 
 def _train_model(cfg, seed):
-    """The model from ``seed`` at the scale of trained weights, its
-    optimizer and its train step. Seeded He-normal weights with identity
-    FrozenBN make the activations grow about 1.4x a residual block and
-    take the 0..255 pixels (PIXEL_STD 1, Caffe) as they are, so the
-    first loss is ~1e10 and the next step NaN. A trained Caffe stem is
-    scaled to raw pixels and a trained block's last FrozenBN scale is
-    small; so the stem conv is divided by 57 (about the pixels' std)
-    and each block's ``conv3_norm`` scale set to 0.2."""
+    """The model from ``seed`` at the scale of trained weights
+    (``utils/weights.py:trained_scale_``: seeded weights as they are
+    make the first loss ~1e10 and the next step NaN), its optimizer and
+    its train step."""
     import torch
     from locov_torch.engine.solver import build_optimizer
     from locov_torch.models import build_meta_arch
-    from locov_torch.models.resnet import BottleneckBlock
     from locov_torch.parallel.mesh import make_train_step
-    from locov_torch.utils.weights import seeded_init_
-    model = seeded_init_(build_meta_arch(cfg), seed)
-    with torch.no_grad():
-        model.backbone.stem.conv1.weight.div_(57.0)
-        for mod in model.modules():
-            if isinstance(mod, BottleneckBlock):
-                mod.conv3_norm.weight.fill_(0.2)
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
     optimizer, scheduler = build_optimizer(cfg, model)
     trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
     torch.cuda.synchronize()
@@ -1266,6 +1326,253 @@ def train_path(seed):
     return launches, launches0
 
 
+# ------------------------------------------------------------ LSM path
+def _tiny_lsm_cfg():
+    """coco_lsm.yaml at tiny widths (as tests/torch_parity.py:TINY_LSM):
+    the tiny trunk, a 2-layer BERT of width 16 over a vocabulary of 50,
+    dropout off, at most 8 regions an image."""
+    from locov_torch.config import config_path, get_cfg
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("coco_lsm.yaml"))
+    cfg.MODEL.PIXEL_STD = [57.375, 57.12, 58.395]
+    r = cfg.MODEL.RESNETS
+    r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP = 8, 32, 8
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 12
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 48
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 24
+    cfg.MODEL.MMSS_HEAD.SPATIAL_DROPOUT = 8
+    cfg.MODEL.ROI_BOX_HEAD.EMB_DIM = 16
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    for node in (cfg.MODEL.LANGUAGE_BACKBONE.BERT_CONFIG,
+                 cfg.MODEL.MMSS_HEAD.TRANSFORMER.BERT_CONFIG):
+        node.vocab_size, node.hidden_size = 50, 16
+        node.num_hidden_layers, node.num_attention_heads = 2, 2
+        node.intermediate_size, node.max_position_embeddings = 32, 16
+        node.hidden_dropout_prob = node.attention_probs_dropout_prob = 0.0
+    return cfg
+
+
+def _tiny_lsm_batch(rng):
+    """Two 96 x 128 images (the second with a 64 x 80 valid part), binary
+    gt (padded), captions with padding, special tokens and MLM targets,
+    numpy; and a [81, 16] class-embedding matrix x0.1."""
+    import numpy as np
+    from locov_torch.structures.batches import (DetectionBatch, GtBatch,
+                                                ImageBatch, TextBatch)
+    ids = rng.randint(5, 50, size=(2, 8)).astype(np.int32)
+    attn = np.ones((2, 8), np.int32)
+    attn[1, 6:] = 0
+    special = np.zeros((2, 8), np.int32)
+    special[:, 0] = 1
+    special[0, 7] = 1
+    special[1, 5:] = 1
+    mlm = np.zeros((2, 8), np.int32)
+    mlm[0, 3] = mlm[1, 2] = 1
+    batch = DetectionBatch(
+        images=ImageBatch(
+            image=(rng.rand(2, 96, 128, 3) * 255).astype(np.float32),
+            hw=np.array([[96, 128], [64, 80]], np.int32),
+            orig_hw=np.array([[192, 256], [128, 160]], np.int32)),
+        gt=GtBatch(
+            boxes=np.array([[[4, 4, 40, 30], [10, 20, 70, 60],
+                             [50, 8, 120, 90]],
+                            [[8, 8, 24, 24], [30, 10, 70, 50],
+                             [0, 0, 0, 0]]], np.float32),
+            classes=np.ones((2, 3), np.int32),
+            mask=np.array([[True, True, True], [True, True, False]])),
+        text=TextBatch(ids, attn, special, ids.copy(), mlm))
+    ce = (rng.randn(81, 16) * 0.1).astype(np.float32)
+    ce[-1] = 0.0
+    return batch, ce
+
+
+def small_reference_lsm(seed):
+    """One training step of a tiny float32 DistillProposalMMSSRCNN
+    (FREEZE_AT 0, so every kernel of the LSM path runs), cuDNN's TF32
+    allowed in the process, the RPN tamed and every draw pinned (the
+    samplers' uniforms and the grid and box dropout keys): the card
+    (kernels) against the CPU (plain versions, which the CPU tests hold
+    against the JAX package). Compared: the loss dict and the MMSS
+    outputs (|diff| <= 1e-4 * max(1, |value|)); the gradients of the
+    stem conv, a res5 conv, the tied ``v2l_projection``, a joint-encoder
+    layer and ``bbox_pred`` (max |diff| <= 1e-3 * max |CPU value|), and
+    every parameter's SGD update (max |diff| <= 1e-3 * max |CPU value|
+    of each tensor + 1e-6 * the learning rate: the float32 rounding of
+    order-1 loss terms, where their gradients cancel; where a gradient
+    is zero but for rounding, ``ZERO_BY_SHIFT``, |update| <= 1e-6 on
+    both)."""
+    import numpy as np
+    import torch
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import make_train_step
+    from locov_torch.structures.batches import to_torch
+    from locov_torch.utils.weights import seeded_init_
+    cfg = _tiny_lsm_cfg()
+    rng = np.random.RandomState(seed)
+    batch, ce = _tiny_lsm_batch(rng)
+    u = {"rpn": rng.rand(2, 2, 6 * 8 * 15).astype(np.float32),
+         "roi": rng.rand(2, 2, 24 + 3).astype(np.float32),
+         "grid_drop": rng.rand(2, 3 * 4).astype(np.float32),
+         "box_drop": rng.rand(2, 12).astype(np.float32)}
+    names = ["backbone.stem.conv1.weight", "roi_heads.res5.2.conv3.weight",
+             "mmss_heads.v2l_projection.weight",
+             "mmss_heads.transformer_head.encoder.layer_1.output.weight",
+             "roi_heads.box_predictor.bbox_pred.weight"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = seeded_init_(build_meta_arch(cfg, device="cpu"), seed)
+        with torch.no_grad():
+            model.rpn_head.anchor_deltas.weight.zero_()
+        model.to(dev)
+        before = {k: v.detach().clone() for k, v in
+                  model.named_parameters()}
+        step = make_train_step(model, *build_optimizer(cfg, model))
+        uniforms = {k: (tuple(torch.from_numpy(a).to(dev) for a in v)
+                        if v.ndim == 3 else torch.from_numpy(v).to(dev))
+                    for k, v in u.items()}
+        kernel_lib.reset_launches()
+        metrics = step(to_torch(batch, dev), torch.from_numpy(ce).to(dev),
+                       None, uniforms)
+        launched = {k: kernel_lib.LAUNCHES[k] for k in LSM_KERNELS}
+        params = dict(model.named_parameters())
+        out[dev] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: params[k].grad.detach().cpu() for k in names},
+            "updates": {k: (p.detach() - before[k]).cpu()
+                        for k, p in params.items()}}
+    torch.cuda.synchronize()
+    cpu, gpu = out["cpu"], out["cuda"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    metric_err = {k: abs(gpu["metrics"][k] - v) for k, v in
+                  cpu["metrics"].items()}
+    grad_err = {k: rel(gpu["grads"][k], v) for k, v in cpu["grads"].items()}
+    # an update's error is the float32 rounding of the order-1 loss terms
+    # whose gradients summed to it (~1e-7 each); where they cancel (at
+    # random init the matching losses sit at their uniform value) that
+    # exceeds 1e-3 of the update itself, so the bound has a floor of 1e-6
+    # of a gradient, times the learning rate
+    floor = 1e-6 * cfg.SOLVER.BASE_LR
+    upd_ratio = {k: float((gpu["updates"][k] - v).abs().max())
+                 / (1e-3 * float(v.abs().max()) + floor)
+                 for k, v in cpu["updates"].items()
+                 if not k.endswith(ZERO_BY_SHIFT)}
+    worst = max(upd_ratio, key=upd_ratio.get)
+    shift_upd = max(max(float(gpu["updates"][k].abs().max()),
+                        float(v.abs().max()))
+                    for k, v in cpu["updates"].items()
+                    if k.endswith(ZERO_BY_SHIFT))
+    line = {"phase": "small_reference_lsm", "freeze_at": 0,
+            "metrics_cpu": cpu["metrics"], "metric_abs_err": metric_err,
+            "grad_rel_err": grad_err, "update_floor": floor,
+            "worst_update": worst,
+            "worst_update_err_over_bound": upd_ratio[worst],
+            "worst_update_rel_err": rel(gpu["updates"][worst],
+                                        cpu["updates"][worst]),
+            "zero_by_shift_max_update": shift_upd,
+            "gpu_launches": launched}
+    emit(line)
+    ok = (len(cpu["metrics"]) == 19 + 14 + 1
+          and all(e <= 1e-4 * max(1.0, abs(cpu["metrics"][k]))
+                  for k, e in metric_err.items())
+          and all(e <= 1e-3 for e in grad_err.values())
+          and upd_ratio[worst] <= 1.0
+          and shift_upd <= 1e-6 and all(v > 0 for v in launched.values()))
+    if not ok:
+        raise AssertionError(f"small reference LSM mismatch: {line}")
+
+
+def lsm_path(seed):
+    """The LSM training step: ``DistillProposalMMSSRCNN`` from
+    configs/coco_lsm.yaml at full width in bfloat16, built as the bench
+    twin builds it (``locov_torch/tools/bench.py:build_full``: batch 4 of
+    800 x 1344, 200 binary gt boxes an image, 70 caption tokens, an [81,
+    768] class-embedding matrix, seeded weights at a trained scale),
+    through ``build_optimizer`` and ``make_train_step`` with dropout live;
+    one warm-up step and ``LSM_STEPS`` timed ones, launch counts zeroed
+    just before the timed steps and read just after. Checked: every loss
+    and output finite, the frozen state (word embeddings, the unused
+    position tables, FrozenBN) unchanged, the trained state changed, and
+    every kernel of ``LSM_KERNELS`` launched. Then one step under
+    torch.profiler, split by ``DistillProposalMMSSRCNN.<stage>``."""
+    import torch
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import make_train_step
+    from locov_torch.tools.bench import build_full
+
+    t0 = time.perf_counter()
+    cfg, model, batch, class_emb = build_full(device="cuda", seed=seed)
+    optimizer, scheduler = build_optimizer(cfg, model)
+    step = make_train_step(model, optimizer, scheduler)
+    trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = dict(model.named_parameters())
+
+    t0 = time.perf_counter()
+    step(batch, class_emb, gen)  # warm-up (cuDNN plans, caches)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernel_lib.reset_launches()
+    times, metrics = [], []
+    for _ in range(LSM_STEPS):
+        t0 = time.perf_counter()
+        m = step(batch, class_emb, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = dict(kernel_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+
+    after = model.state_dict()
+    frozen_changed = [k for k, v in before.items()
+                      if (k not in params or id(params[k]) not in trainable)
+                      and not torch.equal(v, after[k])]
+    must_train = ("backbone.stem.", "backbone.res2.", "backbone.res4.",
+                  "rpn_head.", "roi_heads.res5.",
+                  "roi_heads.box_predictor.bbox_pred.",
+                  "mmss_heads.v2l_projection.", "mmss_heads.transformer_head.")
+    unchanged = [k for k, p in params.items() if k.startswith(must_train)
+                 and not k.endswith(ZERO_BY_SHIFT)
+                 and torch.equal(before[k], p.detach())]
+    frozen_names = sorted(k for k in params if id(params[k]) not in trainable)
+    finite = all(math.isfinite(v) for d in metrics for v in d.values())
+    line = {"phase": "lsm_path", "config": "configs/coco_lsm.yaml",
+            "dtype": "bfloat16", "batch": 4, "image": [800, 1344],
+            "gt_boxes_per_image": 200, "text_len": 70,
+            "freeze_at": cfg.MODEL.BACKBONE.FREEZE_AT, "steps": LSM_STEPS,
+            "ms_per_step": ms, "ms_per_step_all": times,
+            "images_per_s": 4 / ms * 1e3, "metrics": metrics,
+            "finite": finite, "launches": launches, "peak_mem_gib": peak,
+            "model_init_s": init_s, "warmup_s": warm_s,
+            "frozen_params": frozen_names,
+            "frozen_state_changed": frozen_changed,
+            "trained_but_unchanged": unchanged}
+    emit(line)
+    if not finite or frozen_changed or unchanged or \
+            "language_backbone.bert_model.embeddings.word_embeddings" \
+            not in frozen_names:
+        raise AssertionError(f"LSM path check failed: {line}")
+    missing = [k for k in LSM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the LSM path: "
+                             f"{missing}")
+    profile_run("lsm_path_profile", lambda: step(batch, class_emb, gen), ms)
+    del model, step, before, after, params, optimizer
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=3)
@@ -1316,12 +1623,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_stem_conv_bn(gen, results)
     torch.cuda.empty_cache()
+    check_roi_align_lsm(gen)
+    torch.cuda.empty_cache()
     small_reference(args.seed)
     small_reference_train(args.seed)
+    small_reference_lsm(args.seed)
     paths = {"inference": main_path(args.seed, args.batches)}
     torch.cuda.empty_cache()
     paths["train"], paths["train_freeze0"] = train_path(args.seed)
     torch.cuda.empty_cache()
+    paths["lsm"] = lsm_path(args.seed)
     from locov_torch.tools import bench_block, bench_stem
     # bf16 against cuDNN's chain, which rounds t1 and t2 at other places
     paths["block"] = bench_path("block", bench_block.main,

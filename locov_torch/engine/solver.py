@@ -48,20 +48,34 @@ def warmup_multistep_lr(base_lr: float, steps, gamma: float,
 def default_frozen_fn(cfg) -> Callable[[str], bool]:
     """Returns fn(parameter name) -> True where the parameter never
     trains: the stem and res2 .. res{i} under ``BACKBONE.FREEZE_AT``
-    (d2 ResNet.freeze) and ``emb_pred`` under ``FREEZE_EMB_PRED``
-    (box_emb_head.py:141-143 of the reference). Names are the port's
-    ``named_parameters`` names."""
+    (d2 ResNet.freeze); ``emb_pred`` under ``FREEZE_EMB_PRED``
+    (box_emb_head.py:141-143 of the reference); the language backbone
+    under ``LANGUAGE_BACKBONE.FREEZE``, and all of it but the word
+    embeddings without it (transf_models.py:71-76,156-164); the
+    transformer head's unused pooler and ``bi_seq_relationship`` under
+    ``MMM_LOSS`` "" (transformer_head.py:60-64). Names are the port's
+    ``named_parameters`` names. A frozen word-embedding matrix trains
+    nowhere: the tied MLM decoder reads the same parameter."""
     freeze_at = cfg.MODEL.BACKBONE.FREEZE_AT
     freeze_emb_pred = cfg.MODEL.ROI_BOX_HEAD.FREEZE_EMB_PRED
+    lang_freeze = cfg.MODEL.LANGUAGE_BACKBONE.FREEZE
+    mmm_loss = cfg.MODEL.MMSS_HEAD.TRANSFORMER.MMM_LOSS
     prefixes = ["backbone.stem."] if freeze_at >= 1 else []
     prefixes += [f"backbone.{stage}." for i, stage in
                  enumerate(["res2", "res3", "res4", "res5"], start=2)
                  if freeze_at >= i]
 
     def frozen(name: str) -> bool:
+        parts = name.split(".")
         if any(name.startswith(p) for p in prefixes):
             return True
-        return bool(freeze_emb_pred and "emb_pred" in name.split("."))
+        if "language_backbone" in parts and (
+                lang_freeze or parts[-1] != "word_embeddings"):
+            return True
+        if mmm_loss == "" and ("bi_seq_relationship" in parts or
+                               "transformer_head.pooler." in name):
+            return True
+        return bool(freeze_emb_pred and "emb_pred" in parts)
     return frozen
 
 

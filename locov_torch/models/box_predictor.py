@@ -64,24 +64,33 @@ class EmbeddingBoxPredictor(nn.Module):
     """emb_pred + class-agnostic bbox_pred. Classification runs against
     the runtime ``class_emb`` matrix ([K+1, emb_dim], last row the
     background). With ``detach_cls_predictor`` no gradient flows
-    through the classification scores."""
+    through the classification scores. ``emb_pred=False`` builds no
+    ``emb_pred``: the caller passes the embeddings as ``emb_override``
+    (the image-caption stage's shared ``v2l_projection``)."""
 
-    def __init__(self, in_features: int, pcfg: BoxPredictorConfig):
+    def __init__(self, in_features: int, pcfg: BoxPredictorConfig,
+                 emb_pred: bool = True):
         super().__init__()
         self.pcfg = pcfg
         self.bbox_pred = nn.Linear(in_features, 4)
         self.emb_pred = nn.Linear(in_features, pcfg.emb_dim) \
-            if pcfg.embedding_based else None
+            if pcfg.embedding_based and emb_pred else None
 
-    def forward(self, x: torch.Tensor, class_emb: torch.Tensor
+    def forward(self, x: torch.Tensor, class_emb: torch.Tensor,
+                emb_override: torch.Tensor = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [..., C_in] -> (scores [..., K+1], deltas [..., 4])."""
+        """x [..., C_in] -> (scores [..., K+1], deltas [..., 4]).
+        ``emb_override``: embeddings projected elsewhere, used in place
+        of ``emb_pred``'s (detached under ``detach_cls_predictor``)."""
         deltas = self.bbox_pred(x)
         detach = self.pcfg.detach_cls_predictor
-        # without emb_pred the features are scored as they are
-        emb = x.detach() if detach else x
-        if self.emb_pred is not None:
-            emb = self.emb_pred(emb)
+        if emb_override is None and self.emb_pred is None:
+            # without emb_pred the features are scored as they are
+            emb = x.detach() if detach else x
+        else:
+            emb = emb_override if emb_override is not None else \
+                self.emb_pred(x.detach() if detach else x)
+            emb = emb.detach() if detach else emb
             if self.pcfg.normalize_emb:
                 emb = normalize_vec(emb)
             if self.pcfg.standardize_emb:

@@ -58,6 +58,28 @@ def _require_proposals(batch: DetectionBatch):
     return batch.proposals
 
 
+def detector_kwargs(cfg) -> dict:
+    """The detector's constructor arguments from ``cfg``."""
+    dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" \
+        else torch.float32
+    return dict(
+        depth=cfg.MODEL.RESNETS.DEPTH,
+        num_groups=cfg.MODEL.RESNETS.NUM_GROUPS,
+        width_per_group=cfg.MODEL.RESNETS.WIDTH_PER_GROUP,
+        stem_out_channels=cfg.MODEL.RESNETS.STEM_OUT_CHANNELS,
+        res2_out_channels=cfg.MODEL.RESNETS.RES2_OUT_CHANNELS,
+        stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
+        pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        pixel_std=tuple(cfg.MODEL.PIXEL_STD),
+        rpn_cfg=RPNConfig.from_cfg(cfg),
+        rcfg=ROIHeadsConfig.from_cfg(cfg),
+        pcfg=BoxPredictorConfig.from_cfg(cfg),
+        compute_dtype=dtype,
+        use_rpn=(cfg.MODEL.PROPOSAL_GENERATOR.NAME
+                 != "PrecomputedProposals"),
+        freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT)
+
+
 @register_meta_arch("OvrRCNN")
 class OvrRCNN(nn.Module):
     """Submodules carry the Flax scope names: ``backbone``,
@@ -69,7 +91,8 @@ class OvrRCNN(nn.Module):
                  rpn_cfg: RPNConfig, rcfg: ROIHeadsConfig,
                  pcfg: BoxPredictorConfig,
                  compute_dtype: torch.dtype = torch.float32,
-                 use_rpn: bool = True, freeze_at: int = 0, device=None):
+                 use_rpn: bool = True, freeze_at: int = 0,
+                 emb_pred: bool = True, device=None):
         super().__init__()
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
@@ -91,30 +114,13 @@ class OvrRCNN(nn.Module):
         self.roi_heads = Res5ROIHeads(
             rcfg, pcfg, stride_in_1x1=stride_in_1x1,
             res2_out_channels=res2_out_channels, num_groups=num_groups,
-            width_per_group=width_per_group, compute_dtype=compute_dtype)
+            width_per_group=width_per_group, compute_dtype=compute_dtype,
+            emb_pred=emb_pred)
         self.to(resolve_device(device))
 
     @classmethod
     def from_cfg(cls, cfg, device=None):
-        dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" \
-            else torch.float32
-        return cls(
-            depth=cfg.MODEL.RESNETS.DEPTH,
-            num_groups=cfg.MODEL.RESNETS.NUM_GROUPS,
-            width_per_group=cfg.MODEL.RESNETS.WIDTH_PER_GROUP,
-            stem_out_channels=cfg.MODEL.RESNETS.STEM_OUT_CHANNELS,
-            res2_out_channels=cfg.MODEL.RESNETS.RES2_OUT_CHANNELS,
-            stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
-            pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
-            pixel_std=tuple(cfg.MODEL.PIXEL_STD),
-            rpn_cfg=RPNConfig.from_cfg(cfg),
-            rcfg=ROIHeadsConfig.from_cfg(cfg),
-            pcfg=BoxPredictorConfig.from_cfg(cfg),
-            compute_dtype=dtype,
-            use_rpn=(cfg.MODEL.PROPOSAL_GENERATOR.NAME
-                     != "PrecomputedProposals"),
-            freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
-            device=device)
+        return cls(**detector_kwargs(cfg), device=device)
 
     @property
     def device(self) -> torch.device:
@@ -137,15 +143,16 @@ class OvrRCNN(nn.Module):
     def losses(self, batch: DetectionBatch, class_emb: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                uniforms: Optional[Dict[str, Tuple[torch.Tensor,
-                                                  torch.Tensor]]] = None
-               ) -> Dict[str, torch.Tensor]:
+                                                  torch.Tensor]]] = None,
+               deterministic: bool = True) -> Dict[str, torch.Tensor]:
         """The training loss dict of one padded batch with ``batch.gt``;
         ``class_emb`` is the [K+1, D] class-embedding matrix (last row
         background). The RPN and ROI samplers rank candidates by uniform
         draws: ``uniforms["rpn"]`` and ``uniforms["roi"]`` are (u_pos,
         u_neg) pairs of [B, N_anchors] and [B, N_proposals + M] where
         given, else they are drawn from ``generator`` (a generator on
-        the model's device)."""
+        the model's device). The detector has no dropout:
+        ``deterministic`` is accepted for the training step's sake."""
         uniforms = dict(uniforms or {})
         images, gt = batch.images, batch.gt
 

@@ -1,0 +1,181 @@
+"""TransformerHead: a multimodal BERT encoder with masked language
+modelling and image-caption matching.
+
+Counterpart of ``locov_tpu/models/mmss/transformer_head.py`` for
+``MMM_LOSS`` "cross_entropy" and "", unfused and unchunked. Projected
+region features plus location embeddings are appended to the caption's
+token embeddings; a small BERT encoder (6 layers, 8 heads in
+coco_lsm.yaml) encodes every (caption, image) pair of the batch,
+gathered by index; the pooled first token scores the pair
+(``bi_seq_relationship[:, 0]`` -> a B x B cost), and the diagonal
+pairs' caption tokens feed the tied MLM decoder (the reference decodes
+all B^2 pairs and takes the diagonal: the same numbers).
+
+The attention mask is the reference's: the raw 0/1 mask is added to the
+pre-softmax logits (``PROPER_ATTENTION_MASK`` switches to the most
+negative value). ``TPU.PAIRWISE_CHUNK`` and the fused grid + box pass
+(``image2``) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from ...ops.losses import mean_cross_entropy
+from ...structures.batches import CaptionFeatures, RegionFeatures
+from ..bert import (BertConfig, BertEncoder, BertLMHead, BertPooler, Dense,
+                    LayerNorm, _dense, dropout)
+
+
+class TransformerHeadConfig(NamedTuple):
+    bert: BertConfig
+    mlm: bool = True
+    mlm_validation: bool = True
+    mvm_loss: str = ""
+    mmm_loss: str = "cross_entropy"
+    return_dist: bool = False
+    pairwise_chunk: int = 0
+    # False: the reference's raw additive 0/1 mask; True: (1 - m) * min
+    proper_attention_mask: bool = False
+
+    @classmethod
+    def from_cfg(cls, cfg):
+        """Under ``TPU.COMPUTE_DTYPE`` bfloat16 the joint encoder's
+        products run in bfloat16 (``BertConfig.dtype``)."""
+        t = cfg.MODEL.MMSS_HEAD.TRANSFORMER
+        bert = BertConfig.from_cfg_node(t.BERT_CONFIG)
+        if cfg.TPU.COMPUTE_DTYPE == "bfloat16":
+            bert = bert._replace(dtype=torch.bfloat16)
+        return cls(
+            bert=bert,
+            mlm=t.MASKED_LANGUAGE_MODELING,
+            mlm_validation=t.MASKED_LANGUAGE_MODELING_VALIDATION,
+            mvm_loss=t.MVM_LOSS,
+            mmm_loss=t.MMM_LOSS,
+            return_dist=cfg.MODEL.MMSS_HEAD.DISTILLATION_LOSS,
+            pairwise_chunk=cfg.TPU.PAIRWISE_CHUNK,
+            proper_attention_mask=t.PROPER_ATTENTION_MASK)
+
+
+class VisualEmbedding(nn.Module):
+    """linear(img) + linear(loc) -> LayerNorm -> dropout."""
+
+    def __init__(self, cfg: BertConfig, in_dim: int, loc_dim: int = 2):
+        super().__init__()
+        self.cfg = cfg
+        self.image_embeddings = _dense(cfg, in_dim, cfg.hidden_size)
+        self.image_location_embeddings = _dense(cfg, loc_dim,
+                                                cfg.hidden_size)
+        self.norm = LayerNorm(cfg.hidden_size, eps=1e-12)
+
+    def forward(self, features, loc, deterministic=True, generator=None):
+        x = self.norm(self.image_embeddings(features) +
+                      self.image_location_embeddings(loc))
+        return dropout(x, self.cfg.hidden_dropout_prob, deterministic,
+                       generator)
+
+
+class TransformerHead(nn.Module):
+    """With ``external_projection`` the regions arrive projected by the
+    shared ``v2l_projection`` of ``MMSSHeads``. Under ``MMM_LOSS`` ""
+    no pooler and no ``bi_seq_relationship`` are built (Flax creates
+    none for modules that never run)."""
+
+    def __init__(self, tcfg: TransformerHeadConfig, v_dim: int, l_dim: int,
+                 loc_dim: int = 2, external_projection: bool = False):
+        super().__init__()
+        if tcfg.pairwise_chunk > 0:
+            raise NotImplementedError(
+                "TPU.PAIRWISE_CHUNK > 0 is not ported yet")
+        if tcfg.mmm_loss not in ("cross_entropy", ""):
+            raise NotImplementedError(tcfg.mmm_loss)
+        self.tcfg = tcfg
+        c = tcfg.bert
+        self.v2l_projection = None if external_projection else Dense(
+            v_dim, l_dim)
+        self.visual_emb = VisualEmbedding(c, l_dim, loc_dim)
+        self.encoder = BertEncoder(c)
+        if tcfg.mmm_loss == "cross_entropy":
+            self.pooler = BertPooler(c)
+            self.bi_seq_relationship = _dense(c, c.hidden_size, 2)
+        self.predictions = BertLMHead(c)
+
+    def forward(self, image: RegionFeatures, caption: CaptionFeatures,
+                word_embeddings: torch.Tensor, deterministic: bool = True,
+                image2: Optional[RegionFeatures] = None,
+                generator: Optional[torch.Generator] = None):
+        """-> (other, losses) or, with ``return_dist``, (other, losses,
+        {"trans": [B, B] cost, [caption, image]})."""
+        if image2 is not None:
+            raise NotImplementedError(
+                "the fused grid + box MMSS pass (TPU.FUSED_MMSS_PASSES) "
+                "is not ported yet")
+        t = self.tcfg
+        caption_emb = caption.encoded_tokens           # [B, W, D]
+        caption_mask = caption.attention_mask.float()
+        target_ids = torch.where(caption.mlm_mask > 0, caption.target_ids,
+                                 torch.full_like(caption.target_ids, -1))
+        raw_mask = not t.proper_attention_mask
+        b, max_w = caption_mask.shape
+
+        image_emb = image.features if self.v2l_projection is None else \
+            self.v2l_projection(image.features)
+        image_emb = self.visual_emb(image_emb, image.loc, deterministic,
+                                    generator)      # [B, R, D]
+        region_mask = image.mask.float()
+
+        if t.mmm_loss == "cross_entropy":
+            # all B x B (caption, image) pairs by index: pair k is
+            # caption k // b with image k % b
+            ar = torch.arange(b, device=caption_mask.device)
+            cap_idx, img_idx = ar.repeat_interleave(b), ar.repeat(b)
+            tokens = torch.cat([caption_emb[cap_idx], image_emb[img_idx]],
+                               dim=1)
+            mask = torch.cat([caption_mask[cap_idx], region_mask[img_idx]],
+                             dim=1)
+            seq = self.encoder(tokens, mask, deterministic=deterministic,
+                               raw_additive_mask=raw_mask,
+                               generator=generator)
+            scores = self.bi_seq_relationship(self.pooler(seq))
+            pw_cost = scores[:, 0].reshape(b, b)
+            seq_t_diag = seq[ar * b + ar, :max_w]     # [B, W, D]
+        else:
+            tokens = torch.cat([caption_emb, image_emb], dim=1)
+            mask = torch.cat([caption_mask, region_mask], dim=1)
+            seq = self.encoder(tokens, mask, deterministic=deterministic,
+                               raw_additive_mask=raw_mask,
+                               generator=generator)
+            pw_cost = None
+            seq_t_diag = seq[:, :max_w]
+
+        lm_logits = self.predictions(seq_t_diag, word_embeddings)
+        losses: Dict[str, torch.Tensor] = {
+            "Masked Language Modeling Loss":
+                mean_cross_entropy(lm_logits, target_ids, ignore_index=-1)}
+        other: Dict[str, torch.Tensor] = {}
+        valid = target_ids >= 0
+        acc_num = ((lm_logits.argmax(-1) == target_ids) & valid).sum()
+        acc_den = valid.sum()
+        other["Masked Language Modeling Accuracy"] = torch.where(
+            acc_den > 0, acc_num.float() / acc_den.clamp(min=1).float(),
+            torch.zeros((), device=lm_logits.device))
+
+        if t.mmm_loss == "cross_entropy":
+            lc = torch.log_softmax(-pw_cost, dim=0)
+            li = torch.log_softmax(-pw_cost, dim=1)
+            losses["Image Caption Matching Loss"] = (
+                -torch.diagonal(lc).mean() - torch.diagonal(li).mean())
+            ar = torch.arange(b, device=pw_cost.device)
+            other["Batch Accuracy (Choose Caption)"] = \
+                (pw_cost.argmin(dim=0) == ar).float().mean()
+            other["Batch Accuracy (Choose Image)"] = \
+                (pw_cost.argmin(dim=1) == ar).float().mean()
+        else:
+            losses["Image Caption Matching Loss"] = torch.zeros(
+                (), device=lm_logits.device)
+
+        if t.return_dist:
+            return other, losses, {"trans": pw_cost}
+        return other, losses

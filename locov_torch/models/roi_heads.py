@@ -122,7 +122,8 @@ class Res5ROIHeads(nn.Module):
     def __init__(self, rcfg: ROIHeadsConfig, pcfg: BoxPredictorConfig,
                  stride_in_1x1: bool = True, res2_out_channels: int = 256,
                  num_groups: int = 1, width_per_group: int = 64,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 emb_pred: bool = True):
         super().__init__()
         if pcfg.name == "EmbeddingGroundingFastRCNNOutputLayers":
             raise NotImplementedError(
@@ -134,7 +135,7 @@ class Res5ROIHeads(nn.Module):
             out_channels=res2_out_channels * 8, first_stride=2,
             stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype)
         self.box_predictor = EmbeddingBoxPredictor(res2_out_channels * 8,
-                                                   pcfg)
+                                                   pcfg, emb_pred=emb_pred)
 
     def roi_features(self, features: torch.Tensor,
                      boxes: torch.Tensor) -> torch.Tensor:
@@ -152,9 +153,14 @@ class Res5ROIHeads(nn.Module):
         out = self.res5(pooled.reshape((b * s,) + pooled.shape[2:]))
         return out.mean(dim=(1, 2)).reshape(b, s, -1)
 
+    def grid_features(self, features: torch.Tensor) -> torch.Tensor:
+        """res5 over the whole feature map [B, H, W, C] (NHWC), with the
+        ROI path's parameters."""
+        return self.res5(features)
+
     def predict(self, box_features: torch.Tensor,
-                class_emb: torch.Tensor):
-        return self.box_predictor(box_features, class_emb)
+                class_emb: torch.Tensor, emb_override=None):
+        return self.box_predictor(box_features, class_emb, emb_override)
 
 
 def roi_heads_losses(scores: torch.Tensor, deltas: torch.Tensor,

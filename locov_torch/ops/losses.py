@@ -1,7 +1,8 @@
 """Loss primitives (masked, static-shape) and the vector normalizations
 of the embedding box predictor.
 
-Counterpart of ``locov_tpu/ops/losses.py`` (the detector's subset). The
+Counterpart of ``locov_tpu/ops/losses.py`` (the detector's subset and
+the distillation's ``kl_div_batchmean``). The
 reductions are empty-safe as in the JAX package: where nothing is
 valid they give 0, not NaN. Where a loss's gradient has a kink, it takes
 JAX's value there (``l1``, ``max0``), so that both packages train
@@ -75,6 +76,19 @@ def mean_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     none is (where ``F.cross_entropy`` gives NaN)."""
     ce, valid = softmax_cross_entropy(logits, labels, ignore_index)
     return ce.sum() / valid.sum().clamp(min=1)
+
+
+def kl_div_batchmean(log_probs: torch.Tensor,
+                     target_probs: torch.Tensor) -> torch.Tensor:
+    """``KLDivLoss(reduction='batchmean')``: sum(p * (log p - log q)) / B
+    with 0 * log 0 = 0, written as the JAX package writes it (two
+    ``where``s), so that its gradient is JAX's too."""
+    pos = target_probs > 0
+    zero = torch.zeros((), dtype=target_probs.dtype,
+                       device=target_probs.device)
+    logp = torch.where(pos, torch.log(target_probs), zero)
+    elt = torch.where(pos, target_probs * (logp - log_probs), zero)
+    return elt.sum() / log_probs.shape[0]
 
 
 def normalize_vec(x: torch.Tensor, dim: int = -1,

@@ -6,7 +6,7 @@ numpy arrays (what the host loader emits) onto a device.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,16 +37,52 @@ class ProposalBatch(NamedTuple):
     mask: torch.Tensor
 
 
+class TextBatch(NamedTuple):
+    """Tokenized captions (the host tokenizer's output, with its masked
+    language modelling draws): input_ids / target_ids [B, L] int32;
+    attention_mask / special_tokens_mask / mlm_mask [B, L] int32."""
+    input_ids: torch.Tensor
+    attention_mask: torch.Tensor
+    special_tokens_mask: torch.Tensor
+    target_ids: torch.Tensor
+    mlm_mask: torch.Tensor
+
+
+class CaptionFeatures(NamedTuple):
+    """The language backbone's output, which the MMSS heads read: the
+    ``TextBatch`` fields plus encoded_tokens and input_embeddings, each
+    [B, L, D]."""
+    input_ids: torch.Tensor
+    attention_mask: torch.Tensor
+    special_tokens_mask: torch.Tensor
+    target_ids: torch.Tensor
+    mlm_mask: torch.Tensor
+    encoded_tokens: torch.Tensor
+    input_embeddings: torch.Tensor
+
+    def asdict(self):
+        return self._asdict()
+
+
+class RegionFeatures(NamedTuple):
+    """Visual regions fed to the MMSS heads: features [B, R, C]; mask
+    [B, R] bool; loc [B, R, 2] normalized (x, y)."""
+    features: torch.Tensor
+    mask: torch.Tensor
+    loc: torch.Tensor
+
+
 class DetectionBatch(NamedTuple):
-    """One batch for the detection paths. Inference reads ``images``
-    and, with precomputed proposals, ``proposals``; training also reads
-    ``gt``. ``text`` and ``gt_obj`` (captions and object labels of the
-    image-caption stage) come with that stage."""
+    """One batch for the detection and image-caption paths. Inference
+    reads ``images`` and, with precomputed proposals, ``proposals``;
+    training also reads ``gt``, and the image-caption stage ``text``.
+    ``gt_obj`` holds the original gt where object proposals were turned
+    into binary gt."""
     images: ImageBatch
     gt: Optional[GtBatch] = None
     proposals: Optional[ProposalBatch] = None
-    text: Any = None
-    gt_obj: Any = None
+    text: Optional[TextBatch] = None
+    gt_obj: Optional[GtBatch] = None
 
 
 class Detections(NamedTuple):

@@ -44,6 +44,11 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     return (w > threshold) & (h > threshold)
 
 
+def centers(boxes: torch.Tensor) -> torch.Tensor:
+    """(x, y) centers, as d2's ``Boxes.get_centers``."""
+    return (boxes[..., :2] + boxes[..., 2:]) / 2.0
+
+
 def scale(boxes: torch.Tensor, scale_x, scale_y) -> torch.Tensor:
     sx = torch.as_tensor(scale_x, dtype=boxes.dtype, device=boxes.device)
     sy = torch.as_tensor(scale_y, dtype=boxes.dtype, device=boxes.device)

@@ -33,6 +33,9 @@ another order, one rounding), plus 1e-5 * (|x| conv |w| + |shift|), the
 float32 sum-order bound, which exceeds a bfloat16 ulp of an output
 close to 0; its gradient within 1e-5 of the largest
 value (plus one bfloat16 ulp in bfloat16) of autograd of the plain conv.
+The full-float32 products of the grounding head (``ops/matmul.py``)
+within 1e-5 of float64 with cuBLAS's TF32 allowed; the tiny LSM step on
+the card against the CPU at the tolerances its docstring states.
 """
 import math
 
@@ -537,3 +540,103 @@ def test_tiny_f32_model_on_the_card_at_pytorch_tf32_defaults():
     assert torch.equal(cc[cm], gc[cm])
     assert (cs - gs).abs().max() <= 1e-5
     assert (cb[cm] - gb[cm]).abs().max() <= 1e-3
+
+
+def test_highest_precision_products_ignore_the_tf32_flag(cuda):
+    """``ops/matmul.py:matmul_f32`` (the grounding head's similarity and
+    the tied ``v2l_projection``, ``Precision.HIGHEST`` in JAX) stays in
+    full float32, forward and backward, with cuBLAS's TF32 allowed in
+    the process, and restores the flag: within 1e-5 of the float64
+    product, where TF32 (10 mantissa bits) is about 1e-3 off."""
+    from locov_torch.ops.matmul import matmul_f32
+    a = torch.randn(256, 768, generator=cuda, device="cuda")
+    b = torch.randn(768, 512, generator=cuda, device="cuda")
+    g = torch.randn(256, 512, generator=cuda, device="cuda")
+    want = a.double() @ b.double()
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        got = matmul_f32(ar, br)
+        got.backward(g)
+        tf32 = a @ b
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    scale = want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= 1e-5 * scale
+    assert (tf32.double() - want).abs().max().item() > 1e-4 * scale
+    da = g.double() @ b.double().t()
+    db = a.double().t() @ g.double()
+    assert (ar.grad.double() - da).abs().max() <= 1e-5 * da.abs().max()
+    assert (br.grad.double() - db).abs().max() <= 1e-5 * db.abs().max()
+
+
+def test_tiny_lsm_step_on_the_card():
+    """One training step of the tiny float32 DistillProposalMMSSRCNN
+    (tests/torch_parity.py:TINY_LSM, FREEZE_AT 0) on the card, through
+    the kernels, against the CPU, through the plain versions, with
+    every draw pinned, the RPN tamed and the process's TF32 flags at
+    PyTorch's defaults: the loss dict and outputs within 1e-4 * max(1,
+    |value|); every parameter's SGD update within 1e-3 of the largest
+    CPU update of its tensor (float32 sums in another order through the
+    trunk and the joint encoder) plus 1e-6 times the learning rate (the
+    float32 rounding of order-1 loss terms whose gradients cancel: at
+    random init the matching losses sit at their uniform value, and the
+    pooler's update is such a residue), or, for the shift-invariant key and
+    ``bi_seq_relationship`` biases (a gradient that is 0 but for
+    rounding), below 1e-6 on both; every kernel of the path launched.
+    No ``cuda`` fixture: it leaves the flags as PyTorch has them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.parallel.mesh import make_train_step
+    from locov_torch.structures.batches import (DetectionBatch, GtBatch,
+                                                ImageBatch, TextBatch)
+    from locov_torch.utils.weights import seeded_init_
+    from torch_parity import lsm_batch, tiny_lsm_arrays, tiny_lsm_cfg
+    cfg = tiny_lsm_cfg(get_cfg, config_path, **{"SOLVER.BASE_LR": 0.01,
+                                                "SOLVER.WARMUP_ITERS": 0})
+    rng = np.random.RandomState(2)
+    arrays = tiny_lsm_arrays(rng)
+    u = {"rpn": rng.rand(2, 2, 6 * 8 * 15).astype(np.float32),
+         "roi": rng.rand(2, 2, 24 + 3).astype(np.float32),
+         "grid_drop": rng.rand(2, 12).astype(np.float32),
+         "box_drop": rng.rand(2, 12).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = seeded_init_(build_meta_arch(cfg, device="cpu"), 2)
+        with torch.no_grad():
+            m.rpn_head.anchor_deltas.weight.zero_()
+        m.to(dev)
+        start = {k: v.detach().clone() for k, v in m.named_parameters()}
+        step = make_train_step(m, *build_optimizer(cfg, m))
+        batch = lsm_batch(arrays, ImageBatch, GtBatch, TextBatch,
+                          DetectionBatch,
+                          lambda a: torch.from_numpy(a).to(dev))
+        uniforms = {k: (tuple(torch.from_numpy(a).to(dev) for a in v)
+                        if v.ndim == 3 else torch.from_numpy(v).to(dev))
+                    for k, v in u.items()}
+        kernel_lib.reset_launches()
+        metrics = step(batch, torch.from_numpy(arrays["class_emb"]).to(dev),
+                       None, uniforms)
+        launched = dict(kernel_lib.LAUNCHES)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: (p.detach() - start[k]).cpu()
+                     for k, p in m.named_parameters()})
+    (cm, cu), (gm, gu) = out["cpu"], out["cuda"]
+    assert set(cm) == set(gm) and len(cm) == 19 + 14 + 1
+    for k, v in cm.items():
+        assert abs(gm[k] - v) <= 1e-4 * max(1.0, abs(v)), k
+    zero_by_shift = ("attention_self.key.bias", "bi_seq_relationship.bias")
+    floor = 1e-6 * cfg.SOLVER.BASE_LR
+    for k, v in cu.items():
+        if k.endswith(zero_by_shift):
+            assert max(v.abs().max(), gu[k].abs().max()) <= 1e-6, k
+            continue
+        assert (gu[k] - v).abs().max() <= 1e-3 * v.abs().max() + floor, k
+    for name in ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
+                 "roi_align_bwd"):
+        assert launched[name] > 0, name

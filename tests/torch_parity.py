@@ -82,3 +82,95 @@ def jax_uniforms(key, b, n_):
         pos.append(np.asarray(jax.random.uniform(kp, (n_,))))
         neg.append(np.asarray(jax.random.uniform(kn, (n_,))))
     return t(np.stack(pos)), t(np.stack(neg))
+
+
+# the image-caption (LSM) model at tiny widths: coco_lsm.yaml with the
+# trunk above, a 2-layer BERT of width 16 over a vocabulary of 50 for
+# both the language backbone and the joint encoder, dropout off, at most
+# 8 regions an image; a torchvision-like pixel std keeps activations of
+# order 1
+TINY_LSM = {
+    "MODEL.RESNETS.STEM_OUT_CHANNELS": 8,
+    "MODEL.RESNETS.RES2_OUT_CHANNELS": 32,
+    "MODEL.RESNETS.WIDTH_PER_GROUP": 8,
+    "MODEL.PIXEL_STD": [57.375, 57.12, 58.395],
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE": 12,
+    "MODEL.RPN.PRE_NMS_TOPK_TRAIN": 48,
+    "MODEL.RPN.POST_NMS_TOPK_TRAIN": 24,
+    "MODEL.RPN.PRE_NMS_TOPK_TEST": 48,
+    "MODEL.RPN.POST_NMS_TOPK_TEST": 16,
+    "MODEL.MMSS_HEAD.SPATIAL_DROPOUT": 8,
+    "MODEL.ROI_BOX_HEAD.EMB_DIM": 16,
+    "TEST.DETECTIONS_PER_IMAGE": 8,
+    "TPU.COMPUTE_DTYPE": "float32",
+}
+TINY_BERT = {"vocab_size": 50, "hidden_size": 16, "num_hidden_layers": 2,
+             "num_attention_heads": 2, "intermediate_size": 32,
+             "max_position_embeddings": 16, "hidden_dropout_prob": 0.0,
+             "attention_probs_dropout_prob": 0.0}
+LSM_B, LSM_H, LSM_W, LSM_L = 2, 96, 128, 8
+
+
+def tiny_lsm_cfg(get_cfg, config_path, **extra):
+    """The tiny LSM config from either package's ``get_cfg`` and
+    ``config_path``."""
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("coco_lsm.yaml"))
+    for key, value in {**TINY_LSM, **extra}.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for p in path:
+            node = getattr(node, p)
+        setattr(node, leaf, value)
+    for node in (cfg.MODEL.LANGUAGE_BACKBONE.BERT_CONFIG,
+                 cfg.MODEL.MMSS_HEAD.TRANSFORMER.BERT_CONFIG):
+        for key, value in TINY_BERT.items():
+            setattr(node, key, value)
+    return cfg
+
+
+def tiny_lsm_arrays(rng):
+    """One tiny LSM batch as numpy arrays: two images (the second with a
+    smaller valid size, so that its grid has fewer valid cells than
+    SPATIAL_DROPOUT), binary gt (OLN proposals as class 1, padded), and
+    captions with padding, special tokens and one MLM target; plus a
+    [81, 16] class-embedding matrix x0.1 with a zero background row."""
+    b, h, w, n_tok = LSM_B, LSM_H, LSM_W, LSM_L
+    ids = rng.randint(5, 50, size=(b, n_tok)).astype(np.int32)
+    attn = np.ones((b, n_tok), np.int32)
+    attn[1, 6:] = 0
+    special = np.zeros((b, n_tok), np.int32)
+    special[:, 0] = 1
+    special[0, 7] = 1
+    special[1, 5:] = 1
+    mlm = np.zeros((b, n_tok), np.int32)
+    mlm[0, 3] = 1
+    mlm[1, 2] = 1
+    ce = (rng.randn(81, 16) * 0.1).astype(np.float32)
+    ce[-1] = 0.0
+    return dict(
+        image=(rng.rand(b, h, w, 3) * 255).astype(np.float32),
+        hw=np.array([[96, 128], [64, 80]], np.int32),
+        orig_hw=np.array([[192, 256], [128, 160]], np.int32),
+        gt_boxes=np.array([[[4, 4, 40, 30], [10, 20, 70, 60],
+                            [50, 8, 120, 90]],
+                           [[8, 8, 24, 24], [30, 10, 70, 50],
+                            [0, 0, 0, 0]]], np.float32),
+        gt_classes=np.ones((b, 3), np.int32),
+        gt_mask=np.array([[True, True, True], [True, True, False]]),
+        input_ids=ids, attention_mask=attn, special_tokens_mask=special,
+        target_ids=ids.copy(), mlm_mask=mlm, class_emb=ce)
+
+
+def lsm_batch(arrays, ImageBatch, GtBatch, TextBatch, DetectionBatch,
+              conv):
+    """The batch of ``tiny_lsm_arrays`` in either package's containers,
+    each array through ``conv``."""
+    a = {k: conv(v) for k, v in arrays.items()}
+    return DetectionBatch(
+        images=ImageBatch(image=a["image"], hw=a["hw"],
+                          orig_hw=a["orig_hw"]),
+        gt=GtBatch(a["gt_boxes"], a["gt_classes"], a["gt_mask"]),
+        text=TextBatch(a["input_ids"], a["attention_mask"],
+                       a["special_tokens_mask"], a["target_ids"],
+                       a["mlm_mask"]))
