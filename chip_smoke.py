@@ -10,12 +10,14 @@ Phases, one JSON line each, in order:
    ``nvcc`` per source, in parallel).
 2. kernel checks: each kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the shapes of the paths below (K1
-   x [8, 400, 672, 64]; K2 features [8, 50, 84, 1024] with 1000 boxes an
-   image; K3 the same features with 512 boxes an image, 20 of them
-   gt-sized), plus tie-heavy (K1: also with NaNs and negative zeros) and
-   edge-box cases. K1 forward and backward must be bit-exact with the
-   plain version (the backward: with the plain backward, autograd of the
-   plain forward masked with x > 0), NaN where it has NaN (bfloat16
+   x [8, 400, 672, 64], and [8, 672, 400, 64] for the eval path's
+   portrait bucket; K2 features [8, 50, 84, 1024] with 1000 boxes an
+   image, and [8, 84, 50, 1024] portrait; K3 the same features with 512
+   boxes an image, 20 of them gt-sized), plus tie-heavy (K1: also with
+   NaNs and negative zeros) and edge-box cases. K1 forward and backward
+   must be bit-exact with the plain version (the backward: with the
+   plain backward, autograd of the plain forward masked with x > 0),
+   NaN where it has NaN (bfloat16
    backward: one ulp is allowed, and it came out bit-exact); the
    backward writes into a NaN-filled dx and gives the same bits on a
    second launch and under other plans. K2 and K3-fwd in float32 within
@@ -40,7 +42,8 @@ Phases, one JSON line each, in order:
    plain versions, which the CPU tests hold against the JAX package:
    inference, and one training step at FREEZE_AT 0 (losses, gradients,
    SGD updates); then one training step of a tiny float32
-   DistillProposalMMSSRCNN (the LSM model) likewise, every draw pinned.
+   DistillProposalMMSSRCNN (the LSM model) likewise, every draw pinned;
+   then ``eval_reference`` (phase 7's reference).
 4. main path: STT inference, ``build_meta_arch`` on ``cuda`` from
    configs/coco_stt.yaml in bfloat16 at full width, seeded random
    weights, 8 images of 800 x 1344 (valid 800 x 1312, original 640 x
@@ -62,15 +65,28 @@ Phases, one JSON line each, in order:
    changed, every kernel of ``LSM_KERNELS`` launched; one step under
    torch.profiler by ``DistillProposalMMSSRCNN.<stage>``. The K1 and K3
    checks of phase 2 also run at its shapes.
-7. block path: ``locov_torch.tools.bench_block.main`` at its defaults
+7. eval path: STT evaluation, ``engine/trainer.py:test`` from
+   configs/coco_stt.yaml in bfloat16 at full width (seeded weights,
+   TEST.IMS_PER_BATCH 8) on a synthetic ``coco_generalized_zeroshot_val``
+   tree of 256 JPEGs that the script writes (``write_coco_val``: COCO
+   val's 640 x 480 and 480 x 640, a few square, the 65 classes of the
+   zero-shot split), through the real loader: a decode check first, then
+   AP, AP50, AP50-seen/unseen, images/s, the time split (loader wait,
+   host-to-device, inference, ``.cpu()``, evaluator), the buckets and
+   padded rows, K1-fwd and K2 once a batch, peak memory; the gt oracle
+   (AP 100); one batch under torch.profiler. Its CPU reference is phase
+   3's ``eval_reference``: ``test`` of a tiny float32 model on the
+   micro-COCO tree, card against CPU (flat detections and AP).
+8. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
-8. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
+9. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-9. the ``kernels`` line (one row per TPU kernel replaced:
+10. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
-   K3-fwd row at the training shapes), the card's ``nvidia-smi`` name and power limit,
-   and the result line ``{"ok": true, "device": {...}}``.
+   K3-fwd row at the training shapes; ``launches_by_path`` gives each
+   path's counts, ``eval`` among them), the card's ``nvidia-smi`` name
+   and power limit, and the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are zeroed just before each path's timed run and read
 just after; each kernel of the path must have launched. Any failed
@@ -84,6 +100,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import sys
 import time
@@ -173,7 +190,8 @@ def check_relu_maxpool(gen, results):
     main = (8, 400, 672, 64)
     cases = [("main", main, "randn"), ("ties", (2, 64, 96, 64), "ties"),
              ("odd", (3, 33, 47, 24), "ties"),
-             ("lsm", (4, 400, 672, 64), "randn")]
+             ("lsm", (4, 400, 672, 64), "randn"),
+             ("portrait", (8, 672, 400, 64), "randn")]
     for dtype in (torch.float32, torch.bfloat16):
         for case, shape, kind in cases:
             x = _k1_input(gen, shape, kind, case).to(dtype)
@@ -349,9 +367,11 @@ def roi_align_fwd_bits(f, boxes, scale, pooled, sr, got):
 
 def check_roi_align(gen, results):
     """K2 against the plain version: main (the inference shapes), edge
-    boxes and a fixed ratio; float32 within 1e-5 * max|F|, bfloat16
-    within one bfloat16 ulp or 1e-5 * max|F|; degenerate and outside
-    boxes exactly 0; two launches and every launch plan the same bits."""
+    boxes, a fixed ratio and the portrait bucket (1344 x 800 images:
+    features [8, 84, 50, 1024], 1000 boxes an image); float32 within
+    1e-5 * max|F|, bfloat16 within one bfloat16 ulp or 1e-5 * max|F|;
+    degenerate and outside boxes exactly 0; two launches and every launch
+    plan the same bits."""
     import torch
     from locov_torch.ops.roi_align import roi_align_batched, roi_align_cuda
     from locov_torch.tools.bench_roi_fwd import proposal_boxes
@@ -363,7 +383,9 @@ def check_roi_align(gen, results):
              ("edges", fmain[:2, :, :, :256].contiguous(),
               _edge_boxes(2, img_h, img_w), 0),
              ("fixed_ratio", fmain[:2, :, :, :256].contiguous(),
-              proposal_boxes(gen, 2, 100, img_h, img_w), 2)]
+              proposal_boxes(gen, 2, 100, img_h, img_w), 2),
+             ("portrait", fmain.reshape(8, 84, 50, 1024),
+              proposal_boxes(gen, 8, 1000, img_w, img_h), 0)]
     for dtype in (torch.float32, torch.bfloat16):
         for case, feats, boxes, sr in cases:
             f = feats.to(dtype)
@@ -1143,7 +1165,8 @@ def profile_run(phase, run, unprofiled_ms):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     ranges = [e for e in events
-              if e.key.startswith(("OvrRCNN.", LSM_RANGE, "train_step."))]
+              if e.key.startswith(("OvrRCNN.", LSM_RANGE, "train_step.",
+                                   "eval."))]
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and e not in ranges]
@@ -1573,6 +1596,314 @@ def lsm_path(seed):
     return launches
 
 
+# ------------------------------------------------------------ eval path
+EVAL_DATASET = "coco_generalized_zeroshot_val"
+EVAL_IMAGES = 256
+EVAL_AP_KEYS = ("AP", "AP50", "AP50-seen", "AP50-unseen")
+EVAL_SPLIT = ("loader_wait", "h2d", "inference", "d2h", "evaluator")
+
+
+def _eval_reference_cfg(root):
+    """The tiny float32 OvrRCNN of ``micro_cfg`` on the micro-COCO tree,
+    tamed as tests/test_torch_evaluator.py tames it: the narrow trunk, a
+    torchvision-like pixel std, 16 and 32 px anchors, 32 proposals and
+    50 detections an image."""
+    from locov_torch.data.synthetic import micro_cfg
+    cfg = micro_cfg(root)
+    r = cfg.MODEL.RESNETS
+    r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP = 8, 32, 8
+    cfg.MODEL.PIXEL_STD = [57.375, 57.12, 58.395]
+    cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[16, 32]]
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 32
+    cfg.TEST.DETECTIONS_PER_IMAGE = 50
+    cfg.DATASETS.TEST = ("coco_zeroshot_val",)
+    return cfg
+
+
+def _scale_embeddings(root, factor):
+    """Scale the class-embedding file of the micro tree (the CPU tests
+    take x0.1, so that the class scores spread)."""
+    path = os.path.join(root, "datasets_data", "embeddings",
+                        "coco_nouns_bertemb.json")
+    with open(path) as f:
+        vecs = json.load(f)
+    with open(path, "w") as f:
+        json.dump({k: [factor * x for x in v] for k, v in vecs.items()}, f)
+
+
+def _rankings(flat):
+    """Per dataset class, the detections' order by score (stable), as
+    the evaluator ranks them."""
+    import numpy as np
+    return {int(c): np.argsort(-flat["score"][flat["cls"] == c],
+                               kind="mergesort")
+            for c in np.unique(flat["cls"])}
+
+
+def eval_reference(seed, workdir):
+    """``engine/trainer.py:test`` on the micro-COCO tree with a tiny
+    float32 OvrRCNN, the same seeded weights on the card (kernels) and
+    on the CPU (plain versions, which the CPU tests hold against the JAX
+    package). The flat detections (``collect_detections``) agree: image
+    and class ids equal, boxes within 1e-3 px, scores within 1e-5; with
+    the same per-class rankings (checked), the AP keys agree within 1e-6
+    AP points (the CPU tests' bound: the same ranking and the same
+    matches give the same numbers)."""
+    import numpy as np
+    import torch
+    from locov_torch.data import MetadataCatalog
+    from locov_torch.data.synthetic import make_micro_coco
+    from locov_torch.engine.trainer import (build_test_loader,
+                                            load_embeddings, test)
+    from locov_torch.evaluation.evaluator import (collect_detections,
+                                                  dataset_id_lut)
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import make_eval_step
+    from locov_torch.utils.weights import seeded_init_
+    root = os.path.join(workdir, "micro")
+    make_micro_coco(root, n_val=12)
+    _scale_embeddings(root, 0.1)
+    cfg = _eval_reference_cfg(root)
+    name = cfg.DATASETS.TEST[0]
+    flats, res, launched = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        model = seeded_init_(build_meta_arch(cfg, device="cpu"), seed)
+        with torch.no_grad():
+            model.rpn_head.anchor_deltas.weight.zero_()
+        model.to(dev)
+        kernel_lib.reset_launches()
+        with build_test_loader(cfg, name, None, False) as loader:
+            flats[dev], _ = collect_detections(
+                make_eval_step(model), None, loader,
+                load_embeddings(cfg, name, dev),
+                dataset_id_lut(MetadataCatalog.get(name)))
+        res[dev] = test(cfg, model, dev)[name]
+        launched[dev] = {k: kernel_lib.LAUNCHES[k] for k in
+                         INFERENCE_KERNELS}
+    cpu, gpu = flats["cpu"], flats["cuda"]
+    same_ids = bool(np.array_equal(cpu["img"], gpu["img"]) and
+                    np.array_equal(cpu["cls"], gpu["cls"]))
+    box_err = float(np.abs(cpu["box"] - gpu["box"]).max()) if same_ids \
+        else float("inf")
+    score_err = float(np.abs(cpu["score"] - gpu["score"]).max()) \
+        if same_ids else float("inf")
+    rank_c, rank_g = _rankings(cpu), _rankings(gpu)
+    same_rank = same_ids and all(np.array_equal(rank_c[c], rank_g[c])
+                                 for c in rank_c)
+    ap_err = {k: abs(res["cuda"][k] - res["cpu"][k]) for k in EVAL_AP_KEYS}
+    line = {"phase": "eval_reference", "dataset": name,
+            "images": 12, "detections": int(len(cpu["img"])),
+            "same_ids": same_ids, "same_rankings": same_rank,
+            "max_box_err_px": box_err, "max_score_err": score_err,
+            "ap_cpu": {k: res["cpu"][k] for k in EVAL_AP_KEYS},
+            "ap_abs_err": ap_err, "gpu_launches": launched["cuda"],
+            "cpu_launches": launched["cpu"]}
+    emit(line)
+    ok = (same_ids and len(cpu["img"]) > 300 and box_err <= 1e-3 and
+          score_err <= 1e-5 and same_rank and
+          all(e <= 1e-6 for e in ap_err.values()) and
+          res["cpu"]["AP50"] > 0 and
+          all(v > 0 for v in launched["cuda"].values()) and
+          not any(launched["cpu"].values()))
+    if not ok:
+        raise AssertionError(f"eval reference mismatch: {line}")
+
+
+def write_coco_val(root, seed, n_images=EVAL_IMAGES):
+    """A synthetic ``coco_generalized_zeroshot_val`` tree under ``root``
+    in COCO's layout, every file its registration opens: JPEGs (quality
+    90) three landscape 640 x 480 to one portrait 480 x 640 (COCO val's
+    own sizes and mix), every 64th square 640 x 640 so that the third
+    test bucket runs; 1-20 boxes an image over the 65 classes of the
+    zero-shot split (48 seen, 17 unseen, COCO ids), drawn into the
+    image over a smooth background; one caption an image; 768-d class
+    embeddings. Returns the path and RGB array of the first portrait
+    image, for the decode check."""
+    import numpy as np
+    from PIL import Image
+    from locov_torch.data.datasets.coco import (COCO_DATASETS,
+                                                DEFAULT_EMBEDDINGS,
+                                                categories_seen,
+                                                categories_unseen)
+    rng = np.random.RandomState(seed)
+    paths = {k: os.path.join(root, v)
+             for k, v in COCO_DATASETS[EVAL_DATASET].items()}
+    for p in (paths["img_dir"], os.path.dirname(paths["ann_file"]),
+              os.path.dirname(paths["cap_file"]),
+              os.path.dirname(os.path.join(root, DEFAULT_EMBEDDINGS))):
+        os.makedirs(p, exist_ok=True)
+    cats = sorted(categories_seen + categories_unseen, key=lambda c: c["id"])
+    images, anns, caps, probe = [], [], [], None
+    for i in range(n_images):
+        h, w = ((640, 640) if i % 64 == 63 else
+                (640, 480) if i % 4 == 3 else (480, 640))
+        coarse = rng.randint(0, 256, (6, 8, 3)).astype(np.uint8)
+        img = np.array(Image.fromarray(coarse).resize((w, h),
+                                                      Image.BILINEAR))
+        for _ in range(rng.randint(1, 21)):
+            bw, bh = rng.uniform(16, w / 2), rng.uniform(16, h / 2)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            cat = cats[rng.randint(len(cats))]
+            img[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = \
+                rng.randint(0, 256, 3)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": cat["id"],
+                         "bbox": [x0, y0, bw, bh], "area": bw * bh,
+                         "iscrowd": 0})
+        fname = f"{i + 1:012d}.jpg"
+        Image.fromarray(img).save(os.path.join(paths["img_dir"], fname),
+                                  quality=90)
+        images.append({"id": i + 1, "file_name": fname, "height": h,
+                       "width": w})
+        caps.append({"id": i + 1, "image_id": i + 1,
+                     "caption": f"a photo of a {cat['name']}"})
+        if probe is None and h > w:
+            probe = (os.path.join(paths["img_dir"], fname), img)
+    with open(paths["ann_file"], "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": cats}, f)
+    with open(paths["cap_file"], "w") as f:
+        json.dump({"images": images, "annotations": caps}, f)
+    with open(os.path.join(root, DEFAULT_EMBEDDINGS), "w") as f:
+        json.dump({c["name"]: rng.randn(768).tolist() for c in cats}, f)
+    return probe
+
+
+def eval_path(seed, workdir):
+    """STT evaluation at full width: ``engine/trainer.py:test`` with
+    configs/coco_stt.yaml in bfloat16 (seeded weights), TEST.IMS_PER_BATCH
+    8, on ``write_coco_val``'s tree through the real loader (4 mapping
+    threads decode and resize). First the decode check (the mapper puts
+    zeros where an image fails to decode) and one pass of the loader
+    alone (the buckets and padded rows it gives); then the timed
+    evaluation, launch counts zeroed just before it and read just after:
+    K1-fwd and K2 each once a batch; the gt-oracle (the gt boxes as
+    detections, score 1, dataset ids) must read AP 100; then one batch
+    under torch.profiler."""
+    import numpy as np
+    import torch
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.data import DatasetCatalog, MetadataCatalog
+    from locov_torch.data.mappers import read_image
+    from locov_torch.engine.trainer import (build_test_loader,
+                                            load_embeddings, test)
+    from locov_torch.evaluation.evaluator import (add_seen_unseen_summary,
+                                                  build_evaluator_for,
+                                                  collect_detections,
+                                                  dataset_id_lut,
+                                                  score_detections)
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import make_eval_step
+    from locov_torch.tools.timing import nvidia_smi_line
+    from locov_torch.utils.weights import seeded_init_
+    root = os.path.join(workdir, "coco")
+    t0 = time.perf_counter()
+    probe_path, probe = write_coco_val(root, seed)
+    write_s = time.perf_counter() - t0
+    decoded = read_image(probe_path)[:, :, ::-1]  # BGR -> RGB
+    decode_err = float(np.abs(decoded.astype(np.float32) - probe).mean()) \
+        if decoded.shape == probe.shape else float("inf")
+    emit({"phase": "eval_decode_check", "image": probe.shape[:2],
+          "decoded": decoded.shape[:2], "mean_abs_err": decode_err,
+          "write_s": write_s})
+    # JPEG at quality 90 of a smooth image: ~1 a pixel; zeros: ~100
+    if not decode_err <= 3.0:
+        raise AssertionError(f"decoded image differs from the written "
+                             f"one: mean |err| {decode_err}")
+
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("coco_stt.yaml"))
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.DATASETS.ROOT = root
+    cfg.DATASETS.TEST = (EVAL_DATASET,)
+    cfg.TEST.IMS_PER_BATCH = 8
+    shapes, pads, probe_batch = {}, 0, None
+    with build_test_loader(cfg, EVAL_DATASET, None, False) as loader:
+        for batch in loader:
+            key = "x".join(map(str, batch.images.image.shape[1:3]))
+            shapes[key] = shapes.get(key, 0) + 1
+            pads += int((batch.images.image_id < 0).sum())
+            if batch.images.image.shape[1] > batch.images.image.shape[2]:
+                probe_batch = batch  # a portrait batch, for the profile
+    n_batches = sum(shapes.values())
+
+    t0 = time.perf_counter()
+    model = seeded_init_(build_meta_arch(cfg), seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernel_lib.reset_launches()
+    t0 = time.perf_counter()
+    res = test(cfg, model, "cuda")[EVAL_DATASET]
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernel_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the gt oracle: the gt boxes as detections
+    meta = MetadataCatalog.get(EVAL_DATASET)
+    inv = dataset_id_lut(meta)
+    gt = [(r["image_id"], a["bbox"], inv[a["category_id"]])
+          for r in DatasetCatalog.get(EVAL_DATASET) for a in r["annotations"]]
+    flat = {"img": np.asarray([g[0] for g in gt], np.int64),
+            "box": np.asarray([g[1] for g in gt], np.float64),
+            "score": np.ones(len(gt)),
+            "cls": np.asarray([g[2] for g in gt], np.int64)}
+    evaluator = build_evaluator_for(EVAL_DATASET)
+    score_detections(evaluator, flat)
+    oracle = add_seen_unseen_summary(
+        evaluator.summarize(per_category=True), meta)
+    oracle = {k: oracle[k] for k in ("AP", "AP50", "AP50-seen",
+                                     "AP50-unseen")}
+
+    split = {k: res[f"seconds_{k}"] for k in EVAL_SPLIT}
+    line = {"phase": "eval_path", "config": "configs/coco_stt.yaml",
+            "dtype": "bfloat16", "dataset": EVAL_DATASET,
+            "images": len(DatasetCatalog.get(EVAL_DATASET)),
+            "batch": cfg.TEST.IMS_PER_BATCH,
+            "workers": cfg.DATALOADER.NUM_WORKERS,
+            "ap": {k: res.get(k) for k in EVAL_AP_KEYS},
+            "images_per_second": res["images_per_second"],
+            "seconds": split, "seconds_total": res["seconds_total"],
+            "wall_s": wall_s,
+            "ms_per_batch": {k: v / n_batches * 1e3
+                             for k, v in split.items()
+                             if k != "evaluator"},
+            "buckets": shapes, "batches": n_batches,
+            "padded_rows_dropped": pads, "gt_boxes": len(gt),
+            "launches": launches, "peak_mem_gib": peak,
+            "model_init_s": init_s, "oracle": oracle,
+            "nvidia_smi": nvidia_smi_line()}
+    emit(line)
+    finite = all(np.isfinite(res[k]) and 0 <= res[k] <= 100
+                 for k in EVAL_AP_KEYS)
+    if not (finite and len(shapes) == 3 and pads > 0):
+        raise AssertionError(f"eval path output check failed: {line}")
+    if not all(launches[k] == n_batches for k in INFERENCE_KERNELS):
+        raise AssertionError(f"eval path: {INFERENCE_KERNELS} must launch "
+                             f"once a batch ({n_batches}): {launches}")
+    if not all(abs(v - 100.0) <= 1e-9 for v in oracle.values()):
+        raise AssertionError(f"eval path: the gt oracle reads {oracle}")
+
+    step = make_eval_step(model)
+    ce = load_embeddings(cfg, EVAL_DATASET, "cuda")
+
+    def one_batch():
+        return collect_detections(step, None, [probe_batch], ce, inv)
+    one_batch()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_batch()
+        times.append((time.perf_counter() - t0) * 1e3)
+    profile_run("eval_path_profile", one_batch, statistics.median(times))
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=3)
@@ -1628,11 +1959,20 @@ def main(argv=None) -> int:
     small_reference(args.seed)
     small_reference_train(args.seed)
     small_reference_lsm(args.seed)
+    workdir = os.path.join(here, "build", "chip_smoke_eval")
+    shutil.rmtree(workdir, ignore_errors=True)
+    eval_reference(args.seed, workdir)
     paths = {"inference": main_path(args.seed, args.batches)}
     torch.cuda.empty_cache()
     paths["train"], paths["train_freeze0"] = train_path(args.seed)
     torch.cuda.empty_cache()
     paths["lsm"] = lsm_path(args.seed)
+    torch.cuda.empty_cache()
+    try:
+        paths["eval"] = eval_path(args.seed, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
     from locov_torch.tools import bench_block, bench_stem
     # bf16 against cuDNN's chain, which rounds t1 and t2 at other places
     paths["block"] = bench_path("block", bench_block.main,

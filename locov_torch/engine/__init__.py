@@ -1,2 +1,2 @@
-"""Training engine: optimizer and schedule (the trainer loop comes
-later)."""
+"""Training engine: optimizer and schedule, and the evaluation side of
+the trainer (the trainer loop comes later)."""

@@ -1,2 +1,2 @@
-"""The training step (one device for now; data parallelism comes
-later)."""
+"""The training and evaluation steps on one device (data parallelism
+comes later)."""

@@ -128,13 +128,19 @@ def test_port_imports_no_jax_and_no_locov_tpu():
     for root, _, names in os.walk(os.path.join(REPO, "locov_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 10
-    # the image-caption stage's modules are among those checked
+    # the image-caption stage's modules, and the evaluation path's host
+    # data layer and evaluators (framework-free copies), are checked
     names = {os.path.relpath(f, REPO) for f in files}
     assert {f"locov_torch/{m}.py" for m in (
         "models/bert", "models/language", "models/mmss/__init__",
         "models/mmss/grounding_head", "models/mmss/transformer_head",
         "models/mmss/distill", "models/meta_arch/mmss_gcnn",
-        "ops/matmul", "tools/bench")} <= names
+        "ops/matmul", "tools/bench", "data/__init__", "data/catalog",
+        "data/transforms", "data/tokenization", "data/mappers",
+        "data/loader", "data/synthetic", "data/datasets/coco",
+        "data/datasets/lvis", "evaluation/coco_eval",
+        "evaluation/lvis_eval", "evaluation/evaluator",
+        "engine/trainer", "utils/native")} <= names
     for path in files:
         with open(path) as f:
             hit = _FORBIDDEN.search(f.read())
