@@ -77,16 +77,31 @@ Phases, one JSON line each, in order:
    (AP 100); one batch under torch.profiler. Its CPU reference is phase
    3's ``eval_reference``: ``test`` of a tiny float32 model on the
    micro-COCO tree, card against CPU (flat detections and AP).
-8. block path: ``locov_torch.tools.bench_block.main`` at its defaults
+8. trainer path: both LocOV stages through the CLI twin
+   (``locov_torch.train_ovnet.main``) at full configs/coco_lsm.yaml and
+   coco_stt.yaml width in bfloat16, on a synthetic tree the script
+   writes (``write_coco_trainval``: 64 train and 24 val JPEGs in COCO's
+   sizes and mix, captions, OLN-style proposals, the zero-shot splits):
+   LSM from a checkpoint of seeded weights at a trained scale, batch 4,
+   6 steps, checkpoints pruned to two, the loss-and-detection
+   evaluation; ``--resume`` to 8 steps (the model and the momentum
+   buffers equal to the checkpoint's before the first step); STT from
+   the LSM's ``model_final`` through the rename map (res5 and the
+   projection equal to the LSM's), batch 8, 4 steps, AP50-seen and
+   -unseen; per stage the loop's images/s, data time, the checkpoints'
+   seconds (caller's thread, in all) and bytes, seconds and peak
+   memory; K1-fwd, K1-bwd, K2 and K3-bwd launched.
+9. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
-9. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
+10. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-10. the ``kernels`` line (one row per TPU kernel replaced:
+11. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; ``launches_by_path`` gives each
-   path's counts, ``eval`` among them), the card's ``nvidia-smi`` name
-   and power limit, and the result line ``{"ok": true, "device": {...}}``.
+   path's counts, ``eval`` and ``trainer`` among them), the card's
+   ``nvidia-smi`` name and power limit, and the result line
+   ``{"ok": true, "device": {...}}``.
 
 Launch counts are zeroed just before each path's timed run and read
 just after; each kernel of the path must have launched. Any failed
@@ -1710,32 +1725,18 @@ def eval_reference(seed, workdir):
         raise AssertionError(f"eval reference mismatch: {line}")
 
 
-def write_coco_val(root, seed, n_images=EVAL_IMAGES):
-    """A synthetic ``coco_generalized_zeroshot_val`` tree under ``root``
-    in COCO's layout, every file its registration opens: JPEGs (quality
-    90) three landscape 640 x 480 to one portrait 480 x 640 (COCO val's
-    own sizes and mix), every 64th square 640 x 640 so that the third
-    test bucket runs; 1-20 boxes an image over the 65 classes of the
-    zero-shot split (48 seen, 17 unseen, COCO ids), drawn into the
-    image over a smooth background; one caption an image; 768-d class
-    embeddings. Returns the path and RGB array of the first portrait
-    image, for the decode check."""
+def _synthetic_images(rng, n_images, img_dir, cats, first_id=1):
+    """``n_images`` JPEGs (quality 90) under ``img_dir`` in COCO's sizes
+    and mix: three landscape 640 x 480 to one portrait 480 x 640, every
+    64th square 640 x 640; 1-20 boxes an image over ``cats``, drawn into
+    the image over a smooth background; one caption an image. Returns
+    (images, annotations, captions, (path, RGB array) of the first
+    portrait image)."""
     import numpy as np
     from PIL import Image
-    from locov_torch.data.datasets.coco import (COCO_DATASETS,
-                                                DEFAULT_EMBEDDINGS,
-                                                categories_seen,
-                                                categories_unseen)
-    rng = np.random.RandomState(seed)
-    paths = {k: os.path.join(root, v)
-             for k, v in COCO_DATASETS[EVAL_DATASET].items()}
-    for p in (paths["img_dir"], os.path.dirname(paths["ann_file"]),
-              os.path.dirname(paths["cap_file"]),
-              os.path.dirname(os.path.join(root, DEFAULT_EMBEDDINGS))):
-        os.makedirs(p, exist_ok=True)
-    cats = sorted(categories_seen + categories_unseen, key=lambda c: c["id"])
     images, anns, caps, probe = [], [], [], None
     for i in range(n_images):
+        image_id = first_id + i
         h, w = ((640, 640) if i % 64 == 63 else
                 (640, 480) if i % 4 == 3 else (480, 640))
         coarse = rng.randint(0, 256, (6, 8, 3)).astype(np.uint8)
@@ -1747,19 +1748,55 @@ def write_coco_val(root, seed, n_images=EVAL_IMAGES):
             cat = cats[rng.randint(len(cats))]
             img[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = \
                 rng.randint(0, 256, 3)
-            anns.append({"id": len(anns) + 1, "image_id": i + 1,
-                         "category_id": cat["id"],
+            anns.append({"id": len(anns) + 1,
+                         "image_id": image_id, "category_id": cat["id"],
                          "bbox": [x0, y0, bw, bh], "area": bw * bh,
                          "iscrowd": 0})
-        fname = f"{i + 1:012d}.jpg"
-        Image.fromarray(img).save(os.path.join(paths["img_dir"], fname),
-                                  quality=90)
-        images.append({"id": i + 1, "file_name": fname, "height": h,
+        fname = f"{image_id:012d}.jpg"
+        Image.fromarray(img).save(os.path.join(img_dir, fname), quality=90)
+        images.append({"id": image_id, "file_name": fname, "height": h,
                        "width": w})
-        caps.append({"id": i + 1, "image_id": i + 1,
+        caps.append({"id": image_id, "image_id": image_id,
                      "caption": f"a photo of a {cat['name']}"})
         if probe is None and h > w:
-            probe = (os.path.join(paths["img_dir"], fname), img)
+            probe = (os.path.join(img_dir, fname), img)
+    return images, anns, caps, probe
+
+
+def _coco_categories(all_80=False):
+    """The 65 classes of the zero-shot split (48 seen, 17 unseen, COCO
+    ids), or all 80 of COCO's ids (the other 15 named by their id)."""
+    from locov_torch.data.datasets.coco import (categories_seen,
+                                                categories_unseen)
+    cats = categories_seen + categories_unseen
+    if all_80:
+        known = {c["id"] for c in cats}
+        cats = cats + [{"id": i, "name": f"class{i}"} for i in range(1, 91)
+                       if i not in known | {12, 26, 29, 30, 45, 66, 68,
+                                            69, 71, 83}]
+    return sorted(cats, key=lambda c: c["id"])
+
+
+def write_coco_val(root, seed, n_images=EVAL_IMAGES):
+    """A synthetic ``coco_generalized_zeroshot_val`` tree under ``root``
+    in COCO's layout, every file its registration opens: the JPEGs of
+    ``_synthetic_images`` over the 65 classes of the zero-shot split (48
+    seen, 17 unseen, COCO ids), so that all three test buckets run;
+    768-d class embeddings. Returns the path and RGB array of the first
+    portrait image, for the decode check."""
+    import numpy as np
+    from locov_torch.data.datasets.coco import (COCO_DATASETS,
+                                                DEFAULT_EMBEDDINGS)
+    rng = np.random.RandomState(seed)
+    paths = {k: os.path.join(root, v)
+             for k, v in COCO_DATASETS[EVAL_DATASET].items()}
+    for p in (paths["img_dir"], os.path.dirname(paths["ann_file"]),
+              os.path.dirname(paths["cap_file"]),
+              os.path.dirname(os.path.join(root, DEFAULT_EMBEDDINGS))):
+        os.makedirs(p, exist_ok=True)
+    cats = _coco_categories()
+    images, anns, caps, probe = _synthetic_images(
+        rng, n_images, paths["img_dir"], cats)
     with open(paths["ann_file"], "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": cats}, f)
@@ -1904,6 +1941,346 @@ def eval_path(seed, workdir):
     return launches
 
 
+# --------------------------------------------------------- trainer path
+TRAINER_TRAIN_IMAGES = 64
+TRAINER_VAL_IMAGES = 24
+OLN_PROPOSALS = 200  # OLN-style proposals an image (the LSM's binary gt)
+LSM_MAX_ITER, LSM_RESUME_ITER, STT_MAX_ITER = 6, 8, 4
+
+
+def write_coco_trainval(root, seed, n_train=TRAINER_TRAIN_IMAGES,
+                        n_val=TRAINER_VAL_IMAGES):
+    """The splits the two stage configs read, under ``root`` in COCO's
+    layout: train2017 and val2017 JPEGs (``_synthetic_images``: COCO's
+    sizes and mix over the 65 classes of the zero-shot split), with
+    captions; ``instances_*2017.json`` over COCO's 80 classes
+    (``coco_captions_*``: coco_lsm.yaml's NUM_CLASSES 80),
+    ``instances_train2017_seen_2.json`` (the 48 seen classes:
+    ``coco_zeroshot_train``) and ``instances_val2017_all_2.json`` (all
+    65: ``coco_generalized_zeroshot_val``); OLN-style proposal pickles
+    (``OLN_PROPOSALS`` boxes an image with objectness 0.5-1:
+    ``coco_captions_train_seen_proposals``); 768-d class embeddings x0.1
+    (random-init scores otherwise sit on one class); a WordPiece vocab
+    of the caption words."""
+    import pickle
+    import numpy as np
+    from locov_torch.data.datasets.coco import (DEFAULT_EMBEDDINGS,
+                                                categories_seen)
+    from locov_torch.data.tokenization import build_tiny_vocab
+    rng = np.random.RandomState(seed)
+    dd = os.path.join(root, "datasets_data")
+    dirs = {k: os.path.join(dd, v) for k, v in (
+        ("train", "coco/train2017"), ("val", "coco/val2017"),
+        ("ann", "coco/annotations"), ("zs", "zero-shot/coco"),
+        ("prop", "proposals"), ("emb", "embeddings"), ("bert", "bert"))}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    cats, all_80 = _coco_categories(), _coco_categories(all_80=True)
+    seen = {c["id"] for c in categories_seen}
+    splits = {}
+    for split, n, first in (("train", n_train, 1), ("val", n_val, 100001)):
+        images, anns, caps, _ = _synthetic_images(rng, n, dirs[split], cats,
+                                                  first)
+        splits[split] = (images, anns)
+        with open(os.path.join(dirs["ann"], f"instances_{split}2017.json"),
+                  "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": all_80}, f)
+        with open(os.path.join(dirs["ann"], f"captions_{split}2017.json"),
+                  "w") as f:
+            json.dump({"images": images, "annotations": caps}, f)
+    images, anns = splits["train"]
+    with open(os.path.join(dirs["zs"], "instances_train2017_seen_2.json"),
+              "w") as f:
+        json.dump({"images": images,
+                   "annotations": [a for a in anns
+                                   if a["category_id"] in seen],
+                   "categories": [c for c in cats if c["id"] in seen]}, f)
+    images, anns = splits["val"]
+    with open(os.path.join(dirs["zs"], "instances_val2017_all_2.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": cats}, f)
+    props = []
+    for im in splits["train"][0]:
+        w, h = im["width"], im["height"]
+        x0 = rng.uniform(0, w - 32, OLN_PROPOSALS)
+        y0 = rng.uniform(0, h - 32, OLN_PROPOSALS)
+        x1 = np.minimum(x0 + rng.uniform(16, w / 2, OLN_PROPOSALS), w)
+        y1 = np.minimum(y0 + rng.uniform(16, h / 2, OLN_PROPOSALS), h)
+        props.append((im["id"], np.stack(
+            [x0, y0, x1, y1, rng.uniform(0.5, 1.0, OLN_PROPOSALS)],
+            1).astype(np.float32)))
+    with open(os.path.join(dirs["prop"], "coco_train2017_seen.pkl"),
+              "wb") as f:
+        pickle.dump(props, f)
+    with open(os.path.join(root, DEFAULT_EMBEDDINGS), "w") as f:
+        json.dump({c["name"]: (0.1 * rng.randn(768)).tolist()
+                   for c in all_80}, f)
+    words = sorted({w for c in all_80 for w in c["name"].split()})
+    vocab = build_tiny_vocab(words + ["a", "photo", "of"])
+    with open(os.path.join(dirs["bert"], "vocab.txt"), "w") as f:
+        f.write("\n".join(sorted(vocab, key=vocab.get)) + "\n")
+
+
+class _TrainWatch:
+    """Wraps ``OVRTrainer.train`` while ``train_ovnet.main`` runs: keeps
+    each trainer, its start iteration and the seconds of ``train``, and
+    calls ``check(trainer)`` first, before the first step."""
+
+    def __init__(self, check=None):
+        self.check, self.runs = check, []
+
+    def __enter__(self):
+        from locov_torch.engine.trainer import OVRTrainer
+        self._orig = orig = OVRTrainer.train
+        watch = self
+
+        def train(trainer):
+            run = {"trainer": trainer, "start_iter": trainer.start_iter,
+                   "checked": watch.check(trainer) if watch.check else None}
+            watch.runs.append(run)
+            t0 = time.perf_counter()
+            try:
+                return orig(trainer)
+            finally:
+                run["train_s"] = time.perf_counter() - t0
+        OVRTrainer.train = train
+        return self
+
+    def __exit__(self, *exc):
+        from locov_torch.engine.trainer import OVRTrainer
+        OVRTrainer.train = self._orig
+
+
+def _run_cli(flags, opts, log, check=None):
+    """``locov_torch.train_ovnet.main`` on ``flags`` and ``opts``, its
+    prints to ``log``. Returns (results, the trained run's record of
+    ``_TrainWatch``, seconds, peak GiB)."""
+    import contextlib
+    import torch
+    from locov_torch import train_ovnet
+    from locov_torch.data import DatasetCatalog, MetadataCatalog
+    for name in list(DatasetCatalog._registry):
+        DatasetCatalog.remove(name)
+    for name in list(MetadataCatalog._store):
+        MetadataCatalog.remove(name)
+    args = train_ovnet.default_argument_parser().parse_args(flags + opts)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _TrainWatch(check) as watch, open(log, "a") as f, \
+            contextlib.redirect_stdout(f):
+        results = train_ovnet.main(args)
+    torch.cuda.synchronize()
+    return (results, watch.runs[0], time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _loop_numbers(run, batch):
+    """The loop's images/s (the median of ``time`` after the warm-up
+    step) and ``data_time`` from metrics.json, the checkpoints' seconds
+    and bytes, and the rows."""
+    tr = run["trainer"]
+    rows = [json.loads(ln) for ln in open(os.path.join(
+        tr.cfg.OUTPUT_DIR, "metrics.json"))]
+    mine = [r for r in rows if r["iteration"] >= run["start_iter"]]
+    times = [r["time"] for r in mine[1:]]
+    return {"rows": [r["iteration"] for r in mine],
+            "ms_per_step": [r["time"] * 1e3 for r in mine],
+            "data_ms": [r["data_time"] * 1e3 for r in mine],
+            "images_per_s": batch / statistics.median(times),
+            "data_ms_median": statistics.median(
+                r["data_time"] for r in mine[1:]) * 1e3,
+            "checkpoints": tr.checkpointer.saves,
+            "train_s": run["train_s"]}, mine
+
+
+def trainer_path(seed, workdir):
+    """Both LocOV stages through the CLI twin (``locov_torch.train_ovnet.
+    main``) on the card at full configs/coco_lsm.yaml and coco_stt.yaml
+    width in bfloat16, on ``write_coco_trainval``'s tree: LSM from a
+    port checkpoint of seeded weights at a trained scale (the same
+    model: no rename), ``LSM_MAX_ITER`` steps at batch 4, a checkpoint
+    every two (pruned to two), the loss-and-detection evaluation of
+    ``coco_captions_val``; the same command with ``--resume`` to
+    ``LSM_RESUME_ITER`` (the start iteration and, before the first step,
+    the model and the momentum buffers equal to the checkpoint's); STT
+    from the LSM's ``model_final`` through the rename map (res5 and the
+    projection equal to the LSM's, nothing mismatched), ``STT_MAX_ITER``
+    steps at batch 8, the evaluation of ``coco_generalized_zeroshot_val``
+    (AP50-seen and -unseen). The training buckets are derived from the
+    configs' sizes (``TPU.IMAGE_BUCKETS ()``): the default buckets stop
+    at 1024, which an 800 x 1067 image does not fit. Launch counts are
+    zeroed before the LSM stage and read after each stage (each stage's
+    line gives its own); over the path K1-fwd, K1-bwd, K2 (K3-fwd) and
+    K3-bwd must each launch."""
+    import math
+    import torch
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.tools.timing import nvidia_smi_line
+    from locov_torch.utils.checkpoint import Checkpointer
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    root = os.path.join(workdir, "coco")
+    log = os.path.join(workdir, "trainer.log")
+    t0 = time.perf_counter()
+    write_coco_trainval(root, seed)
+    write_s = time.perf_counter() - t0
+
+    # seeded weights at a trained scale, as a port checkpoint
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("coco_lsm.yaml"))
+    t0 = time.perf_counter()
+    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
+    ck = Checkpointer(os.path.join(workdir, "seed"), use_async=False)
+    seed_path = ck.save_named("model_seed", {"model": model.state_dict()})
+    del model
+    seed_s = time.perf_counter() - t0
+
+    common = ["DATASETS.ROOT", root, "TPU.IMAGE_BUCKETS", "()",
+              "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.LOG_PERIOD", "1",
+              "TEST.EVAL_PERIOD", "0"]
+    lsm_flags = ["--config-file", config_path("coco_lsm.yaml")]
+    lsm_opts = common + [
+        "MODEL.WEIGHTS", seed_path, "SOLVER.IMS_PER_BATCH", "4",
+        "DATASETS.TEST", "('coco_captions_val',)",
+        "OUTPUT_DIR", os.path.join(workdir, "lsm")]
+    kernel_lib.reset_launches()
+    lsm_res, lsm_run, lsm_s, lsm_peak = _run_cli(
+        lsm_flags, lsm_opts + ["SOLVER.MAX_ITER", str(LSM_MAX_ITER)], log)
+    lsm_launches = dict(kernel_lib.LAUNCHES)
+    lsm_tr = lsm_run["trainer"]
+    out = lsm_tr.cfg.OUTPUT_DIR
+    files = sorted(n for n in os.listdir(out)
+                   if n.startswith(("model_", "last_")))
+    loop, rows = _loop_numbers(lsm_run, 4)
+    res = lsm_res["coco_captions_val"]
+    res_keys = ("Total Loss", "CE_loss (Align Words, Choose Caption)",
+                "Masked Language Modeling Loss", "AP50")
+    finite = all(math.isfinite(v) for r in rows for k, v in r.items()
+                 if "loss" in k.lower())
+    line = {"phase": "trainer_lsm", "config": "configs/coco_lsm.yaml",
+            "dtype": lsm_tr.cfg.TPU.COMPUTE_DTYPE, "batch": 4,
+            "max_iter": LSM_MAX_ITER, "files": files, **loop,
+            "finite_losses": finite,
+            "results": {k: res.get(k) for k in res_keys},
+            "eval_images_per_second": res.get("images_per_second"),
+            "buckets": [list(b) for b in lsm_tr.train_loader.buckets],
+            "seconds": lsm_s, "peak_mem_gib": lsm_peak,
+            "launches": lsm_launches, "tree_write_s": write_s,
+            "seed_checkpoint_s": seed_s, "nvidia_smi": nvidia_smi_line()}
+    emit(line)
+    want_files = ["last_checkpoint", "model_0000003", "model_0000005",
+                  "model_final"]
+    if not (finite and files == want_files and
+            loop["rows"] == list(range(LSM_MAX_ITER)) and
+            all(k in res and math.isfinite(res[k]) for k in res_keys) and
+            open(os.path.join(out, "last_checkpoint")).read() ==
+            "model_0000005"):
+        raise AssertionError(f"trainer LSM stage check failed: {line}")
+
+    def same_as_checkpoint(trainer):
+        """Before the first resumed step: the model and the momentum
+        buffers against the checkpoint it resumed from, bit for bit."""
+        state = trainer.checkpointer.load(
+            trainer.checkpointer.last_checkpoint())
+        sd = trainer.model.state_dict()
+        model_eq = set(sd) == set(state["model"]) and all(
+            torch.equal(sd[k].cpu(), v) for k, v in state["model"].items())
+        opt = trainer.optimizer.state_dict()["state"]
+        mom = state["optimizer"]["state"]
+        mom_eq = set(opt) == set(mom) and all(
+            torch.equal(opt[i]["momentum_buffer"].cpu(),
+                        m["momentum_buffer"]) for i, m in mom.items())
+        return {"model": model_eq, "momentum": mom_eq,
+                "momentum_buffers": len(mom),
+                "scheduler_step": trainer.scheduler.last_epoch}
+
+    res2, run2, res2_s, res2_peak = _run_cli(
+        lsm_flags + ["--resume"],
+        lsm_opts + ["SOLVER.MAX_ITER", str(LSM_RESUME_ITER)], log,
+        same_as_checkpoint)
+    after_resume = dict(kernel_lib.LAUNCHES)
+    loop2, rows2 = _loop_numbers(run2, 4)
+    line = {"phase": "trainer_lsm_resume", "start_iter": run2["start_iter"],
+            "checked": run2["checked"], "rows": loop2["rows"],
+            "ms_per_step": loop2["ms_per_step"],
+            "total_loss": [r.get("total_loss") for r in rows2],
+            "results": {k: res2["coco_captions_val"].get(k)
+                        for k in res_keys},
+            "seconds": res2_s, "peak_mem_gib": res2_peak,
+            "launches": {k: v - lsm_launches[k]
+                         for k, v in after_resume.items()}}
+    emit(line)
+    if not (run2["start_iter"] == LSM_MAX_ITER and
+            run2["checked"]["model"] and run2["checked"]["momentum"] and
+            run2["checked"]["momentum_buffers"] > 100 and
+            run2["checked"]["scheduler_step"] == LSM_MAX_ITER and
+            loop2["rows"] == list(range(LSM_MAX_ITER, LSM_RESUME_ITER))):
+        raise AssertionError(f"trainer resume check failed: {line}")
+
+    lsm_final = os.path.join(out, "model_final")
+
+    def handed_over(trainer):
+        """Before the first STT step: res5 and emb_pred against the LSM's
+        roi_heads.res5 and v2l projection, bit for bit."""
+        lsm = torch.load(lsm_final, map_location="cpu",
+                         weights_only=True)["model"]
+        sd = trainer.model.state_dict()
+        res5 = [k for k in lsm if k.startswith("roi_heads.res5.")]
+        rep = trainer.last_import_report
+        return {
+            "res5_equal": len(res5) > 40 and all(
+                torch.equal(sd[k].cpu(), lsm[k]) for k in res5),
+            "emb_pred_equal": all(torch.equal(
+                sd[f"roi_heads.box_predictor.emb_pred.{leaf}"].cpu(),
+                lsm[f"mmss_heads.v2l_projection.{leaf}"])
+                for leaf in ("weight", "bias")),
+            "backbone_res5_in_model": any(k.startswith("backbone.res5")
+                                          for k in sd),
+            "loaded": len(rep.loaded), "missing": len(rep.missing),
+            "mismatched": rep.mismatched,
+            "unused_src": len(rep.unused_src)}
+
+    stt_res, stt_run, stt_s, stt_peak = _run_cli(
+        ["--config-file", config_path("coco_stt.yaml")],
+        common + ["MODEL.WEIGHTS", lsm_final, "SOLVER.IMS_PER_BATCH", "8",
+                  "SOLVER.MAX_ITER", str(STT_MAX_ITER),
+                  "TEST.EVAL_INIT", "False",
+                  "DATASETS.TEST", "('coco_generalized_zeroshot_val',)",
+                  "OUTPUT_DIR", os.path.join(workdir, "stt")], log,
+        handed_over)
+    launches = dict(kernel_lib.LAUNCHES)
+    stt_launches = {k: v - after_resume[k] for k, v in launches.items()}
+    loop3, rows3 = _loop_numbers(stt_run, 8)
+    res3 = stt_res["coco_generalized_zeroshot_val"]
+    ap_keys = ("AP", "AP50", "AP50-seen", "AP50-unseen")
+    finite3 = all(math.isfinite(v) for r in rows3 for k, v in r.items()
+                  if "loss" in k.lower())
+    line = {"phase": "trainer_stt", "config": "configs/coco_stt.yaml",
+            "dtype": stt_run["trainer"].cfg.TPU.COMPUTE_DTYPE, "batch": 8,
+            "max_iter": STT_MAX_ITER, "handoff": stt_run["checked"],
+            **loop3, "finite_losses": finite3,
+            "results": {k: res3.get(k) for k in ap_keys},
+            "eval_images_per_second": res3.get("images_per_second"),
+            "seconds": stt_s, "peak_mem_gib": stt_peak,
+            "launches": stt_launches, "nvidia_smi": nvidia_smi_line()}
+    emit(line)
+    h = stt_run["checked"]
+    if not (finite3 and h["res5_equal"] and h["emb_pred_equal"] and
+            not h["backbone_res5_in_model"] and h["mismatched"] == [] and
+            loop3["rows"] == list(range(STT_MAX_ITER)) and
+            all(k in res3 and math.isfinite(res3[k]) for k in ap_keys)):
+        raise AssertionError(f"trainer STT stage check failed: {line}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the trainer path: "
+                             f"{missing}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=3)
@@ -1973,6 +2350,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
+    workdir = os.path.join(here, "build", "chip_smoke_trainer")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        paths["trainer"] = trainer_path(args.seed, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     from locov_torch.tools import bench_block, bench_stem
     # bf16 against cuDNN's chain, which rounds t1 and t2 at other places
     paths["block"] = bench_path("block", bench_block.main,

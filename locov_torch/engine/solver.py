@@ -14,7 +14,7 @@ buffers in the port, never parameters.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -80,17 +80,30 @@ def default_frozen_fn(cfg) -> Callable[[str], bool]:
 
 
 def _param_opts(name: str, wd: float, wd_norm: float, bias_lr_factor: float,
-                wd_bias: float) -> Tuple[float, float]:
+                wd_bias: float, base_lr: float,
+                overrides: Optional[Dict[str, Dict[str, float]]] = None
+                ) -> Tuple[float, float]:
     """(lr factor, weight decay) of one parameter, as the JAX package's
-    ``build_optimizer`` derives them from its path."""
+    ``build_optimizer`` derives them from its path: norm parameters take
+    ``wd_norm``, biases ``bias_lr_factor`` and ``wd_bias``; then every
+    ``overrides`` entry whose key is in the name sets ``lr`` (absolute)
+    and ``weight_decay``, later entries over earlier ones. Keys are
+    substrings of Flax paths (``/``) or of ``state_dict`` names (``.``);
+    a path's ``/`` is read as ``.``."""
     parts = name.split(".")
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+    lr_factor, decay = 1.0, wd
     if ("norm" in parent.lower() or parent.startswith("LayerNorm")) and \
             leaf in ("scale", "bias", "weight"):
-        return 1.0, wd_norm
-    if leaf == "bias":
-        return bias_lr_factor, wd_bias
-    return 1.0, wd
+        decay = wd_norm
+    elif leaf == "bias":
+        lr_factor, decay = bias_lr_factor, wd_bias
+    for key, o in (overrides or {}).items():
+        if key.replace("/", ".") in name:
+            if "lr" in o:
+                lr_factor = o["lr"] / base_lr
+            decay = o.get("weight_decay", decay)
+    return lr_factor, decay
 
 
 def _clip_hook(params: List[torch.nn.Parameter], clip_cfg):
@@ -122,9 +135,12 @@ def _clip_hook(params: List[torch.nn.Parameter], clip_cfg):
     return hook
 
 
-def build_optimizer(cfg, model: torch.nn.Module):
+def build_optimizer(cfg, model: torch.nn.Module,
+                    overrides: Optional[Dict[str, Dict[str, float]]] = None):
     """Returns (torch.optim.SGD, LambdaLR) for ``model``'s trainable
-    parameters: one param group per (lr factor, weight decay), the
+    parameters: one param group per (lr factor, weight decay), with
+    ``overrides`` ({name substring: {"lr": ..., "weight_decay": ...}},
+    JAX's argument) applied as ``_param_opts`` says, the
     schedule ``warmup_multistep_lr`` as a LambdaLR (``scheduler.step()``
     once per optimizer step), and the gradient handling of
     ``_clip_hook`` before each step. Parameters that
@@ -135,10 +151,11 @@ def build_optimizer(cfg, model: torch.nn.Module):
     if int(s.GRADIENT_ACCUMULATION_STEPS) > 1:
         raise NotImplementedError(
             "SOLVER.GRADIENT_ACCUMULATION_STEPS > 1 is not implemented in "
-            "the port yet")
+            "the port yet (ROADMAP queue 1, item 6)")
     if cfg.TPU.REMAT_BACKBONE:
         raise NotImplementedError(
-            "TPU.REMAT_BACKBONE is not implemented in the port yet")
+            "TPU.REMAT_BACKBONE is not implemented in the port yet "
+            "(ROADMAP queue 1, item 6)")
     frozen_fn = default_frozen_fn(cfg)
     wd_bias = s.WEIGHT_DECAY if s.WEIGHT_DECAY_BIAS is None \
         else s.WEIGHT_DECAY_BIAS
@@ -148,7 +165,7 @@ def build_optimizer(cfg, model: torch.nn.Module):
             p.requires_grad_(False)
             continue
         key = _param_opts(name, s.WEIGHT_DECAY, s.WEIGHT_DECAY_NORM,
-                          s.BIAS_LR_FACTOR, wd_bias)
+                          s.BIAS_LR_FACTOR, wd_bias, s.BASE_LR, overrides)
         groups.setdefault(key, []).append(p)
     optimizer = torch.optim.SGD(
         [{"params": ps, "lr": s.BASE_LR * lf, "weight_decay": dc}
@@ -161,3 +178,17 @@ def build_optimizer(cfg, model: torch.nn.Module):
             s.STEPS, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS,
             s.WARMUP_METHOD))
     return optimizer, scheduler
+
+
+def restore_opt_state(optimizer, scheduler, state: dict) -> None:
+    """Restore the optimizer's and the scheduler's ``state_dict``s of a
+    checkpoint (``state["optimizer"]``, ``state["scheduler"]``) into the
+    ones ``build_optimizer`` built for the same model and config: the
+    momentum buffers, each group's learning rate and the schedule's
+    step. The counterpart of JAX's ``restore_opt_state``, which rebuilds
+    optax's NamedTuples from orbax's dicts; JAX's collapse of a legacy
+    full-shape momentum of frozen parameters has no counterpart, as no
+    checkpoint of the port predates frozen parameters having no
+    momentum."""
+    optimizer.load_state_dict(state["optimizer"])
+    scheduler.load_state_dict(state["scheduler"])

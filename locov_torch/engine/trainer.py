@@ -1,31 +1,58 @@
-"""The evaluation side of the trainer, as module functions.
+"""OVRTrainer: build-everything orchestration + train loop + hooks, and
+the evaluation side as module functions.
 
-Counterpart of the eval half of ``locov_tpu/engine/trainer.py``:
-``proposal_slots`` (:53), ``build_tokenizer`` (:68), the test loader
-(``OVRTrainer.build_test_loader``, :180-210), the class-embedding
-matrix of a dataset (``OVRTrainer.load_embeddings``, :212-228) and the
-detection branch of ``OVRTrainer.test`` (:510-545). The trainer loop
-that calls them comes later (ROADMAP queue 1, item 5). One device: the
-eval batch is not rounded to a device count; the sampler shards by the
-process's rank where ``torch.distributed`` runs.
+Counterpart of ``locov_tpu/engine/trainer.py`` (a behavioral port of
+the reference trainer, ``ovr/engine/trainer.py:37-566``) on one device.
+The module functions: ``proposal_slots`` (:53), ``build_tokenizer``
+(:68), the test loader (``OVRTrainer.build_test_loader``, :180-210),
+the class-embedding matrix of a dataset (``OVRTrainer.load_embeddings``,
+:212-228) and ``OVRTrainer.test`` (:510-545): the loss-only pass and the
+detection pass of each test dataset. ``OVRTrainer`` builds the model,
+optimizer and loaders and runs the custom loop with init-eval
+(trainer.py:104-107), the hook schedule (timer, LR record, periodic
+checkpointer max_to_keep=2, eval with best-metric save, periodic
+writers, trainer.py:220-291), resume with the key-rename fan-out map for
+the LSM->STT hand-off (trainer.py:293-363) and the NaN ->
+FloatingPointError tripwire (trainer.py:554-559). One device: the eval
+batch is not rounded to a device count; the samplers shard by the
+process's rank where ``torch.distributed`` runs, but the training step
+and the loss-only evaluation raise for a world larger than 1 (ROADMAP
+queue 1, item 7b).
 """
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..config import auto_scale_workers
 from ..data import DatasetCatalog, MetadataCatalog, get_register_dataset
-from ..data.loader import DataLoader, InferenceSampler, derive_buckets
+from ..data.loader import (DataLoader, InferenceSampler, TrainingSampler,
+                           derive_buckets)
 from ..data.mappers import DetectionMapper
 from ..data.tokenization import WordPieceTokenizer, build_tiny_vocab
-from ..evaluation.evaluator import (inference_on_detection_dataset,
+from ..evaluation.evaluator import (GRID_ARCHS,
+                                    inference_on_caption_dataset,
+                                    inference_on_detection_dataset,
                                     select_evaluator_type)
-from ..parallel.mesh import make_eval_step, process_rank_world
+from ..models import build_meta_arch
+from ..parallel.mesh import (DevicePrefetcher, make_eval_step,
+                             make_loss_eval_step, make_train_step,
+                             process_rank_world)
+from ..structures.batches import to_torch
+from ..utils.checkpoint import (STT_FROM_LSM_RENAME, Checkpointer,
+                                load_weights_standalone,
+                                load_with_rename_map, merge_over_template,
+                                read_weights, torch_rename_map)
 from ..utils.device import resolve_device
+from ..utils.events import (CSVWriter, EventStorage, JSONWriter,
+                            MetricPrinter, TensorboardWriter)
+from ..utils.weights import seeded_init_
+from .solver import build_optimizer, restore_opt_state, warmup_multistep_lr
 
 logger = logging.getLogger(__name__)
 
@@ -105,14 +132,24 @@ def load_embeddings(cfg, dataset_name: str, device=None) -> torch.Tensor:
     return torch.from_numpy(np.asarray(mtx)).to(resolve_device(device))
 
 
-def test(cfg, model: torch.nn.Module, device=None) -> Dict[str, Dict]:
-    """Detection evaluation of ``model`` on each of ``cfg.DATASETS.TEST``
-    (the detection branch of ``OVRTrainer.test``): its test loader, its
-    class embeddings on ``device`` (the card unless the caller asks for
-    the CPU: where the model is), the eval step, the COCO or LVIS
-    summary and the seen/unseen AP50. Returns {dataset: results}.
-    Raises where JAX would run what the port does not have yet: TTA,
-    the loss half of a ``loss_and_*`` evaluation, int8 serving."""
+def check_supported(cfg) -> None:
+    """Raise, citing the ROADMAP item, where JAX would run something the
+    port does not have: NaN debugging and the global contrastive scope
+    (item 7b), the grid meta-archs (item 3), test-time augmentation
+    (item 8) and int8 serving (item 9). Gradient accumulation and remat
+    (item 6) raise in ``build_optimizer``."""
+    if cfg.TPU.DEBUG_NANS:
+        raise NotImplementedError(
+            "TPU.DEBUG_NANS: utils/debug.py is not ported yet (ROADMAP "
+            "queue 1, item 7b)")
+    if cfg.TPU.CONTRASTIVE_SCOPE != "local":
+        raise NotImplementedError(
+            f"TPU.CONTRASTIVE_SCOPE {cfg.TPU.CONTRASTIVE_SCOPE!r}: only "
+            f"the local scope is ported (ROADMAP queue 1, item 7b)")
+    if cfg.MODEL.META_ARCHITECTURE in GRID_ARCHS:
+        raise NotImplementedError(
+            f"{cfg.MODEL.META_ARCHITECTURE} and its 'ovr' evaluation are "
+            f"not ported yet (ROADMAP queue 1, item 3)")
     if cfg.TEST.AUG.ENABLED:
         raise NotImplementedError(
             "TEST.AUG.ENABLED: test-time augmentation is not ported yet "
@@ -121,24 +158,45 @@ def test(cfg, model: torch.nn.Module, device=None) -> Dict[str, Dict]:
         raise NotImplementedError(
             "TPU.INT8_EVAL: the int8 serving mode is not ported yet "
             "(ROADMAP queue 1, item 9)")
+
+
+def test(cfg, model: torch.nn.Module, device=None,
+         generator: Optional[torch.Generator] = None) -> Dict[str, Dict]:
+    """Evaluation of ``model`` on each of ``cfg.DATASETS.TEST``
+    (``OVRTrainer.test``): its test loader, its class embeddings on
+    ``device`` (the card unless the caller asks for the CPU: where the
+    model is); for a ``loss_and_*`` evaluation with ``TEST.DO_EVAL``,
+    the loss-only pass (``inference_on_caption_dataset``, its draws from
+    ``generator``, by default one seeded from ``cfg.SEED``); then the
+    eval step, the COCO or LVIS summary and the seen/unseen AP50.
+    Returns {dataset: results}. Raises where JAX would run what the
+    port does not have yet (``check_supported``)."""
+    check_supported(cfg)
     needs_text = cfg.MODEL.META_ARCHITECTURE in LSM_ARCHS
     tokenizer = build_tokenizer(cfg) if needs_text else None
     eval_step = make_eval_step(model)
+    loss_step = make_loss_eval_step(model) if needs_text else None
     results = {}
     for dataset_name in cfg.DATASETS.TEST:
         etype = select_evaluator_type(cfg, dataset_name)
-        if etype == "ovr" or (etype.startswith("loss_and_") and
-                              cfg.TEST.DO_EVAL):
-            raise NotImplementedError(
-                f"evaluation type {etype!r}: the loss-only evaluation is "
-                f"not ported yet (ROADMAP queue 1, item 7)")
         loader = build_test_loader(cfg, dataset_name, tokenizer,
                                    needs_text)
         try:
             class_emb = load_embeddings(cfg, dataset_name, device)
-            res = inference_on_detection_dataset(
+            res = {}
+            if etype.startswith("loss_and_") and cfg.TEST.DO_EVAL and \
+                    loss_step is not None:
+                if generator is None:
+                    generator = torch.Generator(
+                        device=class_emb.device).manual_seed(
+                            max(cfg.SEED, 0))
+                metrics, losses = inference_on_caption_dataset(
+                    loss_step, None, loader, class_emb, generator)
+                res.update(metrics)
+                res.update(losses)
+            res.update(inference_on_detection_dataset(
                 eval_step, None, loader, class_emb, dataset_name,
-                etype=etype)
+                etype=etype))
         finally:
             loader.close()
         results[dataset_name] = res
@@ -146,3 +204,340 @@ def test(cfg, model: torch.nn.Module, device=None) -> Dict[str, Dict]:
                     {k: round(v, 3) for k, v in res.items()
                      if isinstance(v, float) and "-" not in k})
     return results
+
+
+def build_train_loader(cfg, tokenizer: Optional[WordPieceTokenizer],
+                       needs_text: bool) -> DataLoader:
+    """The training loader of ``cfg.DATASETS.TRAIN[0]``: the mapper with
+    augmentation (and the MLM draws of an image-caption model), an
+    infinite shuffled sampler over the process's shard, the training
+    buckets, ``SOLVER.IMS_PER_BATCH`` split over the processes."""
+    name = cfg.DATASETS.TRAIN[0]
+    get_register_dataset(name)(name, cfg.DATASETS.ROOT)
+    records = DatasetCatalog.get(name)
+    meta = MetadataCatalog.get(name)
+    seed = max(cfg.SEED, 0)
+    mapper = DetectionMapper(
+        cfg, meta, is_train=True, tokenizer=tokenizer,
+        mlm=cfg.MODEL.MMSS_HEAD.TRANSFORMER.MASKED_LANGUAGE_MODELING,
+        seed=seed)
+    rank, world = process_rank_world()
+    sampler = TrainingSampler(len(records), seed=seed, rank=rank,
+                              world_size=world)
+    buckets = (tuple(cfg.TPU.IMAGE_BUCKETS) if cfg.TPU.IMAGE_BUCKETS
+               else derive_buckets(cfg, True))
+    gt_slots = (cfg.TPU.MAX_PRECOMPUTED_PROPOSALS
+                if cfg.MODEL.LOAD_OBJ_PROPOSALS else cfg.TPU.MAX_GT_BOXES)
+    return DataLoader(records, mapper, sampler,
+                      cfg.SOLVER.IMS_PER_BATCH // world, buckets, gt_slots,
+                      has_text=needs_text, is_train=True,
+                      num_workers=cfg.DATALOADER.NUM_WORKERS,
+                      worker_backend=cfg.DATALOADER.WORKER_BACKEND,
+                      seed=seed, rank=rank,
+                      proposal_slots=proposal_slots(cfg))
+
+
+class OVRTrainer:
+    """Builds the model, optimizer, loaders and writers of ``cfg`` on
+    ``device`` (the card unless the caller asks for the CPU) and trains
+    and evaluates it.
+
+    The model is built eagerly with seeded weights from ``cfg.SEED``
+    (``utils/weights.py:seeded_init_``); JAX's initialisation from the
+    first batch (``locov_tpu/engine/trainer.py:107-116``) has no
+    counterpart. ``MODEL.WEIGHTS`` then loads over them
+    (``load_pretrained``). Random draws: one device ``torch.Generator``
+    for the training steps and one for the loss-only evaluation, both
+    seeded from ``cfg.SEED``. Where ``TPU.PREFETCH_BATCHES`` > 0 a
+    ``DevicePrefetcher`` moves the batches to the device ahead of the
+    step."""
+
+    def __init__(self, cfg, device=None):
+        cfg = auto_scale_workers(cfg, process_rank_world()[1])
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        check_supported(cfg)
+        self.is_lsm = cfg.MODEL.META_ARCHITECTURE in LSM_ARCHS
+        self.needs_text = self.is_lsm
+        seed = max(cfg.SEED, 0)
+
+        self.model = seeded_init_(build_meta_arch(cfg, device=self.device),
+                                  seed)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        logger.info("Model has %.1fM parameters", n_params / 1e6)
+        # before the loader's threads start: it raises on what is not
+        # ported (item 6); loads below write into the same parameters
+        self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
+        self.tokenizer = build_tokenizer(cfg) if self.needs_text else None
+        self.train_loader = build_train_loader(cfg, self.tokenizer,
+                                               self.needs_text)
+        self._prefetcher = None
+        self._train_iter = iter(self.train_loader)
+        if cfg.TPU.PREFETCH_BATCHES > 0:
+            # host decode/collate + host->device copy overlap with the
+            # device step
+            self._prefetcher = self._train_iter = DevicePrefetcher(
+                self._train_iter, self.device,
+                depth=cfg.TPU.PREFETCH_BATCHES)
+        # class embeddings for the TRAIN vocabulary (trainer.py:365-407)
+        self.class_emb = load_embeddings(cfg, cfg.DATASETS.TRAIN[0],
+                                         self.device)
+
+        self.checkpointer = Checkpointer(
+            cfg.OUTPUT_DIR, max_to_keep=2,
+            use_async=cfg.TPU.ASYNC_CHECKPOINT)
+        self.last_import_report = None
+        if cfg.MODEL.WEIGHTS:
+            self.load_pretrained(cfg.MODEL.WEIGHTS)
+        if cfg.MODEL.PROJECTION_WEIGHTS:
+            self.load_projection_only(cfg.MODEL.PROJECTION_WEIGHTS)
+
+        s = cfg.SOLVER
+        self.schedule = warmup_multistep_lr(
+            s.BASE_LR, s.STEPS, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS,
+            s.WARMUP_METHOD)
+        self.train_step = make_train_step(self.model, self.optimizer,
+                                          self.scheduler)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed)
+        self.eval_generator = torch.Generator(
+            device=self.device).manual_seed(seed)
+
+        self.start_iter = 0
+        self.max_iter = cfg.SOLVER.MAX_ITER
+        self.storage = EventStorage(0)
+        self.writers = [
+            MetricPrinter(self.max_iter, logger=logger.info),
+            JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json")),
+            CSVWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.csv"),
+                      epoch_size=cfg.SOLVER.EPOCH_ITER_SIZE),
+            TensorboardWriter(cfg.OUTPUT_DIR),
+        ]
+        self._best_metric = None
+        self._pending_metrics = None
+
+    # ---------------------------------------------------------- checkpoints
+    def state(self, iteration: int) -> dict:
+        """What a checkpoint holds: the model's, the optimizer's and the
+        scheduler's ``state_dict``s and the iteration."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "iteration": iteration}
+
+    def load_pretrained(self, weights: str):
+        """Load MODEL.WEIGHTS: a d2-named torch .pth, a Caffe2 .pkl or a
+        checkpoint of the port (any other name), by
+        ``load_weights_standalone``: a checkpoint of a DIFFERENT
+        meta-arch (the LSM -> STT stage hand-off) goes through the
+        rename fan-out map, as the reference's
+        resume_or_load_renaming_keys does (trainer.py:293-363). Writes
+        ``import_report.json`` to OUTPUT_DIR."""
+        if not os.path.exists(weights):
+            logger.warning("MODEL.WEIGHTS %s not found; training from "
+                           "scratch", weights)
+            return
+        self.last_import_report = load_weights_standalone(
+            self.model, weights, report_dir=self.cfg.OUTPUT_DIR)
+
+    def load_projection_only(self, weights: str):
+        """Load ONLY the V->L projection (v2l_projection / emb_pred)
+        from a checkpoint (reference WSOGCheckpointer projection-only
+        load, checkpoint.py:119-183)."""
+        if not os.path.exists(weights):
+            logger.warning("PROJECTION_WEIGHTS %s not found", weights)
+            return
+        proj = {k: v for k, v in read_weights(weights).items()
+                if "v2l_projection" in k or "emb_pred" in k}
+        merged, _ = load_with_rename_map(
+            proj, self.model.state_dict(),
+            torch_rename_map(STT_FROM_LSM_RENAME))
+        logger.info("Loaded projection-only weights (%d source keys) "
+                    "from %s", len(proj), weights)
+        self.model.load_state_dict(merged)
+
+    def resume_or_load(self, resume: bool):
+        """Resume from last_checkpoint (model, optimizer, scheduler,
+        iteration), else load a .pth/.pkl MODEL.WEIGHTS with the
+        stage-transfer rename fan-out (trainer.py:293-363)."""
+        weights = self.cfg.MODEL.WEIGHTS
+        if resume and self.checkpointer.has_checkpoint():
+            name = self.checkpointer.last_checkpoint()
+            state = self.checkpointer.load(name)
+            # merged over the model's own state: keys the model gained
+            # after the checkpoint was written keep their init
+            res = self.model.load_state_dict(merge_over_template(
+                self.model.state_dict(), state["model"]), strict=False)
+            if res.unexpected_keys:
+                logger.warning("Checkpoint keys the model does not have: "
+                               "%s", res.unexpected_keys)
+            if "optimizer" in state:
+                restore_opt_state(self.optimizer, self.scheduler, state)
+            self.start_iter = self.checkpointer.resume_iteration(name)
+            self.storage.iter = self.start_iter
+            logger.info("Resumed from %s at iter %d", name,
+                        self.start_iter)
+        elif weights and os.path.exists(weights) and \
+                weights.endswith((".pth", ".pkl")):
+            # stage hand-off: apply the rename fan-out map
+            merged, _ = load_with_rename_map(
+                read_weights(weights), self.model.state_dict(),
+                torch_rename_map(STT_FROM_LSM_RENAME))
+            self.model.load_state_dict(merged)
+
+    # ---------------------------------------------------------------- train
+    def run_step(self):
+        """One training step with an ASYNC metrics pipeline: the step
+        for iteration t is launched, then the metrics of iteration t-1
+        (copied to pinned host memory behind that step's kernels) are
+        read. The host never waits on the step it just launched; the
+        NaN tripwire (FloatingPointError, trainer.py:554-559) fires one
+        step late, as in JAX."""
+        start = time.perf_counter()
+        batch = next(self._train_iter)
+        data_time = time.perf_counter() - start
+        if self._prefetcher is None:
+            batch = to_torch(batch, self.device)
+        metrics = self.train_step(batch, self.class_emb, self.generator)
+
+        pending = self._pending_metrics
+        self._pending_metrics = (_to_host_async(metrics),
+                                 self.storage.iter)
+        if pending is not None:
+            self._record_metrics(*pending)
+
+        self.storage.put_scalar("data_time", data_time)
+        self.storage.put_scalar("time", time.perf_counter() - start)
+        self.storage.put_scalar("lr", self.schedule(self.storage.iter))
+
+    def _record_metrics(self, pending, iteration: int):
+        keys, host, event = pending
+        if event is not None:
+            event.synchronize()
+        metrics = dict(zip(keys, host.tolist()))
+        total = metrics.get("total_loss", 0.0)
+        if not np.isfinite(total):
+            bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+            raise FloatingPointError(
+                f"Loss became infinite or NaN at iteration="
+                f"{iteration}! Bad metrics: {bad}")
+        for k, v in metrics.items():
+            self.storage.put_scalar(k, v)
+
+    def flush_metrics(self):
+        if self._pending_metrics is not None:
+            self._record_metrics(*self._pending_metrics)
+            self._pending_metrics = None
+        # device-memory telemetry (the reference prints GPUtil stats for
+        # iters 100-300, trainer.py:111-112; we log it continuously)
+        if self.device.type == "cuda":
+            self.storage.put_scalar(
+                "device_mem_gb",
+                torch.cuda.memory_allocated(self.device) / 2 ** 30)
+
+    def train(self):
+        cfg = self.cfg
+        logger.info("Starting training from iteration %d", self.start_iter)
+        prof = None
+        try:
+            if cfg.TEST.EVAL_INIT and self.start_iter == 0:
+                self.test_and_maybe_save()
+            prof_dir = cfg.TPU.PROFILE_DIR
+            for it in range(self.start_iter, self.max_iter):
+                self.storage.iter = it
+                if prof_dir and it == cfg.TPU.PROFILE_START:
+                    prof = _start_profiler(self.device)
+                self.run_step()
+                if prof is not None and it == cfg.TPU.PROFILE_STOP:
+                    self.flush_metrics()
+                    _stop_profiler(prof, prof_dir)
+                    prof = None
+                self.after_step(it)
+            self.flush_metrics()
+            # final checkpoint + eval
+            self.checkpointer.save_named("model_final",
+                                         self.state(self.max_iter - 1))
+            results = self.test_and_maybe_save(final=True)
+            # commit the in-flight async save (it overlapped the eval)
+            self.checkpointer.wait()
+            return results
+        finally:
+            if prof is not None:
+                _stop_profiler(prof, cfg.TPU.PROFILE_DIR)
+            self.close()
+
+    def close(self):
+        """Deterministic teardown: the prefetch thread first (it reads
+        the loader), then the loader's workers."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+        self.train_loader.close()
+
+    def after_step(self, it: int):
+        cfg = self.cfg
+        if (it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
+            self.checkpointer.save_periodic(it, self.state(it))
+        if cfg.TEST.EVAL_PERIOD > 0 and (it + 1) % cfg.TEST.EVAL_PERIOD \
+                == 0 and it + 1 != self.max_iter:
+            self.test_and_maybe_save()
+        if (it + 1) % cfg.SOLVER.LOG_PERIOD == 0:
+            for w in self.writers:
+                w.write(self.storage)
+
+    # ----------------------------------------------------------------- test
+    def test_and_maybe_save(self, final: bool = False) -> Dict:
+        results = self.test(self.cfg)
+        # best-metric tracking (trainer.py:246-265, checkpoint.py:186-234)
+        metric_key = self.cfg.TEST.SAVE_MODEL_BEST_METRIC
+        flat = {}
+        for ds, res in results.items():
+            for k, v in res.items():
+                flat[f"{ds}/bbox/{k}"] = v
+                if isinstance(v, (int, float)):
+                    self.storage.put_scalar(f"{ds}/{k}", v)
+        value = flat.get(metric_key)
+        if value is not None and (self._best_metric is None
+                                  or value > self._best_metric):
+            self._best_metric = value
+            self.checkpointer.save_best(
+                self.storage.iter, self.state(self.storage.iter),
+                metric_key, value)
+        return results
+
+    def test(self, cfg) -> Dict[str, Dict]:
+        """``test`` of the module on the trainer's model and device, the
+        loss-only pass drawing from the trainer's evaluation
+        generator."""
+        return test(cfg, self.model, self.device, self.eval_generator)
+
+
+def _to_host_async(metrics: Dict[str, torch.Tensor]):
+    """(keys, host tensor, event): the metrics stacked and copied to
+    pinned host memory behind the work already queued, and the event to
+    wait for before reading them (None on the CPU, where the copy is
+    done on return)."""
+    keys = list(metrics)
+    stacked = torch.stack([metrics[k].float().reshape(()) for k in keys])
+    if stacked.device.type != "cuda":
+        return keys, stacked, None
+    host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+    host.copy_(stacked, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return keys, host, event
+
+
+def _start_profiler(device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, prof_dir: str):
+    prof.stop()
+    os.makedirs(prof_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))

@@ -9,7 +9,8 @@ static loader, per-image detections fed with dataset ids into the
 from-scratch evaluator; padded images (image_id == -1) are dropped.
 Detections of several processes merge through ``torch.distributed``.
 Also the reference's seen/unseen mean-AP50 summary
-(custom_coco_eval.py:96-137).
+(custom_coco_eval.py:96-137), and the loss-only evaluation of the
+image-caption models (``inference_on_caption_dataset``, one process).
 
 Per batch, the loop moves the numpy batch to the model's device
 (``to_torch``), runs the step, waits for the device and brings the
@@ -23,7 +24,7 @@ from __future__ import annotations
 import datetime
 import logging
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -298,11 +299,50 @@ def add_seen_unseen_summary(results: Dict[str, float],
 
 
 def inference_on_caption_dataset(loss_step, params, loader, class_emb,
-                                 rng):
-    """The loss-only evaluation pass (``locov_tpu/evaluation/
-    evaluator.py:225``) is not ported yet: its per-shard random draws
-    wait for the data-parallel design (ROADMAP queue 1, item 7)."""
-    raise NotImplementedError(
-        "inference_on_caption_dataset (the loss half of the "
-        "'loss_and_*' evaluation) is not ported yet: ROADMAP queue 1, "
-        "item 7")
+                                 generator) -> Tuple[Dict, Dict]:
+    """Loss-only eval pass (inference_on_caption_ovr_dataset,
+    evaluator.py:99-196): average loss/metric dicts over the loader.
+
+    ``loss_step`` is ``parallel/mesh.py:make_loss_eval_step``'s step,
+    called as ``loss_step(batch, class_emb, generator)``; its random
+    draws come from ``generator``. ``params`` is unused (the module
+    holds its weights; JAX's signature). Per batch, every metric is
+    read to the host with one copy, ``"Total Loss"`` is the sum of the
+    keys that name a loss, and the sums are averaged over the batches;
+    returns (metrics, losses), split by whether a key names a loss.
+    One process only: the merge of per-rank batch counts waits for the
+    data-parallel design (ROADMAP queue 1, item 7b)."""
+    from ..parallel.mesh import process_rank_world
+    if process_rank_world()[1] > 1:
+        raise NotImplementedError(
+            "inference_on_caption_dataset across several processes: the "
+            "multi-rank merge is not ported yet (ROADMAP queue 1, "
+            "item 7b)")
+    totals: Dict[str, float] = {}
+    n = 0
+    total = len(loader)
+    num_warmup = min(5, total - 1)
+    start = time.perf_counter()
+    compute = 0.0
+    for idx, batch in enumerate(loader):
+        t0 = time.perf_counter()
+        metrics = loss_step(batch, class_emb, generator)
+        keys = list(metrics)
+        values = torch.stack([metrics[k].detach().float().reshape(())
+                              for k in keys]).cpu().tolist()
+        metrics = dict(zip(keys, values))
+        compute += time.perf_counter() - t0
+        loss_total = sum(v for key, v in metrics.items()
+                         if "loss" in key.lower())
+        metrics["Total Loss"] = loss_total
+        for key, v in metrics.items():
+            totals[key] = totals.get(key, 0.0) + v
+        n += 1
+    elapsed = time.perf_counter() - start
+    logger.info("Loss-eval time: %s (%.4f s/batch compute)",
+                datetime.timedelta(seconds=int(elapsed)),
+                compute / max(n - num_warmup, 1))
+    avg = {k: v / max(n, 1) for k, v in totals.items()}
+    losses = {k: v for k, v in avg.items() if "loss" in k.lower()}
+    metrics = {k: v for k, v in avg.items() if "loss" not in k.lower()}
+    return metrics, losses

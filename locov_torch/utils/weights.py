@@ -20,27 +20,33 @@ from ..models.bert import BertEmbeddings, BertLMHead, Dense
 from ..models.resnet import BottleneckBlock, FrozenBatchNorm
 
 
+def torch_name(path: str) -> str:
+    """The ``state_dict`` key of a Flax path: ``/`` -> ``.``, a
+    ``kernel`` or ``scale`` leaf -> ``weight``, a leading ``params/``
+    collection name dropped."""
+    parts = path.split("/")
+    if parts[0] == "params":
+        parts = parts[1:]
+    if parts[-1] in ("scale", "kernel"):
+        parts[-1] = "weight"
+    return ".".join(parts)
+
+
 def from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat Flax parameters keyed by path (``backbone/res2/0/conv1/
-    kernel``; a leading ``params/`` collection name is dropped) -> a
-    ``state_dict`` for the port's module of the same structure."""
+    kernel``) -> a ``state_dict`` for the port's module of the same
+    structure, keyed by ``torch_name``."""
     out = {}
     for path, value in flat.items():
-        parts = path.split("/")
-        if parts[0] == "params":
-            parts = parts[1:]
         arr = torch.from_numpy(np.array(value, dtype=np.float32))
-        if parts[-1] == "scale":
-            parts[-1] = "weight"
-        elif parts[-1] == "kernel":
-            parts[-1] = "weight"
+        if path.endswith("kernel"):
             if arr.dim() == 4:
                 arr = arr.permute(3, 2, 0, 1)
             elif arr.dim() == 2:
                 arr = arr.t()
             else:
                 raise ValueError(f"{path}: kernel of rank {arr.dim()}")
-        out[".".join(parts)] = arr.contiguous()
+        out[torch_name(path)] = arr.contiguous()
     return out
 
 

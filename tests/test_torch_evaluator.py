@@ -343,7 +343,7 @@ def test_select_evaluator_type_matches_jax():
                 jev.select_evaluator_type(jc, name)
 
 
-def test_test_raises_on_what_is_not_ported(pair, micro):
+def test_test_raises_on_what_is_not_ported(pair, micro, monkeypatch):
     cfg = eval_cfg(tmicro_cfg, micro)
     cfg.TEST.AUG.ENABLED = True
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -353,9 +353,16 @@ def test_test_raises_on_what_is_not_ported(pair, micro):
     with pytest.raises(NotImplementedError, match="item 9"):
         ttrainer.test(cfg, pair["tm"], "cpu")
     cfg = eval_cfg(tmicro_cfg, micro)
-    cfg.MODEL.META_ARCHITECTURE = "DistillProposalMMSSRCNN"
-    cfg.TEST.DO_EVAL = True
-    with pytest.raises(NotImplementedError, match="item 7"):
+    cfg.MODEL.META_ARCHITECTURE = "MMSSGridModel"  # the 'ovr' evaluator
+    with pytest.raises(NotImplementedError, match="item 3"):
         ttrainer.test(cfg, pair["tm"], "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    for key, value in (("DEBUG_NANS", True), ("CONTRASTIVE_SCOPE", "global")):
+        cfg = eval_cfg(tmicro_cfg, micro)
+        setattr(cfg.TPU, key, value)
+        with pytest.raises(NotImplementedError, match="item 7b"):
+            ttrainer.test(cfg, pair["tm"], "cpu")
+    # the loss-only evaluation's multi-rank merge
+    from locov_torch.parallel import mesh as tmesh
+    monkeypatch.setattr(tmesh, "process_rank_world", lambda: (0, 2))
+    with pytest.raises(NotImplementedError, match="item 7b"):
         tev.inference_on_caption_dataset(None, None, [], None, None)

@@ -128,8 +128,9 @@ def test_port_imports_no_jax_and_no_locov_tpu():
     for root, _, names in os.walk(os.path.join(REPO, "locov_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 10
-    # the image-caption stage's modules, and the evaluation path's host
-    # data layer and evaluators (framework-free copies), are checked
+    # the image-caption stage's modules, the evaluation path's host
+    # data layer and evaluators, and the trainer's checkpoints, writers
+    # and CLI (framework-free copies among them) are checked
     names = {os.path.relpath(f, REPO) for f in files}
     assert {f"locov_torch/{m}.py" for m in (
         "models/bert", "models/language", "models/mmss/__init__",
@@ -140,7 +141,9 @@ def test_port_imports_no_jax_and_no_locov_tpu():
         "data/loader", "data/synthetic", "data/datasets/coco",
         "data/datasets/lvis", "evaluation/coco_eval",
         "evaluation/lvis_eval", "evaluation/evaluator",
-        "engine/trainer", "utils/native")} <= names
+        "engine/trainer", "engine/solver", "parallel/mesh",
+        "utils/native", "utils/checkpoint", "utils/events",
+        "utils/metric_logger", "utils/misc", "train_ovnet")} <= names
     for path in files:
         with open(path) as f:
             hit = _FORBIDDEN.search(f.read())

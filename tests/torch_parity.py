@@ -7,6 +7,7 @@ TF32 is off for both matmuls and convolutions, so float32 means float32
 on every backend (it has no effect on the CPU, where these tests run).
 """
 import numpy as np
+import pytest
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -174,3 +175,15 @@ def lsm_batch(arrays, ImageBatch, GtBatch, TextBatch, DetectionBatch,
         text=TextBatch(a["input_ids"], a["attention_mask"],
                        a["special_tokens_mask"], a["target_ids"],
                        a["mlm_mask"]))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads for the module's tests, then the process's
+    setting again: the trainer tests run many small ops, and with one
+    thread per core in each of the suite's workers they spend their time
+    waiting on the others. Imported by the test files that use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
