@@ -88,9 +88,14 @@ Phases, one JSON line each, in order:
    buffers equal to the checkpoint's before the first step); STT from
    the LSM's ``model_final`` through the rename map (res5 and the
    projection equal to the LSM's), batch 8, 4 steps, AP50-seen and
-   -unseen; per stage the loop's images/s, data time, the checkpoints'
-   seconds (caller's thread, in all) and bytes, seconds and peak
-   memory; K1-fwd, K1-bwd, K2 and K3-bwd launched.
+   -unseen; per stage the loop's images/s (by the median step and over
+   all steps), data time, the checkpoints' seconds (caller's thread, in
+   all) and bytes, seconds and peak memory; K1-fwd, K1-bwd, K2 and
+   K3-bwd launched. ``KernelShapes`` records the signature of every
+   launch of the path (the buckets 800 x 1344, 1344 x 800 and 800 x
+   800 at batch 4 and 8, the evaluations at batch 1), and after the
+   path each kernel is checked at each of them on fresh inputs with
+   phase 2's tolerances (``check_path_shapes``).
 9. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
 10. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
@@ -648,6 +653,31 @@ def check_roi_align_train(gen, results):
     del fmain
 
 
+def _roi_fwd_within(got, plain, fmax):
+    """K2/K3-fwd's tolerance: float32 within 1e-5 * max|F|; bfloat16
+    within one bfloat16 ulp of the larger magnitude, or 1e-5 * max|F|
+    where that is larger. Returns (ok, max |err|)."""
+    import torch
+    err = (got.float() - plain.float()).abs()
+    tol = torch.full_like(err, 1e-5 * fmax)
+    if got.dtype == torch.bfloat16:
+        tol = torch.clamp(_bf16_ulp(torch.maximum(
+            got.float().abs(), plain.float().abs())), min=1e-5 * fmax)
+    return bool((err <= tol).all()), err.max().item()
+
+
+def _roi_bwd_within(got, plain, absbwd):
+    """K3-bwd's tolerance: 1e-5 * (the plain backward of |g|) at each
+    cell, plus one bfloat16 ulp in bfloat16. Returns (ok, max |err|)."""
+    import torch
+    err = (got.float() - plain.float()).abs()
+    tol = 1e-5 * absbwd
+    if got.dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(torch.maximum(got.float().abs(),
+                                             plain.float().abs()))
+    return bool((err <= tol).all()), err.max().item()
+
+
 def check_roi_align_lsm(gen):
     """K3-fwd and K3-bwd at the LSM step's shapes: res4 features [4, 50,
     84, 1024], 200 sampled boxes an image (20 of them gt-sized),
@@ -669,34 +699,23 @@ def check_roi_align_lsm(gen):
         f, g = feats.to(dtype), cot.to(dtype)
         got = roi_align_cuda(f, bx, scale, pooled, sr)
         plain = roi_align_batched(f, bx, scale, pooled, sr)
-        fmax = f.float().abs().max().item()
-        err = (got.float() - plain.float()).abs()
-        tol = torch.full_like(err, 1e-5 * fmax)
-        if dtype == torch.bfloat16:
-            tol = torch.clamp(_bf16_ulp(torch.maximum(
-                got.float().abs(), plain.float().abs())), min=1e-5 * fmax)
-        fwd_ok = bool((err <= tol).all())
-        fwd_err = err.max().item()
-        del got, plain, err, tol
+        fwd_ok, fwd_err = _roi_fwd_within(got, plain,
+                                          f.float().abs().max().item())
+        del got, plain
         got = roi_align_bwd_cuda(g, bx, scale, 50, 84, pooled, sr)
         plain = roi_align_bwd_plain(g, bx, scale, 50, 84, pooled, sr)
         absbwd = roi_align_bwd_plain(g.abs(), bx, scale, 50, 84, pooled,
                                      sr).float()
-        err = (got.float() - plain.float()).abs()
-        tol = 1e-5 * absbwd
-        if dtype == torch.bfloat16:
-            tol = tol + _bf16_ulp(torch.maximum(got.float().abs(),
-                                                 plain.float().abs()))
-        bwd_ok = bool((err <= tol).all())
+        bwd_ok, bwd_err = _roi_bwd_within(got, plain, absbwd)
         line = {"phase": "kernel_check", "kernel": "roi_align_fused+bwd",
                 "case": "lsm", "dtype": dt, "features": list(f.shape),
                 "boxes": list(bx.shape), "sampling_ratio": sr,
-                "fwd_max_abs_err": fwd_err, "bwd_max_abs_err":
-                err.max().item(), "within_tolerance": fwd_ok and bwd_ok}
+                "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+                "within_tolerance": fwd_ok and bwd_ok}
         emit(line)
         if not (fwd_ok and bwd_ok):
             raise AssertionError(f"roi_align at the LSM shapes {dt}: {line}")
-        del f, g, got, plain, absbwd, err, tol
+        del f, g, got, plain, absbwd
     del feats, cot
 
 
@@ -2077,9 +2096,11 @@ def _run_cli(flags, opts, log, check=None):
 
 
 def _loop_numbers(run, batch):
-    """The loop's images/s (the median of ``time`` after the warm-up
-    step) and ``data_time`` from metrics.json, the checkpoints' seconds
-    and bytes, and the rows."""
+    """The loop's images/s after the warm-up step, by the median of
+    ``time`` and by all the images over all the time (the steps that
+    take about twice the median count in the second), and ``data_time``
+    from metrics.json, the checkpoints' seconds and bytes, and the
+    rows."""
     tr = run["trainer"]
     rows = [json.loads(ln) for ln in open(os.path.join(
         tr.cfg.OUTPUT_DIR, "metrics.json"))]
@@ -2089,6 +2110,7 @@ def _loop_numbers(run, batch):
             "ms_per_step": [r["time"] * 1e3 for r in mine],
             "data_ms": [r["data_time"] * 1e3 for r in mine],
             "images_per_s": batch / statistics.median(times),
+            "images_per_s_all": batch * len(times) / sum(times),
             "data_ms_median": statistics.median(
                 r["data_time"] for r in mine[1:]) * 1e3,
             "checkpoints": tr.checkpointer.saves,
@@ -2281,6 +2303,145 @@ def trainer_path(seed, workdir):
     return launches
 
 
+class KernelShapes:
+    """While a path runs: how many launches each of K1-fwd, K1-bwd,
+    K2/K3-fwd and K3-bwd made at each signature (the dtype and shapes of
+    its tensors, its other arguments), read by wrapping the four
+    wrappers that the autograd functions call (by their module's name,
+    at call time). ``check_counts`` holds the sums against the launch
+    counts, so that no launch of the path went past the wrappers."""
+
+    def __enter__(self):
+        from locov_torch.ops import kernel_lib
+        from locov_torch.ops import relu_maxpool as rp
+        from locov_torch.ops import roi_align as ra
+        self.seen, self._orig = {}, []
+
+        def wrap(mod, attr, kernel, sig):
+            orig = getattr(mod, attr)
+
+            def fn(*a, **k):
+                before = kernel_lib.LAUNCHES[kernel]
+                out = orig(*a, **k)
+                if kernel_lib.LAUNCHES[kernel] > before:
+                    key = (kernel,) + sig(*a, **k)
+                    self.seen[key] = self.seen.get(key, 0) + 1
+                return out
+            self._orig.append((mod, attr, orig))
+            setattr(mod, attr, fn)
+
+        def dt(t):
+            return str(t.dtype).split(".")[1]
+        wrap(rp, "relu_maxpool_cuda", "relu_maxpool",
+             lambda x: (dt(x), tuple(x.shape)))
+        wrap(rp, "relu_maxpool_bwd_cuda", "relu_maxpool_bwd",
+             lambda x, dy: (dt(x), tuple(x.shape)))
+        wrap(ra, "roi_align_cuda", "roi_align_fused",
+             lambda features, boxes, spatial_scale, pooled=14,
+             sampling_ratio=2: (dt(features), tuple(features.shape),
+                                boxes.shape[1], float(spatial_scale),
+                                pooled, int(sampling_ratio)))
+        wrap(ra, "roi_align_bwd_cuda", "roi_align_bwd",
+             lambda g, boxes, spatial_scale, h, w, pooled=14,
+             sampling_ratio=2: (dt(g), (g.shape[0], h, w, g.shape[-1]),
+                                boxes.shape[1], float(spatial_scale),
+                                pooled, int(sampling_ratio)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self._orig:
+            setattr(mod, attr, orig)
+
+    def check_counts(self, launches):
+        per = {k: 0 for k in TRAIN_KERNELS}
+        for key, n in self.seen.items():
+            per[key[0]] += n
+        if any(per[k] != launches[k] for k in per):
+            raise AssertionError(f"launches past the wrappers: seen {per}, "
+                                 f"counted {launches}")
+
+
+def check_path_shapes(gen, seen, path):
+    """Each kernel at each signature that ``path``'s launches had
+    (``KernelShapes.seen``), on fresh inputs of that dtype and shape,
+    against its plain version with phase 2's tolerances: K1-fwd
+    bit-exact; K1-bwd (into a NaN-filled dx) bit-exact in float32, in
+    bfloat16 within one ulp with NaN in the same places; K2/K3-fwd
+    ``_roi_fwd_within``; K3-bwd ``_roi_bwd_within``. ROIAlign's boxes
+    are training boxes (``train_boxes``: 20 gt-sized a batch row, or all
+    of them where there are fewer) over the image the features cover.
+    Runs after the path's counts are read."""
+    import torch
+    from locov_torch.ops.relu_maxpool import (_launch_bwd,
+                                              relu_maxpool_bwd_plain,
+                                              relu_maxpool_cuda,
+                                              relu_maxpool_plain)
+    from locov_torch.ops.roi_align import (roi_align_batched,
+                                           roi_align_bwd_cuda,
+                                           roi_align_bwd_plain,
+                                           roi_align_cuda)
+    from locov_torch.tools.bench_roi_bwd import train_boxes
+    for key in sorted(seen, key=str):
+        kernel, dt, shape = key[:3]
+        dtype = getattr(torch, dt)
+        line = {"phase": "kernel_check", "kernel": kernel,
+                "case": f"{path}_path", "dtype": dt, "shape": list(shape),
+                "path_launches": seen[key]}
+        if kernel.startswith("relu_maxpool"):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if kernel == "relu_maxpool":
+            got, want = relu_maxpool_cuda(x), relu_maxpool_plain(x)
+            ok = _same_bits(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            del x
+        elif kernel == "relu_maxpool_bwd":
+            n, h, w, c = shape
+            dy = torch.randn((n, (h + 1) // 2, (w + 1) // 2, c),
+                             generator=gen, device="cuda").to(dtype)
+            got = _launch_bwd(x, dy, fill=math.nan)
+            want = relu_maxpool_bwd_plain(x, dy)
+            ok = _same_bits(got, want)
+            diff = torch.nan_to_num((got.float() - want.float()).abs())
+            err = diff.max().item()
+            if dtype == torch.bfloat16:
+                ulp = _bf16_ulp(torch.maximum(got.float().abs(),
+                                              want.float().abs()))
+                ok = torch.equal(torch.isnan(got), torch.isnan(want)) \
+                    and not bool((diff > ulp).any())
+                del ulp
+            del x, dy, diff
+        else:
+            n_boxes, scale, pooled, sr = key[3:]
+            b, h, w, c = shape
+            bx = train_boxes(gen, b, n_boxes, min(20, n_boxes),
+                             h / scale, w / scale)
+            line.update(boxes=[b, n_boxes], sampling_ratio=sr)
+            if kernel == "roi_align_fused":
+                f = torch.randn(shape, generator=gen,
+                                device="cuda").to(dtype)
+                got = roi_align_cuda(f, bx, scale, pooled, sr)
+                want = roi_align_batched(f, bx, scale, pooled, sr)
+                ok, err = _roi_fwd_within(got, want,
+                                          f.float().abs().max().item())
+                del f
+            else:
+                g = torch.randn((b, n_boxes, pooled, pooled, c),
+                                generator=gen, device="cuda").to(dtype)
+                got = roi_align_bwd_cuda(g, bx, scale, h, w, pooled, sr)
+                want = roi_align_bwd_plain(g, bx, scale, h, w, pooled, sr)
+                absbwd = roi_align_bwd_plain(g.abs(), bx, scale, h, w,
+                                             pooled, sr).float()
+                ok, err = _roi_bwd_within(got, want, absbwd)
+                del g, absbwd
+            del bx
+        line.update(max_abs_err=err, within_tolerance=ok)
+        emit(line)
+        if not ok:
+            raise AssertionError(f"{kernel} at a {path} path shape: {line}")
+        del got, want
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=3)
@@ -2354,9 +2515,13 @@ def main(argv=None) -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        paths["trainer"] = trainer_path(args.seed, workdir)
+        with KernelShapes() as shapes:
+            paths["trainer"] = trainer_path(args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    shapes.check_counts(paths["trainer"])
+    check_path_shapes(gen, shapes.seen, "trainer")
+    torch.cuda.empty_cache()
     from locov_torch.tools import bench_block, bench_stem
     # bf16 against cuDNN's chain, which rounds t1 and t2 at other places
     paths["block"] = bench_path("block", bench_block.main,

@@ -52,7 +52,7 @@ from ..utils.device import resolve_device
 from ..utils.events import (CSVWriter, EventStorage, JSONWriter,
                             MetricPrinter, TensorboardWriter)
 from ..utils.weights import seeded_init_
-from .solver import build_optimizer, restore_opt_state, warmup_multistep_lr
+from .solver import build_optimizer, restore_opt_state
 
 logger = logging.getLogger(__name__)
 
@@ -292,10 +292,6 @@ class OVRTrainer:
         if cfg.MODEL.PROJECTION_WEIGHTS:
             self.load_projection_only(cfg.MODEL.PROJECTION_WEIGHTS)
 
-        s = cfg.SOLVER
-        self.schedule = warmup_multistep_lr(
-            s.BASE_LR, s.STEPS, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS,
-            s.WARMUP_METHOD)
         self.train_step = make_train_step(self.model, self.optimizer,
                                           self.scheduler)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -358,9 +354,10 @@ class OVRTrainer:
 
     def resume_or_load(self, resume: bool):
         """Resume from last_checkpoint (model, optimizer, scheduler,
-        iteration), else load a .pth/.pkl MODEL.WEIGHTS with the
-        stage-transfer rename fan-out (trainer.py:293-363)."""
-        weights = self.cfg.MODEL.WEIGHTS
+        iteration). MODEL.WEIGHTS is loaded once, by ``load_pretrained``
+        in ``__init__`` (its same-arch check picks the rename map); JAX's
+        branch here reads a .pth/.pkl MODEL.WEIGHTS a second time with
+        the rename map and has no counterpart."""
         if resume and self.checkpointer.has_checkpoint():
             name = self.checkpointer.last_checkpoint()
             state = self.checkpointer.load(name)
@@ -377,13 +374,6 @@ class OVRTrainer:
             self.storage.iter = self.start_iter
             logger.info("Resumed from %s at iter %d", name,
                         self.start_iter)
-        elif weights and os.path.exists(weights) and \
-                weights.endswith((".pth", ".pkl")):
-            # stage hand-off: apply the rename fan-out map
-            merged, _ = load_with_rename_map(
-                read_weights(weights), self.model.state_dict(),
-                torch_rename_map(STT_FROM_LSM_RENAME))
-            self.model.load_state_dict(merged)
 
     # ---------------------------------------------------------------- train
     def run_step(self):
@@ -398,6 +388,7 @@ class OVRTrainer:
         data_time = time.perf_counter() - start
         if self._prefetcher is None:
             batch = to_torch(batch, self.device)
+        lr = self.base_lr()
         metrics = self.train_step(batch, self.class_emb, self.generator)
 
         pending = self._pending_metrics
@@ -408,7 +399,14 @@ class OVRTrainer:
 
         self.storage.put_scalar("data_time", data_time)
         self.storage.put_scalar("time", time.perf_counter() - start)
-        self.storage.put_scalar("lr", self.schedule(self.storage.iter))
+        self.storage.put_scalar("lr", lr)
+
+    def base_lr(self) -> float:
+        """The learning rate the optimizer applies next, at SOLVER.BASE_LR's
+        scale: a group's lr over its initial lr (the schedule's factor,
+        restored on resume) times BASE_LR."""
+        g = next(g for g in self.optimizer.param_groups if g["initial_lr"])
+        return g["lr"] / g["initial_lr"] * self.cfg.SOLVER.BASE_LR
 
     def _record_metrics(self, pending, iteration: int):
         keys, host, event = pending

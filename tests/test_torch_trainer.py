@@ -12,7 +12,9 @@ Against JAX on the same inputs:
   does): averages within rtol 1e-4 (the loss dict's bound there),
   "Total Loss" and the split into metrics and losses;
 - the learning rate of every iteration, through warm-up and a step,
-  and after a resume: JAX's schedule function (float equality);
+  and after a resume, as the optimizer applies it and as the loop logs
+  it (read from the optimizer): JAX's schedule function within rtol
+  1e-6;
 - the logged metric keys of both stages: JAX's train step's keys
   (losses, outputs, ``total_loss``, from ``jax.eval_shape``) and its
   ``run_step``'s ``data_time``, ``time`` and ``lr``;
@@ -206,6 +208,12 @@ def test_resume_restores_the_state_bit_for_bit(stt_run, root):
         float(sched(4)), rel=1e-6)
     tr.train()
     assert tr.checkpointer.last_checkpoint() == "model_0000005"
+    # the logged lr is the optimizer's: the restored schedule goes on
+    rows = [json.loads(ln) for ln in open(os.path.join(
+        cfg2.OUTPUT_DIR, "metrics.json"))]
+    resumed = [r["lr"] for r in rows if r["iteration"] >= 4]
+    np.testing.assert_allclose(resumed, [float(sched(4)), float(sched(5))],
+                               rtol=1e-6)
 
 
 def test_nan_tripwire_fires_one_step_late(root):
