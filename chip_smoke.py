@@ -96,16 +96,33 @@ Phases, one JSON line each, in order:
    800 at batch 4 and 8, the evaluations at batch 1), and after the
    path each kernel is checked at each of them on fresh inputs with
    phase 2's tolerances (``check_path_shapes``).
-9. block path: ``locov_torch.tools.bench_block.main`` at its defaults
+9. scale path, on the trainer path's tree and seed checkpoint: both
+   published LSM recipes at their batch of 32. configs/coco_lsm.yaml
+   through ``train_ovnet --num-gpus 1`` as batch 4 with
+   ``GRADIENT_ACCUMULATION_STEPS`` 8 for 16 iterations (the parameters
+   and momentum move at iterations 8 and 16 only, the logged learning
+   rate is the schedule at iteration // 8, no process group), then
+   ``--resume`` from the checkpoint after iteration 12 (model,
+   momentum, accumulated gradients and micro-step count equal to the
+   checkpoint's before the first step); configs/coco_lsm_global.yaml at
+   batch 32 with ``TPU.REMAT_BACKBONE`` and ``PAIRWISE_CHUNK`` 128, 3
+   steps (peak memory, images/s); one LSM step at batch 8 in four
+   variants (neither, remat, chunk, both: peak memory, ms, gradients
+   against the plain variant's); two data-parallel gloo ranks on the
+   card in float32 (local scope = accumulation 2 on one rank, global
+   scope = one rank at batch 4, the scopes differ). The kernels'
+   signatures of the path, the ranks' included (batch 32 among them),
+   are checked as phase 8's.
+10. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
-10. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
+11. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-11. the ``kernels`` line (one row per TPU kernel replaced:
+12. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; ``launches_by_path`` gives each
-   path's counts, ``eval`` and ``trainer`` among them), the card's
-   ``nvidia-smi`` name and power limit, and the result line
+   path's counts, ``eval``, ``trainer`` and ``scale`` among them), the
+   card's ``nvidia-smi`` name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are zeroed just before each path's timed run and read
@@ -2042,10 +2059,32 @@ def write_coco_trainval(root, seed, n_train=TRAINER_TRAIN_IMAGES,
         f.write("\n".join(sorted(vocab, key=vocab.get)) + "\n")
 
 
+def seed_checkpoint(workdir, seed):
+    """The path of a port checkpoint (``workdir/seed/model_seed``) of
+    the configs/coco_lsm.yaml model's seeded weights at a trained
+    scale, written on the first call."""
+    import torch
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.models import build_meta_arch
+    from locov_torch.utils.checkpoint import Checkpointer
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    ck = Checkpointer(os.path.join(workdir, "seed"), use_async=False)
+    path = os.path.join(workdir, "seed", "model_seed")
+    if not os.path.exists(path):
+        cfg = get_cfg()
+        cfg.merge_from_file(config_path("coco_lsm.yaml"))
+        model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
+        path = ck.save_named("model_seed", {"model": model.state_dict()})
+        del model
+        torch.cuda.empty_cache()
+    return path
+
+
 class _TrainWatch:
     """Wraps ``OVRTrainer.train`` while ``train_ovnet.main`` runs: keeps
-    each trainer, its start iteration and the seconds of ``train``, and
-    calls ``check(trainer)`` first, before the first step."""
+    each trainer, its start iteration, the rows its ``metrics.json``
+    held already and the seconds of ``train``, and calls
+    ``check(trainer)`` first, before the first step."""
 
     def __init__(self, check=None):
         self.check, self.runs = check, []
@@ -2056,7 +2095,10 @@ class _TrainWatch:
         watch = self
 
         def train(trainer):
+            path = os.path.join(trainer.cfg.OUTPUT_DIR, "metrics.json")
             run = {"trainer": trainer, "start_iter": trainer.start_iter,
+                   "rows_before": sum(1 for _ in open(path))
+                   if os.path.exists(path) else 0,
                    "checked": watch.check(trainer) if watch.check else None}
             watch.runs.append(run)
             t0 = time.perf_counter()
@@ -2095,6 +2137,35 @@ def _run_cli(flags, opts, log, check=None):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def same_as_checkpoint(trainer):
+    """Before the first resumed step: the model, the momentum buffers
+    and, under gradient accumulation, the accumulated gradients and the
+    micro-step count against the checkpoint it resumed from, bit for
+    bit."""
+    import torch
+    state = trainer.checkpointer.load(trainer.checkpointer.last_checkpoint())
+    sd = trainer.model.state_dict()
+    model_eq = set(sd) == set(state["model"]) and all(
+        torch.equal(sd[k].cpu(), v) for k, v in state["model"].items())
+    opt = trainer.optimizer.state_dict()
+    mom = state["optimizer"]["state"]
+    mom_eq = set(opt["state"]) == set(mom) and all(
+        torch.equal(opt["state"][i]["momentum_buffer"].cpu(),
+                    m["momentum_buffer"]) for i, m in mom.items())
+    out = {"model": model_eq, "momentum": mom_eq,
+           "momentum_buffers": len(mom),
+           "scheduler_step": trainer.scheduler.last_epoch}
+    saved = state["optimizer"].get("multi_steps")
+    if saved is not None:
+        ms = opt["multi_steps"]
+        out.update(mini_step=ms["mini_step"],
+                   accumulation=ms["mini_step"] == saved["mini_step"] and
+                   len(ms["acc_grads"]) == len(saved["acc_grads"]) and
+                   all(torch.equal(a.cpu(), b) for a, b in
+                       zip(ms["acc_grads"], saved["acc_grads"])))
+    return out
+
+
 def _loop_numbers(run, batch):
     """The loop's images/s after the warm-up step, by the median of
     ``time`` and by all the images over all the time (the steps that
@@ -2104,7 +2175,7 @@ def _loop_numbers(run, batch):
     tr = run["trainer"]
     rows = [json.loads(ln) for ln in open(os.path.join(
         tr.cfg.OUTPUT_DIR, "metrics.json"))]
-    mine = [r for r in rows if r["iteration"] >= run["start_iter"]]
+    mine = rows[run["rows_before"]:]
     times = [r["time"] for r in mine[1:]]
     return {"rows": [r["iteration"] for r in mine],
             "ms_per_step": [r["time"] * 1e3 for r in mine],
@@ -2138,26 +2209,16 @@ def trainer_path(seed, workdir):
     K3-bwd must each launch."""
     import math
     import torch
-    from locov_torch.config import config_path, get_cfg
-    from locov_torch.models import build_meta_arch
+    from locov_torch.config import config_path
     from locov_torch.ops import kernel_lib
     from locov_torch.tools.timing import nvidia_smi_line
-    from locov_torch.utils.checkpoint import Checkpointer
-    from locov_torch.utils.weights import seeded_init_, trained_scale_
     root = os.path.join(workdir, "coco")
     log = os.path.join(workdir, "trainer.log")
     t0 = time.perf_counter()
     write_coco_trainval(root, seed)
     write_s = time.perf_counter() - t0
-
-    # seeded weights at a trained scale, as a port checkpoint
-    cfg = get_cfg()
-    cfg.merge_from_file(config_path("coco_lsm.yaml"))
     t0 = time.perf_counter()
-    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
-    ck = Checkpointer(os.path.join(workdir, "seed"), use_async=False)
-    seed_path = ck.save_named("model_seed", {"model": model.state_dict()})
-    del model
+    seed_path = seed_checkpoint(workdir, seed)
     seed_s = time.perf_counter() - t0
 
     common = ["DATASETS.ROOT", root, "TPU.IMAGE_BUCKETS", "()",
@@ -2201,23 +2262,6 @@ def trainer_path(seed, workdir):
             open(os.path.join(out, "last_checkpoint")).read() ==
             "model_0000005"):
         raise AssertionError(f"trainer LSM stage check failed: {line}")
-
-    def same_as_checkpoint(trainer):
-        """Before the first resumed step: the model and the momentum
-        buffers against the checkpoint it resumed from, bit for bit."""
-        state = trainer.checkpointer.load(
-            trainer.checkpointer.last_checkpoint())
-        sd = trainer.model.state_dict()
-        model_eq = set(sd) == set(state["model"]) and all(
-            torch.equal(sd[k].cpu(), v) for k, v in state["model"].items())
-        opt = trainer.optimizer.state_dict()["state"]
-        mom = state["optimizer"]["state"]
-        mom_eq = set(opt) == set(mom) and all(
-            torch.equal(opt[i]["momentum_buffer"].cpu(),
-                        m["momentum_buffer"]) for i, m in mom.items())
-        return {"model": model_eq, "momentum": mom_eq,
-                "momentum_buffers": len(mom),
-                "scheduler_step": trainer.scheduler.last_epoch}
 
     res2, run2, res2_s, res2_peak = _run_cli(
         lsm_flags + ["--resume"],
@@ -2301,6 +2345,567 @@ def trainer_path(seed, workdir):
                              f"{missing}")
     torch.cuda.empty_cache()
     return launches
+
+
+# ----------------------------------------------------------- scale path
+ACCUM_K, ACCUM_ITER, ACCUM_PERIOD = 8, 16, 12  # coco_lsm.yaml as 4 x 8
+GLOBAL_BATCH, GLOBAL_ITER = 32, 3  # coco_lsm_global.yaml on one card
+VARIANT_BATCH, VARIANT_CHUNK = 8, 16  # 64 pairs a pass in 4 chunks
+VARIANT_RUNS = 3  # timed steps a variant, after one warm-up
+# the largest difference of a gradient from the plain variant's, over
+# the largest |gradient| of that tensor: bfloat16 products of other
+# shapes (the chunks) and cuDNN's choices on the recompute (remat)
+VARIANT_GRAD_TOL = 5e-2
+DP_WORLD, DP_PER_RANK, DP_LR = 2, 2, 0.01
+# two ranks against one, float32: each tensor's update within 1e-3 of
+# its largest reference update plus 2 spacings of its largest
+# parameter; the losses within rtol 1e-4
+DP_UPDATE_RTOL, DP_LOSS_RTOL = 1e-3, 1e-4
+
+
+class _StepWatch:
+    """Wraps ``trainer.train_step``: per step, whether it changed the
+    trainable parameters and whether it changed the momentum buffers,
+    bit for bit."""
+
+    def __init__(self, trainer):
+        import torch
+        self.params = [p for g in trainer.optimizer.param_groups
+                       for p in g["params"]]
+        self.state = trainer.optimizer.state
+        self.moved, self.momentum_moved = [], []
+        inner = trainer.train_step
+
+        def step(*a, **k):
+            p0, m0 = self._snapshot()
+            out = inner(*a, **k)
+            p1, m1 = self._snapshot()
+            self.moved.append(not torch.equal(p0, p1))
+            self.momentum_moved.append(
+                (m0 is None) != (m1 is None) or
+                (m0 is not None and not torch.equal(m0, m1)))
+            return out
+        trainer.train_step = step
+
+    def _snapshot(self):
+        import torch
+        params = torch.cat([p.detach().reshape(-1) for p in self.params])
+        bufs = [self.state[p]["momentum_buffer"].reshape(-1)
+                for p in self.params if p in self.state]
+        return params, torch.cat(bufs) if bufs else None
+
+
+def _scale_opts(root, seed_path, out, batch, max_iter, period):
+    return ["DATASETS.ROOT", root, "TPU.IMAGE_BUCKETS", "()",
+            "DATASETS.TEST", "()", "MODEL.WEIGHTS", seed_path,
+            "SOLVER.IMS_PER_BATCH", str(batch),
+            "SOLVER.MAX_ITER", str(max_iter),
+            "SOLVER.CHECKPOINT_PERIOD", str(period),
+            "SOLVER.LOG_PERIOD", "1", "TEST.EVAL_PERIOD", "0",
+            "OUTPUT_DIR", out]
+
+
+def _accumulation_recipe(root, seed_path, workdir, log):
+    """configs/coco_lsm.yaml as the reference ran it on 8 GPUs x 4
+    images, on one card: batch 4, ``GRADIENT_ACCUMULATION_STEPS`` 8,
+    16 iterations (two updates), a checkpoint after iteration 11 (in the
+    middle of the second accumulation), through ``train_ovnet --num-gpus
+    1`` (no process group); then ``--resume`` from it to 16. Checked:
+    the parameters and the momentum move at iterations 8 and 16 only
+    (1-based), the logged learning rate is the schedule at iteration //
+    8, and before the first resumed step the model, the momentum, the
+    accumulated gradients and the micro-step count equal the
+    checkpoint's bit for bit."""
+    import torch
+    from locov_torch.config import config_path
+    from locov_torch.engine.solver import (MultiSteps,
+                                           _warmup_multistep_factor)
+    from locov_torch.ops import kernel_lib
+    flags = ["--config-file", config_path("coco_lsm.yaml"), "--num-gpus", "1"]
+    opts = _scale_opts(root, seed_path, os.path.join(workdir, "accum"), 4,
+                       ACCUM_ITER, ACCUM_PERIOD) + [
+        "SOLVER.GRADIENT_ACCUMULATION_STEPS", str(ACCUM_K)]
+
+    def watch(trainer):
+        import torch.distributed as dist
+        return {"steps": _StepWatch(trainer),
+                "process_group": dist.is_initialized(),
+                "multi_steps": isinstance(trainer.optimizer, MultiSteps)}
+    kernel_lib.reset_launches()
+    _, run, secs, peak = _run_cli(flags, opts, log, watch)
+    launches = dict(kernel_lib.LAUNCHES)
+    tr, w = run["trainer"], run["checked"]
+    loop, rows = _loop_numbers(run, 4)
+    s = tr.cfg.SOLVER
+    factor = _warmup_multistep_factor(s.STEPS, s.GAMMA, s.WARMUP_FACTOR,
+                                      s.WARMUP_ITERS, s.WARMUP_METHOD)
+    lr_want = [s.BASE_LR * factor(r["iteration"] // ACCUM_K) for r in rows]
+    lr_got = [r["lr"] for r in rows]
+    moves = [(i + 1) % ACCUM_K == 0 for i in range(ACCUM_ITER)]
+    out = tr.cfg.OUTPUT_DIR
+    pointer = open(os.path.join(out, "last_checkpoint")).read()
+    saved = tr.checkpointer.load(pointer)["optimizer"]["multi_steps"]
+    finite = all(math.isfinite(v) for r in rows for k, v in r.items()
+                 if "loss" in k.lower())
+    line = {"phase": "scale_accumulation", "config": "configs/coco_lsm.yaml",
+            "batch": 4, "accumulation_steps": ACCUM_K,
+            "effective_batch": 4 * ACCUM_K, "max_iter": ACCUM_ITER,
+            "process_group": w["process_group"],
+            "multi_steps": w["multi_steps"],
+            "params_moved": w["steps"].moved,
+            "momentum_moved": w["steps"].momentum_moved,
+            "lr": lr_got, "lr_want": lr_want,
+            "checkpoint": pointer, "checkpoint_mini_step":
+                saved["mini_step"], **loop, "finite_losses": finite,
+            "seconds": secs, "peak_mem_gib": peak, "launches": launches}
+    emit(line)
+    if not (finite and not w["process_group"] and w["multi_steps"] and
+            w["steps"].moved == moves and
+            w["steps"].momentum_moved == moves and
+            loop["rows"] == list(range(ACCUM_ITER)) and
+            all(abs(g - x) <= 1e-6 * x for g, x in zip(lr_got, lr_want)) and
+            lr_got[0] != lr_got[ACCUM_K] and
+            pointer == f"model_{ACCUM_PERIOD - 1:07d}" and
+            saved["mini_step"] == ACCUM_PERIOD % ACCUM_K):
+        raise AssertionError(f"accumulation check failed: {line}")
+
+    def resumed(trainer):
+        return {"same": same_as_checkpoint(trainer),
+                "steps": _StepWatch(trainer)}
+    _, run2, secs2, peak2 = _run_cli(flags + ["--resume"], opts, log,
+                                     resumed)
+    after = dict(kernel_lib.LAUNCHES)
+    same, steps = run2["checked"]["same"], run2["checked"]["steps"]
+    loop2, _ = _loop_numbers(run2, 4)
+    line = {"phase": "scale_accumulation_resume",
+            "start_iter": run2["start_iter"], "checked": same,
+            "rows": loop2["rows"], "params_moved": steps.moved,
+            "seconds": secs2, "peak_mem_gib": peak2,
+            "launches": {k: v - launches[k] for k, v in after.items()}}
+    emit(line)
+    if not (run2["start_iter"] == ACCUM_PERIOD and same["model"] and
+            same["momentum"] and same["accumulation"] and
+            same["mini_step"] == ACCUM_PERIOD % ACCUM_K and
+            same["scheduler_step"] == ACCUM_PERIOD // ACCUM_K and
+            steps.moved == moves[ACCUM_PERIOD:] and
+            loop2["rows"] == list(range(ACCUM_PERIOD, ACCUM_ITER))):
+        raise AssertionError(f"accumulation resume check failed: {line}")
+    torch.cuda.empty_cache()
+    return after
+
+
+def _global_batch(root, seed_path, workdir, log):
+    """configs/coco_lsm_global.yaml (the global contrastive scope,
+    ``PAIRWISE_CHUNK`` 128) at its batch of 32 on one card, with
+    ``TPU.REMAT_BACKBONE``: three steps through ``train_ovnet``; finite
+    losses, the peak memory and the loop's images/s."""
+    import torch
+    from locov_torch.config import config_path
+    from locov_torch.ops import kernel_lib
+    from locov_torch.tools.timing import nvidia_smi_line
+    opts = _scale_opts(root, seed_path, os.path.join(workdir, "global"),
+                       GLOBAL_BATCH, GLOBAL_ITER, 1000) + [
+        "TPU.REMAT_BACKBONE", "True"]
+
+    def settings(trainer):
+        return {"scope": trainer.cfg.TPU.CONTRASTIVE_SCOPE,
+                "remat": trainer.model.backbone.remat,
+                "pairwise_chunk":
+                    trainer.model.mmss_heads.transformer_head.tcfg
+                    .pairwise_chunk}
+    kernel_lib.reset_launches()
+    _, run, secs, peak = _run_cli(
+        ["--config-file", config_path("coco_lsm_global.yaml")], opts, log,
+        settings)
+    launches = dict(kernel_lib.LAUNCHES)
+    loop, rows = _loop_numbers(run, GLOBAL_BATCH)
+    finite = all(math.isfinite(v) for r in rows for k, v in r.items()
+                 if "loss" in k.lower())
+    line = {"phase": "scale_global_batch",
+            "config": "configs/coco_lsm_global.yaml",
+            "batch": GLOBAL_BATCH, "pairs_a_pass": GLOBAL_BATCH ** 2,
+            "settings": run["checked"], **loop,
+            "total_loss": [r.get("total_loss") for r in rows],
+            "finite_losses": finite, "seconds": secs, "peak_mem_gib": peak,
+            "launches": launches, "nvidia_smi": nvidia_smi_line()}
+    emit(line)
+    if not (finite and run["checked"] == {"scope": "global", "remat": True,
+                                          "pairwise_chunk": 128} and
+            loop["rows"] == list(range(GLOBAL_ITER))):
+        raise AssertionError(f"global batch check failed: {line}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lsm_cfg(name, dtype, **extra):
+    """``configs/<name>`` with ``TPU.COMPUTE_DTYPE`` ``dtype``, the
+    joint encoder's and the language backbone's dropout at 0 (runs that
+    are compared take the same draws) and the ``extra`` overrides."""
+    from locov_torch.config import config_path, get_cfg
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path(name))
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    for node in (cfg.MODEL.LANGUAGE_BACKBONE.BERT_CONFIG,
+                 cfg.MODEL.MMSS_HEAD.TRANSFORMER.BERT_CONFIG):
+        node.hidden_dropout_prob = node.attention_probs_dropout_prob = 0.0
+    for key, value in extra.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for part in path:
+            node = getattr(node, part)
+        setattr(node, leaf, value)
+    return cfg
+
+
+def _remat_chunk_variants(seed):
+    """One LSM training step (``losses`` and its backward) at batch 8 of
+    configs/coco_lsm_global.yaml in bfloat16, on the same batch and
+    draws, in four variants: neither remat nor chunk, remat only, chunk
+    only (``VARIANT_CHUNK`` pairs), both. Per variant, after a warm-up
+    step, the peak memory over what was allocated before, the median
+    ms of ``VARIANT_RUNS`` steps, each waited for, and the largest
+    difference of any gradient (but ``ZERO_BY_SHIFT``'s) from the plain
+    variant's over that tensor's largest |gradient|, held to
+    ``VARIANT_GRAD_TOL``."""
+    import torch
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.tools.bench import lsm_inputs
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    cfg = _lsm_cfg("coco_lsm_global.yaml", "bfloat16")
+    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
+    build_optimizer(cfg, model)  # frozen parameters take no gradient
+    batch, class_emb = lsm_inputs(VARIANT_BATCH, device="cuda")
+    head = model.mmss_heads.transformer_head
+
+    def run(remat, chunk):
+        model.backbone.remat = remat
+        head.tcfg = head.tcfg._replace(pairwise_chunk=chunk)
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, losses = model.losses(batch, class_emb, gen, deterministic=False)
+        sum(losses[k] for k in sorted(losses)).backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        grads = {k: p.grad.detach().float().cpu()
+                 for k, p in model.named_parameters() if p.grad is not None}
+        return ms, peak, grads, {k: float(v.detach())
+                                 for k, v in losses.items()}
+
+    kernel_lib.reset_launches()
+    variants = (("neither", False, 0), ("remat", True, 0),
+                ("chunk", False, VARIANT_CHUNK),
+                ("both", True, VARIANT_CHUNK))
+    results, all_ms = {}, {}
+    for name, remat, chunk in variants:
+        run(remat, chunk)  # warm-up: the first call at new shapes
+        runs = [run(remat, chunk) for _ in range(VARIANT_RUNS)]
+        all_ms[name] = [r[0] for r in runs]
+        results[name] = (statistics.median(all_ms[name]),) + runs[-1][1:]
+    launches = dict(kernel_lib.LAUNCHES)
+    plain = results["neither"][2]
+    lines = []
+    for name, remat, chunk in variants:
+        ms, peak, grads, losses = results[name]
+        worst, worst_name = 0.0, None
+        for k, g in plain.items():
+            scale = float(g.abs().max())
+            if k.endswith(ZERO_BY_SHIFT) or scale == 0:
+                continue
+            rel = float((grads[k] - g).abs().max()) / scale
+            if rel > worst:
+                worst, worst_name = rel, k
+        lines.append({"phase": "scale_remat_chunk", "variant": name,
+                      "remat": remat, "pairwise_chunk": chunk,
+                      "batch": VARIANT_BATCH,
+                      "pairs_a_pass": VARIANT_BATCH ** 2,
+                      "peak_mem_gib": peak, "ms": ms,
+                      "ms_all": all_ms[name],
+                      "max_grad_rel_diff": worst, "worst": worst_name,
+                      "same_gradients": set(grads) == set(plain),
+                      "finite": all(math.isfinite(v)
+                                    for v in losses.values()),
+                      "tolerance": VARIANT_GRAD_TOL})
+        emit(lines[-1])
+    bad = [ln for ln in lines if not (ln["finite"] and ln["same_gradients"]
+                                      and ln["max_grad_rel_diff"] <=
+                                      VARIANT_GRAD_TOL)]
+    del model, results, plain
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"remat / chunk variants disagree: {bad}")
+    return launches
+
+
+def _lsm_draws(model, batch, gen):
+    """The uniform draws of ``DistillProposalMMSSRCNN.losses`` for
+    ``batch`` (the RPN and ROI samplers' pairs, the grid and box spatial
+    dropout's keys), from ``gen``: one set that runs take rows of."""
+    import torch
+    b, h, w = batch.images.image.shape[:3]
+    rpn, rcfg = model.rpn_cfg, model.rcfg
+    n_anchor = (-(-h // 16)) * (-(-w // 16)) * len(rpn.sizes) * \
+        len(rpn.aspect_ratios)
+    n_roi = rpn.post_nms_topk_train + (
+        batch.gt.boxes.shape[1] if rcfg.proposal_append_gt else 0)
+    n_grid = (-(-h // 32)) * (-(-w // 32))
+
+    def rand(n):
+        return torch.rand((b, n), generator=gen, device="cuda")
+    return {"rpn": (rand(n_anchor), rand(n_anchor)),
+            "roi": (rand(n_roi), rand(n_roi)),
+            "grid_drop": rand(n_grid),
+            "box_drop": rand(rcfg.batch_size_per_image)}
+
+
+def _draws_to(draws, device):
+    return {k: tuple(x.to(device) for x in v) if isinstance(v, tuple)
+            else v.to(device) for k, v in draws.items()}
+
+
+def _draw_rows(draws, start, stop):
+    return {k: tuple(x[start:stop] for x in v) if isinstance(v, tuple)
+            else v[start:stop] for k, v in draws.items()}
+
+
+def _flat_params(model):
+    import torch
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _dp_rank(rank, world, url, in_path, out_dir):
+    """One rank of the data-parallel check: a gloo process group on the
+    one card, the float32 LSM model from the saved weights, one step in
+    each contrastive scope on its rows of the batch and the draws;
+    whether the ranks' parameters are the same bits after it (one
+    all_reduce), rank 0's parameters, the metrics, the launch counts and
+    the kernels' signatures (``KernelShapes``) to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import (initialize_distributed,
+                                           make_train_step)
+    from locov_torch.structures.batches import take_rows, to_torch
+    torch.cuda.set_device(0)
+    initialize_distributed(url, world, rank, "gloo")
+    try:
+        data = torch.load(in_path, weights_only=False)
+        cfg = _lsm_cfg("coco_lsm.yaml", "float32",
+                       **{"SOLVER.BASE_LR": DP_LR, "SOLVER.WARMUP_ITERS": 0})
+        lo, hi = rank * DP_PER_RANK, (rank + 1) * DP_PER_RANK
+        mine = to_torch(take_rows(data["batch"], lo, hi), "cuda")
+        draws = _draw_rows(_draws_to(data["draws"], "cuda"), lo, hi)
+        class_emb = data["class_emb"].cuda()
+        out = {}
+        with KernelShapes() as shapes:
+            kernel_lib.reset_launches()
+            for scope in ("local", "global"):
+                model = build_meta_arch(cfg, device="cuda")
+                model.load_state_dict(data["weights"])
+                step = make_train_step(model, *build_optimizer(cfg, model),
+                                       contrastive_scope=scope)
+                t0 = time.perf_counter()
+                metrics = step(mine, class_emb, None, draws)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                flat = _flat_params(model)
+                total = flat.clone()
+                dist.all_reduce(total)
+                if rank == 0:
+                    torch.save(flat.cpu(), os.path.join(out_dir,
+                                                        f"dp_{scope}.pt"))
+                out[scope] = {"metrics": {k: float(v)
+                                          for k, v in metrics.items()},
+                              "same_on_ranks": torch.equal(total,
+                                                           flat * world),
+                              "step_s": secs}
+                del model, step, flat, total
+                torch.cuda.empty_cache()
+            launches = dict(kernel_lib.LAUNCHES)
+        shapes.check_counts(launches)
+        torch.save({"out": out, "launches": launches, "seen": shapes.seen},
+                   os.path.join(out_dir, f"dp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _data_parallel(seed, workdir):
+    """Two ranks on the one card (spawned processes, gloo: NCCL takes no
+    two ranks on one GPU), the configs/coco_lsm.yaml model at full width
+    in float32, 2 images a rank, every run on the same draws: local
+    scope over 2 ranks against accumulation 2 on one rank over the same
+    4 images, global scope over 2 ranks against one rank at batch 4
+    (updates within ``DP_UPDATE_RTOL``, losses within ``DP_LOSS_RTOL``),
+    both ranks the same bits, and the scopes' losses differ (2 x 2
+    against 4 x 4 negatives)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import local_url, make_train_step
+    from locov_torch.structures.batches import take_rows, to_torch
+    from locov_torch.tools.bench import lsm_inputs
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    t_start = time.perf_counter()
+    cfg = _lsm_cfg("coco_lsm.yaml", "float32",
+                   **{"SOLVER.BASE_LR": DP_LR, "SOLVER.WARMUP_ITERS": 0})
+    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n = DP_WORLD * DP_PER_RANK
+    batch, class_emb = lsm_inputs(n, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = _lsm_draws(model, batch, gen)
+    in_path = os.path.join(workdir, "dp_in.pt")
+    torch.save({"weights": {k: v.cpu() for k, v in weights.items()},
+                "batch": to_torch(batch, "cpu"),
+                "draws": _draws_to(draws, "cpu"),
+                "class_emb": class_emb.cpu()}, in_path)
+    names = [(k, p.numel()) for k, p in model.named_parameters()]
+    start = _flat_params(model)
+
+    kernel_lib.reset_launches()
+    acc_cfg = _lsm_cfg("coco_lsm.yaml", "float32", **{
+        "SOLVER.BASE_LR": DP_LR, "SOLVER.WARMUP_ITERS": 0,
+        "SOLVER.GRADIENT_ACCUMULATION_STEPS": DP_WORLD})
+    step = make_train_step(model, *build_optimizer(acc_cfg, model))
+    for r in range(DP_WORLD):
+        lo, hi = r * DP_PER_RANK, (r + 1) * DP_PER_RANK
+        step(take_rows(batch, lo, hi), class_emb, None,
+             _draw_rows(draws, lo, hi))
+    accum = _flat_params(model)
+    model.load_state_dict(weights)
+    step = make_train_step(model, *build_optimizer(cfg, model))
+    whole = {k: float(v) for k, v in step(batch, class_emb, None,
+                                          draws).items()}
+    batch_n = _flat_params(model)
+    frozen = {k for k, p in model.named_parameters() if not p.requires_grad}
+    parent_launches = dict(kernel_lib.LAUNCHES)
+    del model, step, weights, batch, draws
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, args=(DP_WORLD, local_url(), in_path, workdir),
+             nprocs=DP_WORLD)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"dp_rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+
+    def worst_update(got, ref):
+        worst, name, off = 0.0, None, 0
+        for k, numel in names:
+            sl = slice(off, off + numel)
+            off += numel
+            if k in frozen or k.endswith(ZERO_BY_SHIFT):
+                continue
+            d_ref = ref[sl] - start[sl]
+            scale = float(d_ref.abs().max())
+            floor = 2 * float(np.spacing(np.float32(
+                start[sl].abs().max().item())))
+            err = float(((got[sl] - start[sl]) - d_ref).abs().max())
+            rel = (err - floor) / scale if scale > 0 else \
+                (0.0 if err <= floor else math.inf)
+            if rel > worst:
+                worst, name = rel, k
+        return worst, name
+
+    checks = {}
+    for scope, ref in (("local", accum), ("global", batch_n)):
+        got = torch.load(os.path.join(workdir, f"dp_{scope}.pt")).cuda()
+        checks[scope] = worst_update(got, ref)
+        del got
+    metrics = {s: ranks[0]["out"][s]["metrics"] for s in ("local", "global")}
+    loss_keys = [k for k in whole if "loss" in k.lower()]
+    loss_err = max(abs(metrics["global"][k] - whole[k]) /
+                   max(abs(whole[k]), 1e-12) for k in loss_keys)
+    differ = {k: (metrics["local"][k], metrics["global"][k])
+              for k in ("Image Caption Matching Loss",
+                        "Box Image Caption Matching Loss")}
+    launches = dict(parent_launches)
+    seen = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in r["seen"].items():
+            seen[k] = seen.get(k, 0) + v
+    line = {"phase": "scale_data_parallel", "config": "configs/coco_lsm.yaml",
+            "dtype": "float32", "ranks": DP_WORLD, "backend": "gloo",
+            "images_a_rank": DP_PER_RANK,
+            "same_on_ranks": {s: [r["out"][s]["same_on_ranks"]
+                                  for r in ranks] for s in metrics},
+            "local_vs_accumulation": {"max_update_rel_err": checks["local"][0],
+                                      "worst": checks["local"][1]},
+            "global_vs_one_rank": {"max_update_rel_err": checks["global"][0],
+                                   "worst": checks["global"][1],
+                                   "max_loss_rel_err": loss_err},
+            "scopes_differ": differ,
+            "rank_step_s": {s: [r["out"][s]["step_s"] for r in ranks]
+                            for s in metrics},
+            "reference_s": ref_s, "ranks_s": ranks_s,
+            "update_rtol": DP_UPDATE_RTOL, "loss_rtol": DP_LOSS_RTOL,
+            "launches_parent": parent_launches,
+            "launches_ranks": [r["launches"] for r in ranks]}
+    emit(line)
+    ok = (all(all(v) for v in line["same_on_ranks"].values()) and
+          checks["local"][0] <= DP_UPDATE_RTOL and
+          checks["global"][0] <= DP_UPDATE_RTOL and
+          loss_err <= DP_LOSS_RTOL and
+          all(abs(a - b) > 1e-3 * abs(b) for a, b in differ.values()))
+    del accum, batch_n, start
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"data-parallel check failed: {line}")
+    missing = [k for k in TRAIN_KERNELS
+               if any(r["launches"][k] == 0 for r in ranks)]
+    if missing:
+        raise AssertionError(f"kernels not launched in the ranks: {missing}")
+    return parent_launches, launches, seen
+
+
+def scale_path(seed, workdir):
+    """Both published LSM recipes at their batch of 32 on the card
+    (``_accumulation_recipe``: coco_lsm.yaml as 4 x 8 accumulation with
+    a resume in the middle of an accumulation; ``_global_batch``:
+    coco_lsm_global.yaml at batch 32 with remat and chunk 128), what
+    remat and the chunk cost and save (``_remat_chunk_variants``), and
+    two data-parallel ranks on the one card (``_data_parallel``), on the
+    trainer path's tree and seed checkpoint in ``workdir``. Every
+    sub-phase must launch K1-fwd, K1-bwd, K3-fwd and K3-bwd. Returns
+    {"launches": this process's and the ranks' counts, "parent_launches":
+    this process's, "rank_seen": the ranks' ``KernelShapes`` records}."""
+    root = os.path.join(workdir, "coco")
+    log = os.path.join(workdir, "trainer.log")
+    seed_path = seed_checkpoint(workdir, seed)
+    t0 = time.perf_counter()
+    parts = {"accumulation": _accumulation_recipe(root, seed_path, workdir,
+                                                  log),
+             "global_batch": _global_batch(root, seed_path, workdir, log),
+             "remat_chunk": _remat_chunk_variants(seed)}
+    parent_dp, launches_dp, seen = _data_parallel(seed, workdir)
+    parts["data_parallel"] = launches_dp
+    for name, counts in parts.items():
+        missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched in the scale path's "
+                                 f"{name}: {missing}")
+    parent = {k: sum(parts[p][k] for p in ("accumulation", "global_batch",
+                                           "remat_chunk")) + parent_dp[k]
+              for k in parent_dp}
+    total = {k: sum(parts[p][k] for p in parts) for k in parent_dp}
+    emit({"phase": "scale_path", "seconds": time.perf_counter() - t0,
+          "launches": total, "launches_by_part": parts})
+    return {"launches": total, "parent_launches": parent,
+            "rank_seen": seen}
 
 
 class KernelShapes:
@@ -2517,10 +3122,18 @@ def main(argv=None) -> int:
     try:
         with KernelShapes() as shapes:
             paths["trainer"] = trainer_path(args.seed, workdir)
+        shapes.check_counts(paths["trainer"])
+        check_path_shapes(gen, shapes.seen, "trainer")
+        torch.cuda.empty_cache()
+        with KernelShapes() as shapes:
+            scale = scale_path(args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    shapes.check_counts(paths["trainer"])
-    check_path_shapes(gen, shapes.seen, "trainer")
+    shapes.check_counts(scale["parent_launches"])
+    for key, n in scale["rank_seen"].items():
+        shapes.seen[key] = shapes.seen.get(key, 0) + n
+    check_path_shapes(gen, shapes.seen, "scale")
+    paths["scale"] = scale["launches"]
     torch.cuda.empty_cache()
     from locov_torch.tools import bench_block, bench_stem
     # bf16 against cuDNN's chain, which rounds t1 and t2 at other places

@@ -1,2 +1,2 @@
-"""Training engine: optimizer and schedule, and the evaluation side of
-the trainer (the trainer loop comes later)."""
+"""Training engine: the optimizer and schedule (with gradient
+accumulation) and the trainer loop with its evaluation side."""

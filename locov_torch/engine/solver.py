@@ -10,7 +10,8 @@ by global norm over the trainable parameters. Frozen parameters
 left out of the optimizer, so they have no momentum buffer, and get
 ``requires_grad=False``, so the backward computes no gradient for them:
 what the JAX package's update mask emulates. FrozenBN statistics are
-buffers in the port, never parameters.
+buffers in the port, never parameters. ``SOLVER.GRADIENT_ACCUMULATION_STEPS``
+k > 1 wraps the optimizer in ``MultiSteps`` (optax.MultiSteps).
 """
 from __future__ import annotations
 
@@ -135,6 +136,80 @@ def _clip_hook(params: List[torch.nn.Parameter], clip_cfg):
     return hook
 
 
+class MultiSteps:
+    """optax.MultiSteps around a torch optimizer: ``step()`` folds the
+    parameters' gradients into a running mean (optax's ``acc + (g -
+    acc) / (n + 1)``, a missing gradient as zeros) and, on every
+    ``k``-th call, hands the mean to the inner optimizer as the
+    gradients of one update. Between updates the parameters and the
+    inner state (momentum) do not move, and the inner optimizer's step
+    hooks (the clip of ``_clip_hook``) see only the mean. The
+    accumulated gradients and the micro-step count are part of
+    ``state_dict()`` (key ``"multi_steps"``), so a checkpoint taken in
+    the middle of an accumulation resumes where it stopped.
+    ``param_groups`` and ``state`` are the inner optimizer's."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, k: int):
+        self.optimizer, self.k = optimizer, int(k)
+        self.params = [p for g in optimizer.param_groups
+                       for p in g["params"]]
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = 0
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @property
+    def state(self):
+        return self.optimizer.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Accumulate this micro-step's gradients; on the k-th, update.
+        Returns whether the parameters were updated: the caller steps
+        the schedule only then."""
+        # a divisor on the device: CUDA divides by a host scalar through
+        # its reciprocal
+        n = torch.tensor(self.mini_step + 1.0, device=self.acc[0].device)
+        for p, acc in zip(self.params, self.acc):
+            if p.grad is None:
+                acc.sub_(acc / n)
+            else:
+                acc.add_((p.grad - acc) / n)
+        self.mini_step += 1
+        if self.mini_step < self.k:
+            return False
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc
+        self.optimizer.step()
+        for p, acc in zip(self.params, self.acc):
+            p.grad = None
+            acc.zero_()
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> dict:
+        return {**self.optimizer.state_dict(),
+                "multi_steps": {"mini_step": self.mini_step,
+                                "acc_grads": list(self.acc)}}
+
+    def load_state_dict(self, state: dict) -> None:
+        """The inner optimizer's state and, where the checkpoint has
+        them (one written with k = 1 has not), the accumulated gradients
+        and the micro-step count."""
+        state = dict(state)
+        ms = state.pop("multi_steps", None)
+        self.optimizer.load_state_dict(state)
+        if ms is not None:
+            for acc, saved in zip(self.acc, ms["acc_grads"], strict=True):
+                acc.copy_(saved)
+            self.mini_step = int(ms["mini_step"])
+
+
 def build_optimizer(cfg, model: torch.nn.Module,
                     overrides: Optional[Dict[str, Dict[str, float]]] = None):
     """Returns (torch.optim.SGD, LambdaLR) for ``model``'s trainable
@@ -142,20 +217,16 @@ def build_optimizer(cfg, model: torch.nn.Module,
     ``overrides`` ({name substring: {"lr": ..., "weight_decay": ...}},
     JAX's argument) applied as ``_param_opts`` says, the
     schedule ``warmup_multistep_lr`` as a LambdaLR (``scheduler.step()``
-    once per optimizer step), and the gradient handling of
-    ``_clip_hook`` before each step. Parameters that
-    ``default_frozen_fn(cfg)`` names, and parameters that already have
-    ``requires_grad=False``, are left out. Training settings the port
-    does not implement yet raise."""
+    once per update), and the gradient handling of ``_clip_hook``
+    before each update. Parameters that ``default_frozen_fn(cfg)``
+    names, and parameters that already have ``requires_grad=False``,
+    are left out. With ``SOLVER.GRADIENT_ACCUMULATION_STEPS`` k > 1 the
+    optimizer is ``MultiSteps(SGD, k)``: a training iteration is a
+    micro-batch and k of them make one update, so the schedule, which
+    steps once an update, reads iteration // k, as JAX's (the scheduler
+    is the inner SGD's)."""
     s = cfg.SOLVER
-    if int(s.GRADIENT_ACCUMULATION_STEPS) > 1:
-        raise NotImplementedError(
-            "SOLVER.GRADIENT_ACCUMULATION_STEPS > 1 is not implemented in "
-            "the port yet (ROADMAP queue 1, item 6)")
-    if cfg.TPU.REMAT_BACKBONE:
-        raise NotImplementedError(
-            "TPU.REMAT_BACKBONE is not implemented in the port yet "
-            "(ROADMAP queue 1, item 6)")
+    accum = int(s.GRADIENT_ACCUMULATION_STEPS)
     frozen_fn = default_frozen_fn(cfg)
     wd_bias = s.WEIGHT_DECAY if s.WEIGHT_DECAY_BIAS is None \
         else s.WEIGHT_DECAY_BIAS
@@ -177,6 +248,8 @@ def build_optimizer(cfg, model: torch.nn.Module,
         optimizer, _warmup_multistep_factor(
             s.STEPS, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS,
             s.WARMUP_METHOD))
+    if accum > 1:
+        return MultiSteps(optimizer, accum), scheduler
     return optimizer, scheduler
 
 
@@ -185,10 +258,11 @@ def restore_opt_state(optimizer, scheduler, state: dict) -> None:
     checkpoint (``state["optimizer"]``, ``state["scheduler"]``) into the
     ones ``build_optimizer`` built for the same model and config: the
     momentum buffers, each group's learning rate and the schedule's
-    step. The counterpart of JAX's ``restore_opt_state``, which rebuilds
-    optax's NamedTuples from orbax's dicts; JAX's collapse of a legacy
-    full-shape momentum of frozen parameters has no counterpart, as no
-    checkpoint of the port predates frozen parameters having no
-    momentum."""
+    step, and under ``MultiSteps`` the accumulated gradients and the
+    micro-step count. The counterpart of JAX's ``restore_opt_state``,
+    which rebuilds optax's NamedTuples from orbax's dicts; JAX's collapse
+    of a legacy full-shape momentum of frozen parameters has no
+    counterpart, as no checkpoint of the port predates frozen parameters
+    having no momentum."""
     optimizer.load_state_dict(state["optimizer"])
     scheduler.load_state_dict(state["scheduler"])

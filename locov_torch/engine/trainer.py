@@ -2,7 +2,8 @@
 the evaluation side as module functions.
 
 Counterpart of ``locov_tpu/engine/trainer.py`` (a behavioral port of
-the reference trainer, ``ovr/engine/trainer.py:37-566``) on one device.
+the reference trainer, ``ovr/engine/trainer.py:37-566``), one device a
+rank of ``torch.distributed``.
 The module functions: ``proposal_slots`` (:53), ``build_tokenizer``
 (:68), the test loader (``OVRTrainer.build_test_loader``, :180-210),
 the class-embedding matrix of a dataset (``OVRTrainer.load_embeddings``,
@@ -13,11 +14,14 @@ optimizer and loaders and runs the custom loop with init-eval
 checkpointer max_to_keep=2, eval with best-metric save, periodic
 writers, trainer.py:220-291), resume with the key-rename fan-out map for
 the LSM->STT hand-off (trainer.py:293-363) and the NaN ->
-FloatingPointError tripwire (trainer.py:554-559). One device: the eval
-batch is not rounded to a device count; the samplers shard by the
-process's rank where ``torch.distributed`` runs, but the training step
-and the loss-only evaluation raise for a world larger than 1 (ROADMAP
-queue 1, item 7b).
+FloatingPointError tripwire (trainer.py:554-559). Where
+``torch.distributed`` runs several ranks (``train_ovnet --num-gpus``),
+every rank builds the model, optimizer and generators, trains on its
+shard of each batch (the gradients averaged over the ranks in the
+step, ``TPU.CONTRASTIVE_SCOPE`` local or global) and evaluates its
+shard; rank 0 alone writes checkpoints, metrics and the best-metric
+side file. The eval batch is not rounded to a device count (one device
+a rank).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from ..utils.checkpoint import (STT_FROM_LSM_RENAME, Checkpointer,
                                 load_weights_standalone,
                                 load_with_rename_map, merge_over_template,
                                 read_weights, torch_rename_map)
+from ..utils.debug import enable_nan_debugging
 from ..utils.device import resolve_device
 from ..utils.events import (CSVWriter, EventStorage, JSONWriter,
                             MetricPrinter, TensorboardWriter)
@@ -134,18 +139,8 @@ def load_embeddings(cfg, dataset_name: str, device=None) -> torch.Tensor:
 
 def check_supported(cfg) -> None:
     """Raise, citing the ROADMAP item, where JAX would run something the
-    port does not have: NaN debugging and the global contrastive scope
-    (item 7b), the grid meta-archs (item 3), test-time augmentation
-    (item 8) and int8 serving (item 9). Gradient accumulation and remat
-    (item 6) raise in ``build_optimizer``."""
-    if cfg.TPU.DEBUG_NANS:
-        raise NotImplementedError(
-            "TPU.DEBUG_NANS: utils/debug.py is not ported yet (ROADMAP "
-            "queue 1, item 7b)")
-    if cfg.TPU.CONTRASTIVE_SCOPE != "local":
-        raise NotImplementedError(
-            f"TPU.CONTRASTIVE_SCOPE {cfg.TPU.CONTRASTIVE_SCOPE!r}: only "
-            f"the local scope is ported (ROADMAP queue 1, item 7b)")
+    port does not have: the grid meta-archs (item 3), test-time
+    augmentation (item 8) and int8 serving (item 9)."""
     if cfg.MODEL.META_ARCHITECTURE in GRID_ARCHS:
         raise NotImplementedError(
             f"{cfg.MODEL.META_ARCHITECTURE} and its 'ovr' evaluation are "
@@ -243,20 +238,25 @@ class OVRTrainer:
     and evaluates it.
 
     The model is built eagerly with seeded weights from ``cfg.SEED``
-    (``utils/weights.py:seeded_init_``); JAX's initialisation from the
-    first batch (``locov_tpu/engine/trainer.py:107-116``) has no
-    counterpart. ``MODEL.WEIGHTS`` then loads over them
-    (``load_pretrained``). Random draws: one device ``torch.Generator``
-    for the training steps and one for the loss-only evaluation, both
-    seeded from ``cfg.SEED``. Where ``TPU.PREFETCH_BATCHES`` > 0 a
-    ``DevicePrefetcher`` moves the batches to the device ahead of the
-    step."""
+    (``utils/weights.py:seeded_init_``), the same on every rank; JAX's
+    initialisation from the first batch
+    (``locov_tpu/engine/trainer.py:107-116``) has no counterpart.
+    ``MODEL.WEIGHTS`` then loads over them (``load_pretrained``).
+    Random draws: one device ``torch.Generator`` for the training steps
+    and one for the loss-only evaluation, both seeded from ``cfg.SEED``
+    and the rank (``rank_seed``: JAX's ``fold_in`` of the device index).
+    Where ``TPU.PREFETCH_BATCHES`` > 0 a ``DevicePrefetcher`` moves the
+    batches to the device ahead of the step. ``TPU.DEBUG_NANS`` turns on
+    autograd's anomaly mode (``utils/debug.py``)."""
 
     def __init__(self, cfg, device=None):
-        cfg = auto_scale_workers(cfg, process_rank_world()[1])
+        self.rank, self.world = process_rank_world()
+        cfg = auto_scale_workers(cfg, self.world)
         self.cfg = cfg
         self.device = resolve_device(device)
         check_supported(cfg)
+        if cfg.TPU.DEBUG_NANS:
+            enable_nan_debugging()
         self.is_lsm = cfg.MODEL.META_ARCHITECTURE in LSM_ARCHS
         self.needs_text = self.is_lsm
         seed = max(cfg.SEED, 0)
@@ -265,8 +265,7 @@ class OVRTrainer:
                                   seed)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("Model has %.1fM parameters", n_params / 1e6)
-        # before the loader's threads start: it raises on what is not
-        # ported (item 6); loads below write into the same parameters
+        # loads below write into the same parameters
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
         self.tokenizer = build_tokenizer(cfg) if self.needs_text else None
         self.train_loader = build_train_loader(cfg, self.tokenizer,
@@ -292,8 +291,10 @@ class OVRTrainer:
         if cfg.MODEL.PROJECTION_WEIGHTS:
             self.load_projection_only(cfg.MODEL.PROJECTION_WEIGHTS)
 
-        self.train_step = make_train_step(self.model, self.optimizer,
-                                          self.scheduler)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, self.scheduler,
+            contrastive_scope=cfg.TPU.CONTRASTIVE_SCOPE)
+        seed = rank_seed(seed, self.rank)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed)
         self.eval_generator = torch.Generator(
@@ -308,18 +309,27 @@ class OVRTrainer:
             CSVWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.csv"),
                       epoch_size=cfg.SOLVER.EPOCH_ITER_SIZE),
             TensorboardWriter(cfg.OUTPUT_DIR),
-        ]
+        ] if self.rank == 0 else []
         self._best_metric = None
         self._pending_metrics = None
 
     # ---------------------------------------------------------- checkpoints
     def state(self, iteration: int) -> dict:
-        """What a checkpoint holds: the model's, the optimizer's and the
-        scheduler's ``state_dict``s and the iteration."""
+        """What a checkpoint holds: the model's, the optimizer's (with
+        the accumulation state of ``MultiSteps``) and the scheduler's
+        ``state_dict``s and the iteration."""
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "scheduler": self.scheduler.state_dict(),
                 "iteration": iteration}
+
+    def _save(self, save):
+        """``save()`` (a checkpointer save) on rank 0, then a barrier of
+        every rank, so that no rank runs ahead of the saved state."""
+        if self.rank == 0:
+            save()
+        if self.world > 1:
+            torch.distributed.barrier()
 
     def load_pretrained(self, weights: str):
         """Load MODEL.WEIGHTS: a d2-named torch .pth, a Caffe2 .pkl or a
@@ -334,7 +344,8 @@ class OVRTrainer:
                            "scratch", weights)
             return
         self.last_import_report = load_weights_standalone(
-            self.model, weights, report_dir=self.cfg.OUTPUT_DIR)
+            self.model, weights,
+            report_dir=self.cfg.OUTPUT_DIR if self.rank == 0 else None)
 
     def load_projection_only(self, weights: str):
         """Load ONLY the V->L projection (v2l_projection / emb_pred)
@@ -453,8 +464,8 @@ class OVRTrainer:
                 self.after_step(it)
             self.flush_metrics()
             # final checkpoint + eval
-            self.checkpointer.save_named("model_final",
-                                         self.state(self.max_iter - 1))
+            self._save(lambda: self.checkpointer.save_named(
+                "model_final", self.state(self.max_iter - 1)))
             results = self.test_and_maybe_save(final=True)
             # commit the in-flight async save (it overlapped the eval)
             self.checkpointer.wait()
@@ -474,7 +485,8 @@ class OVRTrainer:
     def after_step(self, it: int):
         cfg = self.cfg
         if (it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
-            self.checkpointer.save_periodic(it, self.state(it))
+            self._save(lambda: self.checkpointer.save_periodic(
+                it, self.state(it)))
         if cfg.TEST.EVAL_PERIOD > 0 and (it + 1) % cfg.TEST.EVAL_PERIOD \
                 == 0 and it + 1 != self.max_iter:
             self.test_and_maybe_save()
@@ -497,9 +509,9 @@ class OVRTrainer:
         if value is not None and (self._best_metric is None
                                   or value > self._best_metric):
             self._best_metric = value
-            self.checkpointer.save_best(
+            self._save(lambda: self.checkpointer.save_best(
                 self.storage.iter, self.state(self.storage.iter),
-                metric_key, value)
+                metric_key, value))
         return results
 
     def test(self, cfg) -> Dict[str, Dict]:
@@ -507,6 +519,15 @@ class OVRTrainer:
         loss-only pass drawing from the trainer's evaluation
         generator."""
         return test(cfg, self.model, self.device, self.eval_generator)
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of a rank's generators: ``seed`` on rank 0 (one process
+    draws as it always did), a seed derived from (seed, rank) on the
+    others."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
 
 
 def _to_host_async(metrics: Dict[str, torch.Tensor]):

@@ -310,14 +310,12 @@ def inference_on_caption_dataset(loss_step, params, loader, class_emb,
     read to the host with one copy, ``"Total Loss"`` is the sum of the
     keys that name a loss, and the sums are averaged over the batches;
     returns (metrics, losses), split by whether a key names a loss.
-    One process only: the merge of per-rank batch counts waits for the
-    data-parallel design (ROADMAP queue 1, item 7b)."""
-    from ..parallel.mesh import process_rank_world
-    if process_rank_world()[1] > 1:
-        raise NotImplementedError(
-            "inference_on_caption_dataset across several processes: the "
-            "multi-rank merge is not ported yet (ROADMAP queue 1, "
-            "item 7b)")
+    Where ``torch.distributed`` runs several ranks, each over its shard,
+    the per-rank sums and batch counts are merged by one all_gather
+    before the average, which is so weighted by each rank's batches
+    (JAX's ``process_allgather``): the mean over every batch of every
+    rank. The step itself does not reduce over the ranks, so ranks with
+    different batch counts do not wait on each other."""
     totals: Dict[str, float] = {}
     n = 0
     total = len(loader)
@@ -342,7 +340,26 @@ def inference_on_caption_dataset(loss_step, params, loader, class_emb,
     logger.info("Loss-eval time: %s (%.4f s/batch compute)",
                 datetime.timedelta(seconds=int(elapsed)),
                 compute / max(n - num_warmup, 1))
+    totals, n = _merge_over_ranks(totals, n)
     avg = {k: v / max(n, 1) for k, v in totals.items()}
     losses = {k: v for k, v in avg.items() if "loss" in k.lower()}
     metrics = {k: v for k, v in avg.items() if "loss" not in k.lower()}
     return metrics, losses
+
+
+def _merge_over_ranks(totals: Dict[str, float], n: int
+                      ) -> Tuple[Dict[str, float], int]:
+    """The sums and the batch count of every rank of
+    ``torch.distributed`` added up (one ``all_gather_object``; a rank
+    without batches adds nothing); as they are where it does not run."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() == 1:
+        return totals, n
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (totals, n))
+    merged: Dict[str, float] = {}
+    for part_totals, _ in parts:
+        for k, v in part_totals.items():
+            merged[k] = merged.get(k, 0.0) + v
+    return merged, sum(part_n for _, part_n in parts)

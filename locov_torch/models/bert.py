@@ -20,7 +20,8 @@ while the parameters stay float32, as Flax does it:
   in float32).
 
 Dropout draws its mask from the ``torch.Generator`` passed down with
-``deterministic=False`` (``F.dropout`` would use the global generator).
+``deterministic=False`` (``F.dropout`` would use the global generator);
+``remat`` recomputes a function in the backward with the same masks.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.matmul import linear_f32
 
@@ -68,6 +70,34 @@ def dropout(x: torch.Tensor, p: float, deterministic: bool,
     keep = torch.rand(x.shape, generator=generator, device=x.device) \
         < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def remat(fn, *args, generator: Optional[torch.Generator] = None):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward instead of kept.
+    The checkpoint restores only the global RNG states for the
+    recompute, never an explicit generator, so the dropout masks that
+    ``fn`` draws from ``generator`` would be drawn anew, from a later
+    state. Here the recompute starts from the state the forward started
+    from, and the generator's state after the recompute is put back, so
+    the backward sees the forward's masks and later draws are not
+    moved."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    start = generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class Dense(nn.Linear):

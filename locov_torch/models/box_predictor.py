@@ -16,8 +16,8 @@ import torch
 from torch import nn
 
 from ..ops import nms as nms_ops
-from ..ops.losses import (giou, mean_cross_entropy, normalize_vec,
-                          smooth_l1, standardize_vec)
+from ..ops.losses import (giou, normalize_vec, smooth_l1,
+                          softmax_cross_entropy, standardize_vec)
 from ..structures import boxes as box_ops
 from ..structures.batches import Detections
 
@@ -107,16 +107,24 @@ class EmbeddingBoxPredictor(nn.Module):
 def fast_rcnn_losses(scores: torch.Tensor, deltas: torch.Tensor,
                      proposal_boxes: torch.Tensor, gt_classes: torch.Tensor,
                      gt_boxes: torch.Tensor, valid: torch.Tensor,
-                     pcfg: BoxPredictorConfig) -> Dict[str, torch.Tensor]:
+                     pcfg: BoxPredictorConfig, global_batch=None
+                     ) -> Dict[str, torch.Tensor]:
     """d2 FastRCNNOutputLayers.losses over a flattened sampled batch.
 
     scores [R, K+1]; deltas [R, 4] (class-agnostic); proposal_boxes,
     gt_boxes [R, 4]; gt_classes [R] (K = background); valid [R]. loss_cls
     is the mean cross entropy over the valid samples; loss_box_reg the
     sum over foreground samples divided by the number of valid ones
-    (d2 divides by gt_classes.numel())."""
+    (d2 divides by gt_classes.numel()). With ``global_batch``
+    (``parallel/mesh.py:GlobalBatch``) both count the valid samples of
+    every rank: this rank's share of the global batch's means."""
     labels = torch.where(valid, gt_classes, torch.full_like(gt_classes, -1))
-    loss_cls = mean_cross_entropy(scores, labels, ignore_index=-1)
+
+    def per_valid(total):
+        if global_batch is None:
+            return total / valid.sum().clamp(min=1)
+        return global_batch.share(total, valid.sum())
+    loss_cls = per_valid(softmax_cross_entropy(scores, labels, -1)[0].sum())
     num_classes = scores.shape[-1] - 1
     is_fg = valid & (gt_classes >= 0) & (gt_classes < num_classes)
     if pcfg.box_reg_loss_type == "smooth_l1":
@@ -129,8 +137,8 @@ def fast_rcnn_losses(scores: torch.Tensor, deltas: torch.Tensor,
         per = giou(pred, gt_boxes)
     else:
         raise NotImplementedError(pcfg.box_reg_loss_type)
-    loss_box = torch.where(is_fg, per, torch.zeros_like(per)).sum() / \
-        valid.sum().clamp(min=1)
+    loss_box = per_valid(torch.where(is_fg, per,
+                                     torch.zeros_like(per)).sum())
     if pcfg.detach_cls_predictor:
         loss_cls = 0.0 * loss_cls
     return {"loss_cls": loss_cls,

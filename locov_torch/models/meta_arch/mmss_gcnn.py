@@ -144,8 +144,17 @@ class MMSSHeads(nn.Module):
 
     def forward(self, image: RegionFeatures, caption: CaptionFeatures,
                 word_embeddings: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
-        """-> (outputs, losses, dists) of one region group."""
+                generator: Optional[torch.Generator] = None,
+                global_batch=None):
+        """-> (outputs, losses, dists) of one region group. With
+        ``global_batch`` (``parallel/mesh.py:GlobalBatch``) the regions
+        and captions of every rank are gathered first, so that the
+        heads' batch-coupled losses (the B x B matchings, the MLM mean
+        over the masked tokens) and, after them, the distillation span
+        the global batch, as in JAX's global-scope step."""
+        if global_batch is not None:
+            image = RegionFeatures(*map(global_batch.gather, image))
+            caption = CaptionFeatures(*map(global_batch.gather, caption))
         if self.v2l_projection is not None:
             image = image._replace(features=self.project(image.features))
         results = []
@@ -245,7 +254,7 @@ class DistillProposalMMSSRCNN(OvrRCNN):
     def losses(self, batch: DetectionBatch, class_emb: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                uniforms: Optional[Dict[str, object]] = None,
-               deterministic: bool = True
+               deterministic: bool = True, global_batch=None
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """(mmss_outputs, losses) of one padded batch with ``batch.gt``
         and ``batch.text``; ``class_emb`` [K+1, D] (last row background).
@@ -253,7 +262,9 @@ class DistillProposalMMSSRCNN(OvrRCNN):
         pairs as ``OvrRCNN.losses`` takes them, ``"grid_drop"`` [B, gh *
         gw] and ``"box_drop"`` [B, S] (the spatial dropout's keys); what
         is missing is drawn from ``generator``. ``deterministic=False``
-        makes the MMSS heads' dropout live (the training step)."""
+        makes the MMSS heads' dropout live (the training step).
+        ``global_batch`` (the global contrastive scope) makes the MMSS
+        heads and the FastRCNN losses read every rank's batch."""
         uniforms = dict(uniforms or {})
         images, gt = batch.images, batch.gt
         b = gt.boxes.shape[0]
@@ -300,7 +311,7 @@ class DistillProposalMMSSRCNN(OvrRCNN):
                 box_feats.reshape(b * s, c), class_emb)
             losses.update(roi_heads_losses(
                 scores.reshape(b, s, -1), deltas2.reshape(b, s, 4), sampled,
-                self.pcfg))
+                self.pcfg, global_batch))
 
         word_emb = self.language_backbone.word_embedding_matrix()
         outputs: Dict[str, torch.Tensor] = {}
@@ -315,7 +326,8 @@ class DistillProposalMMSSRCNN(OvrRCNN):
                     draw("grid_drop", regions.mask.shape[1], pair=False))
         with _stage("grid_mmss"):
             og, lg, dg = self.mmss_heads(regions, caption, word_emb,
-                                         deterministic, generator)
+                                         deterministic, generator,
+                                         global_batch)
             outputs.update(og)
             losses.update(lg)
             dists.update(dg)
@@ -325,7 +337,8 @@ class DistillProposalMMSSRCNN(OvrRCNN):
                                    images.hw.float(), k,
                                    draw("box_drop", s, pair=False))
             o, l, d = self.mmss_heads(bregions, caption, word_emb,
-                                      deterministic, generator)
+                                      deterministic, generator,
+                                      global_batch)
             outputs.update({"Box " + k2: v for k2, v in o.items()})
             losses.update({"Box " + k2: v for k2, v in l.items()})
             dists.update({"box_" + k2: v for k2, v in d.items()})

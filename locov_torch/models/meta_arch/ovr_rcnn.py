@@ -77,7 +77,8 @@ def detector_kwargs(cfg) -> dict:
         compute_dtype=dtype,
         use_rpn=(cfg.MODEL.PROPOSAL_GENERATOR.NAME
                  != "PrecomputedProposals"),
-        freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT)
+        freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+        remat_backbone=cfg.TPU.REMAT_BACKBONE)
 
 
 @register_meta_arch("OvrRCNN")
@@ -92,7 +93,8 @@ class OvrRCNN(nn.Module):
                  pcfg: BoxPredictorConfig,
                  compute_dtype: torch.dtype = torch.float32,
                  use_rpn: bool = True, freeze_at: int = 0,
-                 emb_pred: bool = True, device=None):
+                 remat_backbone: bool = False, emb_pred: bool = True,
+                 device=None):
         super().__init__()
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
@@ -105,7 +107,7 @@ class OvrRCNN(nn.Module):
             stem_out_channels=stem_out_channels,
             res2_out_channels=res2_out_channels,
             stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype,
-            freeze_at=freeze_at)
+            freeze_at=freeze_at, remat=remat_backbone)
         if use_rpn:
             self.rpn_head = RPNHead(
                 in_channels=res2_out_channels * 4,
@@ -144,7 +146,8 @@ class OvrRCNN(nn.Module):
                generator: Optional[torch.Generator] = None,
                uniforms: Optional[Dict[str, Tuple[torch.Tensor,
                                                   torch.Tensor]]] = None,
-               deterministic: bool = True) -> Dict[str, torch.Tensor]:
+               deterministic: bool = True, global_batch=None
+               ) -> Dict[str, torch.Tensor]:
         """The training loss dict of one padded batch with ``batch.gt``;
         ``class_emb`` is the [K+1, D] class-embedding matrix (last row
         background). The RPN and ROI samplers rank candidates by uniform
@@ -152,7 +155,10 @@ class OvrRCNN(nn.Module):
         u_neg) pairs of [B, N_anchors] and [B, N_proposals + M] where
         given, else they are drawn from ``generator`` (a generator on
         the model's device). The detector has no dropout:
-        ``deterministic`` is accepted for the training step's sake."""
+        ``deterministic`` is accepted for the training step's sake.
+        ``global_batch`` (``parallel/mesh.py:GlobalBatch``, the global
+        contrastive scope) normalises the FastRCNN losses over every
+        rank's samples."""
         uniforms = dict(uniforms or {})
         images, gt = batch.images, batch.gt
 
@@ -197,7 +203,7 @@ class OvrRCNN(nn.Module):
                                                      class_emb.float())
         with record_function("OvrRCNN.roi_heads_losses"):
             losses.update(roi_heads_losses(scores, deltas2, sampled,
-                                           self.pcfg))
+                                           self.pcfg, global_batch))
         return losses
 
     @torch.inference_mode()

@@ -2,7 +2,7 @@
 modelling and image-caption matching.
 
 Counterpart of ``locov_tpu/models/mmss/transformer_head.py`` for
-``MMM_LOSS`` "cross_entropy" and "", unfused and unchunked. Projected
+``MMM_LOSS`` "cross_entropy" and "", unfused. Projected
 region features plus location embeddings are appended to the caption's
 token embeddings; a small BERT encoder (6 layers, 8 heads in
 coco_lsm.yaml) encodes every (caption, image) pair of the batch,
@@ -13,8 +13,11 @@ all B^2 pairs and takes the diagonal: the same numbers).
 
 The attention mask is the reference's: the raw 0/1 mask is added to the
 pre-softmax logits (``PROPER_ATTENTION_MASK`` switches to the most
-negative value). ``TPU.PAIRWISE_CHUNK`` and the fused grid + box pass
-(``image2``) are not ported yet and raise.
+negative value). ``TPU.PAIRWISE_CHUNK`` c below the pair count P cuts
+the pair list into P // c equal chunks, each encoded and pooled in turn
+under ``bert.remat`` (JAX's ``nn.scan(nn.remat(_PairChunkEncoder))``):
+only one chunk's activations are alive in the backward. The fused grid
++ box pass (``image2``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from torch import nn
 from ...ops.losses import mean_cross_entropy
 from ...structures.batches import CaptionFeatures, RegionFeatures
 from ..bert import (BertConfig, BertEncoder, BertLMHead, BertPooler, Dense,
-                    LayerNorm, _dense, dropout)
+                    LayerNorm, _dense, dropout, remat)
 
 
 class TransformerHeadConfig(NamedTuple):
@@ -86,9 +89,6 @@ class TransformerHead(nn.Module):
     def __init__(self, tcfg: TransformerHeadConfig, v_dim: int, l_dim: int,
                  loc_dim: int = 2, external_projection: bool = False):
         super().__init__()
-        if tcfg.pairwise_chunk > 0:
-            raise NotImplementedError(
-                "TPU.PAIRWISE_CHUNK > 0 is not ported yet")
         if tcfg.mmm_loss not in ("cross_entropy", ""):
             raise NotImplementedError(tcfg.mmm_loss)
         self.tcfg = tcfg
@@ -101,6 +101,20 @@ class TransformerHead(nn.Module):
             self.pooler = BertPooler(c)
             self.bi_seq_relationship = _dense(c, c.hidden_size, 2)
         self.predictions = BertLMHead(c)
+
+    def _encode_pairs(self, caption_emb, image_emb, caption_mask,
+                      region_mask, cap_idx, img_idx, deterministic,
+                      raw_mask, generator=None):
+        """(sequence, pooled first token) of the pairs (caption
+        ``cap_idx[k]``, image ``img_idx[k]``) through the joint
+        encoder."""
+        tokens = torch.cat([caption_emb[cap_idx], image_emb[img_idx]],
+                           dim=1)
+        mask = torch.cat([caption_mask[cap_idx], region_mask[img_idx]],
+                         dim=1)
+        seq = self.encoder(tokens, mask, deterministic=deterministic,
+                           raw_additive_mask=raw_mask, generator=generator)
+        return seq, self.pooler(seq)
 
     def forward(self, image: RegionFeatures, caption: CaptionFeatures,
                 word_embeddings: torch.Tensor, deterministic: bool = True,
@@ -131,14 +145,27 @@ class TransformerHead(nn.Module):
             # caption k // b with image k % b
             ar = torch.arange(b, device=caption_mask.device)
             cap_idx, img_idx = ar.repeat_interleave(b), ar.repeat(b)
-            tokens = torch.cat([caption_emb[cap_idx], image_emb[img_idx]],
-                               dim=1)
-            mask = torch.cat([caption_mask[cap_idx], region_mask[img_idx]],
-                             dim=1)
-            seq = self.encoder(tokens, mask, deterministic=deterministic,
-                               raw_additive_mask=raw_mask,
-                               generator=generator)
-            scores = self.bi_seq_relationship(self.pooler(seq))
+            embs = (caption_emb, image_emb, caption_mask, region_mask)
+            npairs = b * b
+            if 0 < t.pairwise_chunk < npairs:
+                # JAX's reshape(nchunk, -1): P // c chunks of equal size
+                nchunk = npairs // t.pairwise_chunk
+                if npairs % nchunk:
+                    raise ValueError(
+                        f"TPU.PAIRWISE_CHUNK {t.pairwise_chunk}: {npairs} "
+                        f"pairs do not split into {nchunk} equal chunks")
+                outs = [remat(self._encode_pairs, *embs, ci, ii,
+                              deterministic, raw_mask, generator,
+                              generator=generator)
+                        for ci, ii in zip(cap_idx.reshape(nchunk, -1),
+                                          img_idx.reshape(nchunk, -1))]
+                seq = torch.cat([o[0] for o in outs])
+                pooled = torch.cat([o[1] for o in outs])
+            else:
+                seq, pooled = self._encode_pairs(*embs, cap_idx, img_idx,
+                                                 deterministic, raw_mask,
+                                                 generator)
+            scores = self.bi_seq_relationship(pooled)
             pw_cost = scores[:, 0].reshape(b, b)
             seq_t_diag = seq[ar * b + ar, :max_w]     # [B, W, D]
         else:

@@ -17,6 +17,7 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import conv2d
 from ..ops.relu_maxpool import relu_maxpool
@@ -158,7 +159,13 @@ class ResNetC4(nn.Module):
     also res2 .. res{i}. Their parameters get ``requires_grad=False`` and
     their outputs are detached, so no activation of a frozen stage is
     kept for a backward and no gradient flows into it (the JAX package's
-    ``stop_gradient`` at the same places)."""
+    ``stop_gradient`` at the same places).
+
+    ``remat`` (``TPU.REMAT_BACKBONE``): while gradients are recorded,
+    each stage after the stem that trains runs under
+    ``torch.utils.checkpoint``, so that its activations are recomputed
+    in the backward instead of kept (JAX's ``nn.remat(ResNetStage)``).
+    The stem stays outside, so its ReLU + max-pool kernel runs once."""
 
     def __init__(self, depth: int = 50,
                  out_features: Sequence[str] = ("res4",),
@@ -167,11 +174,12 @@ class ResNetC4(nn.Module):
                  res2_out_channels: int = 256,
                  stride_in_1x1: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
-                 freeze_at: int = 0):
+                 freeze_at: int = 0, remat: bool = False):
         super().__init__()
         self.out_features = tuple(out_features)
         self.compute_dtype = compute_dtype
         self.freeze_at = freeze_at
+        self.remat = remat
         self.stem = ResNetStem(stem_out_channels, compute_dtype)
         stages = R50_STAGES if depth == 50 else R101_STAGES
         last = max((s for s in self.out_features if s != "stem"),
@@ -200,8 +208,13 @@ class ResNetC4(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         outputs = {}
         x = x.to(self.compute_dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for name in ["stem"] + self.stage_names:
-            x = getattr(self, name)(x)
+            stage = getattr(self, name)
+            if remat and name != "stem" and not self._frozen(name):
+                x = checkpoint(stage, x, use_reentrant=False)
+            else:
+                x = stage(x)
             if self._frozen(name):
                 x = x.detach()
             if name in self.out_features:

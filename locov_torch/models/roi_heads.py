@@ -165,10 +165,12 @@ class Res5ROIHeads(nn.Module):
 
 def roi_heads_losses(scores: torch.Tensor, deltas: torch.Tensor,
                      sampled: SampledProposals,
-                     pcfg: BoxPredictorConfig) -> Dict[str, torch.Tensor]:
-    """The FastRCNN losses over the flattened per-image samples."""
+                     pcfg: BoxPredictorConfig, global_batch=None
+                     ) -> Dict[str, torch.Tensor]:
+    """The FastRCNN losses over the flattened per-image samples (with
+    ``global_batch``, normalised over every rank's samples)."""
     def flat(x):
         return x.reshape((-1,) + tuple(x.shape[2:]))
     return fast_rcnn_losses(flat(scores), flat(deltas), flat(sampled.boxes),
                             flat(sampled.gt_classes), flat(sampled.gt_boxes),
-                            flat(sampled.valid), pcfg)
+                            flat(sampled.valid), pcfg, global_batch)

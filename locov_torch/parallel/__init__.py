@@ -1,2 +1,2 @@
-"""The training and evaluation steps on one device (data parallelism
-comes later)."""
+"""The training and evaluation steps, data parallel over the ranks of
+``torch.distributed``, and the input prefetcher."""

@@ -1,16 +1,25 @@
-"""The training and evaluation steps on one device, and the input
-prefetcher.
+"""The training and evaluation steps, data parallel over the ranks of
+``torch.distributed``, and the input prefetcher.
 
-Counterpart of ``locov_tpu/parallel/mesh.py:make_train_step``,
-``make_eval_step``, ``make_loss_eval_step`` and ``DevicePrefetcher``
-without the mesh. The training step: the loss dict of ``model.losses``,
-the backward of its sum, and one optimizer and scheduler step; the
-backward and the update run in ``torch.profiler.record_function``
-ranges ``train_step.backward`` and ``train_step.optimizer``, beside the
+Counterpart of ``locov_tpu/parallel/mesh.py``: a rank of
+``torch.distributed`` (one process, one device) stands for a device of
+JAX's mesh. ``initialize_distributed`` joins the process group (JAX's
+multi-host bootstrap). The training step: the loss dict of
+``model.losses``, the backward of its sum, the gradients averaged over
+the ranks by one all-reduce (JAX's ``pmean``, DDP's all-reduce; not
+overlapped with the backward), one optimizer and scheduler step, and
+the metrics averaged over the ranks. Its contrastive scope: "local"
+(the batch-coupled losses span each rank's own images, the reference's
+per-GPU semantics) or "global" (they span every rank's images, JAX's
+GSPMD step over the global batch: ``GlobalBatch``). The backward and
+the update run in ``torch.profiler.record_function`` ranges
+``train_step.backward`` and ``train_step.optimizer``, beside the
 model's ``<model>.<stage>`` ranges. The evaluation step:
 ``model.inference`` on the model's device. The loss evaluation step:
-``model.losses`` without gradients. ``process_rank_world`` stands in
-for ``jax.process_index()`` and ``jax.process_count()``.
+``model.losses`` without gradients; the evaluation loop merges its
+metrics over the ranks (``evaluation/evaluator.py:
+inference_on_caption_dataset``). ``process_rank_world`` stands in for
+``jax.process_index()`` and ``jax.process_count()``.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..structures.batches import Detections, to_torch
@@ -28,13 +38,104 @@ from ..structures.batches import Detections, to_torch
 def process_rank_world() -> Tuple[int, int]:
     """(rank, world size) of ``torch.distributed``, or (0, 1) where it
     is not initialised."""
-    import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
 
-def make_train_step(model: torch.nn.Module, optimizer, scheduler
+def initialize_distributed(dist_url: str, world_size: int, rank: int,
+                           backend: str = "nccl") -> None:
+    """Join the process group of ``world_size`` ranks at ``dist_url``
+    (``tcp://host:port``) as ``rank``: ``backend`` NCCL where the ranks
+    drive cards, gloo on the CPU. Nothing for a world of one, as JAX's
+    ``initialize_distributed``."""
+    if world_size > 1:
+        dist.init_process_group(backend, init_method=dist_url,
+                                world_size=world_size, rank=rank)
+
+
+def local_url() -> str:
+    """``tcp://127.0.0.1:<a free port>``: a rendezvous for ranks of one
+    machine."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+
+
+class _AllGather(torch.autograd.Function):
+    """Concatenation of every rank's ``x`` along dim 0, in rank order;
+    the backward sums the gradient of the whole over the ranks and
+    returns this rank's slice (what ``torch.distributed.nn.functional.
+    all_gather`` computes; its backward goes through all_to_all on
+    gloo, here through one all_reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, batch):
+        ctx.batch = batch
+        return batch.gather_values(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        b = ctx.batch
+        grad = grad.contiguous()
+        dist.all_reduce(grad)
+        return grad.chunk(b.world)[b.rank], None
+
+
+class GlobalBatch:
+    """Every rank's images read as one batch: what the JAX package's
+    global-scope step (one GSPMD program over the global batch)
+    computes, written as collectives.
+
+    ``gather`` concatenates a tensor of every rank along dim 0, in rank
+    order; a floating tensor keeps its gradient, summed back over the
+    ranks into each rank's slice. The MMSS heads read their regions and
+    captions through it (``MMSSHeads.forward``), so each rank computes
+    the whole global head loss; the gather's backward then gives each
+    rank's features ``world`` times their share of its gradient, and
+    the step's mean over the ranks gives every parameter the gradient of
+    the global loss. ``share`` is a loss normalised by a count of the
+    batch's items (``fast_rcnn_losses``): ``world * total / count
+    summed over the ranks``, whose mean over the ranks is the global
+    batch's mean, as JAX's global step normalises it."""
+
+    def __init__(self):
+        self.world = dist.get_world_size()
+        self.rank = dist.get_rank()
+
+    def gather_values(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.detach().contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_floating_point() and x.requires_grad:
+            return _AllGather.apply(x, self)
+        return self.gather_values(x)
+
+    def share(self, total: torch.Tensor, count: torch.Tensor
+              ) -> torch.Tensor:
+        count = count.detach().to(total.dtype).clone()
+        dist.all_reduce(count)
+        return total * self.world / count.clamp(min=1)
+
+
+def _mean_over_ranks_(tensors, world: int) -> None:
+    """Average each tensor over the ranks in place: one all_reduce of
+    all of them flattened into one buffer, divided by the world size."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    flat.div_(world)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def make_train_step(model: torch.nn.Module, optimizer, scheduler,
+                    contrastive_scope: str = "local"
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(batch, class_emb, generator, uniforms=None) ->
     metrics. ``model.losses`` returns a loss dict, or (outputs, losses)
@@ -43,21 +144,51 @@ def make_train_step(model: torch.nn.Module, optimizer, scheduler
     the outputs (accuracies) join the metrics. The model runs with
     ``deterministic=False``, so its dropout is live and draws from
     ``generator``. The metrics are detached tensors on the device, so
-    that the step waits for nothing on the host."""
+    that the step waits for nothing on the host.
+
+    Where ``torch.distributed`` runs more than one rank, each rank's
+    step takes its own batch and draws; after the backward the
+    gradients of the trainable parameters (zeros where a rank got none)
+    are averaged over the ranks by one all-reduce, and so are the
+    metrics. Under ``contrastive_scope`` "global" the model's
+    losses read the batch through ``GlobalBatch``; on one rank the
+    global scope is the local one. An optimizer that accumulates
+    (``engine/solver.py:MultiSteps``) accumulates the rank-averaged
+    gradients."""
+    if contrastive_scope not in ("local", "global"):
+        raise ValueError(f"TPU.CONTRASTIVE_SCOPE {contrastive_scope!r}")
+    world = process_rank_world()[1]
+    scope = {}
+    if contrastive_scope == "global" and world > 1:
+        scope["global_batch"] = GlobalBatch()
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch, class_emb, generator, uniforms=None):
         optimizer.zero_grad(set_to_none=True)
         res = model.losses(batch, class_emb, generator, uniforms,
-                           deterministic=False)
+                           deterministic=False, **scope)
         outputs, losses = res if isinstance(res, tuple) else ({}, res)
         total = sum(losses[k] for k in sorted(losses))
         with record_function("train_step.backward"):
             total.backward()
-        with record_function("train_step.optimizer"):
-            optimizer.step()
-            scheduler.step()
         metrics = {k: v.detach() for k, v in {**losses, **outputs}.items()}
         metrics["total_loss"] = total.detach()
+        if world > 1:
+            with record_function("train_step.all_reduce"):
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                _mean_over_ranks_([p.grad for p in params], world)
+                keys = list(metrics)
+                stacked = torch.stack([metrics[k].float().reshape(())
+                                       for k in keys])
+                _mean_over_ranks_([stacked], world)
+                metrics = dict(zip(keys, stacked.unbind()))
+        with record_function("train_step.optimizer"):
+            # False: a MultiSteps optimizer only accumulated; the schedule
+            # advances once an update
+            if optimizer.step() is not False:
+                scheduler.step()
         return metrics
     return step
 

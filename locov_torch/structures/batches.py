@@ -105,3 +105,14 @@ def to_torch(batch, device):
     if isinstance(batch, torch.Tensor):
         return batch.to(device)
     return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+
+
+def take_rows(batch, start: int, stop: int):
+    """Rows ``start:stop`` (images of the batch) of every array of a
+    (nested) NamedTuple; ``None`` fields stay ``None``: one rank's share
+    of a global batch."""
+    if batch is None:
+        return None
+    if isinstance(batch, tuple) and hasattr(batch, "_fields"):
+        return type(batch)(*(take_rows(v, start, stop) for v in batch))
+    return batch[start:stop]

@@ -70,6 +70,14 @@ def build_full(batch=4, height=800, width=1344, text_len=70, device=None,
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     model = trained_scale_(seeded_init_(build_meta_arch(cfg, device=dev),
                                         seed))
+    return (cfg, model) + lsm_inputs(batch, height, width, text_len, dev)
+
+
+def lsm_inputs(batch=4, height=800, width=1344, text_len=70, device=None):
+    """(batch, class_emb) of the LSM training workload on ``device``:
+    ``build_full``'s synthetic images, gt, captions and class
+    embeddings."""
+    dev = resolve_device(device)
     rng = np.random.RandomState(0)
     b = batch
     images = _images(rng, b, height, width)
@@ -94,7 +102,7 @@ def build_full(batch=4, height=800, width=1344, text_len=70, device=None,
     data = to_torch(DetectionBatch(images=images, gt=gt, text=text), dev)
     class_emb = torch.from_numpy(
         rng.randn(81, 768).astype(np.float32)).to(dev)
-    return cfg, model, data, class_emb
+    return data, class_emb
 
 
 def build_stt_eval(batch=8, height=800, width=1344, device=None, seed=0):

@@ -7,9 +7,16 @@
 The same arguments and ``verify_results``; ``config.yaml`` goes to
 OUTPUT_DIR. ``--device`` picks the device: the card unless ``cpu`` is
 given (no GPU and no ``--device cpu`` raises; there is no fallback).
-One process drives one device: ``--num-gpus`` and ``--num-machines``
-above 1 raise (ROADMAP queue 1, item 7b). ``TPU.COMPILE_CACHE_DIR`` is a
-setting of the JAX package and is not read.
+One process drives one device. ``--num-gpus N`` starts N ranks on this
+machine with ``torch.multiprocessing.spawn`` (the reference's d2
+``launch``), rank ``machine_rank * N + i`` on ``cuda:<i>`` (NCCL) or,
+under ``--device cpu``, on the CPU (gloo); ``--num-machines`` and
+``--machine-rank`` count the machines, ``--dist-url`` is the first
+machine's ``tcp://host:port`` (``auto``: a free local port, one machine
+only). A world of one starts no process group. Rank 0 writes
+``config.yaml`` and prints INFO logs; only a world of one returns the
+results. ``TPU.COMPILE_CACHE_DIR`` is a setting of the JAX package and
+is not read.
 """
 import argparse
 import logging
@@ -22,7 +29,7 @@ def default_argument_parser():
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--num-gpus", type=int, default=1,
-                   help="devices of this machine; only 1 is ported")
+                   help="ranks (devices) of this machine")
     p.add_argument("--num-machines", type=int, default=1)
     p.add_argument("--machine-rank", type=int, default=0)
     p.add_argument("--dist-url", default="auto")
@@ -34,7 +41,7 @@ def default_argument_parser():
     return p
 
 
-def setup(args):
+def setup(args, rank: int = 0):
     from locov_torch.config import (add_ovr_config,
                                     edit_output_dir_exp_specific, get_cfg)
     cfg = get_cfg()
@@ -47,19 +54,51 @@ def setup(args):
     cfg.freeze()
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if rank == 0 else logging.WARNING,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if rank == 0:
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
     return cfg
 
 
 def main(args):
-    if args.num_machines > 1 or args.num_gpus > 1:
-        raise NotImplementedError(
-            "--num-machines / --num-gpus > 1: data-parallel training is "
-            "not ported yet (ROADMAP queue 1, item 7b)")
-    cfg = setup(args)
+    world = args.num_gpus * args.num_machines
+    if world > 1:
+        import torch.multiprocessing as mp
+        from locov_torch.parallel.mesh import local_url
+        url = args.dist_url
+        if url == "auto":
+            if args.num_machines > 1:
+                raise ValueError("--dist-url auto needs --num-machines 1")
+            url = local_url()
+        mp.spawn(_rank_main, args=(args, url, world), nprocs=args.num_gpus)
+        return None
+    return run(args)
+
+
+def _rank_main(local_rank: int, args, url: str, world: int):
+    """One spawned rank: its device, the process group, ``run``."""
+    import torch
+    import torch.distributed as dist
+    from locov_torch.parallel.mesh import initialize_distributed
+    rank = args.machine_rank * args.num_gpus + local_rank
+    if args.device == "cpu":
+        device, backend = "cpu", "gloo"
+    else:
+        device, backend = f"cuda:{local_rank}", "nccl"
+        torch.cuda.set_device(local_rank)
+    initialize_distributed(url, world, rank, backend)
+    try:
+        run(args, device, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, device=None, rank: int = 0):
+    """Set up, train or evaluate on ``device`` (``--device`` where not
+    given) as ``rank``."""
+    cfg = setup(args, rank)
 
     from locov_torch.data import get_register_dataset
     from locov_torch.engine.trainer import OVRTrainer
@@ -67,14 +106,14 @@ def main(args):
     for name in tuple(cfg.DATASETS.TRAIN) + tuple(cfg.DATASETS.TEST):
         get_register_dataset(name)(name, cfg.DATASETS.ROOT)
 
-    trainer = OVRTrainer(cfg, device=args.device)
+    trainer = OVRTrainer(cfg, device=device or args.device)
     trainer.resume_or_load(resume=args.resume)
     if args.eval_only:
         try:
             results = trainer.test(cfg)
         finally:
             trainer.close()
-        if cfg.TEST.EXPECTED_RESULTS:
+        if cfg.TEST.EXPECTED_RESULTS and rank == 0:
             verify_results(cfg, results)
         return results
     return trainer.train()

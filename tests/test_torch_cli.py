@@ -15,8 +15,9 @@ drive theirs:
 4. ``--eval-only`` of the STT checkpoint with ``TEST.EXPECTED_RESULTS``:
    the same AP as the end of stage 3.
 
-Also: ``config.yaml`` in OUTPUT_DIR, the raises on several devices or
-machines, and no fallback to the CPU when no GPU is present.
+Also: ``config.yaml`` in OUTPUT_DIR, two ranks on the CPU
+(``--num-gpus 2 --device cpu``), the raises on what is not ported, and
+no fallback to the CPU when no GPU is present.
 """
 import json
 import os
@@ -156,9 +157,44 @@ def test_eval_only_with_expected_results(stages, capsys):
 
 
 def test_cli_raises_on_what_is_not_ported(stages):
-    for flag in ("--num-gpus", "--num-machines"):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            run(stages["stt_flags"] + [flag, "2"], stages["stt_opts"])
+    """Test-time augmentation (item 8) and int8 serving (item 9); several
+    ranks, which raised here before, run in
+    ``test_two_ranks_on_the_cpu``."""
+    for key, item in (("TEST.AUG.ENABLED", "item 8"),
+                      ("TPU.INT8_EVAL", "item 9")):
+        with pytest.raises(NotImplementedError, match=item):
+            run(stages["stt_flags"], stages["stt_opts"] + [key, "True"])
+
+
+def test_two_ranks_on_the_cpu(stages):
+    """``--num-gpus 2 --device cpu``: two spawned gloo ranks train the
+    STT stage for two steps and evaluate; rank 0 alone writes
+    ``config.yaml``, the checkpoints (the best-metric one too) and one
+    ``metrics.json`` row an iteration. ``--dist-url auto`` is for one
+    machine only."""
+    out = os.path.join(stages["root"], "two_ranks")
+    opts = stages["stt_opts"] + ["OUTPUT_DIR", out,
+                                 "MODEL.WEIGHTS", "", "SOLVER.MAX_ITER", "2"]
+    assert run(stages["stt_flags"] + ["--num-gpus", "2"], opts) is None
+    out_dir = next(os.path.join(stages["root"], d)
+                   for d in os.listdir(stages["root"])
+                   if d.startswith("two_ranks-"))
+    files = sorted(f for f in os.listdir(out_dir)
+                   if not f.startswith("events.out"))
+    assert files == ["config.yaml", "last_checkpoint", "metrics.csv",
+                     "metrics.json", "model_0000000", "model_0000001",
+                     "model_best", "model_best.json", "model_final"]
+    rows = [json.loads(ln) for ln in open(os.path.join(out_dir,
+                                                       "metrics.json"))]
+    assert [r["iteration"] for r in rows] == [0, 1]
+    assert all(v == v and abs(v) < float("inf")
+               for r in rows for k, v in r.items() if "loss" in k)
+    final = torch.load(os.path.join(out_dir, "model_final"),
+                       weights_only=True)
+    assert final["iteration"] == 1
+    with pytest.raises(ValueError, match="auto needs --num-machines 1"):
+        run(stages["stt_flags"] + ["--num-gpus", "2", "--num-machines",
+                                   "2"], opts)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a GPU is present")

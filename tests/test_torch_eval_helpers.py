@@ -125,3 +125,50 @@ def gloo_eval_worker(rank, world, port, root, name, batch, out_path):
         dist.destroy_process_group()
     with open(out_path, "w") as f:
         json.dump(res, f)
+
+
+def synth_loss_step(batch, class_emb, generator):
+    """A loss-evaluation step without a model: metrics that are
+    functions of the batch (its image ids, pixels and caption tokens),
+    as 0-d tensors."""
+    import torch
+    images = batch.images
+    ids = torch.as_tensor(np.asarray(images.image_id), dtype=torch.float64)
+    pixels = torch.as_tensor(np.asarray(images.image), dtype=torch.float64)
+    tokens = torch.as_tensor(np.asarray(batch.text.attention_mask),
+                             dtype=torch.float64)
+    return {"id_loss": ids.mean(), "Pixel Mean": pixels.mean(),
+            "token loss": tokens.sum() / 7.0}
+
+
+def synthetic_caption_eval(root, name):
+    """The port's ``inference_on_caption_dataset`` of ``synth_loss_step``
+    over the captions test loader of ``name`` at batch 1 (this process's
+    shard where torch.distributed runs)."""
+    from locov_torch.data.synthetic import micro_cfg
+    from locov_torch.engine.trainer import (build_test_loader,
+                                            build_tokenizer)
+    from locov_torch.evaluation.evaluator import \
+        inference_on_caption_dataset
+    cfg = micro_cfg(root, "DistillProposalMMSSRCNN")
+    cfg.TEST.IMS_PER_BATCH = 1
+    with build_test_loader(cfg, name, build_tokenizer(cfg), True) as loader:
+        return inference_on_caption_dataset(synth_loss_step, None, loader,
+                                            None, None)
+
+
+def gloo_caption_worker(rank, world, port, root, name, out_path):
+    """One rank of a gloo loss-only evaluation: its shard through
+    ``synthetic_caption_eval`` (the sums merge across ranks in
+    ``inference_on_caption_dataset``); (metrics, losses) to ``out_path``
+    as JSON."""
+    import json
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = synthetic_caption_eval(root, name)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)

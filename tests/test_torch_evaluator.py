@@ -55,8 +55,9 @@ from locov_torch.models import build_meta_arch as tbuild
 from locov_torch.parallel.mesh import make_eval_step as tmake_eval_step
 from locov_torch.structures.batches import Detections
 from locov_torch.utils.weights import from_flax
-from test_torch_eval_helpers import (fresh_catalogs, gloo_eval_worker,
-                                     synth_eval_step, synthetic_eval)
+from test_torch_eval_helpers import (fresh_catalogs, gloo_caption_worker,
+                                     gloo_eval_worker, synth_eval_step,
+                                     synthetic_caption_eval, synthetic_eval)
 from torch_parity import flat_params
 
 NAME = "coco_zeroshot_val"
@@ -343,7 +344,7 @@ def test_select_evaluator_type_matches_jax():
                 jev.select_evaluator_type(jc, name)
 
 
-def test_test_raises_on_what_is_not_ported(pair, micro, monkeypatch):
+def test_test_raises_on_what_is_not_ported(pair, micro):
     cfg = eval_cfg(tmicro_cfg, micro)
     cfg.TEST.AUG.ENABLED = True
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -356,13 +357,36 @@ def test_test_raises_on_what_is_not_ported(pair, micro, monkeypatch):
     cfg.MODEL.META_ARCHITECTURE = "MMSSGridModel"  # the 'ovr' evaluator
     with pytest.raises(NotImplementedError, match="item 3"):
         ttrainer.test(cfg, pair["tm"], "cpu")
-    for key, value in (("DEBUG_NANS", True), ("CONTRASTIVE_SCOPE", "global")):
-        cfg = eval_cfg(tmicro_cfg, micro)
-        setattr(cfg.TPU, key, value)
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            ttrainer.test(cfg, pair["tm"], "cpu")
-    # the loss-only evaluation's multi-rank merge
-    from locov_torch.parallel import mesh as tmesh
-    monkeypatch.setattr(tmesh, "process_rank_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tev.inference_on_caption_dataset(None, None, [], None, None)
+
+
+def test_two_rank_loss_evaluation_is_the_union(micro, tmp_path):
+    """Two gloo processes each run the loss-only evaluation over their
+    shard of the captions loader (batch 1) and merge their sums and
+    batch counts: each gets the one-process averages over all the
+    images, within rtol 1e-12 (float64 sums in another order)."""
+    fresh_catalogs()
+    name = "coco_captions_val"
+    single = synthetic_caption_eval(micro, name)
+    fresh_catalogs()
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    outs = [str(tmp_path / f"rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=gloo_caption_worker,
+                         args=(r, 2, port, micro, name, outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=180)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        assert p.exitcode == 0
+    for out in outs:
+        with open(out) as f:
+            metrics, losses = json.load(f)
+        for got, want in ((metrics, single[0]), (losses, single[1])):
+            assert set(got) == set(want) and want
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-12,
+                                           err_msg=k)

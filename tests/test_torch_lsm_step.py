@@ -285,8 +285,6 @@ def test_default_frozen_fn_names_match_jax():
 def test_settings_not_ported_yet_raise():
     with pytest.raises(NotImplementedError, match="FUSED_MMSS"):
         tbuild(_tcfg(**{"TPU.FUSED_MMSS_PASSES": True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="PAIRWISE_CHUNK"):
-        tbuild(_tcfg(**{"TPU.PAIRWISE_CHUNK": 4}), device="cpu")
     with pytest.raises(NotImplementedError, match="MLPHead"):
         tbuild(_tcfg(**{"MODEL.MMSS_HEAD.TYPES": ("GroundingHead",
                                                   "MLPHead")}),

@@ -179,8 +179,9 @@ def _transformer_pair(rng, external, jcfg, tcfg):
     (True, {}),
     (True, {"proper_attention_mask": True}),
     (False, {}),
-    (True, {"mmm_loss": ""})],
-    ids=["lsm", "proper_mask", "own_projection", "no_matching"])
+    (True, {"mmm_loss": ""}),
+    (True, {"pairwise_chunk": 3})],
+    ids=["lsm", "proper_mask", "own_projection", "no_matching", "chunk"])
 def test_transformer_head_matches_jax(rng, external, over):
     got, want, (jm, v, ji, jc, a, tm, ti, tc) = _transformer_pair(
         rng, external, *_tcfgs(**over))
@@ -235,9 +236,13 @@ def test_transformer_head_bf16_matches_jax(rng):
 
 
 def test_transformer_head_refusals(rng):
-    _, tcfg = _tcfgs(pairwise_chunk=4)
-    with pytest.raises(NotImplementedError, match="PAIRWISE_CHUNK"):
-        tth.TransformerHead(tcfg, V_DIM, L_DIM)
+    """The fused grid + box pass is not ported; a chunk size whose
+    chunks cannot be equal (JAX's reshape fails there too) raises."""
+    _, tcfg = _tcfgs(pairwise_chunk=4)  # 9 pairs in 2 chunks
+    tm = tth.TransformerHead(tcfg, V_DIM, L_DIM, external_projection=True)
+    ti, tc = _pair(_inputs(rng, L_DIM), t, tb)
+    with pytest.raises(ValueError, match="PAIRWISE_CHUNK 4"):
+        tm(ti, tc, torch.zeros(50, L_DIM))
     _, tcfg = _tcfgs()
     tm = tth.TransformerHead(tcfg, V_DIM, L_DIM, external_projection=True)
     ti, tc = _pair(_inputs(rng, L_DIM), t, tb)

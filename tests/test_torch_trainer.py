@@ -128,20 +128,23 @@ def root(tmp_path_factory):
 @pytest.fixture(scope="module")
 def stt_run(root):
     """Four STT steps (checkpoints after iterations 1 and 3, the final
-    one and the evaluation) with the learning rate of each step."""
+    one and the evaluation) with the learning rate and the total loss
+    of each step."""
     cfg = stt_cfg(root, "stt", CHECKPOINT_PERIOD=2)
     cfg.TPU.ASYNC_CHECKPOINT = True
     tr = OVRTrainer(cfg, device="cpu")
     tr.resume_or_load(resume=False)
-    lrs, step = [], tr.train_step
+    lrs, losses, step = [], [], tr.train_step
 
     def recording_step(*a, **k):
         g = tr.optimizer.param_groups[0]
         lrs.append(g["lr"] / g["initial_lr"] * cfg.SOLVER.BASE_LR)
-        return step(*a, **k)
+        metrics = step(*a, **k)
+        losses.append(float(metrics["total_loss"]))
+        return metrics
     tr.train_step = recording_step
     results = tr.train()
-    return dict(cfg=cfg, tr=tr, lrs=lrs, results=results)
+    return dict(cfg=cfg, tr=tr, lrs=lrs, losses=losses, results=results)
 
 
 def test_loop_writes_checkpoints_metrics_and_results(stt_run):
@@ -264,13 +267,9 @@ def test_best_metric_save_and_projection_only_load(stt_run, root):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TPU.DEBUG_NANS", True, "item 7b"),
-    ("TPU.CONTRASTIVE_SCOPE", "global", "item 7b"),
     ("MODEL.META_ARCHITECTURE", "MMSSGridModel", "item 3"),
     ("TEST.AUG.ENABLED", True, "item 8"),
-    ("TPU.INT8_EVAL", True, "item 9"),
-    ("SOLVER.GRADIENT_ACCUMULATION_STEPS", 2, "item 6"),
-    ("TPU.REMAT_BACKBONE", True, "item 6")])
+    ("TPU.INT8_EVAL", True, "item 9")])
 def test_trainer_raises_on_what_is_not_ported(root, key, value, item):
     cfg = stt_cfg(root, "stt_raise")
     node = cfg
@@ -280,6 +279,95 @@ def test_trainer_raises_on_what_is_not_ported(root, key, value, item):
     setattr(node, leaf, value)
     with pytest.raises(NotImplementedError, match=item):
         OVRTrainer(cfg, device="cpu")
+
+
+def _first_steps(root, out, n_steps=2, **tpu):
+    """The total loss of the first ``n_steps`` steps of an STT trainer of
+    ``stt_cfg`` with the ``TPU`` options ``tpu``."""
+    cfg = stt_cfg(root, out)
+    for k, v in tpu.items():
+        setattr(cfg.TPU, k, v)
+    tr = OVRTrainer(cfg, device="cpu")
+    try:
+        losses = []
+        for it in range(n_steps):
+            tr.storage.iter = it
+            losses.append(float(tr.train_step(
+                to_torch(next(tr._train_iter), "cpu"), tr.class_emb,
+                tr.generator)["total_loss"]))
+        return tr, losses
+    finally:
+        tr.close()
+
+
+def _accumulation_resumes(root):
+    """k = 2 through the loop: a checkpoint an iteration, then a resume
+    after iteration 2 (the first micro-step of the second update)."""
+    cfg = stt_cfg(root, "stt_accum", CHECKPOINT_PERIOD=1, MAX_ITER=3,
+                  GRADIENT_ACCUMULATION_STEPS=2)
+    tr = OVRTrainer(cfg, device="cpu")
+    assert isinstance(tr.optimizer, tsolver.MultiSteps)
+    tr.resume_or_load(resume=False)
+    tr.train()
+    ck = tr.checkpointer
+    saved1, saved2 = ck.load("model_0000001"), ck.load("model_0000002")
+    # the micro-step after an update only accumulates
+    for k, v in saved1["model"].items():
+        assert torch.equal(v, saved2["model"][k]), k
+    assert saved2["optimizer"]["multi_steps"]["mini_step"] == 1
+    assert saved1["optimizer"]["multi_steps"]["mini_step"] == 0
+    cfg2 = stt_cfg(root, "stt_accum", CHECKPOINT_PERIOD=1, MAX_ITER=4,
+                   GRADIENT_ACCUMULATION_STEPS=2)
+    tr2 = OVRTrainer(cfg2, device="cpu")
+    tr2.resume_or_load(resume=True)
+    assert tr2.start_iter == 3 and tr2.optimizer.mini_step == 1
+    for a, b in zip(tr2.optimizer.acc,
+                    saved2["optimizer"]["multi_steps"]["acc_grads"]):
+        assert torch.equal(a, b)
+    assert tr2.scheduler.last_epoch == 1
+    tr2.train()
+    moved = tr2.checkpointer.load("model_0000003")["model"]
+    assert any(not torch.equal(v, saved2["model"][k])
+               for k, v in moved.items() if "weight" in k)
+    rows = [json.loads(ln) for ln in open(os.path.join(cfg.OUTPUT_DIR,
+                                                       "metrics.json"))]
+    jcfg = jget()
+    for k in ("BASE_LR", "WARMUP_ITERS", "STEPS", "GAMMA", "WARMUP_FACTOR",
+              "WARMUP_METHOD"):
+        setattr(jcfg.SOLVER, k, getattr(cfg.SOLVER, k))
+    jcfg.SOLVER.GRADIENT_ACCUMULATION_STEPS = 2
+    _, sched = jsolver.build_optimizer(jcfg, {"w": jnp.zeros(1)})
+    np.testing.assert_allclose([r["lr"] for r in rows],
+                               [float(sched(r["iteration"])) for r in rows],
+                               rtol=1e-6)
+    assert [r["iteration"] for r in rows] == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("case", ["debug_nans", "global_scope", "remat",
+                                  "accumulation"])
+def test_trainer_runs_what_was_not_ported(stt_run, root, case):
+    """The options that raised here before (ROADMAP queue 1, items 6 and
+    7b): NaN debugging turns on autograd's anomaly mode; the global
+    scope on one process and the remat trunk give the losses of
+    ``stt_run``'s first steps (rtol 1e-6: the same arithmetic); gradient
+    accumulation updates every k-th iteration, resumes in the middle of
+    an accumulation bit for bit and logs JAX's learning rate."""
+    if case == "accumulation":
+        _accumulation_resumes(root)
+        return
+    if case == "debug_nans":
+        try:
+            tr, _ = _first_steps(root, "stt_nans", 1, DEBUG_NANS=True)
+            assert torch.is_anomaly_enabled()
+        finally:
+            torch.autograd.set_detect_anomaly(False)
+        return
+    tpu = ({"CONTRASTIVE_SCOPE": "global"} if case == "global_scope"
+           else {"REMAT_BACKBONE": True})
+    tr, losses = _first_steps(root, f"stt_{case}", **tpu)
+    if case == "remat":
+        assert tr.model.backbone.remat
+    np.testing.assert_allclose(losses, stt_run["losses"][:2], rtol=1e-6)
 
 
 def test_build_optimizer_overrides(root):

@@ -1,0 +1,45 @@
+"""One rank of the data-parallel parity runs of
+tests/test_torch_data_parallel.py, imported by the spawned processes
+(no JAX here); no tests of its own.
+
+``lsm_rank_worker`` joins a gloo process group, builds the tiny LSM
+model (tests/torch_parity.py) with the weights and the config overrides
+it is handed, and runs one step of ``make_train_step`` in each
+contrastive scope from those same weights, on its rows of the batch with
+the draws it is handed; it saves the parameters and the metrics after
+each step.
+"""
+import torch
+
+
+def lsm_rank_worker(rank, world, url, in_path, out_path):
+    import torch.distributed as dist
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.parallel.mesh import (initialize_distributed,
+                                           make_train_step)
+    from locov_torch.structures.batches import take_rows
+    from torch_parity import tiny_lsm_cfg
+
+    torch.set_num_threads(1)
+    data = torch.load(in_path, weights_only=False)
+    initialize_distributed(url, world, rank, "gloo")
+    try:
+        cfg = tiny_lsm_cfg(get_cfg, config_path, **data["extra"])
+        b = data["batch"].images.image.shape[0] // world
+        mine = take_rows(data["batch"], rank * b, (rank + 1) * b)
+        out = {}
+        for scope, uniforms in data["uniforms"].items():
+            model = build_meta_arch(cfg, device="cpu")
+            model.load_state_dict(data["weights"], strict=True)
+            step = make_train_step(model, *build_optimizer(cfg, model),
+                                   contrastive_scope=scope)
+            metrics = step(mine, data["class_emb"], None, uniforms[rank])
+            out[scope] = {
+                "params": {k: v.detach().clone()
+                           for k, v in model.named_parameters()},
+                "metrics": {k: float(v) for k, v in metrics.items()}}
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
