@@ -43,7 +43,11 @@ Phases, one JSON line each, in order:
    inference, and one training step at FREEZE_AT 0 (losses, gradients,
    SGD updates); then one training step of a tiny float32
    DistillProposalMMSSRCNN (the LSM model) likewise, every draw pinned;
-   then ``eval_reference`` (phase 7's reference).
+   then the family of phase 10 likewise (``small_reference_family``: the
+   grid models, the box pass alone, the fused passes, the MLP head, the
+   grounding head's random branches with their draws pinned, and STT
+   with the grounding box predictor, a step and inference); then
+   ``eval_reference`` (phase 7's reference).
 4. main path: STT inference, ``build_meta_arch`` on ``cuda`` from
    configs/coco_stt.yaml in bfloat16 at full width, seeded random
    weights, 8 images of 800 x 1344 (valid 800 x 1312, original 640 x
@@ -113,15 +117,32 @@ Phases, one JSON line each, in order:
    scope = one rank at batch 4, the scopes differ). The kernels'
    signatures of the path, the ranks' included (batch 32 among them),
    are checked as phase 8's.
-10. block path: ``locov_torch.tools.bench_block.main`` at its defaults
+10. family path (``family_path``), on the trainer path's tree and seed
+   checkpoint, at full configs/coco_lsm.yaml and coco_stt.yaml width in
+   bfloat16: ``MMSSGridModel`` and ``DistillMMSSGridModel`` through the
+   CLI twin at batch 4 (from the LSM seed checkpoint through the rename
+   map, a few steps, checkpoints, the 'ovr' loss-only evaluation, the
+   Distill model resumed bit for bit), the grid -> STT hand-off (its
+   trunk res5 into the ROI res5, its projection into ``emb_pred``, one
+   detection batch of 8); ``DistillOnlyProposalMMSSRCNN`` at batch 4
+   (``box_kd_loss`` alone); ``TPU.FUSED_MMSS_PASSES`` off and on, the
+   same weights, batch and draws, dropout off, in turns (median ms,
+   losses and gradients against the unfused run's, one profile of each:
+   the MMSS stages' host ms and the launches a run); the MLP head, then
+   the grounding head's random branches, a step each; STT with
+   ``EmbeddingGroundingFastRCNNOutputLayers`` on class names of 1 to 4
+   tokens, inference at batch 8 (ms) and training steps. Its kernel
+   signatures are checked as phase 8's.
+11. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
-11. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
+12. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-12. the ``kernels`` line (one row per TPU kernel replaced:
+13. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; ``launches_by_path`` gives each
-   path's counts, ``eval``, ``trainer`` and ``scale`` among them), the
+   path's counts, ``eval``, ``trainer``, ``scale`` and ``family`` among
+   them), the
    card's ``nvidia-smi`` name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -970,9 +991,11 @@ def _tiny_cfg():
     return cfg
 
 
-def small_reference(seed):
-    """Tiny float32 model: card (kernels) vs CPU (plain versions). The
-    RPN is tamed as in the CPU parity tests (zero anchor deltas)."""
+def small_reference(seed, cfg=None, ce=None, phase="small_reference"):
+    """Tiny float32 model (``_tiny_cfg`` or ``cfg``): card (kernels) vs
+    CPU (plain versions), on the class embeddings ``ce`` (numpy; by
+    default a seeded [6, 8] matrix). The RPN is tamed as in the CPU
+    parity tests (zero anchor deltas)."""
     import numpy as np
     import torch
     from locov_torch.models import build_meta_arch
@@ -985,18 +1008,19 @@ def small_reference(seed):
         image=(rng.rand(2, 64, 64, 3) * 255).astype(np.float32),
         hw=np.array([[64, 64], [48, 56]], np.int32),
         orig_hw=np.array([[128, 128], [96, 112]], np.int32)))
-    ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
-    ce[-1] = 0.0
+    if ce is None:
+        ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
+        ce[-1] = 0.0
     dets = {}
     for dev in ("cpu", "cuda"):
-        model = seeded_init_(build_meta_arch(_tiny_cfg(), device="cpu"),
-                             seed)
+        model = seeded_init_(build_meta_arch(cfg or _tiny_cfg(),
+                                             device="cpu"), seed)
         with torch.no_grad():
             model.rpn_head.anchor_deltas.weight.zero_()
         model.to(dev)
         before = dict(kernel_lib.LAUNCHES)
         dets[dev] = model.inference(to_torch(batch, dev),
-                                    torch.from_numpy(ce).to(dev))
+                                    _tensors(ce, dev))
         launched = {k: kernel_lib.LAUNCHES[k] - before[k]
                     for k in INFERENCE_KERNELS}
     torch.cuda.synchronize()
@@ -1006,7 +1030,7 @@ def small_reference(seed):
     same_cls = bool((gpu[2].numpy()[m] == cpu.classes.numpy()[m]).all())
     box_err = float(np.abs(gpu[0].numpy()[m] - cpu.boxes.numpy()[m]).max())
     score_err = float(np.abs(gpu[1].numpy() - cpu.scores.numpy()).max())
-    line = {"phase": "small_reference", "detections": int(m.sum()),
+    line = {"phase": phase, "detections": int(m.sum()),
             "same_mask": same_mask, "same_classes": same_cls,
             "max_box_err_px": box_err, "max_score_err": score_err,
             "gpu_launches": launched}
@@ -1014,7 +1038,7 @@ def small_reference(seed):
     ok = (same_mask and same_cls and m.sum() > 0 and box_err <= 1e-3
           and score_err <= 1e-5 and all(v > 0 for v in launched.values()))
     if not ok:
-        raise AssertionError(f"small reference mismatch: {line}")
+        raise AssertionError(f"{phase} mismatch: {line}")
 
 
 def _tiny_train_batch(rng):
@@ -1198,7 +1222,8 @@ def profile_run(phase, run, unprofiled_ms):
     the kernels launched in it (kernels that autograd launches from its
     own thread belong to no range: ``unattributed_kernels_ms``). The
     profiler stretches the wall time, so the idle share is also given
-    against ``unprofiled_ms``, the same run's median time unprofiled."""
+    against ``unprofiled_ms``, the same run's median time unprofiled.
+    Returns the emitted line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1233,17 +1258,19 @@ def profile_run(phase, run, unprofiled_ms):
             st["device_kernels_ms"] = device_us(e) / 1e3
     attributed = sum(st.get("device_kernels_ms", 0.0)
                      for st in stages.values())
-    emit({"phase": phase, "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "device_idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
-          "kernel_launches": sum(e.count for e in kernels),
-          "stages": stages,
-          "unattributed_kernels_ms": busy_ms - attributed,
-          "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
-                              e.count] for e in top]})
+    line = {"phase": phase, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "stages": stages,
+            "unattributed_kernels_ms": busy_ms - attributed,
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
+                                e.count] for e in top]}
+    emit(line)
     if not stages:
         raise AssertionError(f"{phase}: the profile holds no stage range")
+    return line
 
 
 # ----------------------------------------------------------- train path
@@ -1462,22 +1489,25 @@ def _tiny_lsm_batch(rng):
     return batch, ce
 
 
-def small_reference_lsm(seed):
-    """One training step of a tiny float32 DistillProposalMMSSRCNN
-    (FREEZE_AT 0, so every kernel of the LSM path runs), cuDNN's TF32
-    allowed in the process, the RPN tamed and every draw pinned (the
-    samplers' uniforms and the grid and box dropout keys): the card
-    (kernels) against the CPU (plain versions, which the CPU tests hold
-    against the JAX package). Compared: the loss dict and the MMSS
-    outputs (|diff| <= 1e-4 * max(1, |value|)); the gradients of the
-    stem conv, a res5 conv, the tied ``v2l_projection``, a joint-encoder
-    layer and ``bbox_pred`` (max |diff| <= 1e-3 * max |CPU value|), and
-    every parameter's SGD update (max |diff| <= 1e-3 * max |CPU value|
-    of each tensor + 1e-6 * the learning rate: the float32 rounding of
-    order-1 loss terms, where their gradients cancel; where a gradient
-    is zero but for rounding, ``ZERO_BY_SHIFT``, |update| <= 1e-6 on
-    both)."""
-    import numpy as np
+def _tensors(x, dev):
+    """numpy arrays -> torch tensors on ``dev``, through dicts and
+    tuples."""
+    import torch
+    if isinstance(x, dict):
+        return {k: _tensors(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple):
+        vals = [_tensors(v, dev) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return torch.from_numpy(x).to(dev)
+
+
+def _card_against_cpu(cfg, batch, ce, u, names, seed, kernels,
+                      tame_rpn=True):
+    """One ``make_train_step`` step of the seeded model of ``cfg`` on the
+    CPU (plain versions) and on the card (kernels), from the same
+    weights, batch, class embeddings ``ce`` and draws ``u`` (numpy):
+    the metrics, the gradients of ``names``, every parameter's update,
+    and the card's launches of ``kernels``, by device."""
     import torch
     from locov_torch.engine.solver import build_optimizer
     from locov_torch.models import build_meta_arch
@@ -1485,63 +1515,56 @@ def small_reference_lsm(seed):
     from locov_torch.parallel.mesh import make_train_step
     from locov_torch.structures.batches import to_torch
     from locov_torch.utils.weights import seeded_init_
-    cfg = _tiny_lsm_cfg()
-    rng = np.random.RandomState(seed)
-    batch, ce = _tiny_lsm_batch(rng)
-    u = {"rpn": rng.rand(2, 2, 6 * 8 * 15).astype(np.float32),
-         "roi": rng.rand(2, 2, 24 + 3).astype(np.float32),
-         "grid_drop": rng.rand(2, 3 * 4).astype(np.float32),
-         "box_drop": rng.rand(2, 12).astype(np.float32)}
-    names = ["backbone.stem.conv1.weight", "roi_heads.res5.2.conv3.weight",
-             "mmss_heads.v2l_projection.weight",
-             "mmss_heads.transformer_head.encoder.layer_1.output.weight",
-             "roi_heads.box_predictor.bbox_pred.weight"]
     out = {}
     for dev in ("cpu", "cuda"):
         model = seeded_init_(build_meta_arch(cfg, device="cpu"), seed)
-        with torch.no_grad():
-            model.rpn_head.anchor_deltas.weight.zero_()
+        if tame_rpn and hasattr(model, "rpn_head"):
+            with torch.no_grad():
+                model.rpn_head.anchor_deltas.weight.zero_()
         model.to(dev)
         before = {k: v.detach().clone() for k, v in
                   model.named_parameters()}
         step = make_train_step(model, *build_optimizer(cfg, model))
-        uniforms = {k: (tuple(torch.from_numpy(a).to(dev) for a in v)
-                        if v.ndim == 3 else torch.from_numpy(v).to(dev))
-                    for k, v in u.items()}
         kernel_lib.reset_launches()
-        metrics = step(to_torch(batch, dev), torch.from_numpy(ce).to(dev),
-                       None, uniforms)
-        launched = {k: kernel_lib.LAUNCHES[k] for k in LSM_KERNELS}
+        metrics = step(to_torch(batch, dev), _tensors(ce, dev), None,
+                       _tensors(u, dev))
+        launched = {k: kernel_lib.LAUNCHES[k] for k in kernels}
         params = dict(model.named_parameters())
         out[dev] = {
             "metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {k: params[k].grad.detach().cpu() for k in names},
             "updates": {k: (p.detach() - before[k]).cpu()
-                        for k, p in params.items()}}
+                        for k, p in params.items()},
+            "launched": launched}
     torch.cuda.synchronize()
-    cpu, gpu = out["cpu"], out["cuda"]
+    return out["cpu"], out["cuda"]
 
+
+def _held_to_cpu(phase, cpu, gpu, lr, extra=None):
+    """The card's step against the CPU's (``_card_against_cpu``): the
+    metrics within 1e-4 * max(1, |value|); the gradients within 1e-3 of
+    each tensor's largest CPU value; every parameter's update within
+    1e-3 of its largest CPU value + 1e-6 * ``lr`` (the float32 rounding
+    of order-1 loss terms, where their gradients cancel), and where a
+    gradient is zero but for rounding (``ZERO_BY_SHIFT``) |update| <=
+    1e-6 on both; every kernel launched. Emits the line; returns
+    whether it held."""
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
     metric_err = {k: abs(gpu["metrics"][k] - v) for k, v in
                   cpu["metrics"].items()}
     grad_err = {k: rel(gpu["grads"][k], v) for k, v in cpu["grads"].items()}
-    # an update's error is the float32 rounding of the order-1 loss terms
-    # whose gradients summed to it (~1e-7 each); where they cancel (at
-    # random init the matching losses sit at their uniform value) that
-    # exceeds 1e-3 of the update itself, so the bound has a floor of 1e-6
-    # of a gradient, times the learning rate
-    floor = 1e-6 * cfg.SOLVER.BASE_LR
+    floor = 1e-6 * lr
     upd_ratio = {k: float((gpu["updates"][k] - v).abs().max())
                  / (1e-3 * float(v.abs().max()) + floor)
                  for k, v in cpu["updates"].items()
                  if not k.endswith(ZERO_BY_SHIFT)}
     worst = max(upd_ratio, key=upd_ratio.get)
-    shift_upd = max(max(float(gpu["updates"][k].abs().max()),
-                        float(v.abs().max()))
-                    for k, v in cpu["updates"].items()
-                    if k.endswith(ZERO_BY_SHIFT))
-    line = {"phase": "small_reference_lsm", "freeze_at": 0,
+    shift_upd = max([max(float(gpu["updates"][k].abs().max()),
+                         float(v.abs().max()))
+                     for k, v in cpu["updates"].items()
+                     if k.endswith(ZERO_BY_SHIFT)] or [0.0])
+    line = {"phase": phase, **(extra or {}),
             "metrics_cpu": cpu["metrics"], "metric_abs_err": metric_err,
             "grad_rel_err": grad_err, "update_floor": floor,
             "worst_update": worst,
@@ -1549,16 +1572,177 @@ def small_reference_lsm(seed):
             "worst_update_rel_err": rel(gpu["updates"][worst],
                                         cpu["updates"][worst]),
             "zero_by_shift_max_update": shift_upd,
-            "gpu_launches": launched}
+            "gpu_launches": gpu["launched"]}
     emit(line)
-    ok = (len(cpu["metrics"]) == 19 + 14 + 1
-          and all(e <= 1e-4 * max(1.0, abs(cpu["metrics"][k]))
-                  for k, e in metric_err.items())
-          and all(e <= 1e-3 for e in grad_err.values())
-          and upd_ratio[worst] <= 1.0
-          and shift_upd <= 1e-6 and all(v > 0 for v in launched.values()))
-    if not ok:
+    return (set(gpu["metrics"]) == set(cpu["metrics"])
+            and all(e <= 1e-4 * max(1.0, abs(cpu["metrics"][k]))
+                    for k, e in metric_err.items())
+            and all(e <= 1e-3 for e in grad_err.values())
+            and upd_ratio[worst] <= 1.0 and shift_upd <= 1e-6
+            and all(v > 0 for v in gpu["launched"].values())), line
+
+
+def _lsm_tiny_draws(rng):
+    """Pinned draws of the tiny LSM step (numpy): the RPN and ROI
+    samplers' pairs, the grid and box spatial dropout's keys."""
+    import numpy as np
+    return {"rpn": tuple(rng.rand(2, 2, 6 * 8 * 15).astype(np.float32)),
+            "roi": tuple(rng.rand(2, 2, 24 + 3).astype(np.float32)),
+            "grid_drop": rng.rand(2, 3 * 4).astype(np.float32),
+            "box_drop": rng.rand(2, 12).astype(np.float32)}
+
+
+def small_reference_lsm(seed):
+    """One training step of a tiny float32 DistillProposalMMSSRCNN
+    (FREEZE_AT 0, so every kernel of the LSM path runs), cuDNN's TF32
+    allowed in the process, the RPN tamed and every draw pinned (the
+    samplers' uniforms and the grid and box dropout keys): the card
+    (kernels) against the CPU (plain versions, which the CPU tests hold
+    against the JAX package), within ``_held_to_cpu``'s bounds. Compared:
+    the loss dict and the MMSS outputs; the gradients of the stem conv,
+    a res5 conv, the tied ``v2l_projection``, a joint-encoder layer and
+    ``bbox_pred``; every parameter's SGD update."""
+    import numpy as np
+    cfg = _tiny_lsm_cfg()
+    rng = np.random.RandomState(seed)
+    batch, ce = _tiny_lsm_batch(rng)
+    names = ["backbone.stem.conv1.weight", "roi_heads.res5.2.conv3.weight",
+             "mmss_heads.v2l_projection.weight",
+             "mmss_heads.transformer_head.encoder.layer_1.output.weight",
+             "roi_heads.box_predictor.bbox_pred.weight"]
+    cpu, gpu = _card_against_cpu(cfg, batch, ce, _lsm_tiny_draws(rng),
+                                 names, seed, LSM_KERNELS)
+    ok, line = _held_to_cpu("small_reference_lsm", cpu, gpu,
+                            cfg.SOLVER.BASE_LR, {"freeze_at": 0})
+    if not (ok and len(cpu["metrics"]) == 19 + 14 + 1):
         raise AssertionError(f"small reference LSM mismatch: {line}")
+
+
+def _tiny_grounding_draws(rng, gcfg, b=2, w=8, r=8):
+    """Pinned draws of the grounding head's random branches for one pass
+    of the tiny LSM model (B captions of W tokens, B images of R
+    regions), numpy: uniforms over [tiny, 1) for the alignments, indices
+    in [0, B - 1) for the negatives."""
+    import numpy as np
+    tiny = np.finfo(np.float32).tiny
+    draws = {}
+    if gcfg.ALIGNMENT.startswith("random"):
+        draws["align_words"] = np.maximum(
+            rng.rand(b, b, w, r), tiny).astype(np.float32)
+        draws["align_regions"] = np.maximum(
+            rng.rand(b, b, r, w), tiny).astype(np.float32)
+    if gcfg.LOSS == "triplet" and gcfg.NEGATIVE_MINING == "random":
+        for key in ("neg_words", "neg_regions"):
+            draws[key] = tuple(rng.randint(0, b - 1, b).astype(np.int64)
+                               for _ in range(2))
+    return draws
+
+
+FAMILY_TINY = {
+    # case: (overrides of the tiny LSM config, the kernels it launches)
+    "grid": ({"MODEL.META_ARCHITECTURE": "MMSSGridModel",
+              "MODEL.MMSS_HEAD.DISTILLATION_LOSS": False},
+             ("relu_maxpool", "relu_maxpool_bwd")),
+    "distill_grid": ({"MODEL.META_ARCHITECTURE": "DistillMMSSGridModel"},
+                     ("relu_maxpool", "relu_maxpool_bwd")),
+    "distill_only": ({"MODEL.META_ARCHITECTURE":
+                      "DistillOnlyProposalMMSSRCNN"}, LSM_KERNELS),
+    "fused": ({"TPU.FUSED_MMSS_PASSES": True}, LSM_KERNELS),
+    "mlp_head": ({"MODEL.MMSS_HEAD.TYPES": ("GroundingHead", "MLPHead")},
+                 LSM_KERNELS),
+    "random_categorical": ({"MODEL.MMSS_HEAD.GROUNDING.ALIGNMENT":
+                            "random_categorical"}, LSM_KERNELS),
+    "random_top3": ({"MODEL.MMSS_HEAD.GROUNDING.ALIGNMENT": "random_top3"},
+                    LSM_KERNELS),
+    "triplet_random": ({"MODEL.MMSS_HEAD.GROUNDING.LOSS": "triplet",
+                        "MODEL.MMSS_HEAD.GROUNDING.NEGATIVE_MINING":
+                        "random"}, LSM_KERNELS),
+}
+GROUNDING_PREDICTOR = "EmbeddingGroundingFastRCNNOutputLayers"
+
+
+def _set(cfg, overrides):
+    for key, value in overrides.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for part in path:
+            node = getattr(node, part)
+        setattr(node, leaf, value)
+    return cfg
+
+
+def _tiny_class_tokens(rng, n_classes, dim=8, t_max=4):
+    """``ClassTokenEmbeddings`` of ``n_classes`` class names of 1 ..
+    ``t_max`` tokens (x0.1) and the background, as numpy."""
+    from locov_torch.models.box_emb_grounding import ClassTokenEmbeddings
+    ct = ClassTokenEmbeddings.from_ragged(
+        [rng.randn(rng.randint(1, t_max + 1), dim) * 0.1
+         for _ in range(n_classes)], dim)
+    return ClassTokenEmbeddings(ct.tokens.numpy(), ct.mask.numpy())
+
+
+def small_reference_family(seed):
+    """The rest of the model family at tiny width in float32, the card
+    (kernels) against the CPU (plain versions, which the CPU tests hold
+    against the JAX package), cuDNN's TF32 allowed in the process: one
+    training step of each ``FAMILY_TINY`` case of the tiny LSM model
+    (the grid models, the box pass alone, the fused passes, the MLP
+    head, the grounding head's random branches with their draws pinned)
+    within ``_held_to_cpu``'s bounds; then the tiny STT model with the
+    grounding box predictor on class names of 1 to 4 tokens: one
+    training step at FREEZE_AT 0 likewise, and inference as
+    ``small_reference`` holds it."""
+    import numpy as np
+    failed = []
+    for case, (overrides, kernels) in FAMILY_TINY.items():
+        cfg = _set(_tiny_lsm_cfg(), overrides)
+        rng = np.random.RandomState(seed)
+        batch, ce = _tiny_lsm_batch(rng)
+        u = _lsm_tiny_draws(rng)
+        for key in ("grid_heads", "box_heads"):
+            u[key] = _tiny_grounding_draws(rng, cfg.MODEL.MMSS_HEAD.GROUNDING)
+        grid = "Grid" in cfg.MODEL.META_ARCHITECTURE
+        names = ["backbone.stem.conv1.weight",
+                 "backbone.res5.2.conv3.weight" if grid
+                 else "roi_heads.res5.2.conv3.weight",
+                 "mmss_heads.v2l_projection.weight",
+                 "mmss_heads.mlp_head.mlp_in.weight" if case == "mlp_head"
+                 else "mmss_heads.transformer_head.encoder.layer_1.output."
+                      "weight"]
+        cpu, gpu = _card_against_cpu(cfg, batch, ce, u, names, seed,
+                                     kernels)
+        ok, line = _held_to_cpu("small_reference_family", cpu, gpu,
+                                cfg.SOLVER.BASE_LR, {"case": case})
+        if not ok:
+            failed.append(case)
+
+    cfg = _tiny_cfg()
+    cfg.MODEL.ROI_BOX_HEAD.NAME = GROUNDING_PREDICTOR
+    cfg.MODEL.MMSS_HEAD.GROUNDING.ALIGNMENT_TEMPERATURE = 1.0
+    rng = np.random.RandomState(seed)
+    small_reference(seed, cfg, _tiny_class_tokens(rng, 5),
+                    "small_reference_family_grounding_inference")
+    cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 16
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 64
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 32
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    batch = _tiny_train_batch(rng)
+    u = {"rpn": tuple(rng.rand(2, 2, 16 * 15).astype(np.float32)),
+         "roi": tuple(rng.rand(2, 2, 32 + 2).astype(np.float32))}
+    cpu, gpu = _card_against_cpu(
+        cfg, batch, _tiny_class_tokens(rng, 5), u,
+        ["backbone.stem.conv1.weight", "roi_heads.res5.2.conv3.weight",
+         "roi_heads.box_predictor.emb_pred.weight",
+         "roi_heads.box_predictor.bbox_pred.weight"], seed, TRAIN_KERNELS)
+    ok, line = _held_to_cpu("small_reference_family", cpu, gpu,
+                            cfg.SOLVER.BASE_LR,
+                            {"case": "grounding_predictor_step"})
+    if not ok:
+        failed.append("grounding_predictor_step")
+    if failed:
+        raise AssertionError(f"small reference family mismatch: {failed}")
 
 
 def lsm_path(seed):
@@ -2908,6 +3092,447 @@ def scale_path(seed, workdir):
             "rank_seen": seen}
 
 
+# ---------------------------------------------------------- family path
+FAMILY_GRID_RUNS = (("MMSSGridModel", 3, ["MODEL.MMSS_HEAD.DISTILLATION_LOSS",
+                                    "False"]),
+              ("DistillMMSSGridModel", 4, []))
+GRID_RESUME_ITER = 6  # DistillMMSSGridModel resumed from iteration 4
+FAMILY_STEPS = 3  # timed steps of a family model, after one warm-up
+FUSED_TURNS = 2  # turns of (unfused, fused, fused, unfused)
+# fused against unfused, bfloat16: the losses within 2e-2 relative
+# (tests/test_torch_mmss_heads.py's bfloat16 bound) and each gradient
+# within VARIANT_GRAD_TOL of its largest value (products of other shapes,
+# as the scale path's chunks)
+FUSED_LOSS_TOL = 2e-2
+STT_TOKENS = 4  # the most tokens a class name of the grounding predictor
+STT_STEP_KERNELS = ("relu_maxpool", "roi_align_fused",
+                    "roi_align_bwd")  # coco_stt.yaml: FREEZE_AT 2
+
+
+def _grid_models(seed, workdir, root, seed_path, log):
+    """The grid models through the CLI twin on the trainer path's tree:
+    configs/coco_lsm.yaml with ``MODEL.META_ARCHITECTURE`` overridden,
+    batch 4, from the LSM seed checkpoint (through the rename map: the
+    LSM's roi_heads.res5 seeds the grid model's trunk res5, the rest by
+    name), a checkpoint every 2 iterations, the 'ovr' evaluation of
+    coco_captions_val (the loss-only pass, no detection evaluation);
+    ``DistillMMSSGridModel`` resumed to ``GRID_RESUME_ITER`` (the model
+    and the momentum the checkpoint's bits). Returns the Distill model's
+    ``model_final`` path."""
+    import math
+    from locov_torch.config import config_path
+    common = ["DATASETS.ROOT", root, "TPU.IMAGE_BUCKETS", "()",
+              "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.LOG_PERIOD", "1",
+              "TEST.EVAL_PERIOD", "0", "MODEL.WEIGHTS", seed_path,
+              "SOLVER.IMS_PER_BATCH", "4",
+              "DATASETS.TEST", "('coco_captions_val',)"]
+    flags = ["--config-file", config_path("coco_lsm.yaml")]
+    final = None
+    for arch, iters, extra in FAMILY_GRID_RUNS:
+        opts = common + extra + ["MODEL.META_ARCHITECTURE", arch,
+                                 "OUTPUT_DIR", os.path.join(workdir, arch)]
+        res, run, secs, peak = _run_cli(
+            flags, opts + ["SOLVER.MAX_ITER", str(iters)], log)
+        tr = run["trainer"]
+        loop, rows = _loop_numbers(run, 4)
+        res = res["coco_captions_val"]
+        rep = tr.last_import_report
+        finite = all(math.isfinite(v) for r in rows for k, v in r.items()
+                     if "loss" in k.lower())
+        distill = arch.startswith("Distill")
+        line = {"phase": "family_grid", "arch": arch,
+                "config": "configs/coco_lsm.yaml",
+                "dtype": tr.cfg.TPU.COMPUTE_DTYPE, "batch": 4,
+                "max_iter": iters, **loop, "finite_losses": finite,
+                "ovr_results": res, "seconds": secs, "peak_mem_gib": peak,
+                "import": {"loaded": len(rep.loaded),
+                           "missing": rep.missing,
+                           "mismatched": rep.mismatched,
+                           "unused_src": len(rep.unused_src)},
+                "trunk_res5_loaded": any(k.startswith("backbone.res5.")
+                                         for k in rep.loaded)}
+        emit(line)
+        if not (finite and type(tr.model).__name__ == arch and
+                loop["rows"] == list(range(iters)) and
+                "Total Loss" in res and
+                not any(k.startswith("AP") for k in res) and
+                ("kd_loss" in res) == distill and
+                line["trunk_res5_loaded"] and rep.mismatched == [] and
+                all(math.isfinite(v) for v in res.values()
+                    if isinstance(v, float))):
+            raise AssertionError(f"family grid model check failed: {line}")
+        if distill:
+            res2, run2, secs2, peak2 = _run_cli(
+                flags + ["--resume"],
+                opts + ["SOLVER.MAX_ITER", str(GRID_RESUME_ITER)], log,
+                same_as_checkpoint)
+            loop2, _ = _loop_numbers(run2, 4)
+            line = {"phase": "family_grid_resume", "arch": arch,
+                    "start_iter": run2["start_iter"],
+                    "checked": run2["checked"], "rows": loop2["rows"],
+                    "ms_per_step": loop2["ms_per_step"],
+                    "seconds": secs2, "peak_mem_gib": peak2}
+            emit(line)
+            c = run2["checked"]
+            if not (run2["start_iter"] == iters and c["model"] and
+                    c["momentum"] and c["momentum_buffers"] > 50 and
+                    loop2["rows"] == list(range(iters, GRID_RESUME_ITER))):
+                raise AssertionError(f"grid resume check failed: {line}")
+            final = os.path.join(tr.cfg.OUTPUT_DIR, "model_final")
+    return final
+
+
+def _grid_handoff(seed, grid_final):
+    """The grid -> STT hand-off (OVR-CNN's recipe): the grid model's
+    ``model_final`` into ``OvrRCNN`` from configs/coco_stt.yaml in
+    bfloat16 through ``load_weights_standalone`` (the trunk's stem to
+    res4 by name, its res5 into the ROI res5, the tied projection into
+    ``emb_pred``, nothing mismatched), then detection of the main path's
+    batch of 8."""
+    import torch
+    from locov_torch.tools.bench import build_stt_eval
+    from locov_torch.utils.checkpoint import load_weights_standalone
+    cfg, model, data, class_emb = build_stt_eval(device="cuda", seed=seed)
+    rep = load_weights_standalone(model, grid_final)
+    grid = torch.load(grid_final, map_location="cpu",
+                      weights_only=True)["model"]
+    sd = model.state_dict()
+    res5 = [k for k in grid if k.startswith("backbone.res5.")]
+    checks = {
+        "roi_res5_is_trunk_res5": len(res5) > 40 and all(
+            torch.equal(sd["roi_heads" + k[len("backbone"):]].cpu(),
+                        grid[k]) for k in res5),
+        "emb_pred_is_projection": all(torch.equal(
+            sd[f"roi_heads.box_predictor.emb_pred.{leaf}"].cpu(),
+            grid[f"mmss_heads.v2l_projection.{leaf}"])
+            for leaf in ("weight", "bias")),
+        "trunk_equal": all(torch.equal(sd[k].cpu(), grid[k])
+                           for k in grid if k.startswith("backbone.res4.")),
+        "mismatched": rep.mismatched, "missing": rep.missing}
+    dets = model.inference(data, class_emb)
+    torch.cuda.synchronize()
+    n_dets = int(dets.mask.sum())
+    finite = bool(torch.isfinite(dets.boxes).all() and
+                  torch.isfinite(dets.scores).all())
+    line = {"phase": "family_grid_handoff",
+            "config": "configs/coco_stt.yaml", "batch": 8, **checks,
+            "detections": n_dets, "finite": finite}
+    emit(line)
+    if not (checks["roi_res5_is_trunk_res5"] and
+            checks["emb_pred_is_projection"] and checks["trunk_equal"] and
+            rep.mismatched == [] and finite and n_dets > 0 and
+            all(k.startswith(("rpn_head.", "roi_heads.box_predictor."
+                              "bbox_pred.")) for k in rep.missing)):
+        raise AssertionError(f"grid -> STT hand-off failed: {line}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _since(before):
+    """The launches of each kernel since the counts ``before``."""
+    from locov_torch.ops import kernel_lib
+    return {k: v - before[k] for k, v in kernel_lib.LAUNCHES.items()}
+
+
+def _timed_steps(step, batch, class_emb, gen, n=FAMILY_STEPS):
+    """One warm-up and ``n`` timed steps, each waited for: (median ms,
+    every ms, the metrics as floats)."""
+    import torch
+    step(batch, class_emb, gen)
+    torch.cuda.synchronize()
+    times, metrics = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = step(batch, class_emb, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return statistics.median(times), times, metrics
+
+
+def _distill_only(seed, batch, class_emb):
+    """``DistillOnlyProposalMMSSRCNN`` from configs/coco_lsm.yaml at full
+    width in bfloat16, batch 4 (the bench twin's inputs): the box pass
+    alone, so ``box_kd_loss`` and no ``kd_loss`` or ``mixbox_kd_loss``."""
+    import math
+    import torch
+    from locov_torch.ops import kernel_lib
+    cfg = _lsm_cfg("coco_lsm.yaml", "bfloat16", **{
+        "MODEL.META_ARCHITECTURE": "DistillOnlyProposalMMSSRCNN"})
+    model, step, _ = _train_model(cfg, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernel_lib.LAUNCHES)
+    ms, times, metrics = _timed_steps(step, batch, class_emb, gen)
+    launches = _since(before)
+    keys = set(metrics[-1])
+    line = {"phase": "family_distill_only",
+            "arch": "DistillOnlyProposalMMSSRCNN", "batch": 4,
+            "ms_per_step": ms, "ms_per_step_all": times,
+            "images_per_s": 4 / ms * 1e3, "metrics": metrics[-1],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches}
+    emit(line)
+    if not ("box_kd_loss" in keys and "kd_loss" not in keys and
+            "mixbox_kd_loss" not in keys and
+            not any(k.startswith("CE_loss") for k in keys) and
+            all(math.isfinite(v) for m in metrics for v in m.values()) and
+            all(launches[k] > 0 for k in LSM_KERNELS)):
+        raise AssertionError(f"DistillOnly check failed: {line}")
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def _fused_ab(seed, batch, class_emb):
+    """``TPU.FUSED_MMSS_PASSES`` off and on: one model of
+    configs/coco_lsm.yaml at full width in bfloat16, batch 4, dropout
+    off, the same draws (a generator seeded anew each run), a run being
+    ``losses`` and its backward, in turns (unfused, fused, fused,
+    unfused) ``FUSED_TURNS`` times after one warm-up each. The fused
+    run's losses within ``FUSED_LOSS_TOL`` and its gradients within
+    ``VARIANT_GRAD_TOL`` of the unfused run's; the median ms of each;
+    one run of each under torch.profiler (the MMSS stages' host and
+    kernel ms, the kernel launches a run)."""
+    import torch
+    from locov_torch.engine.solver import build_optimizer
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    cfg = _lsm_cfg("coco_lsm.yaml", "bfloat16")
+    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
+    build_optimizer(cfg, model)  # frozen parameters take no gradient
+
+    def run(fused):
+        model.fused_mmss = fused
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = model.losses(batch, class_emb, gen, deterministic=True)
+        sum(losses[k] for k in sorted(losses)).backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, losses
+
+    before = dict(kernel_lib.LAUNCHES)
+    run(False)
+    run(True)
+    ms = {False: [], True: []}
+    for _ in range(FUSED_TURNS):
+        for fused in (False, True, True, False):
+            ms[fused].append(run(fused)[0])
+    res = {}
+    for fused in (False, True):
+        _, losses = run(fused)
+        res[fused] = ({k: float(v.detach()) for k, v in losses.items()},
+                      {k: p.grad.detach().float().cpu()
+                       for k, p in model.named_parameters()
+                       if p.grad is not None})
+    (lu, gu), (lf, gf) = res[False], res[True]
+    loss_err = {k: abs(lf[k] - v) / max(abs(v), 1e-6)
+                for k, v in lu.items()}
+    worst, worst_name = 0.0, None
+    for k, g in gu.items():
+        scale = float(g.abs().max())
+        if k.endswith(ZERO_BY_SHIFT) or scale == 0:
+            continue
+        rel = float((gf[k] - g).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, k
+    profiles = {}
+    for fused in (False, True):
+        prof = profile_run(f"family_fused_profile_{'on' if fused else 'off'}",
+                           lambda: run(fused),
+                           statistics.median(ms[fused]))
+        profiles[fused] = {
+            "kernel_launches": prof["kernel_launches"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "mmss_stages": {k: v for k, v in prof["stages"].items()
+                            if k in ("grid_mmss", "box_mmss", "fused_mmss",
+                                     "box_regions")}}
+    launches = _since(before)
+    line = {"phase": "family_fused_ab", "config": "configs/coco_lsm.yaml",
+            "dtype": "bfloat16", "batch": 4, "run": "losses + backward",
+            "unfused_ms_median": statistics.median(ms[False]),
+            "fused_ms_median": statistics.median(ms[True]),
+            "unfused_ms_all": ms[False], "fused_ms_all": ms[True],
+            "loss_rel_err": loss_err, "max_grad_rel_diff": worst,
+            "worst": worst_name, "same_keys": set(lu) == set(lf)
+            and set(gu) == set(gf),
+            "profile_unfused": profiles[False],
+            "profile_fused": profiles[True], "launches": launches,
+            "tolerances": {"loss": FUSED_LOSS_TOL,
+                           "grad": VARIANT_GRAD_TOL}}
+    emit(line)
+    del model, res, gu, gf
+    torch.cuda.empty_cache()
+    if not (line["same_keys"] and worst <= VARIANT_GRAD_TOL and
+            all(e <= FUSED_LOSS_TOL for e in loss_err.values()) and
+            "fused_mmss" in profiles[True]["mmss_stages"] and
+            "fused_mmss" not in profiles[False]["mmss_stages"]):
+        raise AssertionError(f"fused MMSS A/B check failed: {line}")
+
+
+def _mlp_and_random(seed, batch, class_emb):
+    """``MMSS_HEAD.TYPES ("GroundingHead", "MLPHead")`` from
+    configs/coco_lsm.yaml at full width in bfloat16, batch 4: one step;
+    then, on the same model, one step of each of the grounding head's
+    branches that draw random numbers (``random_categorical``,
+    ``random_top3``, triplet with ``random`` negatives), drawn from the
+    step's generator on the card."""
+    import math
+    import torch
+    from locov_torch.ops import kernel_lib
+    cfg = _lsm_cfg("coco_lsm.yaml", "bfloat16", **{
+        "MODEL.MMSS_HEAD.TYPES": ("GroundingHead", "MLPHead")})
+    model, step, _ = _train_model(cfg, seed)
+    head = model.mmss_heads.grounding_head
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = dict(kernel_lib.LAUNCHES)
+    lines = []
+    for case, over in (("mlp_head", {}),
+                       ("random_categorical",
+                        {"alignment": "random_categorical"}),
+                       ("random_top3", {"alignment": "random_top3"}),
+                       ("triplet_random", {"loss_type": "triplet",
+                                           "negative_mining": "random"})):
+        head.gcfg = head.gcfg._replace(**over)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in step(batch, class_emb, gen).items()}
+        torch.cuda.synchronize()
+        lines.append({"phase": "family_heads", "case": case, "batch": 4,
+                      "types": list(cfg.MODEL.MMSS_HEAD.TYPES),
+                      "grounding": head.gcfg._asdict(),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "metrics": m,
+                      "finite": all(math.isfinite(v) for v in m.values())})
+        emit(lines[-1])
+    launches = _since(before)
+    del model, step
+    torch.cuda.empty_cache()
+    bad = [ln["case"] for ln in lines if not ln["finite"]]
+    if bad or "Triplet Loss (Align Words, Choose Caption)" not in \
+            lines[-1]["metrics"] or any(launches[k] == 0
+                                        for k in LSM_KERNELS):
+        raise AssertionError(f"MLP head / random branch steps failed: "
+                             f"{bad} {launches}")
+
+
+def _class_tokens(rng, n_classes, dim=768):
+    """``ClassTokenEmbeddings`` on the card: ``n_classes`` synthetic
+    class names of 1 to ``STT_TOKENS`` tokens and the background."""
+    from locov_torch.models.box_emb_grounding import ClassTokenEmbeddings
+    return ClassTokenEmbeddings.from_ragged(
+        [rng.randn(rng.randint(1, STT_TOKENS + 1), dim)
+         for _ in range(n_classes)], dim, device="cuda")
+
+
+def _grounding_stt(seed):
+    """STT with ``EmbeddingGroundingFastRCNNOutputLayers`` from
+    configs/coco_stt.yaml at full width in bfloat16: inference of the
+    train path's images of a batch of 8 (``_train_batch``) against the
+    65 test classes (1 warm-up, ``FAMILY_STEPS`` timed), and
+    ``FAMILY_STEPS`` training steps on that batch against the 48 seen
+    classes, multi-token class names."""
+    import math
+    import numpy as np
+    import torch
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.models.box_emb_grounding import (
+        EmbeddingGroundingBoxPredictor)
+    from locov_torch.ops import kernel_lib
+    from locov_torch.structures.batches import DetectionBatch, to_torch
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("coco_stt.yaml"))
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.MODEL.ROI_BOX_HEAD.NAME = GROUNDING_PREDICTOR
+    # at the default temperature of 10 random-init scores spread over
+    # the 66 classes below SCORE_THRESH_TEST
+    cfg.MODEL.MMSS_HEAD.GROUNDING.ALIGNMENT_TEMPERATURE = 1.0
+    model, step, _ = _train_model(cfg, seed)
+    assert isinstance(model.roi_heads.box_predictor,
+                      EmbeddingGroundingBoxPredictor)
+    rng = np.random.RandomState(seed)
+    test_tokens, train_tokens = _class_tokens(rng, 65), _class_tokens(rng, 48)
+    batch = to_torch(_train_batch(rng, 8), "cuda")
+    images = DetectionBatch(images=batch.images)
+    before = dict(kernel_lib.LAUNCHES)
+    model.inference(images, test_tokens)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(FAMILY_STEPS):
+        t0 = time.perf_counter()
+        dets = model.inference(images, test_tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    infer_launches = _since(before)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = dict(kernel_lib.LAUNCHES)
+    ms, step_times, metrics = _timed_steps(step, batch, train_tokens, gen)
+    train_launches = _since(before)
+    line = {"phase": "family_grounding_stt",
+            "config": "configs/coco_stt.yaml", "dtype": "bfloat16",
+            "predictor": GROUNDING_PREDICTOR,
+            "tokens_a_class_max": int(test_tokens.mask.sum(1).max()),
+            "inference_batch": 8, "inference_ms": statistics.median(times),
+            "inference_ms_all": times,
+            "detections": int(dets.mask.sum()),
+            "train_batch": 8, "ms_per_step": ms,
+            "ms_per_step_all": step_times, "metrics": metrics[-1],
+            "inference_launches": infer_launches,
+            "train_launches": train_launches}
+    emit(line)
+    if not (line["detections"] > 0 and
+            bool(torch.isfinite(dets.scores).all()) and
+            all(math.isfinite(v) for m in metrics for v in m.values()) and
+            line["tokens_a_class_max"] > 1 and
+            all(infer_launches[k] > 0 for k in INFERENCE_KERNELS) and
+            all(train_launches[k] > 0 for k in STT_STEP_KERNELS)):
+        raise AssertionError(f"grounding predictor STT check failed: "
+                             f"{line}")
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def family_path(seed, workdir):
+    """The rest of the model family on the card at full width, on the
+    trainer path's tree and seed checkpoint in ``workdir``: the grid
+    models through the CLI twin and their hand-off to STT
+    (``_grid_models``, ``_grid_handoff``), ``DistillOnlyProposalMMSSRCNN``
+    (``_distill_only``), the fused MMSS passes against the unfused ones
+    (``_fused_ab``), the MLP head and the grounding head's random
+    branches (``_mlp_and_random``), and STT with the grounding box
+    predictor (``_grounding_stt``). Launch counts are zeroed before the
+    path and read after it: K1-fwd, K1-bwd, K2/K3-fwd and K3-bwd must
+    each have launched. Returns the path's launches."""
+    import torch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.tools.bench import lsm_inputs
+    root = os.path.join(workdir, "coco")
+    log = os.path.join(workdir, "trainer.log")
+    seed_path = seed_checkpoint(workdir, seed)
+    t0 = time.perf_counter()
+    kernel_lib.reset_launches()
+    grid_final = _grid_models(seed, workdir, root, seed_path, log)
+    _grid_handoff(seed, grid_final)
+    batch, class_emb = lsm_inputs(4, device="cuda")
+    _distill_only(seed, batch, class_emb)
+    _fused_ab(seed, batch, class_emb)
+    _mlp_and_random(seed, batch, class_emb)
+    del batch, class_emb
+    torch.cuda.empty_cache()
+    _grounding_stt(seed)
+    total = dict(kernel_lib.LAUNCHES)
+    emit({"phase": "family_path", "seconds": time.perf_counter() - t0,
+          "launches": total})
+    missing = [k for k in TRAIN_KERNELS if total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the family path: "
+                             f"{missing}")
+    return total
+
+
 class KernelShapes:
     """While a path runs: how many launches each of K1-fwd, K1-bwd,
     K2/K3-fwd and K3-bwd made at each signature (the dtype and shapes of
@@ -3102,6 +3727,7 @@ def main(argv=None) -> int:
     small_reference(args.seed)
     small_reference_train(args.seed)
     small_reference_lsm(args.seed)
+    small_reference_family(args.seed)
     workdir = os.path.join(here, "build", "chip_smoke_eval")
     shutil.rmtree(workdir, ignore_errors=True)
     eval_reference(args.seed, workdir)
@@ -3127,13 +3753,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         with KernelShapes() as shapes:
             scale = scale_path(args.seed, workdir)
+        shapes.check_counts(scale["parent_launches"])
+        for key, n in scale["rank_seen"].items():
+            shapes.seen[key] = shapes.seen.get(key, 0) + n
+        check_path_shapes(gen, shapes.seen, "scale")
+        paths["scale"] = scale["launches"]
+        torch.cuda.empty_cache()
+        with KernelShapes() as shapes:
+            paths["family"] = family_path(args.seed, workdir)
+        shapes.check_counts(paths["family"])
+        check_path_shapes(gen, shapes.seen, "family")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    shapes.check_counts(scale["parent_launches"])
-    for key, n in scale["rank_seen"].items():
-        shapes.seen[key] = shapes.seen.get(key, 0) + n
-    check_path_shapes(gen, shapes.seen, "scale")
-    paths["scale"] = scale["launches"]
     torch.cuda.empty_cache()
     from locov_torch.tools import bench_block, bench_stem
     # bf16 against cuDNN's chain, which rounds t1 and t2 at other places

@@ -39,8 +39,7 @@ from ..data.loader import (DataLoader, InferenceSampler, TrainingSampler,
                            derive_buckets)
 from ..data.mappers import DetectionMapper
 from ..data.tokenization import WordPieceTokenizer, build_tiny_vocab
-from ..evaluation.evaluator import (GRID_ARCHS,
-                                    inference_on_caption_dataset,
+from ..evaluation.evaluator import (inference_on_caption_dataset,
                                     inference_on_detection_dataset,
                                     select_evaluator_type)
 from ..models import build_meta_arch
@@ -139,12 +138,8 @@ def load_embeddings(cfg, dataset_name: str, device=None) -> torch.Tensor:
 
 def check_supported(cfg) -> None:
     """Raise, citing the ROADMAP item, where JAX would run something the
-    port does not have: the grid meta-archs (item 3), test-time
-    augmentation (item 8) and int8 serving (item 9)."""
-    if cfg.MODEL.META_ARCHITECTURE in GRID_ARCHS:
-        raise NotImplementedError(
-            f"{cfg.MODEL.META_ARCHITECTURE} and its 'ovr' evaluation are "
-            f"not ported yet (ROADMAP queue 1, item 3)")
+    port does not have: test-time augmentation (item 8) and int8 serving
+    (item 9)."""
     if cfg.TEST.AUG.ENABLED:
         raise NotImplementedError(
             "TEST.AUG.ENABLED: test-time augmentation is not ported yet "
@@ -160,10 +155,11 @@ def test(cfg, model: torch.nn.Module, device=None,
     """Evaluation of ``model`` on each of ``cfg.DATASETS.TEST``
     (``OVRTrainer.test``): its test loader, its class embeddings on
     ``device`` (the card unless the caller asks for the CPU: where the
-    model is); for a ``loss_and_*`` evaluation with ``TEST.DO_EVAL``,
-    the loss-only pass (``inference_on_caption_dataset``, its draws from
-    ``generator``, by default one seeded from ``cfg.SEED``); then the
-    eval step, the COCO or LVIS summary and the seen/unseen AP50.
+    model is); for an 'ovr' (the grid models) or ``loss_and_*``
+    evaluation with ``TEST.DO_EVAL``, the loss-only pass
+    (``inference_on_caption_dataset``, its draws from ``generator``, by
+    default one seeded from ``cfg.SEED``); then, but for 'ovr', the eval
+    step, the COCO or LVIS summary and the seen/unseen AP50.
     Returns {dataset: results}. Raises where JAX would run what the
     port does not have yet (``check_supported``)."""
     check_supported(cfg)
@@ -179,8 +175,8 @@ def test(cfg, model: torch.nn.Module, device=None,
         try:
             class_emb = load_embeddings(cfg, dataset_name, device)
             res = {}
-            if etype.startswith("loss_and_") and cfg.TEST.DO_EVAL and \
-                    loss_step is not None:
+            if etype in ("ovr", "loss_and_coco", "loss_and_lvis") and \
+                    cfg.TEST.DO_EVAL and loss_step is not None:
                 if generator is None:
                     generator = torch.Generator(
                         device=class_emb.device).manual_seed(
@@ -189,9 +185,10 @@ def test(cfg, model: torch.nn.Module, device=None,
                     loss_step, None, loader, class_emb, generator)
                 res.update(metrics)
                 res.update(losses)
-            res.update(inference_on_detection_dataset(
-                eval_step, None, loader, class_emb, dataset_name,
-                etype=etype))
+            if etype != "ovr":
+                res.update(inference_on_detection_dataset(
+                    eval_step, None, loader, class_emb, dataset_name,
+                    etype=etype))
         finally:
             loader.close()
         results[dataset_name] = res

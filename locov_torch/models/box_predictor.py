@@ -23,9 +23,11 @@ from ..structures.batches import Detections
 
 
 class BoxPredictorConfig(NamedTuple):
-    """The JAX package's ``BoxPredictorConfig`` for the embedding
-    predictor (the grounding predictor's fields come with it). The
-    number of classes is that of the ``class_emb`` rows."""
+    """The JAX package's ``BoxPredictorConfig``: the embedding
+    predictor's fields, the predictor's ``name`` (``ROI_BOX_HEAD.NAME``)
+    and the grounding predictor's options (``MMSS_HEAD.GROUNDING``'s
+    metric, alignment and temperature). The number of classes is that
+    of the ``class_emb`` rows."""
     emb_dim: int
     embedding_based: bool
     normalize_emb: bool
@@ -41,11 +43,18 @@ class BoxPredictorConfig(NamedTuple):
     # static cap on (box, class) candidates entering NMS at inference
     test_nms_candidates: int = 4096
     name: str = ""
+    grounding_local_metric: str = "dot"
+    grounding_alignment: str = "softmax"
+    grounding_temperature: float = 10.0
 
     @classmethod
     def from_cfg(cls, cfg):
+        g = cfg.MODEL.MMSS_HEAD.GROUNDING
         return cls(
             name=cfg.MODEL.ROI_BOX_HEAD.NAME,
+            grounding_local_metric=g.LOCAL_METRIC,
+            grounding_alignment=g.ALIGNMENT,
+            grounding_temperature=g.ALIGNMENT_TEMPERATURE,
             emb_dim=cfg.MODEL.ROI_BOX_HEAD.EMB_DIM,
             embedding_based=cfg.MODEL.ROI_BOX_HEAD.EMBEDDING_BASED,
             normalize_emb=cfg.MODEL.ROI_BOX_HEAD.NORMALIZE_EMB_PRED,

@@ -1,7 +1,7 @@
-"""DistillProposalMMSSRCNN: the image-caption (LSM) stage's model.
+"""The image-caption (LSM) stage's models.
 
-Counterpart of ``locov_tpu/models/meta_arch/mmss_gcnn.py`` (the
-``DistillProposalMMSSRCNN`` path). Training (``losses``):
+Counterpart of ``locov_tpu/models/meta_arch/mmss_gcnn.py``.
+``DistillProposalMMSSRCNN``'s training (``losses``):
 
 - the language backbone embeds the captions;
 - the C4 trunk, the RPN and its losses, proposals (no gradient), the
@@ -12,15 +12,22 @@ Counterpart of ``locov_tpu/models/meta_arch/mmss_gcnn.py`` (the
   valid regions an image, through the MMSS heads;
 - the box pass: at most ``SPATIAL_DROPOUT`` random valid sampled boxes
   an image, their res5 features and normalised centres, through the
-  MMSS heads (keys prefixed "Box ");
+  MMSS heads (keys prefixed "Box "); under ``TPU.FUSED_MMSS_PASSES`` the
+  two passes share one call of the heads where their shapes agree;
 - the distillation losses between the heads' costs (``kd_loss``,
   ``box_kd_loss``, ``mixbox_kd_loss``).
 
+``DistillOnlyProposalMMSSRCNN`` runs the box pass alone (only
+``box_kd_loss``). ``MMSSGridModel`` and ``DistillMMSSGridModel`` (OVR-CNN's
+grid pretraining) have no detector: the trunk's res5 (or res4) map as
+grid regions, spatial dropout, the MMSS heads and ``kd_loss``.
+
 The random draws are inputs where given (``uniforms``): the RPN and ROI
-samplers' (u_pos, u_neg) and the grid and box spatial-dropout keys;
-otherwise they, and the dropout masks, come from ``generator``. Each
-stage runs in a ``torch.profiler.record_function`` range
-``DistillProposalMMSSRCNN.<stage>``.
+samplers' (u_pos, u_neg), the grid and box spatial-dropout keys and the
+grounding head's draws of each pass; otherwise they, and the dropout
+masks, come from ``generator``. Each stage runs in a
+``torch.profiler.record_function`` range ``DistillProposalMMSSRCNN.<stage>``
+(``MMSSGridModel.<stage>`` for the grid models).
 """
 from __future__ import annotations
 
@@ -41,12 +48,15 @@ from ..bert import BertConfig, Dense
 from ..box_predictor import fast_rcnn_inference_batched
 from ..language import LANGUAGE_BACKBONES
 from ..mmss import (DISTILL_LOSSES, GroundingConfig, GroundingHead,
-                    TransformerHead, TransformerHeadConfig)
+                    MLPHead, TransformerHead, TransformerHeadConfig)
+from ..resnet import ResNetC4
 from ..roi_heads import label_and_sample_proposals, roi_heads_losses
 from ..rpn import rpn_losses, select_proposals
 from .ovr_rcnn import OvrRCNN, _require_proposals, detector_kwargs
 
 NAME = "DistillProposalMMSSRCNN"
+GRID_NAME = "MMSSGridModel"
+HEAD_TYPES = ("GroundingHead", "TransformerHead", "MLPHead")
 
 
 def _stage(name: str):
@@ -117,18 +127,19 @@ def box_regions(boxes: torch.Tensor, box_feats: torch.Tensor,
 
 
 class MMSSHeads(nn.Module):
-    """The MMSS heads with the shared (tied) ``v2l_projection``, which
-    the detector's box predictor also uses in place of ``emb_pred``
-    under ``LOAD_EMB_PRED_FROM_MMSS_HEAD``."""
+    """The MMSS heads (``GroundingHead``, ``TransformerHead``,
+    ``MLPHead``) with the shared (tied) ``v2l_projection``, which the
+    detector's box predictor also uses in place of ``emb_pred`` under
+    ``LOAD_EMB_PRED_FROM_MMSS_HEAD``."""
 
     def __init__(self, head_types: Tuple[str, ...], tie_v2l: bool,
                  gcfg: GroundingConfig, tcfg: TransformerHeadConfig,
                  v_dim: int, l_dim: int):
         super().__init__()
-        unknown = set(head_types) - {"GroundingHead", "TransformerHead"}
+        unknown = set(head_types) - set(HEAD_TYPES)
         if unknown:
-            raise NotImplementedError(
-                f"MMSS_HEAD.TYPES {sorted(unknown)} not ported yet")
+            raise ValueError(f"MMSS_HEAD.TYPES {sorted(unknown)}: the "
+                             f"heads are {HEAD_TYPES}")
         self.head_types = tuple(head_types)
         self.v2l_projection = Dense(v_dim, l_dim, highest=True) \
             if tie_v2l else None
@@ -138,6 +149,9 @@ class MMSSHeads(nn.Module):
         if "TransformerHead" in head_types:
             self.transformer_head = TransformerHead(
                 tcfg, v_dim, l_dim, external_projection=tie_v2l)
+        if "MLPHead" in head_types:
+            self.mlp_head = MLPHead(tcfg, v_dim, l_dim,
+                                    external_projection=tie_v2l)
 
     def project(self, features: torch.Tensor) -> torch.Tensor:
         return self.v2l_projection(features)
@@ -145,38 +159,127 @@ class MMSSHeads(nn.Module):
     def forward(self, image: RegionFeatures, caption: CaptionFeatures,
                 word_embeddings: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                global_batch=None):
-        """-> (outputs, losses, dists) of one region group. With
+                global_batch=None, draws: Optional[Dict] = None,
+                image2: Optional[RegionFeatures] = None,
+                draws2: Optional[Dict] = None):
+        """-> (outputs, losses, dists) of one region group; with
+        ``image2`` (the fused grid + box pass) a tuple of two such
+        triples, where the transformer head encodes both groups' pairs
+        in one call and the grounding and MLP heads run a group at a
+        time. ``draws`` (``draws2``): the grounding head's random draws
+        for the group, the rest from ``generator``. With
         ``global_batch`` (``parallel/mesh.py:GlobalBatch``) the regions
         and captions of every rank are gathered first, so that the
         heads' batch-coupled losses (the B x B matchings, the MLM mean
         over the masked tokens) and, after them, the distillation span
         the global batch, as in JAX's global-scope step."""
+        groups = [(image, draws)] if image2 is None else \
+            [(image, draws), (image2, draws2)]
         if global_batch is not None:
-            image = RegionFeatures(*map(global_batch.gather, image))
             caption = CaptionFeatures(*map(global_batch.gather, caption))
+            groups = [(RegionFeatures(*map(global_batch.gather, img)), d)
+                      for img, d in groups]
         if self.v2l_projection is not None:
-            image = image._replace(features=self.project(image.features))
-        results = []
+            groups = [(img._replace(features=self.project(img.features)),
+                       d) for img, d in groups]
+        acc = [({}, {}, {}) for _ in groups]
+
+        def add(res, into):
+            # (other, losses[, dists]) into (outputs, losses, dists)
+            for dst, part in zip(into, res):
+                dst.update(part)
+
         if "GroundingHead" in self.head_types:
-            results.append(self.grounding_head(image, caption))
+            for (img, d), into in zip(groups, acc):
+                add(self.grounding_head(img, caption, d, generator), into)
         if "TransformerHead" in self.head_types:
-            results.append(self.transformer_head(
-                image, caption, word_embeddings,
-                deterministic=deterministic, generator=generator))
-        outputs, losses, dists = {}, {}, {}
-        for res in results:
-            outputs.update(res[0])
-            losses.update(res[1])
-            dists.update(res[2] if len(res) > 2 else {})
-        return outputs, losses, dists
+            res = self.transformer_head(
+                groups[0][0], caption, word_embeddings,
+                deterministic=deterministic,
+                image2=groups[1][0] if image2 is not None else None,
+                generator=generator)
+            for r, into in zip((res,) if image2 is None else res, acc):
+                add(r, into)
+        if "MLPHead" in self.head_types:
+            for (img, _), into in zip(groups, acc):
+                add(self.mlp_head(img, caption, word_embeddings,
+                                  deterministic, generator), into)
+        return acc[0] if image2 is None else tuple(acc)
+
+
+def mmss_kwargs(cfg) -> dict:
+    """The language backbone's and the MMSS heads' constructor arguments
+    of an image-caption model from ``cfg``."""
+    m = cfg.MODEL.MMSS_HEAD
+    distill_cfg = None
+    if m.DISTILLATION_LOSS:
+        distill_cfg = dict(
+            loss_type=m.DISTILLATION_LOSS_TYPE,
+            temperature=m.DISTILLATION_TEMPERATURE,
+            loss_weight=m.DISTILLATION_LOSS_WEIGHT,
+            detach_teacher=m.DISTILLATION_DETACH_TEACHER,
+            transformer_teacher=m.DISTILLATION_TEACHER_TRANSFORMER)
+    return dict(
+        language_type=cfg.MODEL.LANGUAGE_BACKBONE.TYPE,
+        language_add_position=(
+            cfg.MODEL.LANGUAGE_BACKBONE.ADD_POSITION_EMBEDDING),
+        lang_bert_cfg=BertConfig.from_cfg_node(
+            cfg.MODEL.LANGUAGE_BACKBONE.BERT_CONFIG),
+        head_types=tuple(m.TYPES), tie_v2l=m.TIE_VL_PROJECTION_WEIGHTS,
+        gcfg=GroundingConfig.from_cfg(cfg),
+        tcfg=TransformerHeadConfig.from_cfg(cfg),
+        spatial_dropout_k=m.SPATIAL_DROPOUT, distill_cfg=distill_cfg)
+
+
+class _CaptionModel:
+    """What the image-caption models share: ``language_backbone`` and
+    ``mmss_heads`` (the Flax scope names), the preprocessing and the
+    distillation loss."""
+
+    def _build_caption_side(self, *, language_type: str,
+                            language_add_position: bool,
+                            lang_bert_cfg: BertConfig,
+                            head_types: Tuple[str, ...], tie_v2l: bool,
+                            gcfg: GroundingConfig,
+                            tcfg: TransformerHeadConfig,
+                            spatial_dropout_k: int,
+                            distill_cfg: Optional[dict], v_dim: int):
+        lang_kwargs = {"bert_cfg": lang_bert_cfg}
+        if language_type == "build_bertemb_backbone":
+            lang_kwargs["add_position_embedding"] = language_add_position
+        self.language_backbone = LANGUAGE_BACKBONES[language_type](
+            **lang_kwargs)
+        self.mmss_heads = MMSSHeads(head_types, tie_v2l, gcfg, tcfg,
+                                    v_dim=v_dim,
+                                    l_dim=lang_bert_cfg.hidden_size)
+        self.spatial_dropout_k = spatial_dropout_k
+        self.distill_cfg = distill_cfg
+
+    def preprocess(self, images: ImageBatch) -> torch.Tensor:
+        """(x - mean) / std over the whole canvas: these models, unlike
+        ``OvrRCNN``, do not zero the padding (as in the JAX package)."""
+        img = images.image
+        mean = torch.tensor(self.pixel_mean, device=img.device)
+        std = torch.tensor(self.pixel_std, device=img.device)
+        return ((img - mean) / std).to(self.compute_dtype)
+
+    def _distill(self, trans, w2r, r2w):
+        d = self.distill_cfg
+        return DISTILL_LOSSES[d["loss_type"]](
+            trans, w2r, r2w, d["temperature"], d["loss_weight"],
+            d["detach_teacher"], d["transformer_teacher"])
 
 
 @register_meta_arch(NAME)
-class DistillProposalMMSSRCNN(OvrRCNN):
+class DistillProposalMMSSRCNN(_CaptionModel, OvrRCNN):
     """The detector of ``OvrRCNN`` plus ``language_backbone`` and
-    ``mmss_heads`` (the Flax scope names). The box predictor has no
-    ``emb_pred`` when it takes the shared ``v2l_projection``."""
+    ``mmss_heads``. The box predictor has no ``emb_pred`` when it takes
+    the shared ``v2l_projection``. ``fused_mmss``
+    (``TPU.FUSED_MMSS_PASSES``): where the heads include the
+    transformer head and the grid and box regions have one shape, both
+    passes go through the heads in one call (``MMSSHeads``' ``image2``)."""
+
+    grid_mmss = True  # DistillOnlyProposalMMSSRCNN: the box pass alone
 
     def __init__(self, *, language_type: str, language_add_position: bool,
                  lang_bert_cfg: BertConfig, head_types: Tuple[str, ...],
@@ -185,58 +288,25 @@ class DistillProposalMMSSRCNN(OvrRCNN):
                  distill_cfg: Optional[dict],
                  load_emb_pred_from_mmss: bool, fused_mmss: bool = False,
                  device=None, **detector):
-        if fused_mmss:
-            raise NotImplementedError(
-                "TPU.FUSED_MMSS_PASSES is not ported yet")
         self.emb_from_mmss = load_emb_pred_from_mmss and tie_v2l
         super().__init__(device="cpu", emb_pred=not self.emb_from_mmss,
                          **detector)
-        lang_kwargs = {"bert_cfg": lang_bert_cfg}
-        if language_type == "build_bertemb_backbone":
-            lang_kwargs["add_position_embedding"] = language_add_position
-        self.language_backbone = LANGUAGE_BACKBONES[language_type](
-            **lang_kwargs)
-        self.mmss_heads = MMSSHeads(
-            head_types, tie_v2l, gcfg, tcfg,
-            v_dim=detector["res2_out_channels"] * 8,
-            l_dim=lang_bert_cfg.hidden_size)
-        self.spatial_dropout_k = spatial_dropout_k
-        self.distill_cfg = distill_cfg
+        self._build_caption_side(
+            language_type=language_type,
+            language_add_position=language_add_position,
+            lang_bert_cfg=lang_bert_cfg, head_types=head_types,
+            tie_v2l=tie_v2l, gcfg=gcfg, tcfg=tcfg,
+            spatial_dropout_k=spatial_dropout_k, distill_cfg=distill_cfg,
+            v_dim=detector["res2_out_channels"] * 8)
+        self.fused_mmss = fused_mmss
         self.to(resolve_device(device))
 
     @classmethod
     def from_cfg(cls, cfg, device=None):
-        m = cfg.MODEL.MMSS_HEAD
-        distill_cfg = None
-        if m.DISTILLATION_LOSS:
-            distill_cfg = dict(
-                loss_type=m.DISTILLATION_LOSS_TYPE,
-                temperature=m.DISTILLATION_TEMPERATURE,
-                loss_weight=m.DISTILLATION_LOSS_WEIGHT,
-                detach_teacher=m.DISTILLATION_DETACH_TEACHER,
-                transformer_teacher=m.DISTILLATION_TEACHER_TRANSFORMER)
         return cls(
-            language_type=cfg.MODEL.LANGUAGE_BACKBONE.TYPE,
-            language_add_position=(
-                cfg.MODEL.LANGUAGE_BACKBONE.ADD_POSITION_EMBEDDING),
-            lang_bert_cfg=BertConfig.from_cfg_node(
-                cfg.MODEL.LANGUAGE_BACKBONE.BERT_CONFIG),
-            head_types=tuple(m.TYPES), tie_v2l=m.TIE_VL_PROJECTION_WEIGHTS,
-            gcfg=GroundingConfig.from_cfg(cfg),
-            tcfg=TransformerHeadConfig.from_cfg(cfg),
-            spatial_dropout_k=m.SPATIAL_DROPOUT, distill_cfg=distill_cfg,
             load_emb_pred_from_mmss=cfg.MODEL.LOAD_EMB_PRED_FROM_MMSS_HEAD,
             fused_mmss=cfg.TPU.FUSED_MMSS_PASSES, device=device,
-            **detector_kwargs(cfg))
-
-    def preprocess(self, images: ImageBatch) -> torch.Tensor:
-        """(x - mean) / std over the whole canvas: this model, unlike
-        ``OvrRCNN``, does not zero the padding (as in the JAX
-        package)."""
-        img = images.image
-        mean = torch.tensor(self.pixel_mean, device=img.device)
-        std = torch.tensor(self.pixel_std, device=img.device)
-        return ((img - mean) / std).to(self.compute_dtype)
+            **mmss_kwargs(cfg), **detector_kwargs(cfg))
 
     def _predict_boxes(self, box_feats_flat, class_emb):
         """The box predictor, on the shared ``v2l_projection``'s
@@ -244,12 +314,6 @@ class DistillProposalMMSSRCNN(OvrRCNN):
         emb = self.mmss_heads.project(box_feats_flat) \
             if self.emb_from_mmss else None
         return self.roi_heads.predict(box_feats_flat, class_emb, emb)
-
-    def _distill(self, trans, w2r, r2w):
-        d = self.distill_cfg
-        return DISTILL_LOSSES[d["loss_type"]](
-            trans, w2r, r2w, d["temperature"], d["loss_weight"],
-            d["detach_teacher"], d["transformer_teacher"])
 
     def losses(self, batch: DetectionBatch, class_emb: torch.Tensor,
                generator: Optional[torch.Generator] = None,
@@ -260,11 +324,13 @@ class DistillProposalMMSSRCNN(OvrRCNN):
         and ``batch.text``; ``class_emb`` [K+1, D] (last row background).
         ``uniforms`` may hold ``"rpn"`` and ``"roi"`` (u_pos, u_neg)
         pairs as ``OvrRCNN.losses`` takes them, ``"grid_drop"`` [B, gh *
-        gw] and ``"box_drop"`` [B, S] (the spatial dropout's keys); what
-        is missing is drawn from ``generator``. ``deterministic=False``
-        makes the MMSS heads' dropout live (the training step).
-        ``global_batch`` (the global contrastive scope) makes the MMSS
-        heads and the FastRCNN losses read every rank's batch."""
+        gw] and ``"box_drop"`` [B, S] (the spatial dropout's keys), and
+        ``"grid_heads"`` and ``"box_heads"`` (the grounding head's draws
+        in each pass, ``GroundingHead.forward``); what is missing is
+        drawn from ``generator``. ``deterministic=False`` makes the MMSS
+        heads' dropout live (the training step). ``global_batch`` (the
+        global contrastive scope) makes the MMSS heads and the FastRCNN
+        losses read every rank's batch."""
         uniforms = dict(uniforms or {})
         images, gt = batch.images, batch.gt
         b = gt.boxes.shape[0]
@@ -314,42 +380,68 @@ class DistillProposalMMSSRCNN(OvrRCNN):
                 self.pcfg, global_batch))
 
         word_emb = self.language_backbone.word_embedding_matrix()
+
+        def heads(regions, key, **two_groups):
+            return self.mmss_heads(regions, caption, word_emb,
+                                   deterministic, generator, global_batch,
+                                   uniforms.get(key), **two_groups)
+
+        def make_box_regions():
+            k = self.spatial_dropout_k if self.spatial_dropout_k > 0 else s
+            return box_regions(sampled.boxes, box_feats, sampled.valid,
+                               images.hw.float(), k,
+                               draw("box_drop", s, pair=False))
+
+        regions = bregions = grid_res = box_res = None
+        if self.grid_mmss:
+            with _stage("grid_features"):
+                grid = self.roi_heads.grid_features(features).float()
+                regions = make_grid_regions(grid, images.hw,
+                                            (x.shape[1], x.shape[2]))
+                if self.spatial_dropout_k > 0:
+                    regions = spatial_dropout(
+                        regions, self.spatial_dropout_k,
+                        draw("grid_drop", regions.mask.shape[1],
+                             pair=False))
+        if regions is not None and self.fused_mmss and \
+                "TransformerHead" in self.mmss_heads.head_types:
+            with _stage("box_regions"):
+                bregions = make_box_regions()
+            if regions.mask.shape == bregions.mask.shape:
+                with _stage("fused_mmss"):
+                    grid_res, box_res = heads(
+                        regions, "grid_heads", image2=bregions,
+                        draws2=uniforms.get("box_heads"))
+        if regions is not None and grid_res is None:
+            with _stage("grid_mmss"):
+                grid_res = heads(regions, "grid_heads")
+        if box_res is None:
+            with _stage("box_mmss"):
+                if bregions is None:
+                    bregions = make_box_regions()
+                box_res = heads(bregions, "box_heads")
+
         outputs: Dict[str, torch.Tensor] = {}
         dists: Dict[str, torch.Tensor] = {}
-        with _stage("grid_features"):
-            grid = self.roi_heads.grid_features(features).float()
-            regions = make_grid_regions(grid, images.hw,
-                                        (x.shape[1], x.shape[2]))
-            if self.spatial_dropout_k > 0:
-                regions = spatial_dropout(
-                    regions, self.spatial_dropout_k,
-                    draw("grid_drop", regions.mask.shape[1], pair=False))
-        with _stage("grid_mmss"):
-            og, lg, dg = self.mmss_heads(regions, caption, word_emb,
-                                         deterministic, generator,
-                                         global_batch)
+        if grid_res is not None:
+            og, lg, dg = grid_res
             outputs.update(og)
             losses.update(lg)
             dists.update(dg)
-        with _stage("box_mmss"):
-            k = self.spatial_dropout_k if self.spatial_dropout_k > 0 else s
-            bregions = box_regions(sampled.boxes, box_feats, sampled.valid,
-                                   images.hw.float(), k,
-                                   draw("box_drop", s, pair=False))
-            o, l, d = self.mmss_heads(bregions, caption, word_emb,
-                                      deterministic, generator,
-                                      global_batch)
-            outputs.update({"Box " + k2: v for k2, v in o.items()})
-            losses.update({"Box " + k2: v for k2, v in l.items()})
-            dists.update({"box_" + k2: v for k2, v in d.items()})
+        o, l, d = box_res
+        outputs.update({"Box " + k2: v for k2, v in o.items()})
+        losses.update({"Box " + k2: v for k2, v in l.items()})
+        dists.update({"box_" + k2: v for k2, v in d.items()})
         if self.distill_cfg is not None:
             with _stage("distill"):
-                losses["kd_loss"] = self._distill(
-                    dists["trans"], dists["w2r"], dists["r2w"])
+                if self.grid_mmss:
+                    losses["kd_loss"] = self._distill(
+                        dists["trans"], dists["w2r"], dists["r2w"])
                 losses["box_kd_loss"] = self._distill(
                     dists["box_trans"], dists["box_w2r"], dists["box_r2w"])
-                losses["mixbox_kd_loss"] = self._distill(
-                    dists["trans"], dists["box_w2r"], dists["box_r2w"])
+                if self.grid_mmss:
+                    losses["mixbox_kd_loss"] = self._distill(
+                        dists["trans"], dists["box_w2r"], dists["box_r2w"])
         return outputs, losses
 
     @torch.inference_mode()
@@ -387,3 +479,115 @@ class DistillProposalMMSSRCNN(OvrRCNN):
             boxes = box_ops.clip(boxes, (images.orig_hw[:, 0:1],
                                          images.orig_hw[:, 1:2]))
         return dets._replace(boxes=boxes)
+
+
+@register_meta_arch("DistillOnlyProposalMMSSRCNN")
+class DistillOnlyProposalMMSSRCNN(DistillProposalMMSSRCNN):
+    """The box MMSS pass alone (no grid features, no grid pass): of the
+    distillation losses only ``box_kd_loss``. Its profile ranges are
+    named ``DistillProposalMMSSRCNN.<stage>``."""
+
+    grid_mmss = False
+
+
+def _grid_stage(name: str):
+    return record_function(f"{GRID_NAME}.{name}")
+
+
+@register_meta_arch(GRID_NAME)
+class MMSSGridModel(_CaptionModel, nn.Module):
+    """The proposal-free grid model (OVR-CNN's pretraining): the trunk's
+    ``MMSS_HEAD.IN_FEATURES`` map (res5, the default, by a fifth stage
+    in ``backbone``; or res4) as masked grid regions, spatial dropout,
+    the MMSS heads and, under ``DISTILLATION_LOSS``, ``kd_loss``. No
+    RPN and no detector, so no ``inference``: its evaluation is the
+    loss-only pass ('ovr'). The random draws are inputs where given
+    (``uniforms``: ``"grid_drop"`` [B, gh * gw] and ``"grid_heads"``,
+    the grounding head's draws), else drawn from ``generator``. Each
+    stage runs in a ``torch.profiler.record_function`` range
+    ``MMSSGridModel.<stage>``."""
+
+    def __init__(self, *, depth: int, num_groups: int, width_per_group: int,
+                 stem_out_channels: int, res2_out_channels: int,
+                 stride_in_1x1: bool, pixel_mean: tuple, pixel_std: tuple,
+                 in_features: str,
+                 compute_dtype: torch.dtype = torch.float32,
+                 freeze_at: int = 0, remat_backbone: bool = False,
+                 device=None, **caption_side):
+        super().__init__()
+        if in_features not in ("res4", "res5"):
+            raise ValueError(f"MMSS_HEAD.IN_FEATURES {in_features!r}")
+        self.pixel_mean = tuple(pixel_mean)
+        self.pixel_std = tuple(pixel_std)
+        self.compute_dtype = compute_dtype
+        self.in_features = in_features
+        self.backbone = ResNetC4(
+            depth=depth, out_features=("res4",) if in_features == "res4"
+            else ("res4", "res5"), num_groups=num_groups,
+            width_per_group=width_per_group,
+            stem_out_channels=stem_out_channels,
+            res2_out_channels=res2_out_channels,
+            stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype,
+            freeze_at=freeze_at, remat=remat_backbone)
+        self._build_caption_side(
+            v_dim=res2_out_channels * (8 if in_features == "res5" else 4),
+            **caption_side)
+        self.to(resolve_device(device))
+
+    @classmethod
+    def from_cfg(cls, cfg, device=None):
+        kw = detector_kwargs(cfg)
+        for key in ("rpn_cfg", "rcfg", "pcfg", "use_rpn"):
+            del kw[key]
+        return cls(in_features=cfg.MODEL.MMSS_HEAD.IN_FEATURES,
+                   device=device, **kw, **mmss_kwargs(cfg))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def losses(self, batch: DetectionBatch, class_emb=None,
+               generator: Optional[torch.Generator] = None,
+               uniforms: Optional[Dict[str, object]] = None,
+               deterministic: bool = True, global_batch=None
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """(mmss_outputs, losses) of one padded batch with
+        ``batch.text``; ``class_emb`` is not read (the training step
+        passes it to every model). ``deterministic=False`` makes the
+        MMSS heads' dropout live; ``global_batch`` makes the heads read
+        every rank's regions and captions."""
+        uniforms = dict(uniforms or {})
+        images = batch.images
+        with _grid_stage("language"):
+            caption = self.language_backbone(batch.text, deterministic=True)
+        with _grid_stage("preprocess"):
+            x = self.preprocess(images)
+        with _grid_stage("backbone"):
+            feats = self.backbone(x)[self.in_features].float()
+        with _grid_stage("grid_features"):
+            regions = make_grid_regions(feats, images.hw,
+                                        (x.shape[1], x.shape[2]))
+            if self.spatial_dropout_k > 0:
+                if "grid_drop" not in uniforms:
+                    uniforms["grid_drop"] = torch.rand(
+                        regions.mask.shape, generator=generator,
+                        device=feats.device)
+                regions = spatial_dropout(regions, self.spatial_dropout_k,
+                                          uniforms["grid_drop"])
+        word_emb = self.language_backbone.word_embedding_matrix()
+        with _grid_stage("grid_mmss"):
+            outputs, losses, dists = self.mmss_heads(
+                regions, caption, word_emb, deterministic, generator,
+                global_batch, uniforms.get("grid_heads"))
+        if self.distill_cfg is not None:
+            with _grid_stage("distill"):
+                losses["kd_loss"] = self._distill(
+                    dists["trans"], dists["w2r"], dists["r2w"])
+        return outputs, losses
+
+
+@register_meta_arch("DistillMMSSGridModel")
+class DistillMMSSGridModel(MMSSGridModel):
+    """The grid model with distillation (``kd_loss`` under
+    ``DISTILLATION_LOSS``, which ``from_cfg`` wires); its profile ranges
+    are named ``MMSSGridModel.<stage>``."""

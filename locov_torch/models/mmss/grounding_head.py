@@ -6,22 +6,38 @@ all-pairs local similarity is one product,
     sim[c, i, w, r] = caption_emb[c, w, :] . image_emb[i, r, :] / T,
 
 in full float32 (``Precision.HIGHEST`` in JAX; ``ops/matmul.py``), then:
-invalid word/region pairs filled with min - 100, softmax or hardmax
-alignment, the aligned_local or reconstruction_mse global distance, the
-cross-entropy or triplet (hardest / easiest negatives) losses over the
-B x B cost, the batch accuracies, and the (w2r, r2w) costs returned for
-distillation. The alignments and negative mining that draw random
-numbers (``random_categorical``, ``random_top3``, ``random``) are not
-ported yet and raise.
+invalid word/region pairs filled with min - 100, the softmax, hardmax,
+random_categorical or random_top3 alignment, the aligned_local or
+reconstruction_mse global distance, the cross-entropy or triplet
+(hardest, easiest or random negatives) losses over the B x B cost, the
+batch accuracies, and the (w2r, r2w) costs returned for distillation.
+
+The random draws are inputs where given (``draws``), else they come from
+``generator``:
+
+- ``random_categorical`` samples each word's region (and each region's
+  word) from the softmax of its similarities as ``jax.random.
+  categorical`` does: argmax(logits - log(-log(u))) with u uniform over
+  [tiny, 1). ``draws["align_words"]`` is u [C, I, W, R],
+  ``draws["align_regions"]`` u [C, I, R, W]. ``random_top3`` samples
+  uniformly among the three most similar (the same draws, over the
+  log of a three-hot vector).
+- ``random`` negative mining takes, for each positive, one of the B - 1
+  other captions (images): ``draws["neg_words"]`` and
+  ``draws["neg_regions"]`` are (caption index, image index) pairs of
+  int [B] in [0, B - 1), indices into the cost without its diagonal.
+  With neither draws nor a generator the triplet loss draws from a
+  generator seeded 0 (JAX's default ``PRNGKey(0)``).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ...ops.matmul import matmul_f32
+from ...ops.nms import top_k
 from ...structures.batches import CaptionFeatures, RegionFeatures
 from ..bert import Dense
 
@@ -64,6 +80,23 @@ def _one_hot_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.zeros_like(x).scatter_(dim, idx, 1.0)
 
 
+def gumbel_categorical(logits: torch.Tensor,
+                       u: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis, given its uniform
+    draws ``u`` (the shape of ``logits``, over [tiny, 1)): the index of
+    the largest logits + Gumbel noise, -log(-log(u))."""
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+def _three_hot_logits(sim: torch.Tensor) -> torch.Tensor:
+    """log(three-hot + 1e-20) over the last axis: 0 at the three largest
+    similarities (``lax.top_k``'s order among ties), log(1e-20)
+    elsewhere."""
+    _, idx = top_k(sim, 3)
+    three = torch.zeros_like(sim).scatter_(-1, idx, 1.0)
+    return torch.log(three + 1e-20)
+
+
 def _remove_diag(mat: torch.Tensor, dim: int) -> torch.Tensor:
     """N x N -> N x (N-1) (dim 1) or (N-1) x N (dim 0), dropping the
     diagonal."""
@@ -93,23 +126,22 @@ class GroundingHead(nn.Module):
     def __init__(self, gcfg: GroundingConfig, v_dim: int, l_dim: int,
                  external_projection: bool = False):
         super().__init__()
-        g = gcfg
-        if g.local_metric != "dot":
-            raise NotImplementedError(g.local_metric)
-        if g.alignment in RANDOM_ALIGNMENTS or (
-                g.loss_type == "triplet" and g.negative_mining == "random"):
-            raise NotImplementedError(
-                f"GROUNDING alignment {g.alignment!r} / negative mining "
-                f"{g.negative_mining!r} draws random numbers and is not "
-                f"ported yet")
+        if gcfg.local_metric != "dot":
+            raise NotImplementedError(gcfg.local_metric)
         self.gcfg = gcfg
         self.v2l_projection = None if external_projection else Dense(
             v_dim, l_dim, highest=True)
 
-    def forward(self, image: RegionFeatures, caption: CaptionFeatures):
+    def forward(self, image: RegionFeatures, caption: CaptionFeatures,
+                draws: Optional[Dict[str, object]] = None,
+                generator: Optional[torch.Generator] = None):
         """-> (other, losses) or, with ``return_dist``, (other, losses,
-        {"w2r": [B, B], "r2w": [B, B]}); costs are [caption, image]."""
+        {"w2r": [B, B], "r2w": [B, B]}); costs are [caption, image].
+        ``draws``: the random alignment's and the random negative
+        mining's draws (module docstring); what is missing is drawn from
+        ``generator``."""
         g = self.gcfg
+        draws = dict(draws or {})
         caption_emb = getattr(caption, g.text_input)  # [B, W, D]
         caption_mask = (caption.attention_mask *
                         (1 - caption.special_tokens_mask)).float()
@@ -134,6 +166,28 @@ class GroundingHead(nn.Module):
         elif g.alignment == "hardmax":
             attn_w2r = _one_hot_argmax(sim, 3) if g.align_words else None
             attn_r2w = _one_hot_argmax(sim, 2) if g.align_regions else None
+        elif g.alignment in RANDOM_ALIGNMENTS:
+            tiny = torch.finfo(torch.float32).tiny
+
+            def sample(logits, key):
+                # one index of the last axis for each row of [C, I, a, b]
+                if key not in draws:
+                    if generator is None:
+                        raise ValueError(
+                            f"GROUNDING alignment {g.alignment!r} needs "
+                            f"draws[{key!r}] or a generator")
+                    draws[key] = torch.rand(
+                        logits.shape, generator=generator,
+                        device=logits.device).clamp_(min=tiny)
+                if g.alignment == "random_top3":
+                    logits = _three_hot_logits(logits)
+                idx = gumbel_categorical(logits.detach(), draws[key])
+                return torch.zeros_like(logits).scatter_(
+                    -1, idx[..., None], 1.0)
+            attn_w2r = sample(sim, "align_words") if g.align_words \
+                else None
+            attn_r2w = sample(sim.transpose(2, 3), "align_regions") \
+                .transpose(2, 3) if g.align_regions else None
         else:
             raise NotImplementedError(g.alignment)
 
@@ -173,7 +227,7 @@ class GroundingHead(nn.Module):
         other: Dict[str, torch.Tensor] = {}
         arange = torch.arange(b, device=sim.device)
 
-        def ce_losses(pw_cost, tag):
+        def ce_losses(pw_cost, tag, key=None):
             lc = torch.log_softmax(-pw_cost, dim=0)
             li = torch.log_softmax(-pw_cost, dim=1)
             losses[f"CE_loss ({tag}, Choose Caption)"] = \
@@ -181,7 +235,7 @@ class GroundingHead(nn.Module):
             losses[f"CE_loss ({tag}, Choose Image)"] = \
                 -torch.diagonal(li).mean()
 
-        def triplet_losses(pw_cost, tag):
+        def triplet_losses(pw_cost, tag, key):
             pos = torch.diagonal(pw_cost)
             if b < 2:
                 neg_cap = neg_img = pos + g.margin
@@ -191,6 +245,15 @@ class GroundingHead(nn.Module):
             elif g.negative_mining == "easiest":
                 neg_cap = _remove_diag(pw_cost, 0).amax(dim=0)
                 neg_img = _remove_diag(pw_cost, 1).amax(dim=1)
+            elif g.negative_mining == "random":
+                if key not in draws:
+                    draws[key] = tuple(
+                        torch.randint(0, b - 1, (b,), generator=generator,
+                                      device=arange.device)
+                        for _ in range(2))
+                ic, ii = (i.long() for i in draws[key])
+                neg_cap = _remove_diag(pw_cost, 0)[ic, arange]
+                neg_img = _remove_diag(pw_cost, 1)[arange, ii]
             else:
                 raise NotImplementedError(g.negative_mining)
             losses[f"Triplet Loss ({tag}, Choose Caption)"] = \
@@ -210,13 +273,16 @@ class GroundingHead(nn.Module):
             loss_fn = ce_losses
         elif g.loss_type == "triplet":
             loss_fn = triplet_losses
+            if generator is None:  # JAX's default key, PRNGKey(0)
+                generator = torch.Generator(
+                    device=arange.device).manual_seed(0)
         else:
             raise NotImplementedError(g.loss_type)
         if g.align_words:
-            loss_fn(gd_w2r, "Align Words")
+            loss_fn(gd_w2r, "Align Words", "neg_words")
             accuracies(gd_w2r, "Align Words")
         if g.align_regions:
-            loss_fn(gd_r2w, "Align Regions")
+            loss_fn(gd_r2w, "Align Regions", "neg_regions")
             accuracies(gd_r2w, "Align Regions")
 
         if g.return_dist:

@@ -2,7 +2,7 @@
 modelling and image-caption matching.
 
 Counterpart of ``locov_tpu/models/mmss/transformer_head.py`` for
-``MMM_LOSS`` "cross_entropy" and "", unfused. Projected
+``MMM_LOSS`` "cross_entropy" and "". Projected
 region features plus location embeddings are appended to the caption's
 token embeddings; a small BERT encoder (6 layers, 8 heads in
 coco_lsm.yaml) encodes every (caption, image) pair of the batch,
@@ -16,8 +16,15 @@ pre-softmax logits (``PROPER_ATTENTION_MASK`` switches to the most
 negative value). ``TPU.PAIRWISE_CHUNK`` c below the pair count P cuts
 the pair list into P // c equal chunks, each encoded and pooled in turn
 under ``bert.remat`` (JAX's ``nn.scan(nn.remat(_PairChunkEncoder))``):
-only one chunk's activations are alive in the backward. The fused grid
-+ box pass (``image2``) is not ported yet and raises.
+only one chunk's activations are alive in the backward.
+
+The fused grid + box pass (``image2``, ``TPU.FUSED_MMSS_PASSES``): the
+two region groups, of equal shapes, are stacked on the batch axis and
+their two B x B pair lists go back to back through one encoder, pooler
+and LM-head call (the chunks, where ``PAIRWISE_CHUNK`` asks for them,
+cut the fused list of 2 B^2 pairs); the regions of one group never
+attend to the other's. Each group's losses are those of its own pass;
+only the dropout masks are drawn in another order.
 """
 from __future__ import annotations
 
@@ -121,11 +128,8 @@ class TransformerHead(nn.Module):
                 image2: Optional[RegionFeatures] = None,
                 generator: Optional[torch.Generator] = None):
         """-> (other, losses) or, with ``return_dist``, (other, losses,
-        {"trans": [B, B] cost, [caption, image]})."""
-        if image2 is not None:
-            raise NotImplementedError(
-                "the fused grid + box MMSS pass (TPU.FUSED_MMSS_PASSES) "
-                "is not ported yet")
+        {"trans": [B, B] cost, [caption, image]}); with ``image2`` a
+        tuple of two such results, one a group."""
         t = self.tcfg
         caption_emb = caption.encoded_tokens           # [B, W, D]
         caption_mask = caption.attention_mask.float()
@@ -133,20 +137,30 @@ class TransformerHead(nn.Module):
                                  torch.full_like(caption.target_ids, -1))
         raw_mask = not t.proper_attention_mask
         b, max_w = caption_mask.shape
+        groups = [image] if image2 is None else [image, image2]
+        ng = len(groups)
+        if ng == 2 and image.mask.shape != image2.mask.shape:
+            raise ValueError(
+                f"the fused MMSS pass needs equal region counts, got "
+                f"{tuple(image.mask.shape)} and {tuple(image2.mask.shape)}")
+        feats = torch.cat([g.features for g in groups])
+        locs = torch.cat([g.loc for g in groups])
+        region_mask = torch.cat([g.mask for g in groups]).float()
 
-        image_emb = image.features if self.v2l_projection is None else \
-            self.v2l_projection(image.features)
-        image_emb = self.visual_emb(image_emb, image.loc, deterministic,
-                                    generator)      # [B, R, D]
-        region_mask = image.mask.float()
+        image_emb = feats if self.v2l_projection is None else \
+            self.v2l_projection(feats)
+        image_emb = self.visual_emb(image_emb, locs, deterministic,
+                                    generator)      # [ng * B, R, D]
 
+        ar = torch.arange(b, device=caption_mask.device)
         if t.mmm_loss == "cross_entropy":
-            # all B x B (caption, image) pairs by index: pair k is
-            # caption k // b with image k % b
-            ar = torch.arange(b, device=caption_mask.device)
-            cap_idx, img_idx = ar.repeat_interleave(b), ar.repeat(b)
+            # the B x B (caption, image) pairs of each group by index,
+            # back to back: pair k of group g is caption k // b with
+            # image g * b + k % b
+            cap_idx = ar.repeat_interleave(b).repeat(ng)
+            img_idx = torch.cat([ar.repeat(b) + g * b for g in range(ng)])
             embs = (caption_emb, image_emb, caption_mask, region_mask)
-            npairs = b * b
+            npairs = ng * b * b
             if 0 < t.pairwise_chunk < npairs:
                 # JAX's reshape(nchunk, -1): P // c chunks of equal size
                 nchunk = npairs // t.pairwise_chunk
@@ -165,19 +179,32 @@ class TransformerHead(nn.Module):
                 seq, pooled = self._encode_pairs(*embs, cap_idx, img_idx,
                                                  deterministic, raw_mask,
                                                  generator)
-            scores = self.bi_seq_relationship(pooled)
-            pw_cost = scores[:, 0].reshape(b, b)
-            seq_t_diag = seq[ar * b + ar, :max_w]     # [B, W, D]
+            scores = self.bi_seq_relationship(pooled)[:, 0]  # [ng*B*B]
+            pw_costs = scores.reshape(ng, b, b).unbind(0)
+            diag = torch.cat([ar * b + ar + g * b * b for g in range(ng)])
+            seq_t_diag = seq[diag, :max_w]            # [ng * B, W, D]
         else:
-            tokens = torch.cat([caption_emb, image_emb], dim=1)
-            mask = torch.cat([caption_mask, region_mask], dim=1)
+            tokens = torch.cat([caption_emb.repeat(ng, 1, 1), image_emb],
+                               dim=1)
+            mask = torch.cat([caption_mask.repeat(ng, 1), region_mask],
+                             dim=1)
             seq = self.encoder(tokens, mask, deterministic=deterministic,
                                raw_additive_mask=raw_mask,
                                generator=generator)
-            pw_cost = None
+            pw_costs = [None] * ng
             seq_t_diag = seq[:, :max_w]
 
-        lm_logits = self.predictions(seq_t_diag, word_embeddings)
+        # one tied-decoder product over every group's diagonal pairs
+        lm_logits_all = self.predictions(seq_t_diag, word_embeddings)
+        results = [self._group_result(lm_logits, target_ids, pw_cost)
+                   for lm_logits, pw_cost in
+                   zip(lm_logits_all.split(b), pw_costs)]
+        return results[0] if image2 is None else tuple(results)
+
+    def _group_result(self, lm_logits, target_ids, pw_cost):
+        """(other, losses[, dists]) of one region group from its MLM
+        logits [B, W, V] and its B x B matching cost."""
+        t = self.tcfg
         losses: Dict[str, torch.Tensor] = {
             "Masked Language Modeling Loss":
                 mean_cross_entropy(lm_logits, target_ids, ignore_index=-1)}
@@ -194,7 +221,7 @@ class TransformerHead(nn.Module):
             li = torch.log_softmax(-pw_cost, dim=1)
             losses["Image Caption Matching Loss"] = (
                 -torch.diagonal(lc).mean() - torch.diagonal(li).mean())
-            ar = torch.arange(b, device=pw_cost.device)
+            ar = torch.arange(pw_cost.shape[0], device=pw_cost.device)
             other["Batch Accuracy (Choose Caption)"] = \
                 (pw_cost.argmin(dim=0) == ar).float().mean()
             other["Batch Accuracy (Choose Image)"] = \

@@ -2,8 +2,11 @@
 
 Counterpart of ``locov_tpu/models/roi_heads.py``: proposal labelling and
 fixed-size sampling (masked and batched, with the sampler's uniform
-draws as inputs), ROIAlign -> shared res5 -> mean-pool -> embedding box
-predictor, and the FastRCNN losses over the sampled batch.
+draws as inputs), ROIAlign -> shared res5 -> mean-pool -> the box
+predictor ``ROI_BOX_HEAD.NAME`` selects (the embedding predictor, or the
+multi-token grounding predictor under
+"EmbeddingGroundingFastRCNNOutputLayers"), and the FastRCNN losses over
+the sampled batch.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from ..ops import matcher as matcher_ops
 from ..ops.roi_align import roi_align_fused
 from ..structures import boxes as box_ops
 from ..structures.batches import GtBatch, ProposalBatch
+from .box_emb_grounding import (ClassTokenEmbeddings,
+                                EmbeddingGroundingBoxPredictor)
 from .box_predictor import (BoxPredictorConfig, EmbeddingBoxPredictor,
                             fast_rcnn_losses)
 from .resnet import ResNetStage
@@ -116,8 +121,13 @@ def label_and_sample_proposals(proposals: ProposalBatch, gt: GtBatch,
         valid=valid)
 
 
+GROUNDING_PREDICTOR = "EmbeddingGroundingFastRCNNOutputLayers"
+
+
 class Res5ROIHeads(nn.Module):
-    """Shared res5 box head + embedding predictor."""
+    """Shared res5 box head + the box predictor. ``emb_pred=False``
+    builds the embedding predictor without ``emb_pred`` (the
+    image-caption stage's shared projection takes its place)."""
 
     def __init__(self, rcfg: ROIHeadsConfig, pcfg: BoxPredictorConfig,
                  stride_in_1x1: bool = True, res2_out_channels: int = 256,
@@ -125,17 +135,24 @@ class Res5ROIHeads(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  emb_pred: bool = True):
         super().__init__()
-        if pcfg.name == "EmbeddingGroundingFastRCNNOutputLayers":
-            raise NotImplementedError(
-                "the grounding box predictor is not ported yet")
         self.rcfg = rcfg
+        self.grounding = pcfg.name == GROUNDING_PREDICTOR
         self.res5 = ResNetStage(
             num_blocks=3, in_channels=res2_out_channels * 4,
             bottleneck_channels=num_groups * width_per_group * 8,
             out_channels=res2_out_channels * 8, first_stride=2,
             stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype)
-        self.box_predictor = EmbeddingBoxPredictor(res2_out_channels * 8,
-                                                   pcfg, emb_pred=emb_pred)
+        if self.grounding:
+            self.box_predictor = EmbeddingGroundingBoxPredictor(
+                res2_out_channels * 8, pcfg.emb_dim,
+                local_metric=pcfg.grounding_local_metric,
+                alignment=pcfg.grounding_alignment,
+                temperature=pcfg.grounding_temperature,
+                normalize_emb=pcfg.normalize_emb,
+                detach_cls_predictor=pcfg.detach_cls_predictor)
+        else:
+            self.box_predictor = EmbeddingBoxPredictor(
+                res2_out_channels * 8, pcfg, emb_pred=emb_pred)
 
     def roi_features(self, features: torch.Tensor,
                      boxes: torch.Tensor) -> torch.Tensor:
@@ -158,9 +175,23 @@ class Res5ROIHeads(nn.Module):
         ROI path's parameters."""
         return self.res5(features)
 
-    def predict(self, box_features: torch.Tensor,
-                class_emb: torch.Tensor, emb_override=None):
-        return self.box_predictor(box_features, class_emb, emb_override)
+    def predict(self, box_features: torch.Tensor, class_emb,
+                emb_override=None):
+        """(scores, deltas) of the box features. ``class_emb``: the
+        [K+1, D] matrix, or for the grounding predictor also
+        ``ClassTokenEmbeddings`` (a matrix is one token a class).
+        ``emb_override``: embeddings in place of the embedding
+        predictor's ``emb_pred`` (the grounding predictor takes none,
+        as in the JAX package)."""
+        if not self.grounding:
+            return self.box_predictor(box_features, class_emb,
+                                      emb_override)
+        if emb_override is not None:
+            raise TypeError("the grounding box predictor takes no "
+                            "embeddings from a shared projection")
+        if not isinstance(class_emb, ClassTokenEmbeddings):
+            class_emb = ClassTokenEmbeddings.single_token(class_emb)
+        return self.box_predictor(box_features, class_emb)
 
 
 def roi_heads_losses(scores: torch.Tensor, deltas: torch.Tensor,

@@ -1,8 +1,7 @@
 """Loss primitives (masked, static-shape) and the vector normalizations
 of the embedding box predictor.
 
-Counterpart of ``locov_tpu/ops/losses.py`` (the detector's subset and
-the distillation's ``kl_div_batchmean``). The
+Counterpart of ``locov_tpu/ops/losses.py``. The
 reductions are empty-safe as in the JAX package: where nothing is
 valid they give 0, not NaN. Where a loss's gradient has a kink, it takes
 JAX's value there (``l1``, ``max0``), so that both packages train
@@ -76,6 +75,44 @@ def mean_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     none is (where ``F.cross_entropy`` gives NaN)."""
     ce, valid = softmax_cross_entropy(logits, labels, ignore_index)
     return ce.sum() / valid.sum().clamp(min=1)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor,
+                                     targets: torch.Tensor,
+                                     mask: torch.Tensor = None
+                                     ) -> torch.Tensor:
+    """Binary cross entropy of ``logits`` against ``targets``, written
+    stably as max(x, 0) - x t + log1p(exp(-|x|)): the mean over every
+    element (0 for an empty input), or with ``mask`` the masked sum over
+    the mask's sum (at least 1)."""
+    loss = max0(logits) - logits * targets + torch.log1p(
+        torch.exp(-l1(logits)))
+    if mask is None:
+        if loss.numel() == 0:
+            return loss.new_zeros(())
+        return loss.mean()
+    mask = mask.to(loss.dtype)
+    return (loss * mask).sum() / mask.sum().clamp(min=1)
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
+                   dim: int) -> torch.Tensor:
+    """Softmax along ``dim`` with the entries outside ``mask`` at the
+    dtype's most negative value; rows with no entry in the mask are all
+    zeros (not NaN)."""
+    neg = torch.finfo(logits.dtype).min
+    out = torch.softmax(torch.where(mask, logits, neg), dim=dim)
+    any_valid = mask.any(dim=dim, keepdim=True)
+    return torch.where(any_valid, out, torch.zeros((), dtype=out.dtype,
+                                                   device=out.device))
+
+
+def masked_log_softmax(logits: torch.Tensor, mask: torch.Tensor,
+                       dim: int) -> torch.Tensor:
+    """Log-softmax along ``dim`` with the entries outside ``mask`` at the
+    dtype's most negative value."""
+    neg = torch.finfo(logits.dtype).min
+    return torch.log_softmax(torch.where(mask, logits, neg), dim=dim)
 
 
 def kl_div_batchmean(log_probs: torch.Tensor,

@@ -22,6 +22,13 @@ class ImageBatch(NamedTuple):
     image_id: Optional[torch.Tensor] = None
 
 
+class BoxBatch(NamedTuple):
+    """Fixed-size padded boxes: boxes [B, N, 4] float32 XYXY in the
+    resized image's frame; mask [B, N] bool, True for real boxes."""
+    boxes: torch.Tensor
+    mask: torch.Tensor
+
+
 class GtBatch(NamedTuple):
     """Padded ground-truth instances: boxes [B, M, 4] XYXY float32;
     classes [B, M] int32 (contiguous ids); mask [B, M] bool."""

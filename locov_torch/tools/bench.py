@@ -14,7 +14,9 @@ detection inference: ``OvrRCNN`` from configs/coco_stt.yaml in bfloat16,
 batch 8, a [66, 768] class-embedding matrix. Both take seeded random
 weights (the training model at the scale of trained weights,
 ``utils/weights.py:trained_scale_``, or its losses are not finite) and
-the synthetic inputs ``bench.py`` builds.
+the synthetic inputs ``bench.py`` builds. As in ``bench.py``, the
+environment variable ``LOCOV_FUSED_MMSS`` (1 or 0), where set, turns the
+fused grid + box MMSS pass (``TPU.FUSED_MMSS_PASSES``) on or off.
 
 Timing follows ``bench.py``: warm-up, then bursts of sequentially
 dependent steps (each training step updates the weights the next one
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -68,6 +71,8 @@ def build_full(batch=4, height=800, width=1344, text_len=70, device=None,
     cfg = get_cfg()
     cfg.merge_from_file(config_path("coco_lsm.yaml"))
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    if "LOCOV_FUSED_MMSS" in os.environ:  # A/B the fused grid + box pass
+        cfg.TPU.FUSED_MMSS_PASSES = os.environ["LOCOV_FUSED_MMSS"] == "1"
     model = trained_scale_(seeded_init_(build_meta_arch(cfg, device=dev),
                                         seed))
     return (cfg, model) + lsm_inputs(batch, height, width, text_len, dev)

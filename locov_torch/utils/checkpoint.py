@@ -663,8 +663,13 @@ def load_torch_file(path: str) -> Dict[str, np.ndarray]:
             for k, v in state.items()}
 
 
-# stage-transfer rename fan-out (trainer.py:308-326), in Flax naming
+# stage-transfer rename fan-out (trainer.py:308-326), in Flax naming.
+# The reference maps res5 both ways (backbone.res5 <-> roi_heads.res5):
+# a grid model's trunk res5 seeds the detector's ROI res5 (OVR-CNN's
+# recipe). The JAX package's map has only the roi_heads/res5 source, so
+# there a grid checkpoint leaves the detector's res5 at its init.
 STT_FROM_LSM_RENAME = {
+    "backbone/res5": ["roi_heads/res5"],
     "roi_heads/res5": ["backbone/res5", "roi_heads/res5"],
     "mmss_heads/v2l_projection": ["roi_heads/box_predictor/emb_pred"],
     "mmss_heads/grounding_head/v2l_projection":
@@ -700,9 +705,10 @@ def load_weights_standalone(model: torch.nn.Module, weights: str,
                             ) -> ImportReport:
     """Load ``weights`` (``read_weights``) into ``model``, in place;
     where the key sets differ (the LSM -> STT stage hand-off), through
-    the rename fan-out map: the LSM's roi_heads.res5 seeds the STT
-    model's roi_heads.res5 (and backbone.res5, where the model has one)
-    and the tied v2l projection seeds emb_pred. Keys the source lacks
+    the rename fan-out map: the LSM's roi_heads.res5 (a grid model's
+    backbone.res5) seeds the STT model's roi_heads.res5 (and
+    backbone.res5, where the model has one) and the tied v2l projection
+    seeds emb_pred. Keys the source lacks
     keep the model's values. Writes ``import_report.json`` to
     ``report_dir`` when given. The trainer's ``load_pretrained`` calls
     it too (JAX's ``OVRTrainer.load_pretrained``)."""

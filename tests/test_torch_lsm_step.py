@@ -282,13 +282,50 @@ def test_default_frozen_fn_names_match_jax():
     assert tf("language_backbone.bert_model.embeddings.norm.weight")
 
 
-def test_settings_not_ported_yet_raise():
-    with pytest.raises(NotImplementedError, match="FUSED_MMSS"):
-        tbuild(_tcfg(**{"TPU.FUSED_MMSS_PASSES": True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="MLPHead"):
-        tbuild(_tcfg(**{"MODEL.MMSS_HEAD.TYPES": ("GroundingHead",
-                                                  "MLPHead")}),
-               device="cpu")
+def test_settings_not_ported_yet_raise(lsm, monkeypatch):
+    """``TPU.FUSED_MMSS_PASSES`` and the MLP head, which raised here
+    before. The fused model gives the unfused model's losses (rtol 1e-5:
+    the same weights and draws; tests/test_torch_fused_mmss.py holds it
+    to JAX's fused model). The model with TYPES ("GroundingHead",
+    "MLPHead") builds the MLP head's parameters under JAX's names and
+    gives JAX's loss keys, JAX's head taken as it means to be
+    (tests/test_torch_mlp_head.py:FixedMLPHead, which holds its numbers
+    to the port's)."""
+    from locov_tpu.models.mmss import mlp_head as jmlp
+    from test_torch_mlp_head import FixedMLPHead
+    u = loss_uniforms(lsm["key"])
+    _, fused = _torch_model(lsm, **{"TPU.FUSED_MMSS_PASSES": True}).losses(
+        lsm["tbatch"], t(lsm["ce"]), uniforms=u)
+    assert set(fused) == set(lsm["losses"])
+    for k, v in lsm["losses"].items():
+        np.testing.assert_allclose(float(fused[k].detach()), float(v),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
+    _, unfused = _torch_model(lsm).losses(lsm["tbatch"], t(lsm["ce"]),
+                                          uniforms=u)
+    for k in unfused:
+        assert float(fused[k].detach()) == pytest.approx(float(unfused[k]),
+                                                rel=1e-5, abs=1e-7), k
+
+    types = {"MODEL.MMSS_HEAD.TYPES": ("GroundingHead", "MLPHead")}
+    monkeypatch.setattr(jmlp, "MLPHead", FixedMLPHead)
+    jm = jbuild(_jcfg(**types))
+    ce = jnp.asarray(lsm["ce"])
+
+    def jax_side():
+        v = jm.init(lsm["key"], lsm["jbatch"], ce, lsm["key"],
+                    method=jm.losses)
+        return v, jm.apply(v, lsm["jbatch"], ce, lsm["key"],
+                           method=jm.losses)[1]
+    v, want = jax.eval_shape(jax_side)
+    tm = tbuild(_tcfg(**types), device="cpu")
+    keys = set(tm.state_dict())
+    assert keys == set(from_flax({k: np.zeros(a.shape, np.float32)
+                                  for k, a in flatten_params(
+                                      v["params"]).items()}))
+    assert "mmss_heads.mlp_head.mlp_in.weight" in keys
+    _, losses = tm.losses(lsm["tbatch"], t(lsm["ce"]), uniforms=u)
+    assert set(losses) == set(want)
+    assert all(np.isfinite(float(x)) for x in losses.values())
 
 
 def test_same_seed_same_step_with_live_dropout():

@@ -138,12 +138,27 @@ def test_grounding_head_matches_jax(rng, over, external):
             assert np.abs(n(p.grad) - w).max() <= 1e-4 * np.abs(w).max()
 
 
-def test_grounding_head_random_branches_raise():
+def test_grounding_head_random_branches_raise(rng):
+    """The branches that draw random numbers, which raised here before,
+    build and, handed JAX's draws for its key, give JAX's losses
+    (tests/test_torch_grounding_random.py holds them in full)."""
+    from torch_parity import jax_grounding_draws
+    a = _inputs(rng, L_DIM)
+    ji, jc = _pair(a, jnp.asarray, jb)
+    ti, tc = _pair(a, t, tb)
+    key = jax.random.PRNGKey(11)
     for over in ({"alignment": "random_categorical"},
                  {"alignment": "random_top3"},
                  {"loss_type": "triplet", "negative_mining": "random"}):
-        with pytest.raises(NotImplementedError, match="random"):
-            tgh.GroundingHead(tgh.GroundingConfig(**over), V_DIM, L_DIM)
+        gcfg = jgh.GroundingConfig(**over)
+        jm = jgh.GroundingHead(gcfg, V_DIM, L_DIM, external_projection=True)
+        want = jm.apply({}, ji, jc, rng=key)[1]
+        tm = tgh.GroundingHead(tgh.GroundingConfig(**over), V_DIM, L_DIM,
+                               external_projection=True)
+        got = tm(ti, tc, draws=jax_grounding_draws(gcfg, key, B, W, R))[1]
+        assert set(got) == set(want)
+        for k in want:
+            _close(got[k], want[k], err_msg=f"{over} {k}")
 
 
 def _tcfgs(dtype=None, **over):
@@ -236,18 +251,41 @@ def test_transformer_head_bf16_matches_jax(rng):
 
 
 def test_transformer_head_refusals(rng):
-    """The fused grid + box pass is not ported; a chunk size whose
-    chunks cannot be equal (JAX's reshape fails there too) raises."""
+    """A chunk size whose chunks cannot be equal (JAX's reshape fails
+    there too) raises; the fused grid + box pass (``image2``), ported
+    now, refuses region groups of unequal shapes, as JAX asserts, and
+    on equal shapes gives each group its own pass's results."""
     _, tcfg = _tcfgs(pairwise_chunk=4)  # 9 pairs in 2 chunks
     tm = tth.TransformerHead(tcfg, V_DIM, L_DIM, external_projection=True)
     ti, tc = _pair(_inputs(rng, L_DIM), t, tb)
     with pytest.raises(ValueError, match="PAIRWISE_CHUNK 4"):
         tm(ti, tc, torch.zeros(50, L_DIM))
-    _, tcfg = _tcfgs()
+    jcfg, tcfg = _tcfgs()
     tm = tth.TransformerHead(tcfg, V_DIM, L_DIM, external_projection=True)
-    ti, tc = _pair(_inputs(rng, L_DIM), t, tb)
-    with pytest.raises(NotImplementedError, match="FUSED"):
-        tm(ti, tc, torch.zeros(50, L_DIM), image2=ti)
+    a = _inputs(rng, L_DIM)
+    ti, tc = _pair(a, t, tb)
+    ji, jc = _pair(a, jnp.asarray, jb)
+    short = ti._replace(features=ti.features[:, :3], mask=ti.mask[:, :3],
+                        loc=ti.loc[:, :3])
+    with pytest.raises(ValueError, match="equal region counts"):
+        tm(ti, tc, torch.zeros(50, L_DIM), image2=short)
+    jm = jth.TransformerHead(jcfg, V_DIM, L_DIM, external_projection=True)
+    word = jnp.asarray(a["word"])
+    v = jm.init(jax.random.PRNGKey(1), ji, jc, word)
+    with pytest.raises(AssertionError, match="equal region counts"):
+        jm.apply(v, ji, jc, word, image2=ji._replace(
+            features=ji.features[:, :3], mask=ji.mask[:, :3],
+            loc=ji.loc[:, :3]))
+    tm = _load(tm, v)
+    flipped = ti._replace(features=ti.features.flip(0),
+                          mask=ti.mask.flip(0), loc=ti.loc.flip(0))
+    fused = tm(ti, tc, t(a["word"]), image2=flipped)
+    for one, image in zip(fused, (ti, flipped)):
+        alone = tm(image, tc, t(a["word"]))
+        for f, u in zip(one, alone):
+            assert set(f) == set(u)
+            for k in u:
+                _close(f[k].detach(), u[k].detach(), err_msg=k)
 
 
 @pytest.mark.parametrize("kind", ["KD", "JS", "MSE"])

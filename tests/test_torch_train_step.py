@@ -294,14 +294,40 @@ def test_frozen_parameters_get_no_group_and_no_gradient():
 
 
 def test_settings_not_ported_yet_raise():
-    """The grounding box predictor (ROADMAP queue 1, item 8) and a clip
-    type other than value or norm. Gradient accumulation and remat, which
-    raised here before, are held to JAX in test_torch_accumulation.py and
+    """A clip type other than value or norm raises. The grounding box
+    predictor, which raised here before, builds under JAX's names
+    (``bbox_pred``, ``emb_pred``: the same state keys as JAX's tree)
+    and, on a [K+1, D] matrix (one token a class) at temperature 1,
+    scores as the embedding predictor does
+    (tests/test_torch_box_emb_grounding.py holds its training step and
+    inference to JAX's). Gradient accumulation and remat, which raised
+    here before too, are held to JAX in test_torch_accumulation.py and
     test_torch_remat.py."""
-    cfg = _cfg(tget, 2, **{"MODEL.ROI_BOX_HEAD.NAME":
-                           "EmbeddingGroundingFastRCNNOutputLayers"})
-    with pytest.raises(NotImplementedError, match="grounding box"):
-        tbuild(cfg, device="cpu")
+    from locov_tpu.models.box_emb_grounding import ClassTokenEmbeddings
+    rng = np.random.RandomState(0)
+    jb, tb = _batch(rng)
+    ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
+    extra = {"MODEL.ROI_BOX_HEAD.NAME":
+             "EmbeddingGroundingFastRCNNOutputLayers",
+             "MODEL.MMSS_HEAD.GROUNDING.ALIGNMENT_TEMPERATURE": 1.0}
+    jm = jbuild(_cfg(jget, 2, **extra))
+    key = jax.random.PRNGKey(0)
+    tokens = ClassTokenEmbeddings(jnp.asarray(ce)[:, None],
+                                  jnp.ones((6, 1), jnp.float32))
+    shapes = jax.eval_shape(lambda: jm.init(key, jb, tokens, key,
+                                            method=jm.losses))
+    tm = tbuild(_cfg(tget, 2, **extra), device="cpu")
+    assert set(tm.state_dict()) == set(from_flax(
+        {k: np.zeros(a.shape, np.float32)
+         for k, a in flatten_params(shapes["params"]).items()}))
+    plain = tbuild(_cfg(tget, 2), device="cpu")
+    plain.load_state_dict(tm.state_dict())
+    feats = torch.randn(5, 256)
+    s1, d1 = tm.roi_heads.predict(feats, t(ce))
+    s0, d0 = plain.roi_heads.predict(feats, t(ce))
+    np.testing.assert_allclose(n(s1.detach()), n(s0.detach()), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(d1, d0)
     cfg = _cfg(tget, 2, **{"SOLVER.CLIP_GRADIENTS.ENABLED": True,
                            "SOLVER.CLIP_GRADIENTS.CLIP_TYPE": "full_model"})
     with pytest.raises(NotImplementedError, match="CLIP_TYPE"):

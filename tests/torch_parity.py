@@ -85,6 +85,36 @@ def jax_uniforms(key, b, n_):
     return t(np.stack(pos)), t(np.stack(neg))
 
 
+def jax_grounding_draws(gcfg, key, b, w, r):
+    """The draws of the JAX package's ``GroundingHead`` for its ``rng``
+    ``key`` (B captions of W words, B images of R regions), as the
+    port's ``draws``: the random alignments split ``key`` into (k1, k2)
+    and draw ``uniform(k, shape, minval=tiny)`` of [B, B, W, R] (words)
+    and [B, B, R, W] (regions), ``jax.random.categorical``'s Gumbel
+    draws; random negative mining splits ``key`` into (k1, k2) too, each
+    into (kc, ki), and draws ``randint(k, (B,), 0, B - 1)``."""
+    import jax
+    draws = {}
+    k1, k2 = jax.random.split(key)
+    if gcfg.alignment in ("random_categorical", "random_top3"):
+        tiny = np.finfo(np.float32).tiny
+        for name, k, shape, on in (
+                ("align_words", k1, (b, b, w, r), gcfg.align_words),
+                ("align_regions", k2, (b, b, r, w), gcfg.align_regions)):
+            if on:
+                draws[name] = t(np.asarray(jax.random.uniform(
+                    k, shape, minval=tiny, maxval=1.0)))
+    if gcfg.loss_type == "triplet" and gcfg.negative_mining == "random" \
+            and b > 1:
+        for name, k, on in (("neg_words", k1, gcfg.align_words),
+                            ("neg_regions", k2, gcfg.align_regions)):
+            if on:
+                draws[name] = tuple(
+                    t(np.asarray(jax.random.randint(kk, (b,), 0, b - 1)))
+                    for kk in jax.random.split(k))
+    return draws
+
+
 # the image-caption (LSM) model at tiny widths: coco_lsm.yaml with the
 # trunk above, a 2-layer BERT of width 16 over a vocabulary of 50 for
 # both the language backbone and the joint encoder, dropout off, at most
