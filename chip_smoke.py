@@ -133,16 +133,34 @@ Phases, one JSON line each, in order:
    ``EmbeddingGroundingFastRCNNOutputLayers`` on class names of 1 to 4
    tokens, inference at batch 8 (ms) and training steps. Its kernel
    signatures are checked as phase 8's.
-11. block path: ``locov_torch.tools.bench_block.main`` at its defaults
+11. serving path (``serving_path``): configs/coco_stt.yaml in bfloat16
+   at full width, seeded weights at a trained scale, exported by the
+   export twin (``locov_torch.tools.export_serving``) at batch 8, 800 x
+   1344 under ``build/`` (export seconds, each file's bytes); a fresh
+   ``python`` process loads the artifact with ``locov_torch.serving.
+   load_exported``, imports no ``locov_torch.models`` module, runs 1 + 5
+   batches and launches K1-fwd and K2; here the loaded program runs
+   again under ``KernelShapes`` (its signatures then checked as phase
+   8's) against eager ``model.inference`` (classes and mask equal, boxes
+   and scores equal or within 1e-3 px / 1e-5), and the ms a batch of
+   each (the median of 5 turns each, in turns).
+12. TTA path (``tta_path``): ``engine/trainer.py:test`` with
+   TEST.AUG.ENABLED at its defaults (sizes 400-1200, MAX_SIZE 4000,
+   flip: 18 passes) over 16 synthetic JPEGs (seconds, passes, AP keys,
+   peak memory, every kernel checked at every TTA signature as phase
+   8's); then TTA at the test size alone, unflipped, against the plain
+   evaluation's detections and their merge (AP keys within 1e-6, the
+   detections the merge removed printed).
+13. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
-12. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
+14. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-13. the ``kernels`` line (one row per TPU kernel replaced:
+15. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; ``launches_by_path`` gives each
-   path's counts, ``eval``, ``trainer``, ``scale`` and ``family`` among
-   them), the
+   path's counts, ``eval``, ``trainer``, ``scale``, ``family``,
+   ``serving`` and ``tta`` among them), the
    card's ``nvidia-smi`` name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -3533,12 +3551,299 @@ def family_path(seed, workdir):
     return total
 
 
+# ------------------------------------------------------ serving, TTA
+SERVING_BATCH = 8
+SERVING_TURNS = 5  # timed batches of each of exported and eager
+SERVING_BOX_TOL = 1e-3  # px, small_reference's card-against-CPU bounds
+SERVING_SCORE_TOL = 1e-5
+TTA_IMAGES = 16
+
+
+def _serving_inputs(seed):
+    """The serving path's batch (numpy): 8 images of 800 x 1344 (valid
+    800 x 1312, original 640 x 640), as the main path builds them."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b = SERVING_BATCH
+    return ((rng.rand(b, 800, 1344, 3) * 255).astype(np.float32),
+            np.stack([np.full(b, 800), np.full(b, 1312)], 1).astype(
+                np.int32),
+            np.full((b, 2), 640, np.int32))
+
+
+def _stt_cfg():
+    from locov_torch.config import config_path, get_cfg
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("coco_stt.yaml"))
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    return cfg
+
+
+def serve_fresh(artifact, seed):
+    """The consumer of the serving path, run in a fresh process: load the
+    artifact with ``locov_torch.serving.load_exported`` and run 1 + 5
+    batches; prints one JSON line (its launches, the ms of each timed
+    batch, the ``locov_torch`` modules it imported)."""
+    import torch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.serving import load_exported
+    t0 = time.perf_counter()
+    call, variables, class_emb = load_exported(artifact)
+    load_s = time.perf_counter() - t0
+    args = [torch.from_numpy(a).cuda() for a in _serving_inputs(seed)]
+    kernel_lib.reset_launches()
+    times = []
+    for _ in range(1 + SERVING_TURNS):
+        t0 = time.perf_counter()
+        out = call(variables, *args, class_emb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    finite = bool(torch.isfinite(out["boxes"]).all() and
+                  torch.isfinite(out["scores"]).all())
+    print(json.dumps({"launches": dict(kernel_lib.LAUNCHES),
+                      "load_s": load_s, "first_ms": times[0],
+                      "ms": times[1:], "finite": finite,
+                      "kept": int(out["mask"].sum()),
+                      "modules": sorted(m for m in sys.modules
+                                        if m.startswith("locov_torch"))}),
+          flush=True)
+
+
+def serving_path(gen, seed, workdir):
+    """Serving at full width: configs/coco_stt.yaml in bfloat16, seeded
+    weights at a trained scale (``trained_scale_``) saved as a checkpoint,
+    class embeddings like the eval path's (a 768-d standard normal a
+    class, 65 classes; the background row is zero). The export twin
+    (``locov_torch.tools.export_serving.main``) exports the inference at
+    batch 8, 800 x 1344 under ``workdir`` (its seconds, each file's
+    bytes). A fresh ``python`` process (``serve_fresh``) loads the
+    artifact, must import no ``locov_torch.models`` module, runs 1 + 5
+    batches, and must launch K1-fwd and K2. Here the loaded program runs
+    again under ``KernelShapes`` (every launch signature then checked
+    with ``check_path_shapes``) and is compared with eager
+    ``model.inference`` on the same inputs: classes and mask equal, boxes
+    and scores equal or within 1e-3 px and 1e-5 (the maximum differences
+    printed); then the ms a batch of each, the median of 5 turns each in
+    turns. Returns the fresh process's launches."""
+    import subprocess
+    import numpy as np
+    import torch
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.serving import load_exported
+    from locov_torch.structures.batches import (DetectionBatch,
+                                                ImageBatch)
+    from locov_torch.tools import export_serving
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = _stt_cfg()
+    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
+    weights = os.path.join(workdir, "stt_seed")
+    torch.save({"model": model.state_dict()}, weights)
+    rng = np.random.RandomState(seed + 1)
+    names = sorted(c["name"] for c in _coco_categories())
+    emb = os.path.join(workdir, "class_emb.json")
+    with open(emb, "w") as f:
+        json.dump({k: rng.randn(768).tolist() for k in names}, f)
+    out = os.path.join(workdir, "stt_serving")
+    b = SERVING_BATCH
+    t0 = time.perf_counter()
+    export_serving.main([
+        "--config-file", os.path.join(here, "configs", "coco_stt.yaml"),
+        "--weights", weights, "--embeddings", emb, "--out", out,
+        "--batch", str(b), "--height", "800", "--width", "1344",
+        "TPU.COMPUTE_DTYPE", "bfloat16", "MODEL.WEIGHTS", "''"])
+    export_s = time.perf_counter() - t0
+    files = {}
+    for d, _, fs in os.walk(out):
+        for fname in fs:
+            path = os.path.join(d, fname)
+            files[os.path.relpath(path, out)] = os.path.getsize(path)
+    with open(os.path.join(out, "signature.json")) as f:
+        sig = json.load(f)
+
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.serve_fresh(sys.argv[1], int(sys.argv[2]))", out,
+         str(seed)], capture_output=True, text=True, env=env, cwd=here,
+        timeout=600)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serving consumer failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    models = [m for m in fresh["modules"]
+              if m.startswith("locov_torch.models")]
+
+    call, variables, class_emb = load_exported(out)
+    args = [torch.from_numpy(a).cuda() for a in _serving_inputs(seed)]
+    batch = DetectionBatch(images=ImageBatch(*args))
+    call(variables, *args, class_emb)  # warm-up
+    torch.cuda.synchronize()
+    kernel_lib.reset_launches()
+    with KernelShapes() as shapes:
+        got = call(variables, *args, class_emb)
+        torch.cuda.synchronize()
+    launches = dict(kernel_lib.LAUNCHES)
+    shapes.check_counts(launches)
+    want = model.inference(batch, class_emb)
+    want = dict(zip(("boxes", "scores", "classes", "mask"), want))
+    same = {k: bool(torch.equal(got[k], want[k].to(got[k].dtype)))
+            for k in want}
+    m = want["mask"]
+    box_err = float((got["boxes"][m] - want["boxes"][m]).abs().max()) \
+        if m.any() else 0.0
+    score_err = float((got["scores"] - want["scores"]).abs().max())
+    times = {"exported": [], "eager": []}
+    for _ in range(SERVING_TURNS):
+        for name, run in (("exported",
+                           lambda: call(variables, *args, class_emb)),
+                          ("eager",
+                           lambda: model.inference(batch, class_emb))):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    line = {"phase": "serving_path", "config": "configs/coco_stt.yaml",
+            "dtype": "bfloat16", "batch": b, "image": [800, 1344],
+            "export_s": export_s, "artifact_bytes": files,
+            "signature": {k: sig[k] for k in ("platforms", "nr_devices")},
+            "fresh_process_s": fresh_s, "fresh": {
+                k: fresh[k] for k in ("launches", "load_s", "first_ms",
+                                      "ms", "finite", "kept")},
+            "fresh_model_modules": models, "same": same,
+            "max_box_err_px": box_err, "max_score_err": score_err,
+            "detections_kept": int(m.sum()),
+            "ms_per_batch": {k: statistics.median(v)
+                             for k, v in times.items()},
+            "ms_all": times, "launches": launches}
+    emit(line)
+    ok = (not models and fresh["finite"] and
+          all(fresh["launches"][k] > 0 for k in INFERENCE_KERNELS) and
+          all(launches[k] > 0 for k in INFERENCE_KERNELS) and
+          same["classes"] and same["mask"] and int(m.sum()) > 0 and
+          box_err <= SERVING_BOX_TOL and score_err <= SERVING_SCORE_TOL)
+    if not ok:
+        raise AssertionError(f"serving path check failed: {line}")
+    del model, call, variables, got, want, args, batch
+    torch.cuda.empty_cache()
+    check_path_shapes(gen, shapes.seen, "serving")
+    return fresh["launches"]
+
+
+def tta_path(gen, seed, workdir):
+    """Evaluation with test-time augmentation at full width:
+    ``engine/trainer.py:test`` with configs/coco_stt.yaml in bfloat16
+    (seeded weights at a trained scale), TEST.AUG.ENABLED at its default
+    sizes (400-1200 by 100, MAX_SIZE 4000, flip: 18 passes), batch 8, on
+    ``write_coco_val``'s tree of 16 JPEGs: seconds, passes, AP keys, peak
+    memory, the detections before and after the merge; every launch
+    signature checked with ``check_path_shapes``. Then the invariant: TTA
+    at the test size alone, unflipped (MAX_SIZE the test's), gives the
+    plain evaluation's detections (their count) and the AP keys of those
+    detections after the merge's per-class NMS (float64, on boxes in the
+    original image, at the threshold inference applied), within
+    ``eval_reference``'s 1e-6 AP points; how many detections that merge
+    removed is printed (where it removed none, the AP keys are the plain
+    evaluation's). Returns the TTA run's launches."""
+    import torch
+    from locov_torch.data import MetadataCatalog
+    from locov_torch.engine.trainer import (build_test_loader,
+                                            load_embeddings, test)
+    from locov_torch.evaluation.evaluator import (add_seen_unseen_summary,
+                                                  build_evaluator_for,
+                                                  collect_detections,
+                                                  dataset_id_lut,
+                                                  score_detections)
+    from locov_torch.evaluation.tta import merge_tta_detections
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import make_eval_step
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+    root = os.path.join(workdir, "coco")
+    write_coco_val(root, seed, n_images=TTA_IMAGES)
+    cfg = _stt_cfg()
+    cfg.DATASETS.ROOT = root
+    cfg.DATASETS.TEST = (EVAL_DATASET,)
+    cfg.TEST.IMS_PER_BATCH = 8
+    model = trained_scale_(seeded_init_(build_meta_arch(cfg), seed))
+    tta = cfg.clone()
+    tta.TEST.AUG.ENABLED = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_lib.reset_launches()
+    t0 = time.perf_counter()
+    with KernelShapes() as shapes:
+        res = test(tta, model, "cuda")[EVAL_DATASET]
+    seconds = time.perf_counter() - t0
+    launches = dict(kernel_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shapes.check_counts(launches)
+
+    one = cfg.clone()
+    one.TEST.AUG.ENABLED = True
+    one.TEST.AUG.MIN_SIZES = (cfg.INPUT.MIN_SIZE_TEST,)
+    one.TEST.AUG.MAX_SIZE = cfg.INPUT.MAX_SIZE_TEST
+    one.TEST.AUG.FLIP = False
+    res_one = test(one, model, "cuda")[EVAL_DATASET]
+    plain = test(cfg, model, "cuda")[EVAL_DATASET]
+    meta = MetadataCatalog.get(EVAL_DATASET)
+    with build_test_loader(cfg, EVAL_DATASET, None, False) as loader:
+        flat, _ = collect_detections(
+            make_eval_step(model), None, loader,
+            load_embeddings(cfg, EVAL_DATASET, "cuda"),
+            dataset_id_lut(meta))
+    merged = merge_tta_detections(flat, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
+                                  cfg.TEST.DETECTIONS_PER_IMAGE)
+    evaluator = build_evaluator_for(EVAL_DATASET)
+    score_detections(evaluator, merged)
+    want = add_seen_unseen_summary(evaluator.summarize(per_category=True),
+                                   meta)
+    removed = len(flat["img"]) - len(merged["img"])
+    ap_err = {k: abs(res_one[k] - want[k]) for k in EVAL_AP_KEYS}
+    plain_err = {k: abs(res_one[k] - plain[k]) for k in EVAL_AP_KEYS}
+    line = {"phase": "tta_path", "config": "configs/coco_stt.yaml",
+            "dtype": "bfloat16", "images": TTA_IMAGES,
+            "sizes": list(tta.TEST.AUG.MIN_SIZES),
+            "max_size": tta.TEST.AUG.MAX_SIZE, "flip": tta.TEST.AUG.FLIP,
+            "passes": res["tta_passes"], "seconds": seconds,
+            "ap": {k: res[k] for k in EVAL_AP_KEYS},
+            "detections": res["tta_detections"],
+            "merged": res["tta_merged"], "peak_mem_gib": peak,
+            "launches": launches,
+            "launch_signatures": len(shapes.seen),
+            "one_size": {"detections": res_one["tta_detections"],
+                         "plain_detections": len(flat["img"]),
+                         "merge_removed": removed,
+                         "ap_err_vs_merged_plain": ap_err,
+                         "ap_err_vs_plain": plain_err}}
+    emit(line)
+    print(f"tta_path: the one-size merge removed {removed} of "
+          f"{len(flat['img'])} detections", file=sys.stderr, flush=True)
+    ok = (res["tta_passes"] == 18 and
+          all(0 <= res[k] <= 100 for k in EVAL_AP_KEYS) and
+          all(launches[k] > 0 for k in INFERENCE_KERNELS) and
+          res_one["tta_detections"] == len(flat["img"]) and
+          res_one["tta_detections"] - res_one["tta_merged"] == removed and
+          all(e <= 1e-6 for e in ap_err.values()) and
+          (removed > 0 or all(e <= 1e-6 for e in plain_err.values())))
+    if not ok:
+        raise AssertionError(f"tta path check failed: {line}")
+    del model
+    torch.cuda.empty_cache()
+    check_path_shapes(gen, shapes.seen, "tta")
+    return launches
+
+
 class KernelShapes:
     """While a path runs: how many launches each of K1-fwd, K1-bwd,
     K2/K3-fwd and K3-bwd made at each signature (the dtype and shapes of
     its tensors, its other arguments), read by wrapping the four
-    wrappers that the autograd functions call (by their module's name,
-    at call time). ``check_counts`` holds the sums against the launch
+    wrappers that the ``locov::`` ops' CUDA implementations call (by
+    their module's name, at call time). ``check_counts`` holds the sums against the launch
     counts, so that no launch of the path went past the wrappers."""
 
     def __enter__(self):
@@ -3763,6 +4068,16 @@ def main(argv=None) -> int:
             paths["family"] = family_path(args.seed, workdir)
         shapes.check_counts(paths["family"])
         check_path_shapes(gen, shapes.seen, "family")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = os.path.join(here, "build", "chip_smoke_serving")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        paths["serving"] = serving_path(gen, args.seed, workdir)
+        torch.cuda.empty_cache()
+        paths["tta"] = tta_path(gen, args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -307,7 +307,10 @@ class DetectionMapper:
                 pboxes = np.asarray(proposals[:, :4], np.float32)
                 pobj = np.asarray(proposals[:, 4], np.float32)
                 pboxes = Tr.resize_boxes(pboxes, (ih, iw), (nh, nw))
-                if flipped and self.flip_mode == "horizontal":
+                # the TTA flip is horizontal too (JAX's mapper flips the
+                # proposals of "horizontal_always" vertically: ROADMAP §3)
+                if flipped and self.flip_mode in ("horizontal",
+                                                  "horizontal_always"):
                     pboxes = Tr.hflip_boxes(pboxes, nw)
                 elif flipped:
                     pboxes = Tr.vflip_boxes(pboxes, nh)

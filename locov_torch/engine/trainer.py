@@ -138,12 +138,7 @@ def load_embeddings(cfg, dataset_name: str, device=None) -> torch.Tensor:
 
 def check_supported(cfg) -> None:
     """Raise, citing the ROADMAP item, where JAX would run something the
-    port does not have: test-time augmentation (item 8) and int8 serving
-    (item 9)."""
-    if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError(
-            "TEST.AUG.ENABLED: test-time augmentation is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+    port does not have: the int8 serving mode (item 9)."""
     if cfg.TPU.INT8_EVAL:
         raise NotImplementedError(
             "TPU.INT8_EVAL: the int8 serving mode is not ported yet "
@@ -159,7 +154,9 @@ def test(cfg, model: torch.nn.Module, device=None,
     evaluation with ``TEST.DO_EVAL``, the loss-only pass
     (``inference_on_caption_dataset``, its draws from ``generator``, by
     default one seeded from ``cfg.SEED``); then, but for 'ovr', the eval
-    step, the COCO or LVIS summary and the seen/unseen AP50.
+    step, the COCO or LVIS summary and the seen/unseen AP50, over the
+    test loader or, with ``TEST.AUG.ENABLED``, over one loader per
+    test-time augmentation merged by ``evaluation/tta.py``.
     Returns {dataset: results}. Raises where JAX would run what the
     port does not have yet (``check_supported``)."""
     check_supported(cfg)
@@ -185,7 +182,11 @@ def test(cfg, model: torch.nn.Module, device=None,
                     loss_step, None, loader, class_emb, generator)
                 res.update(metrics)
                 res.update(losses)
-            if etype != "ovr":
+            if etype != "ovr" and cfg.TEST.AUG.ENABLED:
+                res.update(_test_with_tta(cfg, eval_step, class_emb,
+                                          dataset_name, etype, tokenizer,
+                                          needs_text))
+            elif etype != "ovr":
                 res.update(inference_on_detection_dataset(
                     eval_step, None, loader, class_emb, dataset_name,
                     etype=etype))
@@ -196,6 +197,23 @@ def test(cfg, model: torch.nn.Module, device=None,
                     {k: round(v, 3) for k, v in res.items()
                      if isinstance(v, float) and "-" not in k})
     return results
+
+
+def _test_with_tta(cfg, eval_step, class_emb, dataset_name: str,
+                   etype: str, tokenizer, needs_text: bool) -> Dict:
+    """The detection evaluation with test-time augmentation (JAX's
+    ``OVRTrainer.test``, trainer.py:526-533): one loader per size and
+    flip, closed after."""
+    from ..evaluation.tta import build_tta_loaders, inference_with_tta
+    loaders = build_tta_loaders(cfg, dataset_name, tokenizer, needs_text)
+    try:
+        return inference_with_tta(
+            eval_step, None, loaders, class_emb, dataset_name,
+            cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
+            cfg.TEST.DETECTIONS_PER_IMAGE, etype=etype)
+    finally:
+        for loader, _ in loaders:
+            loader.close()
 
 
 def build_train_loader(cfg, tokenizer: Optional[WordPieceTokenizer],

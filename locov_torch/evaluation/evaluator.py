@@ -136,11 +136,13 @@ def _to_host(dets: Detections) -> Detections:
 
 
 def collect_detections(eval_step, params, loader, class_emb,
-                       inv: np.ndarray, timings: Dict[str, float] = None):
+                       inv: np.ndarray, mirror_x: bool = False,
+                       timings: Dict[str, float] = None):
     """Run the eval step over a loader and return flat per-detection
     arrays {img, box, score, cls} (dataset-id classes) plus (n_timed,
-    timing_start). (JAX's ``mirror_x``, for test-time augmentation,
-    comes with TTA: ROADMAP queue 1, item 8.)
+    timing_start). ``mirror_x`` flips boxes back to the unflipped frame
+    of the original image (test-time augmentation, ``evaluation/
+    tta.py``).
 
     ``eval_step(batch, class_emb)`` is the port's step
     (``make_eval_step``): the module holds its weights, so ``params`` is
@@ -175,6 +177,7 @@ def collect_detections(eval_step, params, loader, class_emb,
         spent["inference"] += t2 - t1
         spent["d2h"] += t3 - t2
         ids = np.asarray(batch.images.image_id)
+        orig_hw = np.asarray(batch.images.orig_hw) if mirror_x else None
         for i, img_id in enumerate(ids):
             if img_id < 0:
                 continue  # loader padding
@@ -183,8 +186,13 @@ def collect_detections(eval_step, params, loader, class_emb,
             m = dets.mask[i]
             if not m.any():
                 continue
+            boxes = dets.boxes[i][m].astype(np.float64)
+            if mirror_x:
+                w = float(orig_hw[i][1])
+                boxes = np.stack([w - boxes[:, 2], boxes[:, 1],
+                                  w - boxes[:, 0], boxes[:, 3]], axis=1)
             d_imgs.append(np.full(int(m.sum()), int(img_id), np.int64))
-            d_boxes.append(dets.boxes[i][m].astype(np.float64))
+            d_boxes.append(boxes)
             d_scores.append(dets.scores[i][m].astype(np.float64))
             d_classes.append(inv[dets.classes[i][m]])
         if idx == num_warmup:

@@ -16,9 +16,11 @@ FrozenBN folded in, biases b1 [M], b2 [M], b3 [C]. Three versions:
   ``F.conv2d`` calls with bias and relu in the compute dtype (cuDNN on
   the card): the library yardstick of the bench, never called by the
   kernel path.
-- ``bottleneck_block``: the hand-written kernel
+- ``bottleneck_block``: the ``torch.library`` custom op
+  ``locov::bottleneck_block``, the hand-written kernel
   (``csrc/bottleneck_block.cu``) for a CUDA tensor, the plain version for
-  a CPU tensor.
+  a CPU tensor; its fake implementation gives the output's shape and
+  dtype.
 
 Like the JAX function it has no gradient: ``bottleneck_block`` raises
 when grad mode is on and an input requires grad, rather than return an
@@ -158,17 +160,34 @@ def bottleneck_block_cuda(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("locov::bottleneck_block", mutates_args=(),
+                         device_types="cpu")
+def _bottleneck_block_op(x: torch.Tensor, w1: torch.Tensor,
+                         b1: torch.Tensor, w2: torch.Tensor,
+                         b2: torch.Tensor, w3: torch.Tensor,
+                         b3: torch.Tensor) -> torch.Tensor:
+    return bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3)
+
+
+@_bottleneck_block_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2, w3, b3):
+    return bottleneck_block_cuda(x, w1, b1, w2, b2, w3, b3)
+
+
+@_bottleneck_block_op.register_fake
+def _(x, w1, b1, w2, b2, w3, b3):
+    _check_shapes(x, w1, b1, w2, b2, w3, b3)
+    return torch.empty_like(x)
+
+
 def bottleneck_block(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """x [N, H, W, C] -> [N, H, W, C]: the kernel for a CUDA tensor, the
-    plain version for a CPU tensor. Raises under grad: the block has no
-    gradient, as the JAX function has none."""
+    """x [N, H, W, C] -> [N, H, W, C] (``locov::bottleneck_block``): the
+    kernel for a CUDA tensor, the plain version for a CPU tensor. Raises
+    under grad: the block has no gradient, as the JAX function has
+    none."""
     args = (x, w1, b1, w2, b2, w3, b3)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         raise RuntimeError("bottleneck_block has no gradient: call it under "
                            "torch.no_grad() or on tensors that do not "
                            "require grad")
-    if x.is_cuda:
-        return bottleneck_block_cuda(*args)
-    if x.device.type != "cpu":
-        raise ValueError(f"bottleneck_block: unsupported device {x.device}")
-    return bottleneck_block_plain(*args)
+    return torch.ops.locov.bottleneck_block(*args)

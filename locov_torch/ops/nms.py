@@ -12,6 +12,11 @@ the ``stop_after`` path, one per tile.
 Per-class suppression masks the suppression matrices by class equality
 instead of offsetting coordinates by class (torchvision's trick loses
 float32 precision at offset scale and breaks on negative coordinates).
+
+``nms_mask_batched`` is the ``torch.library`` custom op
+``locov::nms_mask``, the same PyTorch code on every device: its host
+reads would stop ``torch.export``'s trace, and its fake implementation
+(a bool [B, N]) lets the trace pass over it.
 """
 from __future__ import annotations
 
@@ -84,6 +89,7 @@ def _self_suppress(iou_self: torch.Tensor, init_alive: torch.Tensor,
     return alive
 
 
+@torch.library.custom_op("locov::nms_mask", mutates_args=())
 def nms_mask_batched(boxes: torch.Tensor, scores: torch.Tensor,
                      valid: torch.Tensor, iou_threshold: float,
                      stop_after: int = 0,
@@ -174,6 +180,11 @@ def nms_mask_batched(boxes: torch.Tensor, scores: torch.Tensor,
                 iou_threshold, self_ok)
     keep = torch.zeros(bsz, n, dtype=torch.bool, device=dev)
     return keep.scatter_(1, order, active[:, :n])
+
+
+@nms_mask_batched.register_fake
+def _(boxes, scores, valid, iou_threshold, stop_after=0, classes=None):
+    return torch.empty_like(valid)
 
 
 def nms_topk_batched(boxes: torch.Tensor, scores: torch.Tensor,

@@ -2,20 +2,22 @@
 its gradient.
 
 Counterpart of ``locov_tpu/ops/pallas_pool.py`` (``relu_maxpool``, a
-``custom_vjp`` over a forward and a backward Pallas kernel). On a CUDA
-tensor ``relu_maxpool`` runs an autograd Function whose forward is the
-hand-written kernel ``relu_maxpool_fwd`` and whose backward is
-``relu_maxpool_bwd`` (``csrc/relu_maxpool.cu``); on a CPU tensor it runs
-an autograd Function over the plain forward and the plain backward.
-Taps outside the image act as -inf; the forward equals the plain
-version bit for bit (max is exact), and the backward routes each
-window's gradient to its first max in row-major order as
-``F.max_pool2d`` does, then masks with ``x > 0`` as the Pallas backward
-does: a NaN tap gets 0 (autograd of ``F.relu`` would pass the gradient
-there), so a window whose max is NaN routes nothing.
-``relu_maxpool_bwd_two_pass`` computes the backward as the kernel does
-(each window's tap code, then the gather); the tests hold it to the
-plain backward and to the Pallas kernel.
+``custom_vjp`` over a forward and a backward Pallas kernel). Both
+directions are ``torch.library`` custom ops, ``locov::relu_maxpool``
+and ``locov::relu_maxpool_bwd``, the first with the second as its
+registered backward: on a CUDA tensor each runs its hand-written kernel
+(``relu_maxpool_fwd``, ``relu_maxpool_bwd`` of ``csrc/relu_maxpool.cu``)
+and nothing else, on a CPU tensor its plain version; their fake
+implementations give the output's shape and dtype, so that
+``torch.export`` traces through them. Taps outside the image act as
+-inf; the forward equals the plain version bit for bit (max is exact),
+and the backward routes each window's gradient to its first max in
+row-major order as ``F.max_pool2d`` does, then masks with ``x > 0`` as
+the Pallas backward does: a NaN tap gets 0 (autograd of ``F.relu``
+would pass the gradient there), so a window whose max is NaN routes
+nothing. ``relu_maxpool_bwd_two_pass`` computes the backward as the
+kernel does (each window's tap code, then the gather); the tests hold
+it to the plain backward and to the Pallas kernel.
 """
 from __future__ import annotations
 
@@ -40,12 +42,18 @@ def relu_maxpool_plain(x: torch.Tensor) -> torch.Tensor:
 def relu_maxpool_bwd_plain(x: torch.Tensor,
                            dy: torch.Tensor) -> torch.Tensor:
     """The gradient of ``relu_maxpool_plain`` at ``x`` for the output
-    gradient ``dy``, by autograd, masked with ``x > 0`` (the Pallas
+    gradient ``dy``, as autograd computes it (the same ATen backward
+    ops, called directly so that it also runs where autograd is off, as
+    in a custom op's implementation), masked with ``x > 0`` (the Pallas
     backward's relu mask, 0 at a NaN tap): what the CUDA backward must
     equal."""
-    with torch.enable_grad():
-        xr = x.detach().requires_grad_(True)
-        (dx,) = torch.autograd.grad(relu_maxpool_plain(xr), xr, dy)
+    aten = torch.ops.aten
+    r = F.relu(x.permute(0, 3, 1, 2))
+    _, idx = aten.max_pool2d_with_indices(r, [3, 3], [2, 2], [1, 1])
+    g = aten.max_pool2d_with_indices_backward(
+        dy.permute(0, 3, 1, 2), r, [3, 3], [2, 2], [1, 1], [1, 1], False,
+        idx)
+    dx = aten.threshold_backward(g, r, 0).permute(0, 2, 3, 1)
     return torch.where(x > 0, dx, torch.zeros_like(dx))
 
 
@@ -184,26 +192,53 @@ def relu_maxpool_bwd_cuda(x: torch.Tensor, dy: torch.Tensor
     return dx
 
 
-class _ReluMaxPool(torch.autograd.Function):
-    """Both directions from the saved pre-relu input: K1-fwd and K1-bwd
-    on the card, the plain versions on the CPU."""
+@torch.library.custom_op("locov::relu_maxpool", mutates_args=(),
+                         device_types="cpu")
+def _relu_maxpool_op(x: torch.Tensor) -> torch.Tensor:
+    return relu_maxpool_plain(x)
 
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return relu_maxpool_cuda(x) if x.is_cuda else relu_maxpool_plain(x)
 
-    @staticmethod
-    def backward(ctx, dy):
-        (x,) = ctx.saved_tensors
-        if x.is_cuda:
-            return relu_maxpool_bwd_cuda(x, dy.contiguous())
-        return relu_maxpool_bwd_plain(x, dy)
+@_relu_maxpool_op.register_kernel("cuda")
+def _(x):
+    return relu_maxpool_cuda(x)
+
+
+@_relu_maxpool_op.register_fake
+def _(x):
+    n, h, w, c = x.shape
+    return x.new_empty((n, (h + 1) // 2, (w + 1) // 2, c))
+
+
+@torch.library.custom_op("locov::relu_maxpool_bwd", mutates_args=(),
+                         device_types="cpu")
+def _relu_maxpool_bwd_op(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    return relu_maxpool_bwd_plain(x, dy)
+
+
+@_relu_maxpool_bwd_op.register_kernel("cuda")
+def _(x, dy):
+    return relu_maxpool_bwd_cuda(x, dy.contiguous())
+
+
+@_relu_maxpool_bwd_op.register_fake
+def _(x, dy):
+    return torch.empty_like(x)
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0])
+
+
+def _backward(ctx, dy):
+    (x,) = ctx.saved_tensors
+    return torch.ops.locov.relu_maxpool_bwd(x, dy)
+
+
+_relu_maxpool_op.register_autograd(_backward, setup_context=_setup)
 
 
 def relu_maxpool(x: torch.Tensor) -> torch.Tensor:
-    """y = maxpool3x3/2,pad1(relu(x)) on NHWC, differentiable: the
-    kernels for a CUDA tensor, the plain versions for a CPU tensor."""
-    if not x.is_cuda and x.device.type != "cpu":
-        raise ValueError(f"relu_maxpool: unsupported device {x.device}")
-    return _ReluMaxPool.apply(x)
+    """y = maxpool3x3/2,pad1(relu(x)) on NHWC, differentiable
+    (``locov::relu_maxpool``): the kernels for a CUDA tensor, the plain
+    versions for a CPU tensor."""
+    return torch.ops.locov.relu_maxpool(x)

@@ -11,11 +11,14 @@ weights, averaged over the sampling grid) and computes
 ``dF = sum_n Ky[n]^T @ g[n] @ Kx[n]``; the boxes get no gradient.
 Numerics follow ROIAlignV2 (aligned=True, half-pixel offset) with
 torchvision's border rules: samples outside [-1, dim] contribute zero,
-in-range samples clamp to [0, dim-1]. ``roi_align_fused`` is an
-autograd Function: on CUDA tensors its forward launches the separable
-forward kernel and its backward the scatter-free gradient kernel of
-``csrc/roi_align.cu``, each under a launch plan (``_fwd_plan``,
-``_bwd_plan``); on CPU tensors both directions run the plain version.
+in-range samples clamp to [0, dim-1]. ``roi_align_fused`` calls the
+``torch.library`` custom op ``locov::roi_align``, whose registered
+backward is the op ``locov::roi_align_bwd``: on CUDA tensors the forward
+launches the separable forward kernel and the backward the scatter-free
+gradient kernel of ``csrc/roi_align.cu``, each under a launch plan
+(``_fwd_plan``, ``_bwd_plan``), and nothing else; on CPU tensors both
+directions run the plain version. Their fake implementations give the
+output's shape and dtype, so that ``torch.export`` traces through them.
 """
 from __future__ import annotations
 
@@ -395,37 +398,70 @@ def roi_align_bwd_cuda(g: torch.Tensor, boxes: torch.Tensor,
     return df
 
 
-class _RoIAlign(torch.autograd.Function):
-    """ROIAlign with the feature gradient; the boxes get none. Both
-    directions are the kernels on CUDA tensors and the plain versions
-    on CPU tensors."""
+@torch.library.custom_op("locov::roi_align", mutates_args=(),
+                         device_types="cpu")
+def _roi_align_op(features: torch.Tensor, boxes: torch.Tensor,
+                  spatial_scale: float, pooled: int,
+                  sampling_ratio: int) -> torch.Tensor:
+    return roi_align_batched(features, boxes, spatial_scale, pooled,
+                             sampling_ratio)
 
-    @staticmethod
-    def forward(ctx, features, boxes, spatial_scale, pooled,
-                sampling_ratio):
-        ctx.save_for_backward(boxes)
-        ctx.args = (spatial_scale, features.shape[1], features.shape[2],
-                    pooled, sampling_ratio)
-        if features.is_cuda:
-            return roi_align_cuda(features, boxes, spatial_scale, pooled,
-                                  sampling_ratio)
-        return roi_align_batched(features, boxes, spatial_scale, pooled,
-                                 sampling_ratio)
 
-    @staticmethod
-    def backward(ctx, g):
-        (boxes,) = ctx.saved_tensors
-        bwd = roi_align_bwd_cuda if g.is_cuda else roi_align_bwd_plain
-        return bwd(g.contiguous(), boxes, *ctx.args), None, None, None, None
+@_roi_align_op.register_kernel("cuda")
+def _(features, boxes, spatial_scale, pooled, sampling_ratio):
+    return roi_align_cuda(features, boxes, spatial_scale, pooled,
+                          sampling_ratio)
+
+
+@_roi_align_op.register_fake
+def _(features, boxes, spatial_scale, pooled, sampling_ratio):
+    b, n = boxes.shape[:2]
+    return features.new_empty((b, n, pooled, pooled, features.shape[-1]))
+
+
+@torch.library.custom_op("locov::roi_align_bwd", mutates_args=(),
+                         device_types="cpu")
+def _roi_align_bwd_op(g: torch.Tensor, boxes: torch.Tensor,
+                      spatial_scale: float, h: int, w: int, pooled: int,
+                      sampling_ratio: int) -> torch.Tensor:
+    return roi_align_bwd_plain(g, boxes, spatial_scale, h, w, pooled,
+                               sampling_ratio)
+
+
+@_roi_align_bwd_op.register_kernel("cuda")
+def _(g, boxes, spatial_scale, h, w, pooled, sampling_ratio):
+    return roi_align_bwd_cuda(g.contiguous(), boxes, spatial_scale, h, w,
+                              pooled, sampling_ratio)
+
+
+@_roi_align_bwd_op.register_fake
+def _(g, boxes, spatial_scale, h, w, pooled, sampling_ratio):
+    return g.new_empty((g.shape[0], h, w, g.shape[-1]))
+
+
+def _setup(ctx, inputs, output):
+    features, boxes, spatial_scale, pooled, sampling_ratio = inputs
+    ctx.save_for_backward(boxes)
+    ctx.args = (spatial_scale, features.shape[1], features.shape[2],
+                pooled, sampling_ratio)
+
+
+def _backward(ctx, g):
+    """The feature gradient; the boxes get none."""
+    (boxes,) = ctx.saved_tensors
+    return (torch.ops.locov.roi_align_bwd(g, boxes, *ctx.args), None, None,
+            None, None)
+
+
+_roi_align_op.register_autograd(_backward, setup_context=_setup)
 
 
 def roi_align_fused(features: torch.Tensor, boxes: torch.Tensor,
                     spatial_scale: float, pooled: int = 14,
                     sampling_ratio: int = 2) -> torch.Tensor:
     """ROIAlign, features [B, H, W, C], boxes [B, N, 4] -> [B, N, P, P,
-    C] in features' dtype, differentiable in the features: the kernels
-    for CUDA tensors, the plain versions for CPU tensors."""
-    if features.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"roi_align: unsupported device {features.device}")
-    return _RoIAlign.apply(features, boxes, spatial_scale, pooled,
-                           sampling_ratio)
+    C] in features' dtype, differentiable in the features
+    (``locov::roi_align``): the kernels for CUDA tensors, the plain
+    versions for CPU tensors."""
+    return torch.ops.locov.roi_align(features, boxes, float(spatial_scale),
+                                     int(pooled), int(sampling_ratio))

@@ -17,8 +17,10 @@ in plain PyTorch (the tests hold it to the plain version and to JAX).
 The gradient is the JAX package's ``_vjp_bwd``: the VJP of the plain
 convolution at the un-rounded x and ``w.to(x.dtype)``, the cotangent
 cast to x's dtype, dw cast to w's dtype, dshift the float32 sum of the
-cotangent. ``stem_conv_bn`` runs an autograd Function whose forward is
-the kernel for a CUDA tensor and the plain version for a CPU tensor.
+cotangent. ``stem_conv_bn`` calls the ``torch.library`` custom op
+``locov::stem_conv_bn``: its forward is the kernel for a CUDA tensor and
+the plain version for a CPU tensor, its registered backward that VJP,
+and its fake implementation gives the output's shape and dtype.
 """
 from __future__ import annotations
 
@@ -185,28 +187,43 @@ def stem_conv_bn_cuda(x, w, shift) -> torch.Tensor:
     return out
 
 
-class _StemConvBN(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU); backward:
-    the plain conv VJP from the saved un-rounded x and w."""
+@torch.library.custom_op("locov::stem_conv_bn", mutates_args=(),
+                         device_types="cpu")
+def _stem_conv_bn_op(x: torch.Tensor, w: torch.Tensor,
+                     shift: torch.Tensor) -> torch.Tensor:
+    return stem_conv_bn_plain(x, w, shift)
 
-    @staticmethod
-    def forward(ctx, x, w, shift):
-        ctx.save_for_backward(x, w)
-        ctx.shift_dtype = shift.dtype
-        if x.is_cuda:
-            return stem_conv_bn_cuda(x, w, shift)
-        return stem_conv_bn_plain(x, w, shift)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx, dw, dshift = stem_conv_bn_bwd_plain(x, w, g)
-        return dx, dw, dshift.to(ctx.shift_dtype)
+@_stem_conv_bn_op.register_kernel("cuda")
+def _(x, w, shift):
+    return stem_conv_bn_cuda(x, w, shift)
+
+
+@_stem_conv_bn_op.register_fake
+def _(x, w, shift):
+    _check_shapes(x, w, shift)
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, h // 2, wd // 2, w.shape[-1]),
+                       dtype=torch.bfloat16)
+
+
+def _setup(ctx, inputs, output):
+    x, w, shift = inputs
+    ctx.save_for_backward(x, w)
+    ctx.shift_dtype = shift.dtype
+
+
+def _backward(ctx, g):
+    """The plain conv VJP from the saved un-rounded x and w."""
+    x, w = ctx.saved_tensors
+    dx, dw, dshift = stem_conv_bn_bwd_plain(x, w, g)
+    return dx, dw, dshift.to(ctx.shift_dtype)
+
+
+_stem_conv_bn_op.register_autograd(_backward, setup_context=_setup)
 
 
 def stem_conv_bn(x, w, shift) -> torch.Tensor:
     """conv7x7/s2/p3(x, w) + shift as bfloat16 [N, H/2, W/2, F],
-    differentiable in x, w and shift."""
-    if not x.is_cuda and x.device.type != "cpu":
-        raise ValueError(f"stem_conv_bn: unsupported device {x.device}")
-    return _StemConvBN.apply(x, w, shift)
+    differentiable in x, w and shift (``locov::stem_conv_bn``)."""
+    return torch.ops.locov.stem_conv_bn(x, w, shift)

@@ -22,6 +22,7 @@ no fallback to the CPU when no GPU is present.
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -157,13 +158,22 @@ def test_eval_only_with_expected_results(stages, capsys):
 
 
 def test_cli_raises_on_what_is_not_ported(stages):
-    """Test-time augmentation (item 8) and int8 serving (item 9); several
-    ranks, which raised here before, run in
-    ``test_two_ranks_on_the_cpu``."""
-    for key, item in (("TEST.AUG.ENABLED", "item 8"),
-                      ("TPU.INT8_EVAL", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            run(stages["stt_flags"], stages["stt_opts"] + [key, "True"])
+    """int8 serving (item 9) raises. Test-time augmentation (item 8),
+    which raised here before, evaluates: ``--eval-only`` with
+    TEST.AUG.ENABLED at the test size and its flip, two passes merged
+    (tests/test_torch_tta.py holds TTA to JAX's); several ranks, which
+    raised here before too, run in ``test_two_ranks_on_the_cpu``."""
+    with pytest.raises(NotImplementedError, match="item 9"):
+        run(stages["stt_flags"], stages["stt_opts"] + ["TPU.INT8_EVAL",
+                                                       "True"])
+    res = run(stages["stt_flags"] + ["--eval-only"], stages["stt_opts"] + [
+        "MODEL.WEIGHTS", os.path.join(stages["stt_dir"], "model_final"),
+        "TEST.AUG.ENABLED", "True", "TEST.AUG.MIN_SIZES", "(64,)",
+        "TEST.AUG.MAX_SIZE", "96", "TEST.AUG.FLIP", "True"])
+    got = res["coco_zeroshot_val"]
+    assert got["tta_passes"] == 2
+    assert got["tta_merged"] <= got["tta_detections"]
+    assert all(np.isfinite(got[k]) for k in ("AP", "AP50"))
 
 
 def test_two_ranks_on_the_cpu(stages):

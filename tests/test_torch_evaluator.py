@@ -345,10 +345,16 @@ def test_select_evaluator_type_matches_jax():
 
 
 def test_test_raises_on_what_is_not_ported(pair, micro):
+    # test-time augmentation (item 8), which raised here before, runs:
+    # one pass at the test size, unflipped (tests/test_torch_tta.py holds
+    # TTA to JAX's)
     cfg = eval_cfg(tmicro_cfg, micro)
     cfg.TEST.AUG.ENABLED = True
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrainer.test(cfg, pair["tm"], "cpu")
+    cfg.TEST.AUG.MIN_SIZES = (cfg.INPUT.MIN_SIZE_TEST,)
+    cfg.TEST.AUG.MAX_SIZE = cfg.INPUT.MAX_SIZE_TEST
+    cfg.TEST.AUG.FLIP = False
+    res = ttrainer.test(cfg, pair["tm"], "cpu")[NAME]
+    assert res["tta_passes"] == 1 and res["AP50"] > 0
     cfg = eval_cfg(tmicro_cfg, micro)
     cfg.TPU.INT8_EVAL = True
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -640,3 +640,89 @@ def test_tiny_lsm_step_on_the_card():
     for name in ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
                  "roi_align_bwd"):
         assert launched[name] > 0, name
+
+
+def _op_cases(gen):
+    """Each ``locov::`` op with CUDA inputs at small shapes, beside the
+    plain function it must equal, the kernel its CUDA implementation
+    launches, and the tolerance: relu_maxpool and its backward bit-exact
+    (float32); ROIAlign and its backward in float32 within 1e-5 * max|F|
+    and 1e-5 * (the plain backward of |g|) at each cell; the stem conv
+    within one bfloat16 ulp plus 1e-5 * (|x| conv |w| + |shift|); the
+    block within 1e-5 * max|y| (float32); the NMS keep mask equal to the
+    CPU's."""
+    from locov_torch.ops import nms as nms_mod
+    x = torch.randn((2, 15, 17, 64), generator=gen, device="cuda")
+    dy = torch.randn((2, 8, 9, 64), generator=gen, device="cuda")
+    f = torch.randn((2, 25, 42, 64), generator=gen, device="cuda")
+    bx = _boxes(gen, 2, 20, 400, 672)
+    g = torch.randn((2, 25, 14, 14, 64), generator=gen, device="cuda")
+    sx = torch.randn((2, 64, 86, 3), generator=gen, device="cuda")
+    sw = torch.randn((7, 7, 3, 64), generator=gen, device="cuda") * 0.1
+    ssh = torch.randn((64,), generator=gen, device="cuda")
+    block = make_inputs(gen, (2, 20, 24, 256), 64, torch.float32)
+    nb = _boxes(gen, 2, 600, 400, 672)
+    ns = torch.rand((2, 605), generator=gen, device="cuda")
+    nv = torch.rand((2, 605), generator=gen, device="cuda") > 0.1
+    nc = torch.randint(0, 3, (2, 605), generator=gen, device="cuda")
+    return {
+        "relu_maxpool": ((x,), relu_maxpool_plain, "relu_maxpool"),
+        "relu_maxpool_bwd": ((x, dy), relu_maxpool_bwd_plain,
+                             "relu_maxpool_bwd"),
+        "roi_align": ((f, bx, 1 / 16, 14, 0), roi_align_batched,
+                      "roi_align_fused"),
+        "roi_align_bwd": ((g, bx, 1 / 16, 25, 42, 14, 0),
+                          roi_align_bwd_plain, "roi_align_bwd"),
+        "stem_conv_bn": ((sx, sw, ssh), stem_conv_bn_plain,
+                         "stem_conv_bn"),
+        "bottleneck_block": (block, bottleneck_block_plain,
+                             "bottleneck_block"),
+        "nms_mask": ((nb, ns, nv, 0.5, 100, nc),
+                     lambda *a: nms_mod.nms_mask_batched(
+                         *(t.cpu() if torch.is_tensor(t) else t
+                           for t in a)), None),
+    }
+
+
+@pytest.mark.parametrize("name", ["relu_maxpool", "relu_maxpool_bwd",
+                                  "roi_align", "roi_align_bwd",
+                                  "stem_conv_bn", "bottleneck_block",
+                                  "nms_mask"])
+def test_locov_ops_on_the_card(cuda, name):
+    """Each ``torch.ops.locov`` op on CUDA tensors: ``opcheck`` (its fake
+    implementation, registered autograd and schema against the real
+    kernel), one kernel launch a call, and its output against the plain
+    version at the tolerances of ``_op_cases``."""
+    args, plain, kernel = _op_cases(cuda)[name]
+    op = getattr(torch.ops.locov, name)
+    grad_args = args
+    if name in ("relu_maxpool", "roi_align", "stem_conv_bn"):
+        grad_args = (args[0].clone().requires_grad_(True),) + args[1:]
+    torch.library.opcheck(op.default, grad_args)
+    before = dict(kernel_lib.LAUNCHES)
+    got = op(*args)
+    torch.cuda.synchronize()
+    if kernel is not None:
+        assert kernel_lib.LAUNCHES[kernel] == before[kernel] + 1
+    want = plain(*args)
+    if name == "nms_mask":
+        assert torch.equal(got.cpu(), want)
+        assert int(want.sum()) > 0
+        return
+    got, want = got.float(), want.float()
+    if name.startswith("relu_maxpool"):
+        assert _same_bits(got, want)
+    elif name == "roi_align":
+        assert bool(((got - want).abs() <=
+                     1e-5 * args[0].abs().max()).all())
+    elif name == "roi_align_bwd":
+        bound = 1e-5 * roi_align_bwd_plain(args[0].abs(), *args[1:])
+        assert bool(((got - want).abs() <= bound + 1e-12).all())
+    elif name == "stem_conv_bn":
+        x, w, shift = args
+        mag = _conv(x.to(torch.bfloat16).float().abs(),
+                    w.to(torch.bfloat16).float().abs()) + shift.abs()
+        tol = _bf16_ulp(torch.maximum(got.abs(), want.abs())) + 1e-5 * mag
+        assert bool(((got - want).abs() <= tol).all())
+    else:
+        assert bool(((got - want).abs() <= 1e-5 * want.abs().max()).all())

@@ -271,8 +271,11 @@ def test_best_metric_save_and_projection_only_load(stt_run, root):
     ("TEST.AUG.ENABLED", True, "item 8"),
     ("TPU.INT8_EVAL", True, "item 9")])
 def test_trainer_raises_on_what_is_not_ported(root, key, value, item):
-    """Test-time augmentation (item 8) and int8 serving (item 9) raise.
-    The grid models (item 3), which raised here before, train: two steps
+    """int8 serving (item 9) raises. Test-time augmentation (item 8),
+    which raised here before, evaluates: the trainer's ``test`` with
+    TEST.AUG.ENABLED at the test size and its flip merges two passes
+    (tests/test_torch_tta.py holds TTA to JAX's). The grid models (item
+    3), which raised here before too, train: two steps
     of ``MMSSGridModel`` on the micro tree's captions, the final
     checkpoint, and its 'ovr' evaluation, the loss-only pass without a
     detection evaluation (tests/test_torch_grid_models.py holds its
@@ -298,6 +301,18 @@ def test_trainer_raises_on_what_is_not_ported(root, key, value, item):
     for p in path:
         node = getattr(node, p)
     setattr(node, leaf, value)
+    if item == "item 8":
+        cfg.TEST.AUG.MIN_SIZES = (cfg.INPUT.MIN_SIZE_TEST,)
+        cfg.TEST.AUG.MAX_SIZE = cfg.INPUT.MAX_SIZE_TEST
+        tr = OVRTrainer(cfg, device="cpu")
+        try:
+            res = tr.test(cfg)[cfg.DATASETS.TEST[0]]
+        finally:
+            tr.close()
+        assert res["tta_passes"] == 2  # TEST.AUG.FLIP is on by default
+        assert res["tta_merged"] <= res["tta_detections"]
+        assert np.isfinite(res["AP50"])
+        return
     with pytest.raises(NotImplementedError, match=item):
         OVRTrainer(cfg, device="cpu")
 
