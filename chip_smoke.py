@@ -148,9 +148,11 @@ Phases, one JSON line each, in order:
    TEST.AUG.ENABLED at its defaults (sizes 400-1200, MAX_SIZE 4000,
    flip: 18 passes) over 16 synthetic JPEGs (seconds, passes, AP keys,
    peak memory, every kernel checked at every TTA signature as phase
-   8's); then TTA at the test size alone, unflipped, against the plain
-   evaluation's detections and their merge (AP keys within 1e-6, the
-   detections the merge removed printed).
+   8's); then, at the test size alone, the unflipped pass's detections
+   equal the plain evaluation's array for array (and their merge's AP
+   keys within 1e-6, the detections the merge removed printed), and the
+   flipped pass's images and boxes are the mirror of its inputs and of
+   its own raw boxes.
 13. block path: ``locov_torch.tools.bench_block.main`` at its defaults
    (K4 at res2 [4, 200, 336, 256] M 64 against cuDNN's three convs).
 14. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
@@ -3741,14 +3743,18 @@ def tta_path(gen, seed, workdir):
     sizes (400-1200 by 100, MAX_SIZE 4000, flip: 18 passes), batch 8, on
     ``write_coco_val``'s tree of 16 JPEGs: seconds, passes, AP keys, peak
     memory, the detections before and after the merge; every launch
-    signature checked with ``check_path_shapes``. Then the invariant: TTA
-    at the test size alone, unflipped (MAX_SIZE the test's), gives the
-    plain evaluation's detections (their count) and the AP keys of those
-    detections after the merge's per-class NMS (float64, on boxes in the
-    original image, at the threshold inference applied), within
-    ``eval_reference``'s 1e-6 AP points; how many detections that merge
-    removed is printed (where it removed none, the AP keys are the plain
-    evaluation's). Returns the TTA run's launches."""
+    signature checked with ``check_path_shapes``. Then, at the test size
+    alone (MAX_SIZE the test's), two checks on arrays (the seeded weights
+    score an AP of 0, so AP keys alone would not tell): the unflipped
+    pass's detections before the merge (img, box, score, cls) equal the
+    plain evaluation's exactly, and so does the count after the merge
+    (the merge's per-class NMS, float64, on boxes in the original image,
+    at the threshold inference applied; how many it removed is printed),
+    with the AP keys within ``eval_reference``'s 1e-6 AP points; the
+    flipped pass's images are the unflipped pass's mirrored, and its
+    boxes (``collect_detections(mirror_x=True)``) are a direct mirror of
+    that pass's own boxes. Returns the TTA run's launches."""
+    import numpy as np
     import torch
     from locov_torch.data import MetadataCatalog
     from locov_torch.engine.trainer import (build_test_loader,
@@ -3758,7 +3764,9 @@ def tta_path(gen, seed, workdir):
                                                   collect_detections,
                                                   dataset_id_lut,
                                                   score_detections)
-    from locov_torch.evaluation.tta import merge_tta_detections
+    from locov_torch.evaluation.tta import (build_tta_loaders,
+                                            inference_with_tta,
+                                            merge_tta_detections)
     from locov_torch.models import build_meta_arch
     from locov_torch.ops import kernel_lib
     from locov_torch.parallel.mesh import make_eval_step
@@ -3783,28 +3791,72 @@ def tta_path(gen, seed, workdir):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     shapes.check_counts(launches)
 
-    one = cfg.clone()
-    one.TEST.AUG.ENABLED = True
-    one.TEST.AUG.MIN_SIZES = (cfg.INPUT.MIN_SIZE_TEST,)
-    one.TEST.AUG.MAX_SIZE = cfg.INPUT.MAX_SIZE_TEST
-    one.TEST.AUG.FLIP = False
-    res_one = test(one, model, "cuda")[EVAL_DATASET]
-    plain = test(cfg, model, "cuda")[EVAL_DATASET]
     meta = MetadataCatalog.get(EVAL_DATASET)
+    inv = dataset_id_lut(meta)
+    nms_thresh = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
+    topk = cfg.TEST.DETECTIONS_PER_IMAGE
+    class_emb = load_embeddings(cfg, EVAL_DATASET, "cuda")
+    step = make_eval_step(model)
     with build_test_loader(cfg, EVAL_DATASET, None, False) as loader:
-        flat, _ = collect_detections(
-            make_eval_step(model), None, loader,
-            load_embeddings(cfg, EVAL_DATASET, "cuda"),
-            dataset_id_lut(meta))
-    merged = merge_tta_detections(flat, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
-                                  cfg.TEST.DETECTIONS_PER_IMAGE)
+        flat, _ = collect_detections(step, None, loader, class_emb, inv)
+    merged = merge_tta_detections(flat, nms_thresh, topk)
     evaluator = build_evaluator_for(EVAL_DATASET)
     score_detections(evaluator, merged)
     want = add_seen_unseen_summary(evaluator.summarize(per_category=True),
                                    meta)
     removed = len(flat["img"]) - len(merged["img"])
+
+    def host(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    passes = []
+
+    def recording(batch, ce):
+        """``step``, keeping each batch's first image and raw outputs."""
+        dets = step(batch, ce)
+        im = batch.images
+        passes[-1].append((host(im.image[0]), host(im.hw[0]),
+                           host(im.image_id), host(im.orig_hw),
+                           host(dets.boxes.float()), host(dets.mask)))
+        return dets
+    recording.device = step.device
+    before = []
+
+    def gather(dets):
+        before.append(dets)
+        return dets
+    one = cfg.clone()
+    one.TEST.AUG.ENABLED = True
+    one.TEST.AUG.MIN_SIZES = (cfg.INPUT.MIN_SIZE_TEST,)
+    one.TEST.AUG.MAX_SIZE = cfg.INPUT.MAX_SIZE_TEST
+    one.TEST.AUG.FLIP = True
+    (plain_loader, _), (flip_loader, _) = build_tta_loaders(one,
+                                                            EVAL_DATASET)
+    try:
+        passes.append([])
+        res_one = inference_with_tta(recording, None, [(plain_loader, False)],
+                                     class_emb, EVAL_DATASET, nms_thresh,
+                                     topk, gather_fn=gather)
+        passes.append([])
+        flipped, _ = collect_detections(recording, None, flip_loader,
+                                        class_emb, inv, mirror_x=True)
+    finally:
+        plain_loader.close()
+        flip_loader.close()
+    same_flat = {k: bool(np.array_equal(before[0][k], flat[k]))
+                 for k in flat}
+    images_mirrored = all(
+        np.array_equal(f[:h, :w], u[:h, :w][:, ::-1])
+        for (u, (h, w), *_), (f, *_) in zip(*passes))
+    mirrored = []
+    for _, _, ids, orig_hw, boxes, mask in passes[1]:
+        for i, img_id in enumerate(ids):
+            if img_id >= 0 and mask[i].any():
+                box = boxes[i][mask[i]].astype(np.float64)[:, [2, 1, 0, 3]]
+                box[:, [0, 2]] = float(orig_hw[i][1]) - box[:, [0, 2]]
+                mirrored.append(box)
+    boxes_mirrored = bool(len(mirrored) > 0 and np.array_equal(
+        np.concatenate(mirrored), flipped["box"]))
     ap_err = {k: abs(res_one[k] - want[k]) for k in EVAL_AP_KEYS}
-    plain_err = {k: abs(res_one[k] - plain[k]) for k in EVAL_AP_KEYS}
     line = {"phase": "tta_path", "config": "configs/coco_stt.yaml",
             "dtype": "bfloat16", "images": TTA_IMAGES,
             "sizes": list(tta.TEST.AUG.MIN_SIZES),
@@ -3817,22 +3869,26 @@ def tta_path(gen, seed, workdir):
             "launch_signatures": len(shapes.seen),
             "one_size": {"detections": res_one["tta_detections"],
                          "plain_detections": len(flat["img"]),
+                         "same_as_plain": same_flat,
+                         "merged": res_one["tta_merged"],
                          "merge_removed": removed,
                          "ap_err_vs_merged_plain": ap_err,
-                         "ap_err_vs_plain": plain_err}}
+                         "flip_images_mirrored": images_mirrored,
+                         "flip_detections": len(flipped["img"]),
+                         "flip_boxes_mirrored": boxes_mirrored}}
     emit(line)
     print(f"tta_path: the one-size merge removed {removed} of "
           f"{len(flat['img'])} detections", file=sys.stderr, flush=True)
     ok = (res["tta_passes"] == 18 and
           all(0 <= res[k] <= 100 for k in EVAL_AP_KEYS) and
           all(launches[k] > 0 for k in INFERENCE_KERNELS) and
-          res_one["tta_detections"] == len(flat["img"]) and
-          res_one["tta_detections"] - res_one["tta_merged"] == removed and
+          all(same_flat.values()) and
+          res_one["tta_merged"] == len(merged["img"]) and
           all(e <= 1e-6 for e in ap_err.values()) and
-          (removed > 0 or all(e <= 1e-6 for e in plain_err.values())))
+          images_mirrored and boxes_mirrored)
     if not ok:
         raise AssertionError(f"tta path check failed: {line}")
-    del model
+    del model, step, recording, passes
     torch.cuda.empty_cache()
     check_path_shapes(gen, shapes.seen, "tta")
     return launches

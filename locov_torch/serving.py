@@ -18,14 +18,16 @@ Artifact layout written by :func:`export_inference`:
                                   variables and class_emb
     <out>/signature.json          input/output shapes + dtypes
 
-The program takes plain tensors: ``(image [B,H,W,3] f32, hw [B,2] i32,
-orig_hw [B,2] i32, class_emb [C+1,D] f32)`` and returns a dict of
-``boxes [B,K,4]`` (in original-image coordinates), ``scores [B,K]``,
-``classes [B,K] i32`` and ``mask [B,K] bool``. ``load_exported`` gives
-it JAX's calling convention, the weights as the first argument:
-``call(variables, image, hw, orig_hw, class_emb)``. Image preprocessing
-(PIXEL_MEAN/STD, BGR order, bucket padding) happens inside the model's
-own preprocess, as in training and evaluation.
+The program takes the weights first, then plain tensors, as JAX's
+does: ``(variables, image [B,H,W,3] f32, hw [B,2] i32, orig_hw [B,2]
+i32, class_emb [C+1,D] f32)``, with ``variables`` the serving module's
+state dict, and returns a dict of ``boxes [B,K,4]`` (in original-image
+coordinates), ``scores [B,K]``, ``classes [B,K] i32`` and ``mask [B,K]
+bool``. It holds no weights itself: ``params/`` is their one copy.
+``load_exported`` returns ``call(variables, image, hw, orig_hw,
+class_emb)``. Image preprocessing (PIXEL_MEAN/STD, BGR order, bucket
+padding) happens inside the model's own preprocess, as in training and
+evaluation.
 
 The program runs on the device it was exported on (``platforms`` in
 ``signature.json``): factory calls in the graph record a literal
@@ -33,15 +35,16 @@ device. With ``n_devices`` N, JAX's mesh of N chips, the program is
 exported at batch B / N and the loaded ``call`` splits the batch over N
 devices, runs one copy of the program on each (moved there with
 ``torch.export.passes.move_to_device_pass``) and concatenates the
-outputs. ``TPU.INT8_EVAL`` is not ported (ROADMAP queue 1, item 9):
-the export tool (``tools/export_serving.py``) raises on it.
+outputs; a batch of another size raises. ``TPU.INT8_EVAL`` is not
+ported (ROADMAP queue 1, item 9): the export tool
+(``tools/export_serving.py``) raises on it.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -113,21 +116,40 @@ def _global(sig: dict, n: int) -> dict:
     return {**sig, "shape": [sig["shape"][0] * n] + sig["shape"][1:]}
 
 
+class _WeightsAsInputs(torch.nn.Module):
+    """``serve`` with its weights as the program's first input, JAX's
+    calling convention: ``forward(variables, image, hw, orig_hw,
+    class_emb)`` runs ``serve`` on ``variables`` (its state dict's keys)
+    with ``torch.func.functional_call``. ``serve`` is held outside the
+    module's children, so that the exported program keeps no copy of the
+    weights: ``params/`` is their only copy."""
+
+    def __init__(self, serve: ServeModule):
+        super().__init__()
+        self._serve = (serve,)
+
+    def forward(self, variables, image, hw, orig_hw, class_emb):
+        return torch.func.functional_call(
+            self._serve[0], variables, (image, hw, orig_hw, class_emb))
+
+
 def export_inference(model: torch.nn.Module, class_emb: torch.Tensor,
                      out_dir: str, batch: int, height: int, width: int,
                      n_devices: int = 1) -> str:
     """Export ``model.inference`` at static serving shapes, on the
     device that holds the model (``platforms`` in ``signature.json``).
 
-    Returns the path of the saved program. With ``n_devices`` N > 1 the
-    program is exported at batch ``batch / N`` for N devices of the
-    model's kind, each running one copy on its share of the batch
-    (``signature.json`` records the global shapes, ``nr_devices`` N and
-    a one-axis ``data`` mesh); ``batch`` must divide by N."""
+    Returns the path of the saved program, which takes the weights as
+    its first input. With ``n_devices`` N > 1 the program is exported at
+    batch ``batch / N`` for N devices of the model's kind, each running
+    one copy on its share of the batch (``signature.json`` records the
+    global shapes, ``nr_devices`` N and a one-axis ``data`` mesh);
+    ``batch`` must divide by N."""
     if n_devices < 1 or batch % n_devices:
         raise ValueError(f"serving batch {batch} must divide by the "
                          f"device count {n_devices}")
     serve = make_serve_fn(model).eval()
+    variables = dict(serve.state_dict())
     dev = next(model.parameters()).device
     local = batch // n_devices
     hw = torch.tensor([[height, width]] * local, dtype=torch.int32,
@@ -135,8 +157,9 @@ def export_inference(model: torch.nn.Module, class_emb: torch.Tensor,
     args = (torch.zeros((local, height, width, 3), dtype=torch.float32,
                         device=dev), hw, hw.clone(),
             class_emb.to(dev, torch.float32))
-    program = torch.export.export(serve, args, strict=False)
-    program.example_inputs = None  # zero images, not to be saved
+    program = torch.export.export(_WeightsAsInputs(serve),
+                                  (variables,) + args, strict=False)
+    program.example_inputs = None  # the weights and zero images
 
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, PROGRAM)
@@ -144,9 +167,8 @@ def export_inference(model: torch.nn.Module, class_emb: torch.Tensor,
     with open(os.path.join(out_dir, GRAPH), "w") as f:
         f.write(program.graph_module.print_readable(print_output=False))
     Checkpointer(os.path.join(out_dir, "params"), use_async=False
-                 ).save_named("variables", {
-                     "variables": serve.state_dict(),
-                     "class_emb": args[3]})
+                 ).save_named("variables", {"variables": variables,
+                                            "class_emb": args[3]})
 
     names = ("image", "hw", "orig_hw")
     sig = {
@@ -189,48 +211,55 @@ def _full_float32():
             f.allow_tf32 = p
 
 
-def load_exported(out_dir: str, devices: Optional[Sequence] = None
-                  ) -> Tuple[Callable, Dict[str, torch.Tensor],
-                             torch.Tensor]:
+def load_exported(out_dir: str) -> Tuple[Callable, Dict[str, torch.Tensor],
+                                         torch.Tensor]:
     """Reload a serving artifact: ``(call, variables, class_emb)``, with
     ``call(variables, image, hw, orig_hw, class_emb)`` returning the
     output dict. Running it does NOT import the model's Python code.
 
-    ``devices``: where the copies run, one a device of the artifact's
-    ``nr_devices`` (default: the device it was exported on, or
-    ``cuda:0`` .. ``cuda:N-1``). ``variables`` and ``class_emb`` are
-    loaded onto the first. Inputs of other shapes than the signature's
-    raise."""
+    The copies run on the device the artifact was exported on, or on
+    ``cuda:0`` .. ``cuda:N-1`` for a CUDA artifact of ``nr_devices`` N;
+    ``variables`` and ``class_emb`` are loaded onto the first. Each
+    device keeps one copy of the variables last called with (kept until
+    a call passes other tensors, or changes one in place). Inputs of
+    other shapes than the signature's raise."""
     with open(os.path.join(out_dir, "signature.json")) as f:
         sig = json.load(f)
     n = sig["nr_devices"]
     kind = sig["platforms"][0]
-    if devices is None:
-        devices = ([kind] * n if kind == "cpu" else
-                   [f"cuda:{i}" for i in range(n)])
-    devices = [torch.device(d) for d in devices]
-    if len(devices) != n:
-        raise ValueError(f"the artifact runs on {n} devices, got "
-                         f"{len(devices)}")
+    devices = [torch.device(d) for d in
+               ([kind] * n if kind == "cpu" else
+                [f"cuda:{i}" for i in range(n)])]
     path = os.path.join(out_dir, PROGRAM)
-    modules = []
-    for d in devices:
-        program = move_to_device_pass(torch.export.load(path), d)
-        modules.append(program.module())
+    modules = [move_to_device_pass(torch.export.load(path), d).module()
+               for d in devices]
     state = Checkpointer(os.path.join(out_dir, "params"), use_async=False
                          ).load("variables")
     variables = {k: v.to(devices[0]) for k, v in state["variables"].items()}
     class_emb = state["class_emb"].to(devices[0])
+    placed = {}
+
+    def on_devices(variables):
+        """``variables`` on each device, copied once for each new set."""
+        key = [(k, id(v), v._version) for k, v in variables.items()]
+        if placed.get("key") != key:
+            placed.update(key=key, source=list(variables.values()),
+                          copies=[{k: v.to(d) for k, v in variables.items()}
+                                  for d in devices])
+        return placed["copies"]
 
     def call(variables, image, hw, orig_hw, class_emb):
+        for k, x in (("image", image), ("hw", hw), ("orig_hw", orig_hw)):
+            if list(x.shape) != sig["inputs"][k]["shape"]:
+                raise ValueError(f"{k} has shape {list(x.shape)}, the "
+                                 f"artifact takes {sig['inputs'][k]['shape']}")
         chunks = zip(*(x.chunk(n) for x in (image, hw, orig_hw)))
         outs = []
         with _full_float32():
-            for module, d, (im, h, o) in zip(modules, devices, chunks):
-                ws = {k: v.to(d) for k, v in variables.items()}
-                outs.append(torch.func.functional_call(
-                    module, ws, (im.to(d), h.to(d), o.to(d),
-                                 class_emb.to(d))))
+            for module, d, ws, (im, h, o) in zip(
+                    modules, devices, on_devices(variables), chunks):
+                outs.append(module(ws, im.to(d), h.to(d), o.to(d),
+                                   class_emb.to(d)))
         if n == 1:
             return outs[0]
         return {k: torch.cat([o[k].to(devices[0]) for o in outs])

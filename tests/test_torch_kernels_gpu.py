@@ -33,7 +33,9 @@ another order, one rounding), plus 1e-5 * (|x| conv |w| + |shift|), the
 float32 sum-order bound, which exceeds a bfloat16 ulp of an output
 close to 0; its gradient within 1e-5 of the largest
 value (plus one bfloat16 ulp in bfloat16) of autograd of the plain conv.
-The full-float32 products of the grounding head (``ops/matmul.py``)
+The serving program split over two cards gives the one-card
+program's bits on each half of the batch. The full-float32 products of
+the grounding head (``ops/matmul.py``)
 within 1e-5 of float64 with cuBLAS's TF32 allowed; the tiny LSM step on
 the card against the CPU at the tolerances its docstring states.
 """
@@ -540,6 +542,52 @@ def test_tiny_f32_model_on_the_card_at_pytorch_tf32_defaults():
     assert torch.equal(cc[cm], gc[cm])
     assert (cs - gs).abs().max() <= 1e-5
     assert (cb[cm] - gb[cm]).abs().max() <= 1e-3
+
+
+def test_serving_split_over_two_cards_equals_one_card(cuda, tmp_path):
+    """The tiny model exported on the card at batch 2, and at batch 4
+    over two cards: the two-card program, which runs one copy on each of
+    ``cuda:0`` and ``cuda:1``, gives on a batch the bits of the one-card
+    program on each half, and refuses the one-card batch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from locov_torch.config import get_cfg
+    from locov_torch.models import build_meta_arch
+    from locov_torch.serving import export_inference, load_exported
+    from locov_torch.utils.weights import seeded_init_
+    from torch_parity import tiny_cfg
+    cfg = tiny_cfg(get_cfg, **{"MODEL.PIXEL_STD": [57.375, 57.12, 58.395]})
+    m = seeded_init_(build_meta_arch(cfg, device="cpu"), 0)
+    with torch.no_grad():
+        m.rpn_head.anchor_deltas.weight.zero_()
+    m.to("cuda")
+    rng = np.random.RandomState(0)
+    ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
+    ce[-1] = 0.0
+    ce = torch.from_numpy(ce).cuda()
+    export_inference(m, ce, str(tmp_path / "one"), batch=2, height=64,
+                     width=64)
+    export_inference(m, ce, str(tmp_path / "two"), batch=4, height=64,
+                     width=64, n_devices=2)
+    img = torch.from_numpy((rng.rand(4, 64, 64, 3) * 255).astype(
+        np.float32)).cuda()
+    hw = torch.tensor([[64, 64], [48, 56], [56, 64], [64, 40]],
+                      dtype=torch.int32, device="cuda")
+    ohw = hw * 2
+    call1, v1, ce1 = load_exported(str(tmp_path / "one"))
+    call2, v2, ce2 = load_exported(str(tmp_path / "two"))
+    count = kernel_lib.LAUNCHES["roi_align_fused"]
+    halves = [call1(v1, img[i:i + 2], hw[i:i + 2], ohw[i:i + 2], ce1)
+              for i in (0, 2)]
+    one = kernel_lib.LAUNCHES["roi_align_fused"] - count
+    got = call2(v2, img, hw, ohw, ce2)
+    assert kernel_lib.LAUNCHES["roi_align_fused"] - count == 2 * one > 0
+    assert got["mask"].sum() > 0
+    for k, x in got.items():
+        assert x.device == torch.device("cuda:0")
+        assert torch.equal(x, torch.cat([h[k] for h in halves])), k
+    with pytest.raises(ValueError):
+        call2(v2, img[:2], hw[:2], ohw[:2], ce2)
 
 
 def test_highest_precision_products_ignore_the_tf32_flag(cuda):

@@ -11,8 +11,9 @@ tests/test_torch_ovr_rcnn.py's tolerances of JAX's loaded program
 (identical masks and classes, boxes atol 1e-3 px, scores atol 1e-5);
 inputs of other shapes raise; a consumer process runs the artifact
 without importing ``locov_torch.models``; a two-device artifact on two
-CPU "devices" equals the one-device artifact, and a batch that does not
-divide by the devices raises.
+CPU "devices" equals the one-device artifact, a batch of another size
+than the artifact's raises, and a batch that does not divide by the
+devices raises.
 """
 import json
 import os
@@ -183,7 +184,7 @@ def test_two_devices_equal_one(exported):
     assert sig["mesh"] == {"axis_names": ["data"], "shape": [2]}
     assert sig["inputs"]["image"]["shape"] == [2 * B, H, W, 3]
     assert sig["outputs"]["boxes"]["shape"][0] == 2 * B
-    call2, v2, ce2 = load_exported(tdir2, devices=["cpu", "cpu"])
+    call2, v2, ce2 = load_exported(tdir2)
     call1, v1, ce1 = load_exported(exported["tdir"])
     img, hw, ohw = _args(exported)
     flip = torch.flip(img, [0]), torch.flip(hw, [0]), torch.flip(ohw, [0])
@@ -193,6 +194,8 @@ def test_two_devices_equal_one(exported):
     two = call1(v1, *flip, ce1)
     for k in KEYS:
         assert torch.equal(got[k], torch.cat([one[k], two[k]])), k
+    with pytest.raises(ValueError):  # the batch of one device, not two
+        call2(v2, img, hw, ohw, ce2)
     with pytest.raises(ValueError):
         export_inference(exported["tm"], t(exported["ce"]),
                          str(exported["root"] / "bad"), batch=3, height=H,
