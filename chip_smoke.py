@@ -32,7 +32,12 @@ Phases, one JSON line each, in order:
    bfloat16 ulp plus the float32 sum-order floor, into a NaN-filled
    output, the same bits on two launches; K4 likewise into a NaN-filled
    output, the same bits on two launches, in six cases (res2, res3 M
-   128, partial tiles, H 1, and b1 = 3 against a relu(b1) halo).
+   128, partial tiles, H 1, and b1 = 3 against a relu(b1) halo). The
+   int8 kernels, the same bits as their plain versions: KQ1 (the int8
+   conv) at res5's conv3 on 8,000 boxes ([8000, 7, 7, 512] -> 2048) with
+   bfloat16 and float32 outputs, into a NaN-filled output, and two odd
+   shapes; KQ2 (the int8 ROIAlign core) at [8, 50, 84, 1024] with 1,000
+   boxes an image, edge boxes and a fixed ratio.
    Kernel, plain and library-call times are medians of CUDA-event
    timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
@@ -81,6 +86,22 @@ Phases, one JSON line each, in order:
    (AP 100); one batch under torch.profiler. Its CPU reference is phase
    3's ``eval_reference``: ``test`` of a tiny float32 model on the
    micro-COCO tree, card against CPU (flat detections and AP).
+   Then, on the same tree, the int8 path (``int8_path``):
+   configs/coco_stt.yaml in bfloat16 at full width, seeded weights at a
+   trained scale, batch 8 of 800 x 1344; the bf16 model and three int8 ones with its weights
+   (dynamic; static with KQ2; static with K2 and a quantize after it),
+   the static ones calibrated by ``make_calibrate_step`` on 4 seeded
+   batches (seconds); on another batch each mode's launches (K1-fwd,
+   KQ1, KQ2 or K2), peak memory, the median of 5 batches in turns with
+   bf16, one profile (busy ms), the box features of bf16's proposals
+   against bf16's (mean relative error) and the share of bf16's top-100
+   detections kept (same class, IoU >= 0.9); every KQ1 and KQ2 signature
+   held to its plain version; the tiny int8 model card against CPU
+   (matched detections); ``train_ovnet --eval-only`` with ``TPU.
+   INT8_EVAL True TPU.INT8_SCHEME static`` on the eval path's tree (the
+   calibration's seconds, img/s beside the eval path's, AP, launches);
+   the calibrated static model exported by the export twin and served
+   by a fresh process, the loaded program the same bits as eager.
 8. trainer path: both LocOV stages through the CLI twin
    (``locov_torch.train_ovnet.main``) at full configs/coco_lsm.yaml and
    coco_stt.yaml width in bfloat16, on a synthetic tree the script
@@ -160,9 +181,11 @@ Phases, one JSON line each, in order:
    backward).
 15. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
-   K3-fwd row at the training shapes; ``launches_by_path`` gives each
-   path's counts, ``eval``, ``trainer``, ``scale``, ``family``,
-   ``serving`` and ``tta`` among them), the
+   K3-fwd row at the training shapes; then a row for each of the port's
+   own kernels, KQ1 and KQ2, whose ``replaces`` names the JAX function
+   XLA computes; ``launches_by_path`` gives each path's counts,
+   ``eval``, ``int8``, ``int8_eval``, ``trainer``, ``scale``,
+   ``family``, ``serving`` and ``tta`` among them), the
    card's ``nvidia-smi`` name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -208,6 +231,17 @@ KERNEL_ROWS = (
      "locov_tpu/ops/pallas_block.py:133", "block", "bottleneck_block"),
     ("stem_conv_bn", "locov_torch/csrc/stem_conv_bn.cu",
      "locov_tpu/ops/pallas_stem.py:246", "stem", "stem_conv_bn"),
+)
+# The port's own kernels, with no Pallas parent (the JAX package leaves
+# these two to XLA): (kernel, source, the JAX function it computes, the
+# path whose launches the row reports, the dtype of the row's numbers).
+INT8_KERNEL_ROWS = (
+    ("conv_int8", "locov_torch/csrc/conv_int8.cu",
+     "locov_tpu/ops/int8_conv.py:80 (XLA; no Pallas kernel)", "int8",
+     "bfloat16"),
+    ("roi_align_int8", "locov_torch/csrc/roi_align_int8.cu",
+     "locov_tpu/ops/roi_align.py:175 (XLA; no Pallas kernel)", "int8",
+     "int8"),
 )
 INFERENCE_KERNELS = ("relu_maxpool", "roi_align_fused")
 TRAIN_KERNELS = ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
@@ -2178,7 +2212,7 @@ def eval_path(seed, workdir):
     profile_run("eval_path_profile", one_batch, statistics.median(times))
     del model, step
     torch.cuda.empty_cache()
-    return launches
+    return launches, res["images_per_second"]
 
 
 # --------------------------------------------------------- trainer path
@@ -3894,15 +3928,607 @@ def tta_path(gen, seed, workdir):
     return launches
 
 
+# ------------------------------------------------------------- int8 path
+INT8_TC_OPS_PER_S = 1979e12      # H100 SXM dense int8, tensor cores
+INT8_CALIB_BATCHES = 4  # TPU.INT8_CALIB_BATCHES's default
+INT8_TURNS = 5  # timed batches of each model, in turns
+# (name, TPU.INT8_SCHEME, TPU.INT8_ROIALIGN) of the int8 modes timed
+INT8_MODES = (("dynamic", "dynamic", True), ("static", "static", True),
+              ("static_float_roialign", "static", False))
+INT8_MATCH_IOU = 0.9  # a bf16 detection matched: same class, IoU >= this
+# the tiny int8 model, card against CPU: a stem output an ulp apart can
+# move an int8 rounding by a step (test_torch_kernels_gpu.py)
+INT8_TINY_SCORE_TOL = 5e-3
+INT8_TINY_BOX_TOL = 0.05
+
+
+def check_conv_int8(gen, results):
+    """KQ1 against its plain version, the same bits: res5's conv3 on
+    8,000 boxes (1x1, [8000, 7, 7, 512] int8 -> 2048, M 392,000), with a
+    bfloat16 and a float32 output (an f32 model's epilogue), shift and
+    relu, into a NaN-filled output, then odd shapes (M and O not
+    multiples of the 128 x 128 tile, C 48 past a 64-byte k step, 3x3 /
+    2; 1x1 at O 72) and narrow ones (C 8 and 12: 8- and 4-byte staged
+    pieces, as the tiny models take). Its time, the plain version's, and
+    ``torch._int_mm`` (cuBLASLt's int8 GEMM) of the same product."""
+    import torch
+    from locov_torch.ops import int8_conv as iq
+    from locov_torch.tools.timing import time_ms
+
+    def rand8(shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             device="cuda").to(torch.int8)
+    cases = [("res5_conv3", (8000, 7, 7, 512), 2048, 1, 1),
+             ("odd_3x3_s2", (3, 9, 11, 48), 200, 3, 2),
+             ("odd_1x1", (1, 13, 17, 64), 72, 1, 1),
+             ("narrow_c8", (2, 16, 16, 8), 24, 3, 1),
+             ("narrow_c12", (2, 9, 7, 12), 32, 1, 2)]
+    for case, shape, o, k, stride in cases:
+        xq, wq = rand8(shape), rand8((o, k, k, shape[3]))
+        scale = torch.rand(o, generator=gen, device="cuda") * 1e-3
+        pad = (k - 1) // 2
+        for dtype in (torch.bfloat16, torch.float32):
+            shift = (torch.randn(o, generator=gen, device="cuda") * 5).to(
+                dtype)
+            got = iq._launch(xq, wq, scale, shift, stride, pad, True,
+                             fill=math.nan)
+            want = torch.cat([iq.conv_int8_plain(xq[i:i + 1000], wq, scale,
+                                                 shift, stride, pad, True)
+                              for i in range(0, shape[0], 1000)])
+            ok = _same_bits(got, want)
+            again = _same_bits(iq._launch(xq, wq, scale, shift, stride,
+                                          pad, True), got)
+            line = {"phase": "kernel_check", "kernel": "conv_int8",
+                    "case": case, "dtype": str(dtype).split(".")[1],
+                    "shape": list(shape), "out_channels": o, "kernel_hw": k,
+                    "stride": stride, "same_bits": ok,
+                    "same_bits_two_launches": again,
+                    "max_abs_err": float((got.float() - want.float())
+                                         .abs().nan_to_num(math.inf).max())}
+            if case == "res5_conv3":
+                m = shape[0] * shape[1] * shape[2]
+                line["kernel_ms"] = time_ms(lambda: iq.conv_int8_cuda(
+                    xq, wq, scale, shift, stride, pad, True), reps=10)
+                line["plain_ms"] = time_ms(lambda: iq.conv_int8_plain(
+                    xq, wq, scale, shift, stride, pad, True), reps=3,
+                    warmup=1)
+                a8, b8 = xq.reshape(m, shape[3]), wq.reshape(o, shape[3])
+                line["library_ms"] = time_ms(
+                    lambda: torch._int_mm(a8, b8.t()), reps=10)
+                line["library"] = "torch._int_mm (cuBLASLt int8 GEMM)"
+                nbytes = xq.numel() + wq.numel() + 4 * o + \
+                    shift.element_size() * (o + got.numel())
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    nbytes, 2.0 * m * shape[3] * o, INT8_TC_OPS_PER_S)
+                results[("conv_int8", line["dtype"])] = line
+            emit(line)
+            if not (ok and again):
+                raise AssertionError(f"conv_int8 {case} {dtype}: {line}")
+            del got, want
+        del xq, wq
+        torch.cuda.empty_cache()
+
+
+def roi_align_int8_ops(kyq, kxq, c):
+    """The integer multiply-adds (2 operations each) that the int8
+    ROIAlign needs for these matrices: a non-zero Kx weight of a row q,
+    times the feature rows that some Ky row weighs on, and a non-zero Ky
+    weight, times the Q bin columns; each for C channels."""
+    rows = (kyq != 0).any(dim=2).sum(dim=-1)          # [B, N]
+    t_taps = ((kxq != 0).sum(dim=-1).sum(dim=-1) * rows).sum()
+    r_taps = (kyq != 0).sum() * kyq.shape[2]
+    return 2.0 * c * float(t_taps + r_taps)
+
+
+def check_roi_align_int8(gen, results):
+    """KQ2 against its plain version, the same bits: the integer core at
+    the static path's shapes (features [8, 50, 84, 1024] bfloat16
+    quantized, 1,000 proposal-sized boxes an image, adaptive sampling),
+    into an output filled with 77; then edge boxes (degenerate and
+    outside the image: exactly 0) and a fixed ratio. Its time and the
+    plain version's; no single PyTorch call computes it."""
+    import torch
+    from locov_torch.ops import roi_align as ra
+    from locov_torch.tools.bench_roi_fwd import proposal_boxes
+    from locov_torch.tools.timing import time_ms
+    scale, pooled, img_h, img_w = 1.0 / 16, 14, 800, 1344
+    f = torch.randn((8, 50, 84, 1024), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    cases = [("main", f, proposal_boxes(gen, 8, 1000, img_h, img_w), 0),
+             ("edges", f[:2, :, :, :256].contiguous(),
+              _edge_boxes(2, img_h, img_w), 0),
+             ("fixed_ratio", f[:2, :, :, :256].contiguous(),
+              proposal_boxes(gen, 2, 100, img_h, img_w), 2)]
+    for case, feats, boxes, sr in cases:
+        amax = feats.float().abs().amax()
+        ops = ra.int8_operands(feats, boxes, scale, amax, amax * 0.6,
+                               pooled, sr)[:5]
+        got = ra._launch_int8(*ops, fill=77)
+        want = ra.roi_align_int8_plain(*ops, chunk=25)
+        ok = bool(torch.equal(got, want))
+        again = bool(torch.equal(ra._launch_int8(*ops), got))
+        line = {"phase": "kernel_check", "kernel": "roi_align_int8",
+                "case": case, "dtype": "int8", "features": list(f.shape),
+                "boxes": list(boxes.shape), "sampling_ratio": sr,
+                "same_bits": ok, "same_bits_two_launches": again,
+                "max_abs_err": float((got.int() - want.int()).abs().max()),
+                "share_saturated": float((got.abs() == 127).float().mean())}
+        if case == "edges":
+            zero = bool((got[:, 2:4] == 0).all() and (got[:, 5] == 0).all())
+            line["degenerate_exact_zero"] = zero
+            ok = ok and zero
+        if case == "main":
+            line["kernel_ms"] = time_ms(lambda: ra.roi_align_int8_cuda(*ops),
+                                        reps=10)
+            line["plain_ms"] = time_ms(
+                lambda: ra.roi_align_int8_plain(*ops, chunk=25), reps=2,
+                warmup=0)
+            line["library_ms"] = None  # no single PyTorch call
+            nbytes = sum(t.numel() * t.element_size() for t in ops) + \
+                got.numel()
+            line["bound_ms"], line["bound_by"] = bound_ms(
+                nbytes, roi_align_int8_ops(ops[1], ops[2], f.shape[3]),
+                INT8_TC_OPS_PER_S)
+            results[("roi_align_int8", "int8")] = line
+        emit(line)
+        if not (ok and again):
+            raise AssertionError(f"roi_align_int8 {case}: {line}")
+        del got, want, ops
+    del f, cases
+    torch.cuda.empty_cache()
+
+
+def _int8_cfg(scheme=None, roialign=True):
+    cfg = _stt_cfg()
+    if scheme:
+        cfg.TPU.INT8_EVAL = True
+        cfg.TPU.INT8_SCHEME = scheme
+        cfg.TPU.INT8_ROIALIGN = roialign
+    return cfg
+
+
+def _box_iou(a, b):
+    """IoU of each box of a [N, 4] with each of b [M, 4] -> [N, M]."""
+    import torch
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = (rb - lt).clamp(min=0).prod(-1)
+    area = (a[:, 2:] - a[:, :2]).clamp(min=0).prod(-1)
+    barea = (b[:, 2:] - b[:, :2]).clamp(min=0).prod(-1)
+    return inter / (area[:, None] + barea[None] - inter).clamp(min=1e-9)
+
+
+def _matched_share(ref, got, iou=INT8_MATCH_IOU):
+    """The share of ``ref``'s detections (the bf16 top 100 of each image)
+    that ``got`` has too: the same class and IoU >= ``iou``."""
+    hit = total = 0
+    for i in range(ref.mask.shape[0]):
+        rm, gm = ref.mask[i], got.mask[i]
+        if not bool(rm.any()):
+            continue
+        total += int(rm.sum())
+        if not bool(gm.any()):
+            continue
+        ious = _box_iou(ref.boxes[i][rm].float(), got.boxes[i][gm].float())
+        same = ref.classes[i][rm][:, None] == got.classes[i][gm][None]
+        hit += int(((ious >= iou) & same).any(dim=1).sum())
+    return hit / max(total, 1)
+
+
+def _box_features(model, batch, int8, boxes):
+    """The box features [B, N, 2048] of ``boxes`` (the bf16 run's
+    proposals) under ``int8``: the trunk and the ROI head of ``model``."""
+    import torch
+    with torch.inference_mode():
+        x = model.preprocess(batch.images)
+        feats = model.backbone(x, int8=int8)["res4"]
+        return model.roi_heads.roi_features(feats, boxes, int8=int8)
+
+
+def int8_small_reference(seed):
+    """The tiny float32 model in each int8 mode (``_tiny_cfg``) on the
+    card (KQ1; KQ2 under static; K2 otherwise) against the CPU (the plain
+    versions), from the same seeded weights, calibrated on each device on
+    the batch where the scheme is static: the share of the CPU's
+    detections that the card's match (the same class, boxes within
+    0.05 px, scores within 5e-3) must be 1."""
+    import numpy as np
+    import torch
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.structures.batches import (DetectionBatch,
+                                                ImageBatch, to_torch)
+    from locov_torch.utils.weights import seeded_init_
+    rng = np.random.RandomState(seed)
+    batch = DetectionBatch(images=ImageBatch(
+        image=(rng.rand(2, 64, 64, 3) * 255).astype(np.float32),
+        hw=np.array([[64, 64], [48, 56]], np.int32),
+        orig_hw=np.array([[128, 128], [96, 112]], np.int32)))
+    ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
+    ce[-1] = 0.0
+    for name, scheme, roialign in INT8_MODES:
+        cfg = _tiny_cfg()
+        cfg.TPU.INT8_EVAL = True
+        cfg.TPU.INT8_SCHEME = scheme
+        cfg.TPU.INT8_ROIALIGN = roialign
+        dets = {}
+        for dev in ("cpu", "cuda"):
+            model = seeded_init_(build_meta_arch(cfg, device="cpu"), seed)
+            with torch.no_grad():
+                model.rpn_head.anchor_deltas.weight.zero_()
+            model.to(dev)
+            b, c = to_torch(batch, dev), _tensors(ce, dev)
+            if scheme == "static":
+                model.calibrate_int8(b, c)
+            kernel_lib.reset_launches()
+            dets[dev] = [x.cpu() for x in model.inference(b, c)]
+            launched = dict(kernel_lib.LAUNCHES)
+        (cb, cs, cc, cm), (gb, gs, gc, gm) = dets["cpu"], dets["cuda"]
+        hit = total = 0
+        score_err = box_err = 0.0
+        for i in range(cm.shape[0]):
+            for j in torch.nonzero(cm[i]).flatten().tolist():
+                total += 1
+                cand = gm[i] & (gc[i] == cc[i, j])
+                if not bool(cand.any()):
+                    continue
+                d_box = (gb[i] - cb[i, j]).abs().amax(-1)
+                d_score = (gs[i] - cs[i, j]).abs()
+                k = int(torch.argmin(torch.where(cand, d_box + d_score,
+                                                 torch.full_like(d_box,
+                                                                 1e9))))
+                if d_box[k] <= INT8_TINY_BOX_TOL and \
+                        d_score[k] <= INT8_TINY_SCORE_TOL:
+                    hit += 1
+                    box_err = max(box_err, float(d_box[k]))
+                    score_err = max(score_err, float(d_score[k]))
+        kernels = ["conv_int8", "relu_maxpool",
+                   "roi_align_int8" if name == "static" else
+                   "roi_align_fused"]
+        line = {"phase": "int8_small_reference", "mode": name,
+                "detections": total, "matched_share": hit / max(total, 1),
+                "same_mask": bool(torch.equal(cm, gm)),
+                "max_matched_box_err_px": box_err,
+                "max_matched_score_err": score_err,
+                "gpu_launches": {k: launched[k] for k in kernels}}
+        emit(line)
+        if not (total > 0 and hit == total and
+                all(launched[k] > 0 for k in kernels)):
+            raise AssertionError(f"int8 small reference {name}: {line}")
+
+
+def _run_eval_cli(flags, opts, log):
+    """``locov_torch.train_ovnet.main`` with ``--eval-only`` on ``flags``
+    and ``opts``, its prints to ``log``, the dataset catalogs cleared
+    first. Returns (results, seconds)."""
+    import contextlib
+    import torch
+    from locov_torch import train_ovnet
+    from locov_torch.data import DatasetCatalog, MetadataCatalog
+    for name in list(DatasetCatalog._registry):
+        DatasetCatalog.remove(name)
+    for name in list(MetadataCatalog._store):
+        MetadataCatalog.remove(name)
+    args = train_ovnet.default_argument_parser().parse_args(
+        flags + ["--eval-only"] + opts)
+    t0 = time.perf_counter()
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        results = train_ovnet.main(args)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def int8_eval_cli(weights, workdir, bf16_images_per_s):
+    """Evaluation through the CLI twin: ``train_ovnet --eval-only`` with
+    configs/coco_stt.yaml in bfloat16 and ``TPU.INT8_EVAL True
+    TPU.INT8_SCHEME static`` from a checkpoint without the max-abs
+    buffers (``weights``), on the eval path's tree (``write_coco_val``'s
+    256 JPEGs, TEST.IMS_PER_BATCH 8): ``test`` calibrates first on
+    ``INT8_CALIB_BATCHES`` batches (its seconds timed by wrapping
+    ``maybe_calibrate_int8``), then evaluates. Launch counts zeroed just
+    before and read just after: K1-fwd, KQ1 and KQ2 must launch (and K2,
+    in the calibration's float ROIAlign)."""
+    import torch
+    from locov_torch.config import config_path
+    from locov_torch.engine import trainer as trainer_mod
+    from locov_torch.ops import kernel_lib
+    calib = {}
+    orig = trainer_mod.maybe_calibrate_int8
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = orig(*a, **k)
+        torch.cuda.synchronize()
+        calib.setdefault("runs", []).append(
+            {"calibrated": done, "seconds": time.perf_counter() - t0})
+        return done
+    trainer_mod.maybe_calibrate_int8 = timed
+    out = os.path.join(workdir, "int8_eval")
+    opts = ["DATASETS.ROOT", os.path.join(workdir, "coco"),
+            "DATASETS.TRAIN", f"('{EVAL_DATASET}',)",
+            "DATASETS.TEST", f"('{EVAL_DATASET}',)",
+            "TEST.IMS_PER_BATCH", "8", "SOLVER.IMS_PER_BATCH", "8",
+            "TPU.IMAGE_BUCKETS", "()", "TPU.PREFETCH_BATCHES", "0",
+            "TPU.COMPUTE_DTYPE", "bfloat16", "MODEL.WEIGHTS", weights,
+            "TPU.INT8_EVAL", "True", "TPU.INT8_SCHEME", "static",
+            "OUTPUT_DIR", out]
+    kernel_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        results, secs = _run_eval_cli(
+            ["--config-file", config_path("coco_stt.yaml")], opts,
+            os.path.join(workdir, "int8_eval.log"))
+    finally:
+        trainer_mod.maybe_calibrate_int8 = orig
+    launches = dict(kernel_lib.LAUNCHES)
+    res = results[EVAL_DATASET]
+    line = {"phase": "int8_eval_cli", "config": "configs/coco_stt.yaml",
+            "dtype": "bfloat16", "scheme": "static", "int8_roialign": True,
+            "dataset": EVAL_DATASET, "batch": 8,
+            "calibration": calib.get("runs"),
+            "calib_batches": INT8_CALIB_BATCHES,
+            "ap": {k: res.get(k) for k in EVAL_AP_KEYS},
+            "images_per_second": res["images_per_second"],
+            "bf16_eval_path_images_per_second": bf16_images_per_s,
+            "seconds": secs, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    runs = calib.get("runs") or []
+    ok = (all(math.isfinite(res[k]) and 0 <= res[k] <= 100
+              for k in EVAL_AP_KEYS) and len(runs) == 1 and
+          runs[0]["calibrated"] and
+          all(launches[k] > 0 for k in ("relu_maxpool", "conv_int8",
+                                        "roi_align_int8")))
+    if not ok:
+        raise AssertionError(f"int8 eval through the CLI failed: {line}")
+    return launches
+
+
+def int8_serving(model, seed, workdir):
+    """The calibrated static int8 model (full-int8 ROIAlign) saved as a
+    checkpoint, exported by the export twin at batch 8, 800 x 1344, and
+    served in a fresh process (``serve_fresh``: KQ1 and KQ2 launched);
+    here the loaded program against eager ``model.inference`` on the same
+    inputs (the same bits), and the ms a batch of each, 5 in turns."""
+    import subprocess
+    import torch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.serving import load_exported
+    from locov_torch.structures.batches import DetectionBatch, ImageBatch
+    from locov_torch.tools import export_serving
+    here = os.path.dirname(os.path.abspath(__file__))
+    weights = os.path.join(workdir, "stt_int8_calibrated")
+    torch.save({"model": model.state_dict()}, weights)
+    out = os.path.join(workdir, "stt_int8_serving")
+    t0 = time.perf_counter()
+    export_serving.main([
+        "--config-file", os.path.join(here, "configs", "coco_stt.yaml"),
+        "--weights", weights, "--out", out, "--batch", str(SERVING_BATCH),
+        "--height", "800", "--width", "1344", "TPU.COMPUTE_DTYPE",
+        "bfloat16", "MODEL.WEIGHTS", "''", "TPU.INT8_EVAL", "True",
+        "TPU.INT8_SCHEME", "static"])
+    export_s = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=here)
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.serve_fresh(sys.argv[1], int(sys.argv[2]))", out,
+         str(seed)], capture_output=True, text=True, env=env, cwd=here,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"int8 serving consumer failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    call, variables, class_emb = load_exported(out)
+    args = [torch.from_numpy(a).cuda() for a in _serving_inputs(seed)]
+    batch = DetectionBatch(images=ImageBatch(*args))
+    kernel_lib.reset_launches()
+    got = call(variables, *args, class_emb)
+    torch.cuda.synchronize()
+    launches = dict(kernel_lib.LAUNCHES)
+    want = dict(zip(("boxes", "scores", "classes", "mask"),
+                    model.inference(batch, class_emb)))
+    same = {k: bool(torch.equal(got[k], want[k].to(got[k].dtype)))
+            for k in want}
+    times = {"exported": [], "eager": []}
+    for _ in range(SERVING_TURNS):
+        for name, run in (("exported",
+                           lambda: call(variables, *args, class_emb)),
+                          ("eager",
+                           lambda: model.inference(batch, class_emb))):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    models = [m for m in fresh["modules"]
+              if m.startswith("locov_torch.models")]
+    line = {"phase": "int8_serving", "config": "configs/coco_stt.yaml",
+            "dtype": "bfloat16", "scheme": "static", "batch": SERVING_BATCH,
+            "export_s": export_s,
+            "amax_variables": sum(k.endswith("amax") for k in variables),
+            "fresh": {k: fresh[k] for k in ("launches", "load_s",
+                                            "first_ms", "ms", "finite",
+                                            "kept")},
+            "fresh_model_modules": models, "same_bits": same,
+            "detections_kept": int(want["mask"].sum()),
+            "ms_per_batch": {k: statistics.median(v)
+                             for k, v in times.items()},
+            "ms_all": times, "launches": launches}
+    emit(line)
+    ok = (not models and fresh["finite"] and all(same.values()) and
+          line["amax_variables"] == 54 and
+          all(fresh["launches"][k] > 0 and launches[k] > 0
+              for k in ("relu_maxpool", "conv_int8", "roi_align_int8")))
+    if not ok:
+        raise AssertionError(f"int8 serving check failed: {line}")
+
+
+def int8_path(gen, seed, workdir, bf16_images_per_s):
+    """The int8 serving mode at full width: configs/coco_stt.yaml in
+    bfloat16, batch 8 of 800 x 1344 (valid 800 x 1312, original 640 x
+    640), a [66, 768] class-embedding matrix, seeded weights at a trained
+    scale. The bf16 model and three int8 ones with its weights: the
+    dynamic scheme, and the static one with the full-int8 ROIAlign (KQ2)
+    and with the float ROIAlign (K2) quantized after it, both calibrated
+    by ``make_calibrate_step`` on ``INT8_CALIB_BATCHES`` seeded batches
+    (seconds). On another seeded batch, for each mode: one run with the
+    launch counts zeroed just before and read just after (K1-fwd and KQ1
+    must launch, and KQ2 or K2 by mode) under ``KernelShapes``, its peak
+    memory, then ``INT8_TURNS`` batches of each model in turns (median
+    ms), one profile (device busy ms), the box features of the bf16
+    run's proposals against bf16's (mean relative error) and the share
+    of bf16's top-100 detections it keeps (same class, IoU >= 0.9).
+    Every KQ1, KQ2, K1 and K2 signature the modes launched is then held
+    to its plain version (``check_path_shapes``). Then the tiny int8
+    model card against CPU, the evaluation through the CLI twin on the
+    eval path's tree, and export and serving of the calibrated static
+    model. Returns the three modes' launches, summed, and the CLI
+    evaluation's."""
+    import numpy as np
+    import torch
+    from locov_torch.models import build_meta_arch
+    from locov_torch.models.rpn import select_proposals
+    from locov_torch.ops import kernel_lib
+    from locov_torch.parallel.mesh import make_calibrate_step
+    from locov_torch.structures.batches import (DetectionBatch, ImageBatch,
+                                                to_torch)
+    from locov_torch.utils.checkpoint import merge_over_template
+    from locov_torch.utils.weights import seeded_init_, trained_scale_
+
+    def images(s):
+        image, hw, orig = _serving_inputs(s)
+        return to_torch(DetectionBatch(images=ImageBatch(
+            image=image, hw=hw, orig_hw=orig)), "cuda")
+    t0 = time.perf_counter()
+    bf16 = trained_scale_(seeded_init_(build_meta_arch(_int8_cfg()), seed))
+    state = bf16.state_dict()
+    models = {"bf16": bf16}
+    for name, scheme, roialign in INT8_MODES:
+        m = build_meta_arch(_int8_cfg(scheme, roialign))
+        m.load_state_dict(merge_over_template(m.state_dict(), state),
+                          strict=True)
+        models[name] = m
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed)
+    class_emb = torch.from_numpy(
+        rng.randn(66, 768).astype(np.float32)).cuda()
+    calib = [images(seed + 100 + i) for i in range(INT8_CALIB_BATCHES)]
+    step = make_calibrate_step(models["static"])
+    step(calib[0], class_emb)  # warm-up (cuDNN plans): recalibrated below
+    for buf in models["static"].amax_buffers().values():
+        buf.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in calib:
+        amax = step(b, class_emb)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    models["static_float_roialign"].load_state_dict(
+        models["static"].state_dict(), strict=True)
+    amax_vals = [float(v) for v in amax.values()]
+    del calib
+    batch = images(seed)
+    for m in models.values():
+        m.inference(batch, class_emb)  # warm-up
+    torch.cuda.synchronize()
+
+    dets, launches, peaks, seen = {}, {}, {}, {}
+    for name, m in models.items():
+        torch.cuda.reset_peak_memory_stats()
+        kernel_lib.reset_launches()
+        with KernelShapes() as shapes:
+            dets[name] = m.inference(batch, class_emb)
+            torch.cuda.synchronize()
+        launches[name] = dict(kernel_lib.LAUNCHES)
+        shapes.check_counts(launches[name])
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name != "bf16":
+            for key, n in shapes.seen.items():
+                seen[key] = seen.get(key, 0) + n
+    times = {name: [] for name in models}
+    for _ in range(INT8_TURNS):
+        for name, m in models.items():
+            t0 = time.perf_counter()
+            m.inference(batch, class_emb)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    busy = {}
+    for name, m in models.items():
+        prof = profile_run(f"int8_{name}_profile",
+                           lambda: m.inference(batch, class_emb), ms[name])
+        busy[name] = prof["device_busy_ms"]
+
+    with torch.inference_mode():
+        x = bf16.preprocess(batch.images)
+        anchors, logits, deltas = bf16.run_rpn(bf16.backbone(x)["res4"])
+        props = select_proposals(anchors, logits, deltas,
+                                 batch.images.hw, bf16.rpn_cfg)
+    ref_feats = _box_features(bf16, batch, False, props.boxes).float()
+    valid = props.mask[..., None]
+    denom = float((ref_feats.abs() * valid).sum())
+    kernels_of = {"dynamic": "roi_align_fused", "static": "roi_align_int8",
+                  "static_float_roialign": "roi_align_fused"}
+    total = {k: 0 for k in kernel_lib.LAUNCHES}
+    ok = True
+    for name, _, _ in INT8_MODES:
+        feats = _box_features(models[name], batch, models[name]._int8_mode(),
+                              props.boxes).float()
+        rel = float(((feats - ref_feats).abs() * valid).sum()) / denom
+        d = dets[name]
+        finite = bool(torch.isfinite(d.boxes).all() and
+                      torch.isfinite(d.scores).all())
+        need = ("relu_maxpool", "conv_int8", kernels_of[name])
+        line = {"phase": "int8_path", "mode": name,
+                "config": "configs/coco_stt.yaml", "dtype": "bfloat16",
+                "batch": 8, "image": [800, 1344],
+                "ms_per_batch": ms[name], "bf16_ms_per_batch": ms["bf16"],
+                "ms_all": times[name], "bf16_ms_all": times["bf16"],
+                "device_busy_ms": busy[name],
+                "bf16_device_busy_ms": busy["bf16"],
+                "peak_mem_gib": peaks[name], "bf16_peak_mem_gib":
+                peaks["bf16"], "box_feature_mean_rel_err": rel,
+                "bf16_top100_matched": _matched_share(dets["bf16"], d),
+                "detections_kept": int(d.mask.sum()), "finite": finite,
+                "launches": launches[name]}
+        if name == "static":
+            line.update(calibration_s=calib_s,
+                        calib_batches=INT8_CALIB_BATCHES,
+                        amax_buffers=len(amax_vals),
+                        amax_min=min(amax_vals), amax_max=max(amax_vals),
+                        build_s=build_s)
+        emit(line)
+        ok = ok and finite and all(launches[name][k] > 0 for k in need)
+        for k in total:
+            total[k] += launches[name][k]
+    if not (ok and min(amax_vals) > 0):
+        raise AssertionError("int8 path: a mode failed its checks")
+    static = models["static"]
+    del models, dets, ref_feats, feats, props, batch, bf16
+    torch.cuda.empty_cache()
+    check_path_shapes(gen, seen, "int8")
+    int8_small_reference(seed)
+    weights = os.path.join(workdir, "stt_seed_int8")
+    torch.save({"model": state}, weights)
+    del state
+    eval_launches = int8_eval_cli(weights, workdir, bf16_images_per_s)
+    int8_serving(static, seed, workdir)
+    del static
+    torch.cuda.empty_cache()
+    return total, eval_launches
+
+
 class KernelShapes:
     """While a path runs: how many launches each of K1-fwd, K1-bwd,
-    K2/K3-fwd and K3-bwd made at each signature (the dtype and shapes of
-    its tensors, its other arguments), read by wrapping the four
-    wrappers that the ``locov::`` ops' CUDA implementations call (by
-    their module's name, at call time). ``check_counts`` holds the sums against the launch
-    counts, so that no launch of the path went past the wrappers."""
+    K2/K3-fwd, K3-bwd, KQ1 and KQ2 made at each signature (the dtype and
+    shapes of its tensors, its other arguments), read by wrapping the
+    six wrappers that the ``locov::`` ops' CUDA implementations call (by
+    their module's name, at call time). ``check_counts`` holds the sums
+    against the launch counts, so that no launch of the path went past
+    the wrappers."""
 
     def __enter__(self):
+        from locov_torch.ops import int8_conv as iq
         from locov_torch.ops import kernel_lib
         from locov_torch.ops import relu_maxpool as rp
         from locov_torch.ops import roi_align as ra
@@ -3937,6 +4563,13 @@ class KernelShapes:
              sampling_ratio=2: (dt(g), (g.shape[0], h, w, g.shape[-1]),
                                 boxes.shape[1], float(spatial_scale),
                                 pooled, int(sampling_ratio)))
+        wrap(iq, "conv_int8_cuda", "conv_int8",
+             lambda xq, wq, scale, shift, stride, pad, relu: (
+                 dt(shift), tuple(xq.shape), tuple(wq.shape), int(stride),
+                 int(pad), bool(relu)))
+        wrap(ra, "roi_align_int8_cuda", "roi_align_int8",
+             lambda fq, kyq, kxq, sx, rescale: (
+                 "int8", tuple(fq.shape), kyq.shape[1], kyq.shape[2]))
         return self
 
     def __exit__(self, *exc):
@@ -3944,12 +4577,50 @@ class KernelShapes:
             setattr(mod, attr, orig)
 
     def check_counts(self, launches):
-        per = {k: 0 for k in TRAIN_KERNELS}
+        per = {k: 0 for k in TRAIN_KERNELS + ("conv_int8",
+                                               "roi_align_int8")}
         for key, n in self.seen.items():
             per[key[0]] += n
         if any(per[k] != launches[k] for k in per):
             raise AssertionError(f"launches past the wrappers: seen {per}, "
                                  f"counted {launches}")
+
+
+def _check_int8_shape(gen, key):
+    """KQ1 or KQ2 at one ``KernelShapes`` signature on fresh inputs
+    against its plain version: (same bits, largest difference)."""
+    import torch
+    from locov_torch.ops import int8_conv as iq
+    from locov_torch.ops import roi_align as ra
+    from locov_torch.tools.bench_roi_fwd import proposal_boxes
+    if key[0] == "conv_int8":
+        _, dt, xshape, wshape, stride, pad, relu = key
+        xq = torch.randint(-127, 128, xshape, generator=gen,
+                           device="cuda").to(torch.int8)
+        wq = torch.randint(-127, 128, wshape, generator=gen,
+                           device="cuda").to(torch.int8)
+        o = wshape[0]
+        scale = torch.rand(o, generator=gen, device="cuda") * 1e-3
+        shift = torch.randn(o, generator=gen, device="cuda").to(
+            getattr(torch, dt))
+        got = iq._launch(xq, wq, scale, shift, stride, pad, relu,
+                         fill=math.nan)
+        want = torch.cat([iq.conv_int8_plain(xq[i:i + 1000], wq, scale,
+                                             shift, stride, pad, relu)
+                          for i in range(0, xshape[0], 1000)])
+        ok = _same_bits(got, want)
+        return ok, float((got.float() - want.float()).abs()
+                         .nan_to_num(math.inf).max())
+    _, _, fshape, n, p = key
+    b, h, w, c = fshape
+    f = torch.randn(fshape, generator=gen, device="cuda").to(torch.bfloat16)
+    boxes = proposal_boxes(gen, b, n, h * 16, w * 16)
+    amax = f.float().abs().amax()
+    ops = ra.int8_operands(f, boxes, 1.0 / 16, amax, amax * 0.6, p, 0)[:5]
+    got = ra._launch_int8(*ops, fill=77)
+    want = ra.roi_align_int8_plain(*ops, chunk=25)
+    return bool(torch.equal(got, want)), \
+        float((got.int() - want.int()).abs().max())
 
 
 def check_path_shapes(gen, seen, path):
@@ -3958,9 +4629,11 @@ def check_path_shapes(gen, seen, path):
     against its plain version with phase 2's tolerances: K1-fwd
     bit-exact; K1-bwd (into a NaN-filled dx) bit-exact in float32, in
     bfloat16 within one ulp with NaN in the same places; K2/K3-fwd
-    ``_roi_fwd_within``; K3-bwd ``_roi_bwd_within``. ROIAlign's boxes
-    are training boxes (``train_boxes``: 20 gt-sized a batch row, or all
-    of them where there are fewer) over the image the features cover.
+    ``_roi_fwd_within``; K3-bwd ``_roi_bwd_within``; KQ1 (random int8
+    operands, into a NaN-filled output) and KQ2 (on proposal-sized
+    boxes, adaptive sampling) the same bits. ROIAlign's boxes are
+    training boxes (``train_boxes``: 20 gt-sized a batch row, or all of
+    them where there are fewer) over the image the features cover.
     Runs after the path's counts are read."""
     import torch
     from locov_torch.ops.relu_maxpool import (_launch_bwd,
@@ -3978,6 +4651,17 @@ def check_path_shapes(gen, seen, path):
         line = {"phase": "kernel_check", "kernel": kernel,
                 "case": f"{path}_path", "dtype": dt, "shape": list(shape),
                 "path_launches": seen[key]}
+        if kernel in ("conv_int8", "roi_align_int8"):
+            ok, err = _check_int8_shape(gen, key)
+            line.update(signature=[list(v) if isinstance(v, tuple) else v
+                                   for v in key[3:]],
+                        max_abs_err=err, same_bits=ok, within_tolerance=ok)
+            emit(line)
+            if not ok:
+                raise AssertionError(f"{kernel} at a {path} path shape: "
+                                     f"{line}")
+            torch.cuda.empty_cache()
+            continue
         if kernel.startswith("relu_maxpool"):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         if kernel == "relu_maxpool":
@@ -4085,6 +4769,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_roi_align_lsm(gen)
     torch.cuda.empty_cache()
+    check_conv_int8(gen, results)
+    check_roi_align_int8(gen, results)
     small_reference(args.seed)
     small_reference_train(args.seed)
     small_reference_lsm(args.seed)
@@ -4099,7 +4785,10 @@ def main(argv=None) -> int:
     paths["lsm"] = lsm_path(args.seed)
     torch.cuda.empty_cache()
     try:
-        paths["eval"] = eval_path(args.seed, workdir)
+        paths["eval"], eval_ips = eval_path(args.seed, workdir)
+        torch.cuda.empty_cache()
+        paths["int8"], paths["int8_eval"] = int8_path(gen, args.seed,
+                                                      workdir, eval_ips)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4151,7 +4840,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[path][name],
             "launches_path": path,
-            "launches_by_path": {k: v[name] for k, v in paths.items()},
+            "launches_by_path": {k: v.get(name, 0)
+                                 for k, v in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4163,6 +4853,23 @@ def main(argv=None) -> int:
             "f32_library_ms": results[(check, "float32")]["library_ms"],
             **({"ref_chain_ms": r["ref_chain_ms"]} if "ref_chain_ms" in r
                else {})})
+    for name, source, replaces, path, dtype in INT8_KERNEL_ROWS:
+        r = results[(name, dtype)]
+        f32 = results.get((name, "float32"), {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": paths[path][name],
+            "launches_path": path,
+            "launches_by_path": {k: v.get(name, 0)
+                                 for k, v in paths.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": dtype, "shape": r.get("shape") or r.get("features"),
+            "f32_ms": f32.get("kernel_ms"),
+            "f32_plain_ms": f32.get("plain_ms"),
+            "f32_bound_ms": f32.get("bound_ms"),
+            "f32_library_ms": f32.get("library_ms")})
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

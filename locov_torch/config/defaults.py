@@ -356,27 +356,24 @@ def get_default_cfg() -> CN:
     # the JAX package's training ROIAlign as a Pallas kernel (same
     # interpolation weights as the matmul formulation)
     _C.TPU.USE_PALLAS_ROIALIGN = False
-    # opt-in int8 serving mode: trunk (res2-res4) + res5 convs run
-    # int8 x int8 -> int32 on the MXU at inference (dynamic per-tensor
-    # activation scales, per-channel BN-folded weight scales — the JAX
-    # package's ops/int8_conv.py). Training is untouched. Not ported yet.
+    # opt-in int8 serving mode: the trunk's (res2-res4) and res5's convs
+    # run int8 x int8 -> int32 at inference (per-tensor activation
+    # scales, per-channel BN-folded weight scales; ops/int8_conv.py, the
+    # kernel csrc/conv_int8.cu). Training is untouched.
     _C.TPU.INT8_EVAL = False
     # activation-scale scheme for INT8_EVAL: "dynamic" computes
     # per-tensor maxima on the fly (data-free); "static" uses maxima
-    # calibrated by OvrRCNN.calibrate_int8 (mutable "quant"
-    # collection), letting the quantize fuse into producer epilogues
+    # calibrated by OvrRCNN.calibrate_int8 (the models' max-abs buffers)
     _C.TPU.INT8_SCHEME = "dynamic"
     # batches of the test loader used to calibrate the static scheme's
-    # activation maxima (OVRTrainer calibrates automatically before the
-    # first eval pass; the quant collection then persists in params and
-    # checkpoints)
+    # activation maxima (engine/trainer.py:test calibrates before a
+    # dataset's first pass; the buffers then ride in checkpoints)
     _C.TPU.INT8_CALIB_BATCHES = 4
-    # with INT8_SCHEME="static": run ROIAlign itself int8 x int8 (the
-    # [B,chunk,Q,H,C] chunk intermediate is written to HBM as int8,
-    # halving this HBM-bound op's dominant traffic; interpolation
-    # weights quantize per-row — ops/roi_align.py
-    # roi_align_batched_int8). Off = bf16 interpolation with the fused
-    # int8 output epilogue (roi_align_batched_quant).
+    # with INT8_SCHEME="static": run ROIAlign itself int8 x int8
+    # (ops/roi_align.py:roi_align_batched_int8, the kernel
+    # csrc/roi_align_int8.cu; interpolation weights quantized per row).
+    # Off = the float ROIAlign, its output quantized
+    # (roi_align_batched_quant).
     _C.TPU.INT8_ROIALIGN = True
     # depth of the host->device input pipeline (DevicePrefetcher);
     # 0 disables prefetch (batches transfer synchronously in run_step)

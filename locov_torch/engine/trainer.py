@@ -43,9 +43,9 @@ from ..evaluation.evaluator import (inference_on_caption_dataset,
                                     inference_on_detection_dataset,
                                     select_evaluator_type)
 from ..models import build_meta_arch
-from ..parallel.mesh import (DevicePrefetcher, make_eval_step,
-                             make_loss_eval_step, make_train_step,
-                             process_rank_world)
+from ..parallel.mesh import (DevicePrefetcher, make_calibrate_step,
+                             make_eval_step, make_loss_eval_step,
+                             make_train_step, process_rank_world)
 from ..structures.batches import to_torch
 from ..utils.checkpoint import (STT_FROM_LSM_RENAME, Checkpointer,
                                 load_weights_standalone,
@@ -136,13 +136,51 @@ def load_embeddings(cfg, dataset_name: str, device=None) -> torch.Tensor:
     return torch.from_numpy(np.asarray(mtx)).to(resolve_device(device))
 
 
-def check_supported(cfg) -> None:
-    """Raise, citing the ROADMAP item, where JAX would run something the
-    port does not have: the int8 serving mode (item 9)."""
-    if cfg.TPU.INT8_EVAL:
-        raise NotImplementedError(
-            "TPU.INT8_EVAL: the int8 serving mode is not ported yet "
-            "(ROADMAP queue 1, item 9)")
+def maybe_calibrate_int8(cfg, model: torch.nn.Module, dataset_name: str,
+                         class_emb: torch.Tensor,
+                         tokenizer: Optional[WordPieceTokenizer] = None,
+                         needs_text: bool = False) -> bool:
+    """The static int8 scheme's calibration before a dataset's first
+    inference pass (JAX's ``OVRTrainer._maybe_calibrate_int8``): with
+    ``TPU.INT8_EVAL`` and ``TPU.INT8_SCHEME`` static, unless every
+    max-abs buffer of the model is already positive (calibrated in this
+    process or restored from a checkpoint; one that a checkpoint lacked
+    keeps its zero init, so it recalibrates), ``make_calibrate_step``
+    over ``TPU.INT8_CALIB_BATCHES`` batches of the dataset's test loader
+    (on several ranks, as many as the rank with the fewest has).
+    A model without the buffers (one built otherwise, or an image-caption
+    model, which JAX's ``hasattr(model, "calibrate_int8")`` skips) is
+    left alone. Returns whether it calibrated."""
+    if not (cfg.TPU.INT8_EVAL and cfg.TPU.INT8_SCHEME == "static"):
+        return False
+    amax = getattr(model, "amax_buffers", dict)()
+    if not amax or bool(torch.stack(list(amax.values())).min() > 0):
+        return False
+    n = max(1, cfg.TPU.INT8_CALIB_BATCHES)
+    batches = []
+    loader = build_test_loader(cfg, dataset_name, tokenizer, needs_text)
+    try:
+        for batch in loader:
+            if len(batches) >= n:
+                break
+            batches.append(batch)
+    finally:
+        loader.close()
+    # every rank runs the same number of passes: each max-abs is
+    # all-reduced where it is recorded, and a rank's shard may hold
+    # fewer batches than another's
+    n = len(batches)
+    if process_rank_world()[1] > 1:
+        count = torch.tensor([n], device=class_emb.device)
+        torch.distributed.all_reduce(count,
+                                     op=torch.distributed.ReduceOp.MIN)
+        n = int(count)
+    logger.info("Calibrating int8 activation scales on %d batches of "
+                "%s...", n, dataset_name)
+    step = make_calibrate_step(model)
+    for batch in batches[:n]:
+        step(batch, class_emb)
+    return True
 
 
 def test(cfg, model: torch.nn.Module, device=None,
@@ -156,10 +194,9 @@ def test(cfg, model: torch.nn.Module, device=None,
     default one seeded from ``cfg.SEED``); then, but for 'ovr', the eval
     step, the COCO or LVIS summary and the seen/unseen AP50, over the
     test loader or, with ``TEST.AUG.ENABLED``, over one loader per
-    test-time augmentation merged by ``evaluation/tta.py``.
-    Returns {dataset: results}. Raises where JAX would run what the
-    port does not have yet (``check_supported``)."""
-    check_supported(cfg)
+    test-time augmentation merged by ``evaluation/tta.py``. Under the
+    static int8 scheme the model is calibrated first
+    (``maybe_calibrate_int8``). Returns {dataset: results}."""
     needs_text = cfg.MODEL.META_ARCHITECTURE in LSM_ARCHS
     tokenizer = build_tokenizer(cfg) if needs_text else None
     eval_step = make_eval_step(model)
@@ -171,6 +208,8 @@ def test(cfg, model: torch.nn.Module, device=None,
                                    needs_text)
         try:
             class_emb = load_embeddings(cfg, dataset_name, device)
+            maybe_calibrate_int8(cfg, model, dataset_name, class_emb,
+                                 tokenizer, needs_text)
             res = {}
             if etype in ("ovr", "loss_and_coco", "loss_and_lvis") and \
                     cfg.TEST.DO_EVAL and loss_step is not None:
@@ -269,7 +308,6 @@ class OVRTrainer:
         cfg = auto_scale_workers(cfg, self.world)
         self.cfg = cfg
         self.device = resolve_device(device)
-        check_supported(cfg)
         if cfg.TPU.DEBUG_NANS:
             enable_nan_debugging()
         self.is_lsm = cfg.MODEL.META_ARCHITECTURE in LSM_ARCHS

@@ -10,6 +10,11 @@ embedding classifier -> fast_rcnn_inference -> rescale to the original
 image size. Static padded batches throughout. Each stage runs in a
 ``torch.profiler.record_function`` range named ``OvrRCNN.<stage>``, so
 a profile splits a step or a batch by stage.
+
+``TPU.INT8_EVAL`` (inference only) runs the trunk's res2 .. res4 and the
+ROI head's res5 in int8 under ``TPU.INT8_SCHEME``: "dynamic" scales, or
+"static" ones that ``calibrate_int8`` records over a few batches first
+(``models/resnet.py``, ``models/roi_heads.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch.profiler import record_function
 
 from ...structures import boxes as box_ops
 from ...structures.batches import DetectionBatch, Detections, ImageBatch
+from ...utils.checkpoint import is_amax_key
 from ...utils.device import resolve_device
 from .. import register_meta_arch
 from ..box_predictor import BoxPredictorConfig, fast_rcnn_inference_batched
@@ -84,7 +90,10 @@ def detector_kwargs(cfg) -> dict:
 @register_meta_arch("OvrRCNN")
 class OvrRCNN(nn.Module):
     """Submodules carry the Flax scope names: ``backbone``,
-    ``rpn_head``, ``roi_heads``."""
+    ``rpn_head``, ``roi_heads``. ``int8_eval`` and ``int8_scheme``
+    (``TPU.INT8_EVAL``, ``TPU.INT8_SCHEME``) set the int8 mode of
+    ``inference``; under the static scheme the model holds the
+    calibrated max-abs buffers (zero until ``calibrate_int8``)."""
 
     def __init__(self, depth: int, num_groups: int, width_per_group: int,
                  stem_out_channels: int, res2_out_channels: int,
@@ -94,8 +103,14 @@ class OvrRCNN(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  use_rpn: bool = True, freeze_at: int = 0,
                  remat_backbone: bool = False, emb_pred: bool = True,
+                 int8_eval: bool = False, int8_scheme: str = "dynamic",
                  device=None):
         super().__init__()
+        if int8_scheme not in ("dynamic", "static"):
+            raise ValueError(f"TPU.INT8_SCHEME {int8_scheme!r}: 'dynamic' "
+                             f"or 'static'")
+        self.int8_eval, self.int8_scheme = int8_eval, int8_scheme
+        int8_static = int8_eval and int8_scheme == "static"
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
         self.rpn_cfg, self.rcfg, self.pcfg = rpn_cfg, rcfg, pcfg
@@ -107,7 +122,8 @@ class OvrRCNN(nn.Module):
             stem_out_channels=stem_out_channels,
             res2_out_channels=res2_out_channels,
             stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype,
-            freeze_at=freeze_at, remat=remat_backbone)
+            freeze_at=freeze_at, remat=remat_backbone,
+            int8_amax=int8_static)
         if use_rpn:
             self.rpn_head = RPNHead(
                 in_channels=res2_out_channels * 4,
@@ -117,12 +133,13 @@ class OvrRCNN(nn.Module):
             rcfg, pcfg, stride_in_1x1=stride_in_1x1,
             res2_out_channels=res2_out_channels, num_groups=num_groups,
             width_per_group=width_per_group, compute_dtype=compute_dtype,
-            emb_pred=emb_pred)
+            emb_pred=emb_pred, int8_static=int8_static)
         self.to(resolve_device(device))
 
     @classmethod
     def from_cfg(cls, cfg, device=None):
-        return cls(**detector_kwargs(cfg), device=device)
+        return cls(**detector_kwargs(cfg), int8_eval=cfg.TPU.INT8_EVAL,
+                   int8_scheme=cfg.TPU.INT8_SCHEME, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -206,16 +223,44 @@ class OvrRCNN(nn.Module):
                                            self.pcfg, global_batch))
         return losses
 
+    def _int8_mode(self):
+        return self.int8_scheme if self.int8_eval else False
+
+    def amax_buffers(self) -> Dict[str, torch.Tensor]:
+        """The static int8 scheme's calibrated max-abs buffers by
+        ``state_dict`` name (none unless the model was built for it)."""
+        return {k: v for k, v in self.named_buffers() if is_amax_key(k)}
+
     @torch.inference_mode()
     def inference(self, batch: DetectionBatch,
                   class_emb: torch.Tensor) -> Detections:
         """Detections for one padded batch; ``class_emb`` is the
         [K+1, D] class-embedding matrix (last row background)."""
+        return self._inference(batch, class_emb, self._int8_mode())
+
+    @torch.no_grad()
+    def calibrate_int8(self, batch: DetectionBatch,
+                       class_emb: torch.Tensor) -> Detections:
+        """One calibration pass of the static int8 scheme: the inference
+        with each calibrated max-abs first raised to what this batch shows
+        and then used as the scale (after one pass from zero, the dynamic
+        scales of the batch). The buffers are written in place under
+        ``no_grad``: one written under ``inference_mode`` would become an
+        inference tensor, which export and later in-place updates refuse.
+        Run it on a few representative batches before ``inference``."""
+        if not self.amax_buffers():
+            raise ValueError("calibrate_int8: the model was not built for "
+                             "the static int8 scheme (TPU.INT8_EVAL True, "
+                             "TPU.INT8_SCHEME static)")
+        return self._inference(batch, class_emb, "calibrate")
+
+    def _inference(self, batch: DetectionBatch, class_emb: torch.Tensor,
+                   int8) -> Detections:
         images = batch.images
         with record_function("OvrRCNN.preprocess"):
             x = self.preprocess(images)
         with record_function("OvrRCNN.backbone"):
-            features = self.backbone(x)["res4"]
+            features = self.backbone(x, int8=int8)["res4"]
         if self.use_rpn:
             with record_function("OvrRCNN.rpn_head"):
                 anchors, logits, deltas = self.run_rpn(features)
@@ -226,7 +271,8 @@ class OvrRCNN(nn.Module):
             proposals = _require_proposals(batch)
         with record_function("OvrRCNN.roi_features"):
             box_feats = self.roi_heads.roi_features(features,
-                                                    proposals.boxes)
+                                                    proposals.boxes,
+                                                    int8=int8)
         with record_function("OvrRCNN.predict"):
             scores, deltas2 = self.roi_heads.predict(box_feats.float(),
                                                      class_emb.float())

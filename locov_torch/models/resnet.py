@@ -9,17 +9,27 @@ blocks ``0``, ``1``, ...), so ``utils/weights.py:from_flax`` maps
 parameters by name.
 Tensors are NHWC; a conv runs on ``x.permute(0, 3, 1, 2)``, which for a
 contiguous NHWC tensor is a free view in ``torch.channels_last``.
+
+The int8 serving mode (``TPU.INT8_EVAL``) runs through the blocks'
+``int8`` argument, inference only: "dynamic", "calibrate" or "static"
+(the JAX package's ``_conv_frozen_bn`` modes) quantize every conv of
+res2 .. res5 (``ops/int8_conv.py``); the stem stays float. A model built
+for the static scheme (``int8_amax``) holds each such conv's calibrated
+activation max-abs in a child ``<conv>_amax`` with a buffer ``amax``
+(JAX's ``quant/.../<conv>_amax/amax``), zero until calibrated.
 """
 from __future__ import annotations
 
 from typing import Dict, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import conv2d
+from ..ops.int8_conv import QuantizedTensor, conv_int8, max_abs
 from ..ops.relu_maxpool import relu_maxpool
 
 # stage name -> (num_blocks, stride of the first block)
@@ -58,15 +68,62 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
     return y.permute(0, 2, 3, 1)
 
 
-def _conv_frozen_bn(x: torch.Tensor, conv: nn.Conv2d,
-                    norm: FrozenBatchNorm, dtype: torch.dtype,
-                    relu: bool = True) -> torch.Tensor:
+@torch.no_grad()
+def record_amax_(amax: torch.Tensor, x: torch.Tensor) -> None:
+    """amax = max(amax, max|x|) in place (the buffer stays the one tensor
+    that exports and checkpoints see). Under ``torch.distributed`` with
+    several ranks, max|x| is taken over every rank's x (one all-reduce),
+    as JAX's calibration takes it over the global batch, so that every
+    rank quantizes the next layer with the same scale."""
+    cur = max_abs(x)
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        dist.all_reduce(cur, op=dist.ReduceOp.MAX)
+    amax.copy_(torch.maximum(amax, cur))
+
+
+class ActAmax(nn.Module):
+    """The calibrated activation max-abs of one conv for the static int8
+    scheme (JAX's ``_ActAmax``): a float32 scalar buffer ``amax``, zero
+    until calibrated, carried in the ``state_dict``."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("amax", torch.zeros(()))
+
+
+def _conv_frozen_bn(x, conv: nn.Conv2d, norm: FrozenBatchNorm,
+                    dtype: torch.dtype, relu: bool = True, int8=False,
+                    amax: ActAmax = None) -> torch.Tensor:
     """conv + FrozenBN + (relu) with the BN scale folded into the kernel
     in f32, cast once to the compute dtype, then the shift added:
-    ``conv(x, w) * s + t == conv(x, w * s) + t``."""
+    ``conv(x, w) * s + t == conv(x, w * s) + t``.
+
+    With ``int8`` the folded f32 kernel is quantized per output channel
+    and the conv runs in int8 (``ops/int8_conv.py``), the shift and relu
+    in its epilogue: x a ``QuantizedTensor`` is taken as it is; else x
+    is cast to the compute dtype and quantized on the fly ("dynamic"),
+    by ``amax`` ("static"), or by ``amax`` after it recorded max|x|
+    ("calibrate")."""
     scale, shift = norm.scale_shift()
-    wk = (conv.weight * scale[:, None, None, None]).to(dtype)
-    out = conv_nhwc(x.to(dtype), wk, conv.stride[0], conv.padding[0])
+    wk = conv.weight * scale[:, None, None, None]
+    stride, pad = conv.stride[0], conv.padding[0]
+    if int8:
+        if isinstance(x, QuantizedTensor):
+            return conv_int8(x, wk, stride, pad, out_dtype=dtype,
+                             shift=shift, relu=relu)
+        a = None
+        if int8 in ("static", "calibrate"):
+            if amax is None:
+                raise ValueError(f"int8 mode {int8!r} needs a model built "
+                                 f"for the static scheme (TPU.INT8_SCHEME "
+                                 f"static)")
+            if int8 == "calibrate":
+                record_amax_(amax.amax, x)
+            a = amax.amax
+        return conv_int8(x.to(dtype), wk, stride, pad, out_dtype=dtype,
+                         amax=a, shift=shift, relu=relu)
+    out = conv_nhwc(x.to(dtype), wk.to(dtype), stride, pad)
     out = out + shift.to(out.dtype)
     return F.relu(out) if relu else out
 
@@ -83,7 +140,8 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_channels: int, bottleneck_channels: int,
                  out_channels: int, stride: int = 1,
                  stride_in_1x1: bool = True, has_shortcut: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 int8_amax: bool = False):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.compute_dtype = compute_dtype
@@ -98,16 +156,23 @@ class BottleneckBlock(nn.Module):
             self.shortcut_norm = FrozenBatchNorm(out_channels)
         else:
             self.shortcut = None
+        if int8_amax:
+            for name in ("conv1", "conv2", "conv3") + \
+                    (("shortcut",) if has_shortcut else ()):
+                self.add_module(name + "_amax", ActAmax())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        out = _conv_frozen_bn(x, self.conv1, self.conv1_norm, dt)
-        out = _conv_frozen_bn(out, self.conv2, self.conv2_norm, dt)
-        out = _conv_frozen_bn(out, self.conv3, self.conv3_norm, dt,
-                              relu=False)
+    def _conv_bn(self, x, name: str, int8, relu: bool = True):
+        return _conv_frozen_bn(x, getattr(self, name),
+                               getattr(self, name + "_norm"),
+                               self.compute_dtype, relu, int8,
+                               getattr(self, name + "_amax", None))
+
+    def forward(self, x, int8=False) -> torch.Tensor:
+        out = self._conv_bn(x, "conv1", int8)
+        out = self._conv_bn(out, "conv2", int8)
+        out = self._conv_bn(out, "conv3", int8, relu=False)
         if self.shortcut is not None:
-            sc = _conv_frozen_bn(x, self.shortcut, self.shortcut_norm, dt,
-                                 relu=False)
+            sc = self._conv_bn(x, "shortcut", int8, relu=False)
         else:
             sc = x
         return F.relu(out + sc)
@@ -120,15 +185,22 @@ class ResNetStage(nn.Sequential):
     def __init__(self, num_blocks: int, in_channels: int,
                  bottleneck_channels: int, out_channels: int,
                  first_stride: int = 2, stride_in_1x1: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 int8_amax: bool = False):
         super().__init__(*[
             BottleneckBlock(in_channels if i == 0 else out_channels,
                             bottleneck_channels, out_channels,
                             stride=first_stride if i == 0 else 1,
                             stride_in_1x1=stride_in_1x1,
                             has_shortcut=(i == 0),
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype,
+                            int8_amax=int8_amax)
             for i in range(num_blocks)])
+
+    def forward(self, x, int8=False):
+        for block in self:
+            x = block(x, int8=int8)
+        return x
 
 
 class ResNetStem(nn.Module):
@@ -165,7 +237,11 @@ class ResNetC4(nn.Module):
     each stage after the stem that trains runs under
     ``torch.utils.checkpoint``, so that its activations are recomputed
     in the backward instead of kept (JAX's ``nn.remat(ResNetStage)``).
-    The stem stays outside, so its ReLU + max-pool kernel runs once."""
+    The stem stays outside, so its ReLU + max-pool kernel runs once.
+
+    ``forward(x, int8=...)`` runs res2 .. res4 in an int8 mode (the stem
+    float, remat bypassed: int8 is inference only); ``int8_amax`` builds
+    the static scheme's ``<conv>_amax`` buffers."""
 
     def __init__(self, depth: int = 50,
                  out_features: Sequence[str] = ("res4",),
@@ -174,7 +250,8 @@ class ResNetC4(nn.Module):
                  res2_out_channels: int = 256,
                  stride_in_1x1: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
-                 freeze_at: int = 0, remat: bool = False):
+                 freeze_at: int = 0, remat: bool = False,
+                 int8_amax: bool = False):
         super().__init__()
         self.out_features = tuple(out_features)
         self.compute_dtype = compute_dtype
@@ -193,7 +270,8 @@ class ResNetC4(nn.Module):
             oc = oc * res2_out_channels // 256
             self.add_module(stage, ResNetStage(
                 nblocks, cin, bc, oc, first_stride=stride,
-                stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype))
+                stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype,
+                int8_amax=int8_amax))
             self.stage_names.append(stage)
             cin = oc
             if stage == last:
@@ -205,16 +283,19 @@ class ResNetC4(nn.Module):
     def _frozen(self, name: str) -> bool:
         return self.freeze_at >= (1 if name == "stem" else int(name[3]))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                int8=False) -> Dict[str, torch.Tensor]:
         outputs = {}
         x = x.to(self.compute_dtype)
-        remat = self.remat and torch.is_grad_enabled()
+        remat = self.remat and torch.is_grad_enabled() and not int8
         for name in ["stem"] + self.stage_names:
             stage = getattr(self, name)
             if remat and name != "stem" and not self._frozen(name):
                 x = checkpoint(stage, x, use_reentrant=False)
-            else:
+            elif name == "stem" or not int8:
                 x = stage(x)
+            else:
+                x = stage(x, int8=int8)
             if self._frozen(name):
                 x = x.detach()
             if name in self.out_features:

@@ -6,7 +6,8 @@ draws as inputs), ROIAlign -> shared res5 -> mean-pool -> the box
 predictor ``ROI_BOX_HEAD.NAME`` selects (the embedding predictor, or the
 multi-token grounding predictor under
 "EmbeddingGroundingFastRCNNOutputLayers"), and the FastRCNN losses over
-the sampled batch.
+the sampled batch. ``roi_features`` takes the int8 serving mode's
+``int8`` argument (``models/resnet.py``).
 """
 from __future__ import annotations
 
@@ -16,20 +17,21 @@ import torch
 from torch import nn
 
 from ..ops import matcher as matcher_ops
-from ..ops.roi_align import roi_align_fused
+from ..ops.int8_conv import QuantizedTensor
+from ..ops.roi_align import (roi_align_batched_int8, roi_align_batched_quant,
+                             roi_align_fused)
 from ..structures import boxes as box_ops
 from ..structures.batches import GtBatch, ProposalBatch
 from .box_emb_grounding import (ClassTokenEmbeddings,
                                 EmbeddingGroundingBoxPredictor)
 from .box_predictor import (BoxPredictorConfig, EmbeddingBoxPredictor,
                             fast_rcnn_losses)
-from .resnet import ResNetStage
+from .resnet import ResNetStage, record_amax_
 from .rpn import add_gt_to_proposals
 
 
 class ROIHeadsConfig(NamedTuple):
-    """The JAX package's ``ROIHeadsConfig`` without its int8 serving
-    switch (the int8 mode is not ported yet)."""
+    """The JAX package's ``ROIHeadsConfig``."""
     num_classes: int
     batch_size_per_image: int
     positive_fraction: float
@@ -44,6 +46,10 @@ class ROIHeadsConfig(NamedTuple):
     # ROIAlign, which samples at ratio 2 where adaptive is asked; the
     # port computes the same function under either setting
     use_pallas_roi_align: bool = False
+    # TPU.INT8_ROIALIGN: under the static int8 scheme, ROIAlign itself
+    # runs int8 x int8 (``roi_align_batched_int8``); off, the float op
+    # and a static quantize of its output (``roi_align_batched_quant``)
+    int8_roialign: bool = True
 
     @classmethod
     def from_cfg(cls, cfg):
@@ -59,7 +65,8 @@ class ROIHeadsConfig(NamedTuple):
             pooler_sampling_ratio=cfg.MODEL.ROI_BOX_HEAD
             .POOLER_SAMPLING_RATIO,
             feature_stride=16,
-            use_pallas_roi_align=cfg.TPU.USE_PALLAS_ROIALIGN)
+            use_pallas_roi_align=cfg.TPU.USE_PALLAS_ROIALIGN,
+            int8_roialign=cfg.TPU.INT8_ROIALIGN)
 
     @property
     def sampling_ratio(self) -> int:
@@ -127,21 +134,29 @@ GROUNDING_PREDICTOR = "EmbeddingGroundingFastRCNNOutputLayers"
 class Res5ROIHeads(nn.Module):
     """Shared res5 box head + the box predictor. ``emb_pred=False``
     builds the embedding predictor without ``emb_pred`` (the
-    image-caption stage's shared projection takes its place)."""
+    image-caption stage's shared projection takes its place).
+    ``int8_static`` (``TPU.INT8_SCHEME`` static) adds the calibrated
+    max-abs buffers of the pooled tensor (``pooled_amax``) and of the
+    features entering ROIAlign (``roialign_amax``), and res5's
+    ``<conv>_amax``."""
 
     def __init__(self, rcfg: ROIHeadsConfig, pcfg: BoxPredictorConfig,
                  stride_in_1x1: bool = True, res2_out_channels: int = 256,
                  num_groups: int = 1, width_per_group: int = 64,
                  compute_dtype: torch.dtype = torch.float32,
-                 emb_pred: bool = True):
+                 emb_pred: bool = True, int8_static: bool = False):
         super().__init__()
         self.rcfg = rcfg
         self.grounding = pcfg.name == GROUNDING_PREDICTOR
+        if int8_static:
+            self.register_buffer("pooled_amax", torch.zeros(()))
+            self.register_buffer("roialign_amax", torch.zeros(()))
         self.res5 = ResNetStage(
             num_blocks=3, in_channels=res2_out_channels * 4,
             bottleneck_channels=num_groups * width_per_group * 8,
             out_channels=res2_out_channels * 8, first_stride=2,
-            stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype)
+            stride_in_1x1=stride_in_1x1, compute_dtype=compute_dtype,
+            int8_amax=int8_static)
         if self.grounding:
             self.box_predictor = EmbeddingGroundingBoxPredictor(
                 res2_out_channels * 8, pcfg.emb_dim,
@@ -154,20 +169,46 @@ class Res5ROIHeads(nn.Module):
             self.box_predictor = EmbeddingBoxPredictor(
                 res2_out_channels * 8, pcfg, emb_pred=emb_pred)
 
-    def roi_features(self, features: torch.Tensor,
-                     boxes: torch.Tensor) -> torch.Tensor:
+    def roi_features(self, features: torch.Tensor, boxes: torch.Tensor,
+                     int8=False) -> torch.Tensor:
         """ROIAlign + res5 + global mean pool.
         features [B, H, W, C] (NHWC); boxes [B, S, 4] -> [B, S, C5].
         ROIAlign is differentiable in the features: the CUDA kernels on
         the card (in f32, cast once to the features' dtype), the plain
-        versions on the CPU."""
+        versions on the CPU.
+
+        ``int8`` (serving): "static" quantizes the pooled tensor by
+        ``pooled_amax``, in a full-int8 ROIAlign (``int8_roialign``, the
+        features quantized by ``roialign_amax``) or after the float one,
+        and res5's first block takes the int8 tensor as it is;
+        "calibrate" runs the float ROIAlign and records both max-abs
+        values; every int8 mode runs res5 in int8."""
         b, s = boxes.shape[:2]
-        pooled = roi_align_fused(
-            features.contiguous(), boxes.float().contiguous(),
-            1.0 / self.rcfg.feature_stride,
-            pooled=self.rcfg.pooler_resolution,
-            sampling_ratio=self.rcfg.sampling_ratio)
-        out = self.res5(pooled.reshape((b * s,) + pooled.shape[2:]))
+        rc = self.rcfg
+        features, boxes = features.contiguous(), boxes.float().contiguous()
+        if int8 == "static":
+            if rc.int8_roialign:
+                q, scale = roi_align_batched_int8(
+                    features, boxes, 1.0 / rc.feature_stride,
+                    self.roialign_amax, self.pooled_amax,
+                    pooled=rc.pooler_resolution,
+                    sampling_ratio=rc.pooler_sampling_ratio)
+            else:
+                q, scale = roi_align_batched_quant(
+                    features, boxes, 1.0 / rc.feature_stride,
+                    self.pooled_amax, pooled=rc.pooler_resolution,
+                    sampling_ratio=rc.pooler_sampling_ratio)
+            pooled = QuantizedTensor(q.reshape((b * s,) + q.shape[2:]),
+                                     scale)
+        else:
+            pooled = roi_align_fused(features, boxes, 1.0 / rc.feature_stride,
+                                     pooled=rc.pooler_resolution,
+                                     sampling_ratio=rc.sampling_ratio)
+            pooled = pooled.reshape((b * s,) + pooled.shape[2:])
+            if int8 == "calibrate":
+                record_amax_(self.pooled_amax, pooled)
+                record_amax_(self.roialign_amax, features)
+        out = self.res5(pooled, int8=int8)
         return out.mean(dim=(1, 2)).reshape(b, s, -1)
 
     def grid_features(self, features: torch.Tensor) -> torch.Tensor:

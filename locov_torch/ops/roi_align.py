@@ -19,6 +19,16 @@ gradient kernel of ``csrc/roi_align.cu``, each under a launch plan
 (``_fwd_plan``, ``_bwd_plan``), and nothing else; on CPU tensors both
 directions run the plain version. Their fake implementations give the
 output's shape and dtype, so that ``torch.export`` traces through them.
+
+The static int8 serving mode adds ``roi_align_batched_quant`` (the float
+op, then a static int8 quantize of its output) and
+``roi_align_batched_int8`` (``locov_tpu/ops/roi_align.py:
+roi_align_batched_int8``): the interpolation matrices quantized per row
+(``_quantize_rows``), the features per tensor by a calibrated max-abs,
+and both contractions in int8 with int32 sums (the op
+``locov::roi_align_int8``: the kernel of ``csrc/roi_align_int8.cu`` on
+CUDA tensors, the plain ``roi_align_int8_plain`` on CPU tensors; inference
+only, no gradient).
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import ctypes
 import torch
 
 from . import kernel_lib
+from .int8_conv import _scale_of, quantize_per_tensor_static
 
 # Static cap on the adaptive per-bin sampling grid (d2 uses
 # ceil(roi_size / pooled) samples per bin with no cap; at stride 16 /
@@ -465,3 +476,189 @@ def roi_align_fused(features: torch.Tensor, boxes: torch.Tensor,
     versions for CPU tensors."""
     return torch.ops.locov.roi_align(features, boxes, float(spatial_scale),
                                      int(pooled), int(sampling_ratio))
+
+
+# ------------------------------------------------------------------ int8
+# bins a side the int8 kernel takes (csrc/roi_align_int8.cu: PMAX)
+_INT8_PMAX = 16
+
+
+def _quantize_rows(k: torch.Tensor):
+    """Symmetric per-row int8 quantization of interpolation matrices
+    [B, N, P, dim] (rows are small, ~2 / sr at most, so a row scale keeps
+    the weights' resolution). Returns (q int8, scale [B, N, P])."""
+    scale = torch.clamp(_div(k.abs().amax(dim=-1), 127.0), min=1e-12)
+    q = torch.clamp(torch.round(k / scale[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def roi_align_batched_quant(features: torch.Tensor, boxes: torch.Tensor,
+                            spatial_scale: float, amax: torch.Tensor,
+                            pooled: int = 14, sampling_ratio: int = 2):
+    """ROIAlign emitting int8 for the static int8 scheme: the float op
+    (``roi_align_fused``), then its output quantized by the calibrated
+    max-abs ``amax`` of the pooled tensor. Returns (q [B, N, P, P, C]
+    int8, scale float32): ``quantize_per_tensor_static(roi_align(...),
+    amax)``, as the JAX function computes it."""
+    out = roi_align_fused(features, boxes, spatial_scale, pooled,
+                          sampling_ratio)
+    return quantize_per_tensor_static(out, amax)
+
+
+def roi_align_int8_plain(fq, kyq, kxq, sx, rescale,
+                         chunk: int = _CHUNK) -> torch.Tensor:
+    """The integer core of ``roi_align_batched_int8`` in plain PyTorch:
+    fq int8 [B, H, W, C], kyq int8 [B, N, P, H], kxq int8 [B, N, P, W],
+    the row scales sx [B, N, P] of kxq and the rescale [B, N, P] ->
+    int8 [B, N, P, P, C]. The einsums run in float64 on integers (exact:
+    every partial sum is an integer below 2^53), boxes ``chunk`` at a
+    time; t and r convert to float32 exactly (below 2^24)."""
+    b, n, p, _ = kyq.shape
+    c = fq.shape[-1]
+    f = fq.double()
+    outs = []
+    for s in range(0, n, chunk):
+        sl = slice(s, s + chunk)
+        t = torch.einsum("bnqw,bhwc->bnqhc", kxq[:, sl].double(), f)
+        tq = torch.clamp(torch.round(t.float() * sx[:, sl, :, None, None]),
+                         -127.0, 127.0)
+        del t
+        r = torch.einsum("bnqhc,bnph->bnpqc", tq.double(),
+                         kyq[:, sl].double())
+        del tq
+        outs.append(torch.clamp(
+            torch.round(r.float() * rescale[:, sl, :, None, None]),
+            -127.0, 127.0).to(torch.int8))
+    if not outs:
+        return fq.new_zeros((b, 0, p, p, c))
+    return torch.cat(outs, dim=1)
+
+
+def _int8_smem(h: int, w: int, p: int) -> int:
+    """Dynamic shared memory of an int8 kernel block, counted as
+    ``smem_bytes`` of ``csrc/roi_align_int8.cu`` counts it: the box's Ky
+    and Kx rows (rounded up to 16 bytes), the column ranges and two
+    scales of 16 bins, the bin ranges of the h rows and the row range."""
+    return -(-p * (h + w) // 16) * 16 + 4 * (4 * _INT8_PMAX + 2 * h + 2)
+
+
+def _check_int8_args(fq, kyq, kxq, sx, rescale) -> None:
+    if fq.dim() != 4 or kyq.dim() != 4 or kxq.dim() != 4:
+        raise ValueError(f"roi_align_int8: fq {tuple(fq.shape)}, kyq "
+                         f"{tuple(kyq.shape)}, kxq {tuple(kxq.shape)}")
+    b, h, w, _ = fq.shape
+    n, p = kyq.shape[1], kyq.shape[2]
+    if tuple(kyq.shape) != (b, n, p, h) or \
+            tuple(kxq.shape) != (b, n, p, w) or \
+            tuple(sx.shape) != (b, n, p) or \
+            tuple(rescale.shape) != (b, n, p):
+        raise ValueError(
+            f"roi_align_int8: fq {tuple(fq.shape)}, kyq {tuple(kyq.shape)},"
+            f" kxq {tuple(kxq.shape)}, sx {tuple(sx.shape)}, rescale "
+            f"{tuple(rescale.shape)}")
+
+
+def _launch_int8(fq, kyq, kxq, sx, rescale,
+                 fill: int = None) -> torch.Tensor:
+    """One launch of the int8 kernel (no launch count). ``fill``: a value
+    the output holds before the launch."""
+    for t, what, dts in ((fq, "fq", {torch.int8}), (kyq, "kyq", {torch.int8}),
+                         (kxq, "kxq", {torch.int8}),
+                         (sx, "sx", {torch.float32}),
+                         (rescale, "rescale", {torch.float32})):
+        kernel_lib.check_cuda_tensor(t, f"roi_align_int8 {what}", dts)
+    _check_int8_args(fq, kyq, kxq, sx, rescale)
+    if len({t.device for t in (fq, kyq, kxq, sx, rescale)}) != 1:
+        raise ValueError("roi_align_int8: tensors on several devices")
+    b, h, w, c = fq.shape
+    n, p = kyq.shape[1], kyq.shape[2]
+    if p > _INT8_PMAX or c % 4 or fq.data_ptr() % 4:
+        raise ValueError(f"roi_align_int8: the kernel takes pooled <= "
+                         f"{_INT8_PMAX} and 4-byte aligned features of C a "
+                         f"multiple of 4, got pooled {p}, C {c}")
+    if _int8_smem(h, w, p) > _SMEM_MAX:
+        raise ValueError(f"roi_align_int8: features {h} x {w} need more "
+                         f"shared memory than a block has")
+    out = torch.empty((b, n, p, p, c), dtype=torch.int8, device=fq.device)
+    if fill is not None:
+        out.fill_(fill)
+    if out.numel() == 0:
+        return out
+    fn = kernel_lib.load("roi_align_int8").roi_align_int8_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(fq.device):
+        err = fn(fq.data_ptr(), kyq.data_ptr(), kxq.data_ptr(),
+                 sx.data_ptr(), rescale.data_ptr(), out.data_ptr(), b, h, w,
+                 c, n, p, kernel_lib.stream_ptr(fq.device))
+    kernel_lib.check_launch(err, "roi_align_int8")
+    return out
+
+
+def roi_align_int8_cuda(fq, kyq, kxq, sx, rescale) -> torch.Tensor:
+    """The int8 kernel: contiguous CUDA tensors as ``roi_align_int8_plain``
+    takes them, C a multiple of 4, pooled at most 16."""
+    out = _launch_int8(fq, kyq, kxq, sx, rescale)
+    if out.numel():
+        kernel_lib.LAUNCHES["roi_align_int8"] += 1
+    return out
+
+
+@torch.library.custom_op("locov::roi_align_int8", mutates_args=(),
+                         device_types="cpu")
+def _roi_align_int8_op(fq: torch.Tensor, kyq: torch.Tensor,
+                       kxq: torch.Tensor, sx: torch.Tensor,
+                       rescale: torch.Tensor) -> torch.Tensor:
+    return roi_align_int8_plain(fq, kyq, kxq, sx, rescale)
+
+
+@_roi_align_int8_op.register_kernel("cuda")
+def _(fq, kyq, kxq, sx, rescale):
+    return roi_align_int8_cuda(fq, kyq, kxq, sx, rescale)
+
+
+@_roi_align_int8_op.register_fake
+def _(fq, kyq, kxq, sx, rescale):
+    _check_int8_args(fq, kyq, kxq, sx, rescale)
+    b, n, p = kyq.shape[:3]
+    return fq.new_empty((b, n, p, p, fq.shape[-1]))
+
+
+def int8_operands(features: torch.Tensor, boxes: torch.Tensor,
+                  spatial_scale: float, amax_in: torch.Tensor,
+                  amax_pool: torch.Tensor, pooled: int = 14,
+                  sampling_ratio: int = 0):
+    """The integer core's operands, in the JAX function's order of
+    operations: (fq, kyq, kxq, sx, rescale, s_pool). The interpolation
+    matrices quantized per row, the features per tensor by ``amax_in``
+    (s_f = amax_in / 127), and rescale = (s_f / s_pool) * sy with s_pool
+    = amax_pool / 127 (each at least 1e-12)."""
+    _, h, w, _ = features.shape
+    ky, kx = _build_kernels(boxes.float(), spatial_scale, h, w, pooled,
+                            sampling_ratio)
+    kyq, sy = _quantize_rows(ky)
+    kxq, sx = _quantize_rows(kx)
+    s_f, s_pool = _scale_of(amax_in), _scale_of(amax_pool)
+    fq, _ = quantize_per_tensor_static(features, amax_in)
+    return fq, kyq, kxq, sx, (s_f / s_pool) * sy, s_pool
+
+
+def roi_align_batched_int8(features: torch.Tensor, boxes: torch.Tensor,
+                           spatial_scale: float, amax_in: torch.Tensor,
+                           amax_pool: torch.Tensor, pooled: int = 14,
+                           sampling_ratio: int = 0):
+    """Full-int8 ROIAlign (static int8 serving): both separable
+    contractions int8 x int8 -> int32, the intermediate requantized to
+    the features' scale by the row scales of Kx (rows are convex
+    weights, so no other statistic is needed), the output rescaled to
+    the pooled tensor's calibrated scale. Returns (q [B, N, P, P, C]
+    int8, scale float32), a drop-in for ``roi_align_batched_quant``."""
+    fq, kyq, kxq, sx, rescale, s_pool = int8_operands(
+        features, boxes, spatial_scale, amax_in, amax_pool, pooled,
+        sampling_ratio)
+    q = torch.ops.locov.roi_align_int8(fq.contiguous(), kyq.contiguous(),
+                                       kxq.contiguous(), sx.contiguous(),
+                                       rescale.contiguous())
+    return q, s_pool

@@ -15,7 +15,9 @@ GSPMD step over the global batch: ``GlobalBatch``). The backward and
 the update run in ``torch.profiler.record_function`` ranges
 ``train_step.backward`` and ``train_step.optimizer``, beside the
 model's ``<model>.<stage>`` ranges. The evaluation step:
-``model.inference`` on the model's device. The loss evaluation step:
+``model.inference`` on the model's device. The calibration step of the
+static int8 scheme: ``model.calibrate_int8``, its max-abs buffers then
+the global max over the ranks. The loss evaluation step:
 ``model.losses`` without gradients; the evaluation loop merges its
 metrics over the ranks (``evaluation/evaluator.py:
 inference_on_caption_dataset``). ``process_rank_world`` stands in for
@@ -209,6 +211,25 @@ def make_eval_step(model: torch.nn.Module
             return model.inference(to_torch(batch, device),
                                    to_torch(class_emb, device))
     step.device = device
+    return step
+
+
+def make_calibrate_step(model: torch.nn.Module
+                        ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Returns step(batch, class_emb) -> {name: amax}: one int8
+    calibration pass (``model.calibrate_int8`` under ``no_grad``, the
+    batch moved to the model's device first). Each max-abs it records is
+    all-reduced by MAX over the ranks where it is taken
+    (``models/resnet.py:record_amax_``), so every rank holds the global
+    running max, as JAX's replicated output of its calibration step
+    does, and quantizes with it. The dict holds the buffers themselves
+    by ``state_dict`` name."""
+    device = next(model.parameters()).device
+
+    def step(batch, class_emb) -> Dict[str, torch.Tensor]:
+        model.calibrate_int8(to_torch(batch, device),
+                             to_torch(class_emb, device))
+        return model.amax_buffers()
     return step
 
 

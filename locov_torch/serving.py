@@ -35,9 +35,10 @@ device. With ``n_devices`` N, JAX's mesh of N chips, the program is
 exported at batch B / N and the loaded ``call`` splits the batch over N
 devices, runs one copy of the program on each (moved there with
 ``torch.export.passes.move_to_device_pass``) and concatenates the
-outputs; a batch of another size raises. ``TPU.INT8_EVAL`` is not
-ported (ROADMAP queue 1, item 9): the export tool
-(``tools/export_serving.py``) raises on it.
+outputs; a batch of another size raises. ``TPU.INT8_EVAL`` composes:
+export after calibration, and the static scheme's max-abs buffers ride
+among the variables; the int8 ops (``locov::conv_int8``,
+``locov::roi_align_int8``) trace through their fake implementations.
 """
 from __future__ import annotations
 
@@ -51,8 +52,8 @@ import torch
 from torch.export.passes import move_to_device_pass
 
 # the locov:: op registrations the program calls
-from .ops import bottleneck_block, nms, relu_maxpool, roi_align  # noqa: F401
-from .ops import stem_conv_bn  # noqa: F401
+from .ops import bottleneck_block, int8_conv, nms, relu_maxpool  # noqa: F401
+from .ops import roi_align, stem_conv_bn  # noqa: F401
 from .structures.batches import DetectionBatch, ImageBatch
 from .utils.checkpoint import Checkpointer
 
@@ -198,7 +199,7 @@ def _full_float32():
     """TF32 off for cuDNN and cuBLAS while the program runs: the port's
     float32 convolutions and products turn it off for their own calls
     (``ops/conv.py``, ``ops/matmul.py``), a flag that the exported graph
-    does not keep. bfloat16 ops are unaffected. The flags are restored
+    does not keep. bfloat16 and int8 ops are unaffected. The flags are restored
     on exit."""
     flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
     prev = [f.allow_tf32 for f in flags]

@@ -16,7 +16,12 @@ weights (the training model at the scale of trained weights,
 ``utils/weights.py:trained_scale_``, or its losses are not finite) and
 the synthetic inputs ``bench.py`` builds. As in ``bench.py``, the
 environment variable ``LOCOV_FUSED_MMSS`` (1 or 0), where set, turns the
-fused grid + box MMSS pass (``TPU.FUSED_MMSS_PASSES``) on or off.
+fused grid + box MMSS pass (``TPU.FUSED_MMSS_PASSES``) on or off, and
+for ``stt_eval`` ``LOCOV_INT8_EVAL=1`` turns on the int8 serving mode
+(``TPU.INT8_EVAL``) with ``LOCOV_INT8_SCHEME`` (dynamic, the default, or
+static: then one calibration pass over the synthetic batch first) and
+``LOCOV_INT8_ROIALIGN`` (1 or 0, where set: ``TPU.INT8_ROIALIGN``); the
+line's ``variant`` says which (bf16, int8-dynamic or int8-static).
 
 Timing follows ``bench.py``: warm-up, then bursts of sequentially
 dependent steps (each training step updates the weights the next one
@@ -118,6 +123,11 @@ def build_stt_eval(batch=8, height=800, width=1344, device=None, seed=0):
     cfg.merge_from_file(config_path("coco_stt.yaml"))
     cfg.MODEL.WEIGHTS = ""
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    if os.environ.get("LOCOV_INT8_EVAL") == "1":
+        cfg.TPU.INT8_EVAL = True
+        cfg.TPU.INT8_SCHEME = os.environ.get("LOCOV_INT8_SCHEME", "dynamic")
+    if "LOCOV_INT8_ROIALIGN" in os.environ:  # A/B the full-int8 op
+        cfg.TPU.INT8_ROIALIGN = os.environ["LOCOV_INT8_ROIALIGN"] == "1"
     model = seeded_init_(build_meta_arch(cfg, device=dev), seed)
     rng = np.random.RandomState(0)
     data = to_torch(DetectionBatch(images=_images(rng, batch, height,
@@ -185,9 +195,20 @@ def run_lsm(batch=4, device=None) -> dict:
             **describe(dev)}
 
 
+def variant(cfg) -> str:
+    """bf16, int8-dynamic or int8-static (``bench.py``'s ``variant``)."""
+    if not cfg.TPU.INT8_EVAL:
+        return "bf16"
+    return f"int8-{cfg.TPU.INT8_SCHEME}"
+
+
 def run_stt_eval(batch=8, device=None) -> dict:
     dev = resolve_device(device)
-    _, model, data, class_emb = build_stt_eval(batch=batch, device=dev)
+    cfg, model, data, class_emb = build_stt_eval(batch=batch, device=dev)
+    if cfg.TPU.INT8_EVAL and cfg.TPU.INT8_SCHEME == "static":
+        # one calibration pass over the synthetic batch fills the
+        # max-abs buffers
+        model.calibrate_int8(data, class_emb)
     for _ in range(4):  # warm-up
         dets = model.inference(data, class_emb)
     _sync(dev)
@@ -206,7 +227,8 @@ def run_stt_eval(batch=8, device=None) -> dict:
     return {"metric": METRICS["stt_eval"], "value": batch / dt,
             "unit": "img/s", "batch": batch, "ms_per_batch": dt * 1e3,
             "ms_per_batch_synced": _synced_ms(burst),
-            "dtype": "bfloat16", "config": "configs/coco_stt.yaml",
+            "dtype": "bfloat16", "variant": variant(cfg),
+            "config": "configs/coco_stt.yaml",
             **_memory(dev), **describe(dev)}
 
 

@@ -16,8 +16,11 @@ Usage:
 
 Omit --weights to export with seeded random weights (shape and trace
 validation). ``--device`` is where the program is traced and runs: the
-card unless ``cpu`` is given (JAX's ``--platform``). ``TPU.INT8_EVAL``
-is not ported (ROADMAP queue 1, item 9) and raises.
+card unless ``cpu`` is given (JAX's ``--platform``). For int8 serving,
+set ``TPU.INT8_EVAL True TPU.INT8_SCHEME static`` in the overrides and
+point --weights at a checkpoint whose max-abs buffers are calibrated
+(the trainer's ``test`` calibrates them and its checkpoints carry
+them): they ride in the artifact's variables.
 """
 import argparse
 
@@ -79,10 +82,6 @@ def main(argv=None) -> str:
     cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    if cfg.TPU.INT8_EVAL:
-        raise NotImplementedError(
-            "TPU.INT8_EVAL: the int8 serving mode is not ported yet "
-            "(ROADMAP queue 1, item 9)")
     model = seeded_init_(build_meta_arch(cfg, device=device), 0)
     if args.weights:
         from locov_torch.utils.checkpoint import load_weights_standalone

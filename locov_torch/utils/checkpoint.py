@@ -700,6 +700,17 @@ def read_weights(weights: str) -> Dict[str, torch.Tensor]:
     return data["model"] if "model" in data else data
 
 
+def is_amax_key(key: str) -> bool:
+    """Whether a ``state_dict`` key is a calibrated max-abs buffer of the
+    static int8 scheme (``models/resnet.py:ActAmax``'s, or the ROI heads'
+    ``pooled_amax`` and ``roialign_amax``)."""
+    return key.endswith(("_amax.amax", "pooled_amax", "roialign_amax"))
+
+
+def _weight_keys(state: Dict[str, Any]) -> set:
+    return {k for k in state if not is_amax_key(k)}
+
+
 def load_weights_standalone(model: torch.nn.Module, weights: str,
                             report_dir: Optional[str] = None
                             ) -> ImportReport:
@@ -711,10 +722,14 @@ def load_weights_standalone(model: torch.nn.Module, weights: str,
     seeds emb_pred. Keys the source lacks
     keep the model's values. Writes ``import_report.json`` to
     ``report_dir`` when given. The trainer's ``load_pretrained`` calls
-    it too (JAX's ``OVRTrainer.load_pretrained``)."""
+    it too (JAX's ``OVRTrainer.load_pretrained``). The static int8
+    scheme's max-abs buffers do not decide whether the architectures are
+    the same: a checkpoint without them loads into a model with them,
+    which keep their zero init (uncalibrated), and the other way round
+    they are left out."""
     flat_src = read_weights(weights)
     flat_dst = model.state_dict()
-    same_arch = set(flat_src) == set(flat_dst)
+    same_arch = _weight_keys(flat_src) == _weight_keys(flat_dst)
     rename = {} if same_arch else torch_rename_map(STT_FROM_LSM_RENAME)
     merged, report = load_with_rename_map(flat_src, flat_dst, rename)
     logger.info("Import from %s%s: %s", weights,

@@ -7,6 +7,11 @@ a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW), a Dense ``kernel``
 ([in, out]) becomes a Linear ``weight`` ([out, in]), a LayerNorm
 ``scale`` becomes ``weight``, and every other leaf (biases, FrozenBN's
 four tensors, embedding tables, ``decoder_bias``) is kept as it is.
+The ``quant`` collection of a model calibrated for the static int8
+scheme maps the same way onto its max-abs buffers:
+``quant/backbone/res2/0/conv1_amax/amax`` is
+``backbone.res2.0.conv1_amax.amax``, ``quant/roi_heads/pooled_amax`` is
+``roi_heads.pooled_amax``.
 """
 from __future__ import annotations
 
@@ -22,10 +27,10 @@ from ..models.resnet import BottleneckBlock, FrozenBatchNorm
 
 def torch_name(path: str) -> str:
     """The ``state_dict`` key of a Flax path: ``/`` -> ``.``, a
-    ``kernel`` or ``scale`` leaf -> ``weight``, a leading ``params/``
-    collection name dropped."""
+    ``kernel`` or ``scale`` leaf -> ``weight``, a leading ``params/`` or
+    ``quant/`` collection name dropped."""
     parts = path.split("/")
-    if parts[0] == "params":
+    if parts[0] in ("params", "quant"):
         parts = parts[1:]
     if parts[-1] in ("scale", "kernel"):
         parts[-1] = "weight"

@@ -158,14 +158,20 @@ def test_eval_only_with_expected_results(stages, capsys):
 
 
 def test_cli_raises_on_what_is_not_ported(stages):
-    """int8 serving (item 9) raises. Test-time augmentation (item 8),
-    which raised here before, evaluates: ``--eval-only`` with
+    """int8 serving (item 9), which raised here before, evaluates:
+    ``--eval-only`` under the static scheme from the float checkpoint
+    (the max-abs buffers it lacks keep their zero init, so ``test``
+    calibrates first). Test-time augmentation (item 8), which raised
+    here before too, evaluates: ``--eval-only`` with
     TEST.AUG.ENABLED at the test size and its flip, two passes merged
     (tests/test_torch_tta.py holds TTA to JAX's); several ranks, which
     raised here before too, run in ``test_two_ranks_on_the_cpu``."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run(stages["stt_flags"], stages["stt_opts"] + ["TPU.INT8_EVAL",
-                                                       "True"])
+    res = run(stages["stt_flags"] + ["--eval-only"], stages["stt_opts"] + [
+        "MODEL.WEIGHTS", os.path.join(stages["stt_dir"], "model_final"),
+        "TPU.INT8_EVAL", "True", "TPU.INT8_SCHEME", "static",
+        "TPU.INT8_CALIB_BATCHES", "1"])
+    assert all(np.isfinite(res["coco_zeroshot_val"][k])
+               for k in ("AP", "AP50"))
     res = run(stages["stt_flags"] + ["--eval-only"], stages["stt_opts"] + [
         "MODEL.WEIGHTS", os.path.join(stages["stt_dir"], "model_final"),
         "TEST.AUG.ENABLED", "True", "TEST.AUG.MIN_SIZES", "(64,)",

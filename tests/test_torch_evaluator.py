@@ -355,10 +355,15 @@ def test_test_raises_on_what_is_not_ported(pair, micro):
     cfg.TEST.AUG.FLIP = False
     res = ttrainer.test(cfg, pair["tm"], "cpu")[NAME]
     assert res["tta_passes"] == 1 and res["AP50"] > 0
+    # the int8 serving mode (item 9), which raised here before, evaluates:
+    # the dynamic scheme on the port's model with JAX's weights
+    # (tests/test_torch_int8_*.py hold it to JAX's)
     cfg = eval_cfg(tmicro_cfg, micro)
     cfg.TPU.INT8_EVAL = True
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrainer.test(cfg, pair["tm"], "cpu")
+    tm8 = tbuild(cfg, device="cpu")
+    tm8.load_state_dict(pair["tm"].state_dict(), strict=True)
+    res = ttrainer.test(cfg, tm8, "cpu")[NAME]
+    assert np.isfinite(res["AP"]) and res["AP50"] > 0
     # the grid models, which raised here before: their 'ovr' evaluation
     # is the loss-only pass alone, no detection evaluation
     # (tests/test_torch_grid_models.py holds its numbers to JAX's)

@@ -1,0 +1,323 @@
+"""PyTorch port vs JAX: the int8 serving mode's operators on the CPU.
+
+The quantizers, ``conv_int8`` (``locov::conv_int8``, whose CPU
+implementation is the plain version of the CUDA kernel KQ1) and the int8
+ROIAlign (``locov::roi_align_int8``, KQ2's plain version) on the same
+numpy inputs as ``locov_tpu/ops/int8_conv.py`` and
+``locov_tpu/ops/roi_align.py``. Both packages compute the int8 values and
+int32 sums exactly, so those are held bit for bit. The float epilogues
+are the same float32 operations in the same order, so the outputs are
+held bit for bit too (float32 and bfloat16: equal bits were seen in
+both). The whole int8 ROIAlign builds its interpolation matrices in
+float32 in each package, which differ by up to 1e-7
+(``test_torch_roi_align.py``); a row step that flips there can carry
+through both contractions, so it is held within 2 int8 steps of JAX's
+(the share of elements that differ and the largest difference are
+reported)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from locov_tpu.ops import int8_conv as jq
+from locov_tpu.ops import roi_align as jra
+from locov_torch.ops import int8_conv as tq
+from locov_torch.ops import roi_align as tra
+from test_int8 import _np_conv_int8
+from torch_parity import n, t
+
+CASES = [(1, 1), (3, 1), (1, 2), (3, 2)]
+
+
+def _bits(x):
+    """The bits of a float32 or bfloat16 array (torch or numpy)."""
+    if isinstance(x, torch.Tensor):
+        return n(x.view({4: torch.int32, 2: torch.int16}[x.element_size()]))
+    x = np.asarray(x)
+    return x.view({4: np.int32, 2: np.int16}[x.dtype.itemsize])
+
+
+def test_quantize_per_tensor_ties_and_zeros():
+    # amax 127 -> scale 1: every value is an exact tie or integer
+    x = np.array([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, -3.5, 126.5, 3.0,
+                  -127.0], np.float32)
+    q, s = tq.quantize_per_tensor(t(x))
+    qj, sj = jq.quantize_per_tensor(jnp.asarray(x))
+    np.testing.assert_array_equal(n(q), np.asarray(qj))
+    assert n(q).tolist() == [127, 0, 2, 2, 0, -2, -4, 126, 3, -127]
+    assert _bits(s) == _bits(sj)
+    # seeded tensors, and the static quantizer at a clipping amax
+    rng = np.random.RandomState(0)
+    for shape in ((3, 5, 7, 8), (64,)):
+        x = rng.randn(*shape).astype(np.float32) * 3
+        q, s = tq.quantize_per_tensor(t(x))
+        qj, sj = jq.quantize_per_tensor(jnp.asarray(x))
+        np.testing.assert_array_equal(n(q), np.asarray(qj))
+        assert _bits(s) == _bits(sj)
+        amax = np.float32(np.abs(x).max() * 0.6)
+        q, s = tq.quantize_per_tensor_static(t(x), t(amax))
+        qj, sj = jq.quantize_per_tensor_static(jnp.asarray(x),
+                                               jnp.asarray(amax))
+        np.testing.assert_array_equal(n(q), np.asarray(qj))
+        assert _bits(s) == _bits(sj)
+        assert (np.abs(n(q)) == 127).any()
+    # zero-safe (as test_quantizers_zero_safe)
+    q, s = tq.quantize_per_tensor(torch.zeros(2, 3))
+    assert (n(q) == 0).all() and np.isfinite(n(s)) and n(s) > 0
+    qw, sw = tq.quantize_weight_per_channel(torch.zeros(4, 3, 1, 1))
+    assert (n(qw) == 0).all() and np.isfinite(n(sw)).all()
+
+
+def test_quantize_weight_per_channel_matches_jax():
+    rng = np.random.RandomState(1)
+    w = (rng.randn(3, 3, 6, 5) * rng.rand(5) ** 2).astype(np.float32)
+    w[..., 2] = 0.0  # a zero output channel
+    w[0, 0, 0, 4] = 0.5 * np.abs(w[..., 4]).max()  # not a tie by itself
+    q, s = tq.quantize_weight_per_channel(t(w.transpose(3, 2, 0, 1)))
+    qj, sj = jq.quantize_weight_per_channel(jnp.asarray(w))
+    np.testing.assert_array_equal(n(q), np.asarray(qj).transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(_bits(s), _bits(sj))
+    assert (n(q)[2] == 0).all() and n(s)[2] == np.float32(1e-12)
+
+
+def test_static_equals_dynamic_with_true_amax():
+    rng = np.random.RandomState(2)
+    x = t(rng.randn(2, 8, 8, 16).astype(np.float32))
+    w = t(rng.randn(4, 16, 3, 3).astype(np.float32))
+    dyn = tq.conv_int8(x, w, 1, 1)
+    sta = tq.conv_int8(x, w, 1, 1, amax=x.abs().amax())
+    assert torch.equal(dyn, sta)
+
+
+def _inputs(seed, k, c=16, o=24):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, 9, 11, c).astype(np.float32)
+    w = (rng.randn(k, k, c, o) * rng.rand(o)).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme", ["dynamic", "static", "quantized"])
+@pytest.mark.parametrize("k,stride", CASES)
+def test_conv_int8_matches_jax(k, stride, scheme, dtype):
+    """The int8 input and the int32 sums equal JAX's; the output has
+    JAX's bits (float32 and bfloat16 alike)."""
+    x, w = _inputs(k * 10 + stride, k)
+    pad = (k - 1) // 2
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    xj, xt = jnp.asarray(x).astype(jdt), t(x).to(tdt)
+    wt = t(w.transpose(3, 2, 0, 1))
+    amax = np.float32(np.abs(x).max() * 0.8)
+    kw = {}
+    if scheme == "static":
+        kw = dict(amax=amax)
+        qj, sj = jq.quantize_per_tensor_static(xj, jnp.asarray(amax))
+        qt, st = tq.quantize_per_tensor_static(xt, t(amax))
+    else:
+        qj, sj = jq.quantize_per_tensor(xj)
+        qt, st = tq.quantize_per_tensor(xt)
+    np.testing.assert_array_equal(n(qt), np.asarray(qj))
+    assert _bits(st) == _bits(sj)
+    wqj, _ = jq.quantize_weight_per_channel(jnp.asarray(w))
+    acc_j = np.asarray(jq._int8_conv_core(qj, wqj, stride, pad))
+    wqt, _ = tq.quantize_weight_per_channel(wt)
+    acc_t = tq.conv_int8_acc(qt, wqt.permute(0, 2, 3, 1), stride, pad)
+    assert acc_t.dtype == torch.int32
+    np.testing.assert_array_equal(n(acc_t), acc_j)
+
+    if scheme == "quantized":
+        want = jq.conv_int8(jq.QuantizedTensor(qj, sj), jnp.asarray(w),
+                            stride, pad, out_dtype=jdt)
+        got = tq.conv_int8(tq.QuantizedTensor(qt, st), wt, stride, pad,
+                           out_dtype=tdt)
+    else:
+        want = jq.conv_int8(xj, jnp.asarray(w), stride, pad,
+                            amax=(jnp.asarray(amax) if kw else None))
+        got = tq.conv_int8(xt, wt, stride, pad,
+                           amax=(t(amax) if kw else None))
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("k,stride", CASES)
+def test_conv_int8_matches_numpy_scheme(k, stride):
+    """test_int8.py's numpy reference of the scheme (rtol = atol =
+    1e-6, as test_conv_int8_exact_vs_numpy)."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 8, 10, 6).astype(np.float32)
+    w = rng.randn(k, k, 6, 12).astype(np.float32)
+    pad = (k - 1) // 2
+    got = tq.conv_int8(t(x), t(w.transpose(3, 2, 0, 1)), stride, pad)
+    np.testing.assert_allclose(n(got), _np_conv_int8(x, w, stride, pad),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_conv_int8_close_to_f32():
+    """Within JAX's 2% of the float conv (test_conv_int8_close_to_f32)."""
+    rng = np.random.RandomState(0)
+    x = np.abs(rng.randn(2, 14, 14, 32)).astype(np.float32)
+    w = (rng.randn(3, 3, 32, 16) * rng.rand(16) ** 2).astype(np.float32)
+    wt = t(w.transpose(3, 2, 0, 1))
+    got = n(tq.conv_int8(t(x), wt, 1, 1))
+    want = n(torch.nn.functional.conv2d(
+        t(x).permute(0, 3, 1, 2), wt, padding=1).permute(0, 2, 3, 1))
+    assert np.abs(got - want).mean() / np.abs(want).mean() < 0.02
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_int8_epilogue(dtype):
+    """Shift and relu in the op's epilogue: the output rounded once to
+    the dtype, the shift added in that dtype, then relu, as
+    ``models/resnet.py`` adds them after the JAX function."""
+    x, w = _inputs(5, 3)
+    rng = np.random.RandomState(6)
+    shift = t(rng.randn(24).astype(np.float32)).to(dtype)
+    wt = t(w.transpose(3, 2, 0, 1))
+    got = tq.conv_int8(t(x).to(dtype), wt, 2, 1, shift=shift, relu=True)
+    want = torch.relu(tq.conv_int8(t(x).to(dtype), wt, 2, 1) + shift)
+    assert torch.equal(got, want) and (got == 0).any() and (got > 0).any()
+    op = torch.ops.locov.conv_int8
+    xq, sx = tq.quantize_per_tensor(t(x))
+    wq, sw = tq.quantize_weight_per_channel(wt)
+    args = (xq, wq.permute(0, 2, 3, 1).contiguous(), sx * sw, shift, 2, 1,
+            True)
+    torch.library.opcheck(op, args)
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                    else a for a in args))
+    assert fake.shape == got.shape and fake.dtype == dtype
+
+
+# ------------------------------------------------------------- ROIAlign
+def _roi_inputs(seed, c=16):
+    rng = np.random.RandomState(seed)
+    feat = (rng.randn(2, 24, 28, c) * 3.0).astype(np.float32)
+    boxes = (rng.rand(2, 25, 4) * 80).astype(np.float32)
+    boxes[..., 2:] = boxes[..., :2] + rng.rand(2, 25, 2) * 60 + 2
+    boxes[0, 3] = [10.0, 10.0, 10.0, 10.0]  # degenerate (zero-size)
+    boxes[1, 5] = [-30.0, -20.0, -5.0, -2.0]  # outside the image
+    return feat, boxes
+
+
+@pytest.mark.parametrize("sampling_ratio,chunk", [(0, 200), (2, 200),
+                                                  (0, 8), (2, 16)])
+def test_roi_align_int8_core_matches_jax(sampling_ratio, chunk):
+    """The integer core fed JAX's own int8 matrices, row scales and
+    quantized features returns JAX's int8 output bit for bit, whatever
+    its box chunk (the port's plain core takes other chunks too)."""
+    feat, boxes = _roi_inputs(sampling_ratio * 10 + chunk)
+    amax_in = np.float32(np.abs(feat).max() * 0.9)
+    amax_pool = np.float32(np.abs(feat).max() * 0.5)
+    want, s_pool = jra.roi_align_batched_int8(
+        jnp.asarray(feat), jnp.asarray(boxes), 0.25, jnp.asarray(amax_in),
+        jnp.asarray(amax_pool), pooled=7, sampling_ratio=sampling_ratio,
+        chunk=chunk)
+    ky, kx = jra._build_kernels(jnp.asarray(boxes), 0.25, 24, 28, 7,
+                                sampling_ratio)
+    kyq, sy = jra._quantize_rows(ky)
+    kxq, sx = jra._quantize_rows(kx)
+    fq, s_f = jq.quantize_per_tensor_static(jnp.asarray(feat),
+                                            jnp.asarray(amax_in))
+    rescale = (t(np.asarray(s_f)) / t(np.asarray(s_pool))) * t(np.asarray(sy))
+    for pc in (chunk, 3):
+        got = tra.roi_align_int8_plain(t(np.asarray(fq)), t(np.asarray(kyq)),
+                                       t(np.asarray(kxq)), t(np.asarray(sx)),
+                                       rescale, chunk=pc)
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(n(got), np.asarray(want))
+    got = torch.ops.locov.roi_align_int8(
+        t(np.asarray(fq)), t(np.asarray(kyq)), t(np.asarray(kxq)),
+        t(np.asarray(sx)), rescale)
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+    assert (np.abs(np.asarray(want)) > 50).any()
+
+
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+def test_roi_align_int8_and_quant_within_two_steps_of_jax(sampling_ratio,
+                                                          capsys):
+    feat, boxes = _roi_inputs(7 + sampling_ratio)
+    fj, bj = jnp.asarray(feat), jnp.asarray(boxes)
+    pooled_f = np.asarray(jra.roi_align_batched(
+        fj, bj, 0.25, pooled=7, sampling_ratio=sampling_ratio))
+    amax_in = np.float32(np.abs(feat).max())
+    amax_pool = np.float32(np.abs(pooled_f).max())
+    for name, want, got in (
+            ("int8", jra.roi_align_batched_int8(
+                fj, bj, 0.25, jnp.asarray(amax_in), jnp.asarray(amax_pool),
+                pooled=7, sampling_ratio=sampling_ratio),
+             tra.roi_align_batched_int8(
+                 t(feat), t(boxes), 0.25, t(amax_in), t(amax_pool),
+                 pooled=7, sampling_ratio=sampling_ratio)),
+            ("quant", jra.roi_align_batched_quant(
+                fj, bj, 0.25, jnp.asarray(amax_pool), pooled=7,
+                sampling_ratio=sampling_ratio),
+             tra.roi_align_batched_quant(
+                 t(feat), t(boxes), 0.25, t(amax_pool), pooled=7,
+                 sampling_ratio=sampling_ratio))):
+        assert _bits(got[1]) == _bits(want[1])
+        d = np.abs(n(got[0]).astype(np.int32) -
+                   np.asarray(want[0]).astype(np.int32))
+        with capsys.disabled():
+            print(f"\n{name} sr {sampling_ratio}: {np.mean(d > 0):.2e} of "
+                  f"elements differ from JAX's, by at most {d.max()}")
+        assert d.max() <= 2
+
+
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+def test_roi_align_int8_within_budget_of_quant(sampling_ratio):
+    """The port's int8 op against its own float-then-quantize op, at
+    JAX's analytic budget (tests/test_roi_align.py): <= 3.5 steps of the
+    larger scale, mean <= 0.5; the degenerate box gives zeros under
+    adaptive sampling, and the op's fake gives its shape."""
+    feat, boxes = _roi_inputs(11 + sampling_ratio)
+    ft, bt = t(feat), t(boxes)
+    pooled_f = tra.roi_align_batched(ft, bt, 0.25, 7, sampling_ratio)
+    amax_in, amax_pool = ft.abs().amax(), pooled_f.abs().amax()
+    q_ref, s_ref = tra.roi_align_batched_quant(ft, bt, 0.25, amax_pool, 7,
+                                               sampling_ratio)
+    q8, s8 = tra.roi_align_batched_int8(ft, bt, 0.25, amax_in, amax_pool, 7,
+                                        sampling_ratio)
+    assert q8.dtype == torch.int8 and q8.shape == q_ref.shape
+    assert torch.equal(s8, s_ref)
+    step = max(float(amax_in), float(amax_pool)) / 127.0
+    diff = np.abs(n(q8).astype(np.float32) * float(s8) -
+                  n(q_ref).astype(np.float32) * float(s_ref))
+    assert diff.max() <= 3.5 * step + 1e-6
+    assert diff.mean() <= 0.5 * step
+    if sampling_ratio == 0:
+        assert (n(q8)[0, 3] == 0).all()
+    assert (n(q8)[1, 5] == 0).all()  # outside the image
+    ops = tra.int8_operands(ft, bt, 0.25, amax_in, amax_pool, 7,
+                            sampling_ratio)[:5]
+    torch.library.opcheck(torch.ops.locov.roi_align_int8, ops)
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fake = torch.ops.locov.roi_align_int8(
+            *(mode.from_tensor(a) for a in ops))
+    assert fake.shape == q8.shape and fake.dtype == torch.int8
+
+
+def test_int8_plans_match_the_kernel_sources():
+    """The int8 ROIAlign wrapper's shared-memory count is the CUDA
+    source's formula (its C entry sets the attribute to it; the wrapper
+    refuses features that would exceed a block's); the conv wrapper's
+    staged-piece sizes are those the C entry takes."""
+    import re
+    from locov_torch.ops import kernel_lib
+    with open(f"{kernel_lib.CSRC}/roi_align_int8.cu") as f:
+        src = f.read()
+    body = re.search(r"static int smem_bytes\(int h, int w, int p\) "
+                     r"\{\s*return (.*?);\s*\}", src, re.S).group(1)
+    pmax = int(re.search(r"constexpr int PMAX = (\d+);", src).group(1))
+    assert pmax == tra._INT8_PMAX
+    for h, w, p in ((50, 84, 14), (84, 50, 14), (250, 7, 7), (1, 1, 16)):
+        want = eval(body.replace("/", "//"), {"PMAX": pmax, "h": h, "w": w,
+                                              "p": p})
+        assert tra._int8_smem(h, w, p) == want
+    with open(f"{kernel_lib.CSRC}/conv_int8.cu") as f:
+        src = f.read()
+    assert [tq.piece_bytes(c, a) for c, a in ((64, 0), (64, 8), (24, 0),
+                                              (12, 16), (6, 0))] == \
+        [16, 8, 8, 4, None]
+    assert "vec == 16" in src and "vec == 8" in src
+    assert "conv_int8" in kernel_lib.KERNELS
+    assert "roi_align_int8" in kernel_lib.KERNELS

@@ -33,8 +33,15 @@ another order, one rounding), plus 1e-5 * (|x| conv |w| + |shift|), the
 float32 sum-order bound, which exceeds a bfloat16 ulp of an output
 close to 0; its gradient within 1e-5 of the largest
 value (plus one bfloat16 ulp in bfloat16) of autograd of the plain conv.
-The serving program split over two cards gives the one-card
-program's bits on each half of the batch. The full-float32 products of
+The int8 convolution (KQ1) and the int8 ROIAlign core (KQ2) bit-exact
+against their plain versions (integer sums, the same float32 epilogue
+operations), into a NaN-filled or otherwise filled output, at odd shapes
+(M and O not multiples of the tile, C past a k step, zero-area and
+outside boxes); the tiny int8 model on the card against the CPU by
+matched detections (a stem output an ulp apart can move an int8
+rounding by a step: scores within 5e-3). The serving program split over
+two cards gives the one-card program's bits on each half of the
+batch. The full-float32 products of
 the grounding head (``ops/matmul.py``)
 within 1e-5 of float64 with cuBLAS's TF32 allowed; the tiny LSM step on
 the card against the CPU at the tolerances its docstring states.
@@ -48,6 +55,7 @@ import torch
 from locov_torch.ops import kernel_lib
 from locov_torch.ops import roi_align as roi_mod
 from locov_torch.ops import bottleneck_block as block_mod
+from locov_torch.ops import int8_conv as iq
 from locov_torch.ops.bottleneck_block import (bottleneck_block,
                                               bottleneck_block_cuda,
                                               bottleneck_block_plain)
@@ -465,6 +473,124 @@ def test_stem_conv_bn_backward_is_the_conv_vjp(cuda, dtype):
         assert bool(((got - want).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,o,k,stride", [
+    ((2, 14, 14, 1024), 512, 1, 2), ((2, 7, 7, 512), 512, 3, 1),
+    ((3, 9, 11, 48), 200, 3, 2), ((1, 13, 17, 64), 72, 1, 1),
+    ((2, 25, 42, 256), 1024, 1, 1), ((1, 5, 3, 16), 8, 3, 1),
+    ((2, 16, 16, 8), 24, 3, 1), ((2, 9, 7, 12), 32, 1, 2)])
+def test_conv_int8_bit_exact(cuda, dtype, shape, o, k, stride):
+    xq = torch.randint(-127, 128, shape, generator=cuda,
+                       device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (o, k, k, shape[3]), generator=cuda,
+                       device="cuda").to(torch.int8)
+    scale = torch.rand(o, generator=cuda, device="cuda") * 1e-3
+    shift = (torch.randn(o, generator=cuda, device="cuda") * 5).to(dtype)
+    pad = (k - 1) // 2
+    for relu in (False, True):
+        got = iq._launch(xq, wq, scale, shift, stride, pad, relu,
+                         fill=math.nan)
+        want = iq.conv_int8_plain(xq, wq, scale, shift, stride, pad, relu)
+        assert _same_bits(got, want)
+        again = iq._launch(xq, wq, scale, shift, stride, pad, relu)
+        assert _same_bits(again, got)
+    before = kernel_lib.LAUNCHES["conv_int8"]
+    iq.conv_int8_cuda(xq, wq, scale, shift, stride, pad, True)
+    assert kernel_lib.LAUNCHES["conv_int8"] == before + 1
+
+
+def test_conv_int8_rejects_bad_inputs(cuda):
+    xq = torch.zeros((1, 4, 4, 6), dtype=torch.int8, device="cuda")
+    wq = torch.zeros((8, 1, 1, 6), dtype=torch.int8, device="cuda")
+    one = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        iq.conv_int8_cuda(xq, wq, one, one, 1, 0, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        iq.conv_int8_cuda(xq.cpu(), wq, one, one, 1, 0, False)
+
+
+@pytest.mark.parametrize("sr,pooled,c,h,w,n", [
+    (0, 14, 1024, 50, 84, 100), (2, 7, 16, 24, 28, 25),
+    (0, 14, 64, 84, 50, 40), (0, 16, 4, 7, 9, 9)])
+def test_roi_align_int8_bit_exact(cuda, sr, pooled, c, h, w, n):
+    f = torch.randn((2, h, w, c), generator=cuda, device="cuda") * 3
+    bx = _boxes(cuda, 2, n, h * 16, w * 16)
+    bx[0, 3] = 10.0  # zero-area
+    bx[1, 2] = torch.tensor([-90.0, -40.0, -20.0, -5.0], device="cuda")
+    amax_in = f.abs().amax()
+    ops = roi_mod.int8_operands(f, bx, 1 / 16, amax_in, amax_in * 0.6,
+                                pooled, sr)[:5]
+    got = roi_mod._launch_int8(*ops, fill=77)
+    want = roi_mod.roi_align_int8_plain(*ops)
+    assert torch.equal(got, want)
+    assert (got[1, 2] == 0).all() and (got.abs() > 60).any()
+    if sr == 0:
+        assert (got[0, 3] == 0).all()
+    before = kernel_lib.LAUNCHES["roi_align_int8"]
+    assert torch.equal(roi_mod.roi_align_int8_cuda(*ops), want)
+    assert kernel_lib.LAUNCHES["roi_align_int8"] == before + 1
+
+
+def _matched(cpu, gpu, score_tol, box_tol):
+    """The share of the CPU's detections that the card's match (the same
+    class, every box coordinate within ``box_tol``, the score within
+    ``score_tol``)."""
+    (cb, cs, cc, cm), (gb, gs, gc, gm) = cpu, gpu
+    hit = total = 0
+    for i in range(cm.shape[0]):
+        for j in torch.nonzero(cm[i]).flatten().tolist():
+            total += 1
+            near = gm[i] & (gc[i] == cc[i, j]) & \
+                ((gb[i] - cb[i, j]).abs().amax(-1) <= box_tol) & \
+                ((gs[i] - cs[i, j]).abs() <= score_tol)
+            hit += bool(near.any())
+    return hit / max(total, 1)
+
+
+@pytest.mark.parametrize("scheme,roialign", [("dynamic", True),
+                                             ("static", True),
+                                             ("static", False)])
+def test_tiny_int8_model_cuda_matches_cpu(cuda, scheme, roialign):
+    """The tiny float32 model in the int8 mode on the card (KQ1, KQ2 and
+    K2 launched) against the CPU (the plain versions): calibrated on
+    each device from the same weights, the detections matched one to
+    one within 5e-3 in score and 0.05 px."""
+    from locov_torch.config import get_cfg
+    from locov_torch.models import build_meta_arch
+    from locov_torch.structures.batches import (DetectionBatch,
+                                                ImageBatch, to_torch)
+    from locov_torch.utils.weights import seeded_init_
+    from torch_parity import tiny_cfg
+    cfg = tiny_cfg(get_cfg, **{"MODEL.PIXEL_STD": [57.375, 57.12, 58.395],
+                               "TPU.INT8_EVAL": True,
+                               "TPU.INT8_SCHEME": scheme,
+                               "TPU.INT8_ROIALIGN": roialign})
+    rng = np.random.RandomState(0)
+    batch = DetectionBatch(images=ImageBatch(
+        image=(rng.rand(2, 64, 64, 3) * 255).astype(np.float32),
+        hw=np.array([[64, 64], [48, 56]], np.int32),
+        orig_hw=np.array([[128, 128], [96, 112]], np.int32)))
+    ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
+    ce[-1] = 0.0
+    out = {}
+    before = dict(kernel_lib.LAUNCHES)
+    for dev in ("cpu", "cuda"):
+        m = seeded_init_(build_meta_arch(cfg, device="cpu"), 0)
+        with torch.no_grad():
+            m.rpn_head.anchor_deltas.weight.zero_()
+        m.to(dev)
+        b, c = to_torch(batch, dev), torch.from_numpy(ce).to(dev)
+        if scheme == "static":
+            m.calibrate_int8(b, c)
+        out[dev] = [x.cpu() for x in m.inference(b, c)]
+    assert kernel_lib.LAUNCHES["conv_int8"] > before["conv_int8"]
+    if scheme == "static" and roialign:
+        assert kernel_lib.LAUNCHES["roi_align_int8"] > \
+            before["roi_align_int8"]
+    assert int(out["cpu"][3].sum()) >= 10
+    assert _matched(out["cpu"], out["cuda"], 5e-3, 0.05) == 1.0
+
+
 def test_tiny_model_cuda_matches_cpu(cuda):
     from locov_torch.config import get_cfg
     from locov_torch.models import build_meta_arch
@@ -697,7 +823,8 @@ def _op_cases(gen):
     (float32); ROIAlign and its backward in float32 within 1e-5 * max|F|
     and 1e-5 * (the plain backward of |g|) at each cell; the stem conv
     within one bfloat16 ulp plus 1e-5 * (|x| conv |w| + |shift|); the
-    block within 1e-5 * max|y| (float32); the NMS keep mask equal to the
+    block within 1e-5 * max|y| (float32); the int8 conv and the int8
+    ROIAlign core bit-exact; the NMS keep mask equal to the
     CPU's."""
     from locov_torch.ops import nms as nms_mod
     x = torch.randn((2, 15, 17, 64), generator=gen, device="cuda")
@@ -713,6 +840,13 @@ def _op_cases(gen):
     ns = torch.rand((2, 605), generator=gen, device="cuda")
     nv = torch.rand((2, 605), generator=gen, device="cuda") > 0.1
     nc = torch.randint(0, 3, (2, 605), generator=gen, device="cuda")
+    xq = torch.randint(-127, 128, (2, 9, 11, 64), generator=gen,
+                       device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (40, 3, 3, 64), generator=gen,
+                       device="cuda").to(torch.int8)
+    qs = torch.rand(40, generator=gen, device="cuda") * 1e-3
+    qh = torch.randn(40, generator=gen, device="cuda").to(torch.bfloat16)
+    fa = f.abs().amax()
     return {
         "relu_maxpool": ((x,), relu_maxpool_plain, "relu_maxpool"),
         "relu_maxpool_bwd": ((x, dy), relu_maxpool_bwd_plain,
@@ -725,6 +859,11 @@ def _op_cases(gen):
                          "stem_conv_bn"),
         "bottleneck_block": (block, bottleneck_block_plain,
                              "bottleneck_block"),
+        "conv_int8": ((xq, wq, qs, qh, 2, 1, True), iq.conv_int8_plain,
+                      "conv_int8"),
+        "roi_align_int8": (roi_mod.int8_operands(f, bx, 1 / 16, fa,
+                                                 fa * 0.5, 14, 0)[:5],
+                           roi_mod.roi_align_int8_plain, "roi_align_int8"),
         "nms_mask": ((nb, ns, nv, 0.5, 100, nc),
                      lambda *a: nms_mod.nms_mask_batched(
                          *(t.cpu() if torch.is_tensor(t) else t
@@ -735,6 +874,7 @@ def _op_cases(gen):
 @pytest.mark.parametrize("name", ["relu_maxpool", "relu_maxpool_bwd",
                                   "roi_align", "roi_align_bwd",
                                   "stem_conv_bn", "bottleneck_block",
+                                  "conv_int8", "roi_align_int8",
                                   "nms_mask"])
 def test_locov_ops_on_the_card(cuda, name):
     """Each ``torch.ops.locov`` op on CUDA tensors: ``opcheck`` (its fake
@@ -756,6 +896,9 @@ def test_locov_ops_on_the_card(cuda, name):
     if name == "nms_mask":
         assert torch.equal(got.cpu(), want)
         assert int(want.sum()) > 0
+        return
+    if name in ("conv_int8", "roi_align_int8"):
+        assert torch.equal(got, want)
         return
     got, want = got.float(), want.float()
     if name.startswith("relu_maxpool"):

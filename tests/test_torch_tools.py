@@ -6,8 +6,10 @@ tools (tools/*.py, which run the JAX package).
   byte for byte.
 - ``export_serving``: the CLI writes a complete artifact for a tiny
   config on the CPU; ``--n-devices`` above the devices PyTorch sees
-  exits with argparse's code 2; ``TPU.INT8_EVAL`` raises, citing its
-  ROADMAP item.
+  exits with argparse's code 2; ``TPU.INT8_EVAL``, which raised here
+  before, exports: under the static scheme the max-abs buffers ride
+  among the variables (tests/test_torch_int8_engine.py holds a loaded
+  int8 program to the eager model).
 - ``demo``: the JSON equals JAX's demo's at JAX's test's tiny overrides
   (tests/test_demo.py, on the tiny trunk of tests/torch_parity.py),
   both on the same tamed weights (JAX's init, zero RPN anchor deltas,
@@ -170,10 +172,18 @@ def test_export_serving_cli(tmp_path):
                              "--device", "cpu", "--n-devices", "2"]
                             + _tiny_opts())
     assert e.value.code == 2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        export_serving.main(["--config-file", STT, "--out", out,
-                             "--device", "cpu"]
-                            + _tiny_opts(["TPU.INT8_EVAL", "True"]))
+    out8 = str(tmp_path / "art8")
+    export_serving.main(["--config-file", STT, "--out", out8, "--batch",
+                         "2", "--height", "64", "--width", "64", "--device",
+                         "cpu"] + _tiny_opts(["TPU.INT8_EVAL", "True",
+                                              "TPU.INT8_SCHEME", "static"]))
+    from locov_torch.serving import load_exported
+    _, variables, _ = load_exported(out8)
+    amax = [k for k in variables if k.endswith("amax")]
+    assert len(amax) == 54 and "model.roi_heads.pooled_amax" in amax
+    with open(os.path.join(out8, "inference.graph.txt")) as f:
+        graph = f.read()
+    assert "locov.conv_int8" in graph and "locov.roi_align_int8" in graph
 
 
 DEMO_OPTS = ["INPUT.MIN_SIZE_TEST", "64", "INPUT.MAX_SIZE_TEST", "64",

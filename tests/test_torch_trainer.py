@@ -271,8 +271,12 @@ def test_best_metric_save_and_projection_only_load(stt_run, root):
     ("TEST.AUG.ENABLED", True, "item 8"),
     ("TPU.INT8_EVAL", True, "item 9")])
 def test_trainer_raises_on_what_is_not_ported(root, key, value, item):
-    """int8 serving (item 9) raises. Test-time augmentation (item 8),
-    which raised here before, evaluates: the trainer's ``test`` with
+    """int8 serving (item 9), which raised here before, evaluates: the
+    trainer's ``test`` under the static scheme calibrates the model on
+    ``INT8_CALIB_BATCHES`` batches of the test loader once, and not
+    again on a second ``test`` (every max-abs is positive then).
+    Test-time augmentation (item 8), which raised here before too,
+    evaluates: the trainer's ``test`` with
     TEST.AUG.ENABLED at the test size and its flip merges two passes
     (tests/test_torch_tta.py holds TTA to JAX's). The grid models (item
     3), which raised here before too, train: two steps
@@ -313,8 +317,26 @@ def test_trainer_raises_on_what_is_not_ported(root, key, value, item):
         assert res["tta_merged"] <= res["tta_detections"]
         assert np.isfinite(res["AP50"])
         return
-    with pytest.raises(NotImplementedError, match=item):
-        OVRTrainer(cfg, device="cpu")
+    cfg.TPU.INT8_SCHEME = "static"
+    cfg.TPU.INT8_CALIB_BATCHES = 2
+    tr = OVRTrainer(cfg, device="cpu")
+    calls = []
+    calibrate = tr.model.calibrate_int8
+    tr.model.calibrate_int8 = lambda *a: calls.append(1) or calibrate(*a)
+    try:
+        res = tr.test(cfg)[cfg.DATASETS.TEST[0]]
+        assert len(calls) == 2
+        amax = {k: v.clone() for k, v in tr.model.amax_buffers().items()}
+        assert len(amax) == 54 and all(float(v) > 0 for v in amax.values())
+        again = tr.test(cfg)[cfg.DATASETS.TEST[0]]
+        assert len(calls) == 2
+        for k in ("AP", "AP50"):
+            assert again[k] == res[k]
+        assert all(torch.equal(v, amax[k])
+                   for k, v in tr.model.amax_buffers().items())
+    finally:
+        tr.close()
+    assert np.isfinite(res["AP50"])
 
 
 def _first_steps(root, out, n_steps=2, **tpu):
