@@ -34,10 +34,13 @@ Phases, one JSON line each, in order:
    output, the same bits on two launches, in six cases (res2, res3 M
    128, partial tiles, H 1, and b1 = 3 against a relu(b1) halo). The
    int8 kernels, the same bits as their plain versions: KQ1 (the int8
-   conv) at res5's conv3 on 8,000 boxes ([8000, 7, 7, 512] -> 2048) with
-   bfloat16 and float32 outputs, into a NaN-filled output, and two odd
-   shapes; KQ2 (the int8 ROIAlign core) at [8, 50, 84, 1024] with 1,000
-   boxes an image, edge boxes and a fixed ratio.
+   conv; the wgmma kernel, and the narrow mma.sync one where C is not a
+   multiple of 16) in each epilogue variant (a residual; the int8 copy
+   with and without the float output) with bfloat16 and float32
+   outputs, into NaN-filled outputs, at res5's conv3 on 8,000 boxes
+   ([8000, 7, 7, 512] -> 2048; both kernels), res4's 3x3 conv2, odd
+   shapes and C 8 and 12; KQ2 (the int8 ROIAlign core) at [8, 50, 84,
+   1024] with 1,000 boxes an image, edge boxes and a fixed ratio.
    Kernel, plain and library-call times are medians of CUDA-event
    timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
@@ -91,9 +94,11 @@ Phases, one JSON line each, in order:
    trained scale, batch 8 of 800 x 1344; the bf16 model and three int8 ones with its weights
    (dynamic; static with KQ2; static with K2 and a quantize after it),
    the static ones calibrated by ``make_calibrate_step`` on 4 seeded
-   batches (seconds); on another batch each mode's launches (K1-fwd,
-   KQ1, KQ2 or K2), peak memory, the median of 5 batches in turns with
-   bf16, one profile (busy ms), the box features of bf16's proposals
+   batches (seconds), and the static one as the parent design ran it
+   (unfused quantize passes, the narrow KQ1: the same bits); on another
+   batch each mode's launches (K1-fwd, KQ1, KQ2 or K2), peak memory, the
+   median of 5 batches in turns with bf16, one profile (busy ms), one of
+   its quantize passes, the box features of bf16's proposals
    against bf16's (mean relative error) and the share of bf16's top-100
    detections kept (same class, IoU >= 0.9); every KQ1 and KQ2 signature
    held to its plain version; the tiny int8 model card against CPU
@@ -182,9 +187,10 @@ Phases, one JSON line each, in order:
 15. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; then a row for each of the port's
-   own kernels, KQ1 and KQ2, whose ``replaces`` names the JAX function
-   XLA computes; ``launches_by_path`` gives each path's counts,
-   ``eval``, ``int8``, ``int8_eval``, ``trainer``, ``scale``,
+   own kernels, KQ1 (its wgmma and narrow kernels) and KQ2, whose
+   ``replaces`` names the JAX function XLA computes; ``launches_by_path``
+   gives each path's counts, ``eval``, ``int8``, ``int8_eval``,
+   ``int8_tiny``, ``trainer``, ``scale``,
    ``family``, ``serving`` and ``tta`` among them), the
    card's ``nvidia-smi`` name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
@@ -198,6 +204,7 @@ It does the same when no CUDA device is present, and when the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -237,7 +244,12 @@ KERNEL_ROWS = (
 # path whose launches the row reports, the dtype of the row's numbers).
 INT8_KERNEL_ROWS = (
     ("conv_int8", "locov_torch/csrc/conv_int8.cu",
-     "locov_tpu/ops/int8_conv.py:80 (XLA; no Pallas kernel)", "int8",
+     "locov_tpu/ops/int8_conv.py:87 (XLA; no Pallas kernel)", "int8",
+     "bfloat16"),
+    # the narrow kernel (C not a multiple of 16): the tiny int8 model's
+    # convs; its time is at conv3 (the first design)
+    ("conv_int8_narrow", "locov_torch/csrc/conv_int8.cu",
+     "locov_tpu/ops/int8_conv.py:87 (XLA; no Pallas kernel)", "int8_tiny",
      "bfloat16"),
     ("roi_align_int8", "locov_torch/csrc/roi_align_int8.cu",
      "locov_tpu/ops/roi_align.py:175 (XLA; no Pallas kernel)", "int8",
@@ -3942,71 +3954,222 @@ INT8_TINY_SCORE_TOL = 5e-3
 INT8_TINY_BOX_TOL = 0.05
 
 
-def check_conv_int8(gen, results):
-    """KQ1 against its plain version, the same bits: res5's conv3 on
-    8,000 boxes (1x1, [8000, 7, 7, 512] int8 -> 2048, M 392,000), with a
-    bfloat16 and a float32 output (an f32 model's epilogue), shift and
-    relu, into a NaN-filled output, then odd shapes (M and O not
-    multiples of the 128 x 128 tile, C 48 past a 64-byte k step, 3x3 /
-    2; 1x1 at O 72) and narrow ones (C 8 and 12: 8- and 4-byte staged
-    pieces, as the tiny models take). Its time, the plain version's, and
-    ``torch._int_mm`` (cuBLASLt's int8 GEMM) of the same product."""
+# KQ1's epilogue variants: (residual, int8 copy, float output)
+CONV_INT8_VARIANTS = {"plain": (False, False, True),
+                      "residual": (True, False, True),
+                      "quant": (True, True, True),
+                      "quant_only": (False, True, False)}
+# (case, input, out channels, kernel, stride, variants, dtypes): res5's
+# conv3 on 8,000 boxes, a trunk 3x3 (res4's conv2 on the main path's
+# batch), odd shapes (M and O off the tiles, C 48 past a 128-byte k step,
+# 3x3 / 2; O 72 and 20: ragged tiles and rows not whole 16-byte pieces),
+# the narrow kernel's C 8 and 12 (8- and 4-byte staged pieces)
+CONV_INT8_CASES = (
+    ("res5_conv3", (8000, 7, 7, 512), 2048, 1, 1, tuple(CONV_INT8_VARIANTS),
+     ("bfloat16", "float32")),
+    ("res4_conv2_3x3", (8, 50, 84, 256), 256, 3, 1, ("plain", "quant_only"),
+     ("bfloat16",)),
+    ("odd_3x3_s2", (3, 9, 11, 48), 200, 3, 2, tuple(CONV_INT8_VARIANTS),
+     ("bfloat16", "float32")),
+    ("odd_1x1", (1, 13, 17, 64), 72, 1, 1, tuple(CONV_INT8_VARIANTS),
+     ("bfloat16", "float32")),
+    ("odd_o20", (2, 6, 5, 32), 20, 1, 1, tuple(CONV_INT8_VARIANTS),
+     ("bfloat16",)),
+    ("narrow_c8", (2, 16, 16, 8), 24, 3, 1, tuple(CONV_INT8_VARIANTS),
+     ("bfloat16", "float32")),
+    ("narrow_c12", (2, 9, 7, 12), 32, 1, 2, tuple(CONV_INT8_VARIANTS),
+     ("bfloat16",)))
+
+
+def _conv_int8_operands(gen, xshape, o, k, dtype, variant, stride):
+    """Seeded operands of one KQ1 launch in ``variant``: (xq, wq, scale,
+    shift, pad, residual or None, amax or None, float_out). The amax is
+    0.7 of the plain output's max-abs, so that values saturate."""
     import torch
     from locov_torch.ops import int8_conv as iq
-    from locov_torch.tools.timing import time_ms
 
     def rand8(shape):
         return torch.randint(-127, 128, shape, generator=gen,
                              device="cuda").to(torch.int8)
-    cases = [("res5_conv3", (8000, 7, 7, 512), 2048, 1, 1),
-             ("odd_3x3_s2", (3, 9, 11, 48), 200, 3, 2),
-             ("odd_1x1", (1, 13, 17, 64), 72, 1, 1),
-             ("narrow_c8", (2, 16, 16, 8), 24, 3, 1),
-             ("narrow_c12", (2, 9, 7, 12), 32, 1, 2)]
-    for case, shape, o, k, stride in cases:
-        xq, wq = rand8(shape), rand8((o, k, k, shape[3]))
-        scale = torch.rand(o, generator=gen, device="cuda") * 1e-3
-        pad = (k - 1) // 2
-        for dtype in (torch.bfloat16, torch.float32):
-            shift = (torch.randn(o, generator=gen, device="cuda") * 5).to(
-                dtype)
-            got = iq._launch(xq, wq, scale, shift, stride, pad, True,
-                             fill=math.nan)
-            want = torch.cat([iq.conv_int8_plain(xq[i:i + 1000], wq, scale,
-                                                 shift, stride, pad, True)
-                              for i in range(0, shape[0], 1000)])
-            ok = _same_bits(got, want)
-            again = _same_bits(iq._launch(xq, wq, scale, shift, stride,
-                                          pad, True), got)
-            line = {"phase": "kernel_check", "kernel": "conv_int8",
-                    "case": case, "dtype": str(dtype).split(".")[1],
-                    "shape": list(shape), "out_channels": o, "kernel_hw": k,
-                    "stride": stride, "same_bits": ok,
-                    "same_bits_two_launches": again,
-                    "max_abs_err": float((got.float() - want.float())
-                                         .abs().nan_to_num(math.inf).max())}
-            if case == "res5_conv3":
-                m = shape[0] * shape[1] * shape[2]
-                line["kernel_ms"] = time_ms(lambda: iq.conv_int8_cuda(
-                    xq, wq, scale, shift, stride, pad, True), reps=10)
-                line["plain_ms"] = time_ms(lambda: iq.conv_int8_plain(
-                    xq, wq, scale, shift, stride, pad, True), reps=3,
-                    warmup=1)
-                a8, b8 = xq.reshape(m, shape[3]), wq.reshape(o, shape[3])
-                line["library_ms"] = time_ms(
-                    lambda: torch._int_mm(a8, b8.t()), reps=10)
-                line["library"] = "torch._int_mm (cuBLASLt int8 GEMM)"
-                nbytes = xq.numel() + wq.numel() + 4 * o + \
-                    shift.element_size() * (o + got.numel())
-                line["bound_ms"], line["bound_by"] = bound_ms(
-                    nbytes, 2.0 * m * shape[3] * o, INT8_TC_OPS_PER_S)
-                results[("conv_int8", line["dtype"])] = line
-            emit(line)
-            if not (ok and again):
-                raise AssertionError(f"conv_int8 {case} {dtype}: {line}")
-            del got, want
-        del xq, wq
-        torch.cuda.empty_cache()
+    has_res, has_q, float_out = CONV_INT8_VARIANTS[variant]
+    xq, wq = rand8(xshape), rand8((o, k, k, xshape[3]))
+    scale = torch.rand(o, generator=gen, device="cuda") * 1e-3
+    shift = (torch.randn(o, generator=gen, device="cuda") * 5).to(dtype)
+    pad = (k - 1) // 2
+    oh, ow = iq._out_hw(xshape[1], xshape[2], k, stride, pad)
+    res = (torch.randn((xshape[0], oh, ow, o), generator=gen,
+                       device="cuda") * 4).to(dtype) if has_res else None
+    amax = None
+    if has_q:
+        y = _conv_int8_plain_chunked(xq, wq, scale, shift, stride, pad,
+                                     res)[0]
+        amax = (y.float().abs().max() * 0.7).reshape(())
+        del y
+    return xq, wq, scale, shift, pad, res, amax, float_out
+
+
+def _conv_int8_plain_chunked(xq, wq, scale, shift, stride, pad, res,
+                             amax=None, float_out=True, relu=True):
+    """KQ1's plain version on the card, 1,000 images at a time (its float64
+    convolution): (the float output or None, the int8 copy or None)."""
+    import torch
+    from locov_torch.ops import int8_conv as iq
+    outs, qs = [], []
+    for i in range(0, xq.shape[0], 1000):
+        r = None if res is None else res[i:i + 1000]
+        if amax is None:
+            outs.append(iq.conv_int8_plain(xq[i:i + 1000], wq, scale, shift,
+                                           stride, pad, relu, r))
+            continue
+        out, q = iq.conv_int8_quant_plain(xq[i:i + 1000], wq, scale, shift,
+                                          stride, pad, relu, r, amax,
+                                          float_out)
+        outs.append(out)
+        qs.append(q)
+    out = torch.cat(outs) if outs and (amax is None or float_out) else None
+    return out, (torch.cat(qs) if qs else None)
+
+
+def _conv_int8_same(xq, wq, scale, shift, stride, pad, res, amax, float_out,
+                    route, relu=True):
+    """One KQ1 launch on ``route`` into NaN-filled outputs (-128 in the
+    int8 copy) against the plain version, and a second launch: (same
+    bits, same bits on the second launch, the largest difference)."""
+    import torch
+    from locov_torch.ops import int8_conv as iq
+    got, q, _ = iq._launch(xq, wq, scale, shift, stride, pad, relu, res, amax,
+                           float_out, fill=math.nan, route=route)
+    want, want_q = _conv_int8_plain_chunked(xq, wq, scale, shift, stride,
+                                            pad, res, amax, float_out, relu)
+    again, q2, _ = iq._launch(xq, wq, scale, shift, stride, pad, relu, res,
+                              amax, float_out, route=route)
+    ok, twice, err = True, True, 0.0
+    if want is not None:
+        ok = got is not None and _same_bits(got, want)
+        twice = _same_bits(again, got)
+        err = float((got.float() - want.float()).abs()
+                    .nan_to_num(math.inf).max())
+    if want_q is not None:
+        ok = ok and bool(torch.equal(q, want_q))
+        twice = twice and bool(torch.equal(q2, q))
+        err = max(err, float((q.int() - want_q.int()).abs().max()))
+    return ok, twice, err
+
+
+def conv_int8_bound(xq, wq, shift, m, variant):
+    """KQ1's bound for a launch in ``variant``: each input read once (xq,
+    wq, scale, shift and the residual), each output written once (the
+    float output and the int8 copy), against the int8 products at the
+    dense int8 rate: (ms, "bytes" or "operations")."""
+    has_res, has_q, float_out = CONV_INT8_VARIANTS[variant]
+    o, es = wq.shape[0], shift.element_size()
+    nbytes = xq.numel() + wq.numel() + 4 * o + es * o + \
+        (es * m * o if has_res else 0) + (es * m * o if float_out else 0) + \
+        (m * o if has_q else 0)
+    return bound_ms(nbytes, 2.0 * m * wq[0].numel() * o, INT8_TC_OPS_PER_S)
+
+
+def check_conv_int8(gen, results):
+    """KQ1 against its plain version, the same bits, in each epilogue
+    variant (a residual; the int8 copy by a calibrated max-abs, with and
+    without the float output) and float32 and bfloat16 outputs, into
+    NaN-filled outputs, on the kernel ``conv_int8_route`` picks: the
+    wgmma kernel at res5's conv3 on 8,000 boxes (1x1, [8000, 7, 7, 512]
+    int8 -> 2048, M 392,000), res4's conv2 (3x3 at [8, 50, 84, 256]) and
+    the odd shapes, the narrow kernel at C 8 and 12; at res5's conv3 the
+    narrow kernel too (the first design: the same bits). At res5's conv3
+    and res4's conv2, for each variant: the kernel's time, the narrow
+    kernel's (``parent_ms``), the bound of its bytes (a residual or an
+    int8 copy changes them); at conv3 ``torch._int_mm`` (cuBLASLt's int8
+    GEMM) of the same product, and the plain version's time; at the 3x3
+    cuDNN's bfloat16 conv of the same shapes."""
+    import torch
+    import torch.nn.functional as F
+    from locov_torch.ops import int8_conv as iq
+    from locov_torch.tools.timing import time_ms
+    for case, xshape, o, k, stride, variants, dtypes in CONV_INT8_CASES:
+        route = "wgmma" if xshape[3] % 16 == 0 else "narrow"
+        routes = (route, "narrow") if case == "res5_conv3" else (route,)
+        timed = case in ("res5_conv3", "res4_conv2_3x3")
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            timed_variants = []
+            for variant in variants:
+                ops = _conv_int8_operands(gen, xshape, o, k, dtype, variant,
+                                          stride)
+                xq, wq, scale, shift, pad, res, amax, float_out = ops
+                args = (xq, wq, scale, shift, stride, pad, res, amax,
+                        float_out)
+                for rt in routes:
+                    ok, twice, err = _conv_int8_same(*args, route=rt)
+                    line = {"phase": "kernel_check", "kernel": "conv_int8",
+                            "route": rt, "case": case, "variant": variant,
+                            "dtype": dt, "shape": list(xshape),
+                            "out_channels": o, "kernel_hw": k,
+                            "stride": stride, "same_bits": ok,
+                            "same_bits_two_launches": twice,
+                            "max_abs_err": err}
+                    if timed and rt == route and (dt == "bfloat16" or
+                                                  variant == "plain"):
+                        oh, ow = iq._out_hw(xshape[1], xshape[2], k, stride,
+                                            pad)
+                        m = xshape[0] * oh * ow
+                        launch = (lambda r: lambda: iq._launch(
+                            xq, wq, scale, shift, stride, pad, True, res,
+                            amax, float_out, route=r))
+                        line["kernel_ms"] = time_ms(launch(route), reps=10)
+                        line["parent_ms"] = time_ms(launch("narrow"),
+                                                    reps=10)
+                        line["bound_ms"], line["bound_by"] = \
+                            conv_int8_bound(xq, wq, shift, m, variant)
+                        line["library_ms"] = None
+                        if k == 1 and stride == 1:
+                            a8 = xq.reshape(m, xshape[3])
+                            b8 = wq.reshape(o, xshape[3])
+                            line["library_ms"] = time_ms(
+                                lambda: torch._int_mm(a8, b8.t()), reps=10)
+                            line["library"] = "torch._int_mm (cuBLASLt " \
+                                "int8 GEMM, the int32 product alone)"
+                        elif variant == "plain":
+                            xb = torch.randn(xshape, generator=gen,
+                                             device="cuda").to(torch.bfloat16)
+                            wb = torch.randn((o, xshape[3], k, k),
+                                             generator=gen, device="cuda"
+                                             ).to(torch.bfloat16)
+                            line["cudnn_bf16_ms"] = time_ms(
+                                lambda: F.conv2d(
+                                    xb.permute(0, 3, 1, 2),
+                                    wb.contiguous(
+                                        memory_format=torch.channels_last),
+                                    stride=stride, padding=pad), reps=10)
+                            del xb, wb
+                        if variant == "plain":
+                            line["plain_ms"] = time_ms(
+                                lambda: _conv_int8_plain_chunked(
+                                    xq, wq, scale, shift, stride, pad, None),
+                                reps=2, warmup=1)
+                        timed_variants.append(
+                            {k2: line.get(k2) for k2 in (
+                                "case", "variant", "kernel_ms", "parent_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "cudnn_bf16_ms")})
+                    emit(line)
+                    if not (ok and twice):
+                        raise AssertionError(f"conv_int8 {case} {variant} "
+                                             f"{dt} {rt}: {line}")
+                    if case == "res5_conv3" and variant == "plain" and \
+                            rt == route:
+                        results[("conv_int8", dt)] = line
+                del ops, args, xq, wq, scale, shift, res, amax
+                torch.cuda.empty_cache()
+            if timed and dt == "bfloat16":
+                results.setdefault(("conv_int8_variants", dt), []).extend(
+                    timed_variants)
+    # the narrow kernel's row: its time at conv3 is the first design's
+    for dt in ("bfloat16", "float32"):
+        line = results[("conv_int8", dt)]
+        results[("conv_int8_narrow", dt)] = dict(
+            line, kernel_ms=line["parent_ms"], parent_ms=None)
 
 
 def roi_align_int8_ops(kyq, kxq, c):
@@ -4131,7 +4294,8 @@ def int8_small_reference(seed):
     versions), from the same seeded weights, calibrated on each device on
     the batch where the scheme is static: the share of the CPU's
     detections that the card's match (the same class, boxes within
-    0.05 px, scores within 5e-3) must be 1."""
+    0.05 px, scores within 5e-3) must be 1, and both KQ1 kernels must
+    launch. Returns the card runs' launches, summed."""
     import numpy as np
     import torch
     from locov_torch.models import build_meta_arch
@@ -4146,6 +4310,7 @@ def int8_small_reference(seed):
         orig_hw=np.array([[128, 128], [96, 112]], np.int32)))
     ce = (rng.randn(6, 8) * 0.1).astype(np.float32)
     ce[-1] = 0.0
+    summed = {}
     for name, scheme, roialign in INT8_MODES:
         cfg = _tiny_cfg()
         cfg.TPU.INT8_EVAL = True
@@ -4182,9 +4347,13 @@ def int8_small_reference(seed):
                     hit += 1
                     box_err = max(box_err, float(d_box[k]))
                     score_err = max(score_err, float(d_score[k]))
-        kernels = ["conv_int8", "relu_maxpool",
+        # the tiny model's C 8 convs take the narrow KQ1, C 16 and 32 the
+        # wgmma one
+        kernels = ["conv_int8", "conv_int8_narrow", "relu_maxpool",
                    "roi_align_int8" if name == "static" else
                    "roi_align_fused"]
+        for k, v in launched.items():
+            summed[k] = summed.get(k, 0) + v
         line = {"phase": "int8_small_reference", "mode": name,
                 "detections": total, "matched_share": hit / max(total, 1),
                 "same_mask": bool(torch.equal(cm, gm)),
@@ -4195,6 +4364,7 @@ def int8_small_reference(seed):
         if not (total > 0 and hit == total and
                 all(launched[k] > 0 for k in kernels)):
             raise AssertionError(f"int8 small reference {name}: {line}")
+    return summed
 
 
 def _run_eval_cli(flags, opts, log):
@@ -4363,6 +4533,88 @@ def int8_serving(model, seed, workdir):
         raise AssertionError(f"int8 serving check failed: {line}")
 
 
+@contextlib.contextmanager
+def _parent_int8():
+    """The static scheme as the parent design ran it, for timing beside
+    this one in the same process: every conv quantizing its own input (a
+    quantize pass each, conv3's residual and relu added after it) on the
+    narrow kernel (the mma.sync KQ1 of the parent commit; its mainloop is
+    unchanged)."""
+    import torch
+    from locov_torch.models import resnet
+    from locov_torch.ops import int8_conv as iq
+    stage_forward, route = resnet.ResNetStage.forward, iq.conv_int8_route
+
+    def forward(stage, x, int8=False):
+        if int8 != "static":
+            return stage_forward(stage, x, int8)
+        for block in stage:
+            out = block._conv_bn(x, "conv1", int8)
+            out = block._conv_bn(out, "conv2", int8)
+            out = block._conv_bn(out, "conv3", int8, relu=False)
+            sc = x if block.shortcut is None else \
+                block._conv_bn(x, "shortcut", int8, relu=False)
+            x = torch.relu(out + sc)
+        return x
+    resnet.ResNetStage.forward = forward
+    iq.conv_int8_route = lambda c, addresses: \
+        "narrow" if route(c, addresses) else None
+    try:
+        yield
+    finally:
+        resnet.ResNetStage.forward = stage_forward
+        iq.conv_int8_route = route
+
+
+def quantize_profile(run):
+    """The plain quantize passes of one ``run()`` under torch.profiler: each
+    call of the int8 module's elementwise quantize (of an activation: a
+    0-dim scale; of a weight: per channel) and of its max-abs reduction
+    (the dynamic scheme's) in a range of its own. Returns {kind:
+    {"passes", "launches", "ms"}}: the calls, the kernels under the
+    ranges and their device ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from locov_torch.ops import int8_conv as iq
+    quantize, reduce = iq._quantize, iq.max_abs
+    out = {k: {"passes": 0, "launches": 0, "ms": 0.0}
+           for k in ("activation", "weight", "max_abs")}
+
+    def q(x, scale):
+        kind = "activation" if scale.dim() == 0 else "weight"
+        out[kind]["passes"] += 1
+        with record_function("int8." + kind):
+            return quantize(x, scale)
+
+    def m(x):
+        out["max_abs"]["passes"] += 1
+        with record_function("int8.max_abs"):
+            return reduce(x)
+    iq._quantize, iq.max_abs = q, m
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        iq._quantize, iq.max_abs = quantize, reduce
+
+    def kernels(e):
+        return len(getattr(e, "kernels", ())) + \
+            sum(kernels(c) for c in e.cpu_children)
+    for e in prof.events():
+        if e.name.startswith("int8.") and e.device_type == DeviceType.CPU:
+            out[e.name[5:]]["launches"] += kernels(e)
+    for e in prof.key_averages():
+        if e.key.startswith("int8.") and e.device_type == DeviceType.CPU:
+            out[e.key[5:]]["ms"] = getattr(
+                e, "device_time_total", getattr(e, "cuda_time_total", 0.0)
+            ) / 1e3
+    return out
+
+
 def int8_path(gen, seed, workdir, bf16_images_per_s):
     """The int8 serving mode at full width: configs/coco_stt.yaml in
     bfloat16, batch 8 of 800 x 1344 (valid 800 x 1312, original 640 x
@@ -4371,19 +4623,23 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     dynamic scheme, and the static one with the full-int8 ROIAlign (KQ2)
     and with the float ROIAlign (K2) quantized after it, both calibrated
     by ``make_calibrate_step`` on ``INT8_CALIB_BATCHES`` seeded batches
-    (seconds). On another seeded batch, for each mode: one run with the
+    (seconds); and the static model as the parent design ran it
+    (``_parent_int8``: unfused quantize passes, the narrow KQ1), timed
+    beside it. On another seeded batch, for each mode: one run with the
     launch counts zeroed just before and read just after (K1-fwd and KQ1
     must launch, and KQ2 or K2 by mode) under ``KernelShapes``, its peak
     memory, then ``INT8_TURNS`` batches of each model in turns (median
-    ms), one profile (device busy ms), the box features of the bf16
-    run's proposals against bf16's (mean relative error) and the share
-    of bf16's top-100 detections it keeps (same class, IoU >= 0.9).
+    ms), one profile (device busy ms), one of its quantize passes
+    (``quantize_profile``: passes, launches, ms), the box features of
+    the bf16 run's proposals against bf16's (mean relative error) and
+    the share of bf16's top-100 detections it keeps (same class, IoU >=
+    0.9). The parent form's output must have the static mode's bits.
     Every KQ1, KQ2, K1 and K2 signature the modes launched is then held
     to its plain version (``check_path_shapes``). Then the tiny int8
     model card against CPU, the evaluation through the CLI twin on the
     eval path's tree, and export and serving of the calibrated static
-    model. Returns the three modes' launches, summed, and the CLI
-    evaluation's."""
+    model. Returns the int8 modes' launches, summed, the CLI
+    evaluation's and the tiny model's."""
     import numpy as np
     import torch
     from locov_torch.models import build_meta_arch
@@ -4428,15 +4684,21 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     amax_vals = [float(v) for v in amax.values()]
     del calib
     batch = images(seed)
-    for m in models.values():
-        m.inference(batch, class_emb)  # warm-up
+    models["static_parent"] = models["static"]
+
+    def ctx(name):
+        return _parent_int8() if name == "static_parent" else \
+            contextlib.nullcontext()
+    for name, m in models.items():
+        with ctx(name):
+            m.inference(batch, class_emb)  # warm-up
     torch.cuda.synchronize()
 
     dets, launches, peaks, seen = {}, {}, {}, {}
     for name, m in models.items():
         torch.cuda.reset_peak_memory_stats()
         kernel_lib.reset_launches()
-        with KernelShapes() as shapes:
+        with ctx(name), KernelShapes() as shapes:
             dets[name] = m.inference(batch, class_emb)
             torch.cuda.synchronize()
         launches[name] = dict(kernel_lib.LAUNCHES)
@@ -4448,16 +4710,22 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     times = {name: [] for name in models}
     for _ in range(INT8_TURNS):
         for name, m in models.items():
-            t0 = time.perf_counter()
-            m.inference(batch, class_emb)
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3)
+            with ctx(name):
+                t0 = time.perf_counter()
+                m.inference(batch, class_emb)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
     ms = {k: statistics.median(v) for k, v in times.items()}
-    busy = {}
+    busy, quant = {}, {}
     for name, m in models.items():
-        prof = profile_run(f"int8_{name}_profile",
-                           lambda: m.inference(batch, class_emb), ms[name])
-        busy[name] = prof["device_busy_ms"]
+        with ctx(name):
+            prof = profile_run(f"int8_{name}_profile",
+                               lambda: m.inference(batch, class_emb),
+                               ms[name])
+            busy[name] = prof["device_busy_ms"]
+            if name != "bf16":
+                quant[name] = quantize_profile(
+                    lambda: m.inference(batch, class_emb))
 
     with torch.inference_mode():
         x = bf16.preprocess(batch.images)
@@ -4468,17 +4736,22 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     valid = props.mask[..., None]
     denom = float((ref_feats.abs() * valid).sum())
     kernels_of = {"dynamic": "roi_align_fused", "static": "roi_align_int8",
-                  "static_float_roialign": "roi_align_fused"}
+                  "static_float_roialign": "roi_align_fused",
+                  "static_parent": "roi_align_int8"}
     total = {k: 0 for k in kernel_lib.LAUNCHES}
     ok = True
-    for name, _, _ in INT8_MODES:
-        feats = _box_features(models[name], batch, models[name]._int8_mode(),
-                              props.boxes).float()
+    for name in [n for n, _, _ in INT8_MODES] + ["static_parent"]:
+        with ctx(name):
+            feats = _box_features(models[name], batch,
+                                  models[name]._int8_mode(),
+                                  props.boxes).float()
         rel = float(((feats - ref_feats).abs() * valid).sum()) / denom
         d = dets[name]
         finite = bool(torch.isfinite(d.boxes).all() and
                       torch.isfinite(d.scores).all())
-        need = ("relu_maxpool", "conv_int8", kernels_of[name])
+        need = ("relu_maxpool", kernels_of[name],
+                "conv_int8_narrow" if name == "static_parent" else
+                "conv_int8")
         line = {"phase": "int8_path", "mode": name,
                 "config": "configs/coco_stt.yaml", "dtype": "bfloat16",
                 "batch": 8, "image": [800, 1344],
@@ -4490,7 +4763,12 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
                 peaks["bf16"], "box_feature_mean_rel_err": rel,
                 "bf16_top100_matched": _matched_share(dets["bf16"], d),
                 "detections_kept": int(d.mask.sum()), "finite": finite,
-                "launches": launches[name]}
+                "quantize": quant[name], "launches": launches[name]}
+        if name == "static_parent":
+            # the fusion moves no bit: the parent form's detections
+            line["same_bits_as_static"] = all(
+                bool(torch.equal(a, b)) for a, b in zip(d, dets["static"]))
+            ok = ok and line["same_bits_as_static"]
         if name == "static":
             line.update(calibration_s=calib_s,
                         calib_batches=INT8_CALIB_BATCHES,
@@ -4507,7 +4785,7 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     del models, dets, ref_feats, feats, props, batch, bf16
     torch.cuda.empty_cache()
     check_path_shapes(gen, seen, "int8")
-    int8_small_reference(seed)
+    tiny = int8_small_reference(seed)
     weights = os.path.join(workdir, "stt_seed_int8")
     torch.save({"model": state}, weights)
     del state
@@ -4515,7 +4793,7 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     int8_serving(static, seed, workdir)
     del static
     torch.cuda.empty_cache()
-    return total, eval_launches
+    return total, eval_launches, tiny
 
 
 class KernelShapes:
@@ -4534,15 +4812,20 @@ class KernelShapes:
         from locov_torch.ops import roi_align as ra
         self.seen, self._orig = {}, []
 
-        def wrap(mod, attr, kernel, sig):
+        def wrap(mod, attr, kernels, sig):
+            """``kernels``: the launch key, or the keys of which the
+            wrapper counts one (KQ1: the kernel ``conv_int8_route``
+            picks)."""
             orig = getattr(mod, attr)
+            keys = (kernels,) if isinstance(kernels, str) else kernels
 
             def fn(*a, **k):
-                before = kernel_lib.LAUNCHES[kernel]
+                before = [kernel_lib.LAUNCHES[n] for n in keys]
                 out = orig(*a, **k)
-                if kernel_lib.LAUNCHES[kernel] > before:
-                    key = (kernel,) + sig(*a, **k)
-                    self.seen[key] = self.seen.get(key, 0) + 1
+                for n, b in zip(keys, before):
+                    if kernel_lib.LAUNCHES[n] > b:
+                        key = (n,) + sig(*a, **k)
+                        self.seen[key] = self.seen.get(key, 0) + 1
                 return out
             self._orig.append((mod, attr, orig))
             setattr(mod, attr, fn)
@@ -4563,10 +4846,18 @@ class KernelShapes:
              sampling_ratio=2: (dt(g), (g.shape[0], h, w, g.shape[-1]),
                                 boxes.shape[1], float(spatial_scale),
                                 pooled, int(sampling_ratio)))
-        wrap(iq, "conv_int8_cuda", "conv_int8",
-             lambda xq, wq, scale, shift, stride, pad, relu: (
+        kq1 = ("conv_int8", "conv_int8_narrow")
+        # KQ1's signature: dtype, shapes, stride, pad, relu, and the
+        # epilogue's residual, int8 copy and float output
+        wrap(iq, "conv_int8_cuda", kq1,
+             lambda xq, wq, scale, shift, stride, pad, relu, residual=None: (
                  dt(shift), tuple(xq.shape), tuple(wq.shape), int(stride),
-                 int(pad), bool(relu)))
+                 int(pad), bool(relu), residual is not None, False, True))
+        wrap(iq, "conv_int8_quant_cuda", kq1,
+             lambda xq, wq, scale, shift, stride, pad, relu, residual, amax,
+             float_out: (dt(shift), tuple(xq.shape), tuple(wq.shape),
+                         int(stride), int(pad), bool(relu),
+                         residual is not None, True, bool(float_out)))
         wrap(ra, "roi_align_int8_cuda", "roi_align_int8",
              lambda fq, kyq, kxq, sx, rescale: (
                  "int8", tuple(fq.shape), kyq.shape[1], kyq.shape[2]))
@@ -4578,6 +4869,7 @@ class KernelShapes:
 
     def check_counts(self, launches):
         per = {k: 0 for k in TRAIN_KERNELS + ("conv_int8",
+                                               "conv_int8_narrow",
                                                "roi_align_int8")}
         for key, n in self.seen.items():
             per[key[0]] += n
@@ -4593,24 +4885,25 @@ def _check_int8_shape(gen, key):
     from locov_torch.ops import int8_conv as iq
     from locov_torch.ops import roi_align as ra
     from locov_torch.tools.bench_roi_fwd import proposal_boxes
-    if key[0] == "conv_int8":
-        _, dt, xshape, wshape, stride, pad, relu = key
-        xq = torch.randint(-127, 128, xshape, generator=gen,
-                           device="cuda").to(torch.int8)
-        wq = torch.randint(-127, 128, wshape, generator=gen,
-                           device="cuda").to(torch.int8)
-        o = wshape[0]
-        scale = torch.rand(o, generator=gen, device="cuda") * 1e-3
-        shift = torch.randn(o, generator=gen, device="cuda").to(
-            getattr(torch, dt))
-        got = iq._launch(xq, wq, scale, shift, stride, pad, relu,
-                         fill=math.nan)
-        want = torch.cat([iq.conv_int8_plain(xq[i:i + 1000], wq, scale,
-                                             shift, stride, pad, relu)
-                          for i in range(0, xshape[0], 1000)])
-        ok = _same_bits(got, want)
-        return ok, float((got.float() - want.float()).abs()
-                         .nan_to_num(math.inf).max())
+    if key[0] in ("conv_int8", "conv_int8_narrow"):
+        _, dt, xshape, wshape, stride, pad, relu, has_res, has_q, fo = key
+        variant = {(False, False, True): "plain",
+                   (True, False, True): "residual",
+                   (True, True, True): "quant",
+                   (False, True, False): "quant_only"}.get(
+                       (has_res, has_q, fo))
+        if variant is None:
+            raise AssertionError(f"KQ1 signature outside the checked "
+                                 f"variants: {key}")
+        ops = _conv_int8_operands(gen, xshape, wshape[0], wshape[1],
+                                  getattr(torch, dt), variant, stride)
+        xq, wq, scale, shift, pad2, res, amax, float_out = ops
+        if pad2 != pad:
+            raise AssertionError(f"KQ1 pad {pad} at kernel {wshape[1]}")
+        ok, twice, err = _conv_int8_same(
+            xq, wq, scale, shift, stride, pad, res, amax, float_out,
+            "wgmma" if key[0] == "conv_int8" else "narrow", relu)
+        return ok and twice, err
     _, _, fshape, n, p = key
     b, h, w, c = fshape
     f = torch.randn(fshape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -4651,7 +4944,7 @@ def check_path_shapes(gen, seen, path):
         line = {"phase": "kernel_check", "kernel": kernel,
                 "case": f"{path}_path", "dtype": dt, "shape": list(shape),
                 "path_launches": seen[key]}
-        if kernel in ("conv_int8", "roi_align_int8"):
+        if kernel in ("conv_int8", "conv_int8_narrow", "roi_align_int8"):
             ok, err = _check_int8_shape(gen, key)
             line.update(signature=[list(v) if isinstance(v, tuple) else v
                                    for v in key[3:]],
@@ -4787,8 +5080,8 @@ def main(argv=None) -> int:
     try:
         paths["eval"], eval_ips = eval_path(args.seed, workdir)
         torch.cuda.empty_cache()
-        paths["int8"], paths["int8_eval"] = int8_path(gen, args.seed,
-                                                      workdir, eval_ips)
+        paths["int8"], paths["int8_eval"], paths["int8_tiny"] = int8_path(
+            gen, args.seed, workdir, eval_ips)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4869,7 +5162,10 @@ def main(argv=None) -> int:
             "f32_ms": f32.get("kernel_ms"),
             "f32_plain_ms": f32.get("plain_ms"),
             "f32_bound_ms": f32.get("bound_ms"),
-            "f32_library_ms": f32.get("library_ms")})
+            "f32_library_ms": f32.get("library_ms"),
+            **({"parent_ms": r["parent_ms"],
+                "variants": results[("conv_int8_variants", "bfloat16")]}
+               if name == "conv_int8" else {})})
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

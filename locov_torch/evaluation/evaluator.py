@@ -31,6 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from ..data.catalog import MetadataCatalog
+from ..ops.int8_conv import distributed_ranks, idle_rank
 from ..structures.batches import Detections, to_torch
 from .coco_eval import COCOEvaluator
 
@@ -135,6 +136,35 @@ def _to_host(dets: Detections) -> Detections:
                       mask=packed[..., 6] > 0)
 
 
+def _in_lockstep(loader, eval_step, class_emb):
+    """The loader's batches, with every rank making the same number of
+    eval steps: before each batch the ranks agree (one all-reduce)
+    whether any of them has one left, and a rank whose shard is done
+    runs its last batch again under ``idle_rank`` (its detections
+    dropped, its max-abs contributions 0) while another still has
+    batches. For a step whose dynamic int8 scales are all-reduced over
+    the ranks, so that no rank waits alone on a reduce."""
+    device = getattr(eval_step, "device", None) or "cpu"
+    last = None
+    it = iter(loader)
+    while True:
+        batch = next(it, None)
+        more = torch.tensor([int(batch is not None)], device=device)
+        torch.distributed.all_reduce(more,
+                                     op=torch.distributed.ReduceOp.MAX)
+        if not int(more):
+            return
+        if batch is not None:
+            last = batch
+            yield batch
+            continue
+        if last is None:
+            raise RuntimeError("a rank with no batch cannot join the "
+                               "dynamic int8 scheme's reduces")
+        with idle_rank():
+            eval_step(last, class_emb)
+
+
 def collect_detections(eval_step, params, loader, class_emb,
                        inv: np.ndarray, mirror_x: bool = False,
                        timings: Dict[str, float] = None):
@@ -150,7 +180,9 @@ def collect_detections(eval_step, params, loader, class_emb,
     read side by side. Where the step has a ``device``, each numpy batch
     goes there with ``to_torch`` first. ``timings``, where given, adds
     up the seconds of each part of the loop: ``loader_wait``, ``h2d``,
-    ``inference`` (the step, until the device is done) and ``d2h``."""
+    ``inference`` (the step, until the device is done) and ``d2h``.
+    Where the step's ``couples_ranks`` is set (the dynamic int8 scheme)
+    and several ranks run, they step in lockstep (``_in_lockstep``)."""
     device = getattr(eval_step, "device", None)
     spent = timings if timings is not None else {}
     for part in ("loader_wait", "h2d", "inference", "d2h"):
@@ -161,7 +193,11 @@ def collect_detections(eval_step, params, loader, class_emb,
     n_timed = 0
     d_imgs, d_boxes, d_scores, d_classes = [], [], [], []
     mark = time.perf_counter()
-    for idx, batch in enumerate(loader):
+    batches = loader
+    if getattr(eval_step, "couples_ranks", False) and \
+            distributed_ranks() > 1:
+        batches = _in_lockstep(loader, eval_step, class_emb)
+    for idx, batch in enumerate(batches):
         t0 = time.perf_counter()
         spent["loader_wait"] += t0 - mark
         with record_function("eval.h2d"):

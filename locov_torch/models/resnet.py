@@ -23,13 +23,12 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import conv2d
-from ..ops.int8_conv import QuantizedTensor, conv_int8, max_abs
+from ..ops.int8_conv import QuantizedTensor, conv_int8, global_max_abs
 from ..ops.relu_maxpool import relu_maxpool
 
 # stage name -> (num_blocks, stride of the first block)
@@ -72,14 +71,11 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
 def record_amax_(amax: torch.Tensor, x: torch.Tensor) -> None:
     """amax = max(amax, max|x|) in place (the buffer stays the one tensor
     that exports and checkpoints see). Under ``torch.distributed`` with
-    several ranks, max|x| is taken over every rank's x (one all-reduce),
-    as JAX's calibration takes it over the global batch, so that every
-    rank quantizes the next layer with the same scale."""
-    cur = max_abs(x)
-    if dist.is_available() and dist.is_initialized() and \
-            dist.get_world_size() > 1:
-        dist.all_reduce(cur, op=dist.ReduceOp.MAX)
-    amax.copy_(torch.maximum(amax, cur))
+    several ranks, max|x| is taken over every rank's x
+    (``global_max_abs``: one all-reduce), as JAX's calibration takes it
+    over the global batch, so that every rank quantizes the next layer
+    with the same scale."""
+    amax.copy_(torch.maximum(amax, global_max_abs(x)))
 
 
 class ActAmax(nn.Module):
@@ -94,24 +90,29 @@ class ActAmax(nn.Module):
 
 def _conv_frozen_bn(x, conv: nn.Conv2d, norm: FrozenBatchNorm,
                     dtype: torch.dtype, relu: bool = True, int8=False,
-                    amax: ActAmax = None) -> torch.Tensor:
+                    amax: ActAmax = None, residual=None, out_amax=None,
+                    float_out: bool = True):
     """conv + FrozenBN + (relu) with the BN scale folded into the kernel
     in f32, cast once to the compute dtype, then the shift added:
     ``conv(x, w) * s + t == conv(x, w * s) + t``.
 
     With ``int8`` the folded f32 kernel is quantized per output channel
-    and the conv runs in int8 (``ops/int8_conv.py``), the shift and relu
-    in its epilogue: x a ``QuantizedTensor`` is taken as it is; else x
-    is cast to the compute dtype and quantized on the fly ("dynamic"),
-    by ``amax`` ("static"), or by ``amax`` after it recorded max|x|
-    ("calibrate")."""
+    and the conv runs in int8 (``ops/int8_conv.py``), the shift,
+    ``residual`` (added before the relu) and relu in its epilogue: x a
+    ``QuantizedTensor`` is taken as it is; else x is cast to the compute
+    dtype and quantized on the fly ("dynamic"), by ``amax`` ("static"),
+    or by ``amax`` after it recorded max|x| ("calibrate"). With
+    ``out_amax`` the epilogue also writes the output quantized by it
+    (the next conv's calibrated max-abs): the return is then (the float
+    output, or None unless ``float_out``; a ``QuantizedTensor``)."""
     scale, shift = norm.scale_shift()
     wk = conv.weight * scale[:, None, None, None]
     stride, pad = conv.stride[0], conv.padding[0]
     if int8:
+        fused = dict(shift=shift, relu=relu, residual=residual,
+                     out_amax=out_amax, float_out=float_out)
         if isinstance(x, QuantizedTensor):
-            return conv_int8(x, wk, stride, pad, out_dtype=dtype,
-                             shift=shift, relu=relu)
+            return conv_int8(x, wk, stride, pad, out_dtype=dtype, **fused)
         a = None
         if int8 in ("static", "calibrate"):
             if amax is None:
@@ -122,7 +123,7 @@ def _conv_frozen_bn(x, conv: nn.Conv2d, norm: FrozenBatchNorm,
                 record_amax_(amax.amax, x)
             a = amax.amax
         return conv_int8(x.to(dtype), wk, stride, pad, out_dtype=dtype,
-                         amax=a, shift=shift, relu=relu)
+                         amax=a, **fused)
     out = conv_nhwc(x.to(dtype), wk.to(dtype), stride, pad)
     out = out + shift.to(out.dtype)
     return F.relu(out) if relu else out
@@ -161,21 +162,57 @@ class BottleneckBlock(nn.Module):
                     (("shortcut",) if has_shortcut else ()):
                 self.add_module(name + "_amax", ActAmax())
 
-    def _conv_bn(self, x, name: str, int8, relu: bool = True):
+    def _conv_bn(self, x, name: str, int8, relu: bool = True, **fused):
         return _conv_frozen_bn(x, getattr(self, name),
                                getattr(self, name + "_norm"),
                                self.compute_dtype, relu, int8,
-                               getattr(self, name + "_amax", None))
+                               getattr(self, name + "_amax", None), **fused)
 
     def forward(self, x, int8=False) -> torch.Tensor:
+        """The block. In an int8 mode conv3 takes the shortcut as its
+        epilogue's residual, ``relu(conv3 + sc)`` in the compute dtype as
+        the float block computes it (so the shortcut runs first)."""
+        if int8 == "static":
+            return self.forward_static(x)[0]
         out = self._conv_bn(x, "conv1", int8)
         out = self._conv_bn(out, "conv2", int8)
-        out = self._conv_bn(out, "conv3", int8, relu=False)
         if self.shortcut is not None:
             sc = self._conv_bn(x, "shortcut", int8, relu=False)
         else:
             sc = x
+        if int8:
+            return self._conv_bn(out, "conv3", int8, residual=sc)
+        out = self._conv_bn(out, "conv3", int8, relu=False)
         return F.relu(out + sc)
+
+    def forward_static(self, x, xq=None, next_amax=None):
+        """The block under the static int8 scheme, each quantize fused into
+        the epilogue of the conv that produces its input: conv1 and conv2
+        write only int8 (by conv2's and conv3's calibrated max-abs), conv3
+        adds the shortcut and writes the block's output in the compute
+        dtype and, with ``next_amax`` (the next block's conv1 max-abs),
+        its int8 copy too. ``xq``: this block's conv1 input as int8,
+        written so by the block before (else x is quantized by conv1's
+        max-abs, or taken as it is where it is a ``QuantizedTensor``); a
+        shortcut conv quantizes x itself. The same bits as the unfused
+        scheme. Returns (the output, its int8 copy or None)."""
+        if not hasattr(self, "conv1_amax"):
+            raise ValueError("int8 mode 'static' needs a model built for "
+                             "the static scheme (TPU.INT8_SCHEME static)")
+        _, q1 = self._conv_bn(x if xq is None else xq, "conv1", "static",
+                              out_amax=self.conv2_amax.amax,
+                              float_out=False)
+        _, q2 = self._conv_bn(q1, "conv2", "static",
+                              out_amax=self.conv3_amax.amax,
+                              float_out=False)
+        if self.shortcut is not None:
+            sc = self._conv_bn(x, "shortcut", "static", relu=False)
+        else:
+            sc = x
+        if next_amax is None:
+            return self._conv_bn(q2, "conv3", "static", residual=sc), None
+        return self._conv_bn(q2, "conv3", "static", residual=sc,
+                             out_amax=next_amax)
 
 
 class ResNetStage(nn.Sequential):
@@ -198,8 +235,19 @@ class ResNetStage(nn.Sequential):
             for i in range(num_blocks)])
 
     def forward(self, x, int8=False):
-        for block in self:
-            x = block(x, int8=int8)
+        """The blocks in order. Under the static int8 scheme a block's
+        conv3 also writes the next block's conv1 input in int8 where that
+        block is an identity block (``BottleneckBlock.forward_static``)."""
+        if int8 != "static":
+            for block in self:
+                x = block(x, int8=int8)
+            return x
+        xq = None
+        for i, block in enumerate(self):
+            nxt = self[i + 1] if i + 1 < len(self) else None
+            next_amax = None if nxt is None or nxt.shortcut is not None \
+                else nxt.conv1_amax.amax
+            x, xq = block.forward_static(x, xq, next_amax)
         return x
 
 

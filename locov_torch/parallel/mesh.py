@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from ..ops.int8_conv import dynamic_int8
 from ..structures.batches import Detections, to_torch
 
 
@@ -203,7 +204,10 @@ def make_eval_step(model: torch.nn.Module
     step it takes no ``params``: the module holds its weights.
     ``step.device`` is the model's device, where the evaluation loop
     (``evaluation/evaluator.py:collect_detections``) moves each batch
-    first."""
+    first. ``step.couples_ranks``: the model runs the dynamic int8
+    scheme, whose scales are all-reduced over the ranks of
+    ``torch.distributed`` (``ops/int8_conv.py:global_max_abs``), so the
+    loop keeps the ranks in lockstep."""
     device = next(model.parameters()).device
 
     def step(batch, class_emb) -> Detections:
@@ -211,6 +215,7 @@ def make_eval_step(model: torch.nn.Module
             return model.inference(to_torch(batch, device),
                                    to_torch(class_emb, device))
     step.device = device
+    step.couples_ranks = dynamic_int8(model)
     return step
 
 

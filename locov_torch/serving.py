@@ -54,6 +54,7 @@ from torch.export.passes import move_to_device_pass
 # the locov:: op registrations the program calls
 from .ops import bottleneck_block, int8_conv, nms, relu_maxpool  # noqa: F401
 from .ops import roi_align, stem_conv_bn  # noqa: F401
+from .ops.int8_conv import dynamic_int8
 from .structures.batches import DetectionBatch, ImageBatch
 from .utils.checkpoint import Checkpointer
 
@@ -145,10 +146,22 @@ def export_inference(model: torch.nn.Module, class_emb: torch.Tensor,
     batch ``batch / N`` for N devices of the model's kind, each running
     one copy on its share of the batch (``signature.json`` records the
     global shapes, ``nr_devices`` N and a one-axis ``data`` mesh);
-    ``batch`` must divide by N."""
+    ``batch`` must divide by N.
+
+    A model in the dynamic int8 scheme is refused for N > 1: its
+    per-tensor scales come from a max-abs over the whole batch (JAX's one
+    program over the sharded batch reduces it), and N separate programs
+    share no reduce, so each device's detections would depend on the
+    split. The static scheme's calibrated scales serve any split."""
     if n_devices < 1 or batch % n_devices:
         raise ValueError(f"serving batch {batch} must divide by the "
                          f"device count {n_devices}")
+    if n_devices > 1 and dynamic_int8(model):
+        raise ValueError(
+            f"the dynamic int8 scheme takes its scales over the whole "
+            f"batch, which {n_devices} separate device programs cannot "
+            f"share: export it for one device, or use TPU.INT8_SCHEME "
+            f"static (calibrated scales)")
     serve = make_serve_fn(model).eval()
     variables = dict(serve.state_dict())
     dev = next(model.parameters()).device

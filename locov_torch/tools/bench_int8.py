@@ -1,6 +1,7 @@
 """int8 against bfloat16 at the res5 shapes of STT evaluation: the int8
-convolution kernel (KQ1, ``ops/int8_conv.py``) and cuBLASLt's int8
-product (``torch._int_mm``) against a bfloat16 product
+convolution kernel (KQ1, ``ops/int8_conv.py``: the wgmma kernel, and
+the narrow mma.sync kernel, the first design, as ``kq1_parent_ms``) and
+cuBLASLt's int8 product (``torch._int_mm``) against a bfloat16 product
 (``torch.matmul``) and cuDNN's bfloat16 convolution. Twin of
 ``tools/bench_int8.py``, which asks the same of XLA on the TPU.
 
@@ -19,10 +20,18 @@ quantize passes the dynamic and static schemes add before each conv
 (``quantize_per_tensor``: one max-abs reduce and one quantize pass;
 ``quantize_per_tensor_static``: the quantize pass alone) on res5's
 [boxes, 7, 7, 512] bfloat16 activation and on res4's trunk activation
-[8, 50, 84, 1024]. Inputs are seeded random int8 and bfloat16 tensors.
-Times are CUDA-event medians after warm-up; TOP/s counts 2 x M x K x N.
-Prints one JSON line with the card's name and power limit. The library
-calls are yardsticks here only: the port never calls them.
+[8, 50, 84, 1024]. The static scheme's fused forms of each conv: conv1
+and conv2 writing only int8 (``kq1_quant_only_ms``), conv3 adding the
+residual and writing bfloat16 and int8 (``kq1_residual_quant_ms``).
+Then one res5 identity block (``[boxes, 7, 7, 2048]`` bfloat16, its
+conv1 input also as int8, max-abs values calibrated on it) under the
+static scheme, fused (``BottleneckBlock.forward_static``) against the
+chain the parent design ran (each conv quantizing its input, the
+residual and relu after conv3, on the narrow kernel), the same bits.
+Inputs are seeded random int8 and bfloat16 tensors. Times are
+CUDA-event medians after warm-up; TOP/s counts 2 x M x K x N. Prints
+one JSON line with the card's name and power limit. The library calls
+are yardsticks here only: the port never calls them.
 """
 from __future__ import annotations
 
@@ -61,7 +70,22 @@ def conv_case(gen, boxes, hw, c, o, k, stride) -> dict:
     line = {"boxes": boxes, "input": [boxes, hw, hw, c], "out_channels": o,
             "kernel": k, "stride": stride, "gemm_mnk": [m, o, kk],
             "kq1_ms": time_ms(lambda: iq.conv_int8_cuda(
-                xq, wq, scale, shift, stride, pad, True), reps=10)}
+                xq, wq, scale, shift, stride, pad, True), reps=10),
+            "kq1_parent_ms": time_ms(lambda: iq._launch(
+                xq, wq, scale, shift, stride, pad, True, route="narrow"),
+                reps=10)}
+    amax = torch.tensor(30.0, device="cuda")
+    line["kq1_quant_only_ms"] = time_ms(lambda: iq.conv_int8_quant_cuda(
+        xq, wq, scale, shift, stride, pad, True, None, amax, False),
+        reps=10)
+    if k == 1 and stride == 1 and c < o:  # conv3
+        res = torch.randn((boxes, oh, oh, o), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        line["kq1_residual_quant_ms"] = time_ms(
+            lambda: iq.conv_int8_quant_cuda(xq, wq, scale, shift, stride,
+                                            pad, True, res, amax, True),
+            reps=10)
+        del res
     xb = torch.randn((boxes, hw, hw, c), generator=gen,
                      device="cuda").to(torch.bfloat16)
     wb = torch.randn((o, c, k, k), generator=gen,
@@ -89,6 +113,55 @@ def conv_case(gen, boxes, hw, c, o, k, stride) -> dict:
         if line[key]:
             line[key[:-3] + "_tops"] = ops / line[key] / 1e9
     return line
+
+
+def static_block_case(gen, boxes) -> dict:
+    """One res5 identity block under the static scheme, fused against the
+    parent design's chain, in turns."""
+    from ..models.resnet import BottleneckBlock
+    block = BottleneckBlock(2048, 512, 2048, compute_dtype=torch.bfloat16,
+                            int8_amax=True).cuda()
+    with torch.no_grad():
+        for conv in (block.conv1, block.conv2, block.conv3):
+            conv.weight.normal_(0, conv.weight[0].numel() ** -0.5,
+                                generator=gen)
+    x = torch.randn((boxes, 7, 7, 2048), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        block(x, int8="calibrate")  # the max-abs values of this input
+        next_amax = block.conv1_amax.amax
+        xq = iq.QuantizedTensor(*iq.quantize_per_tensor_static(x, next_amax))
+
+        def fused():
+            return block.forward_static(x, xq, next_amax)
+
+        def parent():
+            out = block._conv_bn(x, "conv1", "static")
+            out = block._conv_bn(out, "conv2", "static")
+            out = block._conv_bn(out, "conv3", "static", relu=False)
+            out = torch.relu(out + x)
+            return out, iq.quantize_per_tensor_static(out, next_amax)[0]
+        route = iq.conv_int8_route
+        narrow = (lambda c, a: "narrow" if route(c, a) else None)
+
+        def parent_narrow():
+            iq.conv_int8_route = narrow
+            try:
+                return parent()
+            finally:
+                iq.conv_int8_route = route
+        (out, q), (pout, pq) = fused(), parent_narrow()
+        same = bool(torch.equal(out.view(torch.int16),
+                                pout.view(torch.int16)) and
+                    torch.equal(q.q, pq))
+        times = {"fused": [], "parent": []}
+        for _ in range(3):
+            for name, fn in (("fused", fused), ("parent", parent_narrow),
+                             ("parent", parent_narrow), ("fused", fused)):
+                times[name].append(time_ms(fn, reps=5, warmup=1))
+    return {"input": [boxes, 7, 7, 2048], "same_bits": same,
+            "fused_ms": min(times["fused"]),
+            "parent_ms": min(times["parent"]), "ms_all": times}
 
 
 def quantize_case(gen, shape) -> dict:
@@ -127,6 +200,7 @@ def main(argv=None) -> dict:
             2 * convs["block12.conv1"]["cudnn_bf16_ms"],
             "quantize": {"res5": quantize_case(gen, (args.boxes, 7, 7, 512)),
                          "res4": quantize_case(gen, (8, 50, 84, 1024))},
+            "static_block": static_block_case(gen, args.boxes),
             **describe(torch.device("cuda"))}
     print(json.dumps(line), flush=True)
     return line

@@ -71,6 +71,16 @@ def main(argv=None) -> str:
     from locov_torch.utils.device import resolve_device
     from locov_torch.utils.weights import seeded_init_
 
+    cfg = get_cfg()
+    cfg.merge_from_file(args.config_file)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    if args.n_devices > 1 and cfg.TPU.INT8_EVAL and \
+            cfg.TPU.INT8_SCHEME == "dynamic":
+        ap.error(f"--n-devices {args.n_devices}: the dynamic int8 scheme "
+                 f"takes its scales over the whole batch, which separate "
+                 f"device programs cannot share; use TPU.INT8_SCHEME "
+                 f"static")
     device = resolve_device(args.device)
     if args.n_devices < 1 or args.n_devices > visible_devices(device):
         ap.error(f"--n-devices {args.n_devices}: "
@@ -78,10 +88,6 @@ def main(argv=None) -> str:
     if args.batch % args.n_devices:
         ap.error(f"--batch {args.batch} must divide by --n-devices "
                  f"{args.n_devices}")
-    cfg = get_cfg()
-    cfg.merge_from_file(args.config_file)
-    if args.opts:
-        cfg.merge_from_list(args.opts)
     model = seeded_init_(build_meta_arch(cfg, device=device), 0)
     if args.weights:
         from locov_torch.utils.checkpoint import load_weights_standalone

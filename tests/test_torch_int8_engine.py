@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from locov_torch.config import get_cfg
+from locov_torch.config import config_path, get_cfg
 from locov_torch.engine import trainer
 from locov_torch.models import build_meta_arch
 from locov_torch.parallel.mesh import make_calibrate_step
 from locov_torch.serving import export_inference, load_exported
 from locov_torch.structures.batches import DetectionBatch, ImageBatch
-from locov_torch.tools import bench
+from locov_torch.tools import bench, export_serving
 from locov_torch.utils.checkpoint import (Checkpointer,
                                           load_weights_standalone)
 from locov_torch.utils.weights import seeded_init_
@@ -137,6 +137,25 @@ def exported_equals_eager(batch, tmp_path, scheme, roialign=True):
 
 def test_exported_dynamic_int8_program_equals_eager(batch, tmp_path):
     exported_equals_eager(batch, tmp_path, "dynamic")
+
+
+def test_dynamic_int8_refuses_a_multi_device_export(batch, tmp_path,
+                                                    capsys):
+    """N separate device programs share no reduce, so the dynamic scheme
+    (scales over the whole batch) is refused for N > 1 by
+    ``export_inference`` and the export twin, which name the static
+    scheme; N = 1 exports (the test above)."""
+    _, ce = batch
+    with pytest.raises(ValueError, match="TPU.INT8_SCHEME static"):
+        export_inference(_model("dynamic"), ce, str(tmp_path / "a"), 2,
+                         64, 64, n_devices=2)
+    with pytest.raises(SystemExit):
+        export_serving.main(["--config-file", config_path("coco_stt.yaml"),
+                             "--out", str(tmp_path / "b"), "--device", "cpu",
+                             "--n-devices", "2", "TPU.INT8_EVAL", "True",
+                             "TPU.INT8_SCHEME", "dynamic"])
+    assert "TPU.INT8_SCHEME static" in capsys.readouterr().err
+    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
 
 
 def test_bench_twin_int8_switches(monkeypatch):

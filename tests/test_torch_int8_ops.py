@@ -188,6 +188,80 @@ def test_conv_int8_epilogue(dtype):
     assert fake.shape == got.shape and fake.dtype == dtype
 
 
+# (case, kernel size, residual, float output, amax / max|y|): conv1 and
+# conv2 write only int8 (relu, no residual); conv3 adds the shortcut and
+# writes the block output and its int8 copy, or only the copy; amax 0
+# takes the 1e-12 floor; a small amax saturates
+FUSED = [("conv1", 1, False, False, 0.7), ("conv2", 3, False, False, 0.9),
+         ("conv3", 1, True, True, 0.7), ("conv3_int8", 1, True, False, 0.8),
+         ("zero_amax", 1, True, True, 0.0),
+         ("saturating", 3, False, True, 0.05)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,k,residual,float_out,factor", FUSED)
+def test_conv_int8_fused_epilogue(case, k, residual, float_out, factor,
+                                  dtype):
+    """``locov::conv_int8_quant`` (the residual and the next conv's
+    quantize in the epilogue) on the CPU, bit for bit against the
+    composition it replaces (``conv_int8`` with the shift, ``+
+    residual``, relu, ``quantize_per_tensor_static``) and against JAX's
+    ``quantize_per_tensor_static(relu(conv_int8(...) + shift + sc))``,
+    eagerly; ``opcheck`` and the fake's shapes."""
+    x, w = _inputs(40 + k, k)
+    rng = np.random.RandomState(41)
+    pad = (k - 1) // 2
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    xt, wt = t(x).to(tdt), t(w.transpose(3, 2, 0, 1))
+    shift = rng.randn(24).astype(np.float32)
+    sc = (rng.randn(2, 9, 11, 24) * 2).astype(np.float32)
+    y = tq.conv_int8(xt, wt, 1, pad, shift=t(shift).to(tdt))
+    if residual:
+        y = y + t(sc).to(tdt)
+    y = torch.relu(y)
+    amax = np.float32(float(y.float().abs().max()) * factor)
+    q_want, s_want = tq.quantize_per_tensor_static(y, t(amax))
+    out, got = tq.conv_int8(xt, wt, 1, pad, shift=t(shift).to(tdt),
+                            relu=True,
+                            residual=t(sc).to(tdt) if residual else None,
+                            out_amax=t(amax), float_out=float_out)
+    assert isinstance(got, tq.QuantizedTensor) and got.q.dtype == torch.int8
+    assert torch.equal(got.q, q_want) and _bits(got.scale) == _bits(s_want)
+    if float_out:
+        np.testing.assert_array_equal(_bits(out), _bits(y))
+    else:
+        assert out is None
+
+    jy = jq.conv_int8(jnp.asarray(x).astype(jdt), jnp.asarray(w), 1, pad)
+    jy = jy + jnp.asarray(shift).astype(jdt)
+    if residual:
+        jy = jy + jnp.asarray(sc).astype(jdt)
+    jy = jnp.maximum(jy, 0)
+    qj, sj = jq.quantize_per_tensor_static(jy, jnp.asarray(amax))
+    np.testing.assert_array_equal(n(got.q), np.asarray(qj))
+    assert _bits(got.scale) == _bits(sj)
+    np.testing.assert_array_equal(_bits(y), _bits(jy))
+    if case == "zero_amax":
+        assert float(got.scale) == np.float32(1e-12)
+        assert set(np.unique(np.abs(n(got.q)))) <= {0, 127}
+    if case == "saturating":
+        assert (np.abs(n(got.q)) == 127).mean() > 0.1
+
+    xq, sx = tq.quantize_per_tensor(xt)
+    wq, sw = tq.quantize_weight_per_channel(wt)
+    args = (xq, wq.permute(0, 2, 3, 1).contiguous(), sx * sw,
+            t(shift).to(tdt), 1, pad, True,
+            t(sc).to(tdt) if residual else None, t(amax), float_out)
+    op = torch.ops.locov.conv_int8_quant
+    torch.library.opcheck(op.default, args)
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fo, fq = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                      else a for a in args))
+    assert tuple(fq.shape) == tuple(got.q.shape) and fq.dtype == torch.int8
+    assert tuple(fo.shape) == (tuple(y.shape) if float_out else (0,))
+    assert fo.dtype == tdt
+
+
 # ------------------------------------------------------------- ROIAlign
 def _roi_inputs(seed, c=16):
     rng = np.random.RandomState(seed)

@@ -473,13 +473,46 @@ def test_stem_conv_bn_backward_is_the_conv_vjp(cuda, dtype):
         assert bool(((got - want).abs() <= tol).all())
 
 
+# the epilogue variants: (residual, int8 output, float output)
+CONV_INT8_VARIANTS = {"plain": (False, False, True),
+                      "residual": (True, False, True),
+                      "quant": (True, True, True),
+                      "quant_only": (False, True, False)}
+
+
+def conv_int8_variant(gen, xq, wq, scale, shift, stride, pad, relu,
+                      variant):
+    """The extra operands of an epilogue ``variant`` (a residual of the
+    output's shape, an amax at 0.7 of the plain output's max-abs, so
+    that values saturate), and the plain version's outputs for them:
+    (residual, amax, float_out, want_out, want_q)."""
+    has_res, has_q, float_out = CONV_INT8_VARIANTS[variant]
+    y = iq.conv_int8_plain(xq, wq, scale, shift, stride, pad, relu)
+    res = (torch.randn(y.shape, generator=gen, device="cuda") * 4).to(
+        shift.dtype) if has_res else None
+    amax = (y.float().abs().max() * 0.7).reshape(()) if has_q else None
+    if not has_q:
+        return res, None, True, iq.conv_int8_plain(
+            xq, wq, scale, shift, stride, pad, relu, res), None
+    out, q = iq.conv_int8_quant_plain(xq, wq, scale, shift, stride, pad,
+                                      relu, res, amax, float_out)
+    return res, amax, float_out, (out if float_out else None), q
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,o,k,stride", [
     ((2, 14, 14, 1024), 512, 1, 2), ((2, 7, 7, 512), 512, 3, 1),
     ((3, 9, 11, 48), 200, 3, 2), ((1, 13, 17, 64), 72, 1, 1),
     ((2, 25, 42, 256), 1024, 1, 1), ((1, 5, 3, 16), 8, 3, 1),
+    ((2, 6, 5, 32), 20, 1, 1), ((2, 12, 10, 64), 64, 3, 1),
     ((2, 16, 16, 8), 24, 3, 1), ((2, 9, 7, 12), 32, 1, 2)])
 def test_conv_int8_bit_exact(cuda, dtype, shape, o, k, stride):
+    """Each epilogue variant (a residual; the int8 copy with and without
+    the float output) into NaN-filled outputs (-128 in the int8 one) has
+    the plain version's bits, and the same bits on a second launch. C a
+    multiple of 16 takes the wgmma kernel, C 8 and 12 the narrow one
+    (``conv_int8_route``); where both take the operands they agree. Each
+    counts its launches under its own ``LAUNCHES`` key."""
     xq = torch.randint(-127, 128, shape, generator=cuda,
                        device="cuda").to(torch.int8)
     wq = torch.randint(-127, 128, (o, k, k, shape[3]), generator=cuda,
@@ -487,16 +520,35 @@ def test_conv_int8_bit_exact(cuda, dtype, shape, o, k, stride):
     scale = torch.rand(o, generator=cuda, device="cuda") * 1e-3
     shift = (torch.randn(o, generator=cuda, device="cuda") * 5).to(dtype)
     pad = (k - 1) // 2
+    route = "wgmma" if shape[3] % 16 == 0 else "narrow"
+    routes = ("wgmma", "narrow") if route == "wgmma" else ("narrow",)
     for relu in (False, True):
-        got = iq._launch(xq, wq, scale, shift, stride, pad, relu,
-                         fill=math.nan)
-        want = iq.conv_int8_plain(xq, wq, scale, shift, stride, pad, relu)
-        assert _same_bits(got, want)
-        again = iq._launch(xq, wq, scale, shift, stride, pad, relu)
-        assert _same_bits(again, got)
-    before = kernel_lib.LAUNCHES["conv_int8"]
+        for variant in CONV_INT8_VARIANTS:
+            res, amax, float_out, want, want_q = conv_int8_variant(
+                cuda, xq, wq, scale, shift, stride, pad, relu, variant)
+            for forced in routes:
+                got, q, taken = iq._launch(
+                    xq, wq, scale, shift, stride, pad, relu, res, amax,
+                    float_out, fill=math.nan, route=forced)
+                assert taken == forced
+                assert (got is None) == (want is None)
+                assert want is None or _same_bits(got, want), \
+                    (variant, forced)
+                assert (q is None) == (want_q is None)
+                assert want_q is None or torch.equal(q, want_q), \
+                    (variant, forced)
+                again = iq._launch(xq, wq, scale, shift, stride, pad, relu,
+                                   res, amax, float_out, route=forced)
+                assert want is None or _same_bits(again[0], got)
+                assert want_q is None or torch.equal(again[1], q)
+    key = "conv_int8" if route == "wgmma" else "conv_int8_narrow"
+    before = dict(kernel_lib.LAUNCHES)
     iq.conv_int8_cuda(xq, wq, scale, shift, stride, pad, True)
-    assert kernel_lib.LAUNCHES["conv_int8"] == before + 1
+    iq.conv_int8_quant_cuda(xq, wq, scale, shift, stride, pad, True, None,
+                            torch.ones((), device="cuda"), False)
+    after = dict(kernel_lib.LAUNCHES)
+    assert after[key] == before[key] + 2
+    assert all(after[k] == before[k] for k in after if k != key)
 
 
 def test_conv_int8_rejects_bad_inputs(cuda):
@@ -583,7 +635,10 @@ def test_tiny_int8_model_cuda_matches_cpu(cuda, scheme, roialign):
         if scheme == "static":
             m.calibrate_int8(b, c)
         out[dev] = [x.cpu() for x in m.inference(b, c)]
-    assert kernel_lib.LAUNCHES["conv_int8"] > before["conv_int8"]
+    # the tiny model's C 8 convs take the narrow kernel, its C 16 and 32
+    # ones the wgmma kernel
+    for key in ("conv_int8", "conv_int8_narrow"):
+        assert kernel_lib.LAUNCHES[key] > before[key], key
     if scheme == "static" and roialign:
         assert kernel_lib.LAUNCHES["roi_align_int8"] > \
             before["roi_align_int8"]
@@ -846,6 +901,9 @@ def _op_cases(gen):
                        device="cuda").to(torch.int8)
     qs = torch.rand(40, generator=gen, device="cuda") * 1e-3
     qh = torch.randn(40, generator=gen, device="cuda").to(torch.bfloat16)
+    qr = torch.randn((2, 5, 6, 40), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    qa = torch.tensor(0.05, device="cuda")
     fa = f.abs().amax()
     return {
         "relu_maxpool": ((x,), relu_maxpool_plain, "relu_maxpool"),
@@ -861,6 +919,8 @@ def _op_cases(gen):
                              "bottleneck_block"),
         "conv_int8": ((xq, wq, qs, qh, 2, 1, True), iq.conv_int8_plain,
                       "conv_int8"),
+        "conv_int8_quant": ((xq, wq, qs, qh, 2, 1, True, qr, qa, True),
+                            iq.conv_int8_quant_plain, "conv_int8"),
         "roi_align_int8": (roi_mod.int8_operands(f, bx, 1 / 16, fa,
                                                  fa * 0.5, 14, 0)[:5],
                            roi_mod.roi_align_int8_plain, "roi_align_int8"),
@@ -874,7 +934,8 @@ def _op_cases(gen):
 @pytest.mark.parametrize("name", ["relu_maxpool", "relu_maxpool_bwd",
                                   "roi_align", "roi_align_bwd",
                                   "stem_conv_bn", "bottleneck_block",
-                                  "conv_int8", "roi_align_int8",
+                                  "conv_int8", "conv_int8_quant",
+                                  "roi_align_int8",
                                   "nms_mask"])
 def test_locov_ops_on_the_card(cuda, name):
     """Each ``torch.ops.locov`` op on CUDA tensors: ``opcheck`` (its fake
@@ -896,6 +957,9 @@ def test_locov_ops_on_the_card(cuda, name):
     if name == "nms_mask":
         assert torch.equal(got.cpu(), want)
         assert int(want.sum()) > 0
+        return
+    if name == "conv_int8_quant":
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
         return
     if name in ("conv_int8", "roi_align_int8"):
         assert torch.equal(got, want)

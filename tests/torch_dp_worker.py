@@ -9,6 +9,13 @@ contrastive scope from those same weights, on its rows of the batch with
 the draws it is handed; it saves the parameters and the metrics after
 each step.
 
+``dynamic_rank_worker`` builds the tiny ``OvrRCNN`` in the dynamic int8
+scheme and runs ``make_eval_step`` on its row of the batch (the scales
+all-reduced over the ranks), then, through the evaluation loop's
+``_in_lockstep``, over a loader of ``rank + 1`` copies of that row (a
+rank whose shard is done runs idle passes); it saves the detections of
+each step.
+
 ``calibrate_rank_worker`` builds the tiny ``OvrRCNN`` for the static
 int8 scheme with the weights it is handed and runs one
 ``make_calibrate_step`` on its rows of the batch; it saves the max-abs
@@ -108,5 +115,33 @@ def calibrate_shards_worker(rank, world, url, in_path, out_path):
         torch.save({"done": done, "passes": len(passes),
                     "amax": {k: v.clone() for k, v in
                              model.amax_buffers().items()}}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def dynamic_rank_worker(rank, world, url, in_path, out_path):
+    import torch.distributed as dist
+    from locov_torch.config import get_cfg
+    from locov_torch.evaluation.evaluator import _in_lockstep
+    from locov_torch.models import build_meta_arch
+    from locov_torch.parallel.mesh import (initialize_distributed,
+                                           make_eval_step)
+    from locov_torch.structures.batches import take_rows
+    from torch_parity import tiny_cfg
+
+    torch.set_num_threads(1)
+    data = torch.load(in_path, weights_only=False)
+    initialize_distributed(url, world, rank, "gloo")
+    try:
+        model = build_meta_arch(tiny_cfg(get_cfg, **data["extra"]),
+                                device="cpu")
+        model.load_state_dict(data["weights"], strict=True)
+        step = make_eval_step(model)
+        ce = data["class_emb"]
+        mine = take_rows(data["batch"], rank, rank + 1)
+        half = [t.clone() for t in step(mine, ce)]
+        lockstep = [[t.clone() for t in step(b, ce)]
+                    for b in _in_lockstep([mine] * (rank + 1), step, ce)]
+        torch.save({"half": half, "lockstep": lockstep}, out_path)
     finally:
         dist.destroy_process_group()
