@@ -28,21 +28,28 @@
 // TOP/s dense int8 peak) and writes 1.6 GB of bfloat16 output (0.48 ms
 // at 3.35 TB/s): bytes bound it, and more so with a residual read or an
 // int8 copy written. The wgmma kernel's design follows:
-// - a persistent grid (one block an SM) walks the 128 x BN output tiles
-//   (BN 256, 128 or 64 by O), N fastest so that an A row block and all
-//   of B stay in L2 while the blocks share them;
+// - a persistent grid (one block an SM) walks the 128-row x BN output
+//   tiles (BN 256, 128 or 64 by O), N fastest so that an A row block and
+//   all of B stay in L2 while the blocks share them;
 // - warp specialisation: warpgroup 0 produces, warpgroups 1 and 2
 //   consume, 64 rows of the tile each, with wgmma.mma_async m64nBNk32
 //   s8 x s8 -> s32 from shared memory; every thread runs at the launch
 //   bound's 168 registers (ptxas allocates by it: a 512-thread variant
 //   could not hold m64n256's 128 accumulators, setmaxnreg or not);
 // - a ring of 128-byte k steps (16 KB of A, BN x 128 B of B) in the
-//   128-byte swizzle that wgmma reads, with full and empty mbarriers:
-//   B always by TMA; A by TMA where the conv is a plain GEMM (1x1,
-//   stride 1, no padding: every conv3 and the identity blocks' conv1),
-//   else gathered by the producer warpgroup's cp.async with zero fill
-//   (padding, ragged M, k past the taps) into the same swizzle, a row's
-//   16-byte piece at chunk (piece ^ row % 8);
+//   128-byte swizzle that wgmma reads, with full and empty mbarriers;
+//   B always by TMA, A in one of three modes (a template argument):
+//   A_GEMM, a 2-D TMA box of 128 rows where the conv is a plain GEMM
+//   (1x1, stride 1, no padding: every conv3 and the identity blocks'
+//   conv1); A_SPATIAL, where C is a multiple of 128 and the conv is a
+//   3x3 / 1 with padding 1 or a 1x1 / 2 (the trunk's and res5's
+//   others), a tile's rows are output pixels of a spatial block (16 x 8,
+//   or whole images of res5's 7 x 7) and each k step one 4-D TMA box of
+//   one tap's 128 channels over the input seen at the stride, whose part
+//   outside the input (the padding) TMA fills with zeros; A_GATHER, the
+//   rest, gathered by the producer warpgroup's cp.async with zero fill
+//   into the same swizzle, a row's 16-byte piece at chunk (piece ^ row
+//   % 8) (the gather held res5's 3x3 at 3.04 ms, A_SPATIAL takes 1.85);
 // - the producer fills the next tile's stages while the consumers run
 //   this tile's epilogue;
 // - the epilogue stages each warp's 16 rows in T through shared memory,
@@ -420,17 +427,54 @@ struct Cfg {
   static constexpr int STAGES = BN == 256 ? 3 : BN == 128 ? 4 : 6;
   static constexpr int RING = STAGES * STAGE_BYTES;
   // 1024 bytes of slack to align the ring to the swizzle's 1024 bytes,
-  // the ring, 8 consumer warps' staging, 128 row records, the barriers
+  // the ring, 8 consumer warps' staging, the row records, each consumer warp's 16 output rows, barriers
   static constexpr int SMEM =
-      1024 + RING + 8 * STAGE_WARP + BM * 16 + 2 * STAGES * 8;
+      1024 + RING + 8 * STAGE_WARP + BM * 16 + BM * 4 + 2 * STAGES * 8;
 };
+
+// how A arrives: a 2-D TMA box (a plain GEMM), the producers' cp.async
+// gather, or 4-D TMA boxes of spatial tiles
+enum { A_GEMM = 0, A_GATHER = 1, A_SPATIAL = 2 };
 
 struct Params {
   const int8_t* xq;
   Epi e;
-  int h, w, c, o, kw, stride, pad, oh, ow, m, k, ktiles, ntiles, tiles;
+  int n, h, w, c, o, kw, stride, pad, oh, ow, m, k, ktiles, ntiles, tiles;
   int gather;  // A by cp.async (else by TMA)
+  // A by 4-D TMA boxes: a tile is tw x th output pixels of tn images
+  // (rows (n, h, w), `rows` of them), a k step one tap's 128 channels
+  int spatial, tw, th, tn, rows, tiles_w, tiles_h, ctiles;
 };
+
+// A tile: its first output row (contiguous tiles) or its corner (spatial
+// tiles), and its first output channel.
+struct Tile {
+  int m0, ow0, oh0, nn0, n0;
+};
+
+template <bool SPATIAL>
+__device__ __forceinline__ Tile tile_of(const Params& p, int tile, int bn) {
+  Tile t;
+  const int st = tile / p.ntiles;
+  t.n0 = (tile % p.ntiles) * bn;
+  t.m0 = SPATIAL ? 0 : st * 128;
+  t.ow0 = t.oh0 = t.nn0 = 0;
+  if (SPATIAL) {
+    const int wi = st % p.tiles_w, r = st / p.tiles_w;
+    t.ow0 = wi * p.tw;
+    t.oh0 = (r % p.tiles_h) * p.th;
+    t.nn0 = (r / p.tiles_h) * p.tn;
+  }
+  return t;
+}
+
+// The output row of a spatial tile's row r, or -1 past the output.
+__device__ __forceinline__ int row_m(const Params& p, const Tile& t, int r) {
+  if (r >= p.rows) return -1;
+  const int w = t.ow0 + r % p.tw, q = r / p.tw;
+  const int h = t.oh0 + q % p.th, n = t.nn0 + q / p.th;
+  return w < p.ow && h < p.oh && n < p.n ? (n * p.oh + h) * p.ow + w : -1;
+}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -475,6 +519,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(locov::smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(locov::smem_u32(bar))
+      : "memory");
+}
+
+// a box of the 4-D map at (c, w, h, n) into dst, counted on bar; the
+// part outside the tensor (the padding) reads as zeros
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          int c, int w, int h, int n,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          locov::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n),
       "r"(locov::smem_u32(bar))
       : "memory");
 }
@@ -736,18 +794,19 @@ __device__ __forceinline__ void emit16(const Epi& e, long long at,
   }
 }
 
-// One consumer warp's 16 rows (from row `mrow`) of the tile's BN columns
+// One consumer warp's 16 rows (output rows mrow + r, or `rowm` [r] for a
+// spatial tile; -1 past the output) of the tile's BN columns
 // (from `n0`), in passes of 512 bytes of T a row (one pass in bfloat16):
 // each lane stages its accumulators' values of the pass (rows g, g + 8;
 // columns 8j + 2q, +1) in T; then the warp finishes the staged rows as
 // 16-byte pieces, four a lane at a time with their loads issued first, in
 // a rolled loop (an unrolled one outgrew the instruction cache and left
 // each load's latency exposed).
-template <typename T, int BN>
+template <typename T, int BN, bool SPATIAL>
 __device__ __forceinline__ void epilogue(const int (&acc)[BN / 2],
                                          const Params& p, uint8_t* stg,
-                                         int mrow, int n0, int lane,
-                                         QScale qs) {
+                                         int mrow, const int* rowm, int n0,
+                                         int lane, QScale qs) {
   constexpr int PASS = 512 / sizeof(T);  // columns a pass
   constexpr int COLS = BN < PASS ? BN : PASS;
   constexpr int VALS = Pack<T>::N;
@@ -785,8 +844,8 @@ __device__ __forceinline__ void epilogue(const int (&acc)[BN / 2],
       for (int u = 0; u < 4; ++u) {
         const int pc = lane + 32 * (4 * grp + u);
         const int row = pc / ROW_PIECES, col = (pc % ROW_PIECES) * VALS;
-        const int m = mrow + row, o = c0 + col;
-        n[u] = m < p.m ? min(VALS, p.o - o) : 0;
+        const int m = SPATIAL ? rowm[row] : mrow + row, o = c0 + col;
+        n[u] = m >= 0 && m < p.m ? min(VALS, p.o - o) : 0;
         at[u] = (long long)m * p.o + o;
         sv[u] = *reinterpret_cast<const uint4*>(stg + row * STAGE_ROW +
                                                 col * sizeof(T));
@@ -804,26 +863,30 @@ __device__ __forceinline__ void epilogue(const int (&acc)[BN / 2],
 
 // Ask L2 for a warp's 16 rows x BN columns of the residual, so that the
 // epilogue finds them there.
-template <typename T, int BN>
+template <typename T, int BN, bool SPATIAL>
 __device__ __forceinline__ void prefetch_residual(const Params& p, int mrow,
-                                                  int n0, int lane) {
+                                                  const int* rowm, int n0,
+                                                  int lane) {
   constexpr int LINES = (BN * (int)sizeof(T) + 127) / 128;  // a row
   if (p.e.residual == nullptr) return;
   for (int i = lane; i < 16 * LINES; i += 32) {
-    const int m = mrow + i / LINES;
+    const int m = SPATIAL ? rowm[i / LINES] : mrow + i / LINES;
     const int o = n0 + (i % LINES) * (128 / (int)sizeof(T));
-    if (m < p.m && o < p.o)
+    if (m >= 0 && m < p.m && o < p.o)
       asm volatile("prefetch.global.L2 [%0];" ::"l"(
           static_cast<const T*>(p.e.residual) + (long long)m * p.o + o));
   }
 }
 
-template <typename T, int BN>
+// MODE: how A arrives (A_GEMM, A_GATHER or A_SPATIAL), fixed at compile
+// time so that each kernel carries only its own producer and row code
+template <typename T, int BN, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     conv_int8_wgmma(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
                     const Params p) {
   using C = Cfg<BN>;
+  constexpr bool gather = MODE == A_GATHER, spatial = MODE == A_SPATIAL;
   extern __shared__ uint8_t smem_raw[];
   // the ring at the first 1024-byte boundary (offsetting the shared array
   // keeps its address space known: the staging goes through st.shared)
@@ -831,14 +894,15 @@ __global__ void __launch_bounds__(THREADS, 1)
       smem_raw + ((1024 - (locov::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* staging = ring + C::RING;
   int4* rowinfo = reinterpret_cast<int4*>(staging + 8 * STAGE_WARP);
-  uint64_t* full = reinterpret_cast<uint64_t*>(rowinfo + BM);
+  int* rowms = reinterpret_cast<int*>(rowinfo + BM);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rowms + BM);
   uint64_t* empty = full + C::STAGES;
 
   const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
       // gather: 128 cp.async arrivals and thread 0's expect_tx for B
-      mbar_init(full + s, p.gather ? 129 : 1);
+      mbar_init(full + s, gather ? 129 : 1);
       mbar_init(empty + s, 8);  // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -847,12 +911,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (wgi == 0) {
     // ---------------------------------------------------- producer
-    if (!p.gather && t != 0) return;
+    if (!gather && t != 0) return;
     int stage = 0;
     unsigned phase = 0;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const int m0 = (tile / p.ntiles) * BM, n0 = (tile % p.ntiles) * BN;
-      if (p.gather) {
+      const Tile tl = tile_of<spatial>(p, tile, BN);
+      const int m0 = tl.m0, n0 = tl.n0;
+      if constexpr (gather) {
         producer_sync();  // every thread is past the last tile's rows
         const int m = m0 + t;
         const int mm = m < p.m ? m : 0;
@@ -867,12 +932,21 @@ __global__ void __launch_bounds__(THREADS, 1)
         uint8_t* a = ring + stage * C::STAGE_BYTES;
         uint8_t* b = a + C::A_BYTES;
         if (t == 0) {
-          mbar_expect_tx(full + stage,
-                         C::B_BYTES + (p.gather ? 0 : C::A_BYTES));
+          const int a_bytes =
+              gather ? 0 : spatial ? p.rows * BK : C::A_BYTES;
+          mbar_expect_tx(full + stage, C::B_BYTES + a_bytes);
           tma_load(b, &map_b, kt * BK, n0, full + stage);
-          if (!p.gather) tma_load(a, &map_a, kt * BK, m0, full + stage);
+          if constexpr (spatial) {
+            const int tap = kt / p.ctiles;
+            const int ky = tap / p.kw, kx = tap - ky * p.kw;
+            tma_load4(a, &map_a, (kt - tap * p.ctiles) * BK,
+                      tl.ow0 + kx - p.pad, tl.oh0 + ky - p.pad, tl.nn0,
+                      full + stage);
+          } else if constexpr (!gather) {
+            tma_load(a, &map_a, kt * BK, m0, full + stage);
+          }
         }
-        if (p.gather) {
+        if constexpr (gather) {
           const int piece = t & 7;
           const int k = kt * BK + piece * 16;
           const bool kin = k < p.k;
@@ -907,9 +981,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         p.e.qout != nullptr ? quant_scale(p.e.amax) : QScale{1.f, 1.f};
     int stage = 0;
     unsigned phase = 0;
+    int* rowm = rowms + cw * 64 + warp * 16;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const int m0 = (tile / p.ntiles) * BM, n0 = (tile % p.ntiles) * BN;
-      prefetch_residual<T, BN>(p, m0 + cw * 64 + warp * 16, n0, lane);
+      const Tile tl = tile_of<spatial>(p, tile, BN);
+      const int n0 = tl.n0, mrow = tl.m0 + cw * 64 + warp * 16;
+      if constexpr (spatial) {
+        // the output rows of this warp's 16 tile rows (for the epilogue)
+        if (lane < 16)
+          rowm[lane] = row_m(p, tl, cw * 64 + warp * 16 + lane);
+        __syncwarp();
+      }
+      prefetch_residual<T, BN, spatial>(p, mrow, rowm, n0, lane);
       int acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
@@ -917,7 +999,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kt = 0; kt < p.ktiles; ++kt) {
         mbar_wait(full + stage, phase);
         // the gathered pieces were written by the generic proxy
-        if (p.gather)
+        if constexpr (gather)
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         const uint8_t* a = ring + stage * C::STAGE_BYTES + cw * 64 * BK;
         const uint8_t* b = ring + stage * C::STAGE_BYTES + C::A_BYTES;
@@ -940,7 +1022,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_operands(acc);
       if (lane == 0) mbar_arrive(empty + prev);
-      epilogue<T, BN>(acc, p, stg, m0 + cw * 64 + warp * 16, n0, lane, qs);
+      epilogue<T, BN, spatial>(acc, p, stg, mrow, rowm, n0, lane, qs);
     }
 
   }
@@ -982,18 +1064,39 @@ bool make_map(CUtensorMap* map, const void* base, uint64_t cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int BN>
+// the 4-D map of xq [n, h, w, c] seen at the conv's stride (dims c, w / s,
+// h / s, n, rounded up), whose box is 128 channels of tw x th pixels of
+// tn images in the 128-byte swizzle
+bool make_map4(CUtensorMap* map, const Params& p) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const uint64_t s = p.stride, c = p.c;
+  cuuint64_t dims[4] = {c, (p.w + s - 1) / s, (p.h + s - 1) / s,
+                        (cuuint64_t)p.n};
+  cuuint64_t strides[3] = {s * c, s * p.w * c, (uint64_t)p.h * p.w * c};
+  cuuint32_t box[4] = {BK, (cuuint32_t)p.tw, (cuuint32_t)p.th,
+                       (cuuint32_t)p.tn};
+  cuuint32_t steps[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(p.xq),
+            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int BN, int MODE>
 int launch(const void* wq, Params p, cudaStream_t stream) {
   using C = Cfg<BN>;
   CUtensorMap map_a, map_b;
   memset(&map_a, 0, sizeof(map_a));
   if (!make_map(&map_b, wq, p.k, p.o, BN)) return ENCODE_FAILED;
-  if (!p.gather &&
-      !make_map(&map_a, p.xq, p.c, (uint64_t)p.m, BM))
+  if (p.spatial ? !make_map4(&map_a, p)
+                : !p.gather && !make_map(&map_a, p.xq, p.c, (uint64_t)p.m, BM))
     return ENCODE_FAILED;
   p.ntiles = (p.o + BN - 1) / BN;
-  p.tiles = ((p.m + BM - 1) / BM) * p.ntiles;
-  auto kernel = conv_int8_wgmma<T, BN>;
+  p.tiles = (p.spatial ? p.tiles_w * p.tiles_h * ((p.n + p.tn - 1) / p.tn)
+                       : (p.m + BM - 1) / BM) *
+            p.ntiles;
+  auto kernel = conv_int8_wgmma<T, BN, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -1005,11 +1108,18 @@ int launch(const void* wq, Params p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int MODE>
 int launch_bn(const void* wq, const Params& p, cudaStream_t stream) {
-  if (p.o % 256 == 0) return launch<T, 256>(wq, p, stream);
-  if (p.o % 128 == 0) return launch<T, 128>(wq, p, stream);
-  return launch<T, 64>(wq, p, stream);
+  if (p.o % 256 == 0) return launch<T, 256, MODE>(wq, p, stream);
+  if (p.o % 128 == 0) return launch<T, 128, MODE>(wq, p, stream);
+  return launch<T, 64, MODE>(wq, p, stream);
+}
+
+template <typename T>
+int launch_mode(const void* wq, const Params& p, cudaStream_t stream) {
+  if (p.spatial) return launch_bn<T, A_SPATIAL>(wq, p, stream);
+  if (p.gather) return launch_bn<T, A_GATHER>(wq, p, stream);
+  return launch_bn<T, A_GEMM>(wq, p, stream);
 }
 
 }  // namespace wg
@@ -1083,8 +1193,34 @@ extern "C" int conv_int8_wgmma_fwd(const void* xq, const void* wq,
   p.m = n * oh * ow;
   p.k = kh * kw * c;
   p.ktiles = (p.k + wg::BK - 1) / wg::BK;
-  p.gather = !(kh == 1 && kw == 1 && stride == 1 && pad == 0);
+  p.n = n;
+  // A by 4-D TMA boxes of output pixels where each k step is one tap's
+  // 128 channels and the taps read the input at the output's stride:
+  // the 3x3 / 1 / pad 1 and 1x1 / 2 convs of the trunk and res5 (C a
+  // multiple of 128); by a 2-D box where the conv is a plain GEMM; else
+  // by the producers' cp.async gather
+  p.spatial = c % 128 == 0 && ((kh == 3 && kw == 3 && stride == 1 &&
+                                pad == 1) ||
+                               (kh == 1 && kw == 1 && stride == 2 &&
+                                pad == 0));
+  p.gather = !p.spatial && !(kh == 1 && kw == 1 && stride == 1 && pad == 0);
+  p.ctiles = c / wg::BK;
+  p.tw = p.th = p.tn = p.tiles_w = p.tiles_h = 1;
+  p.rows = wg::BM;
+  if (p.spatial) {
+    if (oh * ow <= 64) {  // whole images: res5's 7 x 7
+      p.tw = ow;
+      p.th = oh;
+      p.tn = wg::BM / (oh * ow);
+    } else {  // 16 x 8 pixels, or narrower images' whole rows
+      p.tw = ow < 16 ? ow : 16;
+      p.th = oh < wg::BM / p.tw ? oh : wg::BM / p.tw;
+    }
+    p.rows = p.tw * p.th * p.tn;
+    p.tiles_w = (ow + p.tw - 1) / p.tw;
+    p.tiles_h = (oh + p.th - 1) / p.th;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return wg::launch_bn<float>(wq, p, s);
-  return wg::launch_bn<__nv_bfloat16>(wq, p, s);
+  if (dtype == 0) return wg::launch_mode<float>(wq, p, s);
+  return wg::launch_mode<__nv_bfloat16>(wq, p, s);
 }

@@ -505,14 +505,19 @@ def conv_int8_variant(gen, xq, wq, scale, shift, stride, pad, relu,
     ((3, 9, 11, 48), 200, 3, 2), ((1, 13, 17, 64), 72, 1, 1),
     ((2, 25, 42, 256), 1024, 1, 1), ((1, 5, 3, 16), 8, 3, 1),
     ((2, 6, 5, 32), 20, 1, 1), ((2, 12, 10, 64), 64, 3, 1),
+    ((2, 10, 20, 128), 136, 3, 1), ((1, 9, 13, 128), 64, 1, 2),
     ((2, 16, 16, 8), 24, 3, 1), ((2, 9, 7, 12), 32, 1, 2)])
 def test_conv_int8_bit_exact(cuda, dtype, shape, o, k, stride):
     """Each epilogue variant (a residual; the int8 copy with and without
     the float output) into NaN-filled outputs (-128 in the int8 one) has
     the plain version's bits, and the same bits on a second launch. C a
     multiple of 16 takes the wgmma kernel, C 8 and 12 the narrow one
-    (``conv_int8_route``); where both take the operands they agree. Each
-    counts its launches under its own ``LAUNCHES`` key."""
+    (``conv_int8_route``); where both take the operands they agree. The
+    shapes reach each of the wgmma kernel's A modes: the 2-D TMA box
+    (1x1 / 1), the 4-D spatial boxes (C a multiple of 128: 3x3 / 1 on 7 x
+    7 images and on ragged 16 x 8 blocks, 1x1 / 2) and the cp.async
+    gather (the rest). Each kernel counts its launches under its own
+    ``LAUNCHES`` key."""
     xq = torch.randint(-127, 128, shape, generator=cuda,
                        device="cuda").to(torch.int8)
     wq = torch.randint(-127, 128, (o, k, k, shape[3]), generator=cuda,
