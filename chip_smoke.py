@@ -34,12 +34,11 @@ Phases, one JSON line each, in order:
    output, the same bits on two launches, in six cases (res2, res3 M
    128, partial tiles, H 1, and b1 = 3 against a relu(b1) halo). The
    int8 kernels, the same bits as their plain versions: KQ1 (the int8
-   conv; the wgmma kernel, and the narrow mma.sync one where C is not a
-   multiple of 16) in each epilogue variant (a residual; the int8 copy
+   conv, wgmma) in each epilogue variant (a residual; the int8 copy
    with and without the float output) with bfloat16 and float32
    outputs, into NaN-filled outputs, at res5's conv3 on 8,000 boxes
-   ([8000, 7, 7, 512] -> 2048; both kernels), res4's 3x3 conv2, odd
-   shapes and C 8 and 12; KQ2 (the int8 ROIAlign core) at [8, 50, 84,
+   ([8000, 7, 7, 512] -> 2048), res4's 3x3 conv2, odd shapes and C 8
+   and 12 (padded to 16); KQ2 (the int8 ROIAlign core) at [8, 50, 84,
    1024] with 1,000 boxes an image, edge boxes and a fixed ratio.
    Kernel, plain and library-call times are medians of CUDA-event
    timings after warm-up.
@@ -94,9 +93,10 @@ Phases, one JSON line each, in order:
    trained scale, batch 8 of 800 x 1344; the bf16 model and three int8 ones with its weights
    (dynamic; static with KQ2; static with K2 and a quantize after it),
    the static ones calibrated by ``make_calibrate_step`` on 4 seeded
-   batches (seconds), and the static one as the parent design ran it
-   (unfused quantize passes, the narrow KQ1: the same bits); on another
-   batch each mode's launches (K1-fwd, KQ1, KQ2 or K2), peak memory, the
+   batches (seconds), and the static one unfused (``unfuse_static_``:
+   each conv quantizing its own input, the same bits; its launches
+   reported on its own line, not the path's); on another batch each
+   mode's launches (K1-fwd, KQ1, KQ2 or K2), peak memory, the
    median of 5 batches in turns with bf16, one profile (busy ms), one of
    its quantize passes, the box features of bf16's proposals
    against bf16's (mean relative error) and the share of bf16's top-100
@@ -187,7 +187,7 @@ Phases, one JSON line each, in order:
 15. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; then a row for each of the port's
-   own kernels, KQ1 (its wgmma and narrow kernels) and KQ2, whose
+   own kernels, KQ1 and KQ2, whose
    ``replaces`` names the JAX function XLA computes; ``launches_by_path``
    gives each path's counts, ``eval``, ``int8``, ``int8_eval``,
    ``int8_tiny``, ``trainer``, ``scale``,
@@ -204,7 +204,6 @@ It does the same when no CUDA device is present, and when the
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import os
@@ -245,11 +244,6 @@ KERNEL_ROWS = (
 INT8_KERNEL_ROWS = (
     ("conv_int8", "locov_torch/csrc/conv_int8.cu",
      "locov_tpu/ops/int8_conv.py:87 (XLA; no Pallas kernel)", "int8",
-     "bfloat16"),
-    # the narrow kernel (C not a multiple of 16): the tiny int8 model's
-    # convs; its time is at conv3 (the first design)
-    ("conv_int8_narrow", "locov_torch/csrc/conv_int8.cu",
-     "locov_tpu/ops/int8_conv.py:87 (XLA; no Pallas kernel)", "int8_tiny",
      "bfloat16"),
     ("roi_align_int8", "locov_torch/csrc/roi_align_int8.cu",
      "locov_tpu/ops/roi_align.py:175 (XLA; no Pallas kernel)", "int8",
@@ -3963,7 +3957,7 @@ CONV_INT8_VARIANTS = {"plain": (False, False, True),
 # conv3 on 8,000 boxes, a trunk 3x3 (res4's conv2 on the main path's
 # batch), odd shapes (M and O off the tiles, C 48 past a 128-byte k step,
 # 3x3 / 2; O 72 and 20: ragged tiles and rows not whole 16-byte pieces),
-# the narrow kernel's C 8 and 12 (8- and 4-byte staged pieces)
+# C 8 and 12 (the tiny models': padded with zero channels to 16)
 CONV_INT8_CASES = (
     ("res5_conv3", (8000, 7, 7, 512), 2048, 1, 1, tuple(CONV_INT8_VARIANTS),
      ("bfloat16", "float32")),
@@ -3975,9 +3969,9 @@ CONV_INT8_CASES = (
      ("bfloat16", "float32")),
     ("odd_o20", (2, 6, 5, 32), 20, 1, 1, tuple(CONV_INT8_VARIANTS),
      ("bfloat16",)),
-    ("narrow_c8", (2, 16, 16, 8), 24, 3, 1, tuple(CONV_INT8_VARIANTS),
+    ("c8_padded", (2, 16, 16, 8), 24, 3, 1, tuple(CONV_INT8_VARIANTS),
      ("bfloat16", "float32")),
-    ("narrow_c12", (2, 9, 7, 12), 32, 1, 2, tuple(CONV_INT8_VARIANTS),
+    ("c12_padded", (2, 9, 7, 12), 32, 1, 2, tuple(CONV_INT8_VARIANTS),
      ("bfloat16",)))
 
 
@@ -4021,9 +4015,9 @@ def _conv_int8_plain_chunked(xq, wq, scale, shift, stride, pad, res,
             outs.append(iq.conv_int8_plain(xq[i:i + 1000], wq, scale, shift,
                                            stride, pad, relu, r))
             continue
-        out, q = iq.conv_int8_quant_plain(xq[i:i + 1000], wq, scale, shift,
-                                          stride, pad, relu, r, amax,
-                                          float_out)
+        out, q = iq.conv_int8_op_plain(xq[i:i + 1000], wq, scale, shift,
+                                       stride, pad, relu, r, amax,
+                                       float_out)
         outs.append(out)
         qs.append(q)
     out = torch.cat(outs) if outs and (amax is None or float_out) else None
@@ -4031,18 +4025,18 @@ def _conv_int8_plain_chunked(xq, wq, scale, shift, stride, pad, res,
 
 
 def _conv_int8_same(xq, wq, scale, shift, stride, pad, res, amax, float_out,
-                    route, relu=True):
-    """One KQ1 launch on ``route`` into NaN-filled outputs (-128 in the
-    int8 copy) against the plain version, and a second launch: (same
-    bits, same bits on the second launch, the largest difference)."""
+                    relu=True):
+    """One KQ1 launch into NaN-filled outputs (-128 in the int8 copy)
+    against the plain version, and a second launch: (same bits, same
+    bits on the second launch, the largest difference)."""
     import torch
     from locov_torch.ops import int8_conv as iq
-    got, q, _ = iq._launch(xq, wq, scale, shift, stride, pad, relu, res, amax,
-                           float_out, fill=math.nan, route=route)
+    got, q = iq._launch(xq, wq, scale, shift, stride, pad, relu, res, amax,
+                        float_out, fill=math.nan)
     want, want_q = _conv_int8_plain_chunked(xq, wq, scale, shift, stride,
                                             pad, res, amax, float_out, relu)
-    again, q2, _ = iq._launch(xq, wq, scale, shift, stride, pad, relu, res,
-                              amax, float_out, route=route)
+    again, q2 = iq._launch(xq, wq, scale, shift, stride, pad, relu, res,
+                           amax, float_out)
     ok, twice, err = True, True, 0.0
     if want is not None:
         ok = got is not None and _same_bits(got, want)
@@ -4073,23 +4067,19 @@ def check_conv_int8(gen, results):
     """KQ1 against its plain version, the same bits, in each epilogue
     variant (a residual; the int8 copy by a calibrated max-abs, with and
     without the float output) and float32 and bfloat16 outputs, into
-    NaN-filled outputs, on the kernel ``conv_int8_route`` picks: the
-    wgmma kernel at res5's conv3 on 8,000 boxes (1x1, [8000, 7, 7, 512]
-    int8 -> 2048, M 392,000), res4's conv2 (3x3 at [8, 50, 84, 256]) and
-    the odd shapes, the narrow kernel at C 8 and 12; at res5's conv3 the
-    narrow kernel too (the first design: the same bits). At res5's conv3
-    and res4's conv2, for each variant: the kernel's time, the narrow
-    kernel's (``parent_ms``), the bound of its bytes (a residual or an
-    int8 copy changes them); at conv3 ``torch._int_mm`` (cuBLASLt's int8
-    GEMM) of the same product, and the plain version's time; at the 3x3
-    cuDNN's bfloat16 conv of the same shapes."""
+    NaN-filled outputs: at res5's conv3 on 8,000 boxes (1x1, [8000, 7, 7,
+    512] int8 -> 2048, M 392,000), res4's conv2 (3x3 at [8, 50, 84,
+    256]), the odd shapes and C 8 and 12 (padded to 16). At res5's conv3
+    and res4's conv2, for each variant: the kernel's time and the bound
+    of its bytes (a residual or an int8 copy changes them); at conv3
+    ``torch._int_mm`` (cuBLASLt's int8 GEMM) of the same product, and
+    the plain version's time; at the 3x3 cuDNN's bfloat16 conv of the
+    same shapes."""
     import torch
     import torch.nn.functional as F
     from locov_torch.ops import int8_conv as iq
     from locov_torch.tools.timing import time_ms
     for case, xshape, o, k, stride, variants, dtypes in CONV_INT8_CASES:
-        route = "wgmma" if xshape[3] % 16 == 0 else "narrow"
-        routes = (route, "narrow") if case == "res5_conv3" else (route,)
         timed = case in ("res5_conv3", "res4_conv2_3x3")
         for dt in dtypes:
             dtype = getattr(torch, dt)
@@ -4100,76 +4090,60 @@ def check_conv_int8(gen, results):
                 xq, wq, scale, shift, pad, res, amax, float_out = ops
                 args = (xq, wq, scale, shift, stride, pad, res, amax,
                         float_out)
-                for rt in routes:
-                    ok, twice, err = _conv_int8_same(*args, route=rt)
-                    line = {"phase": "kernel_check", "kernel": "conv_int8",
-                            "route": rt, "case": case, "variant": variant,
-                            "dtype": dt, "shape": list(xshape),
-                            "out_channels": o, "kernel_hw": k,
-                            "stride": stride, "same_bits": ok,
-                            "same_bits_two_launches": twice,
-                            "max_abs_err": err}
-                    if timed and rt == route and (dt == "bfloat16" or
-                                                  variant == "plain"):
-                        oh, ow = iq._out_hw(xshape[1], xshape[2], k, stride,
-                                            pad)
-                        m = xshape[0] * oh * ow
-                        launch = (lambda r: lambda: iq._launch(
-                            xq, wq, scale, shift, stride, pad, True, res,
-                            amax, float_out, route=r))
-                        line["kernel_ms"] = time_ms(launch(route), reps=10)
-                        line["parent_ms"] = time_ms(launch("narrow"),
-                                                    reps=10)
-                        line["bound_ms"], line["bound_by"] = \
-                            conv_int8_bound(xq, wq, shift, m, variant)
-                        line["library_ms"] = None
-                        if k == 1 and stride == 1:
-                            a8 = xq.reshape(m, xshape[3])
-                            b8 = wq.reshape(o, xshape[3])
-                            line["library_ms"] = time_ms(
-                                lambda: torch._int_mm(a8, b8.t()), reps=10)
-                            line["library"] = "torch._int_mm (cuBLASLt " \
-                                "int8 GEMM, the int32 product alone)"
-                        elif variant == "plain":
-                            xb = torch.randn(xshape, generator=gen,
-                                             device="cuda").to(torch.bfloat16)
-                            wb = torch.randn((o, xshape[3], k, k),
-                                             generator=gen, device="cuda"
-                                             ).to(torch.bfloat16)
-                            line["cudnn_bf16_ms"] = time_ms(
-                                lambda: F.conv2d(
-                                    xb.permute(0, 3, 1, 2),
-                                    wb.contiguous(
-                                        memory_format=torch.channels_last),
-                                    stride=stride, padding=pad), reps=10)
-                            del xb, wb
-                        if variant == "plain":
-                            line["plain_ms"] = time_ms(
-                                lambda: _conv_int8_plain_chunked(
-                                    xq, wq, scale, shift, stride, pad, None),
-                                reps=2, warmup=1)
-                        timed_variants.append(
-                            {k2: line.get(k2) for k2 in (
-                                "case", "variant", "kernel_ms", "parent_ms",
-                                "bound_ms", "bound_by", "library_ms",
-                                "cudnn_bf16_ms")})
-                    emit(line)
-                    if not (ok and twice):
-                        raise AssertionError(f"conv_int8 {case} {variant} "
-                                             f"{dt} {rt}: {line}")
-                    if case == "res5_conv3" and variant == "plain" and \
-                            rt == route:
-                        results[("conv_int8", dt)] = line
+                ok, twice, err = _conv_int8_same(*args)
+                line = {"phase": "kernel_check", "kernel": "conv_int8",
+                        "case": case, "variant": variant, "dtype": dt,
+                        "shape": list(xshape), "out_channels": o,
+                        "kernel_hw": k, "stride": stride, "same_bits": ok,
+                        "same_bits_two_launches": twice, "max_abs_err": err}
+                if timed and (dt == "bfloat16" or variant == "plain"):
+                    oh, ow = iq._out_hw(xshape[1], xshape[2], k, stride, pad)
+                    m = xshape[0] * oh * ow
+                    line["kernel_ms"] = time_ms(lambda: iq._launch(
+                        xq, wq, scale, shift, stride, pad, True, res, amax,
+                        float_out), reps=10)
+                    line["bound_ms"], line["bound_by"] = \
+                        conv_int8_bound(xq, wq, shift, m, variant)
+                    line["library_ms"] = None
+                    if k == 1 and stride == 1:
+                        a8 = xq.reshape(m, xshape[3])
+                        b8 = wq.reshape(o, xshape[3])
+                        line["library_ms"] = time_ms(
+                            lambda: torch._int_mm(a8, b8.t()), reps=10)
+                        line["library"] = "torch._int_mm (cuBLASLt int8 " \
+                            "GEMM, the int32 product alone)"
+                    elif variant == "plain":
+                        xb = torch.randn(xshape, generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                        wb = torch.randn((o, xshape[3], k, k), generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                        line["cudnn_bf16_ms"] = time_ms(
+                            lambda: F.conv2d(
+                                xb.permute(0, 3, 1, 2),
+                                wb.contiguous(
+                                    memory_format=torch.channels_last),
+                                stride=stride, padding=pad), reps=10)
+                        del xb, wb
+                    if variant == "plain":
+                        line["plain_ms"] = time_ms(
+                            lambda: _conv_int8_plain_chunked(
+                                xq, wq, scale, shift, stride, pad, None),
+                            reps=2, warmup=1)
+                    timed_variants.append(
+                        {k2: line.get(k2) for k2 in (
+                            "case", "variant", "kernel_ms", "bound_ms",
+                            "bound_by", "library_ms", "cudnn_bf16_ms")})
+                emit(line)
+                if not (ok and twice):
+                    raise AssertionError(f"conv_int8 {case} {variant} {dt}: "
+                                         f"{line}")
+                if case == "res5_conv3" and variant == "plain":
+                    results[("conv_int8", dt)] = line
                 del ops, args, xq, wq, scale, shift, res, amax
                 torch.cuda.empty_cache()
             if timed and dt == "bfloat16":
                 results.setdefault(("conv_int8_variants", dt), []).extend(
                     timed_variants)
-    # the narrow kernel's row: its time at conv3 is the first design's
-    for dt in ("bfloat16", "float32"):
-        line = results[("conv_int8", dt)]
-        results[("conv_int8_narrow", dt)] = dict(
-            line, kernel_ms=line["parent_ms"], parent_ms=None)
 
 
 def roi_align_int8_ops(kyq, kxq, c):
@@ -4347,9 +4321,7 @@ def int8_small_reference(seed):
                     hit += 1
                     box_err = max(box_err, float(d_box[k]))
                     score_err = max(score_err, float(d_score[k]))
-        # the tiny model's C 8 convs take the narrow KQ1, C 16 and 32 the
-        # wgmma one
-        kernels = ["conv_int8", "conv_int8_narrow", "relu_maxpool",
+        kernels = ["conv_int8", "relu_maxpool",
                    "roi_align_int8" if name == "static" else
                    "roi_align_fused"]
         for k, v in launched.items():
@@ -4533,39 +4505,6 @@ def int8_serving(model, seed, workdir):
         raise AssertionError(f"int8 serving check failed: {line}")
 
 
-@contextlib.contextmanager
-def _parent_int8():
-    """The static scheme as the parent design ran it, for timing beside
-    this one in the same process: every conv quantizing its own input (a
-    quantize pass each, conv3's residual and relu added after it) on the
-    narrow kernel (the mma.sync KQ1 of the parent commit; its mainloop is
-    unchanged)."""
-    import torch
-    from locov_torch.models import resnet
-    from locov_torch.ops import int8_conv as iq
-    stage_forward, route = resnet.ResNetStage.forward, iq.conv_int8_route
-
-    def forward(stage, x, int8=False):
-        if int8 != "static":
-            return stage_forward(stage, x, int8)
-        for block in stage:
-            out = block._conv_bn(x, "conv1", int8)
-            out = block._conv_bn(out, "conv2", int8)
-            out = block._conv_bn(out, "conv3", int8, relu=False)
-            sc = x if block.shortcut is None else \
-                block._conv_bn(x, "shortcut", int8, relu=False)
-            x = torch.relu(out + sc)
-        return x
-    resnet.ResNetStage.forward = forward
-    iq.conv_int8_route = lambda c, addresses: \
-        "narrow" if route(c, addresses) else None
-    try:
-        yield
-    finally:
-        resnet.ResNetStage.forward = stage_forward
-        iq.conv_int8_route = route
-
-
 def quantize_profile(run):
     """The plain quantize passes of one ``run()`` under torch.profiler: each
     call of the int8 module's elementwise quantize (of an activation: a
@@ -4623,9 +4562,8 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     dynamic scheme, and the static one with the full-int8 ROIAlign (KQ2)
     and with the float ROIAlign (K2) quantized after it, both calibrated
     by ``make_calibrate_step`` on ``INT8_CALIB_BATCHES`` seeded batches
-    (seconds); and the static model as the parent design ran it
-    (``_parent_int8``: unfused quantize passes, the narrow KQ1), timed
-    beside it. On another seeded batch, for each mode: one run with the
+    (seconds); and the static model unfused (``unfuse_static_``: each
+    conv quantizing its own input), timed beside it. On another seeded batch, for each mode: one run with the
     launch counts zeroed just before and read just after (K1-fwd and KQ1
     must launch, and KQ2 or K2 by mode) under ``KernelShapes``, its peak
     memory, then ``INT8_TURNS`` batches of each model in turns (median
@@ -4633,16 +4571,20 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     (``quantize_profile``: passes, launches, ms), the box features of
     the bf16 run's proposals against bf16's (mean relative error) and
     the share of bf16's top-100 detections it keeps (same class, IoU >=
-    0.9). The parent form's output must have the static mode's bits.
+    0.9). The unfused form's output must have the static mode's bits;
+    its launches are reported on its own line and left out of the
+    path's.
     Every KQ1, KQ2, K1 and K2 signature the modes launched is then held
     to its plain version (``check_path_shapes``). Then the tiny int8
     model card against CPU, the evaluation through the CLI twin on the
     eval path's tree, and export and serving of the calibrated static
-    model. Returns the int8 modes' launches, summed, the CLI
+    model. Returns the int8 modes' launches (the unfused form's not
+    among them), summed, the CLI
     evaluation's and the tiny model's."""
     import numpy as np
     import torch
     from locov_torch.models import build_meta_arch
+    from locov_torch.models.resnet import unfuse_static_
     from locov_torch.models.rpn import select_proposals
     from locov_torch.ops import kernel_lib
     from locov_torch.parallel.mesh import make_calibrate_step
@@ -4684,48 +4626,43 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     amax_vals = [float(v) for v in amax.values()]
     del calib
     batch = images(seed)
-    models["static_parent"] = models["static"]
-
-    def ctx(name):
-        return _parent_int8() if name == "static_parent" else \
-            contextlib.nullcontext()
+    unfused = build_meta_arch(_int8_cfg("static", True))
+    unfused.load_state_dict(models["static"].state_dict(), strict=True)
+    models["static_unfused"] = unfuse_static_(unfused)
+    del unfused
     for name, m in models.items():
-        with ctx(name):
-            m.inference(batch, class_emb)  # warm-up
+        m.inference(batch, class_emb)  # warm-up
     torch.cuda.synchronize()
 
     dets, launches, peaks, seen = {}, {}, {}, {}
     for name, m in models.items():
         torch.cuda.reset_peak_memory_stats()
         kernel_lib.reset_launches()
-        with ctx(name), KernelShapes() as shapes:
+        with KernelShapes() as shapes:
             dets[name] = m.inference(batch, class_emb)
             torch.cuda.synchronize()
         launches[name] = dict(kernel_lib.LAUNCHES)
         shapes.check_counts(launches[name])
         peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
-        if name != "bf16":
+        if name not in ("bf16", "static_unfused"):
             for key, n in shapes.seen.items():
                 seen[key] = seen.get(key, 0) + n
     times = {name: [] for name in models}
     for _ in range(INT8_TURNS):
         for name, m in models.items():
-            with ctx(name):
-                t0 = time.perf_counter()
-                m.inference(batch, class_emb)
-                torch.cuda.synchronize()
-                times[name].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            m.inference(batch, class_emb)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
     ms = {k: statistics.median(v) for k, v in times.items()}
     busy, quant = {}, {}
     for name, m in models.items():
-        with ctx(name):
-            prof = profile_run(f"int8_{name}_profile",
-                               lambda: m.inference(batch, class_emb),
-                               ms[name])
-            busy[name] = prof["device_busy_ms"]
-            if name != "bf16":
-                quant[name] = quantize_profile(
-                    lambda: m.inference(batch, class_emb))
+        prof = profile_run(f"int8_{name}_profile",
+                           lambda: m.inference(batch, class_emb), ms[name])
+        busy[name] = prof["device_busy_ms"]
+        if name != "bf16":
+            quant[name] = quantize_profile(
+                lambda: m.inference(batch, class_emb))
 
     with torch.inference_mode():
         x = bf16.preprocess(batch.images)
@@ -4737,21 +4674,18 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
     denom = float((ref_feats.abs() * valid).sum())
     kernels_of = {"dynamic": "roi_align_fused", "static": "roi_align_int8",
                   "static_float_roialign": "roi_align_fused",
-                  "static_parent": "roi_align_int8"}
+                  "static_unfused": "roi_align_int8"}
     total = {k: 0 for k in kernel_lib.LAUNCHES}
     ok = True
-    for name in [n for n, _, _ in INT8_MODES] + ["static_parent"]:
-        with ctx(name):
-            feats = _box_features(models[name], batch,
-                                  models[name]._int8_mode(),
-                                  props.boxes).float()
+    for name in [n for n, _, _ in INT8_MODES] + ["static_unfused"]:
+        feats = _box_features(models[name], batch,
+                              models[name]._int8_mode(),
+                              props.boxes).float()
         rel = float(((feats - ref_feats).abs() * valid).sum()) / denom
         d = dets[name]
         finite = bool(torch.isfinite(d.boxes).all() and
                       torch.isfinite(d.scores).all())
-        need = ("relu_maxpool", kernels_of[name],
-                "conv_int8_narrow" if name == "static_parent" else
-                "conv_int8")
+        need = ("relu_maxpool", kernels_of[name], "conv_int8")
         line = {"phase": "int8_path", "mode": name,
                 "config": "configs/coco_stt.yaml", "dtype": "bfloat16",
                 "batch": 8, "image": [800, 1344],
@@ -4764,8 +4698,8 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
                 "bf16_top100_matched": _matched_share(dets["bf16"], d),
                 "detections_kept": int(d.mask.sum()), "finite": finite,
                 "quantize": quant[name], "launches": launches[name]}
-        if name == "static_parent":
-            # the fusion moves no bit: the parent form's detections
+        if name == "static_unfused":
+            # the fusion moves no bit: the unfused form's detections
             line["same_bits_as_static"] = all(
                 bool(torch.equal(a, b)) for a, b in zip(d, dets["static"]))
             ok = ok and line["same_bits_as_static"]
@@ -4777,6 +4711,8 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
                         build_s=build_s)
         emit(line)
         ok = ok and finite and all(launches[name][k] > 0 for k in need)
+        if name == "static_unfused":
+            continue  # a reference form, not the path's own run
         for k in total:
             total[k] += launches[name][k]
     if not (ok and min(amax_vals) > 0):
@@ -4812,20 +4748,15 @@ class KernelShapes:
         from locov_torch.ops import roi_align as ra
         self.seen, self._orig = {}, []
 
-        def wrap(mod, attr, kernels, sig):
-            """``kernels``: the launch key, or the keys of which the
-            wrapper counts one (KQ1: the kernel ``conv_int8_route``
-            picks)."""
+        def wrap(mod, attr, kernel, sig):
             orig = getattr(mod, attr)
-            keys = (kernels,) if isinstance(kernels, str) else kernels
 
             def fn(*a, **k):
-                before = [kernel_lib.LAUNCHES[n] for n in keys]
+                before = kernel_lib.LAUNCHES[kernel]
                 out = orig(*a, **k)
-                for n, b in zip(keys, before):
-                    if kernel_lib.LAUNCHES[n] > b:
-                        key = (n,) + sig(*a, **k)
-                        self.seen[key] = self.seen.get(key, 0) + 1
+                if kernel_lib.LAUNCHES[kernel] > before:
+                    key = (kernel,) + sig(*a, **k)
+                    self.seen[key] = self.seen.get(key, 0) + 1
                 return out
             self._orig.append((mod, attr, orig))
             setattr(mod, attr, fn)
@@ -4846,18 +4777,14 @@ class KernelShapes:
              sampling_ratio=2: (dt(g), (g.shape[0], h, w, g.shape[-1]),
                                 boxes.shape[1], float(spatial_scale),
                                 pooled, int(sampling_ratio)))
-        kq1 = ("conv_int8", "conv_int8_narrow")
         # KQ1's signature: dtype, shapes, stride, pad, relu, and the
         # epilogue's residual, int8 copy and float output
-        wrap(iq, "conv_int8_cuda", kq1,
-             lambda xq, wq, scale, shift, stride, pad, relu, residual=None: (
+        wrap(iq, "conv_int8_cuda", "conv_int8",
+             lambda xq, wq, scale, shift, stride, pad, relu, residual=None,
+             amax=None, float_out=True: (
                  dt(shift), tuple(xq.shape), tuple(wq.shape), int(stride),
-                 int(pad), bool(relu), residual is not None, False, True))
-        wrap(iq, "conv_int8_quant_cuda", kq1,
-             lambda xq, wq, scale, shift, stride, pad, relu, residual, amax,
-             float_out: (dt(shift), tuple(xq.shape), tuple(wq.shape),
-                         int(stride), int(pad), bool(relu),
-                         residual is not None, True, bool(float_out)))
+                 int(pad), bool(relu), residual is not None,
+                 amax is not None, bool(float_out)))
         wrap(ra, "roi_align_int8_cuda", "roi_align_int8",
              lambda fq, kyq, kxq, sx, rescale: (
                  "int8", tuple(fq.shape), kyq.shape[1], kyq.shape[2]))
@@ -4869,7 +4796,6 @@ class KernelShapes:
 
     def check_counts(self, launches):
         per = {k: 0 for k in TRAIN_KERNELS + ("conv_int8",
-                                               "conv_int8_narrow",
                                                "roi_align_int8")}
         for key, n in self.seen.items():
             per[key[0]] += n
@@ -4885,7 +4811,7 @@ def _check_int8_shape(gen, key):
     from locov_torch.ops import int8_conv as iq
     from locov_torch.ops import roi_align as ra
     from locov_torch.tools.bench_roi_fwd import proposal_boxes
-    if key[0] in ("conv_int8", "conv_int8_narrow"):
+    if key[0] == "conv_int8":
         _, dt, xshape, wshape, stride, pad, relu, has_res, has_q, fo = key
         variant = {(False, False, True): "plain",
                    (True, False, True): "residual",
@@ -4901,8 +4827,7 @@ def _check_int8_shape(gen, key):
         if pad2 != pad:
             raise AssertionError(f"KQ1 pad {pad} at kernel {wshape[1]}")
         ok, twice, err = _conv_int8_same(
-            xq, wq, scale, shift, stride, pad, res, amax, float_out,
-            "wgmma" if key[0] == "conv_int8" else "narrow", relu)
+            xq, wq, scale, shift, stride, pad, res, amax, float_out, relu)
         return ok and twice, err
     _, _, fshape, n, p = key
     b, h, w, c = fshape
@@ -4944,7 +4869,7 @@ def check_path_shapes(gen, seen, path):
         line = {"phase": "kernel_check", "kernel": kernel,
                 "case": f"{path}_path", "dtype": dt, "shape": list(shape),
                 "path_launches": seen[key]}
-        if kernel in ("conv_int8", "conv_int8_narrow", "roi_align_int8"):
+        if kernel in ("conv_int8", "roi_align_int8"):
             ok, err = _check_int8_shape(gen, key)
             line.update(signature=[list(v) if isinstance(v, tuple) else v
                                    for v in key[3:]],
@@ -5163,8 +5088,7 @@ def main(argv=None) -> int:
             "f32_plain_ms": f32.get("plain_ms"),
             "f32_bound_ms": f32.get("bound_ms"),
             "f32_library_ms": f32.get("library_ms"),
-            **({"parent_ms": r["parent_ms"],
-                "variants": results[("conv_int8_variants", "bfloat16")]}
+            **({"variants": results[("conv_int8_variants", "bfloat16")]}
                if name == "conv_int8" else {})})
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})

@@ -1,7 +1,7 @@
 // KQ1: int8 convolution with int32 sums and a fused epilogue, NHWC, as
-// an implicit GEMM on the tensor cores. Two kernels: the wgmma kernel for
-// Hopper (every full-width conv) and the narrow mma.sync kernel (C not a
-// multiple of 16: the tiny models).
+// an implicit GEMM on Hopper's wgmma tensor-core products. C must be a
+// multiple of 16: the wrapper pads narrower channels with zeros, which
+// leave the int32 sums exact.
 //
 // The int8 serving mode's trunk and res5 convolutions
 // (locov_torch/ops/int8_conv.py). It has no Pallas parent: the JAX
@@ -27,7 +27,7 @@
 // [512 x 2048]) does 0.82 TOP of int8 products (0.42 ms at the 1,979
 // TOP/s dense int8 peak) and writes 1.6 GB of bfloat16 output (0.48 ms
 // at 3.35 TB/s): bytes bound it, and more so with a residual read or an
-// int8 copy written. The wgmma kernel's design follows:
+// int8 copy written. The design:
 // - a persistent grid (one block an SM) walks the 128-row x BN output
 //   tiles (BN 256, 128 or 64 by O), N fastest so that an A row block and
 //   all of B stay in L2 while the blocks share them;
@@ -65,21 +65,9 @@
 // The tensor maps are encoded with cuTensorMapEncodeTiled, found through
 // cudaGetDriverEntryPoint: the library links no -lcuda.
 //
-// The narrow kernel (C a multiple of 4 but not of 16, or operands not
-// 16-byte aligned) is the first design: a block takes a 128 x 128 output
-// tile; its A and B tiles (64 bytes of k a row) come through a ring of
-// three shared-memory stages by cp.async of VEC bytes (16, 8 or 4), with
-// zero fill, two stages ahead of the products; eight warps in a 2 x 4
-// grid each take 64 x 32 of the tile as 4 x 4 m16n8k32 mma.sync products
-// and write their epilogue from registers, two channels at a time.
-//
-// mma.m16n8k32 .s8 fragment layouts (PTX ISA), g = lane / 4, q = lane % 4:
-//   A (16 x 32, row-major): a0 = row g, k 4q .. 4q+3; a1 = row g+8, the
-//     same k; a2 = row g, k 16+4q ..; a3 = row g+8, k 16+4q ..
-//   B (32 x 8, col-major): b0 = col g, k 4q .. 4q+3; b1 = col g, k 16+4q ..
-//   C (16 x 8, s32): c0, c1 = row g, cols 2q, 2q+1; c2, c3 = row g+8.
-// The wgmma m64nN accumulator holds the same 16 x 8 layout for warp w's
-// rows 16w .. 16w+15 and each 8 columns j: d[4j .. 4j+3].
+// The wgmma m64nN s32 accumulator (PTX ISA), g = lane / 4, q = lane % 4:
+// warp w holds rows 16w .. 16w+15, and for each 8 columns j the values
+// d[4j], d[4j+1] = row g, cols 8j+2q, 8j+2q+1; d[4j+2], d[4j+3] = row g+8.
 #include <cuda.h>
 #include <stdint.h>
 #include <string.h>
@@ -148,266 +136,6 @@ template <typename T>
 __device__ __forceinline__ int8_t quantize(T y, QScale qs) {
   const float v = rintf(div_rn(locov::to_f32(y), qs));
   return static_cast<int8_t>(__float2int_rn(fminf(fmaxf(v, -127.f), 127.f)));
-}
-
-// ----------------------------------------------- the narrow kernel (mma.sync)
-
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3, THREADS = 256;
-constexpr int SROW = BK + 16;  // a staged row in bytes: 16-byte aligned,
-                               // its 32-bit words spread over the banks
-constexpr int TILE_BYTES = (BM + BN) * SROW;
-constexpr int SMEM = STAGES * TILE_BYTES;
-
-// cp.async of VEC bytes (16, 8 or 4); zeros where `valid` is false
-template <int VEC>
-__device__ __forceinline__ void copy_piece(void* dst, const void* src,
-                                           bool valid) {
-  if constexpr (VEC == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     locov::smem_u32(dst)),
-                 "l"(src), "r"(valid ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     locov::smem_u32(dst)),
-                 "l"(src), "n"(VEC), "r"(valid ? VEC : 0));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-struct Geom {
-  int n, h, w, c, o, kw, taps, stride, pad, oh, ow, m, ctiles, ktiles;
-};
-
-// One output pixel row of the A tile: where its window starts.
-struct Row {
-  int base;  // n * h * w
-  int ih0, iw0;
-  bool valid;
-};
-
-__device__ __forceinline__ Row row_of(const Geom& g, int m) {
-  Row r;
-  r.valid = m < g.m;
-  const int mm = r.valid ? m : 0;
-  const int ow = mm % g.ow, t = mm / g.ow;
-  const int oh = t % g.oh, n = t / g.oh;
-  r.base = n * g.h * g.w;
-  r.ih0 = oh * g.stride - g.pad;
-  r.iw0 = ow * g.stride - g.pad;
-  return r;
-}
-
-// The tile rows a thread stages: piece tid % PIECES of rows tid / PIECES
-// + i * (THREADS / PIECES).
-template <int VEC>
-struct Pieces {
-  static constexpr int PIECES = BK / VEC;             // pieces a row
-  static constexpr int PASSES = BM * PIECES / THREADS;  // rows a thread
-};
-
-// Stage k tile `kt` (one tap, BK channels) of A and B into `buf`: each
-// thread copies PASSES pieces of VEC bytes of each.
-template <int VEC>
-__device__ __forceinline__ void load_tile(
-    uint8_t* buf, const int8_t* __restrict__ xq,
-    const int8_t* __restrict__ wq, const Geom& g,
-    const Row (&rows)[Pieces<VEC>::PASSES], int o0, int kt, int tid) {
-  constexpr int PIECES = Pieces<VEC>::PIECES;
-  const int tap = kt / g.ctiles;
-  const int piece = (tid % PIECES) * VEC;
-  const int c = (kt % g.ctiles) * BK + piece;
-  const int ky = tap / g.kw, kx = tap % g.kw;
-  const bool cin = c < g.c;
-#pragma unroll
-  for (int i = 0; i < Pieces<VEC>::PASSES; ++i) {
-    const int r = tid / PIECES + i * (THREADS / PIECES);
-    const Row& rw = rows[i];
-    const int ih = rw.ih0 + ky, iw = rw.iw0 + kx;
-    const bool va = cin && rw.valid && ih >= 0 && ih < g.h && iw >= 0 &&
-                    iw < g.w;
-    const int8_t* src =
-        va ? xq + ((long long)(rw.base + ih * g.w + iw)) * g.c + c : xq;
-    copy_piece<VEC>(buf + r * SROW + piece, src, va);
-    const int o = o0 + r;
-    const bool vb = cin && o < g.o;
-    const int8_t* wsrc =
-        vb ? wq + ((long long)o * g.taps + tap) * g.c + c : wq;
-    copy_piece<VEC>(buf + BM * SROW + r * SROW + piece, wsrc, vb);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-
-// Two channels o, o + 1 of row m (o even): the residual, the output and
-// the int8 copy, as pairs where both are in range and nout is even.
-template <typename T>
-__device__ __forceinline__ void emit_pair(const Epi& e, long long m, int o,
-                                          int nout, T v0, T v1, QScale qs) {
-  const long long at = m * nout + o;
-  const bool pair = o + 1 < nout && !(nout & 1);
-  const T zero = locov::from_f32<T>(0.f);
-  T r0 = zero, r1 = zero;
-  const bool has_res = e.residual != nullptr;
-  if (has_res) {
-    const T* res = static_cast<const T*>(e.residual) + at;
-    if (pair) {
-      r0 = res[0];
-      r1 = res[1];
-    } else {
-      if (o < nout) r0 = res[0];
-      if (o + 1 < nout) r1 = res[1];
-    }
-  }
-  const T y0 = finish(v0, r0, has_res, e.relu != 0);
-  const T y1 = finish(v1, r1, has_res, e.relu != 0);
-  if (e.out != nullptr) {
-    T* p = static_cast<T*>(e.out) + at;
-    if (pair) {
-      if constexpr (sizeof(T) == 4) {
-        *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
-      } else {
-        __nv_bfloat162 v;
-        v.x = y0;
-        v.y = y1;
-        *reinterpret_cast<__nv_bfloat162*>(p) = v;
-      }
-    } else {
-      if (o < nout) p[0] = y0;
-      if (o + 1 < nout) p[1] = y1;
-    }
-  }
-  if (e.qout != nullptr) {
-    int8_t* p = e.qout + at;
-    const int8_t q0 = quantize(y0, qs), q1 = quantize(y1, qs);
-    if (pair) {
-      *reinterpret_cast<char2*>(p) = make_char2(q0, q1);
-    } else {
-      if (o < nout) p[0] = q0;
-      if (o + 1 < nout) p[1] = q1;
-    }
-  }
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-    conv_int8_kernel(const int8_t* __restrict__ xq,
-                     const int8_t* __restrict__ wq, Epi e, Geom g) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, q = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int m0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
-
-  constexpr int PIECES = Pieces<VEC>::PIECES;
-  Row rows[Pieces<VEC>::PASSES];
-#pragma unroll
-  for (int i = 0; i < Pieces<VEC>::PASSES; ++i)
-    rows[i] = row_of(g, m0 + tid / PIECES + i * (THREADS / PIECES));
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < g.ktiles)
-      load_tile<VEC>(smem + s * TILE_BYTES, xq, wq, g, rows, o0, s, tid);
-    else
-      asm volatile("cp.async.commit_group;\n" ::);
-  }
-  for (int kt = 0; kt < g.ktiles; ++kt) {
-    // tile kt is in, and every warp is done with the stage refilled next
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < g.ktiles)
-      load_tile<VEC>(smem + (nk % STAGES) * TILE_BYTES, xq, wq, g, rows, o0,
-                     nk, tid);
-    else
-      asm volatile("cp.async.commit_group;\n" ::);
-
-    const uint8_t* As = smem + (kt % STAGES) * TILE_BYTES;
-    const uint8_t* Bs = As + BM * SROW;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint8_t* p = As + (wm * 64 + i * 16 + gq) * SROW + kk + 4 * q;
-        a[i][0] = *reinterpret_cast<const unsigned*>(p);
-        a[i][1] = *reinterpret_cast<const unsigned*>(p + 8 * SROW);
-        a[i][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        a[i][3] = *reinterpret_cast<const unsigned*>(p + 8 * SROW + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint8_t* p = Bs + (wn * 32 + j * 8 + gq) * SROW + kk + 4 * q;
-        b[j][0] = *reinterpret_cast<const unsigned*>(p);
-        b[j][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-
-  const QScale qs =
-      e.qout != nullptr ? quant_scale(e.amax) : QScale{1.f, 1.f};
-  const T* shift = static_cast<const T*>(e.shift);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = o0 + wn * 32 + j * 8 + 2 * q;
-    const float s0 = o < g.o ? e.scale[o] : 0.f;
-    const float s1 = o + 1 < g.o ? e.scale[o + 1] : 0.f;
-    const T h0 = o < g.o ? shift[o] : locov::from_f32<T>(0.f);
-    const T h1 = o + 1 < g.o ? shift[o + 1] : locov::from_f32<T>(0.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 64 + i * 16 + gq + 8 * half;
-        if (m >= g.m) continue;
-        emit_pair(e, (long long)m, o, g.o,
-                  dequant(acc[i][j][2 * half], s0, h0),
-                  dequant(acc[i][j][2 * half + 1], s1, h1), qs);
-      }
-    }
-  }
-}
-
-template <typename T, int VEC>
-int launch(const void* xq, const void* wq, const Epi& e, const Geom& g,
-           cudaStream_t stream) {
-  auto kernel = conv_int8_kernel<T, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((g.m + BM - 1) / BM, (g.o + BN - 1) / BN);
-  kernel<<<grid, THREADS, SMEM, stream>>>(static_cast<const int8_t*>(xq),
-                                         static_cast<const int8_t*>(wq), e,
-                                         g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_vec(const void* xq, const void* wq, const Epi& e, const Geom& g,
-               int vec, cudaStream_t stream) {
-  if (vec == 16) return launch<T, 16>(xq, wq, e, g, stream);
-  if (vec == 8) return launch<T, 8>(xq, wq, e, g, stream);
-  return launch<T, 4>(xq, wq, e, g, stream);
 }
 
 // ---------------------------------------------------- the wgmma kernel
@@ -1126,56 +854,22 @@ int launch_mode(const void* wq, const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// The C entries: xq int8 [n, h, w, c], wq int8 [o, kh, kw, c], scale
+// The C entry: xq int8 [n, h, w, c], wq int8 [o, kh, kw, c], scale
 // float32 [o], shift [o] of `dtype` (0 = float32, 1 = bfloat16), and of
 // the outputs [n, oh, ow, o]: `residual` (of dtype, or null), `out` (of
 // dtype, or null) and `qout` (int8, or null; with `amax`, a 0-dim float32
-// tensor), every operand contiguous and on the current device. Each
-// returns the launch's error, or cudaGetLastError() after it.
-//
-// The narrow kernel: `vec` (16, 8 or 4) divides c and the addresses of
-// xq and wq: the bytes of a staged piece.
+// tensor), every operand contiguous and on the current device; c a
+// multiple of 16 and xq, wq and residual 16-byte aligned (the tensor
+// maps' row pitch and the 16-byte gathers). Returns the launch's error,
+// or cudaGetLastError() after it, or 1001 where a tensor map cannot be
+// encoded.
 extern "C" int conv_int8_fwd(const void* xq, const void* wq,
                              const void* scale, const void* shift,
                              const void* residual, void* out, void* qout,
                              const void* amax, int n, int h, int w, int c,
                              int o, int kh, int kw, int stride, int pad,
-                             int oh, int ow, int relu, int dtype, int vec,
+                             int oh, int ow, int relu, int dtype,
                              void* stream) {
-  Geom g;
-  g.n = n;
-  g.h = h;
-  g.w = w;
-  g.c = c;
-  g.o = o;
-  g.kw = kw;
-  g.taps = kh * kw;
-  g.stride = stride;
-  g.pad = pad;
-  g.oh = oh;
-  g.ow = ow;
-  g.m = n * oh * ow;
-  g.ctiles = (c + BK - 1) / BK;
-  g.ktiles = g.taps * g.ctiles;
-  Epi e{static_cast<const float*>(scale), shift, residual, out,
-        static_cast<int8_t*>(qout), static_cast<const float*>(amax), relu};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_vec<float>(xq, wq, e, g, vec, s);
-  return launch_vec<__nv_bfloat16>(xq, wq, e, g, vec, s);
-}
-
-// The wgmma kernel: c a multiple of 16 and xq, wq and residual 16-byte
-// aligned (`vec` is ignored). Returns 1001 where a tensor map cannot be
-// encoded.
-extern "C" int conv_int8_wgmma_fwd(const void* xq, const void* wq,
-                                   const void* scale, const void* shift,
-                                   const void* residual, void* out,
-                                   void* qout, const void* amax, int n,
-                                   int h, int w, int c, int o, int kh,
-                                   int kw, int stride, int pad, int oh,
-                                   int ow, int relu, int dtype, int vec,
-                                   void* stream) {
-  (void)vec;
   wg::Params p;
   p.xq = static_cast<const int8_t*>(xq);
   p.e = Epi{static_cast<const float*>(scale), shift, residual, out,

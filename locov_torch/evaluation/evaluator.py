@@ -31,7 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from ..data.catalog import MetadataCatalog
-from ..ops.int8_conv import distributed_ranks, idle_rank
+from ..parallel.mesh import process_rank_world
 from ..structures.batches import Detections, to_torch
 from .coco_eval import COCOEvaluator
 
@@ -140,8 +140,8 @@ def _in_lockstep(loader, eval_step, class_emb):
     """The loader's batches, with every rank making the same number of
     eval steps: before each batch the ranks agree (one all-reduce)
     whether any of them has one left, and a rank whose shard is done
-    runs its last batch again under ``idle_rank`` (its detections
-    dropped, its max-abs contributions 0) while another still has
+    runs its last batch again through ``eval_step.idle_pass`` (no
+    detections, its max-abs contributions 0) while another still has
     batches. For a step whose dynamic int8 scales are all-reduced over
     the ranks, so that no rank waits alone on a reduce."""
     device = getattr(eval_step, "device", None) or "cpu"
@@ -161,8 +161,7 @@ def _in_lockstep(loader, eval_step, class_emb):
         if last is None:
             raise RuntimeError("a rank with no batch cannot join the "
                                "dynamic int8 scheme's reduces")
-        with idle_rank():
-            eval_step(last, class_emb)
+        eval_step.idle_pass(last, class_emb)
 
 
 def collect_detections(eval_step, params, loader, class_emb,
@@ -195,7 +194,7 @@ def collect_detections(eval_step, params, loader, class_emb,
     mark = time.perf_counter()
     batches = loader
     if getattr(eval_step, "couples_ranks", False) and \
-            distributed_ranks() > 1:
+            process_rank_world()[1] > 1:
         batches = _in_lockstep(loader, eval_step, class_emb)
     for idx, batch in enumerate(batches):
         t0 = time.perf_counter()

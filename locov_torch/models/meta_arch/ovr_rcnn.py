@@ -226,6 +226,15 @@ class OvrRCNN(nn.Module):
     def _int8_mode(self):
         return self.int8_scheme if self.int8_eval else False
 
+    @property
+    def couples_ranks(self) -> bool:
+        """Whether the ranks of ``torch.distributed`` must run
+        ``inference`` in lockstep: the dynamic int8 scheme all-reduces
+        each activation max-abs over them (``ops/int8_conv.py:
+        global_max_abs``), so every rank makes the same collective calls
+        (``idle_pass``)."""
+        return self._int8_mode() == "dynamic"
+
     def amax_buffers(self) -> Dict[str, torch.Tensor]:
         """The static int8 scheme's calibrated max-abs buffers by
         ``state_dict`` name (none unless the model was built for it)."""
@@ -237,6 +246,19 @@ class OvrRCNN(nn.Module):
         """Detections for one padded batch; ``class_emb`` is the
         [K+1, D] class-embedding matrix (last row background)."""
         return self._inference(batch, class_emb, self._int8_mode())
+
+    @torch.inference_mode()
+    def idle_pass(self, batch: DetectionBatch,
+                  class_emb: torch.Tensor) -> None:
+        """For a rank whose shard is done while another rank still runs
+        ``inference`` under ``couples_ranks``: ``batch`` (any batch of
+        the run's shapes) through the same collective calls, each
+        max-abs contributing 0 (the "dynamic_idle" mode), so that no
+        other rank's scale moves; its detections are dropped."""
+        if not self.couples_ranks:
+            raise ValueError("idle_pass: the model couples no ranks "
+                             "(TPU.INT8_EVAL with TPU.INT8_SCHEME dynamic)")
+        self._inference(batch, class_emb, "dynamic_idle")
 
     @torch.no_grad()
     def calibrate_int8(self, batch: DetectionBatch,

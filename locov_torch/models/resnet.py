@@ -13,7 +13,9 @@ contiguous NHWC tensor is a free view in ``torch.channels_last``.
 The int8 serving mode (``TPU.INT8_EVAL``) runs through the blocks'
 ``int8`` argument, inference only: "dynamic", "calibrate" or "static"
 (the JAX package's ``_conv_frozen_bn`` modes) quantize every conv of
-res2 .. res5 (``ops/int8_conv.py``); the stem stays float. A model built
+res2 .. res5 (``ops/int8_conv.py``); the stem stays float. "dynamic_idle"
+is the dynamic scheme's padding pass on a rank whose shard is done: it
+joins every all-reduce of a max-abs with 0. A model built
 for the static scheme (``int8_amax``) holds each such conv's calibrated
 activation max-abs in a child ``<conv>_amax`` with a buffer ``amax``
 (JAX's ``quant/.../<conv>_amax/amax``), zero until calibrated.
@@ -101,7 +103,8 @@ def _conv_frozen_bn(x, conv: nn.Conv2d, norm: FrozenBatchNorm,
     ``residual`` (added before the relu) and relu in its epilogue: x a
     ``QuantizedTensor`` is taken as it is; else x is cast to the compute
     dtype and quantized on the fly ("dynamic"), by ``amax`` ("static"),
-    or by ``amax`` after it recorded max|x| ("calibrate"). With
+    or by ``amax`` after it recorded max|x| ("calibrate"); "dynamic_idle"
+    is "dynamic" whose max-abs contributes 0 to the all-reduce. With
     ``out_amax`` the epilogue also writes the output quantized by it
     (the next conv's calibrated max-abs): the return is then (the float
     output, or None unless ``float_out``; a ``QuantizedTensor``)."""
@@ -123,7 +126,8 @@ def _conv_frozen_bn(x, conv: nn.Conv2d, norm: FrozenBatchNorm,
                 record_amax_(amax.amax, x)
             a = amax.amax
         return conv_int8(x.to(dtype), wk, stride, pad, out_dtype=dtype,
-                         amax=a, **fused)
+                         amax=a, contributes=int8 != "dynamic_idle",
+                         **fused)
     out = conv_nhwc(x.to(dtype), wk.to(dtype), stride, pad)
     out = out + shift.to(out.dtype)
     return F.relu(out) if relu else out
@@ -169,11 +173,12 @@ class BottleneckBlock(nn.Module):
                                getattr(self, name + "_amax", None), **fused)
 
     def forward(self, x, int8=False) -> torch.Tensor:
-        """The block. In an int8 mode conv3 takes the shortcut as its
-        epilogue's residual, ``relu(conv3 + sc)`` in the compute dtype as
-        the float block computes it (so the shortcut runs first)."""
-        if int8 == "static":
-            return self.forward_static(x)[0]
+        """The block. In an int8 mode each conv quantizes its own input,
+        and conv3 takes the shortcut as its epilogue's residual,
+        ``relu(conv3 + sc)`` in the compute dtype as the float block
+        computes it (so the shortcut runs first). Under "static" this is
+        the unfused chain, which ``ResNetStage`` replaces by
+        ``forward_static`` (the same bits)."""
         out = self._conv_bn(x, "conv1", int8)
         out = self._conv_bn(out, "conv2", int8)
         if self.shortcut is not None:
@@ -217,7 +222,11 @@ class BottleneckBlock(nn.Module):
 
 class ResNetStage(nn.Sequential):
     """A sequence of bottleneck blocks named ``0``, ``1``, ...
-    (d2 ResNet.make_stage)."""
+    (d2 ResNet.make_stage). ``fuse_static`` (default True; see
+    ``unfuse_static_``): whether the static int8 scheme's quantizes run
+    in the epilogues of the convs that produce their inputs."""
+
+    fuse_static = True
 
     def __init__(self, num_blocks: int, in_channels: int,
                  bottleneck_channels: int, out_channels: int,
@@ -235,10 +244,11 @@ class ResNetStage(nn.Sequential):
             for i in range(num_blocks)])
 
     def forward(self, x, int8=False):
-        """The blocks in order. Under the static int8 scheme a block's
-        conv3 also writes the next block's conv1 input in int8 where that
-        block is an identity block (``BottleneckBlock.forward_static``)."""
-        if int8 != "static":
+        """The blocks in order. Under the static int8 scheme (with
+        ``fuse_static``) a block's conv3 also writes the next block's
+        conv1 input in int8 where that block is an identity block
+        (``BottleneckBlock.forward_static``)."""
+        if int8 != "static" or not self.fuse_static:
             for block in self:
                 x = block(x, int8=int8)
             return x
@@ -249,6 +259,19 @@ class ResNetStage(nn.Sequential):
                 else nxt.conv1_amax.amax
             x, xq = block.forward_static(x, xq, next_amax)
         return x
+
+
+def unfuse_static_(module: nn.Module) -> nn.Module:
+    """Has every ``ResNetStage`` in ``module`` run the static int8 scheme
+    unfused: each conv quantizes its own input by its calibrated max-abs
+    (``BottleneckBlock.forward``), with no quantize in an epilogue. The
+    same bits as the fused form, with several times its quantize passes:
+    the reference that the fusion is held to and timed against. Returns
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, ResNetStage):
+            m.fuse_static = False
+    return module
 
 
 class ResNetStem(nn.Module):

@@ -24,26 +24,22 @@ ranks, each over its share of the batch, ``global_max_abs`` all-reduces
 it by MAX, as JAX's one GSPMD step over the sharded batch takes it over
 the whole batch.
 
-The product and its epilogue are the ``torch.library`` custom ops
-``locov::conv_int8`` (a float output) and ``locov::conv_int8_quant``
-(an int8 output quantized by a calibrated max-abs, and the float one if
-asked): on CUDA tensors the hand-written kernels of
+The product and its epilogue are the ``torch.library`` custom op
+``locov::conv_int8``: a float output, and optionally an int8 copy of it
+quantized by a calibrated max-abs; the epilogue optionally adds a
+residual before the relu (a bottleneck's conv3 with its shortcut). On
+CUDA tensors it is the hand-written ``wgmma`` kernel of
 ``csrc/conv_int8.cu`` (no Pallas parent: the JAX package leaves this
-conv to XLA), on CPU tensors the plain versions. The epilogue optionally
-adds a residual before the relu (a bottleneck's conv3 with its
-shortcut). The ops have fake implementations for ``torch.export`` and
-no gradient: the int8 path is inference only. The quantizers are plain
-PyTorch, as they are XLA in the JAX package.
-
-Two kernels share the ops (``conv_int8_route``): the ``wgmma`` kernel
-(``LAUNCHES["conv_int8"]``) takes C a multiple of 16 with xq, wq and
-the residual 16-byte aligned, which every full-width conv is; the
-``mma.sync`` kernel (``LAUNCHES["conv_int8_narrow"]``) takes the rest
-with C a multiple of 4 (the tiny models' C 8 and 12).
+conv to XLA), on CPU tensors the plain version. The kernel takes C a
+multiple of 16 and 16-byte aligned operands: ``kernel_operands`` pads
+narrower C with zero channels (the tiny models' 8 and 12), which leave
+the int32 sums exact, and copies a misaligned operand. The op has a
+fake implementation for ``torch.export`` and no gradient: the int8 path
+is inference only. The quantizers are plain PyTorch, as they are XLA in
+the JAX package.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -78,46 +74,19 @@ def max_abs(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(-lo, hi).float()
 
 
-_IDLE = [False]
-
-
-@contextlib.contextmanager
-def idle_rank():
-    """While it is open, this rank's ``global_max_abs`` contributes 0 to
-    the all-reduce: a rank with no batch left runs a padding pass so
-    that every rank makes the same collective calls, and its padding
-    moves no other rank's scale (every max-abs is at least 0)."""
-    _IDLE[0] = True
-    try:
-        yield
-    finally:
-        _IDLE[0] = False
-
-
-def distributed_ranks() -> int:
-    """The ranks of ``torch.distributed``'s default group (1 where none
-    is initialized)."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
-def dynamic_int8(model: torch.nn.Module) -> bool:
-    """Whether ``model`` runs the dynamic int8 scheme (``TPU.INT8_EVAL``
-    with ``TPU.INT8_SCHEME`` dynamic), whose scales couple the ranks."""
-    return bool(getattr(model, "int8_eval", False)) and \
-        getattr(model, "int8_scheme", None) == "dynamic"
-
-
-def global_max_abs(x: torch.Tensor) -> torch.Tensor:
+def global_max_abs(x: torch.Tensor, contributes: bool = True
+                   ) -> torch.Tensor:
     """max |x| over every rank's x: ``max_abs``, all-reduced by MAX where
     ``torch.distributed`` runs several ranks (each rank then quantizes
     with the scale of the whole batch, as JAX's step over the global
     batch does). Every dynamic quantize and every calibration record
-    goes through here."""
+    goes through here. ``contributes`` False: this rank joins the
+    all-reduce with 0 (a padding pass of a rank whose shard is done;
+    every max-abs is at least 0, so it moves no other rank's)."""
     cur = max_abs(x)
-    if distributed_ranks() > 1:
-        if _IDLE[0]:
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        if not contributes:
             cur = torch.zeros_like(cur)
         dist.all_reduce(cur, op=dist.ReduceOp.MAX)
     return cur
@@ -132,10 +101,10 @@ def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return xf.div_(scale).round_().clamp_(-_QMAX, _QMAX).to(torch.int8)
 
 
-def quantize_per_tensor(x: torch.Tensor):
+def quantize_per_tensor(x: torch.Tensor, contributes: bool = True):
     """Symmetric per-tensor int8 quantization with the global max-abs
-    (``global_max_abs``). Returns (q, scale)."""
-    scale = _scale_of(global_max_abs(x))
+    (``global_max_abs``, with ``contributes``). Returns (q, scale)."""
+    scale = _scale_of(global_max_abs(x, contributes))
     return _quantize(x, scale), scale
 
 
@@ -159,8 +128,13 @@ def _out_hw(h: int, w: int, k: int, stride: int, pad: int):
     return (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
 
 
+def _out_shape(xq, wq, stride: int, pad: int):
+    return (xq.shape[0],) + _out_hw(xq.shape[1], xq.shape[2], wq.shape[1],
+                                    stride, pad) + (wq.shape[0],)
+
+
 def _check_shapes(xq, wq, scale, shift, stride, pad, residual=None,
-                  amax=None) -> None:
+                  amax=None, float_out: bool = True) -> None:
     if xq.dim() != 4 or wq.dim() != 4 or xq.shape[3] != wq.shape[3]:
         raise ValueError(f"conv_int8: xq {tuple(xq.shape)} must be [N, H, "
                          f"W, C] and wq {tuple(wq.shape)} [O, kh, kw, C]")
@@ -171,8 +145,7 @@ def _check_shapes(xq, wq, scale, shift, stride, pad, residual=None,
     if stride < 1 or pad < 0:
         raise ValueError(f"conv_int8: stride {stride}, pad {pad}")
     if residual is not None:
-        want = (xq.shape[0],) + _out_hw(xq.shape[1], xq.shape[2],
-                                        wq.shape[1], stride, pad) + (o,)
+        want = _out_shape(xq, wq, stride, pad)
         if tuple(residual.shape) != want or residual.dtype != shift.dtype:
             raise ValueError(f"conv_int8: residual {tuple(residual.shape)} "
                              f"{residual.dtype}: expected {want} "
@@ -180,6 +153,9 @@ def _check_shapes(xq, wq, scale, shift, stride, pad, residual=None,
     if amax is not None and amax.dim() != 0:
         raise ValueError(f"conv_int8: amax must be a 0-dim tensor, got "
                          f"{tuple(amax.shape)}")
+    if amax is None and not float_out:
+        raise ValueError("conv_int8: no output asked for (float_out False "
+                         "and no amax)")
 
 
 def conv_int8_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int,
@@ -198,7 +174,7 @@ def conv_int8_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int,
 def conv_int8_plain(xq, wq, scale, shift, stride: int, pad: int,
                     relu: bool, residual: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """The kernels' function in plain PyTorch: the int32 sum
+    """The kernel's float output in plain PyTorch: the int32 sum
     (``conv_int8_acc``), times ``scale[o]`` in float32, rounded once to
     shift's dtype, plus ``shift[o]`` in that dtype, plus ``residual``
     (same shape and dtype as the output) where given, then relu if
@@ -211,66 +187,63 @@ def conv_int8_plain(xq, wq, scale, shift, stride: int, pad: int,
     return F.relu(y) if relu else y
 
 
-def conv_int8_quant_plain(xq, wq, scale, shift, stride: int, pad: int,
-                          relu: bool, residual: Optional[torch.Tensor],
-                          amax: torch.Tensor, float_out: bool
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``conv_int8_plain``, then its output quantized by the calibrated
-    ``amax`` (``quantize_per_tensor_static``). Returns (the float output,
-    or an empty tensor of its dtype unless ``float_out``; the int8
-    output)."""
-    _check_shapes(xq, wq, scale, shift, stride, pad, residual, amax)
+def conv_int8_op_plain(xq, wq, scale, shift, stride: int, pad: int,
+                       relu: bool, residual: Optional[torch.Tensor] = None,
+                       amax: Optional[torch.Tensor] = None,
+                       float_out: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op ``locov::conv_int8`` in plain PyTorch: ``conv_int8_plain``,
+    and where ``amax`` is given its output quantized by it
+    (``quantize_per_tensor_static``). Returns (the float output, or an
+    empty tensor of its dtype unless ``float_out``; the int8 output, or
+    an empty int8 tensor without ``amax``)."""
+    _check_shapes(xq, wq, scale, shift, stride, pad, residual, amax,
+                  float_out)
     y = conv_int8_plain(xq, wq, scale, shift, stride, pad, relu, residual)
-    q, _ = quantize_per_tensor_static(y, amax)
+    q = xq.new_empty((0,)) if amax is None else \
+        quantize_per_tensor_static(y, amax)[0]
     return (y if float_out else y.new_empty((0,))), q
 
 
-def piece_bytes(c: int, addresses: int) -> Optional[int]:
-    """The bytes of the narrow kernel's staged pieces for C channels and
-    the OR of the operands' addresses: 16, 8 or 4, the largest that
-    divides both (None: the kernel does not take them)."""
-    for vec in (16, 8, 4):
-        if c % vec == 0 and addresses % vec == 0:
-            return vec
-    return None
+def kernel_operands(xq, wq, residual=None):
+    """xq, wq and the residual as the kernel takes them: C padded with
+    zero channels to a multiple of 16 (zeros add nothing to an int32
+    sum, so the output is the same), and any operand whose address is
+    not 16-byte aligned copied (a fresh allocation is). Returns (xq, wq,
+    residual)."""
+    c = xq.shape[3]
+    if c % 16:
+        xq = F.pad(xq, (0, 16 - c % 16))
+        wq = F.pad(wq, (0, 16 - c % 16))
+
+    def aligned(t):
+        return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+    return aligned(xq), aligned(wq), aligned(residual)
 
 
-def conv_int8_route(c: int, addresses: int) -> Optional[str]:
-    """Which kernel takes C input channels and operands at the OR of
-    ``addresses`` (xq, wq and the residual): "wgmma" where C is a
-    multiple of 16 and every address 16-byte aligned (the tensor maps'
-    row pitch and the 16-byte gathers want both), else "narrow" (the
-    ``mma.sync`` kernel) where ``piece_bytes`` finds a piece, else None."""
-    if c % 16 == 0 and addresses % 16 == 0:
-        return "wgmma"
-    return "narrow" if piece_bytes(c, addresses) is not None else None
+# conv_int8_fwd's parameters: 8 tensors, 13 ints (shapes, stride, pad,
+# relu, dtype), the stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
-_ROUTE_KEY = {"wgmma": "conv_int8", "narrow": "conv_int8_narrow"}
-
-
-def _fns():
-    lib = kernel_lib.load("conv_int8")
-    for fn in (lib.conv_int8_fwd, lib.conv_int8_wgmma_fwd):
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + \
-                [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return {"narrow": lib.conv_int8_fwd, "wgmma": lib.conv_int8_wgmma_fwd}
+def _fn():
+    fn = kernel_lib.load("conv_int8").conv_int8_fwd
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(xq, wq, scale, shift, stride: int, pad: int, relu: bool,
             residual: Optional[torch.Tensor] = None,
             amax: Optional[torch.Tensor] = None, float_out: bool = True,
-            fill: Optional[float] = None, route: Optional[str] = None):
-    """One launch of a kernel (no launch count). Returns (the float
-    output or None, the int8 output or None: it is written where
-    ``amax`` is given), and the route taken. ``fill``: a value the float
-    output holds before the launch (the int8 one then holds -128, which
-    the kernels never write), so that a comparison sees what the kernel
-    wrote. ``route``: the kernel
-    to take, which must take these operands (default
-    ``conv_int8_route``)."""
+            fill: Optional[float] = None):
+    """One launch of the kernel (no launch count), on the operands
+    ``kernel_operands`` makes of these. Returns (the float output or
+    None, the int8 output or None: it is written where ``amax`` is
+    given). ``fill``: a value the float output holds before the launch
+    (the int8 one then holds -128, which the kernel never writes), so
+    that a comparison sees what the kernel wrote."""
     kernel_lib.check_cuda_tensor(xq, "conv_int8 xq", {torch.int8})
     kernel_lib.check_cuda_tensor(wq, "conv_int8 wq", {torch.int8})
     kernel_lib.check_cuda_tensor(scale, "conv_int8 scale", {torch.float32})
@@ -284,131 +257,87 @@ def _launch(xq, wq, scale, shift, stride: int, pad: int, relu: bool,
         kernel_lib.check_cuda_tensor(amax, "conv_int8 amax",
                                      {torch.float32})
         tensors.append(amax)
-    _check_shapes(xq, wq, scale, shift, stride, pad, residual, amax)
+    _check_shapes(xq, wq, scale, shift, stride, pad, residual, amax,
+                  float_out)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("conv_int8: tensors on several devices")
-    if amax is None and not float_out:
-        raise ValueError("conv_int8: no output asked for")
-    n, h, w, c = xq.shape
-    o, kh, kw, _ = wq.shape
-    addresses = xq.data_ptr() | wq.data_ptr() | \
-        (0 if residual is None else residual.data_ptr())
-    taken = conv_int8_route(c, addresses)
-    if taken is None:
-        raise ValueError(f"conv_int8: the kernels take C a multiple of 4 "
-                         f"and 4-byte aligned operands, got C {c}")
-    if route is None:
-        route = taken
-    elif route == "wgmma" and taken != "wgmma":
-        raise ValueError(f"conv_int8: the wgmma kernel takes C a multiple "
-                         f"of 16 and 16-byte aligned operands, got C {c}")
-    oh, ow = _out_hw(h, w, kh, stride, pad)
+    shape = _out_shape(xq, wq, stride, pad)
     out = q = None
     if float_out:
-        out = torch.empty((n, oh, ow, o), dtype=shift.dtype,
-                          device=xq.device)
+        out = torch.empty(shape, dtype=shift.dtype, device=xq.device)
     if amax is not None:
-        q = torch.empty((n, oh, ow, o), dtype=torch.int8, device=xq.device)
+        q = torch.empty(shape, dtype=torch.int8, device=xq.device)
     if fill is not None:
         if out is not None:
             out.fill_(fill)
         if q is not None:
             q.fill_(-128)
-    if n * oh * ow * o == 0:
-        return out, q, route
-    vec = piece_bytes(c, addresses) if route == "narrow" else 16
+    if 0 in shape:
+        return out, q
+    xq, wq, residual = kernel_operands(xq, wq, residual)
+    n, h, w, c = xq.shape
+    o, kh, kw, _ = wq.shape
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     with torch.cuda.device(xq.device):
-        err = _fns()[route](
+        err = _fn()(
             xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), ptr(residual), ptr(out), ptr(q), ptr(amax),
-            n, h, w, c, o, kh, kw, stride, pad, oh, ow, int(relu),
-            _OUT_DTYPES[shift.dtype], vec, kernel_lib.stream_ptr(xq.device))
-    kernel_lib.check_launch(err, f"conv_int8 ({route})")
-    return out, q, route
-
-
-def _launch_counted(*args, **kwargs):
-    out, q, route = _launch(*args, **kwargs)
-    if out is not None and out.numel() or q is not None and q.numel():
-        kernel_lib.LAUNCHES[_ROUTE_KEY[route]] += 1
+            n, h, w, c, o, kh, kw, stride, pad, shape[1], shape[2],
+            int(relu), _OUT_DTYPES[shift.dtype],
+            kernel_lib.stream_ptr(xq.device))
+    kernel_lib.check_launch(err, "conv_int8")
     return out, q
 
 
 def conv_int8_cuda(xq, wq, scale, shift, stride: int, pad: int,
-                   relu: bool, residual: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
-    """A kernel with a float output: xq a contiguous int8 CUDA tensor
-    [N, H, W, C] with C a multiple of 4, wq int8 [O, kh, kw, C], scale
-    float32 [O], shift [O] float32 or bfloat16 (the output's dtype),
-    residual None or the output's shape and dtype. The kernel is
-    ``conv_int8_route``'s, counted under its own ``LAUNCHES`` key."""
-    return _launch_counted(xq, wq, scale, shift, stride, pad, relu,
-                           residual)[0]
-
-
-def conv_int8_quant_cuda(xq, wq, scale, shift, stride: int, pad: int,
-                         relu: bool, residual: Optional[torch.Tensor],
-                         amax: torch.Tensor, float_out: bool
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``conv_int8_cuda`` whose epilogue also quantizes the output by
-    ``amax`` (a 0-dim float32 CUDA tensor, read on the card: no host
-    read). Returns (the float output, or an empty tensor unless
-    ``float_out``; the int8 output)."""
-    out, q = _launch_counted(xq, wq, scale, shift, stride, pad, relu,
-                             residual, amax, float_out)
-    return (out if float_out else shift.new_empty((0,))), q
+                   relu: bool, residual: Optional[torch.Tensor] = None,
+                   amax: Optional[torch.Tensor] = None,
+                   float_out: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op on CUDA tensors: xq a contiguous int8 CUDA tensor [N, H, W,
+    C], wq int8 [O, kh, kw, C], scale float32 [O], shift [O] float32 or
+    bfloat16 (the output's dtype), residual None or the output's shape
+    and dtype, amax None or a 0-dim float32 CUDA tensor (read on the
+    card: no host read). One launch, counted under
+    ``LAUNCHES["conv_int8"]``. Returns what ``conv_int8_op_plain``
+    returns."""
+    out, q = _launch(xq, wq, scale, shift, stride, pad, relu, residual,
+                     amax, float_out)
+    if out is not None and out.numel() or q is not None and q.numel():
+        kernel_lib.LAUNCHES["conv_int8"] += 1
+    return (out if float_out else shift.new_empty((0,))), \
+        (xq.new_empty((0,)) if q is None else q)
 
 
 @torch.library.custom_op("locov::conv_int8", mutates_args=(),
                          device_types="cpu")
 def _conv_int8_op(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                   shift: torch.Tensor, stride: int, pad: int, relu: bool,
-                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return conv_int8_plain(xq, wq, scale, shift, stride, pad, relu,
-                           residual)
+                  residual: Optional[torch.Tensor] = None,
+                  amax: Optional[torch.Tensor] = None,
+                  float_out: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return conv_int8_op_plain(xq, wq, scale, shift, stride, pad, relu,
+                              residual, amax, float_out)
 
 
 @_conv_int8_op.register_kernel("cuda")
-def _(xq, wq, scale, shift, stride, pad, relu, residual=None):
+def _(xq, wq, scale, shift, stride, pad, relu, residual=None, amax=None,
+      float_out=True):
     return conv_int8_cuda(xq, wq, scale, shift, stride, pad, relu,
-                          residual)
+                          residual, amax, float_out)
 
 
 @_conv_int8_op.register_fake
-def _(xq, wq, scale, shift, stride, pad, relu, residual=None):
-    _check_shapes(xq, wq, scale, shift, stride, pad, residual)
-    oh, ow = _out_hw(xq.shape[1], xq.shape[2], wq.shape[1], stride, pad)
-    return shift.new_empty((xq.shape[0], oh, ow, wq.shape[0]))
-
-
-@torch.library.custom_op("locov::conv_int8_quant", mutates_args=(),
-                         device_types="cpu")
-def _conv_int8_quant_op(xq: torch.Tensor, wq: torch.Tensor,
-                        scale: torch.Tensor, shift: torch.Tensor,
-                        stride: int, pad: int, relu: bool,
-                        residual: Optional[torch.Tensor],
-                        amax: torch.Tensor, float_out: bool
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return conv_int8_quant_plain(xq, wq, scale, shift, stride, pad, relu,
-                                 residual, amax, float_out)
-
-
-@_conv_int8_quant_op.register_kernel("cuda")
-def _(xq, wq, scale, shift, stride, pad, relu, residual, amax, float_out):
-    return conv_int8_quant_cuda(xq, wq, scale, shift, stride, pad, relu,
-                                residual, amax, float_out)
-
-
-@_conv_int8_quant_op.register_fake
-def _(xq, wq, scale, shift, stride, pad, relu, residual, amax, float_out):
-    _check_shapes(xq, wq, scale, shift, stride, pad, residual, amax)
-    oh, ow = _out_hw(xq.shape[1], xq.shape[2], wq.shape[1], stride, pad)
-    shape = (xq.shape[0], oh, ow, wq.shape[0])
+def _(xq, wq, scale, shift, stride, pad, relu, residual=None, amax=None,
+      float_out=True):
+    _check_shapes(xq, wq, scale, shift, stride, pad, residual, amax,
+                  float_out)
+    shape = _out_shape(xq, wq, stride, pad)
     return (shift.new_empty(shape if float_out else (0,)),
-            xq.new_empty(shape))
+            xq.new_empty(shape if amax is not None else (0,)))
 
 
 def conv_int8(x, w: torch.Tensor, stride: int, pad: int,
@@ -418,10 +347,9 @@ def conv_int8(x, w: torch.Tensor, stride: int, pad: int,
               relu: bool = False,
               residual: Optional[torch.Tensor] = None,
               out_amax: Optional[torch.Tensor] = None,
-              float_out: bool = True):
+              float_out: bool = True, contributes: bool = True):
     """NHWC x OIHW convolution in int8 with int32 sums
-    (``locov::conv_int8``, or ``locov::conv_int8_quant`` with
-    ``out_amax``).
+    (``locov::conv_int8``).
 
     ``x``: float [N, H, W, C], or a ``QuantizedTensor`` already written
     as int8 by its producer (then ``out_dtype`` is required and no
@@ -429,10 +357,11 @@ def conv_int8(x, w: torch.Tensor, stride: int, pad: int,
     The output is float (``out_dtype`` or x's dtype), dequantized by the
     activation scale times the per-channel weight scales. With ``amax``
     (a calibrated scalar) the activation scale is static, else it is
-    computed from x (``quantize_per_tensor``). ``shift`` [O] (in the
-    output dtype) is added after the dequantize, then ``residual`` (the
-    output's shape and dtype), then ``relu``, in the kernel's epilogue;
-    without ``shift`` the output is the JAX function's.
+    computed from x (``quantize_per_tensor``, with ``contributes``).
+    ``shift`` [O] (in the output dtype) is added after the dequantize,
+    then ``residual`` (the output's shape and dtype), then ``relu``, in
+    the kernel's epilogue; without ``shift`` the output is the JAX
+    function's.
 
     With ``out_amax`` (a calibrated scalar tensor) the epilogue also
     quantizes the output by it, as ``quantize_per_tensor_static`` would:
@@ -443,21 +372,24 @@ def conv_int8(x, w: torch.Tensor, stride: int, pad: int,
             raise ValueError("conv_int8: a QuantizedTensor needs out_dtype")
         xq, sx = x.q, x.scale
     elif amax is None:
-        xq, sx = quantize_per_tensor(x)
+        xq, sx = quantize_per_tensor(x, contributes)
     else:
         xq, sx = quantize_per_tensor_static(x, amax)
     out_dtype = out_dtype or x.dtype
     wq, sw = quantize_weight_per_channel(w)
     if shift is None:
         shift = torch.zeros(w.shape[0], dtype=out_dtype, device=w.device)
-    args = (xq.contiguous(), wq.permute(0, 2, 3, 1).contiguous(),
-            (sx * sw).contiguous(), shift.to(out_dtype).contiguous(),
-            int(stride), int(pad), bool(relu),
-            None if residual is None else residual.contiguous())
     if out_amax is None:
-        return torch.ops.locov.conv_int8(*args)
-    out_amax = out_amax.float()
-    out, q = torch.ops.locov.conv_int8_quant(*args, out_amax,
-                                             bool(float_out))
+        float_out = True
+    else:
+        out_amax = out_amax.float()
+    out, q = torch.ops.locov.conv_int8(
+        xq.contiguous(), wq.permute(0, 2, 3, 1).contiguous(),
+        (sx * sw).contiguous(), shift.to(out_dtype).contiguous(),
+        int(stride), int(pad), bool(relu),
+        None if residual is None else residual.contiguous(), out_amax,
+        bool(float_out))
+    if out_amax is None:
+        return out
     return (out if float_out else None), \
         QuantizedTensor(q, _scale_of(out_amax))

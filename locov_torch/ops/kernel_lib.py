@@ -35,8 +35,7 @@ KERNELS = ("relu_maxpool", "roi_align", "bottleneck_block", "stem_conv_bn",
 LAUNCHES: Dict[str, int] = {"relu_maxpool": 0, "relu_maxpool_bwd": 0,
                             "roi_align_fused": 0, "roi_align_bwd": 0,
                             "bottleneck_block": 0, "stem_conv_bn": 0,
-                            "conv_int8": 0, "conv_int8_narrow": 0,
-                            "roi_align_int8": 0}
+                            "conv_int8": 0, "roi_align_int8": 0}
 # nvcc's output (ptxas register and spill report) of the last build
 BUILD_LOG: Dict[str, str] = {}
 

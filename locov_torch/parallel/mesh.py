@@ -34,7 +34,6 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from ..ops.int8_conv import dynamic_int8
 from ..structures.batches import Detections, to_torch
 
 
@@ -204,10 +203,10 @@ def make_eval_step(model: torch.nn.Module
     step it takes no ``params``: the module holds its weights.
     ``step.device`` is the model's device, where the evaluation loop
     (``evaluation/evaluator.py:collect_detections``) moves each batch
-    first. ``step.couples_ranks``: the model runs the dynamic int8
-    scheme, whose scales are all-reduced over the ranks of
-    ``torch.distributed`` (``ops/int8_conv.py:global_max_abs``), so the
-    loop keeps the ranks in lockstep."""
+    first. ``step.couples_ranks``: the model's (``OvrRCNN.couples_ranks``:
+    the dynamic int8 scheme all-reduces its scales over the ranks), so
+    the loop keeps the ranks in lockstep, running ``step.idle_pass(batch,
+    class_emb)`` (``OvrRCNN.idle_pass``) on a rank whose shard is done."""
     device = next(model.parameters()).device
 
     def step(batch, class_emb) -> Detections:
@@ -215,7 +214,12 @@ def make_eval_step(model: torch.nn.Module
             return model.inference(to_torch(batch, device),
                                    to_torch(class_emb, device))
     step.device = device
-    step.couples_ranks = dynamic_int8(model)
+    step.couples_ranks = bool(getattr(model, "couples_ranks", False))
+    if step.couples_ranks:
+        def idle_pass(batch, class_emb) -> None:
+            model.idle_pass(to_torch(batch, device),
+                            to_torch(class_emb, device))
+        step.idle_pass = idle_pass
     return step
 
 

@@ -54,7 +54,6 @@ from torch.export.passes import move_to_device_pass
 # the locov:: op registrations the program calls
 from .ops import bottleneck_block, int8_conv, nms, relu_maxpool  # noqa: F401
 from .ops import roi_align, stem_conv_bn  # noqa: F401
-from .ops.int8_conv import dynamic_int8
 from .structures.batches import DetectionBatch, ImageBatch
 from .utils.checkpoint import Checkpointer
 
@@ -156,7 +155,7 @@ def export_inference(model: torch.nn.Module, class_emb: torch.Tensor,
     if n_devices < 1 or batch % n_devices:
         raise ValueError(f"serving batch {batch} must divide by the "
                          f"device count {n_devices}")
-    if n_devices > 1 and dynamic_int8(model):
+    if n_devices > 1 and getattr(model, "couples_ranks", False):
         raise ValueError(
             f"the dynamic int8 scheme takes its scales over the whole "
             f"batch, which {n_devices} separate device programs cannot "

@@ -1,7 +1,6 @@
 """int8 against bfloat16 at the res5 shapes of STT evaluation: the int8
-convolution kernel (KQ1, ``ops/int8_conv.py``: the wgmma kernel, and
-the narrow mma.sync kernel, the first design, as ``kq1_parent_ms``) and
-cuBLASLt's int8 product (``torch._int_mm``) against a bfloat16 product
+convolution kernel (KQ1, ``ops/int8_conv.py``) and cuBLASLt's int8
+product (``torch._int_mm``) against a bfloat16 product
 (``torch.matmul``) and cuDNN's bfloat16 convolution. Twin of
 ``tools/bench_int8.py``, which asks the same of XLA on the TPU.
 
@@ -26,8 +25,8 @@ residual and writing bfloat16 and int8 (``kq1_residual_quant_ms``).
 Then one res5 identity block (``[boxes, 7, 7, 2048]`` bfloat16, its
 conv1 input also as int8, max-abs values calibrated on it) under the
 static scheme, fused (``BottleneckBlock.forward_static``) against the
-chain the parent design ran (each conv quantizing its input, the
-residual and relu after conv3, on the narrow kernel), the same bits.
+unfused chain (``BottleneckBlock.forward``: each conv quantizing its
+input), the same bits.
 Inputs are seeded random int8 and bfloat16 tensors. Times are
 CUDA-event medians after warm-up; TOP/s counts 2 x M x K x N. Prints
 one JSON line with the card's name and power limit. The library calls
@@ -70,20 +69,17 @@ def conv_case(gen, boxes, hw, c, o, k, stride) -> dict:
     line = {"boxes": boxes, "input": [boxes, hw, hw, c], "out_channels": o,
             "kernel": k, "stride": stride, "gemm_mnk": [m, o, kk],
             "kq1_ms": time_ms(lambda: iq.conv_int8_cuda(
-                xq, wq, scale, shift, stride, pad, True), reps=10),
-            "kq1_parent_ms": time_ms(lambda: iq._launch(
-                xq, wq, scale, shift, stride, pad, True, route="narrow"),
-                reps=10)}
+                xq, wq, scale, shift, stride, pad, True), reps=10)}
     amax = torch.tensor(30.0, device="cuda")
-    line["kq1_quant_only_ms"] = time_ms(lambda: iq.conv_int8_quant_cuda(
+    line["kq1_quant_only_ms"] = time_ms(lambda: iq.conv_int8_cuda(
         xq, wq, scale, shift, stride, pad, True, None, amax, False),
         reps=10)
     if k == 1 and stride == 1 and c < o:  # conv3
         res = torch.randn((boxes, oh, oh, o), generator=gen,
                           device="cuda").to(torch.bfloat16)
         line["kq1_residual_quant_ms"] = time_ms(
-            lambda: iq.conv_int8_quant_cuda(xq, wq, scale, shift, stride,
-                                            pad, True, res, amax, True),
+            lambda: iq.conv_int8_cuda(xq, wq, scale, shift, stride, pad,
+                                      True, res, amax, True),
             reps=10)
         del res
     xb = torch.randn((boxes, hw, hw, c), generator=gen,
@@ -117,7 +113,7 @@ def conv_case(gen, boxes, hw, c, o, k, stride) -> dict:
 
 def static_block_case(gen, boxes) -> dict:
     """One res5 identity block under the static scheme, fused against the
-    parent design's chain, in turns."""
+    unfused chain, in turns."""
     from ..models.resnet import BottleneckBlock
     block = BottleneckBlock(2048, 512, 2048, compute_dtype=torch.bfloat16,
                             int8_amax=True).cuda()
@@ -135,33 +131,21 @@ def static_block_case(gen, boxes) -> dict:
         def fused():
             return block.forward_static(x, xq, next_amax)
 
-        def parent():
-            out = block._conv_bn(x, "conv1", "static")
-            out = block._conv_bn(out, "conv2", "static")
-            out = block._conv_bn(out, "conv3", "static", relu=False)
-            out = torch.relu(out + x)
+        def unfused():
+            out = block(x, int8="static")
             return out, iq.quantize_per_tensor_static(out, next_amax)[0]
-        route = iq.conv_int8_route
-        narrow = (lambda c, a: "narrow" if route(c, a) else None)
-
-        def parent_narrow():
-            iq.conv_int8_route = narrow
-            try:
-                return parent()
-            finally:
-                iq.conv_int8_route = route
-        (out, q), (pout, pq) = fused(), parent_narrow()
+        (out, q), (uout, uq) = fused(), unfused()
         same = bool(torch.equal(out.view(torch.int16),
-                                pout.view(torch.int16)) and
-                    torch.equal(q.q, pq))
-        times = {"fused": [], "parent": []}
+                                uout.view(torch.int16)) and
+                    torch.equal(q.q, uq))
+        times = {"fused": [], "unfused": []}
         for _ in range(3):
-            for name, fn in (("fused", fused), ("parent", parent_narrow),
-                             ("parent", parent_narrow), ("fused", fused)):
+            for name, fn in (("fused", fused), ("unfused", unfused),
+                             ("unfused", unfused), ("fused", fused)):
                 times[name].append(time_ms(fn, reps=5, warmup=1))
     return {"input": [boxes, 7, 7, 2048], "same_bits": same,
             "fused_ms": min(times["fused"]),
-            "parent_ms": min(times["parent"]), "ms_all": times}
+            "unfused_ms": min(times["unfused"]), "ms_all": times}
 
 
 def quantize_case(gen, shape) -> dict:

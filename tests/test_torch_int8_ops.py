@@ -183,9 +183,11 @@ def test_conv_int8_epilogue(dtype):
             True)
     torch.library.opcheck(op, args)
     with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
-        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
-                    else a for a in args))
+        fake, fake_q = op(*(mode.from_tensor(a)
+                            if isinstance(a, torch.Tensor) else a
+                            for a in args))
     assert fake.shape == got.shape and fake.dtype == dtype
+    assert tuple(fake_q.shape) == (0,) and fake_q.dtype == torch.int8
 
 
 # (case, kernel size, residual, float output, amax / max|y|): conv1 and
@@ -202,8 +204,8 @@ FUSED = [("conv1", 1, False, False, 0.7), ("conv2", 3, False, False, 0.9),
 @pytest.mark.parametrize("case,k,residual,float_out,factor", FUSED)
 def test_conv_int8_fused_epilogue(case, k, residual, float_out, factor,
                                   dtype):
-    """``locov::conv_int8_quant`` (the residual and the next conv's
-    quantize in the epilogue) on the CPU, bit for bit against the
+    """``locov::conv_int8`` with the residual and the next conv's
+    quantize in its epilogue, on the CPU, bit for bit against the
     composition it replaces (``conv_int8`` with the shift, ``+
     residual``, relu, ``quantize_per_tensor_static``) and against JAX's
     ``quantize_per_tensor_static(relu(conv_int8(...) + shift + sc))``,
@@ -252,7 +254,7 @@ def test_conv_int8_fused_epilogue(case, k, residual, float_out, factor,
     args = (xq, wq.permute(0, 2, 3, 1).contiguous(), sx * sw,
             t(shift).to(tdt), 1, pad, True,
             t(sc).to(tdt) if residual else None, t(amax), float_out)
-    op = torch.ops.locov.conv_int8_quant
+    op = torch.ops.locov.conv_int8
     torch.library.opcheck(op.default, args)
     with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
         fo, fq = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
@@ -260,6 +262,46 @@ def test_conv_int8_fused_epilogue(case, k, residual, float_out, factor,
     assert tuple(fq.shape) == tuple(got.q.shape) and fq.dtype == torch.int8
     assert tuple(fo.shape) == (tuple(y.shape) if float_out else (0,))
     assert fo.dtype == tdt
+
+
+def _int8_at(rng, shape, offset):
+    """Seeded int8 values of ``shape`` in a view ``offset`` bytes into a
+    fresh buffer."""
+    size = int(np.prod(shape))
+    buf = torch.empty(size + offset, dtype=torch.int8)[offset:]
+    return buf.view(shape).copy_(torch.from_numpy(
+        rng.randint(-127, 128, size=shape).astype(np.int8)))
+
+
+@pytest.mark.parametrize("c,offset", [(8, 0), (12, 0), (6, 3), (16, 0),
+                                      (48, 0), (16, 1)])
+def test_kernel_operands_pad_and_align(c, offset):
+    """The operands the int8 conv kernel is handed (``kernel_operands``):
+    C padded with zero channels to a multiple of 16, and any operand not
+    16-byte aligned copied; the plain output of the padded operands has
+    the bits of the original ones (zeros leave the int32 sums exact).
+    Operands the kernel takes as they are pass through uncopied."""
+    rng = np.random.RandomState(c + offset)
+    xq = _int8_at(rng, (2, 5, 6, c), offset)
+    wq = _int8_at(rng, (20, 3, 3, c), offset)
+    res = torch.from_numpy(rng.randn(2, 5, 6, 20).astype(np.float32))
+    if offset:
+        res = torch.empty(res.numel() + 1)[1:].view(res.shape).copy_(res)
+    px, pw, pr = tq.kernel_operands(xq, wq, res)
+    cp = px.shape[3]
+    assert cp % 16 == 0 and c <= cp < c + 16 and pw.shape[3] == cp
+    for a in (px, pw, pr):
+        assert a.data_ptr() % 16 == 0 and a.is_contiguous()
+    assert torch.equal(px[..., :c], xq) and not px[..., c:].any()
+    assert torch.equal(pw[..., :c], wq) and not pw[..., c:].any()
+    assert torch.equal(pr, res)
+    if c % 16 == 0 and offset == 0:
+        assert px is xq and pw is wq and pr is res
+    scale = torch.from_numpy(rng.rand(20).astype(np.float32) * 1e-3)
+    shift = torch.from_numpy(rng.randn(20).astype(np.float32))
+    want = tq.conv_int8_plain(xq, wq, scale, shift, 1, 1, True, res)
+    got = tq.conv_int8_plain(px, pw, scale, shift, 1, 1, True, pr)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 # ------------------------------------------------------------- ROIAlign
@@ -374,7 +416,8 @@ def test_int8_plans_match_the_kernel_sources():
     """The int8 ROIAlign wrapper's shared-memory count is the CUDA
     source's formula (its C entry sets the attribute to it; the wrapper
     refuses features that would exceed a block's); the conv wrapper's
-    staged-piece sizes are those the C entry takes."""
+    argument types are those of the conv kernel's C entry."""
+    import ctypes
     import re
     from locov_torch.ops import kernel_lib
     with open(f"{kernel_lib.CSRC}/roi_align_int8.cu") as f:
@@ -389,9 +432,12 @@ def test_int8_plans_match_the_kernel_sources():
         assert tra._int8_smem(h, w, p) == want
     with open(f"{kernel_lib.CSRC}/conv_int8.cu") as f:
         src = f.read()
-    assert [tq.piece_bytes(c, a) for c, a in ((64, 0), (64, 8), (24, 0),
-                                              (12, 16), (6, 0))] == \
-        [16, 8, 8, 4, None]
-    assert "vec == 16" in src and "vec == 8" in src
+    params = re.search(r'extern "C" int conv_int8_fwd\((.*?)\)', src,
+                       re.S).group(1).split(",")
+    kinds = [ctypes.c_int if p.split()[0] == "int" else ctypes.c_void_p
+             for p in params]
+    assert all("*" in p for p, k in zip(params, kinds)
+               if k is ctypes.c_void_p)
+    assert kinds == tq._ARGTYPES
     assert "conv_int8" in kernel_lib.KERNELS
     assert "roi_align_int8" in kernel_lib.KERNELS

@@ -244,8 +244,10 @@ def test_static_fusion_is_the_unfused_scheme(dtype, quantized_input,
     fused into the epilogue of the conv that produces it (conv1 and
     conv2 write only int8, conv3 adds the shortcut and writes the next
     identity block's conv1 input too), gives the bits of the unfused
-    chain: every conv quantizing its own input by its calibrated
-    max-abs, conv3 then ``relu(out + sc)``. Some max-abs values are set
+    chain (``unfuse_static_``): every conv quantizing its own input by
+    its calibrated max-abs, conv3 adding the shortcut (the epilogue's
+    residual is the float add, test_torch_int8_ops.py). Some max-abs
+    values are set
     below the calibrated ones so that values saturate. The stage runs 2
     activation quantize passes (the first block's conv1 and shortcut
     reading the stage boundary; none where the input is already int8,
@@ -279,14 +281,7 @@ def test_static_fusion_is_the_unfused_scheme(dtype, quantized_input,
     monkeypatch.setattr(resnet, "conv_int8", counted)
     got = stage(x, int8="static")
     assert len(calls) == (0 if quantized_input else 2)
-    want = x
-    for block in stage:
-        out = block._conv_bn(want, "conv1", "static")
-        out = block._conv_bn(out, "conv2", "static")
-        out = block._conv_bn(out, "conv3", "static", relu=False)
-        sc = want if block.shortcut is None else \
-            block._conv_bn(want, "shortcut", "static", relu=False)
-        want = torch.relu(out + sc)
+    want = resnet.unfuse_static_(stage)(x, int8="static")
     assert len(calls) == (0 if quantized_input else 2) + \
         (8 if quantized_input else 10)
     assert got.dtype == dtype and bool((got > 0).any())

@@ -494,9 +494,16 @@ def conv_int8_variant(gen, xq, wq, scale, shift, stride, pad, relu,
     if not has_q:
         return res, None, True, iq.conv_int8_plain(
             xq, wq, scale, shift, stride, pad, relu, res), None
-    out, q = iq.conv_int8_quant_plain(xq, wq, scale, shift, stride, pad,
-                                      relu, res, amax, float_out)
+    out, q = iq.conv_int8_op_plain(xq, wq, scale, shift, stride, pad, relu,
+                                   res, amax, float_out)
     return res, amax, float_out, (out if float_out else None), q
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose address is one element past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -506,18 +513,18 @@ def conv_int8_variant(gen, xq, wq, scale, shift, stride, pad, relu,
     ((2, 25, 42, 256), 1024, 1, 1), ((1, 5, 3, 16), 8, 3, 1),
     ((2, 6, 5, 32), 20, 1, 1), ((2, 12, 10, 64), 64, 3, 1),
     ((2, 10, 20, 128), 136, 3, 1), ((1, 9, 13, 128), 64, 1, 2),
-    ((2, 16, 16, 8), 24, 3, 1), ((2, 9, 7, 12), 32, 1, 2)])
+    ((2, 16, 16, 8), 24, 3, 1), ((2, 9, 7, 12), 32, 1, 2),
+    ((1, 5, 6, 6), 16, 3, 1)])
 def test_conv_int8_bit_exact(cuda, dtype, shape, o, k, stride):
     """Each epilogue variant (a residual; the int8 copy with and without
     the float output) into NaN-filled outputs (-128 in the int8 one) has
-    the plain version's bits, and the same bits on a second launch. C a
-    multiple of 16 takes the wgmma kernel, C 8 and 12 the narrow one
-    (``conv_int8_route``); where both take the operands they agree. The
-    shapes reach each of the wgmma kernel's A modes: the 2-D TMA box
-    (1x1 / 1), the 4-D spatial boxes (C a multiple of 128: 3x3 / 1 on 7 x
-    7 images and on ragged 16 x 8 blocks, 1x1 / 2) and the cp.async
-    gather (the rest). Each kernel counts its launches under its own
-    ``LAUNCHES`` key."""
+    the plain version's bits, and the same bits on a second launch, also
+    from misaligned operands (copied by ``kernel_operands``). C 8 and 12
+    are padded with zero channels to 16. The shapes reach each of the
+    kernel's A modes: the 2-D TMA box (1x1 / 1), the 4-D spatial boxes
+    (C a multiple of 128: 3x3 / 1 on 7 x 7 images and on ragged 16 x 8
+    blocks, 1x1 / 2) and the cp.async gather (the rest). Each call
+    counts one launch under ``LAUNCHES["conv_int8"]``."""
     xq = torch.randint(-127, 128, shape, generator=cuda,
                        device="cuda").to(torch.int8)
     wq = torch.randint(-127, 128, (o, k, k, shape[3]), generator=cuda,
@@ -525,43 +532,43 @@ def test_conv_int8_bit_exact(cuda, dtype, shape, o, k, stride):
     scale = torch.rand(o, generator=cuda, device="cuda") * 1e-3
     shift = (torch.randn(o, generator=cuda, device="cuda") * 5).to(dtype)
     pad = (k - 1) // 2
-    route = "wgmma" if shape[3] % 16 == 0 else "narrow"
-    routes = ("wgmma", "narrow") if route == "wgmma" else ("narrow",)
     for relu in (False, True):
         for variant in CONV_INT8_VARIANTS:
             res, amax, float_out, want, want_q = conv_int8_variant(
                 cuda, xq, wq, scale, shift, stride, pad, relu, variant)
-            for forced in routes:
-                got, q, taken = iq._launch(
-                    xq, wq, scale, shift, stride, pad, relu, res, amax,
-                    float_out, fill=math.nan, route=forced)
-                assert taken == forced
+            operands = [(xq, wq, res)]
+            if variant == "residual":
+                operands.append((_misaligned(xq), _misaligned(wq),
+                                 _misaligned(res)))
+            for x8, w8, r in operands:
+                got, q = iq._launch(x8, w8, scale, shift, stride, pad, relu,
+                                    r, amax, float_out, fill=math.nan)
                 assert (got is None) == (want is None)
-                assert want is None or _same_bits(got, want), \
-                    (variant, forced)
+                assert want is None or _same_bits(got, want), variant
                 assert (q is None) == (want_q is None)
-                assert want_q is None or torch.equal(q, want_q), \
-                    (variant, forced)
-                again = iq._launch(xq, wq, scale, shift, stride, pad, relu,
-                                   res, amax, float_out, route=forced)
+                assert want_q is None or torch.equal(q, want_q), variant
+                again = iq._launch(x8, w8, scale, shift, stride, pad, relu,
+                                   r, amax, float_out)
                 assert want is None or _same_bits(again[0], got)
                 assert want_q is None or torch.equal(again[1], q)
-    key = "conv_int8" if route == "wgmma" else "conv_int8_narrow"
     before = dict(kernel_lib.LAUNCHES)
     iq.conv_int8_cuda(xq, wq, scale, shift, stride, pad, True)
-    iq.conv_int8_quant_cuda(xq, wq, scale, shift, stride, pad, True, None,
-                            torch.ones((), device="cuda"), False)
+    iq.conv_int8_cuda(xq, wq, scale, shift, stride, pad, True, None,
+                      torch.ones((), device="cuda"), False)
     after = dict(kernel_lib.LAUNCHES)
-    assert after[key] == before[key] + 2
-    assert all(after[k] == before[k] for k in after if k != key)
+    assert after["conv_int8"] == before["conv_int8"] + 2
+    assert all(after[k] == before[k] for k in after if k != "conv_int8")
 
 
 def test_conv_int8_rejects_bad_inputs(cuda):
     xq = torch.zeros((1, 4, 4, 6), dtype=torch.int8, device="cuda")
     wq = torch.zeros((8, 1, 1, 6), dtype=torch.int8, device="cuda")
     one = torch.ones(8, device="cuda")
-    with pytest.raises(ValueError, match="multiple of 4"):
-        iq.conv_int8_cuda(xq, wq, one, one, 1, 0, False)
+    with pytest.raises(ValueError, match="kh, kw, C"):
+        iq.conv_int8_cuda(xq, wq[:, :, :, :4].contiguous(), one, one, 1, 0,
+                          False)
+    with pytest.raises(ValueError, match="no output asked for"):
+        iq.conv_int8_cuda(xq, wq, one, one, 1, 0, False, float_out=False)
     with pytest.raises(ValueError, match="CUDA tensor"):
         iq.conv_int8_cuda(xq.cpu(), wq, one, one, 1, 0, False)
 
@@ -640,10 +647,7 @@ def test_tiny_int8_model_cuda_matches_cpu(cuda, scheme, roialign):
         if scheme == "static":
             m.calibrate_int8(b, c)
         out[dev] = [x.cpu() for x in m.inference(b, c)]
-    # the tiny model's C 8 convs take the narrow kernel, its C 16 and 32
-    # ones the wgmma kernel
-    for key in ("conv_int8", "conv_int8_narrow"):
-        assert kernel_lib.LAUNCHES[key] > before[key], key
+    assert kernel_lib.LAUNCHES["conv_int8"] > before["conv_int8"]
     if scheme == "static" and roialign:
         assert kernel_lib.LAUNCHES["roi_align_int8"] > \
             before["roi_align_int8"]
@@ -922,10 +926,10 @@ def _op_cases(gen):
                          "stem_conv_bn"),
         "bottleneck_block": (block, bottleneck_block_plain,
                              "bottleneck_block"),
-        "conv_int8": ((xq, wq, qs, qh, 2, 1, True), iq.conv_int8_plain,
+        "conv_int8": ((xq, wq, qs, qh, 2, 1, True), iq.conv_int8_op_plain,
                       "conv_int8"),
-        "conv_int8_quant": ((xq, wq, qs, qh, 2, 1, True, qr, qa, True),
-                            iq.conv_int8_quant_plain, "conv_int8"),
+        "conv_int8_fused": ((xq, wq, qs, qh, 2, 1, True, qr, qa, True),
+                            iq.conv_int8_op_plain, "conv_int8"),
         "roi_align_int8": (roi_mod.int8_operands(f, bx, 1 / 16, fa,
                                                  fa * 0.5, 14, 0)[:5],
                            roi_mod.roi_align_int8_plain, "roi_align_int8"),
@@ -939,7 +943,7 @@ def _op_cases(gen):
 @pytest.mark.parametrize("name", ["relu_maxpool", "relu_maxpool_bwd",
                                   "roi_align", "roi_align_bwd",
                                   "stem_conv_bn", "bottleneck_block",
-                                  "conv_int8", "conv_int8_quant",
+                                  "conv_int8", "conv_int8_fused",
                                   "roi_align_int8",
                                   "nms_mask"])
 def test_locov_ops_on_the_card(cuda, name):
@@ -948,7 +952,8 @@ def test_locov_ops_on_the_card(cuda, name):
     kernel), one kernel launch a call, and its output against the plain
     version at the tolerances of ``_op_cases``."""
     args, plain, kernel = _op_cases(cuda)[name]
-    op = getattr(torch.ops.locov, name)
+    # conv_int8_fused: the conv op with a residual and an int8 output
+    op = getattr(torch.ops.locov, name.replace("_fused", ""))
     grad_args = args
     if name in ("relu_maxpool", "roi_align", "stem_conv_bn"):
         grad_args = (args[0].clone().requires_grad_(True),) + args[1:]
@@ -963,10 +968,10 @@ def test_locov_ops_on_the_card(cuda, name):
         assert torch.equal(got.cpu(), want)
         assert int(want.sum()) > 0
         return
-    if name == "conv_int8_quant":
+    if name.startswith("conv_int8"):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         return
-    if name in ("conv_int8", "roi_align_int8"):
+    if name == "roi_align_int8":
         assert torch.equal(got, want)
         return
     got, want = got.float(), want.float()
