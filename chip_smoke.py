@@ -4157,61 +4157,209 @@ def roi_align_int8_ops(kyq, kxq, c):
     return 2.0 * c * float(t_taps + r_taps)
 
 
-def check_roi_align_int8(gen, results):
-    """KQ2 against its plain version, the same bits: the integer core at
-    the static path's shapes (features [8, 50, 84, 1024] bfloat16
-    quantized, 1,000 proposal-sized boxes an image, adaptive sampling),
-    into an output filled with 77; then edge boxes (degenerate and
-    outside the image: exactly 0) and a fixed ratio. Its time and the
-    plain version's; no single PyTorch call computes it."""
+def _tiny_boxes(gen, b, n, img_h, img_w):
+    """Boxes of 2 to 150 px a side: at stride 16 and 14 bins their bins
+    are under one feature cell, so that many bins share a row."""
     import torch
+    u = torch.rand((b, n, 4), generator=gen, device=gen.device)
+    lo = u[..., :2] * torch.tensor([img_w - 150.0, img_h - 150.0],
+                                   device=gen.device)
+    return torch.cat([lo, lo + 2 + u[..., 2:] * 148], -1).contiguous()
+
+
+def _whole_boxes(gen, b, n, img_h, img_w):
+    """The whole image, then boxes reaching past it by up to its size a
+    side: adaptive grids of up to 8 samples (capped), spans of every
+    column."""
+    import torch
+    u = torch.rand((b, n, 4), generator=gen, device=gen.device)
+    size = torch.tensor([float(img_w), float(img_h)], device=gen.device)
+    bx = torch.cat([-u[..., :2] * size, size * (1 + u[..., 2:])], -1)
+    bx[:, 0] = torch.tensor([0.0, 0.0, img_w, img_h], device=gen.device)
+    return bx.contiguous()
+
+
+def _kq2_parent(src):
+    """The parent's form of the int8 ROIAlign, timed beside KQ2: its
+    plain matrix build (``_build_kernels`` then ``_quantize_rows``, the
+    float path's builder) and its kernel, which took the matrices (the
+    parent's ``csrc/roi_align_int8.cu``, built from ``src``). Returns a
+    function of (fq, boxes, ratio, spatial scale, pooled, sampling
+    ratio)."""
+    import ctypes
+    import torch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.ops import roi_align as ra
+    fn = kernel_lib.load_source(src, "parent_roi_align_int8") \
+        .roi_align_int8_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(fq, boxes, ratio, scale, pooled, sr):
+        b, h, w, c = fq.shape
+        n = boxes.shape[1]
+        ky, kx = ra._build_kernels(boxes, scale, h, w, pooled, sr)
+        kyq, sy = ra._quantize_rows(ky)
+        kxq, sx = ra._quantize_rows(kx)
+        rescale = ratio.reshape(()) * sy
+        out = torch.empty((b, n, pooled, pooled, c), dtype=torch.int8,
+                          device=fq.device)
+        err = fn(fq.data_ptr(), kyq.data_ptr(), kxq.data_ptr(),
+                 sx.data_ptr(), rescale.data_ptr(), out.data_ptr(), b, h, w,
+                 c, n, pooled, kernel_lib.stream_ptr(fq.device))
+        kernel_lib.check_launch(err, "parent roi_align_int8")
+        return out
+    return run
+
+
+def kq2_op_profile(feats, boxes, scale, amax, pooled, sr):
+    """One static int8 ROIAlign as ``roi_features`` calls it
+    (``roi_align_batched_int8``: the features' plain quantize and the
+    scales, then the op ``locov::roi_align_int8``) under torch.profiler,
+    against the same call without the op: the call must launch one
+    kernel more, KQ2, so that no plain matrix build or plain core runs
+    (also the kernels the profiler files under the op)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from locov_torch.ops import int8_conv as iq
+    from locov_torch.ops import roi_align as ra
+
+    def kernels(e):
+        return [k.name for k in getattr(e, "kernels", ())] + \
+            [n for c in e.cpu_children for n in kernels(c)]
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return prof.events()
+
+    def without_op():
+        s_f, s_pool = iq._scale_of(amax), iq._scale_of(amax * 0.6)
+        iq.quantize_per_tensor_static(feats, amax)[0].contiguous()
+        boxes.float().contiguous()
+        (s_f / s_pool).reshape(1)
+    base = [k for e in traced(without_op) if e.cpu_parent is None
+            for k in kernels(e)]
+    events = traced(lambda: ra.roi_align_batched_int8(
+        feats, boxes, scale, amax, amax * 0.6, pooled, sr))
+    call = [k for e in events if e.cpu_parent is None for k in kernels(e)]
+    ops = [e for e in events if e.name == "locov::roi_align_int8" and
+           e.device_type == DeviceType.CPU and
+           (e.cpu_parent is None or
+            e.cpu_parent.name != "locov::roi_align_int8")]
+    extra = [k for k in call if "roi_align_int8_kernel" in k]
+    return {"op_calls": len(ops),
+            "kernels_filed_under_op": [k for e in ops for k in kernels(e)],
+            "kernels_in_call": len(call), "kernels_without_op": len(base),
+            "only_kq2": len(ops) == 1 and len(extra) == 1 and
+            len(call) == len(base) + 1}
+
+
+def check_roi_align_int8(gen, results, parent_src=None):
+    """KQ2 (``locov::roi_align_int8``: the matrices built from the boxes
+    in the kernel, then both contractions) against its plain version
+    (``int8_matrices`` then ``roi_align_int8_plain``) on the same inputs,
+    the same bits: at the static path's shapes (features [8, 50, 84,
+    1024] bfloat16 quantized, 1,000 proposal-sized boxes an image,
+    adaptive sampling), into an output filled with 77, and the same bits
+    on a second launch; then edge boxes (degenerate and outside the
+    image: exactly 0), a fixed ratio, tiny boxes (bins under a cell) and
+    whole-image boxes (8 samples, every column). The main case's time,
+    its bound (the multiply-adds of the plain matrices' non-zeros), the
+    plain version's time, and with ``parent_src`` (the parent's
+    ``csrc/roi_align_int8.cu``) the parent's plain build and kernel in
+    the same process; no single PyTorch call computes it."""
+    import torch
+    from locov_torch.ops import int8_conv as iq
     from locov_torch.ops import roi_align as ra
     from locov_torch.tools.bench_roi_fwd import proposal_boxes
     from locov_torch.tools.timing import time_ms
     scale, pooled, img_h, img_w = 1.0 / 16, 14, 800, 1344
     f = torch.randn((8, 50, 84, 1024), generator=gen,
                     device="cuda").to(torch.bfloat16)
+    small = f[:2, :, :, :256].contiguous()
     cases = [("main", f, proposal_boxes(gen, 8, 1000, img_h, img_w), 0),
-             ("edges", f[:2, :, :, :256].contiguous(),
-              _edge_boxes(2, img_h, img_w), 0),
-             ("fixed_ratio", f[:2, :, :, :256].contiguous(),
-              proposal_boxes(gen, 2, 100, img_h, img_w), 2)]
+             ("edges", small, _edge_boxes(2, img_h, img_w), 0),
+             ("fixed_ratio", small,
+              proposal_boxes(gen, 2, 100, img_h, img_w), 2),
+             ("tiny", small, _tiny_boxes(gen, 2, 500, img_h, img_w), 0),
+             ("whole_image", small, _whole_boxes(gen, 2, 100, img_h, img_w),
+              0)]
     for case, feats, boxes, sr in cases:
         amax = feats.float().abs().amax()
-        ops = ra.int8_operands(feats, boxes, scale, amax, amax * 0.6,
-                               pooled, sr)[:5]
-        got = ra._launch_int8(*ops, fill=77)
-        want = ra.roi_align_int8_plain(*ops, chunk=25)
+        fq, kyq, kxq, sx, rescale, s_pool = ra.int8_operands(
+            feats, boxes, scale, amax, amax * 0.6, pooled, sr)
+        ratio = (iq._scale_of(amax) / s_pool).reshape(1)
+        args = (fq, boxes, ratio, scale, pooled, sr)
+        got = ra._launch_int8(*args, fill=77)
+        want = ra.roi_align_int8_plain(fq, kyq, kxq, sx, rescale, chunk=25)
         ok = bool(torch.equal(got, want))
-        again = bool(torch.equal(ra._launch_int8(*ops), got))
+        again = bool(torch.equal(ra._launch_int8(*args), got))
         line = {"phase": "kernel_check", "kernel": "roi_align_int8",
-                "case": case, "dtype": "int8", "features": list(f.shape),
-                "boxes": list(boxes.shape), "sampling_ratio": sr,
+                "case": case, "dtype": "int8",
+                "features": list(feats.shape), "boxes": list(boxes.shape),
+                "sampling_ratio": sr, "plan": ra._int8_plan(
+                    *fq.shape[1:], pooled, ra._align(fq)),
                 "same_bits": ok, "same_bits_two_launches": again,
                 "max_abs_err": float((got.int() - want.int()).abs().max()),
-                "share_saturated": float((got.abs() == 127).float().mean())}
+                "share_saturated": float((got.abs() == 127).float().mean()),
+                "share_zero": float((got == 0).float().mean())}
         if case == "edges":
             zero = bool((got[:, 2:4] == 0).all() and (got[:, 5] == 0).all())
             line["degenerate_exact_zero"] = zero
             ok = ok and zero
         if case == "main":
-            line["kernel_ms"] = time_ms(lambda: ra.roi_align_int8_cuda(*ops),
-                                        reps=10)
+            line["kernel_ms"] = time_ms(
+                lambda: ra.roi_align_int8_cuda(*args), reps=20)
             line["plain_ms"] = time_ms(
-                lambda: ra.roi_align_int8_plain(*ops, chunk=25), reps=2,
-                warmup=0)
+                lambda: ra.roi_align_int8_boxes_plain(*args), reps=2,
+                warmup=1)
             line["library_ms"] = None  # no single PyTorch call
-            nbytes = sum(t.numel() * t.element_size() for t in ops) + \
-                got.numel()
+            line["k2_ms"] = time_ms(
+                lambda: ra.roi_align_cuda(f, boxes, scale, pooled, sr),
+                reps=20)
+            if parent_src:
+                parent = _kq2_parent(parent_src)
+                # the parent's kernel against the core on the parent's
+                # matrices; and how many outputs the builders' order moved
+                ky, kx = ra._build_kernels(boxes, scale, 50, 84, pooled, sr)
+                pkyq, psy = ra._quantize_rows(ky)
+                pkxq, psx = ra._quantize_rows(kx)
+                old = parent(*args)
+                line["parent_same_bits"] = bool(torch.equal(
+                    old, ra.roi_align_int8_plain(
+                        fq, pkyq, pkxq, psx, ratio.reshape(()) * psy,
+                        chunk=25)))
+                line["share_moved_from_parent"] = float(
+                    (old != got).float().mean())
+                ok = ok and line["parent_same_bits"]
+                del ky, kx, pkyq, pkxq, old
+                # in turns: parent, KQ2, KQ2, parent
+                times = []
+                for fn in (lambda: parent(*args),
+                           lambda: ra.roi_align_int8_cuda(*args)) * 2:
+                    times.append(time_ms(fn, reps=20))
+                line["parent_ms"] = [times[0], times[3]]
+                line["kernel_ms_turns"] = [times[1], times[2]]
+            line["op_profile"] = kq2_op_profile(feats, boxes, scale, amax,
+                                                pooled, sr)
+            ok = ok and line["op_profile"]["only_kq2"]
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (fq, boxes, ratio, got))
             line["bound_ms"], line["bound_by"] = bound_ms(
-                nbytes, roi_align_int8_ops(ops[1], ops[2], f.shape[3]),
+                nbytes, roi_align_int8_ops(kyq, kxq, f.shape[3]),
                 INT8_TC_OPS_PER_S)
             results[("roi_align_int8", "int8")] = line
         emit(line)
         if not (ok and again):
             raise AssertionError(f"roi_align_int8 {case}: {line}")
-        del got, want, ops
-    del f, cases
+        del got, want, fq, kyq, kxq
+    del f, small, cases
     torch.cuda.empty_cache()
 
 
@@ -4785,9 +4933,12 @@ class KernelShapes:
                  dt(shift), tuple(xq.shape), tuple(wq.shape), int(stride),
                  int(pad), bool(relu), residual is not None,
                  amax is not None, bool(float_out)))
+        # KQ2's: the features' shape, boxes an image, pooled, sampling
         wrap(ra, "roi_align_int8_cuda", "roi_align_int8",
-             lambda fq, kyq, kxq, sx, rescale: (
-                 "int8", tuple(fq.shape), kyq.shape[1], kyq.shape[2]))
+             lambda fq, boxes, ratio, spatial_scale, pooled=14,
+             sampling_ratio=0: (
+                 "int8", tuple(fq.shape), boxes.shape[1], int(pooled),
+                 int(sampling_ratio)))
         return self
 
     def __exit__(self, *exc):
@@ -4829,14 +4980,16 @@ def _check_int8_shape(gen, key):
         ok, twice, err = _conv_int8_same(
             xq, wq, scale, shift, stride, pad, res, amax, float_out, relu)
         return ok and twice, err
-    _, _, fshape, n, p = key
+    _, _, fshape, n, p, sr = key
     b, h, w, c = fshape
     f = torch.randn(fshape, generator=gen, device="cuda").to(torch.bfloat16)
     boxes = proposal_boxes(gen, b, n, h * 16, w * 16)
     amax = f.float().abs().amax()
-    ops = ra.int8_operands(f, boxes, 1.0 / 16, amax, amax * 0.6, p, 0)[:5]
-    got = ra._launch_int8(*ops, fill=77)
-    want = ra.roi_align_int8_plain(*ops, chunk=25)
+    fq, kyq, kxq, sx, rescale, s_pool = ra.int8_operands(
+        f, boxes, 1.0 / 16, amax, amax * 0.6, p, sr)
+    ratio = (iq._scale_of(amax) / s_pool).reshape(1)
+    got = ra._launch_int8(fq, boxes, ratio, 1.0 / 16, p, sr, fill=77)
+    want = ra.roi_align_int8_plain(fq, kyq, kxq, sx, rescale, chunk=25)
     return bool(torch.equal(got, want)), \
         float((got.int() - want.int()).abs().max())
 
@@ -4849,7 +5002,7 @@ def check_path_shapes(gen, seen, path):
     bfloat16 within one ulp with NaN in the same places; K2/K3-fwd
     ``_roi_fwd_within``; K3-bwd ``_roi_bwd_within``; KQ1 (random int8
     operands, into a NaN-filled output) and KQ2 (on proposal-sized
-    boxes, adaptive sampling) the same bits. ROIAlign's boxes are
+    boxes, at the signature's sampling) the same bits. ROIAlign's boxes are
     training boxes (``train_boxes``: 20 gt-sized a batch row, or all of
     them where there are fewer) over the image the features cover.
     Runs after the path's counts are read."""
@@ -4939,6 +5092,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kq2-parent", default=None,
+                    help="an earlier csrc/roi_align_int8.cu (the kernel "
+                         "that took the matrices), timed with its plain "
+                         "matrix build beside KQ2")
     args = ap.parse_args(argv)
 
     import torch
@@ -4988,7 +5145,7 @@ def main(argv=None) -> int:
     check_roi_align_lsm(gen)
     torch.cuda.empty_cache()
     check_conv_int8(gen, results)
-    check_roi_align_int8(gen, results)
+    check_roi_align_int8(gen, results, args.kq2_parent)
     small_reference(args.seed)
     small_reference_train(args.seed)
     small_reference_lsm(args.seed)
@@ -5089,7 +5246,10 @@ def main(argv=None) -> int:
             "f32_bound_ms": f32.get("bound_ms"),
             "f32_library_ms": f32.get("library_ms"),
             **({"variants": results[("conv_int8_variants", "bfloat16")]}
-               if name == "conv_int8" else {})})
+               if name == "conv_int8" else {}),
+            **({k: r.get(k) for k in ("k2_ms", "parent_ms",
+                                      "kernel_ms_turns", "op_profile")}
+               if name == "roi_align_int8" else {})})
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -111,80 +111,21 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "roi_taps.cuh"
 
 namespace {
 
+using locov::Box;
+using locov::dense_bin;
 using locov::from_f32;
+using locov::load_box;
+using locov::SR_MAX;
+using locov::Tap;
 using locov::to_f32;
 using locov::Vec;
+using locov::bin_taps;
 
-constexpr int SR_MAX = 8;   // ops/roi_align.py ADAPTIVE_SR_MAX
 constexpr int P_MAX = 32;   // largest pooled resolution taken
-
-struct Tap {
-  int lo, hi;
-  float wlo, whi;  // hat weights times the sample weight
-};
-
-// One sample at continuous position `coord` along an axis of `dim`
-// cells, with sample weight `sw` (ops/roi_align.py:_interp_matrix).
-__device__ __forceinline__ Tap make_tap(float coord, int dim, float sw) {
-  const bool outside = coord < -1.0f || coord > (float)dim;
-  const float cc = fminf(fmaxf(coord, 0.0f), (float)(dim - 1));
-  const float low = floorf(cc);
-  const float frac = __fsub_rn(cc, low);
-  Tap t;
-  t.lo = (int)low;
-  t.hi = min(t.lo + 1, dim - 1);
-  t.wlo = outside ? 0.0f : __fmul_rn(__fsub_rn(1.0f, frac), sw);
-  t.whi = outside ? 0.0f : __fmul_rn(frac, sw);
-  return t;
-}
-
-// Samples of bin `p` of one axis of a box starting at `lo` with extent
-// `size`: fixed `ratio` > 0, or adaptive (ratio <= 0). Writes up to
-// SR_MAX taps, returns how many.
-__device__ __forceinline__ int bin_taps(float lo, float size, int pooled,
-                                        int ratio, int p, int dim,
-                                        Tap* taps) {
-  const float bin = __fdiv_rn(size, (float)pooled);
-  if (ratio > 0) {
-    const float sw = __fdiv_rn(1.0f, (float)ratio);
-    for (int s = 0; s < ratio; ++s) {
-      const float frac = __fdiv_rn(__fadd_rn((float)s, 0.5f), (float)ratio);
-      const float coord = __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, frac),
-                                                  bin));
-      taps[s] = make_tap(coord, dim, sw);
-    }
-    return ratio;
-  }
-  const float sr = fminf(fmaxf(ceilf(bin), 0.0f), (float)SR_MAX);
-  const float srn = fmaxf(sr, 1.0f);
-  const float sw = __fdiv_rn(1.0f, srn);
-  const int n = (int)sr;
-  for (int s = 0; s < n; ++s) {
-    const float pos = __fdiv_rn(__fadd_rn((float)s, 0.5f), srn);
-    const float coord = __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, pos),
-                                                bin));
-    taps[s] = make_tap(coord, dim, sw);
-  }
-  return n;
-}
-
-// A box in feature coordinates: aligned=True (ROIAlignV2), half-pixel
-// correction, no size clamping.
-struct Box {
-  float x0, y0, bw, bh;
-};
-
-__device__ __forceinline__ Box load_box(const float* box, float scale) {
-  Box r;
-  r.x0 = __fsub_rn(__fmul_rn(box[0], scale), 0.5f);
-  r.y0 = __fsub_rn(__fmul_rn(box[1], scale), 0.5f);
-  r.bw = __fsub_rn(__fsub_rn(__fmul_rn(box[2], scale), 0.5f), r.x0);
-  r.bh = __fsub_rn(__fsub_rn(__fmul_rn(box[3], scale), 0.5f), r.y0);
-  return r;
-}
 
 // The backward's block: BWD_THREADS threads, of which the last warp
 // prepares the next box (finds it, computes its taps) while the others
@@ -421,36 +362,6 @@ __device__ __forceinline__ void store_stream(T* p, const Vec<T, VEC>& o) {
   } else
     __stcs(reinterpret_cast<unsigned short*>(p),
            *reinterpret_cast<const unsigned short*>(&o));
-}
-
-// The dense weights of one bin of one axis, k[i] for i in its span of
-// cells [lo, hi] (each sample's taps summed in order), from the shared
-// tap code; returns the span (empty: lo > hi).
-__device__ __forceinline__ int2 dense_bin(float lo0, float size, int pooled,
-                                          int ratio, int bin, int dim,
-                                          float* k) {
-  Tap taps[SR_MAX];
-  const int nt = bin_taps(lo0, size, pooled, ratio, bin, dim, taps);
-  int lo = dim, hi = -1;
-  for (int s = 0; s < nt; ++s) {
-    if (taps[s].wlo != 0.0f) {
-      lo = min(lo, taps[s].lo);
-      hi = max(hi, taps[s].lo);
-    }
-    if (taps[s].whi != 0.0f) {
-      lo = min(lo, taps[s].hi);
-      hi = max(hi, taps[s].hi);
-    }
-  }
-  for (int i = lo; i <= hi; ++i) {
-    float v = 0.0f;
-    for (int s = 0; s < nt; ++s) {
-      if (taps[s].lo == i) v += taps[s].wlo;
-      if (taps[s].hi == i) v += taps[s].whi;
-    }
-    k[i] = v;
-  }
-  return make_int2(lo, hi);
 }
 
 // t = sum_h Ky[h] F[h, x] over the feature rows [ha, hb], h ascending,

@@ -1,199 +1,408 @@
-// KQ2: the integer core of the full-int8 ROIAlign of the static int8
-// serving mode (locov_torch/ops/roi_align.py: roi_align_batched_int8).
+// KQ2: the full-int8 ROIAlign of the static int8 serving mode
+// (locov_torch/ops/roi_align.py: roi_align_batched_int8), from the boxes.
 //
 // It has no Pallas parent: the JAX package computes this op as two XLA
-// einsums a chunk of boxes (locov_tpu/ops/roi_align.py:
-// roi_align_batched_int8). For box (b, n), channel c:
+// einsums a chunk of boxes against interpolation matrices it builds and
+// quantizes per row (locov_tpu/ops/roi_align.py: roi_align_batched_int8).
+// For box (b, n), channel c:
+//   kxq[q, w], sx[q]  the box's Kx row q quantized to int8 by its max-abs
+//   kyq[p, h], sy[p]  the same for Ky; rescale[p] = ratio * sy[p]
 //   t[q, h]  = sum_w kxq[q, w] * fq[b, h, w, c]                (int32)
 //   tq[q, h] = clip(rint(f32(t) * sx[q]), -127, 127)
 //   r[p, q]  = sum_h kyq[p, h] * tq[q, h]                      (int32)
 //   out[b, n, p, q, c] = clip(rint(f32(r) * rescale[p]), -127, 127)
-// with rint half to even (the default rounding mode) and each float
-// product rounded once, as jnp.round of the float32 product is. The
-// interpolation matrices kyq [B, N, P, H], kxq [B, N, P, W] (int8, one
-// scale a row) and the rescale are built by the plain code.
+// with ratio = s_f / s_pool (a device scalar, never read on the host),
+// rint half to even, and each float product rounded once, as the plain
+// version (ops/roi_align.py: int8_matrices, roi_align_int8_plain)
+// computes them. The matrices come from the float kernels' tap code
+// (roi_taps.cuh): each bin's samples summed in ascending order from 0,
+// then scale = max(amax / 127, 1e-12) and q = clip(rint(k / scale)) a row.
 //
-// Skipping zero taps is exact: the sums visit only the columns w where
-// kxq[q, w] != 0 (one range a row q) and the rows h where some
-// kyq[p, h] != 0, and for each such h only the bins p whose row of kyq
-// is non-zero there (a range of p), as K2 visits only the box's
-// footprint; zero weights add exactly 0, so the integers are the dense
-// einsums'. f32(t) is exact: |t| <= 127 * 127 * W < 2^24 for W <= 1040.
+// Exactness: zero weights add exactly 0, so skipping them leaves the
+// integers of the dense einsums. A row of kxq or kyq holds at most
+// 2 * SR_MAX non-zeros (two taps a sample), so |t|, |r| <= 16 * 127 * 127
+// < 2^22: f32(t) is exact, and is formed as the float 1.5 * 2^23 + t less
+// 1.5 * 2^23; rint(v) of |v| <= 127 is the low byte of 1.5 * 2^23 + v.
 //
 // Bound on the H100: bytes. The int8 output [8, 1000, 14, 14, 1024] is
-// 1.6 GB, 0.48 ms at 3.35 TB/s (K2 writes 3.2 GB in bf16). The simple
-// form here: a block takes one box and a tile of channels, four channels
-// (one 32-bit word) a thread; the box's two matrices, their non-zero
-// ranges and its scales are staged in shared memory; for each bin column
-// q a thread sums t over the row's columns for every needed h, rounds
-// it, and adds it into P int32 sums held in registers, then writes the
-// P outputs of that q as one word each. Building the matrices in the
-// kernel is later work.
+// 1.6 GB, 0.48 ms at 3.35 TB/s, against the features' 34 MB, which the
+// 50 MB L2 holds.
+//
+// Design: persistent blocks, each walking the boxes k, k + grid, ... in
+// index order, so that all blocks work on one image's features at a
+// time and those stay in L2. A block's last warp builds the next box's
+// quantized matrices, their non-zero spans and its scales into the other
+// of two shared buffers while the other warps contract the current box;
+// one barrier a box. A contracting thread takes a (bin column q, vector
+// of VEC channels) at a time, VEC = 16 where the channels allow it, and
+// for it:
+//   (a) for each group of four feature rows that some Ky row weighs on,
+//       t over q's column span, as one __dp4a a column, row and 4
+//       channels (the feature word against the weight in one byte
+//       lane), the four rows' loads in flight together; rounded to tq
+//       and packed four rows to a word a channel into the thread's own
+//       part of shared memory (no barrier: no other thread reads it);
+//   (b) for each bin p, r over the words of p's row span only, one
+//       __dp4a for 4 rows (kyq's rows are row-contiguous in shared
+//       memory), rounded and stored as one VEC-byte streaming store
+//       (st.global.cs), so that the output does not evict the features.
 #include <stdint.h>
+
+#include <algorithm>
 
 #include <cuda_runtime.h>
 
+#include "roi_taps.cuh"
+
 namespace {
 
-constexpr int PMAX = 16;      // bins a side the kernel takes
-constexpr int THREADS = 128;  // threads a block, 4 channels each
+using locov::bin_taps;
+using locov::Box;
+using locov::load_box;
+using locov::SR_MAX;
+using locov::Tap;
+using locov::tap_span;
+using locov::tap_weight;
 
-__device__ __forceinline__ int q8(float v) {
-  return (int)fminf(fmaxf(rintf(v), -127.f), 127.f);
+constexpr int PMAX = 16;  // bins a side the kernel takes
+constexpr int BUILDER = 32;  // the warp that builds the next box
+
+// 1.5 * 2^23: integers below 2^22 in magnitude sit in its mantissa.
+constexpr float MAGIC = 12582912.0f;
+constexpr int MAGIC_BITS = 0x4B400000;
+
+// clip(rint(f32(t) * s), -127, 127) in the low byte, for |t| < 2^22.
+__device__ __forceinline__ unsigned q8(int t, float s) {
+  float v = __fmul_rn(__fsub_rn(__int_as_float(t + MAGIC_BITS), MAGIC), s);
+  v = fminf(fmaxf(v, -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(v, MAGIC));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    roi_align_int8_kernel(const int8_t* __restrict__ fq,
-                          const int8_t* __restrict__ kyq,
-                          const int8_t* __restrict__ kxq,
-                          const float* __restrict__ sx,
-                          const float* __restrict__ rescale,
-                          int8_t* __restrict__ out, int h, int w, int c,
-                          int n, int p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  int8_t* s_ky = reinterpret_cast<int8_t*>(smem);        // [p][h]
-  int8_t* s_kx = s_ky + p * h;                           // [p][w]
-  int* s_int = reinterpret_cast<int*>(
-      smem + ((p * (h + w) + 15) / 16) * 16);
-  int* s_wlo = s_int;             // [p]: first and last non-zero column
-  int* s_whi = s_wlo + PMAX;      //      of kxq row q
-  int* s_plo = s_whi + PMAX;      // [h]: first and last bin p whose kyq
-  int* s_phi = s_plo + h;         //      row is non-zero at h
-  float* s_sx = reinterpret_cast<float*>(s_phi + h);     // [p]
-  float* s_rs = s_sx + PMAX;                             // [p]
-  int* s_hrange = reinterpret_cast<int*>(s_rs + PMAX);   // lo, hi
+// acc + the dot product of two words' four signed bytes.
+__device__ __forceinline__ int dot4(int a, int b, int acc) {
+  return __dp4a(a, b, acc);
+}
 
-  const int box = blockIdx.x;  // b * n + i
-  const int b = box / n;
-  const int tid = threadIdx.x;
-  const long long mrow = (long long)box * p;
-  for (int i = tid; i < p * h; i += THREADS) s_ky[i] = kyq[mrow * h + i];
-  for (int i = tid; i < p * w; i += THREADS) s_kx[i] = kxq[mrow * w + i];
-  if (tid < p) {
-    s_sx[tid] = sx[mrow + tid];
-    s_rs[tid] = rescale[mrow + tid];
+// One box's operands in shared memory: its quantized matrices (rows of
+// wp and hp bytes, zero outside their span; hp a multiple of 4), the
+// non-zero span of each row, the row scales of Kx and the rescale of Ky,
+// and a summary (box index, or -1 when the block has none left; the
+// rows [ya, yb] that some Ky row weighs on).
+struct BoxOps {
+  int8_t* kx;  // [PMAX][wp]
+  int8_t* ky;  // [PMAX][hp]
+  int2* xspan;  // [PMAX]
+  int2* yspan;  // [PMAX]
+  float* sx;    // [PMAX]
+  float* rs;    // [PMAX]
+  int* meta;    // box, ya, yb
+};
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+__host__ __device__ inline int ops_bytes(int h, int w) {
+  return round_up(PMAX * (round_up(w, 4) + round_up(h, 4)), 16) +
+         4 * (6 * PMAX + 4);
+}
+
+__device__ __forceinline__ BoxOps ops_at(uint8_t* base, int h, int w) {
+  BoxOps s;
+  s.kx = reinterpret_cast<int8_t*>(base);
+  s.ky = s.kx + PMAX * round_up(w, 4);
+  int2* tail = reinterpret_cast<int2*>(
+      base + round_up(PMAX * (round_up(w, 4) + round_up(h, 4)), 16));
+  s.xspan = tail;
+  s.yspan = tail + PMAX;
+  s.sx = reinterpret_cast<float*>(tail + 2 * PMAX);
+  s.rs = s.sx + PMAX;
+  s.meta = reinterpret_cast<int*>(s.rs + PMAX);
+  return s;
+}
+
+// By the builder warp: box bi's operands into `s` (lane j < p: Ky row j,
+// p <= j < 2p: Kx row j - p), or the end mark when bi is past the last.
+__device__ __forceinline__ void build_box(const float* boxes, int bi,
+                                          int nbox, int h, int w, int p,
+                                          int ratio_s, float scale,
+                                          float ratio, int lane, BoxOps s) {
+  if (bi >= nbox) {
+    if (lane == 0) s.meta[0] = -1;
+    return;
   }
-  if (tid == 0) {
-    s_hrange[0] = h;
-    s_hrange[1] = -1;
-  }
-  __syncthreads();
-  if (tid < p) {
-    int lo = w, hi = -1;
-    for (int x = 0; x < w; ++x)
-      if (s_kx[tid * w + x] != 0) {
-        lo = min(lo, x);
-        hi = x;
-      }
-    s_wlo[tid] = lo;
-    s_whi[tid] = hi;
-  }
-  for (int y = tid; y < h; y += THREADS) {
-    int lo = p, hi = -1;
-    for (int i = 0; i < p; ++i)
-      if (s_ky[i * h + y] != 0) {
+  const Box bx = load_box(boxes + (long long)bi * 4, scale);
+  int ya = h, yb = -1;
+  if (lane < 2 * p) {
+    const bool y = lane < p;
+    const int bin = y ? lane : lane - p;
+    const int dim = y ? h : w;
+    const int stride = round_up(dim, 4);
+    int8_t* row = (y ? s.ky : s.kx) + bin * stride;
+    Tap taps[SR_MAX];
+    const int nt = bin_taps(y ? bx.y0 : bx.x0, y ? bx.bh : bx.bw, p,
+                            ratio_s, bin, dim, taps);
+    const int2 span = tap_span(taps, nt, dim);
+    float amax = 0.0f;
+    for (int i = span.x; i <= span.y; ++i)
+      amax = fmaxf(amax, fabsf(tap_weight(taps, nt, i)));
+    const float rs = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
+    for (int i = 0; i < stride / 4; ++i)
+      reinterpret_cast<int*>(row)[i] = 0;
+    int lo = dim, hi = -1;
+    for (int i = span.x; i <= span.y; ++i) {
+      const float v =
+          rintf(__fdiv_rn(tap_weight(taps, nt, i), rs));
+      const int qv = (int)fminf(fmaxf(v, -127.0f), 127.0f);
+      row[i] = (int8_t)qv;
+      if (qv != 0) {
         lo = min(lo, i);
         hi = i;
       }
-    s_plo[y] = lo;
-    s_phi[y] = hi;
-    if (hi >= 0) {
-      atomicMin(&s_hrange[0], y);
-      atomicMax(&s_hrange[1], y);
+    }
+    if (y) {
+      s.yspan[bin] = make_int2(lo, hi);
+      s.rs[bin] = __fmul_rn(ratio, rs);
+      ya = lo;
+      yb = hi;
+    } else {
+      s.xspan[bin] = make_int2(lo, hi);
+      s.sx[bin] = rs;
     }
   }
+  ya = __reduce_min_sync(0xffffffffu, ya);
+  yb = __reduce_max_sync(0xffffffffu, yb);
+  if (lane == 0) {
+    s.meta[0] = bi;
+    s.meta[1] = ya;
+    s.meta[2] = yb;
+  }
+}
+
+// VEC int8 channels as VEC / 4 words.
+template <int VEC>
+struct Words {
+  int v[VEC / 4];
+};
+
+template <int VEC>
+__device__ __forceinline__ Words<VEC> load_words(const int8_t* p) {
+  Words<VEC> r;
+  if constexpr (VEC == 16) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+    r.v[0] = x.x;
+    r.v[1] = x.y;
+    r.v[2] = x.z;
+    r.v[3] = x.w;
+  } else if constexpr (VEC == 8) {
+    const int2 x = __ldg(reinterpret_cast<const int2*>(p));
+    r.v[0] = x.x;
+    r.v[1] = x.y;
+  } else {
+    r.v[0] = __ldg(reinterpret_cast<const int*>(p));
+  }
+  return r;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_stream(int8_t* p, const Words<VEC>& o) {
+  if constexpr (VEC == 16)
+    __stcs(reinterpret_cast<int4*>(p),
+           make_int4(o.v[0], o.v[1], o.v[2], o.v[3]));
+  else if constexpr (VEC == 8)
+    __stcs(reinterpret_cast<int2*>(p), make_int2(o.v[0], o.v[1]));
+  else
+    __stcs(reinterpret_cast<int*>(p), o.v[0]);
+}
+
+// Columns of a row that phase (a) loads at once (two, for four rows:
+// eight 16-byte loads in flight).
+constexpr int XB = 2;
+
+// grid: persistent blocks; block: the contracting threads (a multiple of
+// 32) and the builder warp; dynamic shared memory smem_bytes(h, w, vec,
+// threads - BUILDER).
+template <int VEC>
+__global__ void roi_align_int8_kernel(const int8_t* __restrict__ fq,
+                                      const float* __restrict__ boxes,
+                                      const float* __restrict__ ratio_p,
+                                      int8_t* __restrict__ out, int h, int w,
+                                      int c, int n, int nbox, int p,
+                                      int ratio_s, float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tc = blockDim.x - BUILDER;  // contracting threads
+  const int tid = threadIdx.x;
+  const int obytes = ops_bytes(h, w);
+  // tq of each contracting thread: word (g, channel e) at
+  // tq4[(g * VEC / 4 + e / 4) * tc + tid], element e % 4
+  int4* tq4 = reinterpret_cast<int4*>(smem + 2 * obytes);
+  const int wp = round_up(w, 4), hp = round_up(h, 4);
+  const int nv = c / VEC;
+  const bool builder = tid >= tc;
+  const int lane = tid - tc;
+  float ratio = 0.0f;
+  if (builder) {
+    ratio = *ratio_p;
+    build_box(boxes, blockIdx.x, nbox, h, w, p, ratio_s, scale, ratio, lane,
+              ops_at(smem, h, w));
+  }
   __syncthreads();
-
-  const int c4 = (blockIdx.y * THREADS + tid) * 4;
-  if (c4 >= c) return;  // no barrier below
-  const int hlo = s_hrange[0], hhi = s_hrange[1];
-  const char4* f4 = reinterpret_cast<const char4*>(fq) +
-                    ((long long)b * h * w * c + c4) / 4;
-  const int c_words = c / 4;
-  char4* o4 = reinterpret_cast<char4*>(out) +
-              ((long long)box * p * p * c + c4) / 4;
-
-  for (int qq = 0; qq < p; ++qq) {
-    int acc[PMAX][4];
+  for (int k = 0;; ++k) {
+    const BoxOps cur = ops_at(smem + (k & 1) * obytes, h, w);
+    const int bi = cur.meta[0];
+    if (bi < 0) break;
+    if (builder) {
+      build_box(boxes, bi + gridDim.x, nbox, h, w, p, ratio_s, scale, ratio,
+                lane, ops_at(smem + ((k + 1) & 1) * obytes, h, w));
+    } else {
+      const int ya = cur.meta[1], yb = cur.meta[2];
+      const int8_t* fimg = fq + (long long)(bi / n) * h * w * c;
+      int8_t* obox = out + (long long)bi * p * p * c;
+      for (int it = tid; it < p * nv; it += tc) {
+        const int q = it / nv, v = it - q * nv;
+        const int2 xs = cur.xspan[q];
+        const float sxq = cur.sx[q];
+        const int8_t* kx = cur.kx + q * wp;
+        const int8_t* fv = fimg + v * VEC;
+        // (a) tq[q, y] for the rows [ya, yb], four rows (a word) at once
+        for (int g = ya >> 2; g <= (yb >> 2) && yb >= 0; ++g) {
+          bool valid[4];
 #pragma unroll
-    for (int i = 0; i < PMAX; ++i)
+          for (int j = 0; j < 4; ++j)
+            valid[j] = 4 * g + j >= ya && 4 * g + j <= yb;
+          int t[4][VEC];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    const int wlo = s_wlo[qq], whi = s_whi[qq];
-    const float sxq = s_sx[qq];
-    const int8_t* kx = s_kx + qq * w;
-    for (int y = hlo; y <= hhi && wlo <= whi; ++y) {
-      const int plo = s_plo[y], phi = s_phi[y];
-      if (plo > phi) continue;
-      int t[4] = {0, 0, 0, 0};
-      const char4* frow = f4 + (long long)y * w * c_words;
-      for (int x = wlo; x <= whi; ++x) {
-        const int k = kx[x];
-        const char4 f = frow[(long long)x * c_words];
-        t[0] += k * f.x;
-        t[1] += k * f.y;
-        t[2] += k * f.z;
-        t[3] += k * f.w;
-      }
-      int tq[4];
+          for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        tq[j] = q8(__fmul_rn(__int2float_rn(t[j]), sxq));
+            for (int e = 0; e < VEC; ++e) t[j][e] = 0;
+          const int8_t* fg = fv + (long long)(4 * g) * w * c;
+          for (int x0 = xs.x; x0 <= xs.y; x0 += XB) {
+            Words<VEC> f[4][XB];
+            unsigned kb[XB];
 #pragma unroll
-      for (int i = 0; i < PMAX; ++i) {
-        if (i >= plo && i <= phi) {
-          const int k = s_ky[i * h + y];
+            for (int u = 0; u < XB; ++u)
+              kb[u] = x0 + u <= xs.y ? (unsigned)(uint8_t)kx[x0 + u] : 0u;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += k * tq[j];
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int u = 0; u < XB; ++u) {
+                if (valid[j] && x0 + u <= xs.y)
+                  f[j][u] = load_words<VEC>(
+                      fg + ((long long)j * w + x0 + u) * c);
+                else
+#pragma unroll
+                  for (int i = 0; i < VEC / 4; ++i) f[j][u].v[i] = 0;
+              }
+#pragma unroll
+            for (int u = 0; u < XB; ++u)
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) {
+                const int k = (int)(kb[u] << (8 * (e % 4)));
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  t[j][e] = __dp4a(f[j][u].v[e / 4], k, t[j][e]);
+              }
+          }
+          // row j of the word in byte j; rows outside [ya, yb] hold 0
+          int pk[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) pk[e] = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (valid[j])
+#pragma unroll
+              for (int e = 0; e < VEC; ++e)
+                pk[e] = __byte_perm(pk[e], q8(t[j][e], sxq),
+                                    0x3210u ^ ((unsigned)(j ^ 4) << (4 * j)));
+#pragma unroll
+          for (int i = 0; i < VEC / 4; ++i)
+            tq4[(g * (VEC / 4) + i) * tc + tid] =
+                make_int4(pk[4 * i], pk[4 * i + 1], pk[4 * i + 2],
+                          pk[4 * i + 3]);
+        }
+        // (b) out[p, q] over p's rows only
+        for (int pp = 0; pp < p; ++pp) {
+          const int2 ys = cur.yspan[pp];
+          int r[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) r[e] = 0;
+          const int8_t* kyr = cur.ky + pp * hp;
+          for (int g = ys.x >> 2; g <= (ys.y >> 2) && ys.y >= 0; ++g) {
+            const int kw = *reinterpret_cast<const int*>(kyr + 4 * g);
+#pragma unroll
+            for (int i = 0; i < VEC / 4; ++i) {
+              const int4 tw = tq4[(g * (VEC / 4) + i) * tc + tid];
+              r[4 * i] = dot4(tw.x, kw, r[4 * i]);
+              r[4 * i + 1] = dot4(tw.y, kw, r[4 * i + 1]);
+              r[4 * i + 2] = dot4(tw.z, kw, r[4 * i + 2]);
+              r[4 * i + 3] = dot4(tw.w, kw, r[4 * i + 3]);
+            }
+          }
+          const float rs = cur.rs[pp];
+          Words<VEC> o;
+#pragma unroll
+          for (int i = 0; i < VEC / 4; ++i) {
+            const unsigned ab = __byte_perm(q8(r[4 * i], rs),
+                                            q8(r[4 * i + 1], rs), 0x0040);
+            const unsigned cd = __byte_perm(q8(r[4 * i + 2], rs),
+                                            q8(r[4 * i + 3], rs), 0x0040);
+            o.v[i] = (int)__byte_perm(ab, cd, 0x5410);
+          }
+          store_stream<VEC>(obox + ((long long)pp * p + q) * c + v * VEC, o);
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < PMAX; ++i) {
-      if (i < p) {
-        const float rs = s_rs[i];
-        char4 v;
-        v.x = (signed char)q8(__fmul_rn(__int2float_rn(acc[i][0]), rs));
-        v.y = (signed char)q8(__fmul_rn(__int2float_rn(acc[i][1]), rs));
-        v.z = (signed char)q8(__fmul_rn(__int2float_rn(acc[i][2]), rs));
-        v.w = (signed char)q8(__fmul_rn(__int2float_rn(acc[i][3]), rs));
-        o4[((long long)i * p + qq) * c_words] = v;
-      }
-    }
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-// Dynamic shared memory of a block, as ops/roi_align.py:_int8_smem
-// counts it: the box's two matrices (rounded up to 16 bytes), the column
-// ranges and the two scales of PMAX bins, the bin ranges of h rows and
-// the row range.
-static int smem_bytes(int h, int w, int p) {
-  return ((p * (h + w) + 15) / 16) * 16 + 4 * (4 * PMAX + 2 * h + 2);
+// Dynamic shared memory of a block, as ops/roi_align.py:_int8_smem counts
+// it: two boxes' operands, and the tq rows (h rounded up to 4) of vec
+// channels for each of the `tc` contracting threads.
+static int smem_bytes(int h, int w, int vec, int tc) {
+  return 2 * ops_bytes(h, w) + tc * round_up(h, 4) * vec;
 }
 
-// fq int8 [b, h, w, c] (c a multiple of 4, 4-byte aligned), kyq int8
-// [b, n, p, h], kxq int8 [b, n, p, w], sx and rescale float32 [b, n, p]
-// -> out int8 [b, n, p, p, c] (4-byte aligned); p <= 16. Returns the
+// fq int8 [b, h, w, c] (c a multiple of vec, the address of vec bytes'
+// alignment), boxes float32 [b, n, 4], ratio float32 [1] (s_f / s_pool),
+// out int8 [b, n, p, p, c]; p <= 16, sampling_ratio <= 8 (0: adaptive).
+// `blocks` persistent blocks of `threads` (the contracting threads and the
+// builder warp) with `smem` bytes, which must be smem_bytes'. Returns the
 // launch's error, or cudaGetLastError() after it.
-extern "C" int roi_align_int8_fwd(const void* fq, const void* kyq,
-                                  const void* kxq, const void* sx,
-                                  const void* rescale, void* out, int b,
-                                  int h, int w, int c, int n, int p,
+extern "C" int roi_align_int8_fwd(const void* fq, const void* boxes,
+                                  const void* ratio, void* out, int b, int h,
+                                  int w, int c, int n, int p,
+                                  int sampling_ratio, float scale, int vec,
+                                  int threads, int blocks, int smem,
                                   void* stream) {
-  if (p > PMAX || c % 4) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(h, w, p);
-  cudaError_t err = cudaFuncSetAttribute(
-      roi_align_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(b * n, (c / 4 + THREADS - 1) / THREADS);
-  roi_align_int8_kernel<<<grid, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(fq), static_cast<const int8_t*>(kyq),
-      static_cast<const int8_t*>(kxq), static_cast<const float*>(sx),
-      static_cast<const float*>(rescale), static_cast<int8_t*>(out), h, w,
-      c, n, p);
-  return (int)cudaGetLastError();
+  const int tc = threads - BUILDER;
+  if (p < 1 || p > PMAX || sampling_ratio > SR_MAX || tc < 32 ||
+      tc % 32 || blocks < 1 || (vec != 16 && vec != 8 && vec != 4) ||
+      c % vec || smem != smem_bytes(h, w, vec, tc))
+    return (int)cudaErrorInvalidValue;
+  const int nbox = b * n;
+  if (nbox == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const int8_t*>(fq);
+  const auto* bx = static_cast<const float*>(boxes);
+  const auto* rt = static_cast<const float*>(ratio);
+  auto* o = static_cast<int8_t*>(out);
+  cudaError_t err = cudaSuccess;
+  auto launch = [&](auto kernel) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return;
+    kernel<<<std::min(blocks, nbox), threads, smem, st>>>(
+        f, bx, rt, o, h, w, c, n, nbox, p, sampling_ratio, scale);
+    err = cudaGetLastError();
+  };
+  if (vec == 16)
+    launch(roi_align_int8_kernel<16>);
+  else if (vec == 8)
+    launch(roi_align_int8_kernel<8>);
+  else
+    launch(roi_align_int8_kernel<4>);
+  return (int)err;
 }

@@ -481,6 +481,55 @@ def roi_align_fused(features: torch.Tensor, boxes: torch.Tensor,
 # ------------------------------------------------------------------ int8
 # bins a side the int8 kernel takes (csrc/roi_align_int8.cu: PMAX)
 _INT8_PMAX = 16
+# the int8 kernel's builder warp, and the contracting threads a block it
+# may take, the most first (csrc/roi_align_int8.cu)
+_INT8_BUILDER = 32
+_INT8_THREADS = (128, 64, 32)
+# the C entry roi_align_int8_fwd's argument types
+_INT8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+    [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _int8_axis(lo: torch.Tensor, size: torch.Tensor, pooled: int,
+               sampling_ratio: int, dim: int) -> torch.Tensor:
+    """One axis's interpolation matrix [N, P, dim] (float32) for the int8
+    path, in the int8 kernel's order of operations (``csrc/roi_taps.cuh``:
+    ``bin_taps``, ``tap_weight``): each sample's two hat weights times its
+    sample weight, the samples added in ascending order from zeros. (The
+    float path's ``_interp_matrix`` sums the slots with ``sum(dim=2)``,
+    whose order on CUDA is not ascending, and divides a fixed grid's sum
+    by its size: an ulp apart, which flips int8 steps.)"""
+    dt, dev = lo.dtype, lo.device
+    bin_size = _div(size, pooled)
+    if sampling_ratio > 0:
+        slots = int(sampling_ratio)
+        srn = torch.full_like(bin_size, float(slots))
+        count = srn
+    else:
+        slots = ADAPTIVE_SR_MAX
+        count = torch.clamp(torch.ceil(bin_size), 0.0, float(slots))
+        srn = torch.clamp(count, min=1.0)
+    s = torch.arange(slots, dtype=dt, device=dev)[None, :]
+    pos = (s + 0.5) / srn[:, None]                                 # [N, S]
+    sw = torch.where(s < count[:, None], torch.ones_like(srn)[:, None] /
+                     srn[:, None], torch.zeros_like(pos))          # [N, S]
+    p = torch.arange(pooled, dtype=dt, device=dev)[None, :, None]
+    coords = lo[:, None, None] + (p + pos[:, None, :]) * \
+        bin_size[:, None, None]                                    # [N, P, S]
+    outside = (coords < -1.0) | (coords > dim)
+    c = coords.clamp(0.0, dim - 1.0)
+    low = torch.floor(c)
+    frac = c - low
+    high = torch.clamp(low + 1.0, max=dim - 1.0)
+    zero = torch.zeros_like(frac)
+    w_low = torch.where(outside, zero, (1.0 - frac) * sw[:, None, :])
+    w_high = torch.where(outside, zero, frac * sw[:, None, :])
+    grid = torch.arange(dim, dtype=dt, device=dev)
+    k = torch.zeros(coords.shape[:2] + (dim,), dtype=dt, device=dev)
+    for j in range(slots):
+        k = k + w_low[..., j, None] * (low[..., j, None] == grid)
+        k = k + w_high[..., j, None] * (high[..., j, None] == grid)
+    return k
 
 
 def _quantize_rows(k: torch.Tensor):
@@ -503,6 +552,45 @@ def roi_align_batched_quant(features: torch.Tensor, boxes: torch.Tensor,
     out = roi_align_fused(features, boxes, spatial_scale, pooled,
                           sampling_ratio)
     return quantize_per_tensor_static(out, amax)
+
+
+def int8_matrices(boxes: torch.Tensor, ratio: torch.Tensor,
+                  spatial_scale: float, h: int, w: int, pooled: int,
+                  sampling_ratio: int):
+    """The int8 core's matrices from the boxes [B, N, 4], in plain
+    PyTorch: (kyq [B, N, P, H], kxq [B, N, P, W] int8, sx [B, N, P], the
+    rescale ratio * sy [B, N, P]); ``ratio`` = s_f / s_pool, one
+    element. As ``_build_kernels`` then ``_quantize_rows``, with each
+    axis built by ``_int8_axis``."""
+    b, n = boxes.shape[:2]
+    boxes = boxes.float()
+    x0 = boxes[..., 0] * spatial_scale - 0.5
+    y0 = boxes[..., 1] * spatial_scale - 0.5
+    bw = boxes[..., 2] * spatial_scale - 0.5 - x0
+    bh = boxes[..., 3] * spatial_scale - 0.5 - y0
+    x0, y0, bw, bh = (v.reshape(b * n) for v in (x0, y0, bw, bh))
+    ky = _int8_axis(y0, bh, pooled, sampling_ratio, h)
+    kx = _int8_axis(x0, bw, pooled, sampling_ratio, w)
+    kyq, sy = _quantize_rows(ky.reshape(b, n, pooled, h))
+    kxq, sx = _quantize_rows(kx.reshape(b, n, pooled, w))
+    return kyq, kxq, sx, ratio.reshape(()) * sy
+
+
+def int8_operands(features: torch.Tensor, boxes: torch.Tensor,
+                  spatial_scale: float, amax_in: torch.Tensor,
+                  amax_pool: torch.Tensor, pooled: int = 14,
+                  sampling_ratio: int = 0):
+    """The integer core's operands, in the JAX function's order of
+    operations: (fq, kyq, kxq, sx, rescale, s_pool). The interpolation
+    matrices quantized per row (``int8_matrices``), the features per
+    tensor by ``amax_in`` (s_f = amax_in / 127), and rescale = (s_f /
+    s_pool) * sy with s_pool = amax_pool / 127 (each at least 1e-12)."""
+    _, h, w, _ = features.shape
+    s_f, s_pool = _scale_of(amax_in), _scale_of(amax_pool)
+    fq, _ = quantize_per_tensor_static(features, amax_in)
+    kyq, kxq, sx, rescale = int8_matrices(boxes, s_f / s_pool, spatial_scale,
+                                          h, w, pooled, sampling_ratio)
+    return fq, kyq, kxq, sx, rescale, s_pool
 
 
 def roi_align_int8_plain(fq, kyq, kxq, sx, rescale,
@@ -534,73 +622,112 @@ def roi_align_int8_plain(fq, kyq, kxq, sx, rescale,
     return torch.cat(outs, dim=1)
 
 
-def _int8_smem(h: int, w: int, p: int) -> int:
+def roi_align_int8_boxes_plain(fq, boxes, ratio, spatial_scale: float,
+                               pooled: int = 14,
+                               sampling_ratio: int = 0) -> torch.Tensor:
+    """The op ``locov::roi_align_int8`` in plain PyTorch: the matrices
+    (``int8_matrices``), then the integer core (``roi_align_int8_plain``)."""
+    _, h, w, _ = fq.shape
+    return roi_align_int8_plain(fq, *int8_matrices(
+        boxes, ratio, spatial_scale, h, w, pooled, sampling_ratio))
+
+
+def _int8_smem(h: int, w: int, vec: int, threads: int) -> int:
     """Dynamic shared memory of an int8 kernel block, counted as
-    ``smem_bytes`` of ``csrc/roi_align_int8.cu`` counts it: the box's Ky
-    and Kx rows (rounded up to 16 bytes), the column ranges and two
-    scales of 16 bins, the bin ranges of the h rows and the row range."""
-    return -(-p * (h + w) // 16) * 16 + 4 * (4 * _INT8_PMAX + 2 * h + 2)
+    ``smem_bytes`` of ``csrc/roi_align_int8.cu`` counts it: two boxes'
+    operands (their matrices' rows of w and h bytes rounded up to 4, for
+    16 bins, rounded up to 16 bytes; six words a bin and four more), and
+    the tq rows (h rounded up to 4) of ``vec`` channels for each of the
+    ``threads`` contracting threads."""
+    r4 = lambda x: -(-x // 4) * 4  # noqa: E731
+    ops = -(-_INT8_PMAX * (r4(w) + r4(h)) // 16) * 16 + \
+        4 * (6 * _INT8_PMAX + 4)
+    return 2 * ops + threads * r4(h) * vec
 
 
-def _check_int8_args(fq, kyq, kxq, sx, rescale) -> None:
-    if fq.dim() != 4 or kyq.dim() != 4 or kxq.dim() != 4:
-        raise ValueError(f"roi_align_int8: fq {tuple(fq.shape)}, kyq "
-                         f"{tuple(kyq.shape)}, kxq {tuple(kxq.shape)}")
-    b, h, w, _ = fq.shape
-    n, p = kyq.shape[1], kyq.shape[2]
-    if tuple(kyq.shape) != (b, n, p, h) or \
-            tuple(kxq.shape) != (b, n, p, w) or \
-            tuple(sx.shape) != (b, n, p) or \
-            tuple(rescale.shape) != (b, n, p):
-        raise ValueError(
-            f"roi_align_int8: fq {tuple(fq.shape)}, kyq {tuple(kyq.shape)},"
-            f" kxq {tuple(kxq.shape)}, sx {tuple(sx.shape)}, rescale "
-            f"{tuple(rescale.shape)}")
-
-
-def _launch_int8(fq, kyq, kxq, sx, rescale,
-                 fill: int = None) -> torch.Tensor:
-    """One launch of the int8 kernel (no launch count). ``fill``: a value
-    the output holds before the launch."""
-    for t, what, dts in ((fq, "fq", {torch.int8}), (kyq, "kyq", {torch.int8}),
-                         (kxq, "kxq", {torch.int8}),
-                         (sx, "sx", {torch.float32}),
-                         (rescale, "rescale", {torch.float32})):
-        kernel_lib.check_cuda_tensor(t, f"roi_align_int8 {what}", dts)
-    _check_int8_args(fq, kyq, kxq, sx, rescale)
-    if len({t.device for t in (fq, kyq, kxq, sx, rescale)}) != 1:
-        raise ValueError("roi_align_int8: tensors on several devices")
-    b, h, w, c = fq.shape
-    n, p = kyq.shape[1], kyq.shape[2]
-    if p > _INT8_PMAX or c % 4 or fq.data_ptr() % 4:
+def _int8_plan(h: int, w: int, c: int, pooled: int = 14,
+               align: int = 16) -> dict:
+    """Launch plan of the int8 kernel for int8 features [*, h, w, c] whose
+    address is a multiple of ``align`` bytes: the channels a thread
+    takes (16 where c and the address allow it, else 8, else 4), the
+    contracting threads a block (the most of ``_INT8_THREADS`` with
+    which two blocks share an SM, else one fits, and no more than the
+    (bin column, channel vector) items need), the blocks an SM and the
+    dynamic shared memory. Raises where that does not fit a block."""
+    if pooled > _INT8_PMAX or c % 4 or align % 4:
         raise ValueError(f"roi_align_int8: the kernel takes pooled <= "
                          f"{_INT8_PMAX} and 4-byte aligned features of C a "
-                         f"multiple of 4, got pooled {p}, C {c}")
-    if _int8_smem(h, w, p) > _SMEM_MAX:
-        raise ValueError(f"roi_align_int8: features {h} x {w} need more "
-                         f"shared memory than a block has")
-    out = torch.empty((b, n, p, p, c), dtype=torch.int8, device=fq.device)
+                         f"multiple of 4, got pooled {pooled}, C {c}")
+    vec = next(v for v in (16, 8, 4) if c % v == 0 and align % v == 0)
+    need = -(-pooled * (c // vec) // 32) * 32
+    for per_sm, limit in ((2, _BWD_SMEM_TWO), (1, _SMEM_MAX)):
+        for threads in _INT8_THREADS:
+            if threads > max(need, 32):
+                continue
+            smem = _int8_smem(h, w, vec, threads)
+            if smem <= limit:
+                return {"vec": vec, "threads": threads + _INT8_BUILDER,
+                        "blocks_per_sm": per_sm, "smem_bytes": smem}
+    raise ValueError(f"roi_align_int8: features {h} x {w} need more "
+                     f"shared memory than a block has")
+
+
+def _check_int8_args(fq, boxes, ratio) -> None:
+    if fq.dim() != 4 or boxes.dim() != 3 or boxes.shape[2] != 4 or \
+            boxes.shape[0] != fq.shape[0] or ratio.numel() != 1:
+        raise ValueError(f"roi_align_int8: fq {tuple(fq.shape)}, boxes "
+                         f"{tuple(boxes.shape)}, ratio {tuple(ratio.shape)}")
+
+
+def _launch_int8(fq, boxes, ratio, spatial_scale: float, pooled: int,
+                 sampling_ratio: int, plan: dict = None,
+                 fill: int = None) -> torch.Tensor:
+    """One launch of the int8 kernel under ``plan`` (by default
+    ``_int8_plan``'s), no launch count. ``fill``: a value the output
+    holds before the launch."""
+    for t, what, dts in ((fq, "fq", {torch.int8}),
+                         (boxes, "boxes", {torch.float32}),
+                         (ratio, "ratio", {torch.float32})):
+        kernel_lib.check_cuda_tensor(t, f"roi_align_int8 {what}", dts)
+    _check_int8_args(fq, boxes, ratio)
+    if len({t.device for t in (fq, boxes, ratio)}) != 1:
+        raise ValueError("roi_align_int8: tensors on several devices")
+    if not 1 <= pooled or sampling_ratio > ADAPTIVE_SR_MAX:
+        raise ValueError(f"roi_align_int8: pooled {pooled}, sampling_ratio "
+                         f"{sampling_ratio} (<= {ADAPTIVE_SR_MAX})")
+    b, h, w, c = fq.shape
+    n = boxes.shape[1]
+    if plan is None:
+        plan = _int8_plan(h, w, c, pooled, _align(fq))
+    out = torch.empty((b, n, pooled, pooled, c), dtype=torch.int8,
+                      device=fq.device)
     if fill is not None:
         out.fill_(fill)
     if out.numel() == 0:
         return out
     fn = kernel_lib.load("roi_align_int8").roi_align_int8_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
+        fn.argtypes = _INT8_ARGTYPES
         fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(fq.device).multi_processor_count
     with torch.cuda.device(fq.device):
-        err = fn(fq.data_ptr(), kyq.data_ptr(), kxq.data_ptr(),
-                 sx.data_ptr(), rescale.data_ptr(), out.data_ptr(), b, h, w,
-                 c, n, p, kernel_lib.stream_ptr(fq.device))
+        err = fn(fq.data_ptr(), boxes.data_ptr(), ratio.data_ptr(),
+                 out.data_ptr(), b, h, w, c, n, pooled, int(sampling_ratio),
+                 float(spatial_scale), plan["vec"], plan["threads"],
+                 sms * plan["blocks_per_sm"], plan["smem_bytes"],
+                 kernel_lib.stream_ptr(fq.device))
     kernel_lib.check_launch(err, "roi_align_int8")
     return out
 
 
-def roi_align_int8_cuda(fq, kyq, kxq, sx, rescale) -> torch.Tensor:
-    """The int8 kernel: contiguous CUDA tensors as ``roi_align_int8_plain``
-    takes them, C a multiple of 4, pooled at most 16."""
-    out = _launch_int8(fq, kyq, kxq, sx, rescale)
+def roi_align_int8_cuda(fq, boxes, ratio, spatial_scale: float,
+                        pooled: int = 14,
+                        sampling_ratio: int = 0) -> torch.Tensor:
+    """The int8 kernel: contiguous CUDA tensors fq int8 [B, H, W, C] (C a
+    multiple of 4), boxes float32 [B, N, 4], ratio float32 (one
+    element); pooled at most 16."""
+    out = _launch_int8(fq, boxes, ratio, spatial_scale, pooled,
+                       sampling_ratio)
     if out.numel():
         kernel_lib.LAUNCHES["roi_align_int8"] += 1
     return out
@@ -608,41 +735,26 @@ def roi_align_int8_cuda(fq, kyq, kxq, sx, rescale) -> torch.Tensor:
 
 @torch.library.custom_op("locov::roi_align_int8", mutates_args=(),
                          device_types="cpu")
-def _roi_align_int8_op(fq: torch.Tensor, kyq: torch.Tensor,
-                       kxq: torch.Tensor, sx: torch.Tensor,
-                       rescale: torch.Tensor) -> torch.Tensor:
-    return roi_align_int8_plain(fq, kyq, kxq, sx, rescale)
+def _roi_align_int8_op(fq: torch.Tensor, boxes: torch.Tensor,
+                       ratio: torch.Tensor, spatial_scale: float,
+                       pooled: int, sampling_ratio: int) -> torch.Tensor:
+    _check_int8_args(fq, boxes, ratio)
+    return roi_align_int8_boxes_plain(fq, boxes, ratio, spatial_scale, pooled,
+                                      sampling_ratio)
 
 
 @_roi_align_int8_op.register_kernel("cuda")
-def _(fq, kyq, kxq, sx, rescale):
-    return roi_align_int8_cuda(fq, kyq, kxq, sx, rescale)
+def _(fq, boxes, ratio, spatial_scale, pooled, sampling_ratio):
+    return roi_align_int8_cuda(fq.contiguous(), boxes.contiguous(),
+                               ratio.contiguous(), spatial_scale, pooled,
+                               sampling_ratio)
 
 
 @_roi_align_int8_op.register_fake
-def _(fq, kyq, kxq, sx, rescale):
-    _check_int8_args(fq, kyq, kxq, sx, rescale)
-    b, n, p = kyq.shape[:3]
-    return fq.new_empty((b, n, p, p, fq.shape[-1]))
-
-
-def int8_operands(features: torch.Tensor, boxes: torch.Tensor,
-                  spatial_scale: float, amax_in: torch.Tensor,
-                  amax_pool: torch.Tensor, pooled: int = 14,
-                  sampling_ratio: int = 0):
-    """The integer core's operands, in the JAX function's order of
-    operations: (fq, kyq, kxq, sx, rescale, s_pool). The interpolation
-    matrices quantized per row, the features per tensor by ``amax_in``
-    (s_f = amax_in / 127), and rescale = (s_f / s_pool) * sy with s_pool
-    = amax_pool / 127 (each at least 1e-12)."""
-    _, h, w, _ = features.shape
-    ky, kx = _build_kernels(boxes.float(), spatial_scale, h, w, pooled,
-                            sampling_ratio)
-    kyq, sy = _quantize_rows(ky)
-    kxq, sx = _quantize_rows(kx)
-    s_f, s_pool = _scale_of(amax_in), _scale_of(amax_pool)
-    fq, _ = quantize_per_tensor_static(features, amax_in)
-    return fq, kyq, kxq, sx, (s_f / s_pool) * sy, s_pool
+def _(fq, boxes, ratio, spatial_scale, pooled, sampling_ratio):
+    _check_int8_args(fq, boxes, ratio)
+    b, n = boxes.shape[:2]
+    return fq.new_empty((b, n, pooled, pooled, fq.shape[-1]))
 
 
 def roi_align_batched_int8(features: torch.Tensor, boxes: torch.Tensor,
@@ -653,12 +765,13 @@ def roi_align_batched_int8(features: torch.Tensor, boxes: torch.Tensor,
     contractions int8 x int8 -> int32, the intermediate requantized to
     the features' scale by the row scales of Kx (rows are convex
     weights, so no other statistic is needed), the output rescaled to
-    the pooled tensor's calibrated scale. Returns (q [B, N, P, P, C]
-    int8, scale float32), a drop-in for ``roi_align_batched_quant``."""
-    fq, kyq, kxq, sx, rescale, s_pool = int8_operands(
-        features, boxes, spatial_scale, amax_in, amax_pool, pooled,
-        sampling_ratio)
-    q = torch.ops.locov.roi_align_int8(fq.contiguous(), kyq.contiguous(),
-                                       kxq.contiguous(), sx.contiguous(),
-                                       rescale.contiguous())
+    the pooled tensor's calibrated scale. The features are quantized
+    here (plain); the op ``locov::roi_align_int8`` builds the matrices
+    from the boxes and contracts. Returns (q [B, N, P, P, C] int8, scale
+    float32), a drop-in for ``roi_align_batched_quant``."""
+    s_f, s_pool = _scale_of(amax_in), _scale_of(amax_pool)
+    fq, _ = quantize_per_tensor_static(features, amax_in)
+    q = torch.ops.locov.roi_align_int8(
+        fq.contiguous(), boxes.float().contiguous(), (s_f / s_pool).reshape(1),
+        float(spatial_scale), int(pooled), int(sampling_ratio))
     return q, s_pool

@@ -320,7 +320,10 @@ def _roi_inputs(seed, c=16):
 def test_roi_align_int8_core_matches_jax(sampling_ratio, chunk):
     """The integer core fed JAX's own int8 matrices, row scales and
     quantized features returns JAX's int8 output bit for bit, whatever
-    its box chunk (the port's plain core takes other chunks too)."""
+    its box chunk (the port's plain core takes other chunks too); the op,
+    which builds its matrices from the boxes, does too on JAX's quantized
+    features (the matrices are JAX's at these ratios:
+    ``test_roi_align_int8_matrices_match_jax``)."""
     feat, boxes = _roi_inputs(sampling_ratio * 10 + chunk)
     amax_in = np.float32(np.abs(feat).max() * 0.9)
     amax_pool = np.float32(np.abs(feat).max() * 0.5)
@@ -334,7 +337,8 @@ def test_roi_align_int8_core_matches_jax(sampling_ratio, chunk):
     kxq, sx = jra._quantize_rows(kx)
     fq, s_f = jq.quantize_per_tensor_static(jnp.asarray(feat),
                                             jnp.asarray(amax_in))
-    rescale = (t(np.asarray(s_f)) / t(np.asarray(s_pool))) * t(np.asarray(sy))
+    ratio = t(np.asarray(s_f)) / t(np.asarray(s_pool))
+    rescale = ratio * t(np.asarray(sy))
     for pc in (chunk, 3):
         got = tra.roi_align_int8_plain(t(np.asarray(fq)), t(np.asarray(kyq)),
                                        t(np.asarray(kxq)), t(np.asarray(sx)),
@@ -342,10 +346,64 @@ def test_roi_align_int8_core_matches_jax(sampling_ratio, chunk):
         assert got.dtype == torch.int8
         np.testing.assert_array_equal(n(got), np.asarray(want))
     got = torch.ops.locov.roi_align_int8(
-        t(np.asarray(fq)), t(np.asarray(kyq)), t(np.asarray(kxq)),
-        t(np.asarray(sx)), rescale)
+        t(np.asarray(fq)), t(boxes), ratio.reshape(1), 0.25, 7,
+        sampling_ratio)
     np.testing.assert_array_equal(n(got), np.asarray(want))
     assert (np.abs(np.asarray(want)) > 50).any()
+
+
+# sampling ratio -> the largest number of row scales (sx and the rescale)
+# that differ from JAX's, by at most two float32 ulps, over the four seeds
+MATRIX_CASES = {0: 0, 2: 0, 3: 86}
+
+
+@pytest.mark.parametrize("sampling_ratio", sorted(MATRIX_CASES))
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_roi_align_int8_matrices_match_jax(sampling_ratio, seed):
+    """The int8 path's own builder (``int8_matrices``: each bin's samples
+    added in ascending order, as the kernel adds them) against JAX's
+    ``_quantize_rows(_build_kernels(...))``: the same int8 matrices. The
+    row scales are JAX's bits under adaptive sampling and at a fixed ratio
+    of 2; at a fixed ratio of 3 JAX averages the samples' sum (divides it
+    by 3) where the port weighs each sample by 1/3 (the float kernels'
+    tap code), which moves some row maxima, so their scales, by up to two
+    ulps; no int8 weight moved."""
+    _, boxes = _roi_inputs(seed)
+    ky, kx = jra._build_kernels(jnp.asarray(boxes), 0.25, 24, 28, 7,
+                                sampling_ratio)
+    kyq, sy = jra._quantize_rows(ky)
+    kxq, sx = jra._quantize_rows(kx)
+    ratio = torch.tensor([0.7])
+    tkyq, tkxq, tsx, trs = tra.int8_matrices(t(boxes), ratio, 0.25, 24, 28,
+                                             7, sampling_ratio)
+    np.testing.assert_array_equal(n(tkyq), np.asarray(kyq))
+    np.testing.assert_array_equal(n(tkxq), np.asarray(kxq))
+    want_rs = n(ratio.reshape(()) * t(np.asarray(sy)))
+    moved = 0
+    for got, want in ((n(tsx), np.asarray(sx)), (n(trs), want_rs)):
+        np.testing.assert_array_max_ulp(got, want, maxulp=2)
+        moved += int((got != want).sum())
+    assert moved <= MATRIX_CASES[sampling_ratio]
+
+
+@pytest.mark.parametrize("sampling_ratio", [0, 2, 3])
+def test_roi_align_int8_op_is_operands_then_core(sampling_ratio):
+    """``locov::roi_align_int8`` on the CPU is ``int8_operands`` followed by
+    the integer core ``roi_align_int8_plain``, bit for bit."""
+    feat, boxes = _roi_inputs(21 + sampling_ratio)
+    ft, bt = t(feat), t(boxes)
+    amax_in, amax_pool = ft.abs().amax(), ft.abs().amax() * 0.5
+    fq, kyq, kxq, sx, rescale, s_pool = tra.int8_operands(
+        ft, bt, 0.25, amax_in, amax_pool, 7, sampling_ratio)
+    want = tra.roi_align_int8_plain(fq, kyq, kxq, sx, rescale)
+    ratio = (tq._scale_of(amax_in) / s_pool).reshape(1)
+    got = torch.ops.locov.roi_align_int8(fq, bt, ratio, 0.25, 7,
+                                         sampling_ratio)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    q, scale = tra.roi_align_batched_int8(ft, bt, 0.25, amax_in, amax_pool,
+                                          7, sampling_ratio)
+    assert torch.equal(q, want) and torch.equal(scale, s_pool)
+    assert (want.abs() > 50).any()
 
 
 @pytest.mark.parametrize("sampling_ratio", [0, 2])
@@ -403,41 +461,89 @@ def test_roi_align_int8_within_budget_of_quant(sampling_ratio):
     if sampling_ratio == 0:
         assert (n(q8)[0, 3] == 0).all()
     assert (n(q8)[1, 5] == 0).all()  # outside the image
-    ops = tra.int8_operands(ft, bt, 0.25, amax_in, amax_pool, 7,
-                            sampling_ratio)[:5]
-    torch.library.opcheck(torch.ops.locov.roi_align_int8, ops)
+    fq = tra.int8_operands(ft, bt, 0.25, amax_in, amax_pool, 7,
+                           sampling_ratio)[0]
+    ratio = (tq._scale_of(amax_in) / tq._scale_of(amax_pool)).reshape(1)
+    args = (fq, bt, ratio, 0.25, 7, sampling_ratio)
+    torch.library.opcheck(torch.ops.locov.roi_align_int8, args)
     with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
         fake = torch.ops.locov.roi_align_int8(
-            *(mode.from_tensor(a) for a in ops))
+            *(mode.from_tensor(a) for a in args[:3]), *args[3:])
     assert fake.shape == q8.shape and fake.dtype == torch.int8
 
 
 def test_int8_plans_match_the_kernel_sources():
-    """The int8 ROIAlign wrapper's shared-memory count is the CUDA
-    source's formula (its C entry sets the attribute to it; the wrapper
-    refuses features that would exceed a block's); the conv wrapper's
-    argument types are those of the conv kernel's C entry."""
+    """The int8 ROIAlign wrapper's shared-memory count, bins, builder warp
+    and argument types are the CUDA source's (its C entry refuses a
+    launch whose shared memory differs; the wrapper refuses features that
+    would exceed a block's); the conv wrapper's argument types are those
+    of the conv kernel's C entry."""
     import ctypes
     import re
     from locov_torch.ops import kernel_lib
+
+    def c_entry_kinds(src, name):
+        params = re.search(r'extern "C" int %s\((.*?)\)' % name, src,
+                           re.S).group(1).split(",")
+        kinds = [{"int": ctypes.c_int, "float": ctypes.c_float}.get(
+            p.split()[0], ctypes.c_void_p) for p in params]
+        assert all("*" in p for p, k in zip(params, kinds)
+                   if k is ctypes.c_void_p)
+        return kinds
+
     with open(f"{kernel_lib.CSRC}/roi_align_int8.cu") as f:
         src = f.read()
-    body = re.search(r"static int smem_bytes\(int h, int w, int p\) "
-                     r"\{\s*return (.*?);\s*\}", src, re.S).group(1)
-    pmax = int(re.search(r"constexpr int PMAX = (\d+);", src).group(1))
-    assert pmax == tra._INT8_PMAX
-    for h, w, p in ((50, 84, 14), (84, 50, 14), (250, 7, 7), (1, 1, 16)):
-        want = eval(body.replace("/", "//"), {"PMAX": pmax, "h": h, "w": w,
-                                              "p": p})
-        assert tra._int8_smem(h, w, p) == want
+
+    def body(sig):
+        return " ".join(re.search(re.escape(sig) +
+                                  r"\s*\{\s*return (.*?);\s*\}",
+                                  src, re.S).group(1).split())
+    consts = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+              for k in ("PMAX", "BUILDER")}
+    assert consts["PMAX"] == tra._INT8_PMAX
+    assert consts["BUILDER"] == tra._INT8_BUILDER
+    env = dict(consts, round_up=lambda x, m: -(-x // m) * m)
+    ops = body("inline int ops_bytes(int h, int w)")
+    env["ops_bytes"] = lambda h, w: eval(ops, dict(env, h=h, w=w))
+    smem = body("static int smem_bytes(int h, int w, int vec, int tc)")
+    for h, w in ((50, 84), (84, 50), (250, 7), (1, 1), (7, 9)):
+        for vec in (16, 8, 4):
+            for tc in tra._INT8_THREADS:
+                want = eval(smem, dict(env, h=h, w=w, vec=vec, tc=tc))
+                assert tra._int8_smem(h, w, vec, tc) == want
+    assert c_entry_kinds(src, "roi_align_int8_fwd") == tra._INT8_ARGTYPES
+    plan = tra._int8_plan(50, 84, 1024)
+    assert plan["vec"] == 16 and plan["blocks_per_sm"] == 2
+    assert tra._int8_plan(50, 84, 1024, align=8)["vec"] == 8
+    assert tra._int8_plan(7, 9, 4)["threads"] == 32 + tra._INT8_BUILDER
+    with pytest.raises(ValueError, match="pooled <= 16"):
+        tra._int8_plan(50, 84, 1024, pooled=17)
     with open(f"{kernel_lib.CSRC}/conv_int8.cu") as f:
         src = f.read()
-    params = re.search(r'extern "C" int conv_int8_fwd\((.*?)\)', src,
-                       re.S).group(1).split(",")
-    kinds = [ctypes.c_int if p.split()[0] == "int" else ctypes.c_void_p
-             for p in params]
-    assert all("*" in p for p, k in zip(params, kinds)
-               if k is ctypes.c_void_p)
-    assert kinds == tq._ARGTYPES
+    assert c_entry_kinds(src, "conv_int8_fwd") == tq._ARGTYPES
     assert "conv_int8" in kernel_lib.KERNELS
     assert "roi_align_int8" in kernel_lib.KERNELS
+
+
+def test_kq2_ablations_apply_to_the_source(tmp_path, monkeypatch):
+    """Each change and cut of tools/ablate_roi_int8.py names text that
+    KQ2's source holds once, so a copy with it applied can be built; its
+    plans are launch plans the C entry takes."""
+    from locov_torch.ops import kernel_lib
+    from locov_torch.tools import ablate_roi_int8 as ab
+    monkeypatch.setattr(kernel_lib, "BUILD_DIR",
+                        str(tmp_path / "build" / "kernels"))
+    for name, subs in {**ab.CHANGES, **ab.CUTS}.items():
+        src = ab.write_variant(name, subs)
+        assert src.startswith(str(tmp_path))
+        with open(src) as f:
+            text = f.read()
+        assert all(new in text for _, new in subs)
+    for spec in ("128x16", "64x16", "128x8", "64x8"):
+        plan = ab.plan_of(spec, 50, 84, 1024)
+        threads, vec = (int(v) for v in spec.split("x"))
+        assert plan["threads"] == threads + tra._INT8_BUILDER
+        assert plan["smem_bytes"] == tra._int8_smem(50, 84, vec, threads)
+        assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= 233472
+    assert ab.plan_of("128x16", 50, 84, 1024) == tra._int8_plan(50, 84, 1024)
+    assert ab.plan_of("one_box", 50, 84, 1024)["one_box"]

@@ -33,11 +33,12 @@ another order, one rounding), plus 1e-5 * (|x| conv |w| + |shift|), the
 float32 sum-order bound, which exceeds a bfloat16 ulp of an output
 close to 0; its gradient within 1e-5 of the largest
 value (plus one bfloat16 ulp in bfloat16) of autograd of the plain conv.
-The int8 convolution (KQ1) and the int8 ROIAlign core (KQ2) bit-exact
-against their plain versions (integer sums, the same float32 epilogue
-operations), into a NaN-filled or otherwise filled output, at odd shapes
-(M and O not multiples of the tile, C past a k step, zero-area and
-outside boxes); the tiny int8 model on the card against the CPU by
+The int8 convolution (KQ1) and the int8 ROIAlign (KQ2: its matrices
+built from the boxes, then both contractions) bit-exact against their
+plain versions (integer sums, the same float32 operations in the same
+order), into a NaN-filled or otherwise filled output, at odd shapes
+(M and O not multiples of the tile, C past a k step, zero-area, outside,
+tiny and whole-image boxes); the tiny int8 model on the card against the CPU by
 matched detections (a stem output an ulp apart can move an int8
 rounding by a step: scores within 5e-3). The serving program split over
 two cards gives the one-card program's bits on each half of the
@@ -573,6 +574,26 @@ def test_conv_int8_rejects_bad_inputs(cuda):
         iq.conv_int8_cuda(xq.cpu(), wq, one, one, 1, 0, False)
 
 
+def _int8_roi_same(f, bx, sr, pooled):
+    """KQ2 (``locov::roi_align_int8`` on the card) against its plain
+    version on the same inputs, into an output filled with 77 and again
+    through the counted wrapper: the same bits. Returns the output."""
+    fa = f.abs().amax()
+    fq, kyq, kxq, sx, rescale, s_pool = roi_mod.int8_operands(
+        f, bx, 1 / 16, fa, fa * 0.6, pooled, sr)
+    ratio = (iq._scale_of(fa) / s_pool).reshape(1)
+    want = roi_mod.roi_align_int8_plain(fq, kyq, kxq, sx, rescale)
+    got = roi_mod._launch_int8(fq, bx, ratio, 1 / 16, pooled, sr, fill=77)
+    assert torch.equal(got, want)
+    before = kernel_lib.LAUNCHES["roi_align_int8"]
+    again = roi_mod.roi_align_int8_cuda(fq, bx, ratio, 1 / 16, pooled, sr)
+    assert torch.equal(again, want)
+    assert kernel_lib.LAUNCHES["roi_align_int8"] == before + 1
+    assert torch.equal(torch.ops.locov.roi_align_int8(fq, bx, ratio, 1 / 16,
+                                                      pooled, sr), want)
+    return got
+
+
 @pytest.mark.parametrize("sr,pooled,c,h,w,n", [
     (0, 14, 1024, 50, 84, 100), (2, 7, 16, 24, 28, 25),
     (0, 14, 64, 84, 50, 40), (0, 16, 4, 7, 9, 9)])
@@ -581,18 +602,30 @@ def test_roi_align_int8_bit_exact(cuda, sr, pooled, c, h, w, n):
     bx = _boxes(cuda, 2, n, h * 16, w * 16)
     bx[0, 3] = 10.0  # zero-area
     bx[1, 2] = torch.tensor([-90.0, -40.0, -20.0, -5.0], device="cuda")
-    amax_in = f.abs().amax()
-    ops = roi_mod.int8_operands(f, bx, 1 / 16, amax_in, amax_in * 0.6,
-                                pooled, sr)[:5]
-    got = roi_mod._launch_int8(*ops, fill=77)
-    want = roi_mod.roi_align_int8_plain(*ops)
-    assert torch.equal(got, want)
+    got = _int8_roi_same(f, bx, sr, pooled)
     assert (got[1, 2] == 0).all() and (got.abs() > 60).any()
     if sr == 0:
         assert (got[0, 3] == 0).all()
-    before = kernel_lib.LAUNCHES["roi_align_int8"]
-    assert torch.equal(roi_mod.roi_align_int8_cuda(*ops), want)
-    assert kernel_lib.LAUNCHES["roi_align_int8"] == before + 1
+
+
+@pytest.mark.parametrize("kind", ["tiny", "whole_image"])
+def test_roi_align_int8_bit_exact_tiny_and_whole_image(cuda, kind):
+    """Tiny boxes (bins under one cell: many bins share a feature row)
+    and boxes covering the whole image and more (the adaptive grid capped
+    at 8 samples, every column in a span), at the static path's feature
+    size."""
+    h, w = 50, 84
+    f = torch.randn((2, h, w, 256), generator=cuda, device="cuda") * 3
+    u = torch.rand((2, 64, 4), generator=cuda, device="cuda")
+    size = torch.tensor([w * 16.0, h * 16.0], device="cuda")
+    if kind == "tiny":
+        lo = u[..., :2] * (size - 150)
+        bx = torch.cat([lo, lo + 2 + u[..., 2:] * 148], -1)
+    else:
+        bx = torch.cat([-u[..., :2] * size, size * (1 + u[..., 2:])], -1)
+        bx[:, 0] = torch.tensor([0.0, 0.0, w * 16.0, h * 16.0])
+    got = _int8_roi_same(f, bx.contiguous(), 0, 14)
+    assert (got.abs() > 30).any()
 
 
 def _matched(cpu, gpu, score_tol, box_tol):
@@ -930,9 +963,12 @@ def _op_cases(gen):
                       "conv_int8"),
         "conv_int8_fused": ((xq, wq, qs, qh, 2, 1, True, qr, qa, True),
                             iq.conv_int8_op_plain, "conv_int8"),
-        "roi_align_int8": (roi_mod.int8_operands(f, bx, 1 / 16, fa,
-                                                 fa * 0.5, 14, 0)[:5],
-                           roi_mod.roi_align_int8_plain, "roi_align_int8"),
+        "roi_align_int8": ((roi_mod.int8_operands(f, bx, 1 / 16, fa,
+                                                  fa * 0.5, 14, 0)[0], bx,
+                            (iq._scale_of(fa) / iq._scale_of(fa * 0.5)
+                             ).reshape(1), 1 / 16, 14, 0),
+                           roi_mod.roi_align_int8_boxes_plain,
+                           "roi_align_int8"),
         "nms_mask": ((nb, ns, nv, 0.5, 100, nc),
                      lambda *a: nms_mod.nms_mask_batched(
                          *(t.cpu() if torch.is_tensor(t) else t

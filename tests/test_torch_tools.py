@@ -36,6 +36,7 @@ from locov_tpu.structures.batches import DetectionBatch as JBatch
 from locov_tpu.structures.batches import ImageBatch as JImages
 from locov_tpu.utils.checkpoint import Checkpointer as JCheckpointer
 from locov_tpu.utils.checkpoint import unflatten_params
+from locov_torch.config import get_cfg as tget_cfg
 from locov_torch.data.synthetic import make_micro_coco
 from locov_torch.data.tokenization import build_tiny_vocab
 from locov_torch.tools import (coco_bert_embeddings, demo, export_serving,
@@ -72,8 +73,11 @@ def _tree(root):
     return out
 
 
-@pytest.mark.parametrize("arch", ["OvrRCNN", "DistillProposalMMSSRCNN"])
+@pytest.mark.parametrize("arch", ["OvrRCNN", "DistillProposalMMSSRCNN",
+                                  "MMSSGridModel", "DistillMMSSGridModel"])
 def test_make_synthetic_dataset_byte_equal(tmp_path, monkeypatch, arch):
+    """Every ``--arch`` writes JAX's tool's files, and its ``micro.yaml``
+    merges into the port's config."""
     out = str(tmp_path / "demo")
     argv = ["--out", out, "--n-train", "3", "--n-val", "2", "--seed", "5",
             "--arch", arch]
@@ -86,6 +90,9 @@ def test_make_synthetic_dataset_byte_equal(tmp_path, monkeypatch, arch):
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k] == want[k], k
+    cfg = tget_cfg()
+    cfg.merge_from_file(os.path.join(out, "micro.yaml"))
+    assert cfg.MODEL.META_ARCHITECTURE == arch
 
 
 def test_convert_annotations_byte_equal(tmp_path, monkeypatch):
