@@ -21,31 +21,37 @@
 // Exactness: zero weights add exactly 0, so skipping them leaves the
 // integers of the dense einsums. A row of kxq or kyq holds at most
 // 2 * SR_MAX non-zeros (two taps a sample), so |t|, |r| <= 16 * 127 * 127
-// < 2^22: f32(t) is exact, and is formed as the float 1.5 * 2^23 + t less
-// 1.5 * 2^23; rint(v) of |v| <= 127 is the low byte of 1.5 * 2^23 + v.
+// < 2^22: the sums start from the bits of the float 1.5 * 2^23, so that
+// they end as the float 1.5 * 2^23 + t, and less 1.5 * 2^23 that is
+// f32(t), exact; rint(v) of |v| <= 127 is the low byte of 1.5 * 2^23 + v.
 //
 // Bound on the H100: bytes. The int8 output [8, 1000, 14, 14, 1024] is
 // 1.6 GB, 0.48 ms at 3.35 TB/s, against the features' 34 MB, which the
 // 50 MB L2 holds.
 //
-// Design: persistent blocks, each walking the boxes k, k + grid, ... in
-// index order, so that all blocks work on one image's features at a
-// time and those stay in L2. A block's last warp builds the next box's
-// quantized matrices, their non-zero spans and its scales into the other
-// of two shared buffers while the other warps contract the current box;
-// one barrier a box. A contracting thread takes a (bin column q, vector
-// of VEC channels) at a time, VEC = 16 where the channels allow it, and
-// for it:
+// Design: one block a box, the boxes in index order, so that the blocks
+// in flight work on one image's features, which stay in L2. The block's
+// first two warps build the box's quantized matrices (one axis each),
+// their non-zero spans and its scales into shared memory (one barrier),
+// then every thread
+// takes a (bin column q, vector of VEC channels) at a time, VEC = 16
+// where the channels allow it, and for it:
 //   (a) for each group of four feature rows that some Ky row weighs on,
 //       t over q's column span, as one __dp4a a column, row and 4
 //       channels (the feature word against the weight in one byte
-//       lane), the four rows' loads in flight together; rounded to tq
-//       and packed four rows to a word a channel into the thread's own
-//       part of shared memory (no barrier: no other thread reads it);
+//       lane), two columns of the four rows in flight at once; rounded
+//       to tq and packed four rows to a word a channel into the thread's
+//       own part of shared memory (no barrier: no other thread reads
+//       it);
 //   (b) for each bin p, r over the words of p's row span only, one
 //       __dp4a for 4 rows (kyq's rows are row-contiguous in shared
 //       memory), rounded and stored as one VEC-byte streaming store
 //       (st.global.cs), so that the output does not evict the features.
+// The tq rows (h x VEC bytes a thread) bound the blocks an SM: two of
+// 128 threads at h = 50. Persistent blocks walking the boxes, a warp
+// building the next box while the others contract (this file at the
+// commit before), ran 14% slower: with the boxes dealt out in turn,
+// the blocks that drew the large boxes finished last.
 #include <stdint.h>
 
 #include <algorithm>
@@ -65,15 +71,15 @@ using locov::tap_span;
 using locov::tap_weight;
 
 constexpr int PMAX = 16;  // bins a side the kernel takes
-constexpr int BUILDER = 32;  // the warp that builds the next box
 
 // 1.5 * 2^23: integers below 2^22 in magnitude sit in its mantissa.
 constexpr float MAGIC = 12582912.0f;
 constexpr int MAGIC_BITS = 0x4B400000;
 
-// clip(rint(f32(t) * s), -127, 127) in the low byte, for |t| < 2^22.
-__device__ __forceinline__ unsigned q8(int t, float s) {
-  float v = __fmul_rn(__fsub_rn(__int_as_float(t + MAGIC_BITS), MAGIC), s);
+// clip(rint(f32(t) * s), -127, 127) in the low byte, for |t| < 2^22
+// given as MAGIC_BITS + t (the sums start from MAGIC_BITS).
+__device__ __forceinline__ unsigned q8(int biased_t, float s) {
+  float v = __fmul_rn(__fsub_rn(__int_as_float(biased_t), MAGIC), s);
   v = fminf(fmaxf(v, -127.0f), 127.0f);
   return __float_as_uint(__fadd_rn(v, MAGIC));
 }
@@ -86,8 +92,7 @@ __device__ __forceinline__ int dot4(int a, int b, int acc) {
 // One box's operands in shared memory: its quantized matrices (rows of
 // wp and hp bytes, zero outside their span; hp a multiple of 4), the
 // non-zero span of each row, the row scales of Kx and the rescale of Ky,
-// and a summary (box index, or -1 when the block has none left; the
-// rows [ya, yb] that some Ky row weighs on).
+// and the rows [ya, yb] that some Ky row weighs on.
 struct BoxOps {
   int8_t* kx;  // [PMAX][wp]
   int8_t* ky;  // [PMAX][hp]
@@ -95,7 +100,7 @@ struct BoxOps {
   int2* yspan;  // [PMAX]
   float* sx;    // [PMAX]
   float* rs;    // [PMAX]
-  int* meta;    // box, ya, yb
+  int* meta;    // ya, yb
 };
 
 __host__ __device__ inline int round_up(int x, int m) {
@@ -121,27 +126,21 @@ __device__ __forceinline__ BoxOps ops_at(uint8_t* base, int h, int w) {
   return s;
 }
 
-// By the builder warp: box bi's operands into `s` (lane j < p: Ky row j,
-// p <= j < 2p: Kx row j - p), or the end mark when bi is past the last.
-__device__ __forceinline__ void build_box(const float* boxes, int bi,
-                                          int nbox, int h, int w, int p,
-                                          int ratio_s, float scale,
-                                          float ratio, int lane, BoxOps s) {
-  if (bi >= nbox) {
-    if (lane == 0) s.meta[0] = -1;
-    return;
-  }
+// By one warp: one axis of box bi's operands into `s` (lane j < p: Ky
+// row j, or Kx row j), and for Ky the rows it weighs on.
+__device__ __forceinline__ void build_axis(const float* boxes, int bi,
+                                           bool y, int h, int w, int p,
+                                           int ratio_s, float scale,
+                                           float ratio, int lane, BoxOps s) {
   const Box bx = load_box(boxes + (long long)bi * 4, scale);
-  int ya = h, yb = -1;
-  if (lane < 2 * p) {
-    const bool y = lane < p;
-    const int bin = y ? lane : lane - p;
-    const int dim = y ? h : w;
+  const int dim = y ? h : w;
+  int lo = dim, hi = -1;
+  if (lane < p) {
     const int stride = round_up(dim, 4);
-    int8_t* row = (y ? s.ky : s.kx) + bin * stride;
+    int8_t* row = (y ? s.ky : s.kx) + lane * stride;
     Tap taps[SR_MAX];
     const int nt = bin_taps(y ? bx.y0 : bx.x0, y ? bx.bh : bx.bw, p,
-                            ratio_s, bin, dim, taps);
+                            ratio_s, lane, dim, taps);
     const int2 span = tap_span(taps, nt, dim);
     float amax = 0.0f;
     for (int i = span.x; i <= span.y; ++i)
@@ -149,10 +148,8 @@ __device__ __forceinline__ void build_box(const float* boxes, int bi,
     const float rs = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
     for (int i = 0; i < stride / 4; ++i)
       reinterpret_cast<int*>(row)[i] = 0;
-    int lo = dim, hi = -1;
     for (int i = span.x; i <= span.y; ++i) {
-      const float v =
-          rintf(__fdiv_rn(tap_weight(taps, nt, i), rs));
+      const float v = rintf(__fdiv_rn(tap_weight(taps, nt, i), rs));
       const int qv = (int)fminf(fmaxf(v, -127.0f), 127.0f);
       row[i] = (int8_t)qv;
       if (qv != 0) {
@@ -161,21 +158,20 @@ __device__ __forceinline__ void build_box(const float* boxes, int bi,
       }
     }
     if (y) {
-      s.yspan[bin] = make_int2(lo, hi);
-      s.rs[bin] = __fmul_rn(ratio, rs);
-      ya = lo;
-      yb = hi;
+      s.yspan[lane] = make_int2(lo, hi);
+      s.rs[lane] = __fmul_rn(ratio, rs);
     } else {
-      s.xspan[bin] = make_int2(lo, hi);
-      s.sx[bin] = rs;
+      s.xspan[lane] = make_int2(lo, hi);
+      s.sx[lane] = rs;
     }
   }
-  ya = __reduce_min_sync(0xffffffffu, ya);
-  yb = __reduce_max_sync(0xffffffffu, yb);
-  if (lane == 0) {
-    s.meta[0] = bi;
-    s.meta[1] = ya;
-    s.meta[2] = yb;
+  if (y) {
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      s.meta[0] = lo;
+      s.meta[1] = hi;
+    }
   }
 }
 
@@ -219,171 +215,193 @@ __device__ __forceinline__ void store_stream(int8_t* p, const Words<VEC>& o) {
 // eight 16-byte loads in flight).
 constexpr int XB = 2;
 
-// grid: persistent blocks; block: the contracting threads (a multiple of
-// 32) and the builder warp; dynamic shared memory smem_bytes(h, w, vec,
-// threads - BUILDER).
+// Threads a block may have, and the blocks an SM the kernel is compiled
+// for (its registers: at most 170 a thread).
+constexpr int MAX_THREADS = 128;
+constexpr int MIN_BLOCKS = 3;
+
+// Groups of four tq rows a thread holds, group g in slot g % RING.
+constexpr int RING = 8;
+
+// Phase (a) for one group g of four feature rows of bin column q: tq in
+// pk, row j of the group in byte j of channel e's word (rows outside
+// [ya, yb] are 0). fv: the image's features at the thread's channels.
 template <int VEC>
-__global__ void roi_align_int8_kernel(const int8_t* __restrict__ fq,
-                                      const float* __restrict__ boxes,
-                                      const float* __restrict__ ratio_p,
-                                      int8_t* __restrict__ out, int h, int w,
-                                      int c, int n, int nbox, int p,
-                                      int ratio_s, float scale) {
+__device__ __forceinline__ void group_tq(const int8_t* fv, const int8_t* kx,
+                                         int2 xs, float sxq, int g, int ya,
+                                         int yb, int w, int c,
+                                         int (&pk)[VEC]) {
+  bool valid[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) valid[j] = 4 * g + j >= ya && 4 * g + j <= yb;
+  int t[4][VEC];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) t[j][e] = MAGIC_BITS;
+  const int8_t* fg = fv + (long long)(4 * g) * w * c;
+  for (int x0 = xs.x; x0 <= xs.y; x0 += XB) {
+    Words<VEC> f[4][XB];
+    unsigned kb[XB];
+#pragma unroll
+    for (int u = 0; u < XB; ++u)
+      kb[u] = x0 + u <= xs.y ? (unsigned)(uint8_t)kx[x0 + u] : 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u = 0; u < XB; ++u) {
+        if (valid[j] && x0 + u <= xs.y)
+          f[j][u] = load_words<VEC>(fg + ((long long)j * w + x0 + u) * c);
+        else
+#pragma unroll
+          for (int i = 0; i < VEC / 4; ++i) f[j][u].v[i] = 0;
+      }
+#pragma unroll
+    for (int u = 0; u < XB; ++u)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int k = (int)(kb[u] << (8 * (e % 4)));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          t[j][e] = __dp4a(f[j][u].v[e / 4], k, t[j][e]);
+      }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) pk[e] = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (valid[j])
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        pk[e] = __byte_perm(pk[e], q8(t[j][e], sxq),
+                            0x3210u ^ ((unsigned)(j ^ 4) << (4 * j)));
+}
+
+// grid: one block a box, in index order; block: `threads` (a multiple of
+// 32), whose first two warps build the box's operands before all
+// contract; dynamic shared memory smem_bytes(h, w, vec, threads).
+template <int VEC>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+    roi_align_int8_kernel(const int8_t* __restrict__ fq,
+                          const float* __restrict__ boxes,
+                          const float* __restrict__ ratio,
+                          int8_t* __restrict__ out, int h, int w, int c,
+                          int n, int p, int ratio_s, float scale) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int tc = blockDim.x - BUILDER;  // contracting threads
+  const int tc = blockDim.x;
   const int tid = threadIdx.x;
-  const int obytes = ops_bytes(h, w);
-  // tq of each contracting thread: word (g, channel e) at
-  // tq4[(g * VEC / 4 + e / 4) * tc + tid], element e % 4
-  int4* tq4 = reinterpret_cast<int4*>(smem + 2 * obytes);
+  const int bi = blockIdx.x;  // b * n + i
+  const BoxOps cur = ops_at(smem, h, w);
+  // tq of each thread: word (slot s, channel e) at
+  // tq4[(s * VEC / 4 + e / 4) * tc + tid], element e % 4
+  int4* tq4 = reinterpret_cast<int4*>(smem + ops_bytes(h, w));
+  // warp 0 builds Ky, warp 1 Kx (warp 0 both in a block of one warp)
+  for (int axis = tid >> 5; axis < 2; axis += tc >> 5)
+    build_axis(boxes, bi, axis == 0, h, w, p, ratio_s, scale, *ratio,
+               tid & 31, cur);
+  __syncthreads();
   const int wp = round_up(w, 4), hp = round_up(h, 4);
   const int nv = c / VEC;
-  const bool builder = tid >= tc;
-  const int lane = tid - tc;
-  float ratio = 0.0f;
-  if (builder) {
-    ratio = *ratio_p;
-    build_box(boxes, blockIdx.x, nbox, h, w, p, ratio_s, scale, ratio, lane,
-              ops_at(smem, h, w));
-  }
-  __syncthreads();
-  for (int k = 0;; ++k) {
-    const BoxOps cur = ops_at(smem + (k & 1) * obytes, h, w);
-    const int bi = cur.meta[0];
-    if (bi < 0) break;
-    if (builder) {
-      build_box(boxes, bi + gridDim.x, nbox, h, w, p, ratio_s, scale, ratio,
-                lane, ops_at(smem + ((k + 1) & 1) * obytes, h, w));
-    } else {
-      const int ya = cur.meta[1], yb = cur.meta[2];
-      const int8_t* fimg = fq + (long long)(bi / n) * h * w * c;
-      int8_t* obox = out + (long long)bi * p * p * c;
-      for (int it = tid; it < p * nv; it += tc) {
-        const int q = it / nv, v = it - q * nv;
-        const int2 xs = cur.xspan[q];
-        const float sxq = cur.sx[q];
-        const int8_t* kx = cur.kx + q * wp;
-        const int8_t* fv = fimg + v * VEC;
-        // (a) tq[q, y] for the rows [ya, yb], four rows (a word) at once
-        for (int g = ya >> 2; g <= (yb >> 2) && yb >= 0; ++g) {
-          bool valid[4];
+  const int ya = cur.meta[0], yb = cur.meta[1];
+  const int8_t* fimg = fq + (long long)(bi / n) * h * w * c;
+  int8_t* obox = out + (long long)bi * p * p * c;
+  for (int it = tid; it < p * nv; it += tc) {
+    const int q = it / nv, v = it - q * nv;
+    const int2 xs = cur.xspan[q];
+    const float sxq = cur.sx[q];
+    const int8_t* kx = cur.kx + q * wp;
+    const int8_t* fv = fimg + v * VEC;
+    // tq holds the groups [ga, gb]: computed in ascending order as the
+    // bins reach them, each once, while the bins' spans fit RING groups
+    int ga = 0, gb = -1;
+    for (int pp = 0; pp < p; ++pp) {
+      const int2 ys = cur.yspan[pp];
+      int r[VEC];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            valid[j] = 4 * g + j >= ya && 4 * g + j <= yb;
-          int t[4][VEC];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) t[j][e] = 0;
-          const int8_t* fg = fv + (long long)(4 * g) * w * c;
-          for (int x0 = xs.x; x0 <= xs.y; x0 += XB) {
-            Words<VEC> f[4][XB];
-            unsigned kb[XB];
-#pragma unroll
-            for (int u = 0; u < XB; ++u)
-              kb[u] = x0 + u <= xs.y ? (unsigned)(uint8_t)kx[x0 + u] : 0u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int u = 0; u < XB; ++u) {
-                if (valid[j] && x0 + u <= xs.y)
-                  f[j][u] = load_words<VEC>(
-                      fg + ((long long)j * w + x0 + u) * c);
-                else
-#pragma unroll
-                  for (int i = 0; i < VEC / 4; ++i) f[j][u].v[i] = 0;
-              }
-#pragma unroll
-            for (int u = 0; u < XB; ++u)
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) {
-                const int k = (int)(kb[u] << (8 * (e % 4)));
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                  t[j][e] = __dp4a(f[j][u].v[e / 4], k, t[j][e]);
-              }
-          }
-          // row j of the word in byte j; rows outside [ya, yb] hold 0
+      for (int e = 0; e < VEC; ++e) r[e] = MAGIC_BITS;
+      const int8_t* kyr = cur.ky + pp * hp;
+      const int glo = ys.x >> 2, ghi = ys.y >> 2;
+      if (ys.y >= 0 && ghi - glo < RING) {
+        // (a) the groups of p's rows not computed yet
+        int g = max(gb + 1, glo);
+        if (g > gb + 1) ga = g;
+        for (; g <= ghi; ++g) {
           int pk[VEC];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) pk[e] = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (valid[j])
-#pragma unroll
-              for (int e = 0; e < VEC; ++e)
-                pk[e] = __byte_perm(pk[e], q8(t[j][e], sxq),
-                                    0x3210u ^ ((unsigned)(j ^ 4) << (4 * j)));
+          group_tq<VEC>(fv, kx, xs, sxq, g, ya, yb, w, c, pk);
 #pragma unroll
           for (int i = 0; i < VEC / 4; ++i)
-            tq4[(g * (VEC / 4) + i) * tc + tid] =
+            tq4[((g % RING) * (VEC / 4) + i) * tc + tid] =
                 make_int4(pk[4 * i], pk[4 * i + 1], pk[4 * i + 2],
                           pk[4 * i + 3]);
         }
-        // (b) out[p, q] over p's rows only
-        for (int pp = 0; pp < p; ++pp) {
-          const int2 ys = cur.yspan[pp];
-          int r[VEC];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) r[e] = 0;
-          const int8_t* kyr = cur.ky + pp * hp;
-          for (int g = ys.x >> 2; g <= (ys.y >> 2) && ys.y >= 0; ++g) {
-            const int kw = *reinterpret_cast<const int*>(kyr + 4 * g);
-#pragma unroll
-            for (int i = 0; i < VEC / 4; ++i) {
-              const int4 tw = tq4[(g * (VEC / 4) + i) * tc + tid];
-              r[4 * i] = dot4(tw.x, kw, r[4 * i]);
-              r[4 * i + 1] = dot4(tw.y, kw, r[4 * i + 1]);
-              r[4 * i + 2] = dot4(tw.z, kw, r[4 * i + 2]);
-              r[4 * i + 3] = dot4(tw.w, kw, r[4 * i + 3]);
-            }
-          }
-          const float rs = cur.rs[pp];
-          Words<VEC> o;
+        gb = max(gb, ghi);
+        ga = max(ga, gb - RING + 1);
+      }
+      if (ys.y >= 0 && ghi - glo < RING && glo >= ga) {
+        // (b) r over p's rows, from tq
+        for (int g = glo; g <= ghi; ++g) {
+          const int kw = *reinterpret_cast<const int*>(kyr + 4 * g);
 #pragma unroll
           for (int i = 0; i < VEC / 4; ++i) {
-            const unsigned ab = __byte_perm(q8(r[4 * i], rs),
-                                            q8(r[4 * i + 1], rs), 0x0040);
-            const unsigned cd = __byte_perm(q8(r[4 * i + 2], rs),
-                                            q8(r[4 * i + 3], rs), 0x0040);
-            o.v[i] = (int)__byte_perm(ab, cd, 0x5410);
+            const int4 tw = tq4[((g % RING) * (VEC / 4) + i) * tc + tid];
+            r[4 * i] = dot4(tw.x, kw, r[4 * i]);
+            r[4 * i + 1] = dot4(tw.y, kw, r[4 * i + 1]);
+            r[4 * i + 2] = dot4(tw.z, kw, r[4 * i + 2]);
+            r[4 * i + 3] = dot4(tw.w, kw, r[4 * i + 3]);
           }
-          store_stream<VEC>(obox + ((long long)pp * p + q) * c + v * VEC, o);
+        }
+      } else if (ys.y >= 0) {
+        // a span past RING groups, or groups no longer held: tq
+        // computed again, group by group, for this bin alone
+        for (int g = glo; g <= ghi; ++g) {
+          int pk[VEC];
+          group_tq<VEC>(fv, kx, xs, sxq, g, ya, yb, w, c, pk);
+          const int kw = *reinterpret_cast<const int*>(kyr + 4 * g);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) r[e] = dot4(pk[e], kw, r[e]);
         }
       }
+      const float rs = cur.rs[pp];
+      Words<VEC> o;
+#pragma unroll
+      for (int i = 0; i < VEC / 4; ++i) {
+        const unsigned ab = __byte_perm(q8(r[4 * i], rs),
+                                        q8(r[4 * i + 1], rs), 0x0040);
+        const unsigned cd = __byte_perm(q8(r[4 * i + 2], rs),
+                                        q8(r[4 * i + 3], rs), 0x0040);
+        o.v[i] = (int)__byte_perm(ab, cd, 0x5410);
+      }
+      store_stream<VEC>(obox + ((long long)pp * p + q) * c + v * VEC, o);
     }
-    __syncthreads();
   }
 }
 
 }  // namespace
 
 // Dynamic shared memory of a block, as ops/roi_align.py:_int8_smem counts
-// it: two boxes' operands, and the tq rows (h rounded up to 4) of vec
-// channels for each of the `tc` contracting threads.
-static int smem_bytes(int h, int w, int vec, int tc) {
-  return 2 * ops_bytes(h, w) + tc * round_up(h, 4) * vec;
+// it: the box's operands, and the tq rows (h rounded up to 4, at most
+// RING groups of 4) of vec channels for each of the block's threads.
+static int smem_bytes(int h, int w, int vec, int threads) {
+  return ops_bytes(h, w) +
+         threads * std::min(round_up(h, 4), 4 * RING) * vec;
 }
 
 // fq int8 [b, h, w, c] (c a multiple of vec, the address of vec bytes'
 // alignment), boxes float32 [b, n, 4], ratio float32 [1] (s_f / s_pool),
 // out int8 [b, n, p, p, c]; p <= 16, sampling_ratio <= 8 (0: adaptive).
-// `blocks` persistent blocks of `threads` (the contracting threads and the
-// builder warp) with `smem` bytes, which must be smem_bytes'. Returns the
-// launch's error, or cudaGetLastError() after it.
+// Blocks of `threads` with `smem` bytes, which must be smem_bytes'.
+// Returns the launch's error, or cudaGetLastError() after it.
 extern "C" int roi_align_int8_fwd(const void* fq, const void* boxes,
                                   const void* ratio, void* out, int b, int h,
                                   int w, int c, int n, int p,
                                   int sampling_ratio, float scale, int vec,
-                                  int threads, int blocks, int smem,
-                                  void* stream) {
-  const int tc = threads - BUILDER;
-  if (p < 1 || p > PMAX || sampling_ratio > SR_MAX || tc < 32 ||
-      tc % 32 || blocks < 1 || (vec != 16 && vec != 8 && vec != 4) ||
-      c % vec || smem != smem_bytes(h, w, vec, tc))
+                                  int threads, int smem, void* stream) {
+  if (p < 1 || p > PMAX || sampling_ratio > SR_MAX || threads < 32 ||
+      threads > MAX_THREADS || threads % 32 ||
+      (vec != 16 && vec != 8 && vec != 4) || c % vec ||
+      smem != smem_bytes(h, w, vec, threads))
     return (int)cudaErrorInvalidValue;
-  const int nbox = b * n;
-  if (nbox == 0) return 0;
+  if (b * n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* f = static_cast<const int8_t*>(fq);
   const auto* bx = static_cast<const float*>(boxes);
@@ -394,8 +412,8 @@ extern "C" int roi_align_int8_fwd(const void* fq, const void* boxes,
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return;
-    kernel<<<std::min(blocks, nbox), threads, smem, st>>>(
-        f, bx, rt, o, h, w, c, n, nbox, p, sampling_ratio, scale);
+    kernel<<<b * n, threads, smem, st>>>(f, bx, rt, o, h, w, c, n, p,
+                                         sampling_ratio, scale);
     err = cudaGetLastError();
   };
   if (vec == 16)

@@ -481,13 +481,16 @@ def roi_align_fused(features: torch.Tensor, boxes: torch.Tensor,
 # ------------------------------------------------------------------ int8
 # bins a side the int8 kernel takes (csrc/roi_align_int8.cu: PMAX)
 _INT8_PMAX = 16
-# the int8 kernel's builder warp, and the contracting threads a block it
-# may take, the most first (csrc/roi_align_int8.cu)
-_INT8_BUILDER = 32
+# the threads an int8 kernel block may take, the most first, and the
+# groups of four tq rows a thread holds (csrc/roi_align_int8.cu:
+# MAX_THREADS, RING)
 _INT8_THREADS = (128, 64, 32)
+_INT8_RING = 8
+# shared memory a block may take where three share an SM
+_SMEM_THREE = 233472 // 3 - 1024
 # the C entry roi_align_int8_fwd's argument types
 _INT8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
-    [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _int8_axis(lo: torch.Tensor, size: torch.Tensor, pooled: int,
@@ -632,44 +635,44 @@ def roi_align_int8_boxes_plain(fq, boxes, ratio, spatial_scale: float,
         boxes, ratio, spatial_scale, h, w, pooled, sampling_ratio))
 
 
-def _int8_smem(h: int, w: int, vec: int, threads: int) -> int:
+def _int8_smem(h: int, w: int, vec: int, threads: int,
+               ring: int = _INT8_RING) -> int:
     """Dynamic shared memory of an int8 kernel block, counted as
-    ``smem_bytes`` of ``csrc/roi_align_int8.cu`` counts it: two boxes'
-    operands (their matrices' rows of w and h bytes rounded up to 4, for
-    16 bins, rounded up to 16 bytes; six words a bin and four more), and
-    the tq rows (h rounded up to 4) of ``vec`` channels for each of the
-    ``threads`` contracting threads."""
+    ``smem_bytes`` of ``csrc/roi_align_int8.cu`` counts it: the box's
+    operands (its matrices' rows of w and h bytes rounded up to 4, for 16
+    bins, rounded up to 16 bytes; six words a bin and four more), and the
+    tq rows (h rounded up to 4, at most ``ring`` groups of four) of
+    ``vec`` channels for each of the ``threads``."""
     r4 = lambda x: -(-x // 4) * 4  # noqa: E731
     ops = -(-_INT8_PMAX * (r4(w) + r4(h)) // 16) * 16 + \
         4 * (6 * _INT8_PMAX + 4)
-    return 2 * ops + threads * r4(h) * vec
+    return ops + threads * min(r4(h), 4 * ring) * vec
 
 
 def _int8_plan(h: int, w: int, c: int, pooled: int = 14,
                align: int = 16) -> dict:
-    """Launch plan of the int8 kernel for int8 features [*, h, w, c] whose
-    address is a multiple of ``align`` bytes: the channels a thread
-    takes (16 where c and the address allow it, else 8, else 4), the
-    contracting threads a block (the most of ``_INT8_THREADS`` with
-    which two blocks share an SM, else one fits, and no more than the
-    (bin column, channel vector) items need), the blocks an SM and the
-    dynamic shared memory. Raises where that does not fit a block."""
+    """Launch plan of the int8 kernel (one block a box) for int8 features
+    [*, h, w, c] whose address is a multiple of ``align`` bytes: the
+    channels a thread takes (16 where c and the address allow it, else
+    8, else 4), the threads a block (the most of ``_INT8_THREADS``, no
+    more than the (bin column, channel vector) items need), the blocks
+    an SM its shared memory leaves (3, 2 or 1) and that shared memory.
+    Raises where that does not fit a block."""
     if pooled > _INT8_PMAX or c % 4 or align % 4:
         raise ValueError(f"roi_align_int8: the kernel takes pooled <= "
                          f"{_INT8_PMAX} and 4-byte aligned features of C a "
                          f"multiple of 4, got pooled {pooled}, C {c}")
     vec = next(v for v in (16, 8, 4) if c % v == 0 and align % v == 0)
     need = -(-pooled * (c // vec) // 32) * 32
-    for per_sm, limit in ((2, _BWD_SMEM_TWO), (1, _SMEM_MAX)):
-        for threads in _INT8_THREADS:
-            if threads > max(need, 32):
-                continue
-            smem = _int8_smem(h, w, vec, threads)
-            if smem <= limit:
-                return {"vec": vec, "threads": threads + _INT8_BUILDER,
-                        "blocks_per_sm": per_sm, "smem_bytes": smem}
-    raise ValueError(f"roi_align_int8: features {h} x {w} need more "
-                     f"shared memory than a block has")
+    threads = next(t for t in _INT8_THREADS if t <= max(need, 32))
+    smem = _int8_smem(h, w, vec, threads)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"roi_align_int8: features {h} x {w} need more "
+                         f"shared memory than a block has")
+    per_sm = next(k for k, limit in ((3, _SMEM_THREE), (2, _BWD_SMEM_TWO),
+                                     (1, _SMEM_MAX)) if smem <= limit)
+    return {"vec": vec, "threads": threads, "blocks_per_sm": per_sm,
+            "smem_bytes": smem}
 
 
 def _check_int8_args(fq, boxes, ratio) -> None:
@@ -709,13 +712,11 @@ def _launch_int8(fq, boxes, ratio, spatial_scale: float, pooled: int,
     if fn.argtypes is None:
         fn.argtypes = _INT8_ARGTYPES
         fn.restype = ctypes.c_int
-    sms = torch.cuda.get_device_properties(fq.device).multi_processor_count
     with torch.cuda.device(fq.device):
         err = fn(fq.data_ptr(), boxes.data_ptr(), ratio.data_ptr(),
                  out.data_ptr(), b, h, w, c, n, pooled, int(sampling_ratio),
                  float(spatial_scale), plan["vec"], plan["threads"],
-                 sms * plan["blocks_per_sm"], plan["smem_bytes"],
-                 kernel_lib.stream_ptr(fq.device))
+                 plan["smem_bytes"], kernel_lib.stream_ptr(fq.device))
     kernel_lib.check_launch(err, "roi_align_int8")
     return out
 

@@ -6,21 +6,26 @@ C entry in one process, at the static int8 path's shapes: features [8,
 image the size of RPN proposals, adaptive sampling, pooled 14.
 
     python -m locov_torch.tools.ablate_roi_int8 [--cuts a,b,...]
-        [--plans 128x16,64x16,...] [--reference SRC] [--seed 0]
+        [--plans 128x16,64x16,...] [--reference SRC] [--persistent SRC]
+        [--seed 0]
 
 A change is a text substitution in the source: ``imad`` (phase (b)'s
 four-row products as four multiply-adds of sign-extended bytes, not one
 ``__dp4a``), ``four_columns`` (phase (a) loads four columns of each row
 at once, not two),
-``plain_stores`` (``st.global`` for the output, not ``st.global.cs``).
+``one_builder_warp`` (the first warp builds both matrices, not one
+each of the first two), ``all_rows`` (every tq row of the image held, not
+a ring of 8 groups of four: two blocks an SM, not three), ``plain_stores`` (``st.global`` for the output,
+not ``st.global.cs``).
 These compute KQ2, and each is checked against the plain version. A cut
 computes nonsense; only its time is read: ``stores`` (the output
 computed, stored under a condition never met), ``loads`` (phase (a)'s
 16-byte feature loads replaced by values made from their addresses), ``phase_a`` (no tq
-computed: phase (b) reads what shared memory holds). A plan is
-contracting threads x channels a thread (``_int8_plan``'s members, the
-shared memory and blocks an SM recounted); ``one_box`` launches a block
-a box (no persistent walk). ``--reference`` is an earlier
+computed: each group's words made up). A plan is
+threads x channels a thread (``_int8_plan``'s members, the shared
+memory and blocks an SM recounted). ``--persistent`` is this file's
+persistent form (``git show be32209:locov_torch/csrc/roi_align_int8.cu``
+beside ``roi_taps.cuh``). ``--reference`` is an earlier
 ``csrc/roi_align_int8.cu`` whose C entry took the matrices (the
 parent's), timed with the plain matrix build it needed (the parent's
 form, as ``chip_smoke.py`` times it). The base kernel is timed first
@@ -59,6 +64,12 @@ CHANGES = {
               "    acc += ((a << (24 - i)) >> 24) * ((b << (24 - i)) >> 24);\n"
               "  return acc;")],
     "four_columns": [("constexpr int XB = 2;", "constexpr int XB = 4;")],
+    "one_builder_warp": [("for (int axis = tid >> 5; axis < 2; axis += tc >> 5)",
+                          "for (int axis = 0; axis < 2 && tid < 32; ++axis)")],
+    # every tq row held (16 groups), two blocks an SM: VARIANT_RING
+    "all_rows": [("constexpr int RING = 8;", "constexpr int RING = 16;"),
+                 ("constexpr int MIN_BLOCKS = 3;",
+                  "constexpr int MIN_BLOCKS = 2;")],
     "plain_stores": [("    __stcs(reinterpret_cast<int4*>(p),",
                       "    __stwb(reinterpret_cast<int4*>(p),")],
 }
@@ -67,11 +78,17 @@ CUTS = {
     "loads": [("const int4 x = __ldg(reinterpret_cast<const int4*>(p));",
                "const int4 x = make_int4((int)(size_t)p, (int)((size_t)p >> "
                "4), 1, 2);")],
-    "phase_a": [("        for (int g = ya >> 2; g <= (yb >> 2) && yb >= 0; "
-                 "++g) {\n          bool valid[4];",
-                 "        for (int g = ya >> 2; g < 0; ++g) {\n"
-                 "          bool valid[4];")],
+    "phase_a": [("  bool valid[4];\n#pragma unroll\n  for (int j = 0; j < 4; ++j) "
+                 "valid[j]",
+                 "  if (w > 0) {\n#pragma unroll\n    for (int e = 0; e < VEC; "
+                 "++e) pk[e] = g + e;\n    return;\n  }\n  bool valid[4];\n"
+                 "#pragma unroll\n  for (int j = 0; j < 4; ++j) valid[j]")],
 }
+
+
+# variants that hold another number of tq groups (their plan's shared
+# memory follows)
+VARIANT_RING = {"all_rows": 16}
 
 
 def variant_dir(name: str) -> str:
@@ -117,16 +134,15 @@ def build_all(sources) -> dict:
     return built
 
 
-def plan_of(spec: str, h: int, w: int, c: int) -> dict:
-    """``threads x vec`` as a launch plan (two blocks an SM where the
-    shared memory allows, else one), or ``one_box``: the default plan,
-    one block a box."""
-    if spec == "one_box":
-        return dict(ra._int8_plan(h, w, c, POOLED), one_box=True)
+def plan_of(spec: str, h: int, w: int, ring: int = ra._INT8_RING) -> dict:
+    """``threads x vec`` as a launch plan for a kernel holding ``ring``
+    tq groups (the blocks an SM its shared memory leaves)."""
     threads, vec = (int(v) for v in spec.split("x"))
-    smem = ra._int8_smem(h, w, vec, threads)
-    return {"vec": vec, "threads": threads + ra._INT8_BUILDER,
-            "blocks_per_sm": 2 if smem <= ra._BWD_SMEM_TWO else 1,
+    smem = ra._int8_smem(h, w, vec, threads, ring)
+    per_sm = next(k for k, limit in ((3, ra._SMEM_THREE),
+                                     (2, ra._BWD_SMEM_TWO), (1, 10 ** 9))
+                  if smem <= limit)
+    return {"vec": vec, "threads": threads, "blocks_per_sm": per_sm,
             "smem_bytes": smem}
 
 
@@ -141,16 +157,40 @@ def runner(lib, args, plan):
     n = boxes.shape[1]
     out = torch.empty((b, n, POOLED, POOLED, c), dtype=torch.int8,
                       device=fq.device)
-    sms = torch.cuda.get_device_properties(fq.device).multi_processor_count
-    blocks = b * n if plan.get("one_box") else sms * plan["blocks_per_sm"]
     stream = kernel_lib.stream_ptr(fq.device)
 
     def run():
         err = fn(fq.data_ptr(), boxes.data_ptr(), ratio.data_ptr(),
                  out.data_ptr(), b, h, w, c, n, POOLED, 0, SCALE,
-                 plan["vec"], plan["threads"], blocks, plan["smem_bytes"],
-                 stream)
+                 plan["vec"], plan["threads"], plan["smem_bytes"], stream)
         kernel_lib.check_launch(err, "ablation")
+        return out
+    return run
+
+
+def persistent_runner(lib, args):
+    """The persistent form (``csrc/roi_align_int8.cu`` at commit
+    be32209): 128 contracting threads and a builder warp a block, two
+    blocks an SM walking the boxes; its C entry also takes the blocks,
+    and two boxes' operands in its shared memory."""
+    fn = lib.roi_align_int8_fwd
+    fn.argtypes = ra._INT8_ARGTYPES[:-2] + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fq, boxes, ratio = args
+    b, h, w, c = fq.shape
+    n = boxes.shape[1]
+    ops = ra._int8_smem(h, w, 16, 0)
+    smem = 2 * ops + 128 * (-(-h // 4) * 4) * 16
+    out = torch.empty((b, n, POOLED, POOLED, c), dtype=torch.int8,
+                      device=fq.device)
+    sms = torch.cuda.get_device_properties(fq.device).multi_processor_count
+
+    def run():
+        err = fn(fq.data_ptr(), boxes.data_ptr(), ratio.data_ptr(),
+                 out.data_ptr(), b, h, w, c, n, POOLED, 0, SCALE, 16, 160,
+                 2 * sms, smem, kernel_lib.stream_ptr(fq.device))
+        kernel_lib.check_launch(err, "persistent roi_align_int8")
         return out
     return run
 
@@ -187,12 +227,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--cuts", default=",".join([*CHANGES, *CUTS]),
                     help="comma-separated changes or cuts, of: "
                     + ", ".join([*CHANGES, *CUTS]))
-    ap.add_argument("--plans", default="64x16,128x8,64x8,one_box",
-                    help="contracting threads x channels a thread, or "
-                         "one_box, comma-separated")
+    ap.add_argument("--plans", default="64x16,128x8",
+                    help="threads x channels a thread, comma-separated")
     ap.add_argument("--reference", default=None,
                     help="the parent's roi_align_int8.cu, timed with its "
                          "plain matrix build")
+    ap.add_argument("--persistent", default=None,
+                    help="roi_align_int8.cu at commit be32209 (persistent "
+                         "blocks), beside roi_taps.cuh")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -204,6 +246,8 @@ def main(argv=None) -> dict:
         sources[name] = write_variant(name, {**CHANGES, **CUTS}[name])
     if args.reference:
         sources["parent"] = os.path.abspath(args.reference)
+    if args.persistent:
+        sources["persistent"] = os.path.abspath(args.persistent)
     built = build_all(sources)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -219,13 +263,19 @@ def main(argv=None) -> dict:
     inputs = (fq, boxes, ratio)
     _, h, w, c = fq.shape
     base_plan = ra._int8_plan(h, w, c, POOLED, ra._align(fq))
-    runs = {name: runner(lib, inputs, base_plan)
-            for name, (lib, _) in built.items() if name != "parent"}
+    spec = f"{base_plan['threads']}x{base_plan['vec']}"
+    runs = {name: runner(lib, inputs, plan_of(
+        spec, h, w, VARIANT_RING.get(name, ra._INT8_RING)))
+            for name, (lib, _) in built.items()
+            if name not in ("parent", "persistent")}
     for spec in [p for p in args.plans.split(",") if p]:
         runs["plan_" + spec] = runner(built["base"][0], inputs,
-                                      plan_of(spec, h, w, c))
+                                      plan_of(spec, h, w))
     if "parent" in built:
         runs["parent"] = parent_runner(built["parent"][0], inputs)
+    if "persistent" in built:
+        runs["persistent"] = persistent_runner(built["persistent"][0],
+                                               inputs)
     same = {name: bool(torch.equal(run(), want)) for name, run in
             runs.items() if name not in CUTS}
     ms = {"base": time_ms(runs["base"], device, reps=20)}

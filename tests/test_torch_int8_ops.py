@@ -499,23 +499,27 @@ def test_int8_plans_match_the_kernel_sources():
                                   r"\s*\{\s*return (.*?);\s*\}",
                                   src, re.S).group(1).split())
     consts = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-              for k in ("PMAX", "BUILDER")}
+              for k in ("PMAX", "MAX_THREADS", "RING")}
     assert consts["PMAX"] == tra._INT8_PMAX
-    assert consts["BUILDER"] == tra._INT8_BUILDER
+    assert consts["MAX_THREADS"] == max(tra._INT8_THREADS)
+    assert consts["RING"] == tra._INT8_RING
     env = dict(consts, round_up=lambda x, m: -(-x // m) * m)
     ops = body("inline int ops_bytes(int h, int w)")
     env["ops_bytes"] = lambda h, w: eval(ops, dict(env, h=h, w=w))
-    smem = body("static int smem_bytes(int h, int w, int vec, int tc)")
+    smem = body("static int smem_bytes(int h, int w, int vec, int threads)"
+                ).replace("std::min", "min")
     for h, w in ((50, 84), (84, 50), (250, 7), (1, 1), (7, 9)):
         for vec in (16, 8, 4):
             for tc in tra._INT8_THREADS:
-                want = eval(smem, dict(env, h=h, w=w, vec=vec, tc=tc))
+                want = eval(smem, dict(env, h=h, w=w, vec=vec, threads=tc))
                 assert tra._int8_smem(h, w, vec, tc) == want
     assert c_entry_kinds(src, "roi_align_int8_fwd") == tra._INT8_ARGTYPES
     plan = tra._int8_plan(50, 84, 1024)
-    assert plan["vec"] == 16 and plan["blocks_per_sm"] == 2
+    assert plan["vec"] == 16 and plan["threads"] == 128
+    assert plan["blocks_per_sm"] == 3  # 32 tq rows of 16 channels a thread
+    assert tra._int8_smem(84, 50, 16, 128) == plan["smem_bytes"]
     assert tra._int8_plan(50, 84, 1024, align=8)["vec"] == 8
-    assert tra._int8_plan(7, 9, 4)["threads"] == 32 + tra._INT8_BUILDER
+    assert tra._int8_plan(7, 9, 4)["threads"] == 32
     with pytest.raises(ValueError, match="pooled <= 16"):
         tra._int8_plan(50, 84, 1024, pooled=17)
     with open(f"{kernel_lib.CSRC}/conv_int8.cu") as f:
@@ -540,10 +544,9 @@ def test_kq2_ablations_apply_to_the_source(tmp_path, monkeypatch):
             text = f.read()
         assert all(new in text for _, new in subs)
     for spec in ("128x16", "64x16", "128x8", "64x8"):
-        plan = ab.plan_of(spec, 50, 84, 1024)
+        plan = ab.plan_of(spec, 50, 84)
         threads, vec = (int(v) for v in spec.split("x"))
-        assert plan["threads"] == threads + tra._INT8_BUILDER
+        assert plan["threads"] == threads
         assert plan["smem_bytes"] == tra._int8_smem(50, 84, vec, threads)
         assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= 233472
-    assert ab.plan_of("128x16", 50, 84, 1024) == tra._int8_plan(50, 84, 1024)
-    assert ab.plan_of("one_box", 50, 84, 1024)["one_box"]
+    assert ab.plan_of("128x16", 50, 84) == tra._int8_plan(50, 84, 1024)
