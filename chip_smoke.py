@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Start the PyTorch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--batches N] [--seed S]
+    python3 chip_smoke.py [--batches N] [--seed S] [--kq2-parent SRC]
 
 Phases, one JSON line each, in order:
 
@@ -38,8 +38,14 @@ Phases, one JSON line each, in order:
    with and without the float output) with bfloat16 and float32
    outputs, into NaN-filled outputs, at res5's conv3 on 8,000 boxes
    ([8000, 7, 7, 512] -> 2048), res4's 3x3 conv2, odd shapes and C 8
-   and 12 (padded to 16); KQ2 (the int8 ROIAlign core) at [8, 50, 84,
-   1024] with 1,000 boxes an image, edge boxes and a fixed ratio.
+   and 12 (padded to 16); KQ2 (the int8 ROIAlign: its matrices built
+   from the boxes and quantized in the kernel, then both contractions)
+   at [8, 50, 84, 1024] with 1,000 boxes an image into an output filled
+   with 77, edge boxes, a fixed ratio, tiny boxes (bins under a cell),
+   whole-image boxes (8 samples a bin) and a wide scale ratio (most
+   outputs saturated), with a profile showing that
+   the op launches KQ2 alone; with ``--kq2-parent SRC`` the parent's
+   plain matrix build and kernel are timed in turns beside it.
    Kernel, plain and library-call times are medians of CUDA-event
    timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
@@ -4179,40 +4185,6 @@ def _whole_boxes(gen, b, n, img_h, img_w):
     return bx.contiguous()
 
 
-def _kq2_parent(src):
-    """The parent's form of the int8 ROIAlign, timed beside KQ2: its
-    plain matrix build (``_build_kernels`` then ``_quantize_rows``, the
-    float path's builder) and its kernel, which took the matrices (the
-    parent's ``csrc/roi_align_int8.cu``, built from ``src``). Returns a
-    function of (fq, boxes, ratio, spatial scale, pooled, sampling
-    ratio)."""
-    import ctypes
-    import torch
-    from locov_torch.ops import kernel_lib
-    from locov_torch.ops import roi_align as ra
-    fn = kernel_lib.load_source(src, "parent_roi_align_int8") \
-        .roi_align_int8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(fq, boxes, ratio, scale, pooled, sr):
-        b, h, w, c = fq.shape
-        n = boxes.shape[1]
-        ky, kx = ra._build_kernels(boxes, scale, h, w, pooled, sr)
-        kyq, sy = ra._quantize_rows(ky)
-        kxq, sx = ra._quantize_rows(kx)
-        rescale = ratio.reshape(()) * sy
-        out = torch.empty((b, n, pooled, pooled, c), dtype=torch.int8,
-                          device=fq.device)
-        err = fn(fq.data_ptr(), kyq.data_ptr(), kxq.data_ptr(),
-                 sx.data_ptr(), rescale.data_ptr(), out.data_ptr(), b, h, w,
-                 c, n, pooled, kernel_lib.stream_ptr(fq.device))
-        kernel_lib.check_launch(err, "parent roi_align_int8")
-        return out
-    return run
-
-
 def kq2_op_profile(feats, boxes, scale, amax, pooled, sr):
     """One static int8 ROIAlign as ``roi_features`` calls it
     (``roi_align_batched_int8``: the features' plain quantize and the
@@ -4268,15 +4240,18 @@ def check_roi_align_int8(gen, results, parent_src=None):
     1024] bfloat16 quantized, 1,000 proposal-sized boxes an image,
     adaptive sampling), into an output filled with 77, and the same bits
     on a second launch; then edge boxes (degenerate and outside the
-    image: exactly 0), a fixed ratio, tiny boxes (bins under a cell) and
-    whole-image boxes (8 samples, every column). The main case's time,
+    image: exactly 0), a fixed ratio, tiny boxes (bins under a cell),
+    whole-image boxes (8 samples, every column) and a wide scale ratio
+    (most outputs saturate). The main case's time,
     its bound (the multiply-adds of the plain matrices' non-zeros), the
     plain version's time, and with ``parent_src`` (the parent's
     ``csrc/roi_align_int8.cu``) the parent's plain build and kernel in
     the same process; no single PyTorch call computes it."""
     import torch
     from locov_torch.ops import int8_conv as iq
+    from locov_torch.ops import kernel_lib
     from locov_torch.ops import roi_align as ra
+    from locov_torch.tools import ablate_roi_int8
     from locov_torch.tools.bench_roi_fwd import proposal_boxes
     from locov_torch.tools.timing import time_ms
     scale, pooled, img_h, img_w = 1.0 / 16, 14, 800, 1344
@@ -4289,11 +4264,16 @@ def check_roi_align_int8(gen, results, parent_src=None):
               proposal_boxes(gen, 2, 100, img_h, img_w), 2),
              ("tiny", small, _tiny_boxes(gen, 2, 500, img_h, img_w), 0),
              ("whole_image", small, _whole_boxes(gen, 2, 100, img_h, img_w),
+              0),
+             ("wide_ratio", small, proposal_boxes(gen, 2, 100, img_h, img_w),
               0)]
     for case, feats, boxes, sr in cases:
         amax = feats.float().abs().amax()
+        # wide_ratio: the pooled max-abs 1/300 of the features' (most
+        # outputs saturate)
+        share = 1 / 300 if case == "wide_ratio" else 0.6
         fq, kyq, kxq, sx, rescale, s_pool = ra.int8_operands(
-            feats, boxes, scale, amax, amax * 0.6, pooled, sr)
+            feats, boxes, scale, amax, amax * share, pooled, sr)
         ratio = (iq._scale_of(amax) / s_pool).reshape(1)
         args = (fq, boxes, ratio, scale, pooled, sr)
         got = ra._launch_int8(*args, fill=77)
@@ -4324,13 +4304,16 @@ def check_roi_align_int8(gen, results, parent_src=None):
                 lambda: ra.roi_align_cuda(f, boxes, scale, pooled, sr),
                 reps=20)
             if parent_src:
-                parent = _kq2_parent(parent_src)
+                parent = ablate_roi_int8.parent_runner(
+                    kernel_lib.load_source(parent_src,
+                                           "parent_roi_align_int8"),
+                    (fq, boxes, ratio))
                 # the parent's kernel against the core on the parent's
                 # matrices; and how many outputs the builders' order moved
                 ky, kx = ra._build_kernels(boxes, scale, 50, 84, pooled, sr)
                 pkyq, psy = ra._quantize_rows(ky)
                 pkxq, psx = ra._quantize_rows(kx)
-                old = parent(*args)
+                old = parent()
                 line["parent_same_bits"] = bool(torch.equal(
                     old, ra.roi_align_int8_plain(
                         fq, pkyq, pkxq, psx, ratio.reshape(()) * psy,
@@ -4340,10 +4323,9 @@ def check_roi_align_int8(gen, results, parent_src=None):
                 ok = ok and line["parent_same_bits"]
                 del ky, kx, pkyq, pkxq, old
                 # in turns: parent, KQ2, KQ2, parent
-                times = []
-                for fn in (lambda: parent(*args),
-                           lambda: ra.roi_align_int8_cuda(*args)) * 2:
-                    times.append(time_ms(fn, reps=20))
+                new_fn = lambda: ra.roi_align_int8_cuda(*args)  # noqa: E731
+                times = [time_ms(fn, reps=20)
+                         for fn in (parent, new_fn, new_fn, parent)]
                 line["parent_ms"] = [times[0], times[3]]
                 line["kernel_ms_turns"] = [times[1], times[2]]
             line["op_profile"] = kq2_op_profile(feats, boxes, scale, amax,

@@ -33,9 +33,8 @@
 // in flight work on one image's features, which stay in L2. The block's
 // first two warps build the box's quantized matrices (one axis each),
 // their non-zero spans and its scales into shared memory (one barrier),
-// then every thread
-// takes a (bin column q, vector of VEC channels) at a time, VEC = 16
-// where the channels allow it, and for it:
+// then every thread takes a (bin column q, vector of VEC channels) at a
+// time, VEC = 16 where the channels allow it, and for it:
 //   (a) for each group of four feature rows that some Ky row weighs on,
 //       t over q's column span, as one __dp4a a column, row and 4
 //       channels (the feature word against the weight in one byte
@@ -48,13 +47,23 @@
 //       memory), rounded and stored as one VEC-byte streaming store
 //       (st.global.cs), so that the output does not evict the features.
 // The tq rows (h x VEC bytes a thread) bound the blocks an SM: two of
-// 128 threads at h = 50. Persistent blocks walking the boxes, a warp
-// building the next box while the others contract (this file at the
-// commit before), ran 14% slower: with the boxes dealt out in turn,
-// the blocks that drew the large boxes finished last.
+// 128 threads at h = 50.
+//
+// What holds it: instructions, not bytes (tools/ablate_roi_int8.py on
+// the H100 at the static path's shapes; PERF.md): without the feature
+// loads or without the stores it runs within 2% of its time, without
+// phase (a) in under half. Each int8 value made (tq, then the output)
+// costs five float operations and a byte permute, more than its __dp4a
+// work. Tried and slower: three or four columns at once (more wasted
+// products on short spans), the loops over bins or row groups unrolled
+// by two, phase (b)'s products as multiply-adds of extracted bytes, the
+// last tq group held in registers for the next bin, the clip done on
+// 16-bit pairs (max/min.s16x2), one builder warp for both matrices,
+// persistent blocks walking the boxes with a warp building the next box
+// (commit be32209: the blocks that drew large boxes finished last), and
+// tq held in a ring of eight row groups for three blocks an SM (commit
+// 3095684: the interleaved phases cost more than the warps gained).
 #include <stdint.h>
-
-#include <algorithm>
 
 #include <cuda_runtime.h>
 
@@ -215,73 +224,14 @@ __device__ __forceinline__ void store_stream(int8_t* p, const Words<VEC>& o) {
 // eight 16-byte loads in flight).
 constexpr int XB = 2;
 
-// Threads a block may have, and the blocks an SM the kernel is compiled
-// for (its registers: at most 170 a thread).
+// Threads a block may have.
 constexpr int MAX_THREADS = 128;
-constexpr int MIN_BLOCKS = 3;
-
-// Groups of four tq rows a thread holds, group g in slot g % RING.
-constexpr int RING = 8;
-
-// Phase (a) for one group g of four feature rows of bin column q: tq in
-// pk, row j of the group in byte j of channel e's word (rows outside
-// [ya, yb] are 0). fv: the image's features at the thread's channels.
-template <int VEC>
-__device__ __forceinline__ void group_tq(const int8_t* fv, const int8_t* kx,
-                                         int2 xs, float sxq, int g, int ya,
-                                         int yb, int w, int c,
-                                         int (&pk)[VEC]) {
-  bool valid[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) valid[j] = 4 * g + j >= ya && 4 * g + j <= yb;
-  int t[4][VEC];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) t[j][e] = MAGIC_BITS;
-  const int8_t* fg = fv + (long long)(4 * g) * w * c;
-  for (int x0 = xs.x; x0 <= xs.y; x0 += XB) {
-    Words<VEC> f[4][XB];
-    unsigned kb[XB];
-#pragma unroll
-    for (int u = 0; u < XB; ++u)
-      kb[u] = x0 + u <= xs.y ? (unsigned)(uint8_t)kx[x0 + u] : 0u;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int u = 0; u < XB; ++u) {
-        if (valid[j] && x0 + u <= xs.y)
-          f[j][u] = load_words<VEC>(fg + ((long long)j * w + x0 + u) * c);
-        else
-#pragma unroll
-          for (int i = 0; i < VEC / 4; ++i) f[j][u].v[i] = 0;
-      }
-#pragma unroll
-    for (int u = 0; u < XB; ++u)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const int k = (int)(kb[u] << (8 * (e % 4)));
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          t[j][e] = __dp4a(f[j][u].v[e / 4], k, t[j][e]);
-      }
-  }
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) pk[e] = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (valid[j])
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        pk[e] = __byte_perm(pk[e], q8(t[j][e], sxq),
-                            0x3210u ^ ((unsigned)(j ^ 4) << (4 * j)));
-}
 
 // grid: one block a box, in index order; block: `threads` (a multiple of
 // 32), whose first two warps build the box's operands before all
 // contract; dynamic shared memory smem_bytes(h, w, vec, threads).
 template <int VEC>
-__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(MAX_THREADS)
     roi_align_int8_kernel(const int8_t* __restrict__ fq,
                           const float* __restrict__ boxes,
                           const float* __restrict__ ratio,
@@ -292,8 +242,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   const int tid = threadIdx.x;
   const int bi = blockIdx.x;  // b * n + i
   const BoxOps cur = ops_at(smem, h, w);
-  // tq of each thread: word (slot s, channel e) at
-  // tq4[(s * VEC / 4 + e / 4) * tc + tid], element e % 4
+  // tq of each thread: word (g, channel e) at
+  // tq4[(g * VEC / 4 + e / 4) * tc + tid], element e % 4
   int4* tq4 = reinterpret_cast<int4*>(smem + ops_bytes(h, w));
   // warp 0 builds Ky, warp 1 Kx (warp 0 both in a block of one warp)
   for (int axis = tid >> 5; axis < 2; axis += tc >> 5)
@@ -311,54 +261,79 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     const float sxq = cur.sx[q];
     const int8_t* kx = cur.kx + q * wp;
     const int8_t* fv = fimg + v * VEC;
-    // tq holds the groups [ga, gb]: computed in ascending order as the
-    // bins reach them, each once, while the bins' spans fit RING groups
-    int ga = 0, gb = -1;
+    // (a) tq[q, y] for the rows [ya, yb], four rows (a word) at once
+    for (int g = ya >> 2; g <= (yb >> 2) && yb >= 0; ++g) {
+      bool valid[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        valid[j] = 4 * g + j >= ya && 4 * g + j <= yb;
+      int t[4][VEC];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) t[j][e] = MAGIC_BITS;
+      const int8_t* fg = fv + (long long)(4 * g) * w * c;
+      for (int x0 = xs.x; x0 <= xs.y; x0 += XB) {
+        Words<VEC> f[4][XB];
+        unsigned kb[XB];
+#pragma unroll
+        for (int u = 0; u < XB; ++u)
+          kb[u] = x0 + u <= xs.y ? (unsigned)(uint8_t)kx[x0 + u] : 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int u = 0; u < XB; ++u) {
+            if (valid[j] && x0 + u <= xs.y)
+              f[j][u] = load_words<VEC>(
+                  fg + ((long long)j * w + x0 + u) * c);
+            else
+#pragma unroll
+              for (int i = 0; i < VEC / 4; ++i) f[j][u].v[i] = 0;
+          }
+#pragma unroll
+        for (int u = 0; u < XB; ++u)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int k = (int)(kb[u] << (8 * (e % 4)));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              t[j][e] = __dp4a(f[j][u].v[e / 4], k, t[j][e]);
+          }
+      }
+      // row j of the word in byte j; rows outside [ya, yb] hold 0 (their
+      // t, no column added, would give 0 too)
+      int pk[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) pk[e] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (valid[j])
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            pk[e] = __byte_perm(pk[e], q8(t[j][e], sxq),
+                                0x3210u ^ ((unsigned)(j ^ 4) << (4 * j)));
+#pragma unroll
+      for (int i = 0; i < VEC / 4; ++i)
+        tq4[(g * (VEC / 4) + i) * tc + tid] =
+            make_int4(pk[4 * i], pk[4 * i + 1], pk[4 * i + 2],
+                      pk[4 * i + 3]);
+    }
+    // (b) out[p, q] over p's rows only
     for (int pp = 0; pp < p; ++pp) {
       const int2 ys = cur.yspan[pp];
       int r[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) r[e] = MAGIC_BITS;
       const int8_t* kyr = cur.ky + pp * hp;
-      const int glo = ys.x >> 2, ghi = ys.y >> 2;
-      if (ys.y >= 0 && ghi - glo < RING) {
-        // (a) the groups of p's rows not computed yet
-        int g = max(gb + 1, glo);
-        if (g > gb + 1) ga = g;
-        for (; g <= ghi; ++g) {
-          int pk[VEC];
-          group_tq<VEC>(fv, kx, xs, sxq, g, ya, yb, w, c, pk);
+      for (int g = ys.x >> 2; g <= (ys.y >> 2) && ys.y >= 0; ++g) {
+        const int kw = *reinterpret_cast<const int*>(kyr + 4 * g);
 #pragma unroll
-          for (int i = 0; i < VEC / 4; ++i)
-            tq4[((g % RING) * (VEC / 4) + i) * tc + tid] =
-                make_int4(pk[4 * i], pk[4 * i + 1], pk[4 * i + 2],
-                          pk[4 * i + 3]);
-        }
-        gb = max(gb, ghi);
-        ga = max(ga, gb - RING + 1);
-      }
-      if (ys.y >= 0 && ghi - glo < RING && glo >= ga) {
-        // (b) r over p's rows, from tq
-        for (int g = glo; g <= ghi; ++g) {
-          const int kw = *reinterpret_cast<const int*>(kyr + 4 * g);
-#pragma unroll
-          for (int i = 0; i < VEC / 4; ++i) {
-            const int4 tw = tq4[((g % RING) * (VEC / 4) + i) * tc + tid];
-            r[4 * i] = dot4(tw.x, kw, r[4 * i]);
-            r[4 * i + 1] = dot4(tw.y, kw, r[4 * i + 1]);
-            r[4 * i + 2] = dot4(tw.z, kw, r[4 * i + 2]);
-            r[4 * i + 3] = dot4(tw.w, kw, r[4 * i + 3]);
-          }
-        }
-      } else if (ys.y >= 0) {
-        // a span past RING groups, or groups no longer held: tq
-        // computed again, group by group, for this bin alone
-        for (int g = glo; g <= ghi; ++g) {
-          int pk[VEC];
-          group_tq<VEC>(fv, kx, xs, sxq, g, ya, yb, w, c, pk);
-          const int kw = *reinterpret_cast<const int*>(kyr + 4 * g);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) r[e] = dot4(pk[e], kw, r[e]);
+        for (int i = 0; i < VEC / 4; ++i) {
+          const int4 tw = tq4[(g * (VEC / 4) + i) * tc + tid];
+          r[4 * i] = dot4(tw.x, kw, r[4 * i]);
+          r[4 * i + 1] = dot4(tw.y, kw, r[4 * i + 1]);
+          r[4 * i + 2] = dot4(tw.z, kw, r[4 * i + 2]);
+          r[4 * i + 3] = dot4(tw.w, kw, r[4 * i + 3]);
         }
       }
       const float rs = cur.rs[pp];
@@ -379,11 +354,10 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 }  // namespace
 
 // Dynamic shared memory of a block, as ops/roi_align.py:_int8_smem counts
-// it: the box's operands, and the tq rows (h rounded up to 4, at most
-// RING groups of 4) of vec channels for each of the block's threads.
+// it: the box's operands, and the tq rows (h rounded up to 4) of vec
+// channels for each of the block's threads.
 static int smem_bytes(int h, int w, int vec, int threads) {
-  return ops_bytes(h, w) +
-         threads * std::min(round_up(h, 4), 4 * RING) * vec;
+  return ops_bytes(h, w) + threads * round_up(h, 4) * vec;
 }
 
 // fq int8 [b, h, w, c] (c a multiple of vec, the address of vec bytes'

@@ -23,12 +23,15 @@ output's shape and dtype, so that ``torch.export`` traces through them.
 The static int8 serving mode adds ``roi_align_batched_quant`` (the float
 op, then a static int8 quantize of its output) and
 ``roi_align_batched_int8`` (``locov_tpu/ops/roi_align.py:
-roi_align_batched_int8``): the interpolation matrices quantized per row
-(``_quantize_rows``), the features per tensor by a calibrated max-abs,
-and both contractions in int8 with int32 sums (the op
-``locov::roi_align_int8``: the kernel of ``csrc/roi_align_int8.cu`` on
-CUDA tensors, the plain ``roi_align_int8_plain`` on CPU tensors; inference
-only, no gradient).
+roi_align_batched_int8``): the features quantized per tensor by a
+calibrated max-abs, then the op ``locov::roi_align_int8`` on the int8
+features, the boxes and the ratio of the two scales: the interpolation
+matrices quantized per row, and both contractions in int8 with int32
+sums. On CUDA tensors the op launches the kernel of
+``csrc/roi_align_int8.cu``, which builds the matrices itself; on CPU
+tensors it runs the plain ``int8_matrices`` (the samples added in the
+kernel's order) and ``roi_align_int8_plain``. Inference only, no
+gradient.
 """
 from __future__ import annotations
 
@@ -136,17 +139,23 @@ def _adaptive_coords(lo: torch.Tensor, size: torch.Tensor, pooled: int,
     return coords, weight[:, None, :].expand(coords.shape)
 
 
+def _box_extents(boxes: torch.Tensor, spatial_scale: float):
+    """(x0, y0, width, height) [B * N] of boxes [B, N, 4] in feature
+    coordinates: aligned=True (ROIAlignV2), half-pixel correction, no
+    size clamping."""
+    x0 = boxes[..., 0] * spatial_scale - 0.5
+    y0 = boxes[..., 1] * spatial_scale - 0.5
+    bw = boxes[..., 2] * spatial_scale - 0.5 - x0
+    bh = boxes[..., 3] * spatial_scale - 0.5 - y0
+    return tuple(v.reshape(-1) for v in (x0, y0, bw, bh))
+
+
 def _build_kernels(boxes: torch.Tensor, spatial_scale: float, h: int,
                    w: int, pooled: int, sampling_ratio: int):
     """Per-box interpolation matrices ky [B, N, P, H], kx [B, N, P, W]
     in f32 (fixed or adaptive sampling)."""
     b, n = boxes.shape[:2]
-    # aligned=True (ROIAlignV2): half-pixel correction, no size clamping
-    x0 = boxes[..., 0] * spatial_scale - 0.5
-    y0 = boxes[..., 1] * spatial_scale - 0.5
-    bw = boxes[..., 2] * spatial_scale - 0.5 - x0
-    bh = boxes[..., 3] * spatial_scale - 0.5 - y0
-    x0, y0, bw, bh = (v.reshape(b * n) for v in (x0, y0, bw, bh))
+    x0, y0, bw, bh = _box_extents(boxes, spatial_scale)
     if sampling_ratio > 0:
         sr = int(sampling_ratio)
         ky = _interp_matrix(_sample_coords(y0, bh, pooled, sr), h)
@@ -481,13 +490,9 @@ def roi_align_fused(features: torch.Tensor, boxes: torch.Tensor,
 # ------------------------------------------------------------------ int8
 # bins a side the int8 kernel takes (csrc/roi_align_int8.cu: PMAX)
 _INT8_PMAX = 16
-# the threads an int8 kernel block may take, the most first, and the
-# groups of four tq rows a thread holds (csrc/roi_align_int8.cu:
-# MAX_THREADS, RING)
+# the threads an int8 kernel block may take, the most first
+# (csrc/roi_align_int8.cu: MAX_THREADS)
 _INT8_THREADS = (128, 64, 32)
-_INT8_RING = 8
-# shared memory a block may take where three share an SM
-_SMEM_THREE = 233472 // 3 - 1024
 # the C entry roi_align_int8_fwd's argument types
 _INT8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
     [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -566,12 +571,7 @@ def int8_matrices(boxes: torch.Tensor, ratio: torch.Tensor,
     element. As ``_build_kernels`` then ``_quantize_rows``, with each
     axis built by ``_int8_axis``."""
     b, n = boxes.shape[:2]
-    boxes = boxes.float()
-    x0 = boxes[..., 0] * spatial_scale - 0.5
-    y0 = boxes[..., 1] * spatial_scale - 0.5
-    bw = boxes[..., 2] * spatial_scale - 0.5 - x0
-    bh = boxes[..., 3] * spatial_scale - 0.5 - y0
-    x0, y0, bw, bh = (v.reshape(b * n) for v in (x0, y0, bw, bh))
+    x0, y0, bw, bh = _box_extents(boxes.float(), spatial_scale)
     ky = _int8_axis(y0, bh, pooled, sampling_ratio, h)
     kx = _int8_axis(x0, bw, pooled, sampling_ratio, w)
     kyq, sy = _quantize_rows(ky.reshape(b, n, pooled, h))
@@ -635,18 +635,17 @@ def roi_align_int8_boxes_plain(fq, boxes, ratio, spatial_scale: float,
         boxes, ratio, spatial_scale, h, w, pooled, sampling_ratio))
 
 
-def _int8_smem(h: int, w: int, vec: int, threads: int,
-               ring: int = _INT8_RING) -> int:
+def _int8_smem(h: int, w: int, vec: int, threads: int) -> int:
     """Dynamic shared memory of an int8 kernel block, counted as
     ``smem_bytes`` of ``csrc/roi_align_int8.cu`` counts it: the box's
     operands (its matrices' rows of w and h bytes rounded up to 4, for 16
     bins, rounded up to 16 bytes; six words a bin and four more), and the
-    tq rows (h rounded up to 4, at most ``ring`` groups of four) of
-    ``vec`` channels for each of the ``threads``."""
+    tq rows (h rounded up to 4) of ``vec`` channels for each of the
+    ``threads``."""
     r4 = lambda x: -(-x // 4) * 4  # noqa: E731
     ops = -(-_INT8_PMAX * (r4(w) + r4(h)) // 16) * 16 + \
         4 * (6 * _INT8_PMAX + 4)
-    return ops + threads * min(r4(h), 4 * ring) * vec
+    return ops + threads * r4(h) * vec
 
 
 def _int8_plan(h: int, w: int, c: int, pooled: int = 14,
@@ -656,7 +655,7 @@ def _int8_plan(h: int, w: int, c: int, pooled: int = 14,
     channels a thread takes (16 where c and the address allow it, else
     8, else 4), the threads a block (the most of ``_INT8_THREADS``, no
     more than the (bin column, channel vector) items need), the blocks
-    an SM its shared memory leaves (3, 2 or 1) and that shared memory.
+    an SM its shared memory leaves (2 or 1) and that shared memory.
     Raises where that does not fit a block."""
     if pooled > _INT8_PMAX or c % 4 or align % 4:
         raise ValueError(f"roi_align_int8: the kernel takes pooled <= "
@@ -669,8 +668,7 @@ def _int8_plan(h: int, w: int, c: int, pooled: int = 14,
     if smem > _SMEM_MAX:
         raise ValueError(f"roi_align_int8: features {h} x {w} need more "
                          f"shared memory than a block has")
-    per_sm = next(k for k, limit in ((3, _SMEM_THREE), (2, _BWD_SMEM_TWO),
-                                     (1, _SMEM_MAX)) if smem <= limit)
+    per_sm = 2 if smem <= _BWD_SMEM_TWO else 1
     return {"vec": vec, "threads": threads, "blocks_per_sm": per_sm,
             "smem_bytes": smem}
 

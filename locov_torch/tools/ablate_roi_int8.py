@@ -7,32 +7,40 @@ image the size of RPN proposals, adaptive sampling, pooled 14.
 
     python -m locov_torch.tools.ablate_roi_int8 [--cuts a,b,...]
         [--plans 128x16,64x16,...] [--reference SRC] [--persistent SRC]
-        [--seed 0]
+        [--compare SRC] [--k2-reference SRC] [--seed 0]
 
 A change is a text substitution in the source: ``imad`` (phase (b)'s
 four-row products as four multiply-adds of sign-extended bytes, not one
-``__dp4a``), ``four_columns`` (phase (a) loads four columns of each row
-at once, not two),
+``__dp4a``), ``four_columns`` and ``three_columns`` (phase (a) loads
+four or three columns of each row at once, not two),
 ``one_builder_warp`` (the first warp builds both matrices, not one
-each of the first two), ``all_rows`` (every tq row of the image held, not
-a ring of 8 groups of four: two blocks an SM, not three), ``plain_stores`` (``st.global`` for the output,
-not ``st.global.cs``).
+each of the first two), ``unroll_bins`` and ``unroll_groups`` (the loop
+over the bins p, or over the row groups of phase (a), unrolled by two),
+``plain_stores`` (``st.global`` for the output, not ``st.global.cs``).
 These compute KQ2, and each is checked against the plain version. A cut
 computes nonsense; only its time is read: ``stores`` (the output
 computed, stored under a condition never met), ``loads`` (phase (a)'s
-16-byte feature loads replaced by values made from their addresses), ``phase_a`` (no tq
-computed: each group's words made up). A plan is
+16-byte feature loads replaced by values made from their addresses),
+``phase_a`` (no tq computed: phase (b) reads what shared memory holds),
+``phase_b`` (no bin summed, nothing stored; ``phase_a+phase_b``: the
+boxes' build alone). Cuts joined by ``+`` are made together.
+A plan is
 threads x channels a thread (``_int8_plan``'s members, the shared
 memory and blocks an SM recounted). ``--persistent`` is this file's
 persistent form (``git show be32209:locov_torch/csrc/roi_align_int8.cu``
-beside ``roi_taps.cuh``). ``--reference`` is an earlier
+beside ``roi_taps.cuh``). ``--compare`` is another source with this C entry (``git show
+<commit>:locov_torch/csrc/roi_align_int8.cu`` beside ``roi_taps.cuh``),
+timed and checked like a change. ``--reference`` is an earlier
 ``csrc/roi_align_int8.cu`` whose C entry took the matrices (the
 parent's), timed with the plain matrix build it needed (the parent's
 form, as ``chip_smoke.py`` times it). The base kernel is timed first
 and last; the float K2 (``roi_align_cuda``) on the same boxes and the
 bfloat16 features beside them. Prints one JSON line: ms per variant,
 same bits per variant that computes KQ2, the ptxas lines of each build,
-and the byte bound. Medians of CUDA-event timings after warm-up.
+and the byte bound. ``--k2-reference`` (another ``csrc/roi_align.cu``,
+the parent's: the float kernels before their tap code moved into
+``roi_taps.cuh``) adds whether K2, K3-fwd and K3-bwd give its bits.
+Medians of CUDA-event timings after warm-up.
 """
 from __future__ import annotations
 
@@ -61,15 +69,20 @@ _NEVER = "if (o.v[0] == 0x7f7f7f7f && o.v[VEC / 4 - 1] == 0x01020304) "
 CHANGES = {
     "imad": [("  return __dp4a(a, b, acc);",
               "  for (int i = 0; i < 32; i += 8)\n"
-              "    acc += ((a << (24 - i)) >> 24) * ((b << (24 - i)) >> 24);\n"
+              "    acc += ((a << (24 - i)) >> 24) *\n"
+              "           ((b << (24 - i)) >> 24);\n"
               "  return acc;")],
     "four_columns": [("constexpr int XB = 2;", "constexpr int XB = 4;")],
-    "one_builder_warp": [("for (int axis = tid >> 5; axis < 2; axis += tc >> 5)",
-                          "for (int axis = 0; axis < 2 && tid < 32; ++axis)")],
-    # every tq row held (16 groups), two blocks an SM: VARIANT_RING
-    "all_rows": [("constexpr int RING = 8;", "constexpr int RING = 16;"),
-                 ("constexpr int MIN_BLOCKS = 3;",
-                  "constexpr int MIN_BLOCKS = 2;")],
+    "three_columns": [("constexpr int XB = 2;", "constexpr int XB = 3;")],
+    "one_builder_warp": [
+        ("for (int axis = tid >> 5; axis < 2; axis += tc >> 5)",
+         "for (int axis = 0; axis < 2 && tid < 32; ++axis)")],
+    "unroll_bins": [("    for (int pp = 0; pp < p; ++pp) {",
+                     "#pragma unroll 2\n    for (int pp = 0; pp < p; ++pp) {")],
+    "unroll_groups": [("    for (int g = ya >> 2; g <= (yb >> 2) && "
+                       "yb >= 0; ++g) {",
+                       "#pragma unroll 2\n    for (int g = ya >> 2; "
+                       "g <= (yb >> 2) && yb >= 0; ++g) {")],
     "plain_stores": [("    __stcs(reinterpret_cast<int4*>(p),",
                       "    __stwb(reinterpret_cast<int4*>(p),")],
 }
@@ -78,17 +91,13 @@ CUTS = {
     "loads": [("const int4 x = __ldg(reinterpret_cast<const int4*>(p));",
                "const int4 x = make_int4((int)(size_t)p, (int)((size_t)p >> "
                "4), 1, 2);")],
-    "phase_a": [("  bool valid[4];\n#pragma unroll\n  for (int j = 0; j < 4; ++j) "
-                 "valid[j]",
-                 "  if (w > 0) {\n#pragma unroll\n    for (int e = 0; e < VEC; "
-                 "++e) pk[e] = g + e;\n    return;\n  }\n  bool valid[4];\n"
-                 "#pragma unroll\n  for (int j = 0; j < 4; ++j) valid[j]")],
+    "phase_a": [("    for (int g = ya >> 2; g <= (yb >> 2) && yb >= 0; "
+                 "++g) {\n      bool valid[4];",
+                 "    for (int g = ya >> 2; g < 0; ++g) {\n"
+                 "      bool valid[4];")],
+    "phase_b": [("    for (int pp = 0; pp < p; ++pp) {",
+                 "    for (int pp = 0; pp < 0; ++pp) {")],
 }
-
-
-# variants that hold another number of tq groups (their plan's shared
-# memory follows)
-VARIANT_RING = {"all_rows": 16}
 
 
 def variant_dir(name: str) -> str:
@@ -134,14 +143,12 @@ def build_all(sources) -> dict:
     return built
 
 
-def plan_of(spec: str, h: int, w: int, ring: int = ra._INT8_RING) -> dict:
-    """``threads x vec`` as a launch plan for a kernel holding ``ring``
-    tq groups (the blocks an SM its shared memory leaves)."""
+def plan_of(spec: str, h: int, w: int) -> dict:
+    """``threads x vec`` as a launch plan (the blocks an SM its shared
+    memory leaves)."""
     threads, vec = (int(v) for v in spec.split("x"))
-    smem = ra._int8_smem(h, w, vec, threads, ring)
-    per_sm = next(k for k, limit in ((3, ra._SMEM_THREE),
-                                     (2, ra._BWD_SMEM_TWO), (1, 10 ** 9))
-                  if smem <= limit)
+    smem = ra._int8_smem(h, w, vec, threads)
+    per_sm = 2 if smem <= ra._BWD_SMEM_TWO else 1
     return {"vec": vec, "threads": threads, "blocks_per_sm": per_sm,
             "smem_bytes": smem}
 
@@ -196,9 +203,10 @@ def persistent_runner(lib, args):
 
 
 def parent_runner(lib, args):
-    """The parent's form: its plain matrix build and its kernel, which
-    took the matrices (C entry (fq, kyq, kxq, sx, rescale, out, b, h, w,
-    c, n, p, stream))."""
+    """The parent's form (adaptive sampling, pooled 14, stride 16): its
+    plain matrix build and its kernel, which took the matrices (C entry
+    (fq, kyq, kxq, sx, rescale, out, b, h, w, c, n, p, stream)). Returns
+    a function of no arguments giving the output."""
     fn = lib.roi_align_int8_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
@@ -222,6 +230,32 @@ def parent_runner(lib, args):
     return run
 
 
+def k2_same_bits(src: str, f, boxes, gen) -> dict:
+    """K2 (bfloat16, adaptive), K3-fwd (float32, ratio 2) and K3-bwd
+    (bfloat16, 512 boxes an image) through ``roi_align_cuda`` /
+    ``roi_align_bwd_cuda`` built from ``src`` (another ``roi_align.cu``,
+    its headers beside it) and from ``csrc/``: the same bits?"""
+    new = kernel_lib.load("roi_align")
+    ref = kernel_lib.load_source(src, "reference_roi_align")
+    g = torch.randn((8, 512, POOLED, POOLED, f.shape[-1]), generator=gen,
+                    device=f.device).to(torch.bfloat16)
+    small, sb = f[:2].float().contiguous(), boxes[:2].contiguous()
+    nb = boxes[:, :512].contiguous()
+    outs = []
+    for lib in (ref, new):
+        kernel_lib._LIBS["roi_align"] = lib
+        try:
+            outs.append((ra.roi_align_cuda(f, boxes, SCALE, POOLED, 0),
+                         ra.roi_align_cuda(small, sb, SCALE, POOLED, 2),
+                         ra.roi_align_bwd_cuda(g, nb, SCALE, f.shape[1],
+                                               f.shape[2], POOLED, 0)))
+        finally:
+            kernel_lib._LIBS["roi_align"] = new
+    return {name: bool(torch.equal(a, b)) for name, a, b in
+            zip(("k2_bfloat16", "k3_fwd_float32_ratio2", "k3_bwd_bfloat16"),
+                *outs)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cuts", default=",".join([*CHANGES, *CUTS]),
@@ -232,9 +266,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--reference", default=None,
                     help="the parent's roi_align_int8.cu, timed with its "
                          "plain matrix build")
+    ap.add_argument("--compare", default=None,
+                    help="another roi_align_int8.cu with this C entry (an "
+                         "earlier commit's), beside roi_taps.cuh, timed "
+                         "under the same plan")
     ap.add_argument("--persistent", default=None,
                     help="roi_align_int8.cu at commit be32209 (persistent "
                          "blocks), beside roi_taps.cuh")
+    ap.add_argument("--k2-reference", default=None,
+                    help="another roi_align.cu (the parent's), whose K2 / "
+                         "K3 outputs are held to csrc's bit for bit")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -243,11 +284,15 @@ def main(argv=None) -> dict:
     names = [c for c in args.cuts.split(",") if c]
     sources = {"base": write_variant("base", [])}
     for name in names:
-        sources[name] = write_variant(name, {**CHANGES, **CUTS}[name])
+        sources[name] = write_variant(
+            name, [sub for part in name.split("+")
+                   for sub in {**CHANGES, **CUTS}[part]])
     if args.reference:
         sources["parent"] = os.path.abspath(args.reference)
     if args.persistent:
         sources["persistent"] = os.path.abspath(args.persistent)
+    if args.compare:
+        sources["compare"] = os.path.abspath(args.compare)
     built = build_all(sources)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -263,9 +308,7 @@ def main(argv=None) -> dict:
     inputs = (fq, boxes, ratio)
     _, h, w, c = fq.shape
     base_plan = ra._int8_plan(h, w, c, POOLED, ra._align(fq))
-    spec = f"{base_plan['threads']}x{base_plan['vec']}"
-    runs = {name: runner(lib, inputs, plan_of(
-        spec, h, w, VARIANT_RING.get(name, ra._INT8_RING)))
+    runs = {name: runner(lib, inputs, base_plan)
             for name, (lib, _) in built.items()
             if name not in ("parent", "persistent")}
     for spec in [p for p in args.plans.split(",") if p]:
@@ -277,7 +320,7 @@ def main(argv=None) -> dict:
         runs["persistent"] = persistent_runner(built["persistent"][0],
                                                inputs)
     same = {name: bool(torch.equal(run(), want)) for name, run in
-            runs.items() if name not in CUTS}
+            runs.items() if not set(name.split("+")) & set(CUTS)}
     ms = {"base": time_ms(runs["base"], device, reps=20)}
     for name, run in runs.items():
         if name != "base":
@@ -293,6 +336,10 @@ def main(argv=None) -> dict:
             "same_bits": same,
             "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
             "ptxas": {name: p for name, (_, p) in built.items()}}
+    if args.k2_reference:
+        del want, runs
+        line["k2_same_bits_as_reference"] = k2_same_bits(
+            os.path.abspath(args.k2_reference), f, boxes, gen)
     print(json.dumps(line), flush=True)
     return line
 

@@ -574,13 +574,15 @@ def test_conv_int8_rejects_bad_inputs(cuda):
         iq.conv_int8_cuda(xq.cpu(), wq, one, one, 1, 0, False)
 
 
-def _int8_roi_same(f, bx, sr, pooled):
+def _int8_roi_same(f, bx, sr, pooled, pool_share=0.6):
     """KQ2 (``locov::roi_align_int8`` on the card) against its plain
-    version on the same inputs, into an output filled with 77 and again
-    through the counted wrapper: the same bits. Returns the output."""
+    version on the same inputs (the pooled tensor's max-abs
+    ``pool_share`` of the features'), into an output filled with 77 and
+    again through the counted wrapper: the same bits. Returns the
+    output."""
     fa = f.abs().amax()
     fq, kyq, kxq, sx, rescale, s_pool = roi_mod.int8_operands(
-        f, bx, 1 / 16, fa, fa * 0.6, pooled, sr)
+        f, bx, 1 / 16, fa, fa * pool_share, pooled, sr)
     ratio = (iq._scale_of(fa) / s_pool).reshape(1)
     want = roi_mod.roi_align_int8_plain(fq, kyq, kxq, sx, rescale)
     got = roi_mod._launch_int8(fq, bx, ratio, 1 / 16, pooled, sr, fill=77)
@@ -626,6 +628,15 @@ def test_roi_align_int8_bit_exact_tiny_and_whole_image(cuda, kind):
         bx[:, 0] = torch.tensor([0.0, 0.0, w * 16.0, h * 16.0])
     got = _int8_roi_same(f, bx.contiguous(), 0, 14)
     assert (got.abs() > 30).any()
+
+
+def test_roi_align_int8_bit_exact_wide_ratio(cuda):
+    """A pooled max-abs 1/300 of the features' (a scale ratio of 300):
+    most outputs saturate at +-127, the same bits."""
+    f = torch.randn((2, 50, 84, 64), generator=cuda, device="cuda") * 3
+    got = _int8_roi_same(f, _boxes(cuda, 2, 40, 800, 1344), 0, 14,
+                         1 / 300)
+    assert (got.abs() == 127).float().mean() > 0.5
 
 
 def _matched(cpu, gpu, score_tol, box_tol):
