@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Start the PyTorch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--batches N] [--seed S] [--kq2-parent SRC]
+    python3 chip_smoke.py [--batches N] [--seed S]
 
 Phases, one JSON line each, in order:
 
@@ -42,10 +42,9 @@ Phases, one JSON line each, in order:
    from the boxes and quantized in the kernel, then both contractions)
    at [8, 50, 84, 1024] with 1,000 boxes an image into an output filled
    with 77, edge boxes, a fixed ratio, tiny boxes (bins under a cell),
-   whole-image boxes (8 samples a bin) and a wide scale ratio (most
-   outputs saturated), with a profile showing that
-   the op launches KQ2 alone; with ``--kq2-parent SRC`` the parent's
-   plain matrix build and kernel are timed in turns beside it.
+   whole-image boxes (8 samples a bin), a wide scale ratio (most
+   outputs saturated) and tall features (h 120, the launch plans that
+   fit timed).
    Kernel, plain and library-call times are medians of CUDA-event
    timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
@@ -104,7 +103,9 @@ Phases, one JSON line each, in order:
    reported on its own line, not the path's); on another batch each
    mode's launches (K1-fwd, KQ1, KQ2 or K2), peak memory, the
    median of 5 batches in turns with bf16, one profile (busy ms), one of
-   its quantize passes, the box features of bf16's proposals
+   its quantize passes, for the static mode with KQ2 the kernels under
+   its ``roi_features`` range (one KQ2, no plain matrix build or plain
+   core), the box features of bf16's proposals
    against bf16's (mean relative error) and the share of bf16's top-100
    detections kept (same class, IoU >= 0.9); every KQ1 and KQ2 signature
    held to its plain version; the tiny int8 model card against CPU
@@ -4185,54 +4186,32 @@ def _whole_boxes(gen, b, n, img_h, img_w):
     return bx.contiguous()
 
 
-def kq2_op_profile(feats, boxes, scale, amax, pooled, sr):
-    """One static int8 ROIAlign as ``roi_features`` calls it
-    (``roi_align_batched_int8``: the features' plain quantize and the
-    scales, then the op ``locov::roi_align_int8``) under torch.profiler,
-    against the same call without the op: the call must launch one
-    kernel more, KQ2, so that no plain matrix build or plain core runs
-    (also the kernels the profiler files under the op)."""
+def roi_features_kernels(run):
+    """``run()`` once under torch.profiler. Returns, for each kernel
+    launched under an ``OvrRCNN.roi_features`` range, [the outermost
+    operator under the range that launched it, the kernel's name]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from locov_torch.ops import int8_conv as iq
-    from locov_torch.ops import roi_align as ra
 
     def kernels(e):
         return [k.name for k in getattr(e, "kernels", ())] + \
             [n for c in e.cpu_children for n in kernels(c)]
-
-    def traced(fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return prof.events()
-
-    def without_op():
-        s_f, s_pool = iq._scale_of(amax), iq._scale_of(amax * 0.6)
-        iq.quantize_per_tensor_static(feats, amax)[0].contiguous()
-        boxes.float().contiguous()
-        (s_f / s_pool).reshape(1)
-    base = [k for e in traced(without_op) if e.cpu_parent is None
-            for k in kernels(e)]
-    events = traced(lambda: ra.roi_align_batched_int8(
-        feats, boxes, scale, amax, amax * 0.6, pooled, sr))
-    call = [k for e in events if e.cpu_parent is None for k in kernels(e)]
-    ops = [e for e in events if e.name == "locov::roi_align_int8" and
-           e.device_type == DeviceType.CPU and
-           (e.cpu_parent is None or
-            e.cpu_parent.name != "locov::roi_align_int8")]
-    extra = [k for k in call if "roi_align_int8_kernel" in k]
-    return {"op_calls": len(ops),
-            "kernels_filed_under_op": [k for e in ops for k in kernels(e)],
-            "kernels_in_call": len(call), "kernels_without_op": len(base),
-            "only_kq2": len(ops) == 1 and len(extra) == 1 and
-            len(call) == len(base) + 1}
+    out = []
+    for e in prof.events():
+        if e.name == "OvrRCNN.roi_features" and \
+                e.device_type == DeviceType.CPU:
+            out += [[e.name, k.name] for k in getattr(e, "kernels", ())]
+            out += [[c.name, k] for c in e.cpu_children for k in kernels(c)]
+    return out
 
 
-def check_roi_align_int8(gen, results, parent_src=None):
+def check_roi_align_int8(gen, results):
     """KQ2 (``locov::roi_align_int8``: the matrices built from the boxes
     in the kernel, then both contractions) against its plain version
     (``int8_matrices`` then ``roi_align_int8_plain``) on the same inputs,
@@ -4241,23 +4220,24 @@ def check_roi_align_int8(gen, results, parent_src=None):
     adaptive sampling), into an output filled with 77, and the same bits
     on a second launch; then edge boxes (degenerate and outside the
     image: exactly 0), a fixed ratio, tiny boxes (bins under a cell),
-    whole-image boxes (8 samples, every column) and a wide scale ratio
-    (most outputs saturate). The main case's time,
-    its bound (the multiply-adds of the plain matrices' non-zeros), the
-    plain version's time, and with ``parent_src`` (the parent's
-    ``csrc/roi_align_int8.cu``) the parent's plain build and kernel in
-    the same process; no single PyTorch call computes it."""
+    whole-image boxes (8 samples, every column), a wide scale ratio
+    (most outputs saturate) and tall features (h 120, as a tall image
+    under TTA's sizes gives: fewer threads a block hold their tq rows;
+    each launch plan that fits is timed and held to the same bits). The
+    main case's time, its bound (the multiply-adds of the plain
+    matrices' non-zeros), the plain version's time and K2's on the same
+    boxes; no single PyTorch call computes it."""
     import torch
     from locov_torch.ops import int8_conv as iq
-    from locov_torch.ops import kernel_lib
     from locov_torch.ops import roi_align as ra
-    from locov_torch.tools import ablate_roi_int8
     from locov_torch.tools.bench_roi_fwd import proposal_boxes
     from locov_torch.tools.timing import time_ms
     scale, pooled, img_h, img_w = 1.0 / 16, 14, 800, 1344
     f = torch.randn((8, 50, 84, 1024), generator=gen,
                     device="cuda").to(torch.bfloat16)
     small = f[:2, :, :, :256].contiguous()
+    tall = torch.randn((2, 120, 76, 1024), generator=gen,
+                       device="cuda").to(torch.bfloat16)
     cases = [("main", f, proposal_boxes(gen, 8, 1000, img_h, img_w), 0),
              ("edges", small, _edge_boxes(2, img_h, img_w), 0),
              ("fixed_ratio", small,
@@ -4266,7 +4246,8 @@ def check_roi_align_int8(gen, results, parent_src=None):
              ("whole_image", small, _whole_boxes(gen, 2, 100, img_h, img_w),
               0),
              ("wide_ratio", small, proposal_boxes(gen, 2, 100, img_h, img_w),
-              0)]
+              0),
+             ("tall", tall, proposal_boxes(gen, 2, 1000, 1920, 1216), 0)]
     for case, feats, boxes, sr in cases:
         amax = feats.float().abs().amax()
         # wide_ratio: the pooled max-abs 1/300 of the features' (most
@@ -4280,11 +4261,11 @@ def check_roi_align_int8(gen, results, parent_src=None):
         want = ra.roi_align_int8_plain(fq, kyq, kxq, sx, rescale, chunk=25)
         ok = bool(torch.equal(got, want))
         again = bool(torch.equal(ra._launch_int8(*args), got))
+        plan = ra._int8_plan(*fq.shape[1:], pooled, ra._align(fq))
         line = {"phase": "kernel_check", "kernel": "roi_align_int8",
                 "case": case, "dtype": "int8",
                 "features": list(feats.shape), "boxes": list(boxes.shape),
-                "sampling_ratio": sr, "plan": ra._int8_plan(
-                    *fq.shape[1:], pooled, ra._align(fq)),
+                "sampling_ratio": sr, "plan": plan,
                 "same_bits": ok, "same_bits_two_launches": again,
                 "max_abs_err": float((got.int() - want.int()).abs().max()),
                 "share_saturated": float((got.abs() == 127).float().mean()),
@@ -4293,6 +4274,23 @@ def check_roi_align_int8(gen, results, parent_src=None):
             zero = bool((got[:, 2:4] == 0).all() and (got[:, 5] == 0).all())
             line["degenerate_exact_zero"] = zero
             ok = ok and zero
+        if case == "tall":
+            # every plan whose shared memory fits: the same bits, its ms
+            plans = {}
+            for vec in (16, 8, 4):
+                for threads in ra._INT8_THREADS:
+                    smem = ra._int8_smem(*fq.shape[1:3], vec, threads)
+                    if smem > ra._SMEM_MAX:
+                        continue
+                    p = dict(vec=vec, threads=threads, smem_bytes=smem)
+                    same = bool(torch.equal(
+                        ra._launch_int8(*args, plan=p, fill=77), want))
+                    ok = ok and same
+                    plans[f"{threads}x{vec}"] = {
+                        "same_bits": same, "ms": time_ms(
+                            lambda: ra._launch_int8(*args, plan=p),
+                            reps=10)}
+            line["plans"] = plans
         if case == "main":
             line["kernel_ms"] = time_ms(
                 lambda: ra.roi_align_int8_cuda(*args), reps=20)
@@ -4303,34 +4301,6 @@ def check_roi_align_int8(gen, results, parent_src=None):
             line["k2_ms"] = time_ms(
                 lambda: ra.roi_align_cuda(f, boxes, scale, pooled, sr),
                 reps=20)
-            if parent_src:
-                parent = ablate_roi_int8.parent_runner(
-                    kernel_lib.load_source(parent_src,
-                                           "parent_roi_align_int8"),
-                    (fq, boxes, ratio))
-                # the parent's kernel against the core on the parent's
-                # matrices; and how many outputs the builders' order moved
-                ky, kx = ra._build_kernels(boxes, scale, 50, 84, pooled, sr)
-                pkyq, psy = ra._quantize_rows(ky)
-                pkxq, psx = ra._quantize_rows(kx)
-                old = parent()
-                line["parent_same_bits"] = bool(torch.equal(
-                    old, ra.roi_align_int8_plain(
-                        fq, pkyq, pkxq, psx, ratio.reshape(()) * psy,
-                        chunk=25)))
-                line["share_moved_from_parent"] = float(
-                    (old != got).float().mean())
-                ok = ok and line["parent_same_bits"]
-                del ky, kx, pkyq, pkxq, old
-                # in turns: parent, KQ2, KQ2, parent
-                new_fn = lambda: ra.roi_align_int8_cuda(*args)  # noqa: E731
-                times = [time_ms(fn, reps=20)
-                         for fn in (parent, new_fn, new_fn, parent)]
-                line["parent_ms"] = [times[0], times[3]]
-                line["kernel_ms_turns"] = [times[1], times[2]]
-            line["op_profile"] = kq2_op_profile(feats, boxes, scale, amax,
-                                                pooled, sr)
-            ok = ok and line["op_profile"]["only_kq2"]
             nbytes = sum(t.numel() * t.element_size()
                          for t in (fq, boxes, ratio, got))
             line["bound_ms"], line["bound_by"] = bound_ms(
@@ -4341,7 +4311,7 @@ def check_roi_align_int8(gen, results, parent_src=None):
         if not (ok and again):
             raise AssertionError(f"roi_align_int8 {case}: {line}")
         del got, want, fq, kyq, kxq
-    del f, small, cases
+    del f, small, tall, cases
     torch.cuda.empty_cache()
 
 
@@ -4793,6 +4763,27 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
         if name != "bf16":
             quant[name] = quantize_profile(
                 lambda: m.inference(batch, class_emb))
+    # the static mode's roi_features with KQ2: one KQ2 launch, the op's
+    # one kernel, and no operator launching a kernel there that the
+    # static mode with K2 does not run in its roi_features too (no plain
+    # matrix build, no plain core)
+    under = {name: roi_features_kernels(
+        lambda: models[name].inference(batch, class_emb))
+        for name in ("static", "static_float_roialign")}
+    k2_ops = {op for op, _ in under["static_float_roialign"]}
+    in_op = [k for op, k in under["static"] if op == "locov::roi_align_int8"]
+    kq2 = [k for _, k in under["static"] if "roi_align_int8_kernel" in k]
+    roi_ops = {}
+    for op, _ in under["static"]:
+        roi_ops[op] = roi_ops.get(op, 0) + 1
+    roi_features = {
+        "kernels": len(under["static"]), "kq2_kernels": len(kq2),
+        "kernels_under_op": in_op, "kernels_by_operator": roi_ops,
+        "operators_not_in_k2_mode": sorted(
+            set(roi_ops) - k2_ops - {"locov::roi_align_int8"})}
+    roi_features["only_kq2"] = (
+        len(kq2) == 1 and in_op == kq2 and
+        not roi_features["operators_not_in_k2_mode"])
 
     with torch.inference_mode():
         x = bf16.preprocess(batch.images)
@@ -4838,7 +4829,8 @@ def int8_path(gen, seed, workdir, bf16_images_per_s):
                         calib_batches=INT8_CALIB_BATCHES,
                         amax_buffers=len(amax_vals),
                         amax_min=min(amax_vals), amax_max=max(amax_vals),
-                        build_s=build_s)
+                        build_s=build_s, roi_features=roi_features)
+            ok = ok and roi_features["only_kq2"]
         emit(line)
         ok = ok and finite and all(launches[name][k] > 0 for k in need)
         if name == "static_unfused":
@@ -5074,10 +5066,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kq2-parent", default=None,
-                    help="an earlier csrc/roi_align_int8.cu (the kernel "
-                         "that took the matrices), timed with its plain "
-                         "matrix build beside KQ2")
     args = ap.parse_args(argv)
 
     import torch
@@ -5127,7 +5115,7 @@ def main(argv=None) -> int:
     check_roi_align_lsm(gen)
     torch.cuda.empty_cache()
     check_conv_int8(gen, results)
-    check_roi_align_int8(gen, results, args.kq2_parent)
+    check_roi_align_int8(gen, results)
     small_reference(args.seed)
     small_reference_train(args.seed)
     small_reference_lsm(args.seed)
@@ -5229,8 +5217,7 @@ def main(argv=None) -> int:
             "f32_library_ms": f32.get("library_ms"),
             **({"variants": results[("conv_int8_variants", "bfloat16")]}
                if name == "conv_int8" else {}),
-            **({k: r.get(k) for k in ("k2_ms", "parent_ms",
-                                      "kernel_ms_turns", "op_profile")}
+            **({"k2_ms": r["k2_ms"]}
                if name == "roi_align_int8" else {})})
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})

@@ -655,22 +655,26 @@ def _int8_plan(h: int, w: int, c: int, pooled: int = 14,
     channels a thread takes (16 where c and the address allow it, else
     8, else 4), the threads a block (the most of ``_INT8_THREADS``, no
     more than the (bin column, channel vector) items need), the blocks
-    an SM its shared memory leaves (2 or 1) and that shared memory.
-    Raises where that does not fit a block."""
+    an SM its shared memory leaves (2 or 1) and that shared memory. Each
+    thread holds h x vec bytes of tq rows, so for tall features the
+    channels a thread halve, then the threads, until a block's shared
+    memory holds them (at h 120, 128 x 8 ran 9% faster than 64 x 16:
+    chip_smoke.py's tall case). Raises where none fits."""
     if pooled > _INT8_PMAX or c % 4 or align % 4:
         raise ValueError(f"roi_align_int8: the kernel takes pooled <= "
                          f"{_INT8_PMAX} and 4-byte aligned features of C a "
                          f"multiple of 4, got pooled {pooled}, C {c}")
-    vec = next(v for v in (16, 8, 4) if c % v == 0 and align % v == 0)
-    need = -(-pooled * (c // vec) // 32) * 32
-    threads = next(t for t in _INT8_THREADS if t <= max(need, 32))
-    smem = _int8_smem(h, w, vec, threads)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"roi_align_int8: features {h} x {w} need more "
-                         f"shared memory than a block has")
-    per_sm = 2 if smem <= _BWD_SMEM_TWO else 1
-    return {"vec": vec, "threads": threads, "blocks_per_sm": per_sm,
-            "smem_bytes": smem}
+    vecs = [v for v in (16, 8, 4) if c % v == 0 and align % v == 0]
+    need = -(-pooled * (c // vecs[0]) // 32) * 32
+    for threads in (t for t in _INT8_THREADS if t <= max(need, 32)):
+        for vec in vecs:
+            smem = _int8_smem(h, w, vec, threads)
+            if smem <= _SMEM_MAX:
+                per_sm = 2 if smem <= _BWD_SMEM_TWO else 1
+                return {"vec": vec, "threads": threads,
+                        "blocks_per_sm": per_sm, "smem_bytes": smem}
+    raise ValueError(f"roi_align_int8: features {h} x {w} need more "
+                     f"shared memory than a block has")
 
 
 def _check_int8_args(fq, boxes, ratio) -> None:

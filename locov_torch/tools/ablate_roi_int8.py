@@ -6,8 +6,8 @@ C entry in one process, at the static int8 path's shapes: features [8,
 image the size of RPN proposals, adaptive sampling, pooled 14.
 
     python -m locov_torch.tools.ablate_roi_int8 [--cuts a,b,...]
-        [--plans 128x16,64x16,...] [--reference SRC] [--persistent SRC]
-        [--compare SRC] [--k2-reference SRC] [--seed 0]
+        [--plans 128x16,64x16,...] [--reference SRC] [--k2-reference SRC]
+        [--seed 0]
 
 A change is a text substitution in the source: ``imad`` (phase (b)'s
 four-row products as four multiply-adds of sign-extended bytes, not one
@@ -23,17 +23,14 @@ computed, stored under a condition never met), ``loads`` (phase (a)'s
 16-byte feature loads replaced by values made from their addresses),
 ``phase_a`` (no tq computed: phase (b) reads what shared memory holds),
 ``phase_b`` (no bin summed, nothing stored; ``phase_a+phase_b``: the
-boxes' build alone). Cuts joined by ``+`` are made together.
-A plan is
-threads x channels a thread (``_int8_plan``'s members, the shared
-memory and blocks an SM recounted). ``--persistent`` is this file's
-persistent form (``git show be32209:locov_torch/csrc/roi_align_int8.cu``
-beside ``roi_taps.cuh``). ``--compare`` is another source with this C entry (``git show
-<commit>:locov_torch/csrc/roi_align_int8.cu`` beside ``roi_taps.cuh``),
-timed and checked like a change. ``--reference`` is an earlier
-``csrc/roi_align_int8.cu`` whose C entry took the matrices (the
-parent's), timed with the plain matrix build it needed (the parent's
-form, as ``chip_smoke.py`` times it). The base kernel is timed first
+boxes' build alone). Cuts joined by ``+`` are made together. A change
+or cut whose text the source no longer holds is left out and listed
+under ``not_applied``. A plan is threads x channels a thread
+(``_int8_plan``'s members, the shared memory and blocks an SM
+recounted). ``--reference`` is an earlier ``csrc/roi_align_int8.cu``
+whose C entry took the matrices (``git show
+657e8ff:locov_torch/csrc/roi_align_int8.cu``), timed with the plain
+matrix build it needed. The base kernel is timed first
 and last; the float K2 (``roi_align_cuda``) on the same boxes and the
 bfloat16 features beside them. Prints one JSON line: ms per variant,
 same bits per variant that computes KQ2, the ptxas lines of each build,
@@ -105,19 +102,20 @@ def variant_dir(name: str) -> str:
                         "ablate_roi_int8", name)
 
 
-def write_variant(name: str, subs) -> str:
-    """A copy of csrc/ with ``subs`` applied to SRC; returns its path."""
+def write_variant(name: str, subs):
+    """A copy of csrc/ with ``subs`` applied to SRC; returns its path, or
+    None where SRC does not hold the text of a substitution once."""
+    with open(os.path.join(kernel_lib.CSRC, SRC)) as f:
+        text = f.read()
+    for old, new in subs:
+        if text.count(old) != 1:
+            return None
+        text = text.replace(old, new)
     d = variant_dir(name)
     os.makedirs(d, exist_ok=True)
     for f in os.listdir(kernel_lib.CSRC):
         shutil.copy(os.path.join(kernel_lib.CSRC, f), d)
     path = os.path.join(d, SRC)
-    with open(path) as f:
-        text = f.read()
-    for old, new in subs:
-        if text.count(old) != 1:
-            raise ValueError(f"{name}: {old!r} is not once in {SRC}")
-        text = text.replace(old, new)
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -171,33 +169,6 @@ def runner(lib, args, plan):
                  out.data_ptr(), b, h, w, c, n, POOLED, 0, SCALE,
                  plan["vec"], plan["threads"], plan["smem_bytes"], stream)
         kernel_lib.check_launch(err, "ablation")
-        return out
-    return run
-
-
-def persistent_runner(lib, args):
-    """The persistent form (``csrc/roi_align_int8.cu`` at commit
-    be32209): 128 contracting threads and a builder warp a block, two
-    blocks an SM walking the boxes; its C entry also takes the blocks,
-    and two boxes' operands in its shared memory."""
-    fn = lib.roi_align_int8_fwd
-    fn.argtypes = ra._INT8_ARGTYPES[:-2] + [ctypes.c_int] * 2 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fq, boxes, ratio = args
-    b, h, w, c = fq.shape
-    n = boxes.shape[1]
-    ops = ra._int8_smem(h, w, 16, 0)
-    smem = 2 * ops + 128 * (-(-h // 4) * 4) * 16
-    out = torch.empty((b, n, POOLED, POOLED, c), dtype=torch.int8,
-                      device=fq.device)
-    sms = torch.cuda.get_device_properties(fq.device).multi_processor_count
-
-    def run():
-        err = fn(fq.data_ptr(), boxes.data_ptr(), ratio.data_ptr(),
-                 out.data_ptr(), b, h, w, c, n, POOLED, 0, SCALE, 16, 160,
-                 2 * sms, smem, kernel_lib.stream_ptr(fq.device))
-        kernel_lib.check_launch(err, "persistent roi_align_int8")
         return out
     return run
 
@@ -266,13 +237,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--reference", default=None,
                     help="the parent's roi_align_int8.cu, timed with its "
                          "plain matrix build")
-    ap.add_argument("--compare", default=None,
-                    help="another roi_align_int8.cu with this C entry (an "
-                         "earlier commit's), beside roi_taps.cuh, timed "
-                         "under the same plan")
-    ap.add_argument("--persistent", default=None,
-                    help="roi_align_int8.cu at commit be32209 (persistent "
-                         "blocks), beside roi_taps.cuh")
     ap.add_argument("--k2-reference", default=None,
                     help="another roi_align.cu (the parent's), whose K2 / "
                          "K3 outputs are held to csrc's bit for bit")
@@ -282,17 +246,16 @@ def main(argv=None) -> dict:
         raise SystemExit("ablate_roi_int8: needs a CUDA device")
     device = torch.device("cuda")
     names = [c for c in args.cuts.split(",") if c]
-    sources = {"base": write_variant("base", [])}
+    sources, not_applied = {"base": write_variant("base", [])}, []
     for name in names:
-        sources[name] = write_variant(
-            name, [sub for part in name.split("+")
-                   for sub in {**CHANGES, **CUTS}[part]])
+        src = write_variant(name, [sub for part in name.split("+")
+                                   for sub in {**CHANGES, **CUTS}[part]])
+        if src is None:
+            not_applied.append(name)
+        else:
+            sources[name] = src
     if args.reference:
         sources["parent"] = os.path.abspath(args.reference)
-    if args.persistent:
-        sources["persistent"] = os.path.abspath(args.persistent)
-    if args.compare:
-        sources["compare"] = os.path.abspath(args.compare)
     built = build_all(sources)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -310,15 +273,12 @@ def main(argv=None) -> dict:
     base_plan = ra._int8_plan(h, w, c, POOLED, ra._align(fq))
     runs = {name: runner(lib, inputs, base_plan)
             for name, (lib, _) in built.items()
-            if name not in ("parent", "persistent")}
+            if name != "parent"}
     for spec in [p for p in args.plans.split(",") if p]:
         runs["plan_" + spec] = runner(built["base"][0], inputs,
                                       plan_of(spec, h, w))
     if "parent" in built:
         runs["parent"] = parent_runner(built["parent"][0], inputs)
-    if "persistent" in built:
-        runs["persistent"] = persistent_runner(built["persistent"][0],
-                                               inputs)
     same = {name: bool(torch.equal(run(), want)) for name, run in
             runs.items() if not set(name.split("+")) & set(CUTS)}
     ms = {"base": time_ms(runs["base"], device, reps=20)}
@@ -333,7 +293,7 @@ def main(argv=None) -> dict:
     line = {"metric": "roi_align_int8_ablation_ms",
             "features": list(fq.shape), "boxes": list(boxes.shape),
             "plan": base_plan, **describe(device), "ms": ms,
-            "same_bits": same,
+            "same_bits": same, "not_applied": not_applied,
             "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
             "ptxas": {name: p for name, (_, p) in built.items()}}
     if args.k2_reference:

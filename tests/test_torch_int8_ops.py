@@ -528,20 +528,33 @@ def test_int8_plans_match_the_kernel_sources():
 
 
 def test_kq2_ablations_apply_to_the_source(tmp_path, monkeypatch):
-    """Each change and cut of tools/ablate_roi_int8.py names text that
-    KQ2's source holds once, so a copy with it applied can be built; its
-    plans are launch plans the C entry takes."""
+    """tools/ablate_roi_int8.py's copies of KQ2's source: a change or cut
+    whose text the source holds once is applied in a copy under the build
+    directory, one whose text it does not hold gives no copy (the tool
+    leaves it out); its plans are launch plans the C entry takes."""
     from locov_torch.ops import kernel_lib
     from locov_torch.tools import ablate_roi_int8 as ab
     monkeypatch.setattr(kernel_lib, "BUILD_DIR",
                         str(tmp_path / "build" / "kernels"))
+    with open(f"{kernel_lib.CSRC}/{ab.SRC}") as f:
+        source = f.read()
     combined = {"phase_a+phase_b": ab.CUTS["phase_a"] + ab.CUTS["phase_b"]}
     for name, subs in {**ab.CHANGES, **ab.CUTS, **combined}.items():
         src = ab.write_variant(name, subs)
-        assert src.startswith(str(tmp_path))
-        with open(src) as f:
-            text = f.read()
-        assert all(new in text for _, new in subs)
+        if all(source.count(old) == 1 for old, _ in subs):
+            assert src.startswith(str(tmp_path))
+            with open(src) as f:
+                text = f.read()
+            assert all(new in text for _, new in subs)
+        else:
+            assert src is None
+    line = "constexpr int PMAX = 16;"
+    assert source.count(line) == 1
+    src = ab.write_variant("pmax", [(line, "constexpr int PMAX = 15;")])
+    with open(src) as f:
+        assert "constexpr int PMAX = 15;" in f.read()
+    assert ab.write_variant("absent", [("no such text", "")]) is None
+    assert not (tmp_path / "build" / "ablate_roi_int8" / "absent").exists()
     for spec in ("128x16", "64x16", "128x8", "64x8"):
         plan = ab.plan_of(spec, 50, 84)
         threads, vec = (int(v) for v in spec.split("x"))
@@ -549,3 +562,27 @@ def test_kq2_ablations_apply_to_the_source(tmp_path, monkeypatch):
         assert plan["smem_bytes"] == tra._int8_smem(50, 84, vec, threads)
         assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= 233472
     assert ab.plan_of("128x16", 50, 84) == tra._int8_plan(50, 84, 1024)
+
+
+@pytest.mark.parametrize("h,w,c,align,want", [
+    (108, 76, 1024, 16, (16, 128)), (109, 76, 1024, 16, (8, 128)),
+    (120, 76, 1024, 16, (8, 128)), (250, 167, 1024, 16, (4, 128)),
+    (500, 300, 1024, 16, (4, 64)), (120, 76, 1024, 8, (8, 128)),
+    (1200, 76, 64, 16, (4, 32))])
+def test_int8_plan_fits_tall_features(h, w, c, align, want):
+    """Each thread holds h x vec bytes of tq rows: for tall features
+    (TTA's sizes: h 114 at a 1824-pixel side) the plan halves the
+    channels a thread, then the threads, until a block's shared memory
+    holds them (neither twice the channels nor twice the threads would
+    fit), and raises where nothing fits."""
+    plan = tra._int8_plan(h, w, c, align=align)
+    vec, threads = want
+    assert (plan["vec"], plan["threads"]) == want
+    assert plan["smem_bytes"] == tra._int8_smem(h, w, vec, threads)
+    assert plan["smem_bytes"] <= tra._SMEM_MAX
+    if 2 * vec <= min(16, align) and c % (2 * vec) == 0:
+        assert tra._int8_smem(h, w, 2 * vec, threads) > tra._SMEM_MAX
+    if 2 * threads <= max(tra._INT8_THREADS):
+        assert tra._int8_smem(h, w, vec, 2 * threads) > tra._SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        tra._int8_plan(2000, w, c, align=align)

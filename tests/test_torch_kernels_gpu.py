@@ -598,7 +598,8 @@ def _int8_roi_same(f, bx, sr, pooled, pool_share=0.6):
 
 @pytest.mark.parametrize("sr,pooled,c,h,w,n", [
     (0, 14, 1024, 50, 84, 100), (2, 7, 16, 24, 28, 25),
-    (0, 14, 64, 84, 50, 40), (0, 16, 4, 7, 9, 9)])
+    (0, 14, 64, 84, 50, 40), (0, 16, 4, 7, 9, 9),
+    (0, 14, 1024, 120, 76, 20)])
 def test_roi_align_int8_bit_exact(cuda, sr, pooled, c, h, w, n):
     f = torch.randn((2, h, w, c), generator=cuda, device="cuda") * 3
     bx = _boxes(cuda, 2, n, h * 16, w * 16)
