@@ -191,14 +191,33 @@ Phases, one JSON line each, in order:
 14. stem path: ``locov_torch.tools.bench_stem.main`` at its defaults
    (K5 at [4, 800, 1344, 3] against ``F.conv2d``, forward and forward +
    backward).
-15. the ``kernels`` line (one row per TPU kernel replaced:
+15. tools path (``tools_path``): the last tool twins through their
+   ``main`` at full width. ``locov_torch.tools.profile_step`` in both
+   modes, 3 profiled steps each after 3 warm ones: the LSM step (batch
+   4, 800 x 1344, FREEZE_AT 0) and STT inference (batch 8); each table's
+   buckets sum to its busy and wall time within 1%, K2 / K3-fwd and
+   K3-bwd fall in ``roi_align`` and nowhere else, every kernel of the
+   step launched (counts zeroed just before each profile). ``bench_
+   pairwise`` at batch 32 (1,024 pairs), chunk 128: ms and peak GiB.
+   ``bench_loader`` on 64 JPEGs for 4 s, 0 and 4 workers, against the
+   LSM path's images/s. The profile's code is the tool's
+   (``profile_step.profile``, ``stage_line``): every ``*_profile`` line
+   comes from it.
+16. NMS checks (``nms_checks``): the counterpart of
+   ``tools/tpu_checks.py`` checks 1-2 and its compacted check. The
+   port's ``nms_topk_batched`` (900 clustered boxes at the 1344 scale,
+   top 250, 12 trials alone and as one batch), ``batched_nms_mask_
+   batched`` (400 boxes, 5 classes) and its ``stop_after`` 100 path
+   (4,096 boxes, 65 classes), on the card against brute-force greedy in
+   numpy with the port's float32 IoU: every keep set identical.
+17. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; then a row for each of the port's
    own kernels, KQ1 and KQ2, whose
    ``replaces`` names the JAX function XLA computes; ``launches_by_path``
    gives each path's counts, ``eval``, ``int8``, ``int8_eval``,
    ``int8_tiny``, ``trainer``, ``scale``,
-   ``family``, ``serving`` and ``tta`` among them), the
+   ``family``, ``serving``, ``tta`` and ``tools`` among them), the
    card's ``nvidia-smi`` name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -263,7 +282,6 @@ LSM_KERNELS = ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
                "roi_align_bwd")  # coco_lsm.yaml: FREEZE_AT 0
 TRAIN_STEPS = 3  # timed steps of the train path
 LSM_STEPS = 3  # timed steps of the LSM path
-LSM_RANGE = "DistillProposalMMSSRCNN."
 # parameters whose gradient is zero but for rounding (a softmax ignores
 # a shift of a whole row): held to an absolute bound, not a relative one
 ZERO_BY_SHIFT = ("attention_self.key.bias", "bi_seq_relationship.bias")
@@ -1040,6 +1058,203 @@ def bench_path(name, main_fn, kernel, max_rel_err):
     return launches
 
 
+# ---------------------------------------------------------- tools path
+# profile_step's modes: the kernels of the step, and where the ROIAlign
+# kernels must land (bucket "roi_align")
+PROFILE_MODES = (
+    ("lsm_train", LSM_KERNELS,
+     ("roi_align_fwd_kernel", "roi_align_bwd_kernel")),
+    ("stt_eval", INFERENCE_KERNELS, ("roi_align_fwd_kernel",)),
+)
+PROFILE_STEPS = 3
+
+
+def tools_path(lsm_images_per_s):
+    """The last tool twins on the card at full width, each through its
+    ``main``: ``profile_step`` in both modes (the LSM step at batch 4,
+    800 x 1344, FREEZE_AT 0; STT inference at batch 8), its buckets
+    summing to its total within 1%, K2 / K3-fwd and K3-bwd in
+    ``roi_align`` and nowhere else, every kernel of the step launched;
+    ``bench_pairwise`` at 1,024 pairs with chunk 128 (scale_path's global
+    recipe), its products' bound at the bf16 tensor-core peak;
+    ``bench_loader`` on 64 JPEGs, 0 and 4 workers, against the
+    LSM path's images/s. Launch counts are zeroed just before each
+    profile and read just after. Returns the profiles' launches."""
+    from collections import Counter
+
+    from locov_torch.ops import kernel_lib
+    from locov_torch.tools import bench_loader, bench_pairwise, profile_step
+    t_start = time.perf_counter()
+    total = Counter()
+    for mode, kernels, roi_kernels in PROFILE_MODES:
+        t0 = time.perf_counter()
+        kernel_lib.reset_launches()
+        line = profile_step.main(["--mode", mode, "--steps",
+                                  str(PROFILE_STEPS)])
+        launches = dict(kernel_lib.LAUNCHES)
+        shutil.rmtree(line["trace"], ignore_errors=True)
+        total.update(launches)
+        ms_sum = sum(b["ms"] for b in line["buckets"].values())
+        host_sum = sum(b["host_ms"] for b in line["buckets"].values())
+        placed = {k: line["hand_kernels"].get(k, {}) for k in roi_kernels}
+        check = {"phase": f"tools_profile_{mode}", "launches": launches,
+                 "bucket_ms_sum": ms_sum, "busy_ms": line["busy_ms"],
+                 "bucket_host_ms_sum": host_sum, "wall_ms": line["wall_ms"],
+                 "roi_align_kernels": placed,
+                 "seconds": time.perf_counter() - t0}
+        emit(check)
+        if not (abs(ms_sum - line["busy_ms"]) <= 0.01 * line["busy_ms"]
+                and abs(host_sum - line["wall_ms"])
+                <= 0.01 * line["wall_ms"]
+                and all(set(v) == {"roi_align"} for v in placed.values())
+                and all(launches[k] > 0 for k in kernels)):
+            raise AssertionError(f"profile_step {mode}: {check}")
+    t0 = time.perf_counter()
+    pairwise = bench_pairwise.main(["--batch", "32", "--chunk", "128"])
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = bench_loader.main(["--images", "64", "--seconds", "4",
+                                "--workers", "0", "4", "--device-rate",
+                                str(lsm_images_per_s)])
+    line = {"phase": "tools_path", "pairwise_ms": pairwise["value"],
+            "pairwise_peak_gib": pairwise["peak_hbm_gb"],
+            "pairwise_matmul_tflop": pairwise["matmul_tflop"],
+            "pairwise_bound_ms": pairwise["matmul_tflop"] * 1e15
+            / BF16_TC_OPS_PER_S,
+            "pairwise_s": pair_s, "loader_per_workers":
+            loader["per_workers"], "loader_vs_lsm_step":
+            loader["vs_baseline"], "lsm_images_per_s": lsm_images_per_s,
+            "loader_s": time.perf_counter() - t0,
+            "seconds": time.perf_counter() - t_start}
+    emit(line)
+    if not (math.isfinite(pairwise["value"]) and pairwise["pairs"] == 1024
+            and all(v > 0 for v in loader["per_workers"].values())):
+        raise AssertionError(f"tools path: {line}")
+    return dict(total)
+
+
+# ----------------------------------------------------------- NMS checks
+def _greedy(boxes, scores, thresh):
+    """Brute-force greedy NMS in numpy with ``locov_torch/ops/nms.py``'s
+    float32 IoU: the kept indices, ascending."""
+    import numpy as np
+    f = np.float32
+    lt = np.maximum(boxes[:, None, :2], boxes[None, :, :2])
+    rb = np.minimum(boxes[:, None, 2:], boxes[None, :, 2:])
+    wh = np.maximum(rb - lt, f(0))
+    inter = wh[..., 0] * wh[..., 1]
+    area = (np.maximum(boxes[:, 2] - boxes[:, 0], f(0)) *
+            np.maximum(boxes[:, 3] - boxes[:, 1], f(0)))
+    union = area[:, None] + area[None, :] - inter
+    iou = np.where(inter > 0, inter / np.maximum(union, f(1e-12)), f(0))
+    over = iou > f(thresh)
+    suppressed = np.zeros(len(boxes), bool)
+    keep = []
+    for i in np.argsort(-scores, kind="stable"):
+        if not suppressed[i]:
+            keep.append(int(i))
+            suppressed |= over[i]
+    return sorted(keep)
+
+
+def _nms_boxes(rng, n, scale=1344.0):
+    """Clustered boxes at the production coordinate scale
+    (``tools/tpu_checks.py:_boxes``)."""
+    import numpy as np
+    centers = rng.rand(max(n // 8, 1), 2) * scale
+    c = centers[rng.randint(len(centers), size=n)] + rng.randn(n, 2) * 40
+    wh = rng.rand(n, 2) * 200 + 30
+    return np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+
+
+def nms_checks(device="cuda"):
+    """The card's counterpart of ``tools/tpu_checks.py`` checks 1-2 and
+    its compacted-buffer check: the port's NMS on ``device`` against
+    brute-force greedy (``_greedy``) at the production coordinate scale.
+    1. ``nms_topk_batched``, 900 clustered boxes, top 250 (four tiles of
+    256: the compacted survivor buffer), 12 trials one at a time, then
+    the 12 as one batch; 2. ``batched_nms_mask_batched``, 400 boxes in 5
+    classes, greedy within each class (two tiles); 3. the same with
+    ``stop_after`` 100 over 4,096 boxes in 65 classes (the
+    ``fast_rcnn_inference`` configuration: 16 tiles, class-aware
+    compacted path), the top 100 kept. Every keep set must be identical."""
+    import numpy as np
+    import torch
+    from locov_torch.ops import nms as N
+    t_start = time.perf_counter()
+
+    def dev(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                for x in xs]
+
+    def survivors(boxes, scores, classes):
+        """Greedy within each class, by descending score."""
+        surv = []
+        for c in np.unique(classes):
+            m = np.nonzero(classes == c)[0]
+            surv += [int(m[i]) for i in _greedy(boxes[m], scores[m], 0.5)]
+        return sorted(surv, key=lambda i: -scores[i])
+
+    checks = {}
+    rng = np.random.RandomState(1)
+    n, k, trials = 900, 250, 12
+    boxes = np.stack([_nms_boxes(rng, n) for _ in range(trials)])
+    scores = rng.rand(trials, n).astype(np.float32)
+    surv = [survivors(boxes[t], scores[t], np.zeros(n, int))
+            for t in range(trials)]
+    want = [w[:k] for w in surv]
+    bad_one, bad_batch = [], []
+    for t in range(trials):
+        b, s, v = dev(boxes[t:t + 1], scores[t:t + 1],
+                      np.ones((1, n), bool))
+        idx, ok = N.nms_topk_batched(b, s, v, 0.5, k)
+        if idx[0][ok[0]].tolist() != want[t]:
+            bad_one.append(t)
+    b, s, v = dev(boxes, scores, np.ones((trials, n), bool))
+    idx, ok = N.nms_topk_batched(b, s, v, 0.5, k)
+    for t in range(trials):
+        if idx[t][ok[t]].tolist() != want[t]:
+            bad_batch.append(t)
+    checks["nms_topk_compacted"] = {
+        "trials": trials, "survivors": [len(w) for w in surv],
+        "diverged": bad_one, "diverged_batched": bad_batch}
+
+    rng = np.random.RandomState(2)
+    n = 400
+    boxes, scores = _nms_boxes(rng, n), rng.rand(n).astype(np.float32)
+    classes = rng.randint(0, 5, size=n)
+    keep = N.batched_nms_mask_batched(
+        *dev(boxes[None], scores[None], classes[None],
+             np.ones((1, n), bool)), 0.5)[0].cpu().numpy()
+    diff = sorted(set(np.nonzero(keep)[0].tolist())
+                  ^ set(survivors(boxes, scores, classes)))
+    checks["batched_per_class"] = {"kept": int(keep.sum()),
+                                   "symmetric_diff": diff}
+
+    rng = np.random.RandomState(7)
+    n, k, ncls = 4096, 100, 65
+    boxes, scores = _nms_boxes(rng, n), rng.rand(n).astype(np.float32)
+    classes = rng.randint(0, ncls, size=n)
+    keep = N.batched_nms_mask_batched(
+        *dev(boxes[None], scores[None], classes[None],
+             np.ones((1, n), bool)), 0.5, stop_after=k)[0].cpu().numpy()
+    want_k = survivors(boxes, scores, classes)[:k]
+    kept_scores = np.where(keep, scores, -np.inf)
+    got = [int(i) for i in np.argsort(-kept_scores, kind="stable")[:k]
+           if kept_scores[i] > -np.inf]
+    checks["class_aware_compacted"] = {
+        "boxes": n, "classes": ncls, "top": k,
+        "symmetric_diff": len(set(got) ^ set(want_k)),
+        "same_order": got == want_k}
+
+    ok = (not bad_one and not bad_batch and not diff and got == want_k)
+    line = {"phase": "nms_checks", "device": str(device), "ok": ok,
+            "checks": checks, "seconds": time.perf_counter() - t_start}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"NMS keep sets differ from greedy: {line}")
+
+
 # ------------------------------------------------------ small reference
 def _tiny_cfg():
     from locov_torch.config import get_cfg
@@ -1282,60 +1497,22 @@ def main_path(seed, batches):
 
 
 def profile_run(phase, run, unprofiled_ms):
-    """``run()`` once under torch.profiler: the device's busy time (the
-    sum of its kernels' times) against the wall time, the kernels that
-    take the most of it, and for each ``OvrRCNN.<stage>`` and
-    ``train_step.<stage>`` range its host time and the device time of
+    """``run()`` once under torch.profiler, as a line of
+    ``locov_torch/tools/profile_step.py:stage_line``: the device's busy
+    time (the sum of its kernels' times) against the wall time, the
+    kernels that take the most of it, and for each ``OvrRCNN.<stage>``
+    and ``train_step.<stage>`` range its host time and the device time of
     the kernels launched in it (kernels that autograd launches from its
     own thread belong to no range: ``unattributed_kernels_ms``). The
     profiler stretches the wall time, so the idle share is also given
     against ``unprofiled_ms``, the same run's median time unprofiled.
     Returns the emitted line."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e):
-        return getattr(e, "device_time_total",
-                       getattr(e, "cuda_time_total", 0.0))
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    ranges = [e for e in events
-              if e.key.startswith(("OvrRCNN.", LSM_RANGE, "train_step.",
-                                   "eval."))]
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e not in ranges]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    stages = {}
-    for e in ranges:
-        st = stages.setdefault(e.key.split(".", 1)[1], {})
-        if e.device_type == DeviceType.CUDA:  # the range on the device
-            st["device_span_ms"] = device_us(e) / 1e3
-        else:
-            st["host_ms"] = e.cpu_time_total / 1e3
-            st["device_kernels_ms"] = device_us(e) / 1e3
-    attributed = sum(st.get("device_kernels_ms", 0.0)
-                     for st in stages.values())
-    line = {"phase": phase, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
-            "kernel_launches": sum(e.count for e in kernels),
-            "stages": stages,
-            "unattributed_kernels_ms": busy_ms - attributed,
-            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
-                                e.count] for e in top]}
+    from locov_torch.tools.profile_step import profile, stage_line
+    line = stage_line(phase, *profile(run, torch.device("cuda")),
+                      unprofiled_ms)
     emit(line)
-    if not stages:
+    if not line["stages"]:
         raise AssertionError(f"{phase}: the profile holds no stage range")
     return line
 
@@ -1824,7 +2001,8 @@ def lsm_path(seed):
     and output finite, the frozen state (word embeddings, the unused
     position tables, FrozenBN) unchanged, the trained state changed, and
     every kernel of ``LSM_KERNELS`` launched. Then one step under
-    torch.profiler, split by ``DistillProposalMMSSRCNN.<stage>``."""
+    torch.profiler, split by ``DistillProposalMMSSRCNN.<stage>``.
+    Returns the launches and the images/s."""
     import torch
     from locov_torch.engine.solver import build_optimizer
     from locov_torch.ops import kernel_lib
@@ -1895,7 +2073,7 @@ def lsm_path(seed):
     profile_run("lsm_path_profile", lambda: step(batch, class_emb, gen), ms)
     del model, step, before, after, params, optimizer
     torch.cuda.empty_cache()
-    return launches
+    return launches, line["images_per_s"]
 
 
 # ------------------------------------------------------------ eval path
@@ -5127,7 +5305,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["train"], paths["train_freeze0"] = train_path(args.seed)
     torch.cuda.empty_cache()
-    paths["lsm"] = lsm_path(args.seed)
+    paths["lsm"], lsm_images_per_s = lsm_path(args.seed)
     torch.cuda.empty_cache()
     try:
         paths["eval"], eval_ips = eval_path(args.seed, workdir)
@@ -5177,6 +5355,10 @@ def main(argv=None) -> int:
                                 "bottleneck_block", 2e-2)
     # against one cuDNN call that adds the shift in bf16
     paths["stem"] = bench_path("stem", bench_stem.main, "stem_conv_bn", 1e-2)
+    torch.cuda.empty_cache()
+    paths["tools"] = tools_path(lsm_images_per_s)
+    torch.cuda.empty_cache()
+    nms_checks()
 
     kernels = []
     for name, source, replaces, path, check in KERNEL_ROWS:

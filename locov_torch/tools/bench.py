@@ -55,7 +55,7 @@ from ..structures.batches import (DetectionBatch, GtBatch, ImageBatch,
                                   TextBatch, to_torch)
 from ..utils.device import resolve_device
 from ..utils.weights import seeded_init_, trained_scale_
-from .timing import describe
+from .timing import describe, sync
 
 METRICS = {"lsm": "lsm_train_images_per_sec_per_chip",
            "stt_eval": "stt_eval_images_per_sec_per_chip"}
@@ -138,11 +138,6 @@ def build_stt_eval(batch=8, height=800, width=1344, device=None, seed=0):
     return cfg, model, data, class_emb
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _best_burst(run_burst, n_iter: int, reps: int = 4) -> float:
     """Seconds per step of the best of ``reps`` bursts; ``run_burst(n)``
     runs n dependent steps and ends in one read of the last result."""
@@ -173,7 +168,7 @@ def run_lsm(batch=4, device=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(5):  # warm-up: cuDNN plans, allocator, caches
         metrics = step(data, class_emb, gen)
-    _sync(dev)
+    sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -211,7 +206,7 @@ def run_stt_eval(batch=8, device=None) -> dict:
         model.calibrate_int8(data, class_emb)
     for _ in range(4):  # warm-up
         dets = model.inference(data, class_emb)
-    _sync(dev)
+    sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 

@@ -31,6 +31,12 @@ def time_ms(fn, device: torch.device = torch.device("cuda"), reps: int = 30,
     return statistics.median(times)
 
 
+def sync(device: torch.device) -> None:
+    """Wait for the card's queued work; nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def describe(device: torch.device) -> dict:
     """What ran and how it was timed, for a bench's JSON line."""
     if device.type == "cuda":

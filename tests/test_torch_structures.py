@@ -146,7 +146,8 @@ def test_port_imports_no_jax_and_no_locov_tpu():
         "utils/metric_logger", "utils/misc", "train_ovnet", "serving",
         "evaluation/tta", "tools/export_serving", "tools/demo",
         "tools/coco_bert_embeddings", "tools/convert_annotations_to_ov_sets",
-        "tools/make_synthetic_dataset")} <= names
+        "tools/make_synthetic_dataset", "tools/profile_step",
+        "tools/bench_pairwise", "tools/bench_loader")} <= names
     for path in files:
         with open(path) as f:
             hit = _FORBIDDEN.search(f.read())
