@@ -16,7 +16,7 @@ Per batch, the loop moves the numpy batch to the model's device
 (``to_torch``), runs the step, waits for the device and brings the
 detections back with one ``.cpu()``. It adds up the seconds each part
 takes (the ``seconds_*`` keys of the results) and runs the copies in
-``torch.profiler.record_function`` ranges ``eval.h2d`` and
+the stage ranges (``utils/trace.py:stage``) ``eval.h2d`` and
 ``eval.d2h``, beside the model's ``<model>.<stage>`` ranges.
 """
 from __future__ import annotations
@@ -28,11 +28,11 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..data.catalog import MetadataCatalog
 from ..parallel.mesh import process_rank_world
 from ..structures.batches import Detections, to_torch
+from ..utils.trace import stage
 from .coco_eval import COCOEvaluator
 
 logger = logging.getLogger(__name__)
@@ -199,13 +199,13 @@ def collect_detections(eval_step, params, loader, class_emb,
     for idx, batch in enumerate(batches):
         t0 = time.perf_counter()
         spent["loader_wait"] += t0 - mark
-        with record_function("eval.h2d"):
+        with stage("eval", "h2d"):
             dev_batch = batch if device is None else to_torch(batch, device)
         t1 = time.perf_counter()
         dets = eval_step(dev_batch, class_emb)  # the model's own ranges
         _wait(device)
         t2 = time.perf_counter()
-        with record_function("eval.d2h"):
+        with stage("eval", "d2h"):
             dets = _to_host(dets)
         t3 = time.perf_counter()
         spent["h2d"] += t1 - t0

@@ -26,7 +26,7 @@ The random draws are inputs where given (``uniforms``): the RPN and ROI
 samplers' (u_pos, u_neg), the grid and box spatial-dropout keys and the
 grounding head's draws of each pass; otherwise they, and the dropout
 masks, come from ``generator``. Each stage runs in a
-``torch.profiler.record_function`` range ``DistillProposalMMSSRCNN.<stage>``
+stage range (``utils/trace.py:stage``) ``DistillProposalMMSSRCNN.<stage>``
 (``MMSSGridModel.<stage>`` for the grid models).
 """
 from __future__ import annotations
@@ -35,7 +35,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ...ops.nms import top_k
 from ...ops.roi_align import _div
@@ -43,6 +42,7 @@ from ...structures import boxes as box_ops
 from ...structures.batches import (CaptionFeatures, DetectionBatch,
                                    Detections, ImageBatch, RegionFeatures)
 from ...utils.device import resolve_device
+from ...utils.trace import stage, wait
 from .. import register_meta_arch
 from ..bert import BertConfig, Dense
 from ..box_predictor import fast_rcnn_inference_batched
@@ -57,10 +57,6 @@ from .ovr_rcnn import OvrRCNN, _require_proposals, detector_kwargs
 NAME = "DistillProposalMMSSRCNN"
 GRID_NAME = "MMSSGridModel"
 HEAD_TYPES = ("GroundingHead", "TransformerHead", "MLPHead")
-
-
-def _stage(name: str):
-    return record_function(f"{NAME}.{name}")
 
 
 def make_grid_regions(grid_feats: torch.Tensor, image_hw: torch.Tensor,
@@ -259,8 +255,9 @@ class _CaptionModel:
         """(x - mean) / std over the whole canvas: these models, unlike
         ``OvrRCNN``, do not zero the padding (as in the JAX package)."""
         img = images.image
-        mean = torch.tensor(self.pixel_mean, device=img.device)
-        std = torch.tensor(self.pixel_std, device=img.device)
+        with wait("pixel_stats"):  # host lists to the card: a blocking copy
+            mean = torch.tensor(self.pixel_mean, device=img.device)
+            std = torch.tensor(self.pixel_std, device=img.device)
         return ((img - mean) / std).to(self.compute_dtype)
 
     def _distill(self, trans, w2r, r2w):
@@ -343,36 +340,36 @@ class DistillProposalMMSSRCNN(_CaptionModel, OvrRCNN):
                 uniforms[key] = tuple(u) if pair else u[0]
             return uniforms[key]
 
-        with _stage("language"):
+        with stage(NAME, "language"):
             caption = self.language_backbone(batch.text, deterministic=True)
-        with _stage("preprocess"):
+        with stage(NAME, "preprocess"):
             x = self.preprocess(images)
-        with _stage("backbone"):
+        with stage(NAME, "backbone"):
             features = self.backbone(x)["res4"]
         losses: Dict[str, torch.Tensor] = {}
         if self.use_rpn:
-            with _stage("rpn_head"):
+            with stage(NAME, "rpn_head"):
                 anchors, logits, deltas = self.run_rpn(features)
-            with _stage("rpn_losses"):
+            with stage(NAME, "rpn_losses"):
                 losses.update(rpn_losses(anchors, logits, deltas, gt,
                                          self.rpn_cfg,
                                          *draw("rpn", anchors.shape[0])))
-            with _stage("select_proposals"), torch.no_grad():
+            with stage(NAME, "select_proposals"), torch.no_grad():
                 proposals = select_proposals(
                     anchors, logits.detach(), deltas.detach(), images.hw,
                     self.rpn_cfg, training=True)
         else:
             proposals = _require_proposals(batch)
-        with _stage("label_and_sample"):
+        with stage(NAME, "label_and_sample"):
             n = proposals.boxes.shape[1] + (
                 gt.boxes.shape[1] if self.rcfg.proposal_append_gt else 0)
             sampled = label_and_sample_proposals(proposals, gt, self.rcfg,
                                                  *draw("roi", n))
-        with _stage("roi_features"):
+        with stage(NAME, "roi_features"):
             box_feats = self.roi_heads.roi_features(
                 features, sampled.boxes).float()
         s, c = box_feats.shape[1:]
-        with _stage("predict"):
+        with stage(NAME, "predict"):
             scores, deltas2 = self._predict_boxes(
                 box_feats.reshape(b * s, c), class_emb)
             losses.update(roi_heads_losses(
@@ -394,7 +391,7 @@ class DistillProposalMMSSRCNN(_CaptionModel, OvrRCNN):
 
         regions = bregions = grid_res = box_res = None
         if self.grid_mmss:
-            with _stage("grid_features"):
+            with stage(NAME, "grid_features"):
                 grid = self.roi_heads.grid_features(features).float()
                 regions = make_grid_regions(grid, images.hw,
                                             (x.shape[1], x.shape[2]))
@@ -405,18 +402,18 @@ class DistillProposalMMSSRCNN(_CaptionModel, OvrRCNN):
                              pair=False))
         if regions is not None and self.fused_mmss and \
                 "TransformerHead" in self.mmss_heads.head_types:
-            with _stage("box_regions"):
+            with stage(NAME, "box_regions"):
                 bregions = make_box_regions()
             if regions.mask.shape == bregions.mask.shape:
-                with _stage("fused_mmss"):
+                with stage(NAME, "fused_mmss"):
                     grid_res, box_res = heads(
                         regions, "grid_heads", image2=bregions,
                         draws2=uniforms.get("box_heads"))
         if regions is not None and grid_res is None:
-            with _stage("grid_mmss"):
+            with stage(NAME, "grid_mmss"):
                 grid_res = heads(regions, "grid_heads")
         if box_res is None:
-            with _stage("box_mmss"):
+            with stage(NAME, "box_mmss"):
                 if bregions is None:
                     bregions = make_box_regions()
                 box_res = heads(bregions, "box_heads")
@@ -433,7 +430,7 @@ class DistillProposalMMSSRCNN(_CaptionModel, OvrRCNN):
         losses.update({"Box " + k2: v for k2, v in l.items()})
         dists.update({"box_" + k2: v for k2, v in d.items()})
         if self.distill_cfg is not None:
-            with _stage("distill"):
+            with stage(NAME, "distill"):
                 if self.grid_mmss:
                     losses["kd_loss"] = self._distill(
                         dists["trans"], dists["w2r"], dists["r2w"])
@@ -450,26 +447,26 @@ class DistillProposalMMSSRCNN(_CaptionModel, OvrRCNN):
         """Detections for one padded batch, with the box predictor on the
         shared projection where the model ties it."""
         images = batch.images
-        with _stage("preprocess"):
+        with stage(NAME, "preprocess"):
             x = self.preprocess(images)
-        with _stage("backbone"):
+        with stage(NAME, "backbone"):
             features = self.backbone(x)["res4"]
         if self.use_rpn:
-            with _stage("rpn_head"):
+            with stage(NAME, "rpn_head"):
                 anchors, logits, deltas = self.run_rpn(features)
-            with _stage("select_proposals"):
+            with stage(NAME, "select_proposals"):
                 proposals = select_proposals(anchors, logits, deltas,
                                              images.hw, self.rpn_cfg)
         else:
             proposals = _require_proposals(batch)
-        with _stage("roi_features"):
+        with stage(NAME, "roi_features"):
             box_feats = self.roi_heads.roi_features(
                 features, proposals.boxes).float()
         b, s, c = box_feats.shape
-        with _stage("predict"):
+        with stage(NAME, "predict"):
             scores, deltas2 = self._predict_boxes(
                 box_feats.reshape(b * s, c), class_emb)
-        with _stage("fast_rcnn_inference"):
+        with stage(NAME, "fast_rcnn_inference"):
             dets = fast_rcnn_inference_batched(
                 scores.reshape(b, s, -1), deltas2.reshape(b, s, 4),
                 proposals.boxes, proposals.mask, images.hw, self.pcfg)
@@ -490,10 +487,6 @@ class DistillOnlyProposalMMSSRCNN(DistillProposalMMSSRCNN):
     grid_mmss = False
 
 
-def _grid_stage(name: str):
-    return record_function(f"{GRID_NAME}.{name}")
-
-
 @register_meta_arch(GRID_NAME)
 class MMSSGridModel(_CaptionModel, nn.Module):
     """The proposal-free grid model (OVR-CNN's pretraining): the trunk's
@@ -504,7 +497,7 @@ class MMSSGridModel(_CaptionModel, nn.Module):
     loss-only pass ('ovr'). The random draws are inputs where given
     (``uniforms``: ``"grid_drop"`` [B, gh * gw] and ``"grid_heads"``,
     the grounding head's draws), else drawn from ``generator``. Each
-    stage runs in a ``torch.profiler.record_function`` range
+    stage runs in a stage range (``utils/trace.py:stage``)
     ``MMSSGridModel.<stage>``."""
 
     def __init__(self, *, depth: int, num_groups: int, width_per_group: int,
@@ -558,13 +551,13 @@ class MMSSGridModel(_CaptionModel, nn.Module):
         every rank's regions and captions."""
         uniforms = dict(uniforms or {})
         images = batch.images
-        with _grid_stage("language"):
+        with stage(GRID_NAME, "language"):
             caption = self.language_backbone(batch.text, deterministic=True)
-        with _grid_stage("preprocess"):
+        with stage(GRID_NAME, "preprocess"):
             x = self.preprocess(images)
-        with _grid_stage("backbone"):
+        with stage(GRID_NAME, "backbone"):
             feats = self.backbone(x)[self.in_features].float()
-        with _grid_stage("grid_features"):
+        with stage(GRID_NAME, "grid_features"):
             regions = make_grid_regions(feats, images.hw,
                                         (x.shape[1], x.shape[2]))
             if self.spatial_dropout_k > 0:
@@ -575,12 +568,12 @@ class MMSSGridModel(_CaptionModel, nn.Module):
                 regions = spatial_dropout(regions, self.spatial_dropout_k,
                                           uniforms["grid_drop"])
         word_emb = self.language_backbone.word_embedding_matrix()
-        with _grid_stage("grid_mmss"):
+        with stage(GRID_NAME, "grid_mmss"):
             outputs, losses, dists = self.mmss_heads(
                 regions, caption, word_emb, deterministic, generator,
                 global_batch, uniforms.get("grid_heads"))
         if self.distill_cfg is not None:
-            with _grid_stage("distill"):
+            with stage(GRID_NAME, "distill"):
                 losses["kd_loss"] = self._distill(
                     dists["trans"], dists["w2r"], dists["r2w"])
         return outputs, losses

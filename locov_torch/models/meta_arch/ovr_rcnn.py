@@ -8,7 +8,7 @@ Counterpart of ``locov_tpu/models/meta_arch/ovr_rcnn.py``. Training
 Inference: backbone -> RPN (6000 -> NMS -> 1000) -> ROIAlign + res5 ->
 embedding classifier -> fast_rcnn_inference -> rescale to the original
 image size. Static padded batches throughout. Each stage runs in a
-``torch.profiler.record_function`` range named ``OvrRCNN.<stage>``, so
+stage range (``utils/trace.py:stage``) named ``OvrRCNN.<stage>``, so
 a profile splits a step or a batch by stage.
 
 ``TPU.INT8_EVAL`` (inference only) runs the trunk's res2 .. res4 and the
@@ -22,12 +22,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ...structures import boxes as box_ops
 from ...structures.batches import DetectionBatch, Detections, ImageBatch
 from ...utils.checkpoint import is_amax_key
 from ...utils.device import resolve_device
+from ...utils.trace import stage, wait
 from .. import register_meta_arch
 from ..box_predictor import BoxPredictorConfig, fast_rcnn_inference_batched
 from ..resnet import ResNetC4
@@ -43,8 +43,11 @@ def normalize_and_zero_pad(images: ImageBatch, pixel_mean, pixel_std,
     normalization (d2's ImageList pads after normalizing, so every conv
     sees 0 there, not -mean/std)."""
     img = images.image
-    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=img.device)
-    std = torch.tensor(pixel_std, dtype=torch.float32, device=img.device)
+    with wait("pixel_stats"):  # host lists to the card: a blocking copy
+        mean = torch.tensor(pixel_mean, dtype=torch.float32,
+                            device=img.device)
+        std = torch.tensor(pixel_std, dtype=torch.float32,
+                           device=img.device)
     x = (img - mean) / std
     h = torch.arange(x.shape[1], dtype=torch.int32, device=img.device)
     w = torch.arange(x.shape[2], dtype=torch.int32, device=img.device)
@@ -187,38 +190,38 @@ class OvrRCNN(nn.Module):
                                device=gt.boxes.device) for _ in range(2))
             return uniforms[key]
 
-        with record_function("OvrRCNN.preprocess"):
+        with stage("OvrRCNN", "preprocess"):
             x = self.preprocess(images)
-        with record_function("OvrRCNN.backbone"):
+        with stage("OvrRCNN", "backbone"):
             features = self.backbone(x)["res4"]
         losses = {}
         if self.use_rpn:
-            with record_function("OvrRCNN.rpn_head"):
+            with stage("OvrRCNN", "rpn_head"):
                 anchors, logits, deltas = self.run_rpn(features)
-            with record_function("OvrRCNN.rpn_losses"):
+            with stage("OvrRCNN", "rpn_losses"):
                 losses.update(rpn_losses(anchors, logits, deltas, gt,
                                          self.rpn_cfg,
                                          *draw("rpn", anchors.shape[0])))
             # proposals are fixed inputs to the second stage (d2 decodes
             # them under no_grad)
-            with record_function("OvrRCNN.select_proposals"), \
+            with stage("OvrRCNN", "select_proposals"), \
                     torch.no_grad():
                 proposals = select_proposals(
                     anchors, logits.detach(), deltas.detach(), images.hw,
                     self.rpn_cfg, training=True)
         else:
             proposals = _require_proposals(batch)
-        with record_function("OvrRCNN.label_and_sample"):
+        with stage("OvrRCNN", "label_and_sample"):
             n = proposals.boxes.shape[1] + (
                 gt.boxes.shape[1] if self.rcfg.proposal_append_gt else 0)
             sampled = label_and_sample_proposals(proposals, gt, self.rcfg,
                                                  *draw("roi", n))
-        with record_function("OvrRCNN.roi_features"):
+        with stage("OvrRCNN", "roi_features"):
             box_feats = self.roi_heads.roi_features(features, sampled.boxes)
-        with record_function("OvrRCNN.predict"):
+        with stage("OvrRCNN", "predict"):
             scores, deltas2 = self.roi_heads.predict(box_feats.float(),
                                                      class_emb.float())
-        with record_function("OvrRCNN.roi_heads_losses"):
+        with stage("OvrRCNN", "roi_heads_losses"):
             losses.update(roi_heads_losses(scores, deltas2, sampled,
                                            self.pcfg, global_batch))
         return losses
@@ -279,26 +282,26 @@ class OvrRCNN(nn.Module):
     def _inference(self, batch: DetectionBatch, class_emb: torch.Tensor,
                    int8) -> Detections:
         images = batch.images
-        with record_function("OvrRCNN.preprocess"):
+        with stage("OvrRCNN", "preprocess"):
             x = self.preprocess(images)
-        with record_function("OvrRCNN.backbone"):
+        with stage("OvrRCNN", "backbone"):
             features = self.backbone(x, int8=int8)["res4"]
         if self.use_rpn:
-            with record_function("OvrRCNN.rpn_head"):
+            with stage("OvrRCNN", "rpn_head"):
                 anchors, logits, deltas = self.run_rpn(features)
-            with record_function("OvrRCNN.select_proposals"):
+            with stage("OvrRCNN", "select_proposals"):
                 proposals = select_proposals(anchors, logits, deltas,
                                              images.hw, self.rpn_cfg)
         else:
             proposals = _require_proposals(batch)
-        with record_function("OvrRCNN.roi_features"):
+        with stage("OvrRCNN", "roi_features"):
             box_feats = self.roi_heads.roi_features(features,
                                                     proposals.boxes,
                                                     int8=int8)
-        with record_function("OvrRCNN.predict"):
+        with stage("OvrRCNN", "predict"):
             scores, deltas2 = self.roi_heads.predict(box_feats.float(),
                                                      class_emb.float())
-        with record_function("OvrRCNN.fast_rcnn_inference"):
+        with stage("OvrRCNN", "fast_rcnn_inference"):
             dets = fast_rcnn_inference_batched(
                 scores, deltas2, proposals.boxes, proposals.mask,
                 images.hw, self.pcfg)

@@ -20,6 +20,7 @@ from ..ops import nms as nms_ops
 from ..ops import losses
 from ..structures import boxes as box_ops
 from ..structures.batches import GtBatch, ProposalBatch
+from ..utils.trace import wait
 from .resnet import conv_nhwc
 
 # d2 add_ground_truth_to_proposals uses the logit of (1 - 1e-10)
@@ -36,7 +37,8 @@ def generate_cell_anchors(sizes, aspect_ratios,
             w = math.sqrt(area / ar)
             h = w * ar
             anchors.append([-w / 2.0, -h / 2.0, w / 2.0, h / 2.0])
-    return torch.tensor(anchors, dtype=torch.float32, device=device)
+    with wait("cell_anchors"):  # a host list to the card: a blocking copy
+        return torch.tensor(anchors, dtype=torch.float32, device=device)
 
 
 def grid_anchors(cell_anchors: torch.Tensor, grid_h: int, grid_w: int,

@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.trace import wait
+
 # sweeps of the in-tile fixed point between two convergence checks
 _SWEEPS_PER_CHECK = 4
 
@@ -83,7 +85,9 @@ def _self_suppress(iou_self: torch.Tensor, init_alive: torch.Tensor,
         for _ in range(_SWEEPS_PER_CHECK):
             nxt = sweep(nxt)
         # sweep(fixpoint) == fixpoint, so extra sweeps are harmless
-        if torch.equal(nxt, alive):
+        with wait("nms_converge"):
+            same = torch.equal(nxt, alive)
+        if same:
             break
         alive = nxt
     return alive
@@ -138,7 +142,12 @@ def nms_mask_batched(boxes: torch.Tensor, scores: torch.Tensor,
         scls = torch.zeros(bsz, cap + 1, dtype=torch.long, device=dev)
         cnt = torch.zeros(bsz, dtype=torch.long, device=dev)
         i = 0
-        while i < num_tiles and not bool((cnt >= stop_after).all()):
+        while i < num_tiles:
+            full = (cnt >= stop_after).all()
+            with wait("nms_tile"):
+                done = bool(full)
+            if done:
+                break
             start = i * tile
             tb = boxes_p[:, start:start + tile]
             hit = (_pairwise_iou_b(tb, surv[:, :cap]) > iou_threshold) & \

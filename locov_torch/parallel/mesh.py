@@ -11,12 +11,14 @@ overlapped with the backward), one optimizer and scheduler step, and
 the metrics averaged over the ranks. Its contrastive scope: "local"
 (the batch-coupled losses span each rank's own images, the reference's
 per-GPU semantics) or "global" (they span every rank's images, JAX's
-GSPMD step over the global batch: ``GlobalBatch``). The backward and
-the update run in ``torch.profiler.record_function`` ranges
+GSPMD step over the global batch: ``GlobalBatch``). The sum of the
+losses, the backward and the update run in the stage ranges
+(``utils/trace.py:stage``) ``train_step.losses``,
 ``train_step.backward`` and ``train_step.optimizer``, beside the
 model's ``<model>.<stage>`` ranges. The evaluation step:
-``model.inference`` on the model's device. The calibration step of the
-static int8 scheme: ``model.calibrate_int8``, its max-abs buffers then
+``model.inference`` on the model's device, the batch's copy there in a
+``wait.h2d_batch`` span. The calibration step of the static int8
+scheme: ``model.calibrate_int8``, its max-abs buffers then
 the global max over the ranks. The loss evaluation step:
 ``model.losses`` without gradients; the evaluation loop merges its
 metrics over the ranks (``evaluation/evaluator.py:
@@ -32,9 +34,9 @@ from typing import Callable, Dict, Iterator, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..structures.batches import Detections, to_torch
+from ..utils.trace import stage, wait
 
 
 def process_rank_world() -> Tuple[int, int]:
@@ -170,13 +172,14 @@ def make_train_step(model: torch.nn.Module, optimizer, scheduler,
         res = model.losses(batch, class_emb, generator, uniforms,
                            deterministic=False, **scope)
         outputs, losses = res if isinstance(res, tuple) else ({}, res)
-        total = sum(losses[k] for k in sorted(losses))
-        with record_function("train_step.backward"):
+        with stage("train_step", "losses"):
+            total = sum(losses[k] for k in sorted(losses))
+        with stage("train_step", "backward"):
             total.backward()
         metrics = {k: v.detach() for k, v in {**losses, **outputs}.items()}
         metrics["total_loss"] = total.detach()
         if world > 1:
-            with record_function("train_step.all_reduce"):
+            with stage("train_step", "all_reduce"):
                 for p in params:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
@@ -186,7 +189,7 @@ def make_train_step(model: torch.nn.Module, optimizer, scheduler,
                                        for k in keys])
                 _mean_over_ranks_([stacked], world)
                 metrics = dict(zip(keys, stacked.unbind()))
-        with record_function("train_step.optimizer"):
+        with stage("train_step", "optimizer"):
             # False: a MultiSteps optimizer only accumulated; the schedule
             # advances once an update
             if optimizer.step() is not False:
@@ -211,8 +214,10 @@ def make_eval_step(model: torch.nn.Module
 
     def step(batch, class_emb) -> Detections:
         with torch.inference_mode():
-            return model.inference(to_torch(batch, device),
-                                   to_torch(class_emb, device))
+            with wait("h2d_batch"):  # pageable host arrays: a blocking copy
+                batch = to_torch(batch, device)
+                class_emb = to_torch(class_emb, device)
+            return model.inference(batch, class_emb)
     step.device = device
     step.couples_ranks = bool(getattr(model, "couples_ranks", False))
     if step.couples_ranks:

@@ -36,14 +36,31 @@ the step's wall time: on this card the host sets the pace of a step.
 ``stage`` and ``kernel`` stand where JAX's ``source``, ``tf_op`` and
 ``category`` (XLA op metadata) have no torch counterpart.
 
+The backward splits by the forward stage that built each node
+(``backward_split``): a row of ``backward (unattributed)`` goes, through
+the ``autograd::engine::evaluate_function`` event around its launch,
+that event's ``Sequence number`` and the forward op with the same number
+on the thread ``Fwd thread id`` names, to the innermost stage range
+around that op; its bucket is one of ``BACKWARD_BUCKETS``,
+``parameters`` (``AccumulateGrad``, which has no number) or
+``unattributed``. ``wait_spans`` counts the ``wait.<site>`` spans
+(``utils/trace.py:wait``: the host blocked on the card) and their ms;
+``idle_gaps`` names each of the card's idle gaps by the innermost stage
+range on the stepping thread, and one inside ``train_step.backward`` by
+the stage of the autograd node running at its middle (``backward
+<stage>``, ``backward parameters`` or ``backward unattributed``). These
+three go to stderr as tables and into the JSON line (``backward``,
+``waits``, ``idle_gaps``).
+
 Prints the table (bucket, ms a step, %, host ms a step, heaviest op),
 then one JSON line: the mode, steps, the device (``timing.describe``),
 busy ms a step (the rows' sum), the idle share against the step's wall
 time, what the rows are (``rows``: card kernels or cpu operators; a
 card's trace parses on the CPU too), and each bucket's ms, host ms and
 heaviest op; ``hand_kernels``
-says in which buckets the port's own kernels ran, and how often. Runs
-on ``cuda`` unless ``--device cpu`` is given.
+says in which buckets the port's own kernels ran, and how often; then
+``backward``, ``waits`` and ``idle_gaps`` (above). Runs on ``cuda``
+unless ``--device cpu`` is given.
 
 ``profile`` and ``stage_line`` are also ``chip_smoke.py``'s profiler:
 ``stage_line`` gives its ``*_profile`` lines.
@@ -51,6 +68,7 @@ on ``cuda`` unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import glob
 import gzip
@@ -95,6 +113,21 @@ HAND_KERNELS = ("relu_maxpool_kernel", "relu_maxpool_bwd_kernel",
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# the backward's buckets: (bucket, the forward stages whose nodes it holds)
+BACKWARD_BUCKETS = (
+    ("trunk", ("backbone",)),
+    ("res5", ("roi_features", "grid_features")),
+    ("mmss", ("grid_mmss", "box_mmss", "fused_mmss", "distill")),
+    ("language", ("language",)),
+    ("rpn", ("rpn_head", "rpn_losses")),
+    ("boxes", ("label_and_sample", "predict", "box_regions")),
+)
+BACKWARD_BUCKET_OF_STAGE = {s: b for b, stages in BACKWARD_BUCKETS
+                            for s in stages}
+PARAMETERS = "parameters"
+UNATTRIBUTED = "unattributed"
+EVALUATE = "autograd::engine::evaluate_function"
+WAIT = "wait."
 
 
 def profile(run, device: torch.device, steps: int = 1, trace_path=None,
@@ -224,17 +257,27 @@ def trace_file(trace_dir: str) -> str:
     return max(paths, key=os.path.getmtime)
 
 
-def parse_trace(path: str):
-    """A Chrome trace of torch.profiler -> (rows, host ranges, wall us).
-    Rows: the device's work, each a dict with ``name``, ``self`` (us,
-    exclusive) and ``context`` (the names of the host operators and
-    ranges it was launched from, outermost first). On a trace without
-    device events the rows are the CPU operators. Host ranges: the stage
-    ranges with their exclusive host time. Wall: the trace's span."""
+def load_events(path: str):
+    """The complete events of a Chrome trace."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
-        events = [e for e in json.load(f).get("traceEvents", [])
-                  if e.get("ph") == "X"]
+        return [e for e in json.load(f).get("traceEvents", [])
+                if e.get("ph") == "X"]
+
+
+def parse_trace(path: str):
+    """``parse_events`` of the trace at ``path``."""
+    return parse_events(load_events(path))
+
+
+def parse_events(events):
+    """A Chrome trace's complete events -> (rows, host ranges, wall us).
+    Rows: the device's work, each a dict with ``name``, ``self`` (us,
+    exclusive), ``context`` (the names of the host operators and ranges
+    it was launched from, outermost first) and ``launch`` (its launch's
+    thread and time). On a trace without device events the rows are the
+    CPU operators. Host ranges: the stage ranges with their exclusive
+    host time. Wall: the trace's span."""
     host = [e for e in events if e.get("cat") in HOST_CATS]
     device = [dict(e) for e in events if e.get("cat") in DEVICE_CATS]
     launch = {e["args"]["correlation"]: e for e in events
@@ -253,8 +296,9 @@ def parse_trace(path: str):
             ctx = _contexts(host_lanes.get(thread, []),
                             [src["ts"] for _, src in items]) \
                 if thread is not None else [()] * len(items)
-            for (r, _), c in zip(items, ctx):
+            for (r, src), c in zip(items, ctx):
                 r["context"] = c
+                r["launch"] = None if src is None else (thread, src["ts"])
         rows = device
     else:
         rows = [dict(e) for e in host if e.get("cat") == "cpu_op"]
@@ -263,6 +307,7 @@ def parse_trace(path: str):
             ctx = _contexts(host_lanes[thread], [r["ts"] for r in lane])
             for r, c in zip(lane, ctx):
                 r["context"] = c
+                r["launch"] = (thread, r["ts"])
     ranges = [dict(e) for e in host if e.get("cat") == "user_annotation"
               and e["name"].startswith(STAGE_PREFIXES)]
     for lane in _lanes(ranges).values():
@@ -353,6 +398,188 @@ def print_table(result, top, rows_are) -> None:
           f"time)")
 
 
+# ---------------------------------------------- the backward and waits
+def _innermost(intervals, times):
+    """For each time in ``times``, the innermost of ``intervals`` (one
+    thread's events) that contains it, or None."""
+    iv = sorted(intervals, key=lambda e: (e["ts"], -e["dur"]))
+    out = [None] * len(times)
+    stack, j = [], 0
+    for i in sorted(range(len(times)), key=times.__getitem__):
+        t = times[i]
+        while j < len(iv) and iv[j]["ts"] <= t:
+            stack.append(iv[j])
+            j += 1
+        stack = [e for e in stack if e["ts"] + e["dur"] > t]
+        out[i] = stack[-1] if stack else None
+    return out
+
+
+def _lane(e):
+    return (e["pid"], e["tid"])
+
+
+def _is_forward(e) -> bool:
+    a = e.get("args", {})
+    return e.get("cat") == "cpu_op" and "Sequence number" in a and \
+        not a.get("Fwd thread id") and not e["name"].startswith("autograd::")
+
+
+def _nodes(events):
+    return [e for e in events if e.get("cat") == "cpu_op"
+            and e["name"].startswith(EVALUATE)]
+
+
+def node_stages(events) -> dict:
+    """``id`` of each ``evaluate_function`` event -> the stage range
+    that built its node: the innermost stage range around the last
+    forward op (``Fwd thread id`` 0) before the node with its
+    ``Sequence number``, on the thread holding most of the numbers of
+    the node's ``Fwd thread id``; ``parameters`` for ``AccumulateGrad``
+    (no number); "" where none is found."""
+    nodes = _nodes(events)
+    fwd = collections.defaultdict(lambda: collections.defaultdict(list))
+    for e in events:
+        if _is_forward(e):
+            fwd[_lane(e)][e["args"]["Sequence number"]].append((e["ts"], e))
+    for by_seq in fwd.values():
+        for ops in by_seq.values():
+            ops.sort(key=lambda p: p[0])
+    votes = collections.defaultdict(collections.Counter)
+    for n in nodes:
+        a = n["args"]
+        if "Sequence number" in a:
+            for lane, by_seq in fwd.items():
+                if a["Sequence number"] in by_seq:
+                    votes[a.get("Fwd thread id")][lane] += 1
+    thread = {f: c.most_common(1)[0][0] for f, c in votes.items()}
+    out, found = {}, collections.defaultdict(list)
+    for n in nodes:
+        a = n["args"]
+        if "Sequence number" not in a:
+            out[id(n)] = PARAMETERS if "AccumulateGrad" in n["name"] else ""
+            continue
+        lane = thread.get(a.get("Fwd thread id"))
+        ops = fwd.get(lane, {}).get(a["Sequence number"], [])
+        k = bisect.bisect_left(ops, n["ts"], key=lambda p: p[0])
+        if k == 0:
+            out[id(n)] = ""
+        else:
+            found[lane].append((id(n), ops[k - 1][1]))
+    ranges = _lanes([e for e in events if e.get("cat") == "user_annotation"])
+    for lane, items in found.items():
+        ctx = _contexts(ranges.get(lane, []), [op["ts"] for _, op in items])
+        for (key, _), c in zip(items, ctx):
+            out[key] = innermost_stage(c)
+    return out
+
+
+def backward_bucket(stage: str) -> str:
+    if stage == PARAMETERS:
+        return PARAMETERS
+    return BACKWARD_BUCKET_OF_STAGE.get(stage.split(".", 1)[1],
+                                        UNATTRIBUTED) if stage \
+        else UNATTRIBUTED
+
+
+def backward_split(events, rows, steps: int) -> dict:
+    """The rows of ``backward (unattributed)`` by the forward stage that
+    built their node: ``buckets`` and ``stages`` (ms a step), ``ops``
+    (rows launched inside autograd's engine a step, ROIAlign's
+    included), ``nodes`` and ``mapped`` (numbered nodes in the trace,
+    those traced to a stage)."""
+    stage_of = node_stages(events)
+    nodes = _lanes(_nodes(events))
+    mine = collections.defaultdict(list)
+    ops = 0
+    for r in rows:
+        if any(n.startswith("autograd::engine") for n in r["context"]):
+            ops += 1
+        if classify(r) == BACKWARD and r.get("launch") is not None:
+            mine[r["launch"][0]].append(r)
+    buckets = collections.defaultdict(float)
+    stages = collections.defaultdict(float)
+    for lane, items in mine.items():
+        around = _innermost(nodes.get(lane, []),
+                            [r["launch"][1] for r in items])
+        for r, n in zip(items, around):
+            stage = stage_of.get(id(n), "") if n is not None else ""
+            buckets[backward_bucket(stage)] += r["self"] / 1e3 / steps
+            stages[stage or UNATTRIBUTED] += r["self"] / 1e3 / steps
+    numbered = [k for k, v in stage_of.items() if v != PARAMETERS]
+    return {"buckets": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
+            "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1])),
+            "ops": ops / steps, "nodes": len(numbered),
+            "mapped": sum(1 for k in numbered if stage_of[k])}
+
+
+def wait_spans(events, steps: int) -> dict:
+    """The ``wait.<site>`` spans: {site: {"count", "ms"}} a step."""
+    out = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith(WAIT):
+            site = out.setdefault(e["name"][len(WAIT):],
+                                  {"count": 0.0, "ms": 0.0})
+            site["count"] += 1 / steps
+            site["ms"] += e["dur"] / 1e3 / steps
+    return out
+
+
+def idle_gaps(events, rows, steps: int, top: int = 10) -> dict:
+    """The card's idle gaps (ms a step) between its first and last row,
+    named by the innermost stage range on the thread that holds the
+    stage ranges, at the gap's middle; a gap inside
+    ``train_step.backward`` by the stage of the autograd node running
+    then (``backward <stage>``). Empty without device rows."""
+    dev = [r for r in rows if r.get("cat") in DEVICE_CATS]
+    if not dev:
+        return {}
+    spans, t = [], min(r["ts"] for r in dev)
+    for r in sorted(dev, key=lambda r: r["ts"]):
+        if r["ts"] > t:
+            spans.append((t, r["ts"]))
+        t = max(t, r["ts"] + r["dur"])
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"].startswith(STAGE_PREFIXES)]
+    if not spans or not ranges:
+        return {}
+    main = collections.Counter(_lane(e) for e in ranges).most_common(1)[0][0]
+    mids = [(a + b) / 2 for a, b in spans]
+    ctx = _contexts([e for e in ranges if _lane(e) == main], mids)
+    stage_of = node_stages(events)
+    running = {}
+    for lane, lane_nodes in _lanes(_nodes(events)).items():
+        for m, n in zip(mids, _innermost(lane_nodes, mids)):
+            if n is not None:
+                running[m] = n
+    out = collections.defaultdict(float)
+    for (a, b), m, c in zip(spans, mids, ctx):
+        name = innermost_stage(c) or "(no stage)"
+        if name == "train_step.backward":
+            n = running.get(m)
+            stage = stage_of.get(id(n), "") if n is not None else ""
+            name = f"backward {stage or UNATTRIBUTED}"
+        out[name] += (b - a) / 1e3 / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
+
+
+def print_spans(line, file=sys.stderr) -> None:
+    """The backward split, the waits and the idle gaps as tables."""
+    bwd = line["backward"]
+    total = sum(bwd["buckets"].values())
+    print(f"# backward by forward stage: {bwd['mapped']} of {bwd['nodes']} "
+          f"numbered nodes traced; {bwd['ops']:.0f} rows a step in "
+          "autograd's engine", file=file)
+    for k, v in bwd["buckets"].items():
+        share = 100 * v / total if total else 0.0
+        print(f"#   {k:<54} {v:>9.2f} ms {share:>5.1f}%", file=file)
+    for k, v in line["waits"].items():
+        print(f"# wait.{k:<52} {v['count']:>7.1f} a step {v['ms']:>9.2f} ms",
+              file=file)
+    for k, v in line["idle_gaps"].items():
+        print(f"# idle {k:<52} {v:>9.2f} ms", file=file)
+
+
 # ------------------------------------------------------------ the step
 def make_step(mode: str, device: torch.device):
     """A callable that runs one step of ``mode`` on ``device``."""
@@ -393,7 +620,8 @@ def main(argv=None) -> dict:
         _, wall_ms = profile(run, device, args.steps, os.path.join(
             trace_dir, f"{args.mode}.pt.trace.json.gz"), warmup=1)
         print(f"# trace: {trace_dir}", file=sys.stderr)
-    rows, ranges, span_us = parse_trace(trace_file(trace_dir))
+    events = load_events(trace_file(trace_dir))
+    rows, ranges, span_us = parse_events(events)
     rows_are = ("card kernels" if any(r.get("cat") in DEVICE_CATS
                                       for r in rows) else "cpu operators")
     result = table(rows, ranges,
@@ -407,7 +635,11 @@ def main(argv=None) -> dict:
             "busy_ms": result["busy_ms"], "wall_ms": result["wall_ms"],
             "idle_share": 1.0 - result["busy_ms"] / result["wall_ms"],
             "buckets": result["buckets"],
-            "hand_kernels": result["hand_kernels"], "trace": trace_dir}
+            "hand_kernels": result["hand_kernels"], "trace": trace_dir,
+            "backward": backward_split(events, rows, args.steps),
+            "waits": wait_spans(events, args.steps),
+            "idle_gaps": idle_gaps(events, rows, args.steps)}
+    print_spans(line)
     print(json.dumps(line), flush=True)
     return line
 
