@@ -44,7 +44,10 @@ Phases, one JSON line each, in order:
    with 77, edge boxes, a fixed ratio, tiny boxes (bins under a cell),
    whole-image boxes (8 samples a bin), a wide scale ratio (most
    outputs saturated) and tall features (h 120, the launch plans that
-   fit timed).
+   fit timed). KA1 (the joint encoder's attention, forward and
+   backward) against its plain chain at the LSM cell's chunk and at the
+   full BERT's L 512, within float32 summation order
+   (``check_pair_attention``).
    Kernel, plain and library-call times are medians of CUDA-event
    timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
@@ -78,7 +81,7 @@ Phases, one JSON line each, in order:
    twin's ``build_full``: batch 4, 200 gt boxes an image, 70 caption
    tokens, FREEZE_AT 0), one warm-up and ``LSM_STEPS`` timed steps,
    finite losses, the frozen state unchanged and the trained state
-   changed, every kernel of ``LSM_KERNELS`` launched; one step under
+   changed, every kernel of ``LSM_KERNELS`` and KA1 launched; one step under
    torch.profiler by ``DistillProposalMMSSRCNN.<stage>``. The K1 and K3
    checks of phase 2 also run at its shapes.
 7. eval path: STT evaluation, ``engine/trainer.py:test`` from
@@ -143,7 +146,8 @@ Phases, one JSON line each, in order:
    momentum, accumulated gradients and micro-step count equal to the
    checkpoint's before the first step); configs/coco_lsm_global.yaml at
    batch 32 with ``TPU.REMAT_BACKBONE`` and ``PAIRWISE_CHUNK`` 128, 3
-   steps (peak memory, images/s); one LSM step at batch 8 in four
+   steps (peak memory, images/s, KA1's 192 forward and 96 backward
+   launches a step); one LSM step at batch 8 in four
    variants (neither, remat, chunk, both: peak memory, ms, gradients
    against the plain variant's); two data-parallel gloo ranks on the
    card in float32 (local scope = accumulation 2 on one rank, global
@@ -265,16 +269,23 @@ KERNEL_ROWS = (
      "locov_tpu/ops/pallas_stem.py:246", "stem", "stem_conv_bn"),
 )
 # The port's own kernels, with no Pallas parent (the JAX package leaves
-# these two to XLA): (kernel, source, the JAX function it computes, the
+# these to XLA): (kernel, source, the JAX function it computes, the
 # path whose launches the row reports, the dtype of the row's numbers).
-INT8_KERNEL_ROWS = (
+OWN_KERNEL_ROWS = (
     ("conv_int8", "locov_torch/csrc/conv_int8.cu",
      "locov_tpu/ops/int8_conv.py:87 (XLA; no Pallas kernel)", "int8",
      "bfloat16"),
     ("roi_align_int8", "locov_torch/csrc/roi_align_int8.cu",
      "locov_tpu/ops/roi_align.py:175 (XLA; no Pallas kernel)", "int8",
      "int8"),
+    ("pair_attention", "locov_torch/csrc/pair_attention.cu",
+     "locov_tpu/models/bert.py:95-100 (XLA; no Pallas kernel)", "lsm",
+     "bfloat16"),
+    ("pair_attention_bwd", "locov_torch/csrc/pair_attention.cu",
+     "its gradient (XLA's autodiff)", "lsm", "bfloat16"),
 )
+# KA1's launches: the bfloat16 joint encoder's attention (LSM paths)
+ATTENTION_KERNELS = ("pair_attention", "pair_attention_bwd")
 INFERENCE_KERNELS = ("relu_maxpool", "roi_align_fused")
 TRAIN_KERNELS = ("relu_maxpool", "relu_maxpool_bwd", "roi_align_fused",
                  "roi_align_bwd")  # at FREEZE_AT 0
@@ -1039,6 +1050,127 @@ def check_stem_conv_bn(gen, results):
             if not line["within_tolerance"]:
                 raise AssertionError(f"stem_conv_bn {case} {dt}: {line}")
             del x, w, shift
+
+
+def check_pair_attention(gen, results):
+    """KA1 (``ops/pair_attention.py``) against its plain chain on the same
+    qkv, bias and uniforms: the LSM cell's chunk (128 pairs, 8 heads of
+    96, 70 caption slots + 100 regions, the raw 0/1 mask, dropout 0.1)
+    and the full BERT's (8 x 12 heads of 64, L 512, the (1 - m) * min
+    mask, no dropout), forward and backward; the context and each of dq,
+    dk, dv within the tolerances of
+    ``tests/test_torch_kernels_gpu.py:test_pair_attention_matches_plain``
+    (float32 summation order only), the same bits on a second launch. At
+    the cell's chunk: the forward's and backward's ms, their bounds
+    (bytes: qkv, the bias, the uniforms, the bf16 and f32 contexts, the
+    row statistics, the keep bits; the backward: those it reads, dout
+    and dqkv), the plain chain's forward and forward + backward, KA1's
+    forward + backward through its autograd Function, and as a
+    yardstick only ``F.scaled_dot_product_attention`` (bfloat16 with
+    the mask added in bfloat16: it takes no float32 mask with bfloat16
+    inputs; the port never calls it)."""
+    import torch
+    from locov_torch.ops import pair_attention as pa
+    from locov_torch.tools.timing import time_ms
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from test_torch_kernels_gpu import (_attention_inputs,
+                                        _attention_magnitudes)
+    bf = torch.bfloat16
+    p = 0.1
+    for case, (n, nh, hd, l, cap), raw, drop in (
+            ("cell_chunk", (128, 8, 96, 170, 70), True, True),
+            ("bert512", (8, 12, 64, 512, None), False, False)):
+        qkv, bias = _attention_inputs(gen, n, nh, hd, l, raw, cap)
+        u = torch.rand((n, nh, l, l), generator=gen,
+                       device="cuda") if drop else None
+        dout = torch.randn((n, l, nh * hd), generator=gen,
+                           device="cuda").to(bf)
+        b2 = bias.reshape(n, l).contiguous()
+        x = qkv.clone().requires_grad_(True)
+        got = pa._PairAttention.apply(x, b2, u, nh, p)
+        got.backward(dout)
+        again, saved = pa.pair_attention_cuda(qkv, b2, u, nh, p)
+        dagain = pa.pair_attention_bwd_cuda(qkv, b2, saved, dout, nh, p)
+        same = (torch.equal(got.view(torch.int16), again.view(torch.int16))
+                and torch.equal(x.grad.view(torch.int16),
+                                dagain.view(torch.int16)))
+        y = qkv.clone().requires_grad_(True)
+        want = pa.pair_attention_plain(y, bias, nh, p, u)
+        want.backward(dout.float())
+        mag_ctx, mag_grad = _attention_magnitudes(qkv, bias, u, nh, p, dout)
+        g = got.float()
+        err = (g - want).abs().max().item()
+        ratio = {"ctx": ((g - want).abs() / (
+            _bf16_ulp(torch.maximum(g.abs(), want.abs())) + 1e-5 * mag_ctx)
+        ).max().item()}
+        share = {"ctx": (got == want.to(bf)).float().mean().item()}
+        dg, dw = x.grad.float(), y.grad.float()
+        ulp = _bf16_ulp(torch.maximum(dg.abs(), dw.abs()))
+        h = nh * hd
+        for name, sl, rel in (("dq", slice(0, h), 2 ** -7),
+                              ("dk", slice(h, 2 * h), 2 ** -7),
+                              ("dv", slice(2 * h, 3 * h), 1e-5)):
+            ratio[name] = ((dg[..., sl] - dw[..., sl]).abs() / (
+                ulp[..., sl] + rel * mag_grad[..., sl])).max().item()
+            share[name] = (dg[..., sl] == dw[..., sl]).float().mean().item()
+        del x, y, got, want, mag_ctx, mag_grad, g, dg, dw, ulp, dagain
+        line = {"phase": "kernel_check", "kernel": "pair_attention",
+                "case": case, "dtype": "bfloat16",
+                "shape": [n, l, 3 * nh * hd], "heads": nh, "dropout": drop,
+                "raw_mask": raw, "err_over_tolerance": ratio,
+                "share_equal_to_plain": share,
+                "same_bits_two_launches": same, "max_abs_err": err,
+                "within_tolerance": same and max(ratio.values()) <= 1 and
+                min(share.values()) >= 0.99}
+        if case == "cell_chunk":
+            words = pa.bits_words(l)
+            io = n * l * 3 * h * 2 + n * l * 4 + n * l * h * (2 + 4) + \
+                n * nh * l * (8 + 4 * words)
+            line["kernel_ms"] = time_ms(
+                lambda: pa.pair_attention_cuda(qkv, b2, u, nh, p))
+            line["bound_ms"], line["bound_by"] = bound_ms(
+                io + u.numel() * 4, 4 * n * nh * l * l * hd,
+                BF16_TC_OPS_PER_S)
+            line["bwd_ms"] = time_ms(
+                lambda: pa.pair_attention_bwd_cuda(qkv, b2, saved, dout, nh,
+                                                   p))
+            # the backward reads what the forward wrote but the bf16
+            # context, and dout in its place, and writes dqkv
+            line["bwd_bound_ms"], line["bwd_bound_by"] = bound_ms(
+                io + n * l * 3 * h * 2, 8 * n * nh * l * l * hd,
+                BF16_TC_OPS_PER_S)
+            line["plain_ms"] = time_ms(
+                lambda: pa.pair_attention_plain(qkv, bias, nh, p, u),
+                reps=10)
+
+            def both(fn):
+                z = qkv.clone().requires_grad_(True)
+                fn(z).to(bf).backward(dout)
+            line["plain_fwd_bwd_ms"] = time_ms(lambda: both(
+                lambda z: pa.pair_attention_plain(z, bias, nh, p, u)),
+                reps=10)
+            line["kernel_fwd_bwd_ms"] = time_ms(lambda: both(
+                lambda z: pa._PairAttention.apply(z, b2, u, nh, p)),
+                reps=10)
+            q, k, v = (t.reshape(n, l, nh, hd).transpose(1, 2)
+                       for t in qkv.split(h, -1))
+            mask = bias.to(bf)
+            line["library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask))
+            results[("pair_attention", "bfloat16")] = line
+            results[("pair_attention_bwd", "bfloat16")] = dict(
+                line, kernel_ms=line["bwd_ms"], bound_ms=line["bwd_bound_ms"],
+                bound_by=line["bwd_bound_by"],
+                plain_ms=line["plain_fwd_bwd_ms"] - line["plain_ms"],
+                library_ms=None)
+            del q, k, v, mask
+        emit(line)
+        if not line["within_tolerance"]:
+            raise AssertionError(f"pair_attention {case}: {line}")
+        del qkv, bias, u, dout, b2, again, saved
+        torch.cuda.empty_cache()
 
 
 def bench_path(name, main_fn, kernel, max_rel_err):
@@ -2066,7 +2198,8 @@ def lsm_path(seed):
             "language_backbone.bert_model.embeddings.word_embeddings" \
             not in frozen_names:
         raise AssertionError(f"LSM path check failed: {line}")
-    missing = [k for k in LSM_KERNELS if launches[k] == 0]
+    missing = [k for k in LSM_KERNELS + ATTENTION_KERNELS
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the LSM path: "
                              f"{missing}")
@@ -2927,7 +3060,7 @@ def _global_batch(root, seed_path, workdir, log):
     """configs/coco_lsm_global.yaml (the global contrastive scope,
     ``PAIRWISE_CHUNK`` 128) at its batch of 32 on one card, with
     ``TPU.REMAT_BACKBONE``: three steps through ``train_ovnet``; finite
-    losses, the peak memory and the loop's images/s."""
+    losses, the peak memory, the loop's images/s and KA1's launches."""
     import torch
     from locov_torch.config import config_path
     from locov_torch.ops import kernel_lib
@@ -2958,9 +3091,14 @@ def _global_batch(root, seed_path, workdir, log):
             "finite_losses": finite, "seconds": secs, "peak_mem_gib": peak,
             "launches": launches, "nvidia_smi": nvidia_smi_line()}
     emit(line)
+    # a step: 2 passes x 8 chunks x 6 layers, forward and again in the
+    # remat recompute (KA1 forward), and one backward each
+    ka1 = {k: launches[k] for k in ATTENTION_KERNELS}
     if not (finite and run["checked"] == {"scope": "global", "remat": True,
                                           "pairwise_chunk": 128} and
-            loop["rows"] == list(range(GLOBAL_ITER))):
+            loop["rows"] == list(range(GLOBAL_ITER)) and
+            ka1 == {"pair_attention": 192 * GLOBAL_ITER,
+                    "pair_attention_bwd": 96 * GLOBAL_ITER}):
         raise AssertionError(f"global batch check failed: {line}")
     torch.cuda.empty_cache()
     return launches
@@ -5294,6 +5432,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_conv_int8(gen, results)
     check_roi_align_int8(gen, results)
+    check_pair_attention(gen, results)
+    torch.cuda.empty_cache()
     small_reference(args.seed)
     small_reference_train(args.seed)
     small_reference_lsm(args.seed)
@@ -5380,7 +5520,7 @@ def main(argv=None) -> int:
             "f32_library_ms": results[(check, "float32")]["library_ms"],
             **({"ref_chain_ms": r["ref_chain_ms"]} if "ref_chain_ms" in r
                else {})})
-    for name, source, replaces, path, dtype in INT8_KERNEL_ROWS:
+    for name, source, replaces, path, dtype in OWN_KERNEL_ROWS:
         r = results[(name, dtype)]
         f32 = results.get((name, "float32"), {})
         kernels.append({

@@ -19,13 +19,17 @@ while the parameters stay float32, as Flax does it:
   makes the scores float32, so the softmax and the context product run
   in float32).
 
+The attention after the fused QKV product is ``ops/pair_attention.py``:
+on the card in bfloat16, one hand-written kernel each way (KA1), which
+keeps those rounding points and returns the context already in the
+``Dense``'s bfloat16; elsewhere the plain chain.
+
 Dropout draws its mask from the ``torch.Generator`` passed down with
 ``deterministic=False`` (``F.dropout`` would use the global generator);
 ``remat`` recomputes a function in the backward with the same masks.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -34,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.matmul import linear_f32
+from ..ops.pair_attention import pair_attention
 
 
 class BertConfig(NamedTuple):
@@ -155,24 +160,15 @@ class BertSelfAttention(nn.Module):
                 ) -> torch.Tensor:
         c = self.cfg
         nh = c.num_attention_heads
-        hd = c.hidden_size // nh
         dt = c.dtype or torch.promote_types(hidden.dtype, torch.float32)
         w = torch.cat([self.query.weight, self.key.weight,
                        self.value.weight]).to(dt)             # [3h, h]
         b = torch.cat([self.query.bias, self.key.bias,
                        self.value.bias]).to(dt)
         qkv = F.linear(hidden.to(dt), w) + b
-        q, k, v = (x.reshape(x.shape[:-1] + (nh, hd)).transpose(-2, -3)
-                   for x in qkv.split(c.hidden_size, dim=-1))  # [B, nh, L, hd]
-        scores = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
-        scores = scores + attention_bias  # [B, 1, 1, L]; promotes
-        probs = torch.softmax(scores, dim=-1)
-        probs = dropout(probs, c.attention_probs_dropout_prob,
-                        deterministic, generator)
-        ct = torch.promote_types(probs.dtype, v.dtype)
-        ctx = probs.to(ct) @ v.to(ct)
-        return ctx.transpose(-2, -3).reshape(hidden.shape[:-1] +
-                                             (c.hidden_size,))
+        return pair_attention(qkv, attention_bias, nh,
+                              c.attention_probs_dropout_prob, deterministic,
+                              generator)
 
 
 class BertLayer(nn.Module):

@@ -186,3 +186,14 @@ def test_dropout_draws_from_the_generator():
     assert torch.allclose(a[a != 0], torch.tensor(1 / 0.9))
     assert tbert.dropout(x, 0.1, True, gen) is x
     assert tbert.dropout(x, 0.0, False, gen) is x
+    # the attention's dropout draws one [B, heads, L, L] block of
+    # uniforms, after nothing else, on either route
+    att = tbert.BertSelfAttention(TCFG._replace(
+        attention_probs_dropout_prob=0.1))
+    gen = torch.Generator().manual_seed(7)
+    att(torch.randn(3, 5, 16), torch.zeros(3, 1, 1, 5), False, gen)
+    want = torch.Generator().manual_seed(7)
+    torch.rand((3, 2, 5, 5), generator=want)
+    assert torch.equal(gen.get_state(), want.get_state())
+    att(torch.randn(3, 5, 16), torch.zeros(3, 1, 1, 5), True, gen)
+    assert torch.equal(gen.get_state(), want.get_state())

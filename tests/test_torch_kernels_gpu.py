@@ -1039,3 +1039,209 @@ def test_locov_ops_on_the_card(cuda, name):
         assert bool(((got - want).abs() <= tol).all())
     else:
         assert bool(((got - want).abs() <= 1e-5 * want.abs().max()).all())
+
+
+# ------------------------------------------------------------------ KA1
+def _attention_inputs(gen, n, nh, hd, l, raw, caption=None):
+    """qkv [n, l, 3 nh hd] bf16 N(0, 1) (scores of order 1) and the bias
+    [n, 1, 1, l]: a valid prefix of each pair's caption slots (the first
+    ``caption`` tokens, 8 to ``caption`` of them valid) and of its other
+    tokens, as the raw 0/1 mask or (1 - m) * min."""
+    qkv = torch.randn((n, l, 3 * nh * hd), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    cap = caption or 0
+    ar = torch.arange(l, device="cuda")[None]
+    lc = torch.randint(min(8, cap), cap + 1, (n, 1), generator=gen,
+                       device="cuda")
+    lr = torch.randint((l - cap) // 2, l - cap + 1, (n, 1), generator=gen,
+                       device="cuda")
+    m = torch.where(ar < cap, ar < lc, ar - cap < lr).float()[:, None, None]
+    bias = m if raw else (1.0 - m) * torch.finfo(torch.float32).min
+    return qkv, bias
+
+
+def _attention_magnitudes(qkv, bias, u, nh, p, dout):
+    """The sizes of the terms each output sums, in float32: |pd| . |v|
+    for the context; for dq and dk the logits' gradient terms |p dp| + p
+    sum|p dp| (over sqrt(hd)) times |k| and |q|; |pd|^T . |dO| for dv.
+    Packed as the outputs are."""
+    n, l, h3 = qkv.shape
+    hsz = h3 // 3
+    hd = hsz // nh
+    q, k, v = (x.float().reshape(n, l, nh, hd).transpose(1, 2)
+               for x in qkv.split(hsz, -1))
+    s = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd) + bias, -1)
+    scale = 1.0 if u is None else torch.where(
+        u < 1 - p, torch.full_like(u, 1 / (1 - p)), torch.zeros_like(u))
+    do = dout.float().reshape(n, l, nh, hd).transpose(1, 2)
+    sdp = (s * (do @ v.transpose(-1, -2)) * scale).abs()
+    t = (sdp + s * sdp.sum(-1, keepdim=True)) / math.sqrt(hd)
+    pd = (s * scale).abs()
+    del s, sdp
+
+    def back(x):
+        return x.transpose(1, 2).reshape(n, l, hsz)
+    return back(pd @ v.abs()), torch.cat(
+        [back(t @ k.abs()), back(t.transpose(-1, -2) @ q.abs()),
+         back(pd.transpose(-1, -2) @ do.abs())], -1)
+
+
+@pytest.mark.parametrize("dropout", [True, False], ids=["dropout", "eval"])
+@pytest.mark.parametrize("raw", [True, False], ids=["raw_mask", "min_mask"])
+@pytest.mark.parametrize("shape", [(128, 8, 96, 170, 70),
+                                   (8, 12, 64, 512, None),
+                                   (5, 3, 64, 37, 9)],
+                         ids=["cell", "bert512", "odd"])
+def test_pair_attention_matches_plain(cuda, shape, raw, dropout):
+    """KA1 (``ops/pair_attention.py``, forward and backward) against the
+    plain chain on the same qkv, bias and uniforms: the cell's chunk (128
+    pairs, 8 heads of 96, 70 caption slots + 100 regions), the full BERT
+    (12 heads of 64, L 512) and an odd L. The rounding points are the
+    same, so the two differ by float32 summation order only: the
+    context within one bf16 ulp of the plain float32 context (its
+    bf16 rounding may flip) plus 1e-5 * |pd| . |v| (sum order); dv the
+    same against |pd|^T . |dO|; dq and dk within one ulp plus 2^-7 of
+    the terms they sum (a sum-order difference in the softmax's sums may
+    flip the bf16 roundings of the logit's gradient and of its
+    1 / sqrt(hd) product, one ulp each); at least 99% of each equal to
+    the plain one in bf16 (a flip needs a float32 sum within a few
+    float32 ulps of a bf16 rounding boundary). Two launches give the
+    same bits, one launch each way a call."""
+    from locov_torch.ops import pair_attention as pa
+    n, nh, hd, l, cap = shape
+    p = 0.1
+    qkv, bias = _attention_inputs(cuda, n, nh, hd, l, raw, cap)
+    u = torch.rand((n, nh, l, l), generator=cuda,
+                   device="cuda") if dropout else None
+    dout = torch.randn((n, l, nh * hd), generator=cuda,
+                       device="cuda").to(torch.bfloat16)
+    torch.full((n, l, 3 * nh * hd), math.nan, dtype=torch.bfloat16,
+               device="cuda")  # freed: the outputs may reuse NaN memory
+    before = dict(kernel_lib.LAUNCHES)
+    x = qkv.clone().requires_grad_(True)
+    got = pa._PairAttention.apply(x, bias.reshape(n, l), u, nh, p)
+    got.backward(dout)
+    assert kernel_lib.LAUNCHES["pair_attention"] == \
+        before["pair_attention"] + 1
+    assert kernel_lib.LAUNCHES["pair_attention_bwd"] == \
+        before["pair_attention_bwd"] + 1
+    again, saved = pa.pair_attention_cuda(qkv, bias.reshape(n, l), u, nh, p)
+    dagain = pa.pair_attention_bwd_cuda(qkv, bias.reshape(n, l), saved,
+                                        dout, nh, p)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(x.grad.view(torch.int16), dagain.view(torch.int16))
+
+    y = qkv.clone().requires_grad_(True)
+    want = pa.pair_attention_plain(y, bias, nh, p, u)
+    want.backward(dout.float())
+    mag_ctx, mag_grad = _attention_magnitudes(qkv, bias, u, nh, p, dout)
+    assert got.dtype == torch.bfloat16 and want.dtype == torch.float32
+    g = got.float()
+    err = (g - want).abs()
+    tol = _bf16_ulp(torch.maximum(g.abs(), want.abs())) + 1e-5 * mag_ctx
+    assert bool((err <= tol).all()), (err - tol).max().item()
+    same = (got == want.to(torch.bfloat16)).float().mean().item()
+    assert same >= 0.99, same
+    dg, dw = x.grad.float(), y.grad.float()
+    err = (dg - dw).abs()
+    ulp = _bf16_ulp(torch.maximum(dg.abs(), dw.abs()))
+    h = nh * hd
+    for name, sl, rel, share in (("dq", slice(0, h), 2 ** -7, 0.99),
+                                 ("dk", slice(h, 2 * h), 2 ** -7, 0.99),
+                                 ("dv", slice(2 * h, 3 * h), 1e-5, 0.99)):
+        e, t = err[..., sl], ulp[..., sl] + rel * mag_grad[..., sl]
+        assert bool((e <= t).all()), (name, (e - t).max().item())
+        same = (dg[..., sl] == dw[..., sl]).float().mean().item()
+        assert same >= share, (name, same)
+
+
+def test_pairwise_chunk_matches_unchunked_under_grad_on_the_card(cuda):
+    """The port's twin of tests/test_transformer_head.py's test of the
+    same name, on the card in bfloat16 through KA1: the TransformerHead
+    (2 layers, 2 heads of 64, 4 x 4 pairs, dropout 0 as there) with
+    ``pairwise_chunk`` 4 (4 chunks under ``bert.remat``, each forward
+    run again in the backward) against one pass: the loss within 1e-3
+    and each gradient within 2^-6 of its tensor's largest value (bf16
+    dense products whose cuBLAS kernel may change with the chunk's row
+    count: one bf16 ulp, 2^-8, at a rounding, carried through two
+    layers). KA1 launched 2 x 4 x 2 times forward and 2 x 4 backward
+    chunked, 2 and 2 in one pass."""
+    from locov_torch.models.bert import BertConfig
+    from locov_torch.models.mmss.transformer_head import (
+        TransformerHead, TransformerHeadConfig)
+    from locov_torch.structures.batches import (CaptionFeatures,
+                                                RegionFeatures)
+    from locov_torch.utils.weights import seeded_init_
+    b, r, w, d, vocab = 4, 6, 8, 128, 60
+    bert = BertConfig(vocab_size=vocab, hidden_size=d, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256,
+                      hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0, dtype=torch.bfloat16)
+
+    def normal(*s):
+        return torch.randn(s, generator=cuda, device="cuda")
+    ids = torch.randint(5, vocab, (b, w), generator=cuda, device="cuda")
+    caption = CaptionFeatures(
+        input_ids=ids, attention_mask=torch.ones_like(ids),
+        special_tokens_mask=torch.zeros_like(ids), target_ids=ids,
+        mlm_mask=(torch.rand(b, w, generator=cuda, device="cuda")
+                  < 0.3).int(), encoded_tokens=normal(b, w, d),
+        input_embeddings=normal(b, w, d))
+    feats = normal(b, r, 32)
+    regions = RegionFeatures(features=feats,
+                             mask=torch.ones(b, r, device="cuda"),
+                             loc=torch.rand(b, r, 2, generator=cuda,
+                                            device="cuda"))
+    word = normal(vocab, d)
+    outs = {}
+    for chunk in (0, 4):
+        tcfg = TransformerHeadConfig(bert=bert, mmm_loss="cross_entropy",
+                                     return_dist=True, pairwise_chunk=chunk)
+        head = seeded_init_(TransformerHead(tcfg, v_dim=32, l_dim=d), 0)
+        head = head.cuda()
+        f = feats.clone().requires_grad_(True)
+        before = dict(kernel_lib.LAUNCHES)
+        _, losses, _ = head(regions._replace(features=f), caption, word,
+                            deterministic=False)
+        loss = sum(losses.values())
+        loss.backward()
+        torch.cuda.synchronize()
+        outs[chunk] = (loss.item(), f.grad.clone(),
+                       {k: p.grad.clone() for k, p in
+                        head.named_parameters() if p.grad is not None},
+                       {k: kernel_lib.LAUNCHES[k] - before[k] for k in
+                        ("pair_attention", "pair_attention_bwd")})
+    (l0, g0, p0, n0), (l4, g4, p4, n4) = outs[0], outs[4]
+    assert n0 == {"pair_attention": 2, "pair_attention_bwd": 2}
+    assert n4 == {"pair_attention": 16, "pair_attention_bwd": 8}
+    assert abs(l4 - l0) <= 1e-3 * max(1.0, abs(l0))
+    assert set(p0) == set(p4)
+    for k, a, c in [("features", g0, g4)] + [(k, p0[k], p4[k]) for k in p0]:
+        assert (c - a).abs().max() <= 2 ** -6 * a.abs().max() + 1e-12, k
+
+
+def test_joint_encoder_routes_through_the_kernel(cuda):
+    """One pass of the global scope's joint encoder at the LSM cell's
+    shapes (``tools/bench_pairwise.py:build``: 32 x 32 pairs, chunk 128,
+    70 tokens + 100 regions, dropout live): 8 chunks x 6 layers forward
+    and again in the remat recompute, 96 KA1 forward launches and 48
+    backward; the same encoder in float32 launches none."""
+    from locov_torch.models.bert import BertConfig, BertSelfAttention
+    from locov_torch.tools.bench_pairwise import build
+    head, image, caption, word = build(32, 128, 100, 70, "cuda")
+    before = dict(kernel_lib.LAUNCHES)
+    _, losses, _ = head(image, caption, word, deterministic=False,
+                        generator=cuda)
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    got = {k: kernel_lib.LAUNCHES[k] - before[k]
+           for k in ("pair_attention", "pair_attention_bwd")}
+    assert got == {"pair_attention": 96, "pair_attention_bwd": 48}
+    del head, image, caption, word, losses
+    att = BertSelfAttention(BertConfig(hidden_size=192,
+                                       num_attention_heads=2)).cuda()
+    before = dict(kernel_lib.LAUNCHES)
+    y = att(torch.randn(2, 9, 192, generator=cuda, device="cuda"),
+            torch.zeros(2, 1, 1, 9, device="cuda"), False, cuda)
+    assert y.dtype == torch.float32
+    assert kernel_lib.LAUNCHES == before
