@@ -78,6 +78,7 @@ def reference_cfg(conf: dict, dtype: str = "float32"):
 
 # --------------------------------------------------------------- weights
 TRUNC = 0.87962566103423978  # the std of N(0, 1) truncated at 2 sigma
+LAWS = ("normal", "trunc", "const")
 
 
 @torch.no_grad()
@@ -97,7 +98,11 @@ def make_weights(model: torch.nn.Module, seed: int, device,
     the NMS's work, which depends on how much those anchors overlap,
     changes threefold from seed to seed. All normal draws come from one
     ``randn`` and all truncated ones from one ``trunc_normal_`` on the
-    device, in ``state_dict`` order. Raises where a leaf has no law."""
+    device, in ``state_dict`` order. A leaf that none of these rules
+    covers takes its law from the module that holds it: the module's
+    ``seed_laws``, {leaf name: ("normal", std) | ("trunc", std) |
+    ("const", value)}, which a new architecture's modules give for
+    leaves such as a position table. Raises where a leaf has no law."""
     laws: Dict[str, tuple] = {}
     for name, mod in model.named_modules():
         kind = type(mod).__name__
@@ -135,6 +140,12 @@ def make_weights(model: torch.nn.Module, seed: int, device,
     for k in state:  # the static int8 scheme's max-abs, calibrated later
         if k.endswith(("_amax.amax", "pooled_amax", "roialign_amax")):
             laws[k] = ("const", 0.0)
+    for name, mod in model.named_modules():
+        pre = name + "." if name else ""
+        for leaf, law in getattr(mod, "seed_laws", {}).items():
+            if law[0] not in LAWS:
+                raise ValueError(f"{pre}{leaf}: no law {law[0]!r}")
+            laws.setdefault(pre + leaf, tuple(law))
     missing = [k for k in state if k not in laws]
     if missing:
         raise ValueError(f"no initial law for {missing[:5]}")

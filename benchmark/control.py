@@ -9,9 +9,11 @@ and for planted faults, several seeds in one process.
 ``program``: the program's own set-up steps (training) or a short window
 (inference), checked as a run checks them. ``control``: training, the
 plain reference computed with its products in fp8 (``reference/fp8.py``)
-in the program's place; inference, the program's own int8 path (the
-configuration's ``control_settings``: the static scheme with the int8
-ROIAlign, calibrated in set-up). ``half``: the
+in the program's place; inference, the program's own int8 path where the
+configuration gives one (its ``control_settings``; ``stt``: the static
+scheme with the int8 ROIAlign, calibrated in set-up), else the plain
+reference's detector with its products in fp8 in the program's place,
+on the calls a run samples. ``half``: the
 program's step given half of each batch, its losses the mean over the
 rest. Prints one JSON line a seed. Not run by the benchmark's runs.
 """
@@ -27,7 +29,7 @@ import time
 import torch
 
 from . import build, check
-from .loops import captured, first_gradients, sync
+from .loops import captured, first_gradients, sampled_calls, sync
 from .reference import steps as ref_steps
 from .reference.fp8 import Fp8Products
 from .run import Run, cache_env
@@ -98,11 +100,48 @@ def control_train(run) -> dict:
     return rec
 
 
+def control_infer(run) -> dict:
+    """The calls that ``loops.infer`` samples, each answered by the plain
+    reference's detector (``inference``) with its products in fp8
+    (``reference/fp8.py``; the configuration's own dtype otherwise) in
+    the program's place, its proposals and the RPN outputs they came
+    from captured as the program's are: the inference control of a
+    configuration with no int8 path of its own."""
+    from .reference.locov_ref.models import build_meta_arch
+    from .reference.locov_ref.structures import batches as types
+    dev, p = run.device, run.traffic
+    cfg = build.reference_cfg(run.config, run.config["dtype"])
+    model = build_meta_arch(cfg, device=dev)
+    model.load_state_dict(build.make_weights(
+        model, run.seed, dev, run.config["trained_scale"]))
+    model.eval()
+    module = importlib.import_module(type(model).__module__)
+    traffic = Traffic(p, run.seed)
+    class_emb = torch.from_numpy(traffic.class_emb).to(dev)
+    rec = {"sample": []}
+    with Fp8Products():
+        for i in sampled_calls(p, run.seed, run.trace):
+            bucket, arrays = traffic.request(i)
+            props = []
+            with captured(module, "select_proposals", props):
+                dets = model.inference(check._batch(types, arrays, dev),
+                                       class_emb)
+            rec["sample"].append({
+                "bucket": bucket, "arrays": arrays, "proposals": props,
+                "dets": type(dets)(*(t.cpu() for t in dets))})
+    sync(dev)
+    rec["shapes"] = {"batch": p["batch"], "cfg": cfg, "traffic": traffic}
+    run.free = [model]
+    return rec
+
+
 def readings(run, mode: str) -> dict:
     from .loops import LOOPS
     if run.traffic["loop"] == "train":
         rec = control_train(run) if mode == "control" else \
             LOOPS["train"](run)
+    elif mode == "control" and not run.config.get("control_settings"):
+        rec = control_infer(run)
     else:
         rec = LOOPS["infer"](run)
     run.free.clear()

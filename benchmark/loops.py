@@ -36,7 +36,16 @@ def captured(module, name: str, into: List[dict]):
     """Record every call of ``module.<name>`` (the RPN's
     ``select_proposals``: anchors, logits, deltas, the valid sizes,
     training) and its output into ``into``; the function is put back on
-    exit."""
+    exit.
+
+    The contract with a meta-architecture of the program (any family;
+    ``reference/steps.py:detect`` has the reference's side): the module
+    that defines the model's class exposes ``select_proposals(anchors,
+    logits, deltas, image_hw, rpn_cfg, training)`` and the model calls
+    it by that module-level name once a batch, with anchors [N_a, 4],
+    logits [B, N_a] and deltas [B, N_a, 4] flattened over the feature
+    levels, returning a ``ProposalBatch``; a trained model trains through
+    ``losses``."""
     orig = getattr(module, name)
 
     def wrapper(anchors, logits, deltas, image_hw, rpn_cfg,
@@ -237,10 +246,7 @@ def infer(run) -> dict:
         calibrate(model, traffic, run.config.get("calibration", 4), dev)
     class_emb = torch.from_numpy(traffic.class_emb).to(dev)
     mod = model_module(model)
-    rng = np.random.default_rng(run.seed + 2)
-    span = p["trace_calls"] if run.trace else p["sample_from"]
-    sample = sorted(rng.choice(span, p["sample_calls"], replace=False)
-                    .tolist())
+    sample = sampled_calls(p, run.seed, run.trace)
     counter = {"i": 0}
     kept: Dict[int, dict] = {}
     latencies: List[float] = []
@@ -299,6 +305,15 @@ def infer(run) -> dict:
     rec["shapes"] = {"batch": p["batch"], "cfg": cfg, "traffic": traffic}
     run.free = [model, step]
     return rec
+
+
+def sampled_calls(p: dict, seed: int, trace: bool) -> List[int]:
+    """The numbers of the calls that the check compares, drawn from the
+    seed among the first ``sample_from`` (``trace_calls`` traced)."""
+    rng = np.random.default_rng(seed + 2)
+    span = p["trace_calls"] if trace else p["sample_from"]
+    return sorted(rng.choice(span, p["sample_calls"], replace=False)
+                  .tolist())
 
 
 def parts(marks) -> Dict[str, float]:

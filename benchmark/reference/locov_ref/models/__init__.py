@@ -1,5 +1,9 @@
 """Model zoo + meta-architecture registry (counterpart of
-``locov_tpu/models/__init__.py``)."""
+``locov_tpu/models/__init__.py``). Every module of ``meta_arch/`` is
+imported before a model is built, so that a meta-architecture in a
+module of its own registers itself."""
+import importlib
+import pkgutil
 
 META_ARCH_REGISTRY = {}
 
@@ -17,7 +21,10 @@ def build_meta_arch(cfg, device=None):
     present and the CPU was not asked for."""
     name = cfg.MODEL.META_ARCHITECTURE
     # imported here to avoid an import cycle with the registry
-    from .meta_arch import mmss_gcnn, ovr_rcnn  # noqa: F401
+    from . import meta_arch
+    for info in sorted(pkgutil.iter_modules(meta_arch.__path__),
+                       key=lambda m: m.name):
+        importlib.import_module(f"{meta_arch.__name__}.{info.name}")
     if name not in META_ARCH_REGISTRY:
         raise KeyError(f"Unknown META_ARCHITECTURE: {name}; "
                        f"available: {sorted(META_ARCH_REGISTRY)}")

@@ -64,6 +64,34 @@ def _require_proposals(batch: DetectionBatch):
     return batch.proposals
 
 
+def detections_from_scores(scores: torch.Tensor, deltas: torch.Tensor,
+                           proposals, images: ImageBatch,
+                           pcfg: BoxPredictorConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """The box predictor's outputs on the given proposals as the
+    inference check reads them: ``probs`` (each proposal's class
+    probabilities, the background dropped), ``boxes`` (each proposal's
+    refined box in the original image's frame), ``valid`` (the
+    proposals' mask) and the detections ``det_boxes`` (original frame),
+    ``det_scores``, ``det_classes``, ``det_mask``
+    (``fast_rcnn_inference_batched``)."""
+    dets = fast_rcnn_inference_batched(scores, deltas, proposals.boxes,
+                                       proposals.mask, images.hw, pcfg)
+    scale = images.orig_hw.float() / images.hw.float()
+
+    def to_orig(b):
+        b = box_ops.scale(b, scale[:, None, 1], scale[:, None, 0])
+        return box_ops.clip(b, (images.orig_hw[:, 0:1],
+                                images.orig_hw[:, 1:2]))
+    boxes = box_ops.apply_deltas(deltas, proposals.boxes,
+                                 pcfg.bbox_reg_weights)
+    boxes = box_ops.clip(boxes, (images.hw[:, 0:1], images.hw[:, 1:2]))
+    return {"probs": torch.softmax(scores, -1)[..., :-1],
+            "boxes": to_orig(boxes), "valid": proposals.mask,
+            "det_boxes": to_orig(dets.boxes), "det_scores": dets.scores,
+            "det_classes": dets.classes, "det_mask": dets.mask}
+
+
 def detector_kwargs(cfg) -> dict:
     """The detector's constructor arguments from ``cfg``."""
     dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" \
@@ -275,6 +303,25 @@ class OvrRCNN(nn.Module):
                              "the static int8 scheme (TPU.INT8_EVAL True, "
                              "TPU.INT8_SCHEME static)")
         return self._inference(batch, class_emb, "calibrate")
+
+    @torch.inference_mode()
+    def detect_from_proposals(self, batch: DetectionBatch,
+                              class_emb: torch.Tensor,
+                              proposals) -> Dict[str, torch.Tensor]:
+        """The detector from the given proposals (``ProposalBatch``, the
+        program's), as ``_inference`` computes it, for the inference
+        check (``benchmark/reference/steps.py:detect``): ``logits`` (the
+        RPN's objectness [B, N_a]) and ``detections_from_scores``'s keys.
+        Every meta-architecture that an inference cell runs has it."""
+        images = batch.images
+        x = self.preprocess(images)
+        features = self.backbone(x)["res4"]
+        _, logits, _ = self.run_rpn(features)
+        feats = self.roi_heads.roi_features(features, proposals.boxes)
+        scores, deltas = self.roi_heads.predict(feats.float(),
+                                                class_emb.float())
+        return {"logits": logits, **detections_from_scores(
+            scores, deltas, proposals, images, self.pcfg)}
 
     def _inference(self, batch: DetectionBatch, class_emb: torch.Tensor,
                    int8) -> Detections:

@@ -65,33 +65,29 @@ def train_step(model, optimizer, scheduler, batch, class_emb, generator,
 
 @torch.inference_mode()
 def detect(model, batch, class_emb, proposals) -> Dict[str, torch.Tensor]:
-    """The detector from the given proposals: the reference's RPN
-    logits, each proposal's class probabilities and refined box in the
-    original image's frame, and the detections
-    (``fast_rcnn_inference_batched``), as ``OvrRCNN._inference`` computes
-    them."""
-    from .locov_ref.models.box_predictor import fast_rcnn_inference_batched
-    from .locov_ref.structures import boxes as box_ops
-    images = batch.images
-    x = model.preprocess(images)
-    features = model.backbone(x)["res4"]
-    _, logits, _ = model.run_rpn(features)
-    feats = model.roi_heads.roi_features(features, proposals.boxes)
-    scores, deltas = model.roi_heads.predict(feats.float(),
-                                             class_emb.float())
-    dets = fast_rcnn_inference_batched(scores, deltas, proposals.boxes,
-                                       proposals.mask, images.hw,
-                                       model.pcfg)
-    scale = images.orig_hw.float() / images.hw.float()
+    """The reference model's detector from the given proposals (the
+    program's): ``model.detect_from_proposals``.
 
-    def to_orig(b):
-        b = box_ops.scale(b, scale[:, None, 1], scale[:, None, 0])
-        return box_ops.clip(b, (images.orig_hw[:, 0:1],
-                                images.orig_hw[:, 1:2]))
-    boxes = box_ops.apply_deltas(deltas, proposals.boxes,
-                                 model.pcfg.bbox_reg_weights)
-    boxes = box_ops.clip(boxes, (images.hw[:, 0:1], images.hw[:, 1:2]))
-    return {"logits": logits, "probs": torch.softmax(scores, -1)[..., :-1],
-            "boxes": to_orig(boxes), "valid": proposals.mask,
-            "det_boxes": to_orig(dets.boxes), "det_scores": dets.scores,
-            "det_classes": dets.classes, "det_mask": dets.mask}
+    The contract between an inference cell's meta-architecture and the
+    check (``check.infer_numbers``), which holds for every family:
+
+    - the reference model (``reference/locov_ref/models/meta_arch/``)
+      has ``detect_from_proposals(batch, class_emb, proposals)``, which
+      runs its own features, levels and heads from the given proposals
+      and returns ``logits`` (the RPN's objectness [B, N_a], levels
+      flattened in the order the program flattens them), ``probs``
+      [B, N, K] (the background dropped), ``boxes`` [B, N, 4] (each
+      proposal's refined box, original frame), ``valid`` [B, N] and the
+      detections ``det_boxes`` (original frame), ``det_scores``,
+      ``det_classes``, ``det_mask``;
+    - the modules of the program's and of the reference's
+      meta-architecture each expose ``select_proposals(anchors, logits,
+      deltas, image_hw, rpn_cfg, training)``, which the model calls once
+      a batch by that module-level name, with anchors [N_a, 4], logits
+      [B, N_a] and deltas [B, N_a, 4] flattened over the levels, and the
+      models carry the ``rpn_cfg`` it takes (``loops.captured``,
+      ``check.proposals_differ``);
+    - a trained model trains through ``losses(batch, class_emb,
+      generator, uniforms, deterministic=...)``, a dict of losses
+      (``train_step``)."""
+    return model.detect_from_proposals(batch, class_emb, proposals)

@@ -138,6 +138,9 @@ def p95(values) -> float:
 
 
 def end_to_end(run, rec, setup_s: float, peak: float) -> Dict[str, float]:
+    """The end-to-end quantities of a run. A metric named
+    ``<quantity>.<suffix>`` (a later cell's own entry) reads its
+    quantity."""
     values = {"setup_s": setup_s, "peak_mem_gib": peak / 2 ** 30}
     if run.traffic["loop"] == "train":
         values["train_img_per_s"] = rec["images"] / rec["window_s"]
@@ -199,8 +202,10 @@ def run_cell(run: Run, t_start: float = None) -> dict:
         else:
             values = end_to_end(run, rec, setup_s, peak)
             for m in run.cell["end_to_end"]:
-                metrics[m["name"]] = {"value": values[m["name"]],
-                                      "unit": m["unit"]}
+                name = m["name"]
+                value = values[name if name in values
+                               else name.split(".", 1)[0]]
+                metrics[name] = {"value": value, "unit": m["unit"]}
             attempted = rec["requests"]
             print(window_note(rec), file=sys.stderr, flush=True)
     finally:

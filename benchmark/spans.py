@@ -27,14 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 from . import trace
 
-BACKWARD_BUCKETS = (
-    ("trunk", ("backbone",)),
-    ("res5", ("roi_features", "grid_features")),
-    ("mmss", ("grid_mmss", "box_mmss", "fused_mmss", "distill")),
-    ("language", ("language",)),
-    ("rpn", ("rpn_head", "rpn_losses")),
-    ("boxes", ("label_and_sample", "predict", "box_regions")),
-)
+BACKWARD_BUCKETS = trace.stage_tables()["backward"]  # benchmark/stages/
 BUCKET_OF_STAGE = {s: b for b, stages in BACKWARD_BUCKETS for s in stages}
 PARAMETERS = "parameters"
 UNATTRIBUTED = "unattributed"

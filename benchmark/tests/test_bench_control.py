@@ -2,7 +2,8 @@
 holds: the reference with its products in float8 e4m3 in the training
 step's place, and the program's own int8 path in the inference cell
 (``control.py``; on the card these readings set the limits' upper
-ends)."""
+ends). An inference configuration with no int8 path of its own (no
+``control_settings``) takes the reference's detector in fp8 instead."""
 import pytest
 import torch
 
@@ -45,3 +46,21 @@ def test_control_reads_above_the_program(cell):
     assert all(prog[k] < limits[k] for k in c["limits"]), prog
     assert not check.verdict(ctrl, limits), ctrl
     assert check.verdict(prog, limits)
+
+
+def test_an_inference_control_without_int8():
+    """``stt`` without its ``control_settings``: the reference's detector
+    with its products in fp8 answers the sampled calls, and reads above
+    the program on both ratios."""
+    c = tiny_cell("stt_infer_b8")
+    del c["config"]["control_settings"]
+    cpu = torch.device("cpu")
+    prog = control.readings(Run(c, 19, 0.3, False, cpu), "program")
+    ctrl = control.readings(Run(c, 19, 0.3, False, cpu, control=True),
+                            "control")
+    limits = {k: (1.0 if k.endswith("_ratio") else 0.0) + 1e-9
+              for k in c["limits"]}
+    assert check.verdict(prog, limits), prog
+    assert ctrl["rpn_mse_ratio"] > limits["rpn_mse_ratio"], ctrl
+    assert ctrl["det_mse_ratio"] > limits["det_mse_ratio"], ctrl
+    assert ctrl["notes"]["detections"] > 0

@@ -9,6 +9,9 @@ A kernel belongs to the host context it was launched from, found by its
 ``correlation`` id: the operators and ``record_function`` ranges around
 its launch on the launching thread. The innermost ``<model>.<stage>`` or
 ``train_step.<stage>`` range there names its bucket (``SUBSYSTEMS``).
+The prefixes of those ranges and the stage -> bucket maps are data: one
+file a model family under ``benchmark/stages/`` (``stage_tables``), so
+that a new family's stages enter the join as a file of its own.
 Any row whose kernel or launching operator names ROIAlign goes to
 ``roi_align``, so the feature gradient, which autograd launches from its
 own thread outside every range, lands there too; the other kernels of
@@ -19,25 +22,52 @@ from __future__ import annotations
 import collections
 import gzip
 import json
+import os
 from typing import Dict, List, Tuple
 
-SUBSYSTEMS = (
-    ("backbone", ("backbone",)),
-    ("res5", ("roi_features", "grid_features")),
-    ("rpn+nms", ("rpn_head", "rpn_losses", "select_proposals",
-                 "fast_rcnn_inference")),
-    ("mmss_heads", ("grid_mmss", "box_mmss", "fused_mmss", "distill")),
-    ("language", ("language",)),
-    ("optimizer", ("optimizer",)),
-    ("boxes/match", ("label_and_sample", "predict", "roi_heads_losses")),
-    ("backward (unattributed)", ("backward",)),
-)
+STAGES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "stages")
+
+
+def stage_tables(directory: str = STAGES) -> Dict[str, tuple]:
+    """Every ``*.json`` of ``directory`` merged, in sorted name order:
+    ``prefixes`` (the stage ranges' ``<model>.`` prefixes, each once) and
+    ``forward`` and ``backward``, each a tuple of (bucket, stages) in the
+    order the buckets and stages first appear. A file gives ``prefixes``
+    as a list and each side as {bucket: [stage, ...]}. A stage given two
+    buckets on one side raises, naming the two files."""
+    prefixes: List[str] = []
+    sides = {"forward": {}, "backward": {}}
+    owner: Dict[Tuple[str, str], Tuple[str, str]] = {}
+    for name in sorted(os.listdir(directory)):
+        if not name.endswith(".json"):
+            continue
+        with open(os.path.join(directory, name)) as f:
+            table = json.load(f)
+        prefixes += [p for p in table.get("prefixes", [])
+                     if p not in prefixes]
+        for side, buckets in sides.items():
+            for bucket, stages in table.get(side, {}).items():
+                for stage in stages:
+                    seen = owner.setdefault((side, stage), (bucket, name))
+                    if seen[0] != bucket:
+                        raise ValueError(
+                            f"stage {stage!r} ({side}): bucket {seen[0]!r} "
+                            f"in {seen[1]}, {bucket!r} in {name}")
+                    if stage not in buckets.setdefault(bucket, []):
+                        buckets[bucket].append(stage)
+    out = {side: tuple((b, tuple(s)) for b, s in buckets.items())
+           for side, buckets in sides.items()}
+    out["prefixes"] = tuple(prefixes)
+    return out
+
+
+_TABLES = stage_tables()
+SUBSYSTEMS = _TABLES["forward"]
 BUCKET_OF_STAGE = {s: b for b, stages in SUBSYSTEMS for s in stages}
 ROI_ALIGN = "roi_align"
 BACKWARD = "backward (unattributed)"
 OTHER = "other"
-STAGE_PREFIXES = ("OvrRCNN.", "DistillProposalMMSSRCNN.", "MMSSGridModel.",
-                  "train_step.", "eval.")
+STAGE_PREFIXES = _TABLES["prefixes"]
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
