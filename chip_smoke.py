@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Start the PyTorch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--batches N] [--seed S]
+    python3 chip_smoke.py [--batches N] [--seed S] [--only vitdet]
+
+``--only vitdet`` runs phase 1, KA2's and K2-across-levels' checks, the
+ViTDet path and the kernels line with their two rows, nothing else.
 
 Phases, one JSON line each, in order:
 
@@ -47,7 +50,13 @@ Phases, one JSON line each, in order:
    fit timed). KA1 (the joint encoder's attention, forward and
    backward) against its plain chain at the LSM cell's chunk and at the
    full BERT's L 512, within float32 summation order
-   (``check_pair_attention``).
+   (``check_pair_attention``). KA2 (the ViT's attention with the
+   decomposed relative-position bias) against its plain version at
+   ViTDet-B's windowed (200 x L 196) and global (8 x L 4,096) shapes,
+   12 heads of 64 (``check_rel_attention``); K2 across levels against
+   the single-map kernel on each box's level and the plain version, on
+   P2-P5 of 8 images at 1024 x 1024 with 1,000 boxes an image
+   (``check_roi_align_levels``).
    Kernel, plain and library-call times are medians of CUDA-event
    timings after warm-up.
 3. small references: a tiny float32 OvrRCNN on the card, with cuDNN's
@@ -69,7 +78,11 @@ Phases, one JSON line each, in order:
    640) and a [66, 768] class-embedding matrix, as bench.py builds the
    workload; then one batch under torch.profiler: device busy time and
    idle share, and per ``OvrRCNN.<stage>`` range the host time and the
-   device time of its kernels.
+   device time of its kernels. Then the ViTDet path (``vitdet_path``):
+   ``ViTDetRCNN.inference`` from configs/vitdet_b_stt.yaml in bfloat16,
+   8 images of 1024 x 1024; one call launches KA2 12 times and K2
+   across levels once, and holds no L x L tensor; timed calls, one
+   profiled by ``ViTDetRCNN.<stage>``.
 5. train path: the STT training step (``make_train_step`` over
    ``OvrRCNN.losses`` and ``build_optimizer``) from the same config at
    full width in bfloat16, batch 8 with synthetic gt, one warm-up and
@@ -217,8 +230,8 @@ Phases, one JSON line each, in order:
 17. the ``kernels`` line (one row per TPU kernel replaced:
    ``roi_align_fused`` has a K2 row at the inference shapes and a
    K3-fwd row at the training shapes; then a row for each of the port's
-   own kernels, KQ1 and KQ2, whose
-   ``replaces`` names the JAX function XLA computes; ``launches_by_path``
+   own kernels, KQ1, KQ2, KA1, KA2 and K2 across levels, whose
+   ``replaces`` names the JAX function XLA computes, if any; ``launches_by_path``
    gives each path's counts, ``eval``, ``int8``, ``int8_eval``,
    ``int8_tiny``, ``trainer``, ``scale``,
    ``family``, ``serving``, ``tta`` and ``tools`` among them), the
@@ -283,6 +296,10 @@ OWN_KERNEL_ROWS = (
      "bfloat16"),
     ("pair_attention_bwd", "locov_torch/csrc/pair_attention.cu",
      "its gradient (XLA's autodiff)", "lsm", "bfloat16"),
+    ("rel_attention", "locov_torch/csrc/rel_attention.cu",
+     "none (the JAX package has no ViT)", "vitdet", "bfloat16"),
+    ("roi_align_levels", "locov_torch/csrc/roi_align.cu",
+     "none (the JAX package has no pyramid)", "vitdet", "bfloat16"),
 )
 # KA1's launches: the bfloat16 joint encoder's attention (LSM paths)
 ATTENTION_KERNELS = ("pair_attention", "pair_attention_bwd")
@@ -1173,6 +1190,172 @@ def check_pair_attention(gen, results):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ KA2
+def check_rel_attention(gen, results):
+    """KA2 (``ops/rel_attention.py``) against ``rel_attention_plain`` on
+    the same bfloat16 qkv and float32 bias terms at ViTDet-B's shapes, 12
+    heads of 64: the windowed blocks' (8 images x 25 windows of 14 x 14,
+    L 196) and the global blocks' (8 maps of 64 x 64, L 4,096); within
+    the tolerance of ``tests/test_torch_kernels_gpu.py:
+    test_rel_attention_matches_plain`` (2^-8 (|plain| + max|v|) at each
+    element: twice the bfloat16 rounding the kernel adds), the same bits
+    on a second launch. For each: the kernel's ms, its bound (bytes: qkv,
+    rel_h and rel_w read, the context written; operations: the two
+    products), the plain version's ms (scores materialized, float32),
+    and as a yardstick only ``F.scaled_dot_product_attention`` given the
+    bias as a bfloat16 [N, 12, L, L] mask, built beforehand
+    (``library_ms``) and within the timed call (``library_mask_ms``);
+    the port never calls it. The global case is the kernel's row, the
+    windowed case rides in it as ``windowed``."""
+    import torch
+    from locov_torch.ops.rel_attention import (rel_attention_cuda,
+                                               rel_attention_plain)
+    from locov_torch.tools.timing import time_ms
+    bf = torch.bfloat16
+    nh, hd = 12, 64
+    c = nh * hd
+    lines = {}
+    for case, n, (kh, kw) in (("windowed", 200, (14, 14)),
+                              ("global", 8, (64, 64))):
+        l = kh * kw
+        qkv = (torch.randn((n, l, 3 * c), generator=gen, device="cuda")
+               * 1.5).to(bf)
+        rel_h = torch.randn((n, nh, l, kh), generator=gen,
+                            device="cuda") * 0.5
+        rel_w = torch.randn((n, nh, l, kw), generator=gen,
+                            device="cuda") * 0.5
+        got = rel_attention_cuda(qkv, rel_h, rel_w, nh, (kh, kw))
+        same = _same_bits(rel_attention_cuda(qkv, rel_h, rel_w, nh,
+                                             (kh, kw)), got)
+        vmax = qkv[..., 2 * c:].float().abs().max().item()
+        ok, err, ratio = True, 0.0, 0.0
+        step = max(1, 4096 * 4096 // (l * l))  # a global map at a time
+        for i in range(0, n, step):
+            want = rel_attention_plain(qkv[i:i + step].float(),
+                                       rel_h[i:i + step], rel_w[i:i + step],
+                                       nh, (kh, kw))
+            e = (got[i:i + step].float() - want).abs()
+            tol = 2 ** -8 * (want.abs() + vmax)
+            ok = ok and bool((e <= tol).all())
+            err = max(err, e.max().item())
+            ratio = max(ratio, (e / tol).max().item())
+            del want, e, tol
+        line = {"phase": "kernel_check", "kernel": "rel_attention",
+                "case": case, "dtype": "bfloat16",
+                "shape": [n, l, 3 * c], "heads": nh, "grid": [kh, kw],
+                "max_abs_err": err, "err_over_tolerance": ratio,
+                "same_bits_two_launches": same,
+                "within_tolerance": ok and same}
+        line["kernel_ms"] = time_ms(
+            lambda: rel_attention_cuda(qkv, rel_h, rel_w, nh, (kh, kw)))
+        ops = 4.0 * n * nh * l * l * hd
+        line["tflop_per_s"] = ops / line["kernel_ms"] / 1e9
+        line["bound_ms"], line["bound_by"] = bound_ms(
+            qkv.numel() * 2 + (rel_h.numel() + rel_w.numel()) * 4
+            + got.numel() * 2, ops, BF16_TC_OPS_PER_S)
+        line["plain_ms"] = time_ms(
+            lambda: rel_attention_plain(qkv, rel_h, rel_w, nh, (kh, kw)),
+            reps=10)
+        q, k, v = (t.reshape(n, l, nh, hd).transpose(1, 2)
+                   for t in qkv.split(c, -1))
+
+        def mask():
+            return (rel_h[..., :, None] + rel_w[..., None, :]).view(
+                n, nh, l, l).to(bf)
+        m = mask()
+        line["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=m), reps=10)
+        del m
+        line["library_mask_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask()), reps=10)
+        emit(line)
+        if not line["within_tolerance"]:
+            raise AssertionError(f"rel_attention {case}: {line}")
+        lines[case] = line
+        del qkv, rel_h, rel_w, got, q, k, v
+        torch.cuda.empty_cache()
+    results[("rel_attention", "bfloat16")] = dict(
+        lines["global"], windowed={k: lines["windowed"][k] for k in (
+            "shape", "kernel_ms", "tflop_per_s", "bound_ms", "bound_by",
+            "plain_ms", "library_ms", "library_mask_ms", "max_abs_err")})
+
+
+def check_roi_align_levels(gen, results):
+    """K2 across levels (``ops/roi_align.py:roi_align_levels_cuda``) at
+    ViTDet-B's shapes: P2-P5 of 8 images at 1024 x 1024 ([8, 256, 256,
+    256] down to [8, 32, 32, 256]), 1,000 proposal-sized boxes an image,
+    each given its level by ``models/box_head.py:assign_boxes_to_levels``,
+    7 x 7 with adaptive sampling. Each box's output the same bits as the
+    single-map kernel on its level, a second launch the same bits, and
+    within the tolerance of ``tests/test_torch_kernels_gpu.py:
+    test_roi_align_levels_matches_each_level`` of
+    ``roi_align_levels_plain`` (float32: 1e-5 max|F|; bfloat16 also
+    2^-7 |plain|). For each dtype: the kernel's ms, its bound (every
+    level's map read once, each box's pooled map written once, the boxes
+    and levels read; the gather's operations on each box's level) and
+    the plain version's ms (every box pooled on every level); no single
+    PyTorch call computes it."""
+    import torch
+    from locov_torch.models.box_head import assign_boxes_to_levels
+    from locov_torch.ops.roi_align import (roi_align_cuda,
+                                           roi_align_levels_cuda,
+                                           roi_align_levels_plain)
+    from locov_torch.tools.bench_roi_fwd import proposal_boxes
+    from locov_torch.tools.timing import time_ms
+    b, n, c, pooled, sr = 8, 1000, 256, 7, 0
+    sides, scales = (256, 128, 64, 32), [0.25, 0.125, 0.0625, 0.03125]
+    base = [torch.randn((b, s, s, c), generator=gen, device="cuda")
+            for s in sides]
+    boxes = proposal_boxes(gen, b, n, 1024, 1024)
+    levels = assign_boxes_to_levels(boxes, 2, 5)
+    counts = [int((levels == i).sum()) for i in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = [f.to(dtype) for f in base]
+        got = roi_align_levels_cuda(feats, boxes, levels, scales, pooled, sr)
+        same = _same_bits(roi_align_levels_cuda(feats, boxes, levels, scales,
+                                                pooled, sr), got)
+        for i in range(4):
+            one = roi_align_cuda(feats[i], boxes, scales[i], pooled, sr)
+            sel = levels == i
+            same = same and _same_bits(got[sel], one[sel])
+            del one
+        want = roi_align_levels_plain([f.float() for f in feats], boxes,
+                                      levels, scales, pooled, sr)
+        fmax = max(f.float().abs().max().item() for f in feats)
+        tol = torch.full_like(want, 1e-5 * fmax)
+        if dtype == torch.bfloat16:
+            tol = torch.maximum(tol, want.abs() * 2 ** -7)
+        e = (got.float() - want).abs()
+        ok = bool((e <= tol).all())
+        line = {"phase": "kernel_check", "kernel": "roi_align_levels",
+                "dtype": str(dtype).split(".")[1],
+                "features": [list(f.shape) for f in feats],
+                "boxes": list(boxes.shape), "boxes_a_level": counts,
+                "sampling_ratio": sr, "max_abs_err": e.max().item(),
+                "max_abs_features": fmax, "same_bits_as_each_level": same,
+                "within_tolerance": ok and same}
+        del want, e, tol
+        line["kernel_ms"] = time_ms(lambda: roi_align_levels_cuda(
+            feats, boxes, levels, scales, pooled, sr))
+        line["plain_ms"] = time_ms(lambda: roi_align_levels_plain(
+            feats, boxes, levels, scales, pooled, sr), reps=10)
+        line["library_ms"] = None  # no single PyTorch call
+        nbytes = sum(f.numel() for f in feats) * feats[0].element_size() \
+            + got.numel() * got.element_size() + boxes.numel() * 4 \
+            + levels.numel() * 4
+        ops = sum(roi_align_ops(boxes[levels == i], scales[i], pooled, c)
+                  for i in range(4))
+        line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
+        results[("roi_align_levels", line["dtype"])] = line
+        emit(line)
+        if not line["within_tolerance"]:
+            raise AssertionError(f"roi_align_levels {dtype}: {line}")
+        del feats, got
+    del base
+
+
 def bench_path(name, main_fn, kernel, max_rel_err):
     """One bench entry point at its defaults on the card: launch counts
     zeroed just before and read just after; the kernel must have
@@ -1647,6 +1830,92 @@ def profile_run(phase, run, unprofiled_ms):
     if not line["stages"]:
         raise AssertionError(f"{phase}: the profile holds no stage range")
     return line
+
+
+VITDET_KERNELS = {"rel_attention": 12, "roi_align_levels": 1}  # a call
+
+
+def vitdet_path(seed, batches):
+    """``ViTDetRCNN.inference`` at ``configs/vitdet_b_stt.yaml`` (bf16,
+    seeded weights) on 8 images of 1024 x 1024 (valid 768 x 1024), 66
+    class rows at 768: the launch counts zeroed just before one call must
+    read 12 KA2 launches (one a block) and one ROIAlign across P2-P5, and
+    no single-map ROIAlign; the call's peak must stay under one [8, 12,
+    4096, 4096] float32 score tensor (no L x L tensor is held). Then
+    ``batches`` timed calls and one profiled (``profile_run``)."""
+    import numpy as np
+    import torch
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.models import build_meta_arch
+    from locov_torch.ops import kernel_lib
+    from locov_torch.structures.batches import (DetectionBatch,
+                                                ImageBatch, to_torch)
+    from locov_torch.utils.weights import seeded_init_
+
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("vitdet_b_stt.yaml"))
+    t0 = time.perf_counter()
+    model = seeded_init_(build_meta_arch(cfg, device="cuda"), seed).eval()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed)
+    b = 8
+    img = np.zeros((b, 1024, 1024, 3), np.float32)
+    img[:, :768] = rng.randint(0, 256, (b, 768, 1024, 3))
+    batch = to_torch(DetectionBatch(images=ImageBatch(
+        image=img, hw=np.tile(np.array([[768, 1024]], np.int32), (b, 1)),
+        orig_hw=np.tile(np.array([[480, 640]], np.int32), (b, 1)))), "cuda")
+    class_emb = torch.from_numpy(
+        rng.randn(66, 768).astype(np.float32) * 0.5).cuda()
+    t0 = time.perf_counter()
+    model.inference(batch, class_emb)  # warm-up (cuDNN plans, caches)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel_lib.reset_launches()
+    dets = model.inference(batch, class_emb)
+    torch.cuda.synchronize()
+    one_call = dict(kernel_lib.LAUNCHES)
+    call_peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        dets = model.inference(batch, class_emb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernel_lib.LAUNCHES)
+    ms = statistics.median(times)
+    kept = dets.mask.sum(1).tolist()
+    finite = bool(torch.isfinite(dets.boxes).all() and
+                  torch.isfinite(dets.scores).all())
+    in_range = bool((dets.classes[dets.mask] >= 0).all() and
+                    (dets.classes[dets.mask] < 65).all() and
+                    (dets.boxes[dets.mask] >= 0).all() and
+                    (dets.boxes[dets.mask, 0::2] <= 640).all() and
+                    (dets.boxes[dets.mask, 1::2] <= 480).all())
+    counts_ok = all(one_call[k] == v for k, v in VITDET_KERNELS.items()) \
+        and one_call["roi_align_fused"] == 0
+    scores = 8 * 12 * 4096 ** 2 * 4
+    line = {"phase": "vitdet_path", "config": "configs/vitdet_b_stt.yaml",
+            "dtype": "bfloat16", "batch": b, "image": [1024, 1024],
+            "valid": [768, 1024], "batches": batches, "ms_per_batch": ms,
+            "ms_per_batch_all": times, "images_per_s": b / ms * 1e3,
+            "detections_kept": kept, "finite": finite,
+            "in_range": in_range, "launches_one_call": one_call,
+            "launches_counts_ok": counts_ok, "launches": launches,
+            "call_peak_gib": call_peak / 2 ** 30,
+            "score_tensor_gib": scores / 2 ** 30,
+            "model_init_s": init_s, "warmup_s": warm_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    if not (finite and in_range and counts_ok and call_peak < scores and
+            tuple(dets.boxes.shape) == (b, 100, 4)):
+        raise AssertionError(f"vitdet path check failed: {line}")
+    profile_run("vitdet_path_profile",
+                lambda: model.inference(batch, class_emb), ms)
+    return launches
 
 
 # ----------------------------------------------------------- train path
@@ -5382,6 +5651,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("vitdet",),
+                    help="run only KA2's and K2-across-levels' checks and "
+                         "the ViTDet path, and their kernel rows")
     args = ap.parse_args(argv)
 
     import torch
@@ -5418,6 +5690,12 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = {}
+    if args.only == "vitdet":
+        paths = {}
+        vitdet_checks(gen, args.seed, args.batches, results, paths)
+        return finish([own_kernel_row(row, results, paths)
+                       for row in OWN_KERNEL_ROWS if row[3] == "vitdet"],
+                      t_start, smi)
     check_relu_maxpool(gen, results)
     check_relu_maxpool_bwd(gen, results)
     check_roi_align(gen, results)
@@ -5443,6 +5721,7 @@ def main(argv=None) -> int:
     eval_reference(args.seed, workdir)
     paths = {"inference": main_path(args.seed, args.batches)}
     torch.cuda.empty_cache()
+    vitdet_checks(gen, args.seed, args.batches, results, paths)
     paths["train"], paths["train_freeze0"] = train_path(args.seed)
     torch.cuda.empty_cache()
     paths["lsm"], lsm_images_per_s = lsm_path(args.seed)
@@ -5520,27 +5799,52 @@ def main(argv=None) -> int:
             "f32_library_ms": results[(check, "float32")]["library_ms"],
             **({"ref_chain_ms": r["ref_chain_ms"]} if "ref_chain_ms" in r
                else {})})
-    for name, source, replaces, path, dtype in OWN_KERNEL_ROWS:
-        r = results[(name, dtype)]
-        f32 = results.get((name, "float32"), {})
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths[path][name],
-            "launches_path": path,
-            "launches_by_path": {k: v.get(name, 0)
-                                 for k, v in paths.items()},
-            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": dtype, "shape": r.get("shape") or r.get("features"),
-            "f32_ms": f32.get("kernel_ms"),
-            "f32_plain_ms": f32.get("plain_ms"),
-            "f32_bound_ms": f32.get("bound_ms"),
-            "f32_library_ms": f32.get("library_ms"),
-            **({"variants": results[("conv_int8_variants", "bfloat16")]}
-               if name == "conv_int8" else {}),
-            **({"k2_ms": r["k2_ms"]}
-               if name == "roi_align_int8" else {})})
+    kernels += [own_kernel_row(row, results, paths)
+                for row in OWN_KERNEL_ROWS]
+    return finish(kernels, t_start, smi)
+
+
+def vitdet_checks(gen, seed, batches, results, paths):
+    """KA2's and K2-across-levels' checks, then the ViTDet path."""
+    import torch
+    check_rel_attention(gen, results)
+    check_roi_align_levels(gen, results)
+    torch.cuda.empty_cache()
+    paths["vitdet"] = vitdet_path(seed, batches)
+    torch.cuda.empty_cache()
+
+
+def own_kernel_row(row, results, paths):
+    """The kernels line's entry for one of ``OWN_KERNEL_ROWS``."""
+    name, source, replaces, path, dtype = row
+    r = results[(name, dtype)]
+    f32 = results.get((name, "float32"), {})
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": paths[path][name],
+        "launches_path": path,
+        "launches_by_path": {k: v.get(name, 0) for k, v in paths.items()},
+        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "dtype": dtype, "shape": r.get("shape") or r.get("features"),
+        "f32_ms": f32.get("kernel_ms"),
+        "f32_plain_ms": f32.get("plain_ms"),
+        "f32_bound_ms": f32.get("bound_ms"),
+        "f32_library_ms": f32.get("library_ms"),
+        **({"variants": results[("conv_int8_variants", "bfloat16")]}
+           if name == "conv_int8" else {}),
+        **({"k2_ms": r["k2_ms"]} if name == "roi_align_int8" else {}),
+        **({"windowed": r["windowed"],
+            "library_mask_ms": r["library_mask_ms"]}
+           if name == "rel_attention" else {}),
+        **({"boxes_a_level": r["boxes_a_level"]}
+           if name == "roi_align_levels" else {})}
+
+
+def finish(kernels, t_start, smi) -> int:
+    """The kernels line, the card's nvidia-smi line and the ok line."""
+    import torch
     emit({"kernels": kernels,
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -5,14 +5,29 @@ nothing of the JAX package. Key names, the ``TPU.*`` namespace
 included (``TPU.COMPUTE_DTYPE`` picks the trunk dtype here too), are
 the YAML surface of ``configs/`` and stay as they are.
 """
+import importlib
 import os
+import pkgutil
 
 from .node import CfgNode
 from .defaults import get_default_cfg, add_ovr_config
 from .config_utils import (auto_scale_workers,
                            edit_output_dir_exp_specific)
+from . import extensions
 
-get_cfg = get_default_cfg
+
+def get_cfg() -> CfgNode:
+    """The default tree (``get_default_cfg``, the JAX package's), then
+    the ``add_config(cfg)`` of every module of ``extensions/`` in sorted
+    name order: the keys, with their defaults, that an architecture
+    outside the JAX package reads, one module an architecture."""
+    cfg = get_default_cfg()
+    for info in sorted(pkgutil.iter_modules(extensions.__path__),
+                       key=lambda m: m.name):
+        importlib.import_module(
+            f"{extensions.__name__}.{info.name}").add_config(cfg)
+    return cfg
+
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))

@@ -13,6 +13,12 @@
 // card would waste the tensor cores on zeros; the kernel below contracts
 // only the span of cells each bin weighs on, on the CUDA cores.
 //
+// Across pyramid levels (ViTDet's P2-P5; no TPU parent):
+// roi_align_levels_fwd, one launch of roi_align_levels_fwd_kernel, whose
+// blocks are the forward's (fwd_block, the same body and plan), each
+// reading its box's level (an int32 a box) and pooling from that level's
+// map alone.
+//
 // Backward: replaces pallas_roi_align.py:_bwd_kernel (launched by
 // _backward_df), the feature gradient
 //   dF[h,w,c] = sum_{n,p,q} Ky[n,p,h] g[n,p,q,c] Kx[n,q,w];
@@ -399,17 +405,18 @@ __device__ __forceinline__ void axpy(float (&acc)[VEC], float k,
   for (int e = 0; e < VEC; ++e) acc[e] += k * t[e];
 }
 
-// grid: (box, group of `rows` output rows, channel tile) in that order,
-// the boxes in index order; fwd_smem_bytes(h, w, rows, pooled) of
-// dynamic shared memory; threads over the tile's channel vectors, each
-// walking the group's rows. VEC channels a thread (32 or 16 bytes, or
-// 1).
+// One block of the forward: box bn, the group of `rows` output rows at
+// p0, the channel tile at ch0, from the features [b, h, w, c] at `feat`
+// scaled by `scale`. The body of roi_align_fwd_kernel and of
+// roi_align_levels_fwd_kernel.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(FWD_MAX_THREADS)
-roi_align_fwd_kernel(const T* __restrict__ feat,
-                     const float* __restrict__ boxes, T* __restrict__ out,
-                     int h, int w, int c, int n, int pooled, int ratio,
-                     float scale, int ct, int rows) {
+__device__ __forceinline__ void fwd_block(const T* __restrict__ feat,
+                                          const float* __restrict__ boxes,
+                                          T* __restrict__ out, int h, int w,
+                                          int c, int n, int pooled,
+                                          int ratio, float scale, int ct,
+                                          int rows, long long bn, int p0,
+                                          int ch0) {
   extern __shared__ float4 smem[];
   // [pooled + rows]: the cells each x bin, then each y bin of the
   // group, weighs on
@@ -418,11 +425,6 @@ roi_align_fwd_kernel(const T* __restrict__ feat,
   float* ky = kx + pooled * w;                                   // [rows][h]
 
   const int t = threadIdx.x;
-  const int ntiles = (c + ct - 1) / ct;
-  const int groups = (pooled + rows - 1) / rows;
-  const long long bn = blockIdx.x / ((long long)ntiles * groups);
-  const int p0 = blockIdx.x / ntiles % groups * rows;
-  const int ch0 = (blockIdx.x % ntiles) * ct;
   const int nrows = min(rows, pooled - p0);
   const long long img = bn / n;
   const Box bx = load_box(boxes + bn * 4, scale);
@@ -481,6 +483,56 @@ roi_align_fwd_kernel(const T* __restrict__ feat,
       }
     }
   }
+}
+
+// grid: (box, group of `rows` output rows, channel tile) in that order,
+// the boxes in index order; fwd_smem_bytes(h, w, rows, pooled) of
+// dynamic shared memory; threads over the tile's channel vectors, each
+// walking the group's rows. VEC channels a thread (32 or 16 bytes, or
+// 1).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
+roi_align_fwd_kernel(const T* __restrict__ feat,
+                     const float* __restrict__ boxes, T* __restrict__ out,
+                     int h, int w, int c, int n, int pooled, int ratio,
+                     float scale, int ct, int rows) {
+  const int ntiles = (c + ct - 1) / ct;
+  const int groups = (pooled + rows - 1) / rows;
+  const long long bn = blockIdx.x / ((long long)ntiles * groups);
+  const int p0 = blockIdx.x / ntiles % groups * rows;
+  const int ch0 = (blockIdx.x % ntiles) * ct;
+  fwd_block<T, VEC>(feat, boxes, out, h, w, c, n, pooled, ratio, scale, ct,
+                    rows, bn, p0, ch0);
+}
+
+// The feature levels of a pyramid that roi_align_levels_fwd_kernel pools
+// from: each level's map [b, h, w, c] and its scale (1 / stride).
+constexpr int MAX_LEVELS = 4;
+struct Levels {
+  const void* feat[MAX_LEVELS];
+  int h[MAX_LEVELS], w[MAX_LEVELS];
+  float scale[MAX_LEVELS];
+};
+
+// ROIAlign across the levels of a pyramid: the grid and the blocks of
+// roi_align_fwd_kernel, each box pooled from its own level (levels[bn],
+// 0 .. nlevels - 1) only; the dynamic shared memory the largest that a
+// level asks for.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
+roi_align_levels_fwd_kernel(Levels lv, const float* __restrict__ boxes,
+                            const int* __restrict__ levels,
+                            T* __restrict__ out, int c, int n, int pooled,
+                            int ratio, int ct, int rows) {
+  const int ntiles = (c + ct - 1) / ct;
+  const int groups = (pooled + rows - 1) / rows;
+  const long long bn = blockIdx.x / ((long long)ntiles * groups);
+  const int p0 = blockIdx.x / ntiles % groups * rows;
+  const int ch0 = (blockIdx.x % ntiles) * ct;
+  const int l = levels[bn];
+  fwd_block<T, VEC>(static_cast<const T*>(lv.feat[l]), boxes, out, lv.h[l],
+                    lv.w[l], c, n, pooled, ratio, lv.scale[l], ct, rows, bn,
+                    p0, ch0);
 }
 
 // ------------------------------------------------------------ backward
@@ -666,6 +718,26 @@ int launch_fwd(const void* feat, const float* boxes, void* out, int b, int h,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int VEC>
+int launch_levels_fwd(const Levels& lv, const float* boxes,
+                      const int* levels, void* out, int b, int c, int n,
+                      int pooled, int ratio, int ct, int rows, int threads,
+                      int smem, cudaStream_t stream) {
+  auto kernel = roi_align_levels_fwd_kernel<T, VEC>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (long long)b * n * ((pooled + rows - 1) / rows) *
+                           ((c + ct - 1) / ct);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      lv, boxes, levels, static_cast<T*>(out), c, n, pooled, ratio, ct,
+      rows);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int VEC, int R>
 int launch_bwd(const void* g, const float* boxes, void* df, int b, int h,
                int w, int c, int n, int pooled, int ratio, float scale,
@@ -741,6 +813,58 @@ extern "C" int roi_align_fwd(const void* feat, const void* boxes,
     LOCOV_FWD(__nv_bfloat16, 1)
   }
 #undef LOCOV_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// ROIAlign across pyramid levels: feats[l] [b, hs[l], ws[l], c] for l <
+// nlevels (<= 4), one dtype, scales[l] each level's 1 / stride, levels
+// [b, n] int32 each box's level -> out [b, n, pooled, pooled, c], each
+// box pooled from its own level once, every element written. One
+// launch; the plan as for roi_align_fwd, with smem_bytes the largest
+// fwd_smem_bytes of a level.
+extern "C" int roi_align_levels_fwd(const long long* feats, const int* hs,
+                                    const int* ws, const float* scales,
+                                    int nlevels, const void* boxes,
+                                    const void* levels, void* out, int b,
+                                    int c, int n, int pooled, int ratio,
+                                    int dtype, int vec, int channel_tile,
+                                    int rows, int threads, int smem_bytes,
+                                    void* stream) {
+  if (nlevels < 1 || nlevels > MAX_LEVELS || pooled < 1 || pooled > P_MAX ||
+      vec < 1 || channel_tile <= 0 || channel_tile % 8 ||
+      channel_tile % vec || rows < 1 || rows > pooled || threads < 32 ||
+      threads % 32 || threads > FWD_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  Levels lv = {};
+  size_t need = 0;
+  for (int l = 0; l < nlevels; ++l) {
+    lv.feat[l] = reinterpret_cast<const void*>(feats[l]);
+    lv.h[l] = hs[l];
+    lv.w[l] = ws[l];
+    lv.scale[l] = scales[l];
+    need = need > fwd_smem_bytes(hs[l], ws[l], rows, pooled)
+               ? need
+               : fwd_smem_bytes(hs[l], ws[l], rows, pooled);
+  }
+  if ((size_t)smem_bytes != need) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bx = static_cast<const float*>(boxes);
+  const int* lvl = static_cast<const int*>(levels);
+#define LOCOV_LEVELS(T, V)                                                 \
+  if (vec == V)                                                            \
+    return launch_levels_fwd<T, V>(lv, bx, lvl, out, b, c, n, pooled, ratio, \
+                                   channel_tile, rows, threads, smem_bytes, \
+                                   s);
+  if (dtype == 0) {
+    LOCOV_LEVELS(float, 8)
+    LOCOV_LEVELS(float, 4)
+    LOCOV_LEVELS(float, 1)
+  } else if (dtype == 1) {
+    LOCOV_LEVELS(__nv_bfloat16, 16)
+    LOCOV_LEVELS(__nv_bfloat16, 8)
+    LOCOV_LEVELS(__nv_bfloat16, 1)
+  }
+#undef LOCOV_LEVELS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -169,9 +169,11 @@ def make_micro_coco(root: str, n_train: int = 8, n_val: int = 4,
 
 
 def micro_cfg(root: str, arch: str = "OvrRCNN"):
-    """A tiny config running the given meta-arch on the micro dataset."""
-    from ..config import get_cfg
-    cfg = get_cfg()
+    """A tiny config running the given meta-arch on the micro dataset,
+    on the default tree (``get_default_cfg``, the JAX package's), so that
+    its dump is the JAX tool's byte for byte."""
+    from ..config import get_default_cfg
+    cfg = get_default_cfg()
     cfg.MODEL.META_ARCHITECTURE = arch
     cfg.DATASETS.ROOT = root
     cfg.OUTPUT_DIR = os.path.join(root, "output")

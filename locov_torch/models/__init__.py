@@ -17,7 +17,7 @@ def build_meta_arch(cfg, device=None):
     present and the CPU was not asked for."""
     name = cfg.MODEL.META_ARCHITECTURE
     # imported here to avoid an import cycle with the registry
-    from .meta_arch import mmss_gcnn, ovr_rcnn  # noqa: F401
+    from .meta_arch import mmss_gcnn, ovr_rcnn, vitdet_rcnn  # noqa: F401
     if name not in META_ARCH_REGISTRY:
         raise KeyError(f"Unknown META_ARCHITECTURE: {name}; "
                        f"available: {sorted(META_ARCH_REGISTRY)}")

@@ -1,15 +1,22 @@
-"""Region Proposal Network (single-level C4), static-shape.
+"""Region Proposal Network, static-shape: single-level C4, and over the
+levels of a feature pyramid.
 
 Counterpart of ``locov_tpu/models/rpn.py`` (anchors, head, losses,
 proposal selection at the training and the test top-k, gt appended to
 the proposals). Per-image proposal lists are fixed [POST_NMS_TOPK, 4]
 tensors with validity masks; NMS is ``ops/nms.py``; label assignment and
 sampling are the masked batched ops of ``ops/matcher.py``.
+
+The pyramid's RPN (``PyramidRPNConfig``, ``PyramidRPNHead``,
+``select_level_proposals``; no JAX counterpart) follows Detectron2's
+``find_top_rpn_proposals`` at test time: the top-k of each level, NMS
+within each level (the level as the class), the top-k over all levels.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from collections import OrderedDict
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -199,3 +206,118 @@ def add_gt_to_proposals(proposals: ProposalBatch,
         boxes=torch.cat([proposals.boxes, gt.boxes], dim=1),
         objectness=torch.cat([proposals.objectness, gt_logits], dim=1),
         mask=torch.cat([proposals.mask, gt.mask], dim=1))
+
+
+# ---------------------------------------------------------------- pyramid
+class PyramidRPNConfig(NamedTuple):
+    """The RPN over the levels of a pyramid: ``rpn`` (the single-level
+    fields; its ``sizes`` the first level's, its ``stride`` 0), and per
+    level its anchor sizes, stride and anchors (``level_sizes``, H_l x
+    W_l x A on the canvas the model pads every image to), finest first,
+    in the order the levels are flattened."""
+    rpn: RPNConfig
+    level_anchor_sizes: Tuple[tuple, ...]
+    strides: Tuple[int, ...]
+    level_sizes: Tuple[int, ...]
+
+    @classmethod
+    def from_cfg(cls, cfg, strides, sides):
+        """``strides`` and ``sides`` (each level's square side on the
+        canvas) of the levels of ``MODEL.RPN.IN_FEATURES``; one
+        ``ANCHOR_GENERATOR.SIZES`` entry a level."""
+        sizes = tuple(tuple(s) for s in cfg.MODEL.ANCHOR_GENERATOR.SIZES)
+        if len(sizes) != len(strides):
+            raise ValueError(f"ANCHOR_GENERATOR.SIZES: {len(sizes)} "
+                             f"entries for {len(strides)} levels")
+        a = len(cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0])
+        return cls(rpn=RPNConfig.from_cfg(cfg)._replace(stride=0),
+                   level_anchor_sizes=sizes, strides=tuple(strides),
+                   level_sizes=tuple(s * s * len(z) * a
+                                     for s, z in zip(sides, sizes)))
+
+
+class PyramidRPNHead(nn.Module):
+    """Detectron2's ``StandardRPNHead`` with ``conv_dims`` of
+    ``num_convs`` convs (``conv.conv0``, ...), each 3 x 3 with ReLU,
+    then the sibling 1 x 1 objectness and delta convs; one head shared
+    by every level. Parameters stay f32; the convs run in the compute
+    dtype."""
+
+    def __init__(self, in_channels: int, num_anchors: int, num_convs: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.conv = nn.Sequential(OrderedDict(
+            (f"conv{i}", nn.Conv2d(in_channels, in_channels, 3, padding=1))
+            for i in range(num_convs)))
+        self.objectness_logits = nn.Conv2d(in_channels, num_anchors, 1)
+        self.anchor_deltas = nn.Conv2d(in_channels, num_anchors * 4, 1)
+
+    def _run(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        out = conv_nhwc(x.to(dt), conv.weight.to(dt), 1, conv.padding[0])
+        return out + conv.bias.to(dt)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One level [B, H, W, C] -> logits [B, H W A], deltas [B, H W A,
+        4]."""
+        t = x
+        for conv in self.conv:
+            t = F.relu(self._run(conv, t))
+        b = x.shape[0]
+        return (self._run(self.objectness_logits, t).reshape(b, -1),
+                self._run(self.anchor_deltas, t).reshape(b, -1, 4))
+
+
+def level_cell_anchors(level_anchor_sizes, aspect_ratios) -> torch.Tensor:
+    """[L, A, 4] cell anchors of every level on the host, for a model to
+    keep on its device."""
+    return torch.stack([generate_cell_anchors(sizes, aspect_ratios)
+                        for sizes in level_anchor_sizes])
+
+
+def select_level_proposals(anchors: torch.Tensor, logits: torch.Tensor,
+                           deltas: torch.Tensor, image_hw: torch.Tensor,
+                           rpn_cfg: PyramidRPNConfig,
+                           training: bool = False) -> ProposalBatch:
+    """The top-k of each level (at the training or the test top-k) ->
+    decode -> clip -> NMS within each level (the level as the class, in
+    one batched pass) -> the top post-NMS k over the levels by score.
+    anchors [N_a, 4]; logits [B, N_a]; deltas [B, N_a, 4] (f32), levels
+    flattened finest first, ``rpn_cfg.level_sizes`` anchors each."""
+    cfg = rpn_cfg.rpn
+    pre_topk = cfg.pre_nms_topk_train if training else cfg.pre_nms_topk_test
+    post_topk = (cfg.post_nms_topk_train if training
+                 else cfg.post_nms_topk_test)
+    if sum(rpn_cfg.level_sizes) != anchors.shape[0]:
+        raise ValueError(f"select_level_proposals: {anchors.shape[0]} "
+                         f"anchors, levels of {rpn_cfg.level_sizes}")
+    scores: List[torch.Tensor] = []
+    idx: List[torch.Tensor] = []
+    lvl: List[torch.Tensor] = []
+    off = 0
+    for i, n in enumerate(rpn_cfg.level_sizes):
+        s, j = nms_ops.top_k(logits[:, off:off + n], min(pre_topk, n))
+        scores.append(s)
+        idx.append(j + off)
+        lvl.append(torch.full_like(j, i, dtype=torch.int32))
+        off += n
+    top_scores, idx, level = (torch.cat(x, dim=1) for x in (scores, idx, lvl))
+    sel_deltas = torch.gather(deltas, 1, idx[..., None].expand(-1, -1, 4))
+    boxes = box_ops.apply_deltas(sel_deltas, anchors[idx],
+                                 cfg.bbox_reg_weights)
+    boxes = box_ops.clip(boxes, (image_hw[:, 0:1], image_hw[:, 1:2]))
+    valid = box_ops.nonempty(boxes, cfg.min_size)
+    valid &= torch.isfinite(top_scores) & torch.isfinite(boxes).all(dim=-1)
+    post_topk = min(post_topk, top_scores.shape[1])
+    keep = nms_ops.batched_nms_mask_batched(
+        boxes, top_scores, level, valid, cfg.nms_thresh,
+        stop_after=post_topk)
+    neg_inf = torch.finfo(top_scores.dtype).min
+    kept = torch.where(keep, top_scores, torch.full_like(top_scores,
+                                                         neg_inf))
+    top, keep_idx = nms_ops.top_k(kept, post_topk)
+    return ProposalBatch(
+        boxes=torch.gather(boxes, 1, keep_idx[..., None].expand(-1, -1, 4)),
+        objectness=torch.gather(top_scores, 1, keep_idx),
+        mask=top > neg_inf)

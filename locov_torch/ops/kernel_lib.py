@@ -30,13 +30,14 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("relu_maxpool", "roi_align", "bottleneck_block", "stem_conv_bn",
-           "conv_int8", "roi_align_int8", "pair_attention")
+           "conv_int8", "roi_align_int8", "pair_attention", "rel_attention")
 
 LAUNCHES: Dict[str, int] = {"relu_maxpool": 0, "relu_maxpool_bwd": 0,
                             "roi_align_fused": 0, "roi_align_bwd": 0,
                             "bottleneck_block": 0, "stem_conv_bn": 0,
                             "conv_int8": 0, "roi_align_int8": 0,
-                            "pair_attention": 0, "pair_attention_bwd": 0}
+                            "pair_attention": 0, "pair_attention_bwd": 0,
+                            "rel_attention": 0, "roi_align_levels": 0}
 # nvcc's output (ptxas register and spill report) of the last build
 BUILD_LOG: Dict[str, str] = {}
 

@@ -20,6 +20,15 @@ gradient kernel of ``csrc/roi_align.cu``, each under a launch plan
 directions run the plain version. Their fake implementations give the
 output's shape and dtype, so that ``torch.export`` traces through them.
 
+Across the levels of a feature pyramid (ViTDet's P2-P5),
+``roi_align_levels`` calls the op ``locov::roi_align_levels``: each box
+pooled once, from the map of its level only. On CUDA tensors it is one
+launch of the forward kernel's multi-level entry (the same block body as
+``locov::roi_align``, each block taking its box's level's map, height,
+width and scale; the shared memory of the largest level); on CPU tensors
+``roi_align_levels_plain`` (every box pooled on every level by
+``roi_align_batched``, its own level's output kept). Inference only.
+
 The static int8 serving mode adds ``roi_align_batched_quant`` (the float
 op, then a static int8 quantize of its output) and
 ``roi_align_batched_int8`` (``locov_tpu/ops/roi_align.py:
@@ -36,6 +45,7 @@ gradient.
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import torch
 
@@ -69,6 +79,9 @@ _FWD_MAX_THREADS = 256
 _FWD_VEC_BYTES = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the levels one launch of the multi-level forward takes
+# (csrc/roi_align.cu: MAX_LEVELS)
+_MAX_LEVELS = 4
 
 
 def _div(x: torch.Tensor, d) -> torch.Tensor:
@@ -485,6 +498,121 @@ def roi_align_fused(features: torch.Tensor, boxes: torch.Tensor,
     versions for CPU tensors."""
     return torch.ops.locov.roi_align(features, boxes, float(spatial_scale),
                                      int(pooled), int(sampling_ratio))
+
+
+# ---------------------------------------------------------------- levels
+def roi_align_levels_plain(features: List[torch.Tensor], boxes: torch.Tensor,
+                           levels: torch.Tensor, scales: List[float],
+                           pooled: int = 7,
+                           sampling_ratio: int = 0) -> torch.Tensor:
+    """Plain ROIAlign across the levels of a pyramid: features[l] [B,
+    H_l, W_l, C], boxes [B, N, 4], levels [B, N] (each box's level, 0 ..
+    L - 1), scales[l] level l's 1 / stride -> [B, N, pooled, pooled, C],
+    each box's output that of ``roi_align_batched`` on its own level
+    (every box pooled on every level, the level's kept)."""
+    out = None
+    for lvl, (f, scale) in enumerate(zip(features, scales)):
+        o = roi_align_batched(f, boxes, scale, pooled, sampling_ratio)
+        out = o if out is None else torch.where(
+            (levels == lvl)[..., None, None, None], o, out)
+    return out
+
+
+def roi_align_levels_cuda(features: List[torch.Tensor], boxes: torch.Tensor,
+                          levels: torch.Tensor, scales: List[float],
+                          pooled: int = 7,
+                          sampling_ratio: int = 0) -> torch.Tensor:
+    """K2 across levels: one launch of ``roi_align_levels_fwd``, each box
+    pooled once, from its level's map only, under the forward's plan
+    (``_fwd_plan``) with the shared memory of the widest level.
+    features: contiguous NHWC maps of one dtype, batch and width; boxes
+    [B, N, 4] float32 and levels [B, N] int32, contiguous, on their
+    device."""
+    if not 1 <= len(features) <= _MAX_LEVELS or \
+            len(scales) != len(features):
+        raise ValueError(f"roi_align_levels: {len(features)} levels and "
+                         f"{len(scales)} scales; 1 to {_MAX_LEVELS}")
+    for f in features:
+        _check_args(f, boxes, pooled, sampling_ratio,
+                    "roi_align_levels features")
+        if f.dim() != 4 or f.dtype != features[0].dtype or \
+                f.shape[0] != features[0].shape[0] or \
+                f.shape[3] != features[0].shape[3]:
+            raise ValueError(f"roi_align_levels: features "
+                             f"{[tuple(x.shape) for x in features]}")
+    kernel_lib.check_cuda_tensor(levels, "roi_align_levels levels",
+                                 {torch.int32})
+    b, n = boxes.shape[:2]
+    if tuple(levels.shape) != (b, n) or levels.device != boxes.device:
+        raise ValueError(f"roi_align_levels: levels {tuple(levels.shape)} "
+                         f"for boxes {tuple(boxes.shape)}")
+    c, dtype = features[0].shape[3], features[0].dtype
+    plan = _fwd_plan(max(f.shape[1] for f in features),
+                     max(f.shape[2] for f in features), c, dtype, pooled,
+                     min(_align(f) for f in features))
+    smem = max(_fwd_smem(f.shape[1], f.shape[2], plan["rows"], pooled)
+               for f in features)
+    out = torch.empty((b, n, pooled, pooled, c), dtype=dtype,
+                      device=boxes.device)
+    if out.numel() == 0:
+        return out
+    nl = len(features)
+    ptrs = (ctypes.c_longlong * nl)(*(f.data_ptr() for f in features))
+    hs = (ctypes.c_int * nl)(*(f.shape[1] for f in features))
+    ws = (ctypes.c_int * nl)(*(f.shape[2] for f in features))
+    sc = (ctypes.c_float * nl)(*(float(x) for x in scales))
+    fn = kernel_lib.load("roi_align").roi_align_levels_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(boxes.device):
+        err = fn(ctypes.addressof(ptrs), ctypes.addressof(hs),
+                 ctypes.addressof(ws), ctypes.addressof(sc), nl,
+                 boxes.data_ptr(), levels.data_ptr(), out.data_ptr(), b, c,
+                 n, pooled, int(sampling_ratio), _DTYPES[dtype],
+                 plan["vec"], plan["channel_tile"], plan["rows"],
+                 plan["threads"], smem, kernel_lib.stream_ptr(boxes.device))
+    kernel_lib.check_launch(err, "roi_align_levels")
+    kernel_lib.LAUNCHES["roi_align_levels"] += 1
+    return out
+
+
+@torch.library.custom_op("locov::roi_align_levels", mutates_args=(),
+                         device_types="cpu")
+def _roi_align_levels_op(features: List[torch.Tensor], boxes: torch.Tensor,
+                         levels: torch.Tensor, scales: List[float],
+                         pooled: int, sampling_ratio: int) -> torch.Tensor:
+    return roi_align_levels_plain(features, boxes, levels, scales, pooled,
+                                  sampling_ratio)
+
+
+@_roi_align_levels_op.register_kernel("cuda")
+def _(features, boxes, levels, scales, pooled, sampling_ratio):
+    return roi_align_levels_cuda([f.contiguous() for f in features],
+                                 boxes.contiguous(), levels.contiguous(),
+                                 scales, pooled, sampling_ratio)
+
+
+@_roi_align_levels_op.register_fake
+def _(features, boxes, levels, scales, pooled, sampling_ratio):
+    b, n = boxes.shape[:2]
+    return features[0].new_empty((b, n, pooled, pooled,
+                                  features[0].shape[-1]))
+
+
+def roi_align_levels(features: List[torch.Tensor], boxes: torch.Tensor,
+                     levels: torch.Tensor, scales: List[float],
+                     pooled: int = 7,
+                     sampling_ratio: int = 0) -> torch.Tensor:
+    """ROIAlign across pyramid levels (``locov::roi_align_levels``):
+    each box pooled from its level's map, features[l] [B, H_l, W_l, C],
+    boxes [B, N, 4], levels [B, N] -> [B, N, pooled, pooled, C] in the
+    features' dtype. The kernel for CUDA tensors, the plain version for
+    CPU tensors; inference only."""
+    return torch.ops.locov.roi_align_levels(
+        list(features), boxes.float(), levels.to(torch.int32),
+        [float(x) for x in scales], int(pooled), int(sampling_ratio))
 
 
 # ------------------------------------------------------------------ int8

@@ -98,18 +98,24 @@ SUBSYSTEMS = (
     ("optimizer", ("optimizer",)),
     ("boxes/match", ("label_and_sample", "predict", "roi_heads_losses")),
     ("backward (unattributed)", ("backward",)),
+    # ViTDetRCNN's own stages (the attention nested in its backbone)
+    ("window_attn", ("window_attention",)),
+    ("global_attn", ("global_attention",)),
+    ("pyramid", ("pyramid",)),
+    ("box_head", ("box_head",)),
 )
 BUCKET_OF_STAGE = {s: b for b, stages in SUBSYSTEMS for s in stages}
 ROI_ALIGN = "roi_align"  # kernels and operators named so: their own bucket
 BACKWARD = "backward (unattributed)"
 OTHER = "other"
 STAGE_PREFIXES = ("OvrRCNN.", "DistillProposalMMSSRCNN.", "MMSSGridModel.",
-                  "train_step.", "eval.")
+                  "ViTDetRCNN.", "train_step.", "eval.")
 # the port's hand-written kernels (locov_torch/csrc/*.cu)
 HAND_KERNELS = ("relu_maxpool_kernel", "relu_maxpool_bwd_kernel",
                 "roi_align_fwd_kernel", "roi_align_bwd_kernel",
                 "roi_align_int8_kernel", "conv_int8_wgmma", "block_bf16",
-                "block_f32", "stem_conv_kernel")
+                "block_f32", "stem_conv_kernel", "rel_attention_kernel",
+                "roi_align_levels_fwd_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")

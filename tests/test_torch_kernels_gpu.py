@@ -1245,3 +1245,111 @@ def test_joint_encoder_routes_through_the_kernel(cuda):
             torch.zeros(2, 1, 1, 9, device="cuda"), False, cuda)
     assert y.dtype == torch.float32
     assert kernel_lib.LAUNCHES == before
+
+
+# ------------------------------------------------------------------ KA2
+@pytest.mark.parametrize("n,grid", [(200, (14, 14)), (8, (64, 64)),
+                                    (3, (5, 9))],
+                         ids=["windows", "global", "oblong"])
+def test_rel_attention_matches_plain(cuda, n, grid):
+    """KA2 against ``rel_attention_plain`` on the same bfloat16 qkv and
+    float32 bias terms, at ViTDet-B's windowed (200 windows of 14 x 14)
+    and global (8 maps of 64 x 64) shapes, 12 heads of 64. Tolerance:
+    2^-8 (|plain| + max|v|) at each element, twice the bfloat16 rounding
+    the kernel adds: the context's own rounding (2^-9 |ctx|) and each
+    probability's rounding to bfloat16 for the product with v, which
+    moves the context by at most 2^-9 max|v|. The same bits on a second
+    launch."""
+    from locov_torch.ops.rel_attention import (rel_attention,
+                                               rel_attention_cuda,
+                                               rel_attention_plain)
+    kh, kw = grid
+    l, nh, hd = kh * kw, 12, 64
+    qkv = torch.randn(n, l, 3 * nh * hd, generator=cuda, device="cuda")
+    qkv = (qkv * 1.5).to(torch.bfloat16)
+    rel_h = torch.randn(n, nh, l, kh, generator=cuda, device="cuda") * 0.5
+    rel_w = torch.randn(n, nh, l, kw, generator=cuda, device="cuda") * 0.5
+    before = dict(kernel_lib.LAUNCHES)
+    got = rel_attention(qkv, rel_h, rel_w, nh, grid)
+    assert kernel_lib.LAUNCHES["rel_attention"] == \
+        before["rel_attention"] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (n, l, nh * hd)
+    vmax = float(qkv[..., 2 * nh * hd:].float().abs().max())
+    step = max(1, 4096 * 4096 // (l * l))
+    for i in range(0, n, step):
+        want = rel_attention_plain(qkv[i:i + step].float(),
+                                   rel_h[i:i + step], rel_w[i:i + step], nh,
+                                   grid)
+        err = (got[i:i + step].float() - want).abs()
+        assert bool((err <= 2 ** -8 * (want.abs() + vmax)).all()), \
+            float(err.max())
+    assert _same_bits(rel_attention_cuda(qkv, rel_h, rel_w, nh, grid), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_levels_matches_each_level(cuda, dtype):
+    """K2 across levels in one launch: each box's output the same bits as
+    the single-map kernel on its own level, and within the plain
+    version's tolerance (as for K2) of ``roi_align_levels_plain``."""
+    from locov_torch.ops.roi_align import (roi_align_levels,
+                                           roi_align_levels_plain)
+    sides, b, n, c = (96, 48, 24, 12), 2, 300, 256
+    feats = [torch.randn(b, s, s, c, generator=cuda, device="cuda")
+             .to(dtype) for s in sides]
+    xy = torch.rand(b, n, 2, generator=cuda, device="cuda") * 380
+    wh = torch.rand(b, n, 2, generator=cuda, device="cuda") ** 2 * 380 + 1
+    boxes = torch.cat([xy, xy + wh], -1)
+    levels = torch.randint(0, 4, (b, n), generator=cuda, device="cuda",
+                           dtype=torch.int32)
+    scales = [0.25, 0.125, 0.0625, 0.03125]
+    before = dict(kernel_lib.LAUNCHES)
+    got = roi_align_levels(feats, boxes, levels, scales, 7, 0)
+    assert kernel_lib.LAUNCHES["roi_align_levels"] == \
+        before["roi_align_levels"] + 1
+    assert kernel_lib.LAUNCHES["roi_align_fused"] == before["roi_align_fused"]
+    for lvl in range(4):
+        one = roi_align_cuda(feats[lvl], boxes, scales[lvl], 7, 0)
+        sel = levels == lvl
+        assert _same_bits(got[sel], one[sel])
+    want = roi_align_levels_plain([f.float() for f in feats], boxes, levels,
+                                  scales, 7, 0)
+    fmax = max(float(f.float().abs().max()) for f in feats)
+    tol = 1e-5 * fmax
+    if dtype == torch.bfloat16:
+        tol = torch.maximum(torch.full_like(want, tol),
+                            want.abs() * 2 ** -7)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_vitdet_inference_launches_and_memory(cuda):
+    """One ``ViTDetRCNN.inference`` call at the published widths on 8
+    images of 1024 x 1024 (seeded weights): each of the 12 blocks' attention
+    is one KA2 launch, the pooling one launch across P2-P5, and no
+    [8, 12, 4096, 4096] float32 score tensor (6.4 GB) is ever held: the
+    call's peak stays under it."""
+    from locov_torch.config import config_path, get_cfg
+    from locov_torch.models import build_meta_arch
+    from locov_torch.structures import batches as types
+    from locov_torch.utils.weights import seeded_init_
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path("vitdet_b_stt.yaml"))
+    model = seeded_init_(build_meta_arch(cfg, device="cuda"), 0).eval()
+    img = np.zeros((8, 1024, 1024, 3), np.float32)
+    img[:, :768] = np.random.default_rng(0).integers(0, 256, (8, 768, 1024,
+                                                              3))
+    batch = types.to_torch(types.DetectionBatch(images=types.ImageBatch(
+        image=img, hw=np.tile(np.array([[768, 1024]], np.int32), (8, 1)),
+        orig_hw=np.tile(np.array([[480, 640]], np.int32), (8, 1)))), "cuda")
+    emb = torch.randn(66, 768, generator=cuda, device="cuda") * 4
+    model.inference(batch, emb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(kernel_lib.LAUNCHES)
+    dets = model.inference(batch, emb)
+    torch.cuda.synchronize()
+    got = {k: kernel_lib.LAUNCHES[k] - before[k] for k in before}
+    assert got["rel_attention"] == 12 and got["roi_align_levels"] == 1
+    assert got["roi_align_fused"] == 0
+    assert torch.cuda.max_memory_allocated() - base < 8 * 12 * 4096 ** 2 * 4
+    assert dets.boxes.shape == (8, 100, 4)

@@ -201,3 +201,30 @@ def test_two_devices_equal_one(exported):
                          str(exported["root"] / "bad"), batch=3, height=H,
                          width=W, n_devices=2)
 
+
+
+def test_vitdet_exports_and_reloads(tmp_path):
+    """ViTDetRCNN (the tiny model of ``test_torch_vitdet.py``, float32)
+    through ``export_inference``: the program traces through the
+    multi-level ROIAlign's op by its fake implementation (the attention
+    takes its plain route in float32), and the reloaded program gives the
+    eager model's detections bit for bit."""
+    from locov_torch.structures import batches as types
+    from locov_torch.utils.weights import seeded_init_
+    from test_torch_vitdet import _arrays
+    from test_torch_vitdet import tiny_cfg as vit_cfg
+    model = seeded_init_(tbuild(vit_cfg(), device="cpu"), 3).eval()
+    emb = torch.randn(7, 16, generator=torch.Generator().manual_seed(2))
+    export_inference(model, emb, str(tmp_path), 2, 160, 160)
+    with open(tmp_path / "inference.graph.txt") as f:
+        graph = f.read()
+    assert "locov.roi_align_levels" in graph
+    call, variables, _ = load_exported(str(tmp_path))
+    a = _arrays()
+    got = call(variables, torch.from_numpy(a["image"]),
+               torch.from_numpy(a["hw"]), torch.from_numpy(a["orig_hw"]),
+               emb)
+    want = model.inference(types.to_torch(types.DetectionBatch(
+        images=types.ImageBatch(**a)), "cpu"), emb)
+    for k in KEYS:
+        assert torch.equal(got[k], getattr(want, k)), k

@@ -102,14 +102,30 @@ def test_to_torch_converts_nested_batches(rng):
     np.testing.assert_array_equal(n(out.images.image), img)
 
 
+def _leaves(node, prefix=""):
+    """{dotted key: value} of a config tree's leaves."""
+    out = {}
+    for k, v in node.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def test_config_tree_matches_jax():
-    """The port's own config copy gives the JAX package's keys and
-    values, defaults and after merging coco_stt.yaml."""
+    """The port's own default tree gives the JAX package's keys and
+    values, defaults and after merging coco_stt.yaml. The port's
+    ``get_cfg`` adds to it only the keys of its config extensions (the
+    JAX package has no ViTDet), and changes no value of the default
+    tree."""
     from locov_tpu.config import config_path as jpath
     from locov_tpu.config import get_cfg as jget
     from locov_torch.config import config_path as tpath
     from locov_torch.config import get_cfg as tget
-    a, b = jget(), tget()
+    from locov_torch.config import get_default_cfg
+    from locov_torch.config.extensions import vitdet
+    a, b = jget(), get_default_cfg()
     assert a == b
     assert tpath("coco_stt.yaml") == jpath("coco_stt.yaml")
     a.merge_from_file(jpath("coco_stt.yaml"))
@@ -117,6 +133,13 @@ def test_config_tree_matches_jax():
     assert a == b
     assert b.MODEL.META_ARCHITECTURE == "OvrRCNN"
     assert b.TPU.COMPUTE_DTYPE == "bfloat16"
+    base, full = _leaves(get_default_cfg()), _leaves(tget())
+    added = get_default_cfg()
+    vitdet.add_config(added)
+    assert set(_leaves(added)) - set(base) == set(full) - set(base)
+    assert {k: full[k] for k in base} == base
+    assert {"MODEL.VIT.WINDOW_SIZE", "MODEL.SIMPLE_FPN.SQUARE_PAD",
+            "MODEL.ROI_BOX_HEAD.NUM_CONV"} <= set(full) - set(base)
 
 
 _FORBIDDEN = re.compile(
