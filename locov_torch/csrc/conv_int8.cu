@@ -74,8 +74,20 @@
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+using locov::desc;
+using locov::encode_tiled;
+using locov::EncodeTiled;
+using locov::fence_operands;
+using locov::mbar_arrive;
+using locov::mbar_expect_tx;
+using locov::mbar_init;
+using locov::mbar_wait;
+using locov::tma_load;
+using locov::tma_load4;
 
 // ------------------------------------------------------------ epilogue
 struct Epi {
@@ -204,67 +216,6 @@ __device__ __forceinline__ int row_m(const Params& p, const Tile& t, int r) {
   return w < p.ow && h < p.oh && n < p.n ? (n * p.oh + h) * p.ow + w : -1;
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   locov::smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned addr = locov::smem_u32(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   locov::smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          locov::smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// a box of the 2-D map at (x inner, y outer) into dst, counted on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(locov::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(locov::smem_u32(bar))
-      : "memory");
-}
-
-// a box of the 4-D map at (c, w, h, n) into dst, counted on bar; the
-// part outside the tensor (the padding) reads as zeros
-__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
-                                          int c, int w, int h, int n,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-          locov::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n),
-      "r"(locov::smem_u32(bar))
-      : "memory");
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -282,14 +233,6 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void producer_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
-
-// the wgmma descriptor of a K-major tile in the 128-byte swizzle: rows of
-// 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  const uint64_t a = locov::smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
 // d += A (64 x 32, descriptor a) * B^T (N x 32, descriptor b), s8 x s8 ->
@@ -405,12 +348,6 @@ __device__ __forceinline__ void wgmma(int (&d)[BN / 2], uint64_t a,
     wgmma_n128(d, a, b);
   else
     wgmma_n64(d, a, b);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_operands(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // 16 bytes of T (8 bfloat16 or 4 float32 values) in a uint4, read and
@@ -754,26 +691,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // an int8 [rows, cols] row-major map whose box is box_rows x 128 bytes in

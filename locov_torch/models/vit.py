@@ -21,8 +21,10 @@ Compute: the parameters stay float32. Products run in the compute dtype
 in float32 and the residual stream stays float32, as Detectron2 under
 autocast keeps it (the position table, a float32 parameter, promotes the
 patch embedding). The bias terms are float32 products of the compute
-dtype's q with the float32 tables; the attention itself
-(``ops/rel_attention.py``, KA2 on the card) takes its softmax in float32.
+dtype's q with the float32 tables (``ops/rel_attention.py:rel_pos_terms``,
+their plain definition); the attention (``ops/rel_attention.py``) takes q
+in qkv and the tables, and its softmax in float32: on the card KA2 forms
+the terms inside the kernel.
 Submodule names are Detectron2's (``net.blocks.N.attn.rel_pos_h``), so
 that a converted checkpoint loads by name.
 """
@@ -101,44 +103,11 @@ def window_unpartition(windows: torch.Tensor, window: int,
     return x[:, :h, :w].contiguous() if (hp, wp) != (h, w) else x
 
 
-def get_rel_pos(q_size: int, k_size: int,
-                rel_pos: torch.Tensor) -> torch.Tensor:
-    """The table's rows by relative position: [q_size, k_size, C], row
-    (i, j) = rel_pos[i - j + k_size - 1] (query and key grids of one
-    side, as in every block here)."""
-    if q_size != k_size or rel_pos.shape[0] != 2 * k_size - 1:
-        raise ValueError(f"rel_pos: {rel_pos.shape[0]} rows for a grid of "
-                         f"{q_size} x {k_size}; expected {2 * k_size - 1}")
-    coords = torch.arange(q_size, device=rel_pos.device)
-    return rel_pos[coords[:, None] - coords[None, :] + (k_size - 1)]
-
-
-def rel_pos_terms(q: torch.Tensor, rel_pos_h: torch.Tensor,
-                  rel_pos_w: torch.Tensor, grid: Tuple[int, int]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decomposed bias terms in float32 from q [N, heads, L, hd]
-    (L = kh * kw, unscaled): rel_h [N, heads, L, kh], rel_h[., i, j_h] =
-    q_i . Rh[i_h - j_h + kh - 1], and rel_w [N, heads, L, kw] likewise by
-    column. Each is one batched product a grid row (or column)."""
-    n, nh, _, hd = q.shape
-    kh, kw = grid
-    rh = get_rel_pos(kh, kh, rel_pos_h.float())  # [kh, kh, hd]
-    rw = get_rel_pos(kw, kw, rel_pos_w.float())
-    r_q = q.float().reshape(n * nh, kh, kw, hd)
-    qh = r_q.permute(1, 0, 2, 3).reshape(kh, n * nh * kw, hd)
-    rel_h = torch.bmm(qh, rh.transpose(1, 2)).view(kh, n * nh, kw, kh)
-    rel_h = rel_h.permute(1, 0, 2, 3).reshape(n, nh, kh * kw, kh)
-    qw = r_q.permute(2, 0, 1, 3).reshape(kw, n * nh * kh, hd)
-    rel_w = torch.bmm(qw, rw.transpose(1, 2)).view(kw, n * nh, kh, kw)
-    rel_w = rel_w.permute(1, 2, 0, 3).reshape(n, nh, kh * kw, kw)
-    return rel_h, rel_w
-
-
 class Attention(nn.Module):
     """Multi-head self-attention over an h x w grid of tokens with the
     decomposed relative-position bias; ``input_size`` is the grid's side
-    (the window's or the whole map's). The bias terms and the attention
-    run in the stage range ``<prefix>.<stage_name>``; the qkv and proj
+    (the window's or the whole map's). The attention with its bias runs
+    in the stage range ``<prefix>.<stage_name>``; the qkv and proj
     products outside it."""
     seed_laws = {"rel_pos_h": ("trunc", 0.02), "rel_pos_w": ("trunc", 0.02)}
 
@@ -162,10 +131,8 @@ class Attention(nn.Module):
         dt, nh = self.compute_dtype, self.num_heads
         qkv = linear(x.reshape(n, h * w, c), self.qkv, dt)
         with stage(self.prefix, self.stage_name):
-            q = qkv[..., :c].reshape(n, h * w, nh, c // nh).transpose(1, 2)
-            rel_h, rel_w = rel_pos_terms(q, self.rel_pos_h, self.rel_pos_w,
-                                         (h, w))
-            ctx = rel_attention(qkv, rel_h, rel_w, nh, (h, w))
+            ctx = rel_attention(qkv, self.rel_pos_h, self.rel_pos_w, nh,
+                                (h, w))
         return linear(ctx, self.proj, dt).reshape(n, h, w, c)
 
 

@@ -1249,17 +1249,24 @@ def test_joint_encoder_routes_through_the_kernel(cuda):
 
 # ------------------------------------------------------------------ KA2
 @pytest.mark.parametrize("n,grid", [(200, (14, 14)), (8, (64, 64)),
-                                    (3, (5, 9))],
-                         ids=["windows", "global", "oblong"])
+                                    (3, (5, 9)), (4, (19, 23)), (2, (5, 64))],
+                         ids=["windows", "global", "oblong", "ragged",
+                              "ragged64"])
 def test_rel_attention_matches_plain(cuda, n, grid):
     """KA2 against ``rel_attention_plain`` on the same bfloat16 qkv and
-    float32 bias terms, at ViTDet-B's windowed (200 windows of 14 x 14)
-    and global (8 maps of 64 x 64) shapes, 12 heads of 64. Tolerance:
-    2^-8 (|plain| + max|v|) at each element, twice the bfloat16 rounding
-    the kernel adds: the context's own rounding (2^-9 |ctx|) and each
-    probability's rounding to bfloat16 for the product with v, which
-    moves the context by at most 2^-9 max|v|. The same bits on a second
-    launch."""
+    float32 position tables (the plain route builds the bias terms with
+    ``rel_pos_terms``, the kernel from q and the tables), at ViTDet-B's
+    windowed (200 windows of 14 x 14) and global (8 maps of 64 x 64)
+    shapes, 12 heads of 64, an oblong window, a 19 x 23 grid (kh != kw,
+    L = 437 a multiple of no tile, a ragged last key and query tile) and a
+    5 x 64 grid (the 64-wide path with half its last key tile past L).
+    The bias terms' standard deviation is about 1.2, the scaled q . k's
+    about 2.3.
+    Tolerance: 2^-8 (|plain| + max|v|) at each element, twice the
+    bfloat16 rounding the kernel adds: the context's own rounding (2^-9
+    |ctx|) and each probability's rounding to bfloat16 for the product
+    with v, which moves the context by at most 2^-9 max|v|. The same
+    bits on a second launch."""
     from locov_torch.ops.rel_attention import (rel_attention,
                                                rel_attention_cuda,
                                                rel_attention_plain)
@@ -1267,23 +1274,49 @@ def test_rel_attention_matches_plain(cuda, n, grid):
     l, nh, hd = kh * kw, 12, 64
     qkv = torch.randn(n, l, 3 * nh * hd, generator=cuda, device="cuda")
     qkv = (qkv * 1.5).to(torch.bfloat16)
-    rel_h = torch.randn(n, nh, l, kh, generator=cuda, device="cuda") * 0.5
-    rel_w = torch.randn(n, nh, l, kw, generator=cuda, device="cuda") * 0.5
+    rh = torch.randn(2 * kh - 1, hd, generator=cuda, device="cuda") * 0.1
+    rw = torch.randn(2 * kw - 1, hd, generator=cuda, device="cuda") * 0.1
     before = dict(kernel_lib.LAUNCHES)
-    got = rel_attention(qkv, rel_h, rel_w, nh, grid)
+    got = rel_attention(qkv, rh, rw, nh, grid)
     assert kernel_lib.LAUNCHES["rel_attention"] == \
         before["rel_attention"] + 1
     assert got.dtype == torch.bfloat16 and got.shape == (n, l, nh * hd)
     vmax = float(qkv[..., 2 * nh * hd:].float().abs().max())
     step = max(1, 4096 * 4096 // (l * l))
     for i in range(0, n, step):
-        want = rel_attention_plain(qkv[i:i + step].float(),
-                                   rel_h[i:i + step], rel_w[i:i + step], nh,
+        want = rel_attention_plain(qkv[i:i + step].float(), rh, rw, nh,
                                    grid)
         err = (got[i:i + step].float() - want).abs()
         assert bool((err <= 2 ** -8 * (want.abs() + vmax)).all()), \
             float(err.max())
-    assert _same_bits(rel_attention_cuda(qkv, rel_h, rel_w, nh, grid), got)
+    assert _same_bits(rel_attention_cuda(qkv, rh, rw, nh, grid), got)
+
+
+def test_vit_blocks_never_build_the_bias_terms_on_the_card(cuda,
+                                                           monkeypatch):
+    """A windowed and a global ``models/vit.py:Block`` of ViTDet-B's
+    width on a 64 x 64 map, bfloat16 on the card: ``rel_pos_terms``
+    (patched to raise on a CUDA tensor) is never called, and each block
+    is exactly one KA2 launch."""
+    from locov_torch.models import vit as vit_mod
+    from locov_torch.ops import rel_attention as ra
+    plain_terms = ra.rel_pos_terms
+
+    def cpu_only(q, *args):
+        if q.is_cuda:
+            raise AssertionError("rel_pos_terms called on the card")
+        return plain_terms(q, *args)
+    monkeypatch.setattr(ra, "rel_pos_terms", cpu_only)
+    x = torch.randn(1, 64, 64, 768, generator=cuda, device="cuda")
+    for window in (14, 0):
+        block = vit_mod.Block(768, 12, 4.0, window, 64, torch.bfloat16,
+                              "ViTDetRCNN").cuda()
+        before = kernel_lib.LAUNCHES["rel_attention"]
+        with torch.no_grad():
+            y = block(x)
+        torch.cuda.synchronize()
+        assert kernel_lib.LAUNCHES["rel_attention"] == before + 1
+        assert y.shape == x.shape and bool(torch.isfinite(y).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -9,8 +9,8 @@ the three, ROIAlign on P3 and P4. Tolerances: the trunk, the levels and
 the RPN logits within 1e-5 of the largest value (float32 sums in
 another order); the proposals equal bit for bit (the same selection);
 the detections matched by box (IoU 0.99, the same class, scores within
-1e-5). Dropping the relative-position bias (monkeypatched here) moves
-the levels by more than ten times that tolerance.
+1e-5). Dropping the relative-position bias (the tables zeroed here)
+moves the levels by more than ten times that tolerance.
 """
 import math
 
@@ -28,11 +28,11 @@ from benchmark.reference.locov_ref.ops.roi_align import \
 from benchmark.reference.locov_ref.structures import batches as ref_types
 from locov_torch.config import config_path, get_cfg
 from locov_torch.models import build_meta_arch, rpn
-from locov_torch.models import vit as vit_mod
 from locov_torch.models.box_head import assign_boxes_to_levels
 from locov_torch.models.meta_arch import vitdet_rcnn
 from locov_torch.ops import nms as nms_ops
-from locov_torch.ops.rel_attention import rel_attention_plain
+from locov_torch.ops.rel_attention import (rel_attention_plain,
+                                           rel_pos_terms)
 from locov_torch.ops.roi_align import roi_align_batched, roi_align_levels
 from locov_torch.structures import boxes as box_ops
 from locov_torch.structures import batches as types
@@ -180,37 +180,53 @@ def test_detections_match_the_reference_by_box(models):
         assert bool(((iou >= 0.99) & same & close).any(dim=1).all())
 
 
-def test_dropping_the_bias_fails_the_tolerance(models, monkeypatch):
+def test_dropping_the_bias_fails_the_tolerance(models):
     """The tolerance sees the mechanism: the port's model with its
-    bias terms zeroed (here only) leaves the reference's levels by far
-    more than ten times 1e-5."""
+    position tables zeroed (here only, then restored), so that every
+    bias term is 0 on the path the model runs, leaves the reference's
+    levels by far more than ten times 1e-5."""
     prog, ref, batch, ref_batch, _ = models
-
-    def no_bias(q, rel_pos_h, rel_pos_w, grid):
-        n, nh, l, _ = q.shape
-        return (q.new_zeros((n, nh, l, grid[0]), dtype=torch.float32),
-                q.new_zeros((n, nh, l, grid[1]), dtype=torch.float32))
-    monkeypatch.setattr(vit_mod, "rel_pos_terms", no_bias)
-    with torch.no_grad():
-        got, want = prog.levels(batch.images), ref.levels(ref_batch.images)
+    tables = [t for name, t in prog.named_parameters()
+              if name.endswith(("rel_pos_h", "rel_pos_w"))]
+    assert len(tables) == 2 * len(prog.backbone.net.blocks)
+    saved = [t.detach().clone() for t in tables]
+    try:
+        with torch.no_grad():
+            for t in tables:
+                t.zero_()
+            got, want = prog.levels(batch.images), ref.levels(ref_batch.images)
+    finally:
+        with torch.no_grad():
+            for t, kept in zip(tables, saved):
+                t.copy_(kept)
     for k in got:
         gap = float((got[k] - want[k]).abs().max())
         assert gap > 10 * TOL * float(want[k].abs().max()), k
 
 
-@pytest.mark.parametrize("grid", [(4, 4), (10, 10), (3, 5)],
-                         ids=["window", "global", "oblong"])
+GRIDS = pytest.mark.parametrize("grid", [(4, 4), (10, 10), (3, 5)],
+                                ids=["window", "global", "oblong"])
+
+
+def _qkv_tables(grid, n=2, nh=2, hd=8):
+    kh, kw = grid
+    gen = torch.Generator().manual_seed(kh * 100 + kw)
+    l = kh * kw
+    qkv = torch.randn(n, l, 3 * nh * hd, generator=gen, dtype=torch.float64)
+    rh = torch.randn(2 * kh - 1, hd, generator=gen, dtype=torch.float64)
+    rw = torch.randn(2 * kw - 1, hd, generator=gen, dtype=torch.float64)
+    return qkv, rh, rw
+
+
+@GRIDS
 def test_decomposed_bias_against_the_direct_formula(grid):
     """s_ij = q_i . k_j / sqrt(hd) + q_i . Rh[i_h - j_h + kh - 1] +
     q_i . Rw[i_w - j_w + kw - 1], evaluated entry by entry, then the
     softmax and the context."""
     kh, kw = grid
-    gen = torch.Generator().manual_seed(kh * 100 + kw)
     n, nh, hd = 2, 2, 8
     l = kh * kw
-    qkv = torch.randn(n, l, 3 * nh * hd, generator=gen, dtype=torch.float64)
-    rh = torch.randn(2 * kh - 1, hd, generator=gen, dtype=torch.float64)
-    rw = torch.randn(2 * kw - 1, hd, generator=gen, dtype=torch.float64)
+    qkv, rh, rw = _qkv_tables(grid, n, nh, hd)
     q, k, v = (t.reshape(n, l, nh, hd).transpose(1, 2)
                for t in qkv.split(nh * hd, dim=-1))
     s = torch.empty(n, nh, l, l, dtype=torch.float64)
@@ -222,9 +238,32 @@ def test_decomposed_bias_against_the_direct_formula(grid):
                              + (q[:, :, i] * rh[ih - jh + kh - 1]).sum(-1)
                              + (q[:, :, i] * rw[iw - jw + kw - 1]).sum(-1))
     want = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(n, l, -1)
-    rel_h, rel_w = vit_mod.rel_pos_terms(q, rh, rw, grid)
-    got = rel_attention_plain(qkv.float(), rel_h, rel_w, nh, grid)
+    rel_h, rel_w = rel_pos_terms(q, rh, rw, grid)
+    got = rel_attention_plain(qkv.float(), rh.float(), rw.float(), nh, grid)
     assert rel_h.shape == (n, nh, l, kh) and rel_w.shape == (n, nh, l, kw)
+    assert float((got.double() - want).abs().max()) < 1e-5
+
+
+@GRIDS
+def test_plain_entry_is_the_terms_then_the_attention(grid):
+    """The plain entry, given the tables, equals ``rel_pos_terms`` (the
+    terms in float32) followed by the attention on those terms, the
+    scores materialized, in float64: the card's kernel and the CPU route
+    keep one meaning of the tables."""
+    kh, kw = grid
+    n, nh, hd = 2, 2, 8
+    l = kh * kw
+    qkv, rh, rw = (t.float() for t in _qkv_tables(grid, n, nh, hd))
+    q, k, v = (t.reshape(n, l, nh, hd).transpose(1, 2).double()
+               for t in qkv.split(nh * hd, dim=-1))
+    rel_h, rel_w = rel_pos_terms(q.float(), rh, rw, grid)
+    assert rel_h.dtype == torch.float32 and rel_w.dtype == torch.float32
+    s = (q / math.sqrt(hd)) @ k.transpose(-1, -2)
+    s = (s.view(n, nh, l, kh, kw) + rel_h.double()[..., :, None]
+         + rel_w.double()[..., None, :]).view(n, nh, l, l)
+    want = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(n, l, -1)
+    got = rel_attention_plain(qkv, rh, rw, nh, grid)
+    assert got.dtype == torch.float32
     assert float((got.double() - want).abs().max()) < 1e-5
 
 
