@@ -258,49 +258,50 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 BF16_TC_OPS_PER_S = 989.4e12     # H100 SXM dense bfloat16, tensor cores
-# One row of the kernels line per TPU kernel replaced: (kernel, source,
-# the TPU kernel, the path whose launches the row reports, the check
-# whose numbers it reports). roi_align_fused replaces both K2 (inference)
-# and K3-fwd (training forward), each with its own row.
+# One row of the kernels line per TPU kernel replaced: (kernel, the TPU
+# kernel, the path whose launches the row reports, the check whose
+# bfloat16 and float32 numbers it reports). roi_align_fused replaces
+# both K2 (inference) and K3-fwd (training forward), each with its own
+# row. A row's source is its kernel's in kernel_lib.TABLE.
 KERNEL_ROWS = (
-    ("relu_maxpool", "locov_torch/csrc/relu_maxpool.cu",
-     "locov_tpu/ops/pallas_pool.py:165", "inference", "relu_maxpool"),
-    ("relu_maxpool_bwd", "locov_torch/csrc/relu_maxpool.cu",
-     "locov_tpu/ops/pallas_pool.py:192", "train_freeze0",
-     "relu_maxpool_bwd"),
-    ("roi_align_fused", "locov_torch/csrc/roi_align.cu",
-     "locov_tpu/ops/pallas_roi_align.py:162", "inference",
-     "roi_align_fused"),
-    ("roi_align_fused", "locov_torch/csrc/roi_align.cu",
-     "locov_tpu/ops/pallas_roi_align.py:82", "train",
+    ("relu_maxpool", "locov_tpu/ops/pallas_pool.py:165", "inference",
+     "relu_maxpool"),
+    ("relu_maxpool_bwd", "locov_tpu/ops/pallas_pool.py:192",
+     "train_freeze0", "relu_maxpool_bwd"),
+    ("roi_align_fused", "locov_tpu/ops/pallas_roi_align.py:162",
+     "inference", "roi_align_fused"),
+    ("roi_align_fused", "locov_tpu/ops/pallas_roi_align.py:82", "train",
      "roi_align_fused_train"),
-    ("roi_align_bwd", "locov_torch/csrc/roi_align.cu",
-     "locov_tpu/ops/pallas_roi_align.py:288", "train", "roi_align_bwd"),
-    ("bottleneck_block", "locov_torch/csrc/bottleneck_block.cu",
-     "locov_tpu/ops/pallas_block.py:133", "block", "bottleneck_block"),
-    ("stem_conv_bn", "locov_torch/csrc/stem_conv_bn.cu",
-     "locov_tpu/ops/pallas_stem.py:246", "stem", "stem_conv_bn"),
+    ("roi_align_bwd", "locov_tpu/ops/pallas_roi_align.py:288", "train",
+     "roi_align_bwd"),
+    ("bottleneck_block", "locov_tpu/ops/pallas_block.py:133", "block",
+     "bottleneck_block"),
+    ("stem_conv_bn", "locov_tpu/ops/pallas_stem.py:246", "stem",
+     "stem_conv_bn"),
 )
 # The port's own kernels, with no Pallas parent (the JAX package leaves
-# these to XLA): (kernel, source, the JAX function it computes, the
-# path whose launches the row reports, the dtype of the row's numbers).
+# these to XLA): (kernel, the JAX function it computes, the path whose
+# launches the row reports, the dtype of the row's numbers); each row's
+# check is named after its kernel.
 OWN_KERNEL_ROWS = (
-    ("conv_int8", "locov_torch/csrc/conv_int8.cu",
-     "locov_tpu/ops/int8_conv.py:87 (XLA; no Pallas kernel)", "int8",
-     "bfloat16"),
-    ("roi_align_int8", "locov_torch/csrc/roi_align_int8.cu",
+    ("conv_int8", "locov_tpu/ops/int8_conv.py:87 (XLA; no Pallas kernel)",
+     "int8", "bfloat16"),
+    ("roi_align_int8",
      "locov_tpu/ops/roi_align.py:175 (XLA; no Pallas kernel)", "int8",
      "int8"),
-    ("pair_attention", "locov_torch/csrc/pair_attention.cu",
+    ("pair_attention",
      "locov_tpu/models/bert.py:95-100 (XLA; no Pallas kernel)", "lsm",
      "bfloat16"),
-    ("pair_attention_bwd", "locov_torch/csrc/pair_attention.cu",
-     "its gradient (XLA's autodiff)", "lsm", "bfloat16"),
-    ("rel_attention", "locov_torch/csrc/rel_attention.cu",
-     "none (the JAX package has no ViT)", "vitdet", "bfloat16"),
-    ("roi_align_levels", "locov_torch/csrc/roi_align.cu",
-     "none (the JAX package has no pyramid)", "vitdet", "bfloat16"),
+    ("pair_attention_bwd", "its gradient (XLA's autodiff)", "lsm",
+     "bfloat16"),
+    ("rel_attention", "none (the JAX package has no ViT)", "vitdet",
+     "bfloat16"),
+    ("roi_align_levels", "none (the JAX package has no pyramid)",
+     "vitdet", "bfloat16"),
 )
+# what a check may add to its kernel's row
+ROW_EXTRAS = ("ref_chain_ms", "k2_ms", "windowed", "library_mask_ms",
+              "boxes_a_level")
 # KA1's launches: the bfloat16 joint encoder's attention (LSM paths)
 ATTENTION_KERNELS = ("pair_attention", "pair_attention_bwd")
 INFERENCE_KERNELS = ("relu_maxpool", "roi_align_fused")
@@ -5700,9 +5701,10 @@ def main(argv=None) -> int:
     if args.only == "vitdet":
         paths = {}
         vitdet_checks(gen, args.seed, args.batches, results, paths)
-        return finish([own_kernel_row(row, results, paths)
-                       for row in OWN_KERNEL_ROWS if row[3] == "vitdet"],
-                      t_start, smi)
+        return finish([kernel_row(results, paths, name, replaces, path,
+                                  name, dtype)
+                       for name, replaces, path, dtype in OWN_KERNEL_ROWS
+                       if path == "vitdet"], t_start, smi)
     check_relu_maxpool(gen, results)
     check_relu_maxpool_bwd(gen, results)
     check_roi_align(gen, results)
@@ -5786,28 +5788,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     nms_checks()
 
-    kernels = []
-    for name, source, replaces, path, check in KERNEL_ROWS:
-        r = results[(check, "bfloat16")]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths[path][name],
-            "launches_path": path,
-            "launches_by_path": {k: v.get(name, 0)
-                                 for k, v in paths.items()},
-            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": "bfloat16",
-            "shape": r.get("shape") or r.get("features"),
-            "f32_ms": results[(check, "float32")]["kernel_ms"],
-            "f32_plain_ms": results[(check, "float32")]["plain_ms"],
-            "f32_bound_ms": results[(check, "float32")]["bound_ms"],
-            "f32_library_ms": results[(check, "float32")]["library_ms"],
-            **({"ref_chain_ms": r["ref_chain_ms"]} if "ref_chain_ms" in r
-               else {})})
-    kernels += [own_kernel_row(row, results, paths)
-                for row in OWN_KERNEL_ROWS]
+    kernels = [kernel_row(results, paths, name, replaces, path, check,
+                          "bfloat16")
+               for name, replaces, path, check in KERNEL_ROWS]
+    kernels += [kernel_row(results, paths, name, replaces, path, name, dtype)
+                for name, replaces, path, dtype in OWN_KERNEL_ROWS]
     return finish(kernels, t_start, smi)
 
 
@@ -5821,13 +5806,15 @@ def vitdet_checks(gen, seed, batches, results, paths):
     torch.cuda.empty_cache()
 
 
-def own_kernel_row(row, results, paths):
-    """The kernels line's entry for one of ``OWN_KERNEL_ROWS``."""
-    name, source, replaces, path, dtype = row
-    r = results[(name, dtype)]
-    f32 = results.get((name, "float32"), {})
+def kernel_row(results, paths, name, replaces, path, check, dtype):
+    """The kernels line's entry for kernel ``name``: its launches on each
+    path, and the numbers ``check`` gave at ``dtype`` and at float32."""
+    from locov_torch.ops.kernel_lib import TABLE
+    r = results[(check, dtype)]
+    f32 = results.get((check, "float32"), {})
     return {
-        "name": name, "route": "cuda", "source": source,
+        "name": name, "route": "cuda",
+        "source": f"locov_torch/csrc/{TABLE[name].source}.cu",
         "replaces": replaces, "launches": paths[path][name],
         "launches_path": path,
         "launches_by_path": {k: v.get(name, 0) for k, v in paths.items()},
@@ -5841,12 +5828,7 @@ def own_kernel_row(row, results, paths):
         "f32_library_ms": f32.get("library_ms"),
         **({"variants": results[("conv_int8_variants", "bfloat16")]}
            if name == "conv_int8" else {}),
-        **({"k2_ms": r["k2_ms"]} if name == "roi_align_int8" else {}),
-        **({"windowed": r["windowed"],
-            "library_mask_ms": r["library_mask_ms"]}
-           if name == "rel_attention" else {}),
-        **({"boxes_a_level": r["boxes_a_level"]}
-           if name == "roi_align_levels" else {})}
+        **{k: r[k] for k in ROW_EXTRAS if k in r}}
 
 
 def finish(kernels, t_start, smi) -> int:

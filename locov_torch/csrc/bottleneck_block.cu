@@ -67,6 +67,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using locov::pack_bf16;
 
 constexpr int TR = 8;            // output rows of a tile
 constexpr int TC = 16;           // output columns of a tile
@@ -113,11 +114,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&b);
 }
 
 struct Geometry {

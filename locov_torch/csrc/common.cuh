@@ -1,5 +1,7 @@
-// Helpers shared by the port's kernels: 16-byte channel vectors and the
-// float32 <-> storage-type conversions (float32 or bfloat16).
+// Helpers shared by the port's kernels: 16-byte channel vectors, the
+// float32 <-> storage-type conversions (float32 or bfloat16), a bf16 pair
+// packed into a 32-bit register, and reductions over the four lanes of a
+// quad (the lanes that share a row of an mma accumulator).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +26,22 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even
+}
+
+// lo in the low half, hi in the high half, each rounded to nearest even
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 }  // namespace locov

@@ -88,6 +88,9 @@ using locov::mbar_init;
 using locov::mbar_wait;
 using locov::tma_load;
 using locov::tma_load4;
+using locov::wgmma_commit;
+using locov::wgmma_fence;
+using locov::wgmma_wait;
 
 // ------------------------------------------------------------ epilogue
 struct Epi {
@@ -669,13 +672,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         const uint8_t* a = ring + stage * C::STAGE_BYTES + cw * 64 * BK;
         const uint8_t* b = ring + stage * C::STAGE_BYTES + C::A_BYTES;
         fence_operands(acc);
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 32; ++kk)
           wgmma<BN>(acc, desc(a + kk * 32), desc(b + kk * 32));
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_commit();
         // the products of the step before are done: free its stage
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        wgmma_wait<1>();
         fence_operands(acc);
         if (kt > 0 && lane == 0) mbar_arrive(empty + prev);
         prev = stage;
@@ -684,7 +687,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           phase ^= 1;
         }
       }
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_wait<0>();
       fence_operands(acc);
       if (lane == 0) mbar_arrive(empty + prev);
       epilogue<T, BN, spatial>(acc, p, stg, mrow, rowm, n0, lane, qs);

@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -69,6 +70,9 @@ using bf16 = __nv_bfloat16;
 using locov::ldmatrix_a;
 using locov::ldmatrix_b2;
 using locov::mma_bf16;
+using locov::pack_bf16;
+using locov::quad_max;
+using locov::quad_sum;
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
@@ -98,11 +102,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 // The chain's logit from an f32 product sum.
@@ -218,16 +217,6 @@ __device__ __forceinline__ void a_frag3(unsigned (&a)[3][4],
       a[1][2 * t + half] = pack_bf16(m0, m1);
       a[2][2 * t + half] = pack_bf16(__fsub_rn(r0, m0), __fsub_rn(r1, m1));
     }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
-  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(FULL, x, 1);
-  return x + __shfl_xor_sync(FULL, x, 2);
 }
 
 // Accumulator element e of tile t: row g (e < 2) or g + 8, column
@@ -626,16 +615,16 @@ int launch(K kernel, size_t smem, int blocks, cudaStream_t stream,
 
 }  // namespace
 
-extern "C" {
-
 // qkv [n, l, 3 nh hd] bf16; bias [n, l] f32; u [n, nh, l, l] f32 or null
 // (no dropout); ctx [n, l, nh hd] bf16. For the backward, each or null:
 // ctx32 the context in f32 (as ctx), stats [n, nh, l, 2] f32 (row max,
 // row sum), bits [n, nh, l, ceil(l16 / 32)] u32 (written where u is given).
-int pair_attention_fwd(const void* qkv, const void* bias, const void* u,
-                       void* ctx, void* ctx32, void* stats, void* bits, int n,
-                       int l, int nh, int hd, float inv_sqrt,
-                       float keep_below, float inv_keep, void* stream) {
+extern "C" int pair_attention_fwd(const void* qkv, const void* bias,
+                                  const void* u, void* ctx, void* ctx32,
+                                  void* stats, void* bits, int n, int l,
+                                  int nh, int hd, float inv_sqrt,
+                                  float keep_below, float inv_keep,
+                                  void* stream) {
   Shape sh;
   if (!make_shape(n, l, nh, hd, &sh))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -659,10 +648,12 @@ int pair_attention_fwd(const void* qkv, const void* bias, const void* u,
 // The forward's qkv, bias, ctx32 and stats, its bits (null where it had
 // no dropout); dout [n, l, nh hd] bf16 (the gradient of ctx); dqkv
 // [n, l, 3 nh hd] bf16.
-int pair_attention_bwd(const void* qkv, const void* bias, const void* ctx32,
-                       const void* stats, const void* bits, const void* dout,
-                       void* dqkv, int n, int l, int nh, int hd,
-                       float inv_sqrt, float inv_keep, void* stream) {
+extern "C" int pair_attention_bwd(const void* qkv, const void* bias,
+                                  const void* ctx32, const void* stats,
+                                  const void* bits, const void* dout,
+                                  void* dqkv, int n, int l, int nh, int hd,
+                                  float inv_sqrt, float inv_keep,
+                                  void* stream) {
   Shape sh;
   if (!make_shape(n, l, nh, hd, &sh))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -682,5 +673,3 @@ int pair_attention_bwd(const void* qkv, const void* bias, const void* ctx32,
                   : launch(pair_attention_bwd_kernel<96>, smem, n * nh, s,
                            args);
 }
-
-}  // extern "C"

@@ -78,6 +78,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "common.cuh"
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
@@ -90,8 +91,14 @@ using locov::mbar_arrive;
 using locov::mbar_expect_tx;
 using locov::mbar_init;
 using locov::mbar_wait;
+using locov::pack_bf16;
+using locov::quad_max;
+using locov::quad_sum;
 using locov::smem_u32;
 using locov::tma_load3;
+using locov::wgmma_commit;
+using locov::wgmma_fence;
+using locov::wgmma_wait;
 
 constexpr int HD = 64;
 constexpr int ROW = 2 * HD;     // bytes of one head's q, k or v row
@@ -137,24 +144,9 @@ struct Params {
   int tab_off, terms_off, bar_off;  // the shared-memory layout
 };
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 __device__ __forceinline__ unsigned pack2(bf16 lo, bf16 hi) {
   __nv_bfloat162 v = __halves2bfloat162(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
-  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(FULL, x, 1);
-  return x + __shfl_xor_sync(FULL, x, 2);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -169,19 +161,6 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 template <int N, int M>

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) helpers shared by the port's wgmma kernels (KQ1 in
 // conv_int8.cu, KA2 in rel_attention.cu): mbarriers, TMA loads of
 // tensor-map boxes, the wgmma descriptor of a tile in the 128-byte
-// swizzle, the register fence around asynchronous products, and the
-// driver's cuTensorMapEncodeTiled found at run time (no -lcuda).
+// swizzle, the wgmma fence, commit and wait, the register fence around
+// asynchronous products, and cuTensorMapEncodeTiled looked up at run time
+// (no -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -95,6 +96,20 @@ __device__ __forceinline__ uint64_t desc(const void* p) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from moving reads or writes of registers that an

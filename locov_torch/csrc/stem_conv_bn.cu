@@ -50,6 +50,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using locov::pack_bf16;
 
 constexpr int TR = 8;                 // output rows of a tile
 constexpr int TC = 16;                // output columns of a tile (one M tile)
@@ -69,11 +70,6 @@ __device__ __forceinline__ uint32_t pair(const bf16* p) {
 __device__ __forceinline__ uint32_t pair(const float* p) {
   const float2 v = *reinterpret_cast<const float2*>(p);
   const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
-  return *reinterpret_cast<const uint32_t*>(&b);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&b);
 }
 

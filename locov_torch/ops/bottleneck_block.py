@@ -28,7 +28,6 @@ output that autograd cannot see through.
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -107,15 +106,6 @@ def smem_bytes(dtype: torch.dtype, m: int) -> int:
                 + max(NHP * ldx + kc * ldn, max(m, NO) * ldt))
 
 
-def _fn():
-    fn = kernel_lib.load("bottleneck_block").bottleneck_block_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(x, w1, b1, w2, b2, w3, b3, fill: float = None) -> torch.Tensor:
     """One launch of the kernel (no launch count). ``fill``: a value the
     output holds before the launch, so that a comparison sees what the
@@ -141,12 +131,10 @@ def _launch(x, w1, b1, w2, b2, w3, b3, fill: float = None) -> torch.Tensor:
                          "16-byte aligned")
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(),
-                    ws[1].data_ptr(), bs[1].data_ptr(), ws[2].data_ptr(),
-                    bs[2].data_ptr(), out.data_ptr(), n, h, w, c, m,
-                    _DTYPES[x.dtype], kernel_lib.stream_ptr(x.device))
-    kernel_lib.check_launch(err, "bottleneck_block")
+    kernel_lib.launch("bottleneck_block_fwd", x.device, x.data_ptr(),
+                      ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(),
+                      bs[1].data_ptr(), ws[2].data_ptr(), bs[2].data_ptr(),
+                      out.data_ptr(), n, h, w, c, m, _DTYPES[x.dtype])
     return out
 
 

@@ -40,7 +40,6 @@ the JAX package.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -221,19 +220,6 @@ def kernel_operands(xq, wq, residual=None):
     return aligned(xq), aligned(wq), aligned(residual)
 
 
-# conv_int8_fwd's parameters: 8 tensors, 13 ints (shapes, stride, pad,
-# relu, dtype), the stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-
-
-def _fn():
-    fn = kernel_lib.load("conv_int8").conv_int8_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(xq, wq, scale, shift, stride: int, pad: int, relu: bool,
             residual: Optional[torch.Tensor] = None,
             amax: Optional[torch.Tensor] = None, float_out: bool = True,
@@ -280,14 +266,11 @@ def _launch(xq, wq, scale, shift, stride: int, pad: int, relu: bool,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    with torch.cuda.device(xq.device):
-        err = _fn()(
-            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), ptr(residual), ptr(out), ptr(q), ptr(amax),
-            n, h, w, c, o, kh, kw, stride, pad, shape[1], shape[2],
-            int(relu), _OUT_DTYPES[shift.dtype],
-            kernel_lib.stream_ptr(xq.device))
-    kernel_lib.check_launch(err, "conv_int8")
+    kernel_lib.launch(
+        "conv_int8_fwd", xq.device, xq.data_ptr(), wq.data_ptr(),
+        scale.data_ptr(), shift.data_ptr(), ptr(residual), ptr(out), ptr(q),
+        ptr(amax), n, h, w, c, o, kh, kw, stride, pad, shape[1], shape[2],
+        int(relu), _OUT_DTYPES[shift.dtype])
     return out, q
 
 

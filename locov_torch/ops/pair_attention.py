@@ -29,7 +29,6 @@ lists them).
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional
 
@@ -76,18 +75,6 @@ def scalars(hd: int, p: float):
 def bits_words(num_tokens: int) -> int:
     """32-bit words of keep bits a row: L rounded up to 16, over 32."""
     return (-(-num_tokens // 16) * 16 + 31) // 32
-
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _fn(name: str):
-    fn = getattr(kernel_lib.load("pair_attention"), name)
-    if fn.argtypes is None:
-        nfloats = 3 if name == "pair_attention_fwd" else 2
-        fn.argtypes = [_P] * 7 + [_I] * 4 + [_F] * nfloats + [_P]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int):
@@ -142,13 +129,10 @@ def pair_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     ptrs = [None if t is None else t.data_ptr()
             for t in (saved or (None, None, None))]
     inv_sqrt, keep_below, inv_keep = scalars(hd, p)
-    with torch.cuda.device(dev):
-        err = _fn("pair_attention_fwd")(
-            qkv.data_ptr(), bias.data_ptr(),
-            None if u is None else u.data_ptr(), ctx.data_ptr(), *ptrs,
-            n, l, num_heads, hd, inv_sqrt, keep_below, inv_keep,
-            kernel_lib.stream_ptr(dev))
-    kernel_lib.check_launch(err, "pair_attention")
+    kernel_lib.launch(
+        "pair_attention_fwd", dev, qkv.data_ptr(), bias.data_ptr(),
+        None if u is None else u.data_ptr(), ctx.data_ptr(), *ptrs, n, l,
+        num_heads, hd, inv_sqrt, keep_below, inv_keep)
     kernel_lib.LAUNCHES["pair_attention"] += 1
     return ctx, saved
 
@@ -179,13 +163,11 @@ def pair_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor, saved,
                                      (torch.int32,))
     dqkv = torch.empty_like(qkv)
     inv_sqrt, _, inv_keep = scalars(hd, p)
-    with torch.cuda.device(qkv.device):
-        err = _fn("pair_attention_bwd")(
-            qkv.data_ptr(), bias.data_ptr(), ctx32.data_ptr(),
-            stats.data_ptr(), None if bits is None else bits.data_ptr(),
-            dout.data_ptr(), dqkv.data_ptr(), n, l, num_heads, hd, inv_sqrt,
-            inv_keep, kernel_lib.stream_ptr(qkv.device))
-    kernel_lib.check_launch(err, "pair_attention_bwd")
+    kernel_lib.launch(
+        "pair_attention_bwd", qkv.device, qkv.data_ptr(), bias.data_ptr(),
+        ctx32.data_ptr(), stats.data_ptr(),
+        None if bits is None else bits.data_ptr(), dout.data_ptr(),
+        dqkv.data_ptr(), n, l, num_heads, hd, inv_sqrt, inv_keep)
     kernel_lib.LAUNCHES["pair_attention_bwd"] += 1
     return dqkv
 

@@ -34,7 +34,6 @@ scores.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Tuple
 
@@ -101,17 +100,6 @@ def rel_attention_plain(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     return ctx.transpose(1, 2).reshape(n, l, c).to(qkv.dtype)
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _fn():
-    fn = kernel_lib.load("rel_attention").rel_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 6 + [_F, _P]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def rel_attention_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                        rel_pos_w: torch.Tensor, num_heads: int,
                        grid: Tuple[int, int]) -> torch.Tensor:
@@ -145,12 +133,10 @@ def rel_attention_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                       device=qkv.device)
     if ctx.numel() == 0:
         return ctx
-    with torch.cuda.device(qkv.device):
-        err = _fn()(qkv.data_ptr(), rel_pos_h.data_ptr(),
-                    rel_pos_w.data_ptr(), ctx.data_ptr(), n, l, num_heads,
-                    HEAD_DIM, kh, kw, 1.0 / math.sqrt(HEAD_DIM),
-                    kernel_lib.stream_ptr(qkv.device))
-    kernel_lib.check_launch(err, "rel_attention")
+    kernel_lib.launch("rel_attention_fwd", qkv.device, qkv.data_ptr(),
+                      rel_pos_h.data_ptr(), rel_pos_w.data_ptr(),
+                      ctx.data_ptr(), n, l, num_heads, HEAD_DIM, kh, kw,
+                      1.0 / math.sqrt(HEAD_DIM))
     kernel_lib.LAUNCHES["rel_attention"] += 1
     return ctx
 

@@ -21,7 +21,6 @@ it to the plain backward and to the Pallas kernel.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -113,15 +112,6 @@ def relu_maxpool_bwd_two_pass(x: torch.Tensor,
     return torch.where(x > 0, acc, torch.zeros_like(acc)).to(x.dtype)
 
 
-def _fn(name, nargs, nints=8):
-    fn = getattr(kernel_lib.load("relu_maxpool"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_int] * nints + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _vec(*tensors) -> int:
     """Channels per thread: 16 bytes' worth, or 1 where the channel
     count or a pointer is not aligned to it."""
@@ -143,11 +133,9 @@ def relu_maxpool_cuda(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        err = _fn("relu_maxpool_fwd", 2)(
-            x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow,
-            _DTYPES[x.dtype], _vec(x, y), kernel_lib.stream_ptr(x.device))
-    kernel_lib.check_launch(err, "relu_maxpool")
+    kernel_lib.launch("relu_maxpool_fwd", x.device, x.data_ptr(),
+                      y.data_ptr(), n, h, w, c, oh, ow, _DTYPES[x.dtype],
+                      _vec(x, y))
     kernel_lib.LAUNCHES["relu_maxpool"] += 1
     return y
 
@@ -171,13 +159,10 @@ def _launch_bwd(x: torch.Tensor, dy: torch.Tensor, rows: int = None,
         return dx
     args = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow,
             _DTYPES[x.dtype], _vec(x, dy, dx))
-    with torch.cuda.device(x.device):
-        stream = kernel_lib.stream_ptr(x.device)
-        if rows is None:
-            err = _fn("relu_maxpool_bwd", 3)(*args, stream)
-        else:
-            err = _fn("relu_maxpool_bwd_rows", 3, 9)(*args, rows, stream)
-    kernel_lib.check_launch(err, "relu_maxpool_bwd")
+    if rows is None:
+        kernel_lib.launch("relu_maxpool_bwd", x.device, *args)
+    else:
+        kernel_lib.launch("relu_maxpool_bwd_rows", x.device, *args, rows)
     return dx
 
 

@@ -227,18 +227,6 @@ def roi_align_bwd_plain(g: torch.Tensor, boxes: torch.Tensor,
     return df.to(g.dtype)
 
 
-def _fn(name, n_tail_ints):
-    """The C entry ``name``: three pointers, seven ints, the scale, then
-    ``n_tail_ints`` ints and the stream."""
-    fn = getattr(kernel_lib.load("roi_align"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
-            [ctypes.c_float] + [ctypes.c_int] * n_tail_ints + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_args(features_or_g, boxes, pooled, sampling_ratio, what):
     kernel_lib.check_cuda_tensor(features_or_g, what, _DTYPES)
     kernel_lib.check_cuda_tensor(boxes, "roi_align boxes",
@@ -332,14 +320,12 @@ def _launch_fwd(features: torch.Tensor, boxes: torch.Tensor,
         out.fill_(fill)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(features.device):
-        err = _fn("roi_align_fwd", 6)(
-            features.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w,
-            c, n, pooled, int(sampling_ratio), float(spatial_scale),
-            _DTYPES[features.dtype], plan["vec"], plan["channel_tile"],
-            plan["rows"], plan["threads"], plan["smem_bytes"],
-            kernel_lib.stream_ptr(features.device))
-    kernel_lib.check_launch(err, "roi_align_fused")
+    kernel_lib.launch(
+        "roi_align_fwd", features.device, features.data_ptr(),
+        boxes.data_ptr(), out.data_ptr(), b, h, w, c, n, pooled,
+        int(sampling_ratio), float(spatial_scale), _DTYPES[features.dtype],
+        plan["vec"], plan["channel_tile"], plan["rows"], plan["threads"],
+        plan["smem_bytes"])
     return out
 
 
@@ -420,13 +406,11 @@ def roi_align_bwd_cuda(g: torch.Tensor, boxes: torch.Tensor,
     if n == 0:
         return df.zero_()
     vec = _vec(c, g.dtype, g.data_ptr() % 16 == 0)
-    with torch.cuda.device(g.device):
-        err = _fn("roi_align_bwd", 5)(
-            g.data_ptr(), boxes.data_ptr(), df.data_ptr(), b, h, w, c, n,
-            pooled, int(sampling_ratio), float(spatial_scale),
-            _DTYPES[g.dtype], vec, plan["band_rows"], plan["channel_tile"],
-            plan["smem_bytes"], kernel_lib.stream_ptr(g.device))
-    kernel_lib.check_launch(err, "roi_align_bwd")
+    kernel_lib.launch(
+        "roi_align_bwd", g.device, g.data_ptr(), boxes.data_ptr(),
+        df.data_ptr(), b, h, w, c, n, pooled, int(sampling_ratio),
+        float(spatial_scale), _DTYPES[g.dtype], vec, plan["band_rows"],
+        plan["channel_tile"], plan["smem_bytes"])
     kernel_lib.LAUNCHES["roi_align_bwd"] += 1
     return df
 
@@ -561,19 +545,12 @@ def roi_align_levels_cuda(features: List[torch.Tensor], boxes: torch.Tensor,
     hs = (ctypes.c_int * nl)(*(f.shape[1] for f in features))
     ws = (ctypes.c_int * nl)(*(f.shape[2] for f in features))
     sc = (ctypes.c_float * nl)(*(float(x) for x in scales))
-    fn = kernel_lib.load("roi_align").roi_align_levels_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(boxes.device):
-        err = fn(ctypes.addressof(ptrs), ctypes.addressof(hs),
-                 ctypes.addressof(ws), ctypes.addressof(sc), nl,
-                 boxes.data_ptr(), levels.data_ptr(), out.data_ptr(), b, c,
-                 n, pooled, int(sampling_ratio), _DTYPES[dtype],
-                 plan["vec"], plan["channel_tile"], plan["rows"],
-                 plan["threads"], smem, kernel_lib.stream_ptr(boxes.device))
-    kernel_lib.check_launch(err, "roi_align_levels")
+    kernel_lib.launch(
+        "roi_align_levels_fwd", boxes.device, ctypes.addressof(ptrs),
+        ctypes.addressof(hs), ctypes.addressof(ws), ctypes.addressof(sc),
+        nl, boxes.data_ptr(), levels.data_ptr(), out.data_ptr(), b, c, n,
+        pooled, int(sampling_ratio), _DTYPES[dtype], plan["vec"],
+        plan["channel_tile"], plan["rows"], plan["threads"], smem)
     kernel_lib.LAUNCHES["roi_align_levels"] += 1
     return out
 
@@ -621,9 +598,6 @@ _INT8_PMAX = 16
 # the threads an int8 kernel block may take, the most first
 # (csrc/roi_align_int8.cu: MAX_THREADS)
 _INT8_THREADS = (128, 64, 32)
-# the C entry roi_align_int8_fwd's argument types
-_INT8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
-    [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _int8_axis(lo: torch.Tensor, size: torch.Tensor, pooled: int,
@@ -838,16 +812,11 @@ def _launch_int8(fq, boxes, ratio, spatial_scale: float, pooled: int,
         out.fill_(fill)
     if out.numel() == 0:
         return out
-    fn = kernel_lib.load("roi_align_int8").roi_align_int8_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _INT8_ARGTYPES
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(fq.device):
-        err = fn(fq.data_ptr(), boxes.data_ptr(), ratio.data_ptr(),
-                 out.data_ptr(), b, h, w, c, n, pooled, int(sampling_ratio),
-                 float(spatial_scale), plan["vec"], plan["threads"],
-                 plan["smem_bytes"], kernel_lib.stream_ptr(fq.device))
-    kernel_lib.check_launch(err, "roi_align_int8")
+    kernel_lib.launch(
+        "roi_align_int8_fwd", fq.device, fq.data_ptr(), boxes.data_ptr(),
+        ratio.data_ptr(), out.data_ptr(), b, h, w, c, n, pooled,
+        int(sampling_ratio), float(spatial_scale), plan["vec"],
+        plan["threads"], plan["smem_bytes"])
     return out
 
 

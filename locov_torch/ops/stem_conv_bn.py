@@ -24,7 +24,6 @@ and its fake implementation gives the output's shape and dtype.
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -137,15 +136,6 @@ def smem_bytes(dtype: torch.dtype) -> int:
         torch.empty((), dtype=dtype).element_size()
 
 
-def _fn():
-    fn = kernel_lib.load("stem_conv_bn").stem_conv_bn_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(x, w, shift, fill: float = None) -> torch.Tensor:
     """One launch of the kernel (no launch count). ``fill``: a value the
     output holds before the launch, so that a comparison sees what the
@@ -170,11 +160,9 @@ def _launch(x, w, shift, fill: float = None) -> torch.Tensor:
         out.fill_(fill)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), wp.data_ptr(), sh.data_ptr(),
-                    out.data_ptr(), n, h, wd, f, _DTYPES[x.dtype],
-                    kernel_lib.stream_ptr(x.device))
-    kernel_lib.check_launch(err, "stem_conv_bn")
+    kernel_lib.launch("stem_conv_bn_fwd", x.device, x.data_ptr(),
+                      wp.data_ptr(), sh.data_ptr(), out.data_ptr(), n, h, wd,
+                      f, _DTYPES[x.dtype])
     return out
 
 

@@ -150,19 +150,14 @@ def build_all(variants) -> dict:
 
 
 def runner(lib, args):
-    fn = lib.bottleneck_block_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     x, w1, b1, w2, b2, w3, b3 = args
     n, h, w, c = x.shape
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, w3, b3, out)]
-    stream = kernel_lib.stream_ptr(x.device)
 
     def run():
-        err = fn(*ptrs, n, h, w, c, w1.shape[1], _DTYPES[x.dtype], stream)
-        kernel_lib.check_launch(err, "ablation")
+        kernel_lib.launch("bottleneck_block_fwd", x.device, *ptrs, n, h, w,
+                          c, w1.shape[1], _DTYPES[x.dtype], lib=lib)
     return run
 
 

@@ -154,21 +154,17 @@ def plan_of(spec: str, h: int, w: int) -> dict:
 def runner(lib, args, plan):
     """One launch of ``lib``'s C entry (the op's signature) under
     ``plan``."""
-    fn = lib.roi_align_int8_fwd
-    fn.argtypes = ra._INT8_ARGTYPES
-    fn.restype = ctypes.c_int
     fq, boxes, ratio = args
     b, h, w, c = fq.shape
     n = boxes.shape[1]
     out = torch.empty((b, n, POOLED, POOLED, c), dtype=torch.int8,
                       device=fq.device)
-    stream = kernel_lib.stream_ptr(fq.device)
 
     def run():
-        err = fn(fq.data_ptr(), boxes.data_ptr(), ratio.data_ptr(),
-                 out.data_ptr(), b, h, w, c, n, POOLED, 0, SCALE,
-                 plan["vec"], plan["threads"], plan["smem_bytes"], stream)
-        kernel_lib.check_launch(err, "ablation")
+        kernel_lib.launch("roi_align_int8_fwd", fq.device, fq.data_ptr(),
+                          boxes.data_ptr(), ratio.data_ptr(), out.data_ptr(),
+                          b, h, w, c, n, POOLED, 0, SCALE, plan["vec"],
+                          plan["threads"], plan["smem_bytes"], lib=lib)
         return out
     return run
 

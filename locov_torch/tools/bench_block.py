@@ -36,7 +36,6 @@ from the trunk's block relative to its max |y|.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 
 import torch
@@ -74,20 +73,16 @@ def make_inputs(gen, shape, m, dtype=torch.bfloat16):
 
 def load_reference(src):
     """``src`` built by nvcc beside this build, its C entry bound."""
-    fn = kernel_lib.load_source(
-        src, "reference_bottleneck_block").bottleneck_block_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = kernel_lib.load_source(src, "reference_bottleneck_block")
 
     def run(x, w1, b1, w2, b2, w3, b3):
         n, h, w, c = x.shape
         out = torch.empty_like(x)
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-                 n, h, w, c, w1.shape[1], _DTYPES[x.dtype],
-                 kernel_lib.stream_ptr(x.device))
-        kernel_lib.check_launch(err, "reference bottleneck_block_fwd")
+        kernel_lib.launch(
+            "bottleneck_block_fwd", x.device, x.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
+            b3.data_ptr(), out.data_ptr(), n, h, w, c, w1.shape[1],
+            _DTYPES[x.dtype], lib=lib)
         return out
     return run
 

@@ -26,7 +26,6 @@ cpu`` only the plain version runs, timed on the host clock.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 
@@ -43,18 +42,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 def load_reference(src):
     """``src`` built by nvcc beside this build, its backward entry
     bound."""
-    fn = kernel_lib.load_source(src, "reference_relu_maxpool").relu_maxpool_bwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = kernel_lib.load_source(src, "reference_relu_maxpool")
 
     def run(x, dy):
         n, h, w, c = x.shape
         dx = torch.empty_like(x)
-        err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, h, w, c,
-                 dy.shape[1], dy.shape[2], pool._DTYPES[x.dtype],
-                 pool._vec(x, dy, dx), kernel_lib.stream_ptr(x.device))
-        kernel_lib.check_launch(err, "reference relu_maxpool_bwd")
+        kernel_lib.launch("relu_maxpool_bwd", x.device, x.data_ptr(),
+                          dy.data_ptr(), dx.data_ptr(), n, h, w, c,
+                          dy.shape[1], dy.shape[2], pool._DTYPES[x.dtype],
+                          pool._vec(x, dy, dx), lib=lib)
         return dx
     return run
 

@@ -60,12 +60,10 @@ def run_plan(g, boxes, rows, tile):
     c = g.shape[-1]
     df = torch.empty((b, H, W, c), dtype=g.dtype, device=g.device)
     vec = 16 // g.element_size()
-    err = roi._fn("roi_align_bwd", 5)(
-        g.data_ptr(), boxes.data_ptr(), df.data_ptr(), b, H, W, c, n,
-        POOLED, 0, SCALE, roi._DTYPES[g.dtype], vec, rows, tile,
-        roi._bwd_smem(rows, W, tile, POOLED),
-        kernel_lib.stream_ptr(g.device))
-    kernel_lib.check_launch(err, "roi_align_bwd")
+    kernel_lib.launch("roi_align_bwd", g.device, g.data_ptr(),
+                      boxes.data_ptr(), df.data_ptr(), b, H, W, c, n, POOLED,
+                      0, SCALE, roi._DTYPES[g.dtype], vec, rows, tile,
+                      roi._bwd_smem(rows, W, tile, POOLED))
     return df
 
 

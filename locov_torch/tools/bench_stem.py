@@ -26,7 +26,6 @@ the largest difference of the two outputs.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 
 import torch
@@ -47,20 +46,16 @@ def library(x, w, shift):
 
 def load_reference(src):
     """``src`` built by nvcc beside this build, its C entry bound."""
-    fn = kernel_lib.load_source(src, "reference_stem_conv_bn").stem_conv_bn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = kernel_lib.load_source(src, "reference_stem_conv_bn")
 
     def run(x, wb, sh):
         n, h, wd, _ = x.shape
         f = wb.shape[-1]
         out = torch.empty((n, h // 2, wd // 2, f), dtype=torch.bfloat16,
                           device=x.device)
-        err = fn(x.data_ptr(), wb.data_ptr(), sh.data_ptr(), out.data_ptr(),
-                 n, h, wd, f, _DTYPES[x.dtype],
-                 kernel_lib.stream_ptr(x.device))
-        kernel_lib.check_launch(err, "reference stem_conv_bn_fwd")
+        kernel_lib.launch("stem_conv_bn_fwd", x.device, x.data_ptr(),
+                          wb.data_ptr(), sh.data_ptr(), out.data_ptr(), n, h,
+                          wd, f, _DTYPES[x.dtype], lib=lib)
         return out
     return run
 

@@ -81,6 +81,7 @@ import time
 
 import torch
 
+from ..ops import kernel_lib
 from ..utils.device import resolve_device
 from .bench import build_full, build_stt_eval
 from .timing import describe, sync
@@ -111,11 +112,7 @@ OTHER = "other"
 STAGE_PREFIXES = ("OvrRCNN.", "DistillProposalMMSSRCNN.", "MMSSGridModel.",
                   "ViTDetRCNN.", "train_step.", "eval.")
 # the port's hand-written kernels (locov_torch/csrc/*.cu)
-HAND_KERNELS = ("relu_maxpool_kernel", "relu_maxpool_bwd_kernel",
-                "roi_align_fwd_kernel", "roi_align_bwd_kernel",
-                "roi_align_int8_kernel", "conv_int8_wgmma", "block_bf16",
-                "block_f32", "stem_conv_kernel", "rel_attention_kernel",
-                "roi_align_levels_fwd_kernel")
+HAND_KERNELS = kernel_lib.DEVICE_FUNCTIONS
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")

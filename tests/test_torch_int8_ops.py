@@ -511,7 +511,8 @@ def test_int8_plans_match_the_kernel_sources():
             for tc in tra._INT8_THREADS:
                 want = eval(smem, dict(env, h=h, w=w, vec=vec, threads=tc))
                 assert tra._int8_smem(h, w, vec, tc) == want
-    assert c_entry_kinds(src, "roi_align_int8_fwd") == tra._INT8_ARGTYPES
+    assert c_entry_kinds(src, "roi_align_int8_fwd") == \
+        kernel_lib.argtypes("roi_align_int8_fwd")
     plan = tra._int8_plan(50, 84, 1024)
     assert plan["vec"] == 16 and plan["threads"] == 128
     assert plan["blocks_per_sm"] == 2  # 52 tq rows of 16 channels a thread
@@ -522,7 +523,8 @@ def test_int8_plans_match_the_kernel_sources():
         tra._int8_plan(50, 84, 1024, pooled=17)
     with open(f"{kernel_lib.CSRC}/conv_int8.cu") as f:
         src = f.read()
-    assert c_entry_kinds(src, "conv_int8_fwd") == tq._ARGTYPES
+    assert c_entry_kinds(src, "conv_int8_fwd") == \
+        kernel_lib.argtypes("conv_int8_fwd")
     assert "conv_int8" in kernel_lib.KERNELS
     assert "roi_align_int8" in kernel_lib.KERNELS
 

@@ -11,7 +11,17 @@ Function over the same plain forward and backward, as it ran on the
 CPU); the NMS op's keep mask equal to JAX's; and the ops' fake
 implementations giving the shapes and dtypes a trace needs. On the card
 the same ops run the kernels: ``tests/test_torch_kernels_gpu.py``.
+
+Also the kernel table of ``ops/kernel_lib.py`` held to the text of the
+CUDA sources (no ``nvcc`` needed), and its launch function against a
+fake library.
 """
+import contextlib
+import ctypes
+import os
+import re
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +29,7 @@ import torch
 
 from locov_tpu.ops import nms as jnms
 from locov_torch.ops import bottleneck_block as block_mod
+from locov_torch.ops import kernel_lib
 from locov_torch.ops import nms as tnms
 from locov_torch.ops import relu_maxpool as pool_mod
 from locov_torch.ops import roi_align as roi_mod
@@ -232,7 +243,6 @@ def test_fake_implementations_give_shapes_and_dtypes():
     returns its output's shape and dtype, K2's [B, N, P, P, C] in the
     features' dtype, and runs no kernel."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from locov_torch.ops import kernel_lib
     before = dict(kernel_lib.LAUNCHES)
     gen = torch.Generator().manual_seed(5)
     f, boxes = _roi_inputs(gen, torch.bfloat16)
@@ -268,3 +278,128 @@ def test_fake_implementations_give_shapes_and_dtypes():
             "bottleneck_block": ((2, 5, 6, 16), torch.float32)}
     assert {k: (tuple(v.shape), v.dtype) for k, v in got.items()} == want
     assert kernel_lib.LAUNCHES == before
+
+
+SOURCES = sorted(f[:-3] for f in os.listdir(kernel_lib.CSRC)
+                 if f.endswith(".cu"))
+_KINDS = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _read_source(name):
+    with open(os.path.join(kernel_lib.CSRC, name)) as f:
+        return f.read()
+
+
+def _c_entries(src):
+    """{symbol: its parameters' ctypes kinds} of the ``extern "C"``
+    functions of a source."""
+    out = {}
+    for sym, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        params = [" ".join(p.split()) for p in params.split(",")]
+        out[sym] = [ctypes.c_void_p if "*" in p else _KINDS[p.split()[0]]
+                    for p in params]
+    return out
+
+
+def _global_functions(src):
+    """The names of a source's ``__global__`` functions: the first name
+    after the keyword that opens a parameter list, launch bounds and
+    ``sizeof`` aside."""
+    names = []
+    for m in re.finditer(r"__global__\b", src):
+        for call in re.finditer(r"(\w+)\s*\(", src[m.end():]):
+            if call.group(1) not in ("__launch_bounds__", "sizeof"):
+                names.append(call.group(1))
+                break
+    return names
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_kernel_table_holds_each_source(source):
+    """Each ``csrc/*.cu`` is the source of some entries of the table, and
+    its C entries (with their parameters, the stream last) and its
+    ``__global__`` functions are exactly those entries'."""
+    src = _read_source(source + ".cu")
+    keys = [k for k, v in kernel_lib.TABLE.items() if v.source == source]
+    assert keys, f"{source}.cu is in no entry of kernel_lib.TABLE"
+    entries = _c_entries(src)
+    assert sorted(entries) == sorted(
+        sym for k in keys for sym in kernel_lib.TABLE[k].entries)
+    for sym, kinds in entries.items():
+        assert kernel_lib.argtypes(sym) == kinds, sym
+        assert kinds[-1] is ctypes.c_void_p, sym
+    assert sorted(_global_functions(src)) == sorted(
+        fn for k in keys for fn in kernel_lib.TABLE[k].device)
+
+
+def test_kernel_table_is_the_one_list():
+    """``KERNELS``, ``LAUNCHES`` and ``DEVICE_FUNCTIONS`` are the table's;
+    the headers hold no C entry and no kernel."""
+    assert sorted(kernel_lib.KERNELS) == SOURCES
+    assert list(kernel_lib.LAUNCHES) == list(kernel_lib.TABLE)
+    assert sorted(kernel_lib.DEVICE_FUNCTIONS) == sorted(
+        fn for v in kernel_lib.TABLE.values() for fn in v.device)
+    assert len(set(kernel_lib.DEVICE_FUNCTIONS)) == \
+        len(kernel_lib.DEVICE_FUNCTIONS)
+    for header in os.listdir(kernel_lib.CSRC):
+        if header.endswith(".cuh"):
+            src = _read_source(header)
+            assert not _c_entries(src) and not _global_functions(src), header
+    saved = dict(kernel_lib.LAUNCHES)
+    try:
+        kernel_lib.LAUNCHES["conv_int8"] += 3
+        kernel_lib.reset_launches()
+        assert kernel_lib.LAUNCHES == dict.fromkeys(kernel_lib.TABLE, 0)
+    finally:
+        kernel_lib.LAUNCHES.update(saved)
+
+
+class _FakeEntry:
+    """A C entry of a fake library: records its calls, returns ``err``."""
+
+    def __init__(self, err):
+        self.argtypes = self.restype = None
+        self.err, self.calls = err, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+@pytest.mark.parametrize("symbol", sorted(
+    sym for v in kernel_lib.TABLE.values() for sym in v.entries))
+def test_launch_binds_from_the_table_and_checks(symbol, monkeypatch):
+    """``launch`` binds the entry once with the table's types (an int
+    result), calls it on the device with that device's stream last, and
+    raises with the kernel's launch key when it returns an error; with
+    ``lib`` it calls that library's entry instead."""
+    key = next(k for k, v in kernel_lib.TABLE.items() if symbol in v.entries)
+    entry, other = _FakeEntry(0), _FakeEntry(0)
+    monkeypatch.setitem(kernel_lib._LIBS, kernel_lib.TABLE[key].source,
+                        types.SimpleNamespace(**{symbol: entry}))
+    devices = []
+
+    def on_device(device):
+        devices.append(device)
+        return contextlib.nullcontext()
+    monkeypatch.setattr(torch.cuda, "device", on_device)
+    monkeypatch.setattr(kernel_lib, "stream_ptr",
+                        lambda device: 1000 + device.index)
+    dev = torch.device("cuda", 3)
+    args = tuple(range(len(kernel_lib.argtypes(symbol)) - 1))
+    kernel_lib.launch(symbol, dev, *args)
+    assert entry.argtypes == kernel_lib.argtypes(symbol)
+    assert entry.restype is ctypes.c_int
+    entry.argtypes = bound = list(entry.argtypes)
+    kernel_lib.launch(symbol, dev, *args)
+    assert entry.argtypes is bound  # set once
+    assert entry.calls == [args + (1003,)] * 2 and devices == [dev] * 2
+    kernel_lib.launch(symbol, dev, *args,
+                      lib=types.SimpleNamespace(**{symbol: other}))
+    assert other.calls == [args + (1003,)] and len(entry.calls) == 2
+    assert other.argtypes == kernel_lib.argtypes(symbol)
+    entry.err = 700
+    with pytest.raises(RuntimeError,
+                       match=f"^{key}: CUDA kernel launch failed with "
+                             f"cudaError 700$"):
+        kernel_lib.launch(symbol, dev, *args)

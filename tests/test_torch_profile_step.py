@@ -23,6 +23,7 @@ import torch
 
 from locov_torch.config import config_path, get_cfg
 from locov_torch.models import build_meta_arch
+from locov_torch.ops import kernel_lib
 from locov_torch.structures.batches import (DetectionBatch, GtBatch,
                                             ImageBatch, TextBatch)
 from locov_torch.tools import profile_step
@@ -161,6 +162,17 @@ def test_parse_trace_places_card_kernels(tmp_path):
     assert by_stage["buckets"]["DistillProposalMMSSRCNN.roi_features"][
         "ms"] * 1e3 == 3.0
     assert by_stage["buckets"]["(none)"]["ms"] * 1e3 == 9.5
+
+
+@pytest.mark.parametrize("fn", kernel_lib.DEVICE_FUNCTIONS)
+def test_hand_kernel_names_every_device_function_of_the_table(fn):
+    """A profiler's demangled name of each hand kernel's device function
+    (templated, in the sources' anonymous namespace) is counted under
+    that function: ``HAND_KERNELS`` is the table's list."""
+    name = (f"void (anonymous namespace)::{fn}<96, (bool)1>"
+            f"(__nv_bfloat16 const*, float*, int)")
+    assert profile_step.hand_kernel(name) == fn
+    assert profile_step.hand_kernel(fn + "_other(int)") == ""
 
 
 def _tiny_lsm(device):
